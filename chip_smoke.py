@@ -15,16 +15,32 @@ Phases (any failure exits non-zero and prints no result line):
    B=17, fewer than W active splits); quantized histogram, row update and
    trial channels bit for bit, the exact histogram bit for bit against its
    plain version, identical across two runs, and within rtol=1e-4 of an
-   f32 ``index_add_``; times beside the bound and the library call;
-3. a small model trained on the card against the same model trained on
-   the CPU (plain versions): quantized L2 model text identical, exact
-   binary predictions within 1e-5;
-4. the main path at full width on synthetic rows shaped like the Higgs
+   f32 ``index_add_``; the single-leaf histogram bit for bit and identical
+   across two runs at three shapes (the main path's row-major rows read
+   in place at full N and as a half-N segment; ragged N with B=17; the
+   leaf-renewal column F=1, B=256); times beside the bound and the
+   library call;
+3. small models trained on the card against the same models trained on
+   the CPU (plain versions): quantized L2 and partitioned binary model
+   text identical (failing that, partitioned predictions within 1e-5 and
+   the first differing field named), exact binary wave predictions within
+   1e-5;
+4. the wave path at full width on synthetic rows shaped like the Higgs
    configuration of BASELINE.md (28 features, max_bin=255,
    num_leaves=255, learning_rate=0.1, binary): ``train`` in exact and in
    quantized mode, save, reload, predict a held-out set; the reloaded
-   model must predict identically, and every kernel's launch count must
-   have risen during training.
+   model must predict identically, and every wave kernel's launch count
+   must have risen during training;
+5. the partitioned path (``tree_grow_mode=partition``, exact) on the same
+   rows for 3 rounds: seconds, host syncs per tree and held-out AUC per
+   round, save, reload, predict; the single-leaf kernel must have
+   launched;
+6. 2 rounds of quantized wave training with ``quant_train_renew_leaf`` on
+   the same rows: the single-leaf kernel must launch again.
+
+Each training path runs with the launch counts set to 0 just before it
+and read just after; a kernel of the path that did not launch fails the
+run.
 
 The last two lines of standard output are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -51,6 +67,8 @@ MAX_BIN = 255
 NUM_LEAVES = 255
 
 KERNELS = {
+    "hist_single": ("lightgbm_tpu_torch/csrc/hist_single.cu",
+                    "lightgbm_tpu/ops/histogram_pallas.py:471"),
     "hist_leaves_q8": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
                        "lightgbm_tpu/ops/histogram_pallas.py:1030"),
     "hist_leaves": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
@@ -60,6 +78,11 @@ KERNELS = {
     "wave_trial_channels": ("lightgbm_tpu_torch/csrc/row_update.cu",
                             "lightgbm_tpu/ops/histogram_pallas.py:1314"),
 }
+
+WAVE_KERNELS = ("hist_leaves_q8", "hist_leaves", "wave_row_update",
+                "wave_trial_channels")
+PARTITION_ROUNDS = 3
+RENEW_ROUNDS = 2
 
 
 def log(msg: str) -> None:
@@ -177,6 +200,7 @@ def _row_work(torch, cols, rl, tab, write_rl: bool):
 
 def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
     import torch
+    from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     from lightgbm_tpu_torch.ops import quantize as tq
 
@@ -225,7 +249,7 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
         # ---- exact histogram: bitwise vs plain, deterministic ----
         k = hc.LEAF_CHANNELS
         ch = torch.where(ch < k, ch, torch.full_like(ch, -1)).contiguous()
-        w = hc.pack_weights(grad, hess, mask)
+        w = th.pack_weights(grad, hess, mask)
         got = hc.build_histogram_leaves(bins, w, ch, num_bins=nb)
         again = hc.build_histogram_leaves(bins, w, ch, num_bins=nb)
         torch.cuda.synchronize()
@@ -304,6 +328,8 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
             del cols, rl, tab, rl_k, ch_k, rl_p, ch_p, tr_k, tr_p
         torch.cuda.empty_cache()
 
+    rec["hist_single"] = single_leaf_phase(torch, gen, dev, n_main, reps)
+
     for name, r in rec.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
@@ -313,7 +339,81 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
     return rec
 
 
-# -- phases 3 and 4: training -----------------------------------------------
+def single_leaf_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
+    """``hist_single`` against its plain version, bit for bit and across
+    two runs, at the shapes its callers give it; timed at the partitioned
+    grower's root pass (the full padded rows, row-major, read in place)."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    f = NUM_FEATURES
+    out = None
+    cases = [("main, row-major rows, full N", f, n_main, 256, "rows", 0,
+              n_main),
+             ("main, row-major segment, half N", f, n_main, 256, "rows",
+              n_main // 4, n_main // 2),
+             ("ragged", f, 1_000_003, 17, "features", 0, 1_000_003),
+             ("renew column", 1, n_main, 256, "features", 0, n_main)]
+    for tag, nf, n, nb, layout, s0, cnt in cases:
+        grad = torch.randn(n, generator=gen, device=dev) * 0.5
+        hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+        w = th.pack_weights(grad, hess, mask)
+        if layout == "rows":
+            P = torch.randint(0, nb, (n, nf), generator=gen, device=dev,
+                              dtype=torch.uint8)
+            bins = P[s0:s0 + cnt].t()
+        else:
+            bins = torch.randint(0, nb, (nf, n), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+        wv = th.FxWeights(w.w[:, s0:s0 + cnt], w.inv_scale)
+        got = hc.hist_single(bins, wv, num_bins=nb)
+        again = hc.hist_single(bins, wv, num_bins=nb)
+        torch.cuda.synchronize()
+        want = hc.hist_single_plain(bins, wv, num_bins=nb)
+        err = float((got - want).abs().max())
+        if not torch.equal(got, again):
+            raise AssertionError(f"hist_single [{tag}] differs between two "
+                                 "runs")
+        if not torch.equal(got, want):
+            raise AssertionError(f"hist_single [{tag}] differs from its "
+                                 f"plain version (max abs err {err})")
+        log(f"kernel hist_single [{tag}: F={nf} N={cnt} B={nb} strides "
+            f"{tuple(bins.stride())}]: bitwise equal to plain, identical "
+            "across two runs")
+        if out is None:
+            # bytes: every row's 24 weight bytes, the bins of rows whose
+            # weights are not all zero, the (F, B, 3) int64 output
+            active = int((wv.w != 0).any(dim=0).sum())
+            nbytes = 24.0 * cnt + nf * active + nf * nb * 24
+            b_ms, b_by = bound_ms(nbytes, 3.0 * nf * active)
+            rows = torch.nonzero((wv.w != 0).any(dim=0)).squeeze(1)
+            idx = (torch.arange(nf, device=dev).unsqueeze(1) * nb +
+                   bins[:, rows].long()).reshape(-1)
+            upd = wv.w[:, rows].t().unsqueeze(0).expand(nf, -1, -1)
+            upd = upd.reshape(-1, 3).contiguous()
+
+            def lib():
+                o = torch.zeros((nf * nb, 3), dtype=torch.int64, device=dev)
+                o.index_add_(0, idx, upd)
+                return o
+            if not torch.equal(lib().view(nf, nb, 3), want):
+                raise AssertionError("hist_single: the index_add_ yardstick "
+                                     "computes other sums")
+            out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                       ms=time_ms(lambda: hc.hist_single(
+                           bins, wv, num_bins=nb), reps),
+                       plain_ms=time_ms(lambda: hc.hist_single_plain(
+                           bins, wv, num_bins=nb), 3),
+                       library_ms=time_ms(lib, reps))
+            del idx, upd, rows, lib
+        else:
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+        del got, again, want, bins, w, wv, grad, hess, mask
+        torch.cuda.empty_cache()
+    return out
+
+
+# -- phases 3 to 6: training -------------------------------------------------
 
 def higgs_like(n: int, seed: int):
     """Synthetic rows shaped like the Higgs benchmark (BASELINE.md): 21
@@ -374,23 +474,49 @@ def small_check(lt, seed: int) -> None:
     if not (np.all(np.isfinite(pa)) and err <= 1e-5):
         raise AssertionError(f"exact binary model on the card predicts "
                              f"{err} away from the CPU's")
-    log(f"small model (20000x{NUM_FEATURES}, 31 leaves, 3 rounds): "
-        "quantized L2 model text identical on card and CPU; exact binary "
-        f"predictions within {err:.3g}")
+    pp = dict(pe, tree_grow_mode="partition")
+    a = lt.train(pp, lt.Dataset(X, y), 3, device="cuda")
+    b = lt.train(pp, lt.Dataset(X, y), 3, device="cpu")
+    sa, sb = a.model_to_string(), b.model_to_string()
+    if sa == sb:
+        part = "partitioned binary model text identical"
+    else:
+        first = next(la.split("=", 1)[0] for la, lb in
+                     zip(sa.splitlines(), sb.splitlines()) if la != lb)
+        perr = float(np.abs(a.predict(X) - b.predict(X)).max())
+        log(f"partitioned binary model text differs from the CPU's, first "
+            f"in field {first!r}; predictions within {perr:.3g}")
+        if not perr <= 1e-5:
+            raise AssertionError(f"partitioned binary model on the card "
+                                 f"predicts {perr} away from the CPU's")
+        part = f"partitioned binary predictions within {perr:.3g}"
+    log(f"small models (20000x{NUM_FEATURES}, 31 leaves, 3 rounds): "
+        f"quantized L2 model text identical on card and CPU; {part}; exact "
+        f"binary wave predictions within {err:.3g}")
+
+
+def mode_params(mode: str) -> dict:
+    """exact / quantized wave, partition (exact), renew (quantized wave
+    with leaf renewal)."""
+    return dict(objective="binary", num_leaves=NUM_LEAVES, max_bin=MAX_BIN,
+                learning_rate=0.1, verbosity=-1,
+                use_quantized_grad=mode in ("quantized", "renew"),
+                quant_train_renew_leaf=(mode == "renew"),
+                tree_grow_mode=("partition" if mode == "partition"
+                                else "wave"),
+                stochastic_rounding=False)
 
 
 def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir):
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
-    params = dict(objective="binary", num_leaves=NUM_LEAVES, max_bin=MAX_BIN,
-                  learning_rate=0.1, verbosity=-1,
-                  use_quantized_grad=(mode == "quantized"),
-                  stochastic_rounding=False)
+    params = mode_params(mode)
     before = dict(hc.LAUNCHES)
-    ticks = []
+    ticks, syncs = [], []
 
     def tick(env):
         torch.cuda.synchronize()
         ticks.append(time.perf_counter())
+        syncs.append(env.model._gbdt.last_host_syncs)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -405,6 +531,15 @@ def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir):
     log(f"[{card}] train {mode}: {len(ticks)} rounds in {total:.3f} s "
         f"(first {first:.3f} s), steady {steady:.4f} iterations/s; "
         f"launches {json.dumps(per_mode)}, per tree {json.dumps(per_tree)}")
+    if mode == "partition":
+        for k in range(len(ticks)):
+            secs = ticks[k] - (ticks[k - 1] if k else t0)
+            a_k = auc(yte, bst.predict(Xte, num_iteration=k + 1))
+            log(f"[{card}] partition round {k + 1}: {secs:.3f} s, "
+                f"{syncs[k]} host syncs in the tree, held-out AUC {a_k:.6f}")
+            if not a_k > 0.6:
+                raise AssertionError(f"partition round {k + 1}: held-out "
+                                     f"AUC {a_k} is no better than chance")
     if bst.num_trees() != rounds:
         raise AssertionError(f"{mode}: {bst.num_trees()} trees, expected "
                              f"{rounds}")
@@ -457,9 +592,12 @@ def profile_iteration(lt, torch, card, ds, params, mode, out_dir) -> None:
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
     busy = sum(dev_us(e) for e in kern) / 1e6
     top = sorted(kern, key=lambda e: -dev_us(e))
+    dtoh = sum(e.count for e in kern if "DtoH" in e.key)
     log(f"[{card}] profile {mode}: one iteration {wall:.4f} s wall, device "
         f"busy {busy:.4f} s ({100 * busy / wall:.1f}%), "
-        f"{sum(e.count for e in kern)} device operations")
+        f"{sum(e.count for e in kern)} device operations, {dtoh} "
+        f"device-to-host copies (grower's own count "
+        f"{bst._gbdt.last_host_syncs}, -1 = not counted)")
     for e in top[:8]:
         log(f"    {e.key[:60]:60s} {dev_us(e) / 1e3:9.3f} ms  x{e.count}")
 
@@ -545,24 +683,36 @@ def main(argv=None) -> int:
     if args.rows < 10_500_000:
         log(f"main path cut: rows only, 10500000 -> {args.rows}")
 
-    torch.cuda.reset_peak_memory_stats()
-    hc.reset_launches()
-    for mode in ("exact", "quantized"):
-        train_mode(lt, torch, card, ds, Xte, yte, mode, args.rounds, out_dir)
-    launches = dict(hc.LAUNCHES)
-    log(f"main path launches: {json.dumps(launches)}; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise AssertionError(f"kernels not launched by the main path: "
-                             f"{missing}")
+    # ---- phases 4-6: each path with the launch counts from 0 ----
+    launches = {k: 0 for k in hc.LAUNCHES}
+    paths = [("wave (exact, quantized)", ("exact", "quantized"),
+              args.rounds, WAVE_KERNELS),
+             ("partition", ("partition",), PARTITION_ROUNDS,
+              ("hist_single",)),
+             ("renew", ("renew",), RENEW_ROUNDS,
+              ("hist_single", "hist_leaves_q8", "wave_row_update"))]
+    if args.rounds < 10:
+        log(f"cut: wave path rounds only, 10 -> {args.rounds} per mode")
+    log(f"cut: partition path rounds only, Higgs' 500 -> "
+        f"{PARTITION_ROUNDS}; renew path {RENEW_ROUNDS} rounds")
+    for name, modes, rounds, needs in paths:
+        torch.cuda.reset_peak_memory_stats()
+        hc.reset_launches()
+        for mode in modes:
+            train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir)
+        got = dict(hc.LAUNCHES)
+        log(f"{name} path launches: {json.dumps(got)}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        missing = [k for k in needs if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {name} path: "
+                                 f"{missing}")
+        for k, v in got.items():
+            launches[k] += v
     if args.profile:
-        for mode in ("exact", "quantized"):
-            params = dict(objective="binary", num_leaves=NUM_LEAVES,
-                          max_bin=MAX_BIN, learning_rate=0.1, verbosity=-1,
-                          use_quantized_grad=(mode == "quantized"),
-                          stochastic_rounding=False)
-            profile_iteration(lt, torch, card, ds, params, mode, out_dir)
+        for mode in ("exact", "quantized", "partition"):
+            profile_iteration(lt, torch, card, ds, mode_params(mode), mode,
+                              out_dir)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

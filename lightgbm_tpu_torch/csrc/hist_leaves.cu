@@ -28,7 +28,7 @@
 //   * q8: int8 weights -> int32 sums (as the reference, exact);
 //   * the exact (f32) histogram: the wrapper converts g*mask and h*mask to
 //     64-bit fixed point with a per-tree power-of-two scale (see
-//     ops/histogram_cuda.py pack_weights), the kernel sums int64, and the
+//     ops/histogram.py pack_weights), the kernel sums int64, and the
 //     wrapper scales the sums back to f32.  Shared-memory f32 atomics
 //     would make the sums depend on thread timing; fixed point removes
 //     that and is closer to the exact sum than any f32 summation order.

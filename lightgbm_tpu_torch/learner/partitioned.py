@@ -1,0 +1,257 @@
+"""Partition-ordered leaf-wise tree grower.
+
+Port of ``lightgbm_tpu/learner/partitioned.py`` ``make_partitioned_grow_fn``
+for the serial, numeric, non-EFB configuration: the exact sequential
+leaf-wise path (best-first by gain, one split at a time, the growth order
+of LightGBM's serial_tree_learner.cpp:158-209).
+
+As in the reference, the PACKED ROW DATA itself is kept leaf-contiguous
+(the analog of LightGBM's DataPartition, data_partition.hpp:170): each
+leaf owns one segment ``[start, start + cnt)`` of the row-major bin matrix
+``P`` (N, F), of the tree's fixed-point weights (3, N) and of the original
+row index.  A split stably partitions only its leaf's segment, lefts
+first; the smaller child's histogram then reads its contiguous segment in
+place, ``P[s:e].T`` with the kernel reading both strides (no gather, no
+transpose copy), and the larger child comes from the subtraction trick
+(serial_tree_learner.cpp:311-320).
+
+Differences from the reference, none of which changes growth:
+
+* The histograms are the single-leaf kernel's int64 fixed-point sums
+  (ops/histogram_cuda.py ``hist_single``) with one scale per tree, kept in
+  the pool as integers, so parent minus child is exact; they are scaled to
+  f32 for the split scan.
+* The partition of a segment is a cumulative-sum rank and one
+  ``index_copy_`` per array, not the reference's chunked ``lax.sort`` and
+  staged stores: PyTorch runs eagerly on the segment's real length, so the
+  reference's static chunk shapes (``CHUNK_BULK``, ``CHUNK_TAIL``) have no
+  counterpart and no segment spans several chunks.
+* The host drives the loop and reads two things per split: the best leaf
+  (with its gain and which child is smaller) and the left child's row
+  count.  ``GrownTree.host_syncs`` counts those reads per tree.
+
+Unported options raise ``NotImplementedError`` before the grower is
+built: forced splits, interaction constraints and ``feature_contri`` in
+``learner/serial.py`` ``_check_config``; categorical features, monotone
+constraints, path smoothing, CEGB, by-node sampling and extra-trees in
+``ops/split.check_supported`` (ROADMAP queue 1, item 7).  The port's
+datasets carry no EFB bundles.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..models.tree import DEFAULT_LEFT_MASK, MISSING_NAN
+from ..ops.histogram import FxWeights, fx_to_f32, pack_weights
+from ..ops.histogram_cuda import hist_single
+from ..ops.split import NEG_INF, SplitParams, check_supported, leaf_output
+from .endgame import patch_child_pointers, write_split_records
+from .serial import CommStrategy, GrownTree
+
+__all__ = ["make_partitioned_grow_fn"]
+
+_I32 = torch.int32
+_F32 = torch.float32
+
+
+def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
+                             max_bins: int, max_depth: int,
+                             split_params: SplitParams):
+    """Build the partition-ordered single-tree grower.
+
+    Returns ``grow(X, grad, hess, bag_mask, num_bins, has_nan,
+    feature_mask) -> GrownTree`` with ``X`` the ROW-MAJOR (N, F) uint8 bin
+    matrix (left untouched: the grower reorders a copy) and every tensor on
+    one device.  The histogram wrapper runs the CUDA kernel on a card and
+    its plain version on the CPU."""
+    check_supported(split_params)
+    if max_bins > 256:
+        raise NotImplementedError("the histogram kernel takes uint8 bins "
+                                  "(max_bin <= 255)")
+    L = num_leaves
+    F = num_features
+    Bb = max_bins
+    sp = split_params
+
+    def grow(X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+             bag_mask: torch.Tensor, num_bins: torch.Tensor,
+             has_nan: torch.Tensor, feature_mask: torch.Tensor
+             ) -> GrownTree:
+        dev = X.device
+        n = X.shape[0]
+        nb = num_bins.to(_I32)
+        hn = has_nan.to(torch.bool)
+        fm = feature_mask.to(torch.bool)
+        strat = CommStrategy(nb, hn)
+
+        # ---- pack rows: bins | fixed-point g*bag, h*bag, bag | orig idx ----
+        P = X.clone()
+        wfx = pack_weights(grad, hess, bag_mask)   # reads two maxima
+        syncs = 2
+        Wt, inv = wfx.w, wfx.inv_scale
+        order = torch.arange(n, device=dev)
+
+        def hist_of(start: int, cnt: int) -> torch.Tensor:
+            """(F, Bb, 3) int64 histogram of one contiguous segment."""
+            e = start + cnt
+            return hist_single(P[start:e].t(), FxWeights(Wt[:, start:e], inv),
+                               num_bins=Bb)
+
+        def z(shape, dtype, fill=0):
+            return torch.full(shape, fill, dtype=dtype, device=dev)
+
+        s = {
+            "leaf_sum": z((L, 3), _F32),
+            "cand_gain": z((L,), _F32, NEG_INF),
+            "cand_feat": z((L,), _I32),
+            "cand_bin": z((L,), _I32),
+            "cand_dleft": z((L,), torch.bool),
+            "cand_lsum": z((L, 3), _F32),
+            "cand_rsum": z((L, 3), _F32),
+            "hists": z((L, F, Bb, 3), torch.int64),
+            "split_feature": z((L - 1,), _I32, -1),
+            "threshold_bin": z((L - 1,), _I32),
+            "nan_bin": z((L - 1,), _I32, -1),
+            "decision_type": z((L - 1,), _I32),
+            "left_child": z((L - 1,), _I32),
+            "right_child": z((L - 1,), _I32),
+            "split_gain": z((L - 1,), _F32),
+            "internal_value": z((L - 1,), _F32),
+            "internal_weight": z((L - 1,), _F32),
+            "internal_count": z((L - 1,), _F32),
+            "leaf_value": z((L,), _F32),
+            "leaf_weight": z((L,), _F32),
+            "leaf_count": z((L,), _F32),
+        }
+        cand_names = ("cand_gain", "cand_feat", "cand_bin", "cand_dleft",
+                      "cand_lsum", "cand_rsum")
+        leaf_start = [n] * L
+        leaf_seg = [0] * L
+        leaf_depth = [0] * L
+
+        # ---- root ----------------------------------------------------------
+        root_hist = hist_of(0, n)
+        root_sum = fx_to_f32(Wt.sum(dim=1), inv)
+        cand = strat.leaf_candidates(fx_to_f32(root_hist, inv), root_sum, fm,
+                                     sp)
+        for name, val in zip(cand_names, cand):
+            s[name][0] = val
+        s["hists"][0] = root_hist
+        s["leaf_sum"][0] = root_sum
+        s["leaf_value"][0] = leaf_output(root_sum[0], root_sum[1], sp)
+        s["leaf_weight"][0] = root_sum[1]
+        s["leaf_count"][0] = root_sum[2]
+        leaf_start[0], leaf_seg[0] = 0, n
+        num_leaves_now = 1
+
+        ar = torch.arange(n, device=dev)
+        ids = torch.arange(L, device=dev)
+        for t in range(L - 1):
+            # ---- best leaf, its gain and its smaller side: one host read --
+            # (indexing with a 0-d device tensor would read it on the host:
+            # every device-side index below is a 1-element tensor)
+            b1 = torch.argmax(s["cand_gain"]).view(1)
+            info = torch.cat([
+                b1.double(), s["cand_gain"].index_select(0, b1).double(),
+                (s["cand_lsum"].index_select(0, b1)[:, 2] <=
+                 s["cand_rsum"].index_select(0, b1)[:, 2]).double()]).tolist()
+            syncs += 1
+            best, bgain, left_smaller = int(info[0]), info[1], info[2] > 0
+            if not bgain > 0:
+                break
+            new_id, node = t + 1, t
+            gain, feat, thr, dleft, lsum, rsum = (
+                s[k][best].clone() for k in cand_names)
+            psum = s["leaf_sum"][best].clone()
+            f1 = feat.long().view(1)
+            fnan = hn.index_select(0, f1)[0]
+            f_nan_bin = torch.where(fnan, nb.index_select(0, f1)[0] - 1,
+                                    torch.full_like(feat, -1))
+
+            # ---- stable partition of the leaf's segment, lefts first ----
+            start, cnt = leaf_start[best], leaf_seg[best]
+            e = start + cnt
+            seg = P[start:e]
+            col = seg.index_select(1, f1).squeeze(1)
+            col = col.to(_I32)
+            go_left = torch.where(col == f_nan_bin, dleft, col <= thr)
+            cl = torch.cumsum(go_left.to(torch.int64), 0)
+            nl_dev = cl[-1]
+            pos = torch.where(go_left, cl - 1, nl_dev + ar[:cnt] - cl)
+            seg.index_copy_(0, pos, seg.clone())
+            wseg = Wt[:, start:e]
+            wseg.index_copy_(1, pos, wseg.clone())
+            oseg = order[start:e]
+            oseg.index_copy_(0, pos, oseg.clone())
+            nl = int(nl_dev)
+            syncs += 1
+            nr = cnt - nl
+
+            # ---- smaller child by kernel, larger by subtraction ----------
+            small = hist_of(start, nl) if left_smaller else \
+                hist_of(start + nl, nr)
+            big = s["hists"][best] - small
+            h_l, h_r = (small, big) if left_smaller else (big, small)
+
+            # ---- both children's candidates: one batched scan ------------
+            sums2 = torch.stack([lsum, rsum])
+            cl_, cr_ = strat.pair_candidates(fx_to_f32(h_l, inv),
+                                             fx_to_f32(h_r, inv), lsum, rsum,
+                                             fm, sp)
+            cands = tuple(torch.stack([a, b]) for a, b in zip(cl_, cr_))
+            child_depth = leaf_depth[best] + 1
+            cg = cands[0]
+            if max_depth > 0 and child_depth >= max_depth:
+                cg = torch.full_like(cg, NEG_INF)
+            idx2 = torch.cat([ids[best:best + 1], ids[new_id:new_id + 1]])
+            for name, val in zip(cand_names, (cg,) + tuple(cands[1:])):
+                s[name][idx2] = val.to(s[name].dtype)
+            s["hists"][best] = h_l
+            s["hists"][new_id] = h_r
+            s["leaf_sum"][idx2] = sums2
+            s["leaf_value"][idx2] = leaf_output(sums2[:, 0], sums2[:, 1], sp)
+            s["leaf_weight"][idx2] = sums2[:, 1]
+            s["leaf_count"][idx2] = sums2[:, 2]
+            leaf_start[best], leaf_seg[best] = start, nl
+            leaf_start[new_id], leaf_seg[new_id] = start + nl, nr
+            leaf_depth[best] = leaf_depth[new_id] = child_depth
+
+            # ---- node records (learner/endgame.py) ------------------------
+            dt_bits = (torch.where(dleft, DEFAULT_LEFT_MASK, 0) |
+                       torch.where(fnan, MISSING_NAN, 0)).to(_I32)
+            lc, rc = patch_child_pointers(s["left_child"], s["right_child"],
+                                          best, node)
+            write_split_records(
+                s, node=node, leaf=best, new_id=new_id, feat=feat, thr=thr,
+                f_nan_bin=f_nan_bin, dt_bits=dt_bits, gain=gain,
+                internal_value=leaf_output(psum[0], psum[1], sp),
+                internal_weight=psum[1], internal_count=psum[2],
+                left_child=lc, right_child=rc)
+            num_leaves_now += 1
+
+        # ---- row_leaf in ORIGINAL row order --------------------------------
+        # the leaves' segments tile [0, n): one leaf id per position, then
+        # one scatter through the original row index
+        by_start = sorted(range(num_leaves_now), key=lambda j: leaf_start[j])
+        leaf_of_pos = torch.repeat_interleave(
+            torch.tensor(by_start, dtype=_I32, device=dev),
+            torch.tensor([leaf_seg[j] for j in by_start], device=dev),
+            output_size=n)
+        row_leaf = torch.empty((n,), dtype=_I32, device=dev)
+        row_leaf[order] = leaf_of_pos
+
+        return GrownTree(
+            split_feature=s["split_feature"],
+            threshold_bin=s["threshold_bin"], nan_bin=s["nan_bin"],
+            decision_type=s["decision_type"],
+            left_child=s["left_child"], right_child=s["right_child"],
+            split_gain=s["split_gain"],
+            internal_value=s["internal_value"],
+            internal_weight=s["internal_weight"],
+            internal_count=s["internal_count"],
+            leaf_value=s["leaf_value"], leaf_weight=s["leaf_weight"],
+            leaf_count=s["leaf_count"], num_leaves=num_leaves_now,
+            row_leaf=row_leaf, hist_passes=0, host_syncs=syncs)
+
+    return grow

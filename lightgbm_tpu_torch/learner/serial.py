@@ -1,10 +1,13 @@
-"""Serial (single-device) tree learner: the wave grower's host wrapper.
+"""Serial (single-device) tree learner: the growers' host wrapper.
 
-Port of ``lightgbm_tpu/learner/serial.py`` for the branch the main path
-takes: ``GrownTree``, ``resolve_hist_impl``, ``split_params_from_config``
-and the wave branch of ``SerialTreeLearner`` (reference serial.py:750-831).
-The partitioned and masked growers, the parallel strategies and the
-autotuner are later slices (ROADMAP queue 1, items 7 and 12).
+Port of ``lightgbm_tpu/learner/serial.py``: ``GrownTree``,
+``CommStrategy`` (the serial strategy's ``leaf_candidates`` and
+``pair_candidates``, reference serial.py:96-197), ``resolve_hist_impl``,
+``split_params_from_config``, ``hist_pool_fits`` (:645-652), the grower
+choice of ``SerialTreeLearner`` (:727-776) and its wave and partition
+branches (:784-850, :901-967).  The masked (pool-less) grower, the
+parallel strategies and the autotuner are later slices (ROADMAP queue 1,
+items 7 and 12).
 """
 
 from __future__ import annotations
@@ -15,10 +18,12 @@ import numpy as np
 import torch
 
 from ..config import Config
-from ..ops.split import SplitParams
+from ..ops.split import SplitParams, local_best_candidates
+from ..utils.log import log_warning
 
-__all__ = ["SerialTreeLearner", "GrownTree", "resolve_hist_impl",
-           "split_params_from_config"]
+__all__ = ["SerialTreeLearner", "GrownTree", "CommStrategy",
+           "resolve_hist_impl", "split_params_from_config",
+           "hist_pool_fits"]
 
 
 class GrownTree(NamedTuple):
@@ -38,7 +43,41 @@ class GrownTree(NamedTuple):
     leaf_count: torch.Tensor        # (L,) float32
     num_leaves: int                 # leaves actually grown
     row_leaf: torch.Tensor          # (N,) int32 final leaf of every row
-    hist_passes: int                # full-data histogram passes
+    hist_passes: int                # full-data histogram passes (wave
+    #                                 grower; 0 = untracked: the
+    #                                 partitioned grower's builds scale
+    #                                 with the split leaf, not with N)
+    host_syncs: int = -1            # device-to-host reads of the grower
+    #                                 (partitioned grower; -1 = not counted)
+
+
+class CommStrategy:
+    """The serial (no-communication) strategy of the reference's growers:
+    split candidates of one leaf, or of a split's two children in one
+    batched scan (the reference's vmap).  Parallel strategies, which
+    insert collectives at these points, are not ported yet (ROADMAP queue
+    1, item 12)."""
+
+    def __init__(self, num_bins: torch.Tensor, has_nan: torch.Tensor):
+        self.num_bins_full = num_bins
+        self.has_nan_full = has_nan
+
+    def leaf_candidates(self, hist, leaf_sum, feature_mask, params):
+        """(gain, feat, bin, default_left, left_sum, right_sum) of one
+        leaf's (F, B, 3) f32 histogram."""
+        out = local_best_candidates(hist.unsqueeze(0), leaf_sum.unsqueeze(0),
+                                    self.num_bins_full, self.has_nan_full,
+                                    feature_mask.unsqueeze(0), params)
+        return tuple(o[0] for o in out)
+
+    def pair_candidates(self, hist_l, hist_r, lsum, rsum, feature_mask,
+                        params):
+        """Both children's candidates in ONE batched scan."""
+        out = local_best_candidates(torch.stack([hist_l, hist_r]),
+                                    torch.stack([lsum, rsum]),
+                                    self.num_bins_full, self.has_nan_full,
+                                    feature_mask.expand(2, -1), params)
+        return tuple(o[0] for o in out), tuple(o[1] for o in out)
 
 
 def resolve_hist_impl(config: Config, device: torch.device) -> str:
@@ -85,17 +124,24 @@ def split_params_from_config(config: Config,
         any_cat=bool(is_cat is not None and np.any(np.asarray(is_cat))))
 
 
-def _check_wave_config(config: Config) -> None:
-    """Raise for configurations the port's wave grower does not carry."""
+def hist_pool_fits(config: Config, num_features: int, max_bins: int) -> bool:
+    """Keep per-leaf histograms when they fit the budget (reference
+    histogram_pool_size, default -1 = a 1 GiB cap).  The budget counts
+    the reference's f32 pool, so the port picks the grower it picks; the
+    port's partitioned pool holds int64 sums, twice those bytes."""
+    pool_bytes = config.num_leaves * num_features * max_bins * 3 * 4
+    budget = (float(config.histogram_pool_size) * (1 << 20)
+              if config.histogram_pool_size > 0 else (1 << 30))
+    return pool_bytes <= budget
+
+
+def _check_config(config: Config, quantized: bool) -> None:
+    """Raise for configurations neither ported grower carries."""
     unported = [
-        ("tree_grow_mode=partition (the partitioned grower)",
-         str(config.tree_grow_mode) == "partition"),
         ("forcedsplits_filename", bool(config.forcedsplits_filename)),
         ("interaction_constraints", bool(config.interaction_constraints)),
         ("feature_contri", bool(config.feature_contri)),
-        ("quant_train_renew_leaf", bool(config.use_quantized_grad) and
-         bool(config.quant_train_renew_leaf)),
-        ("stochastic_rounding=true", bool(config.use_quantized_grad) and
+        ("stochastic_rounding=true", quantized and
          bool(config.stochastic_rounding)),
     ]
     for what, on in unported:
@@ -112,12 +158,6 @@ class SerialTreeLearner:
     def __init__(self, config: Config, num_features: int, max_bins: int,
                  num_bins: np.ndarray, has_nan: np.ndarray,
                  device: torch.device):
-        if int(config.num_leaves) <= 2:
-            raise NotImplementedError(
-                "num_leaves <= 2 takes the partitioned grower in the "
-                "reference, which is not ported yet (ROADMAP queue 1, "
-                "item 7)")
-        _check_wave_config(config)
         self.config = config
         self.device = torch.device(device)
         self.max_bins = int(max_bins)
@@ -128,10 +168,42 @@ class SerialTreeLearner:
                                        device=self.device)
         self.split_params = split_params_from_config(config)
         self.hist_impl = resolve_hist_impl(config, self.device)
-        self.grow_mode = "wave"
-        self.quantized = bool(config.use_quantized_grad)
+        # grower choice (reference serial.py:723-776); both of the port's
+        # histogram paths (CUDA kernel, plain version) stand for the
+        # reference's pallas impl
+        self.use_hist_pool = hist_pool_fits(config, num_features,
+                                            self.max_bins)
+        wave_ok = self.use_hist_pool and int(config.num_leaves) > 2
+        mode = str(config.tree_grow_mode)
+        if mode == "wave" and not wave_ok:
+            log_warning("tree_grow_mode=wave is incompatible with "
+                        "num_leaves<=2 / pool-less growth; "
+                        "falling back to the partitioned grower")
+            mode = "partition"
+        elif mode == "auto":
+            mode = "wave" if wave_ok else "partition"
+        if not self.use_hist_pool:
+            raise NotImplementedError(
+                "the histogram pool does not fit histogram_pool_size: the "
+                "reference takes its masked grower, which is not ported to "
+                "lightgbm_tpu_torch yet (ROADMAP queue 1, item 7)")
+        self.grow_mode = mode
+        self.quantized = bool(config.use_quantized_grad) and mode == "wave"
+        if config.use_quantized_grad and not self.quantized:
+            log_warning("use_quantized_grad requires the wave grower "
+                        "(tree_grow_mode=wave/auto); training with exact "
+                        "gradients instead")
+        _check_config(config, self.quantized)
         # 4-bit packed bins are a layout only; the port keeps uint8 bins
         self.pack4 = False
+        self._x_src = self._Xp = None
+        if mode == "partition":
+            from .partitioned import make_partitioned_grow_fn
+            self._grow = make_partitioned_grow_fn(
+                num_leaves=int(config.num_leaves), num_features=num_features,
+                max_bins=self.max_bins, max_depth=int(config.max_depth),
+                split_params=self.split_params)
+            return
         from ..ops.quantize import quant_levels
         gq_max, hq_max = quant_levels(int(config.num_grad_quant_bins))
         from .wave import make_wave_grow_fn
@@ -153,7 +225,8 @@ class SerialTreeLearner:
         """Grow one tree.  ``X_T`` is the dataset's padded feature-major
         bin matrix (dataset.py ``device_bins``); the per-row vectors carry
         the N real rows and are zero-padded here (padded rows are out of
-        the bag and contribute nothing)."""
+        the bag and contribute nothing).  The partitioned grower reads the
+        ROW-MAJOR copy of ``X_T``, built once per dataset."""
         n = grad.shape[0]
         pad = X_T.shape[1] - n
         if feature_mask is None:
@@ -163,6 +236,11 @@ class SerialTreeLearner:
             grad = torch.nn.functional.pad(grad, (0, pad))
             hess = torch.nn.functional.pad(hess, (0, pad))
             sample_mask = torch.nn.functional.pad(sample_mask, (0, pad))
+        if self.grow_mode == "partition":
+            if self._x_src is not X_T:  # strong ref: ids can be recycled
+                self._Xp = X_T.t().contiguous()
+                self._x_src = X_T
+            X_T = self._Xp
         grown = self._grow(X_T, grad, hess, sample_mask, self.num_bins,
                            self.has_nan, feature_mask)
         if pad:

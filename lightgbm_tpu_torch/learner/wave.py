@@ -21,7 +21,10 @@ Carried over from the reference, with the same semantics:
   frontier candidates' smaller children, and splits commit in the true
   sequential best-first order;
 * exact (f32) and quantized (int8 -> int32, deterministic rounding)
-  histograms.
+  histograms;
+* quantized leaf renewal (``quant_train_renew_leaf``, reference
+  wave.py:1936-1972): one exact pass of the single-leaf histogram kernel
+  over ``row_leaf`` as a one-feature bin column.
 
 The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
@@ -30,8 +33,8 @@ count once per wave and the best candidate once per endgame commit.
 Raise ``NotImplementedError`` (ROADMAP queue 1, item 5): voting and
 scatter merges, lazy CEGB, forced splits, interaction constraints,
 by-node sampling and extra-trees (both draw from ``jax.random`` in the
-reference), monotone constraints, categorical features, EFB, packed 4-bit
-bins and quantized leaf renewal.
+reference), monotone constraints, categorical features, EFB and packed
+4-bit bins.
 """
 
 from __future__ import annotations
@@ -43,10 +46,10 @@ import numpy as np
 import torch
 
 from ..models.tree import DEFAULT_LEFT_MASK, MISSING_NAN
-from ..ops.histogram import histogram_subtract
+from ..ops.histogram import histogram_subtract, pack_weights
 from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
-                                  build_histogram_leaves,
-                                  build_histogram_leaves_q8, pack_weights,
+                                  build_histogram, build_histogram_leaves,
+                                  build_histogram_leaves_q8,
                                   wave_row_update, wave_trial_channels)
 from ..ops.quantize import dequant_scales, quantize_wch
 from ..ops.split import (NEG_INF, SplitParams, check_supported, leaf_gain,
@@ -109,11 +112,6 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         raise NotImplementedError(
             "packed 4-bit bins are not ported to lightgbm_tpu_torch yet "
             "(ROADMAP queue 2: packed bins)")
-    if quantized and renew_leaf:
-        raise NotImplementedError(
-            "quant_train_renew_leaf needs the single-leaf histogram kernel "
-            "(build_histogram_pallas), not ported yet (ROADMAP queue 2, "
-            "kernel 5)")
     if quantized and stochastic:
         raise NotImplementedError(
             "stochastic_rounding=true needs the reference's jax.random "
@@ -552,6 +550,25 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             num_leaves_now, hist_passes = _endgame(
                 s, num_leaves_now, hist_passes, take_cols, hist_waves,
                 many_candidates, nb_full, hn_full, fm_row, neg_inf)
+
+        if quantized and renew_leaf:
+            # exact leaf-value renewal (reference wave.py:1936-1972): one
+            # pass of the single-leaf kernel per 256 leaves, row_leaf % 256
+            # as a one-feature bin column, replaces the quantized leaf sums
+            # with exact sums for live, non-empty leaves
+            rl = s["row_leaf"]
+            bins1 = (rl % 256).to(torch.uint8).unsqueeze(0)
+            parts = []
+            for c in range((L + 255) // 256):
+                m = bag_mask * (rl // 256 == c).to(bag_mask.dtype)
+                parts.append(build_histogram(bins1, grad, hess, m,
+                                             num_bins=256)[0])
+            gh = torch.cat(parts)[:L, :2]
+            vals = leaf_output(gh[:, 0], gh[:, 1], sp)
+            live = torch.arange(L, device=dev) < num_leaves_now
+            ok = live & (s["leaf_count"] > 0)
+            s["leaf_value"] = torch.where(ok, vals, s["leaf_value"])
+            s["leaf_weight"] = torch.where(ok, gh[:, 1], s["leaf_weight"])
 
         return GrownTree(
             split_feature=s["split_feature"],

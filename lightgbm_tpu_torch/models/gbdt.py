@@ -309,6 +309,7 @@ class GBDT:
             grown = self.learner.train(self.X_T, grad, hess, self._bag_mask,
                                        feature_mask=fmask)
             self.last_hist_passes = grown.hist_passes
+            self.last_host_syncs = grown.host_syncs
             self._record_tree(grown)
             self._prev_iter_leaves = [int(grown.num_leaves)]
             self.iter_ += 1

@@ -7,6 +7,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.fmath import sigmoid_f32
 from .base import EPS, ObjectiveFunction, weighted_mean
 
 
@@ -47,10 +48,11 @@ class BinaryLogloss(ObjectiveFunction):
                                             device=self.device))
 
     def get_gradients(self, score):
-        # same op order as the reference, one f32 op at a time
+        # same op order as the reference, one f32 op at a time; the
+        # sigmoid's exp is XLA:CPU's, bit for bit (ops/fmath.py)
         y = self.label
         sig = self.sigmoid
-        p = 1.0 / (1.0 + torch.exp(-sig * score))
+        p = sigmoid_f32(sig * score)
         grad = sig * (p - y) * self._lw
         hess = sig * sig * p * (1.0 - p) * self._lw
         if self.weight is not None:
@@ -64,4 +66,4 @@ class BinaryLogloss(ObjectiveFunction):
         return float(np.log(pavg / (1.0 - pavg)) / self.sigmoid)
 
     def convert_output(self, score):
-        return 1.0 / (1.0 + torch.exp(-self.sigmoid * score))
+        return sigmoid_f32(self.sigmoid * score)

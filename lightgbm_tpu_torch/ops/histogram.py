@@ -1,21 +1,115 @@
 """Plain PyTorch histograms: the portable counterparts of the CUDA kernels.
 
-Port of ``lightgbm_tpu/ops/histogram.py``'s leaf-channel form
-(``build_histogram_leaves``, the ``segment`` scatter-add) and
+Port of ``lightgbm_tpu/ops/histogram.py``: the single-leaf
+``build_histogram`` (:134, under the contract of
+``build_histogram_pallas``, histogram_pallas.py:471-494), the leaf-channel
+form (``build_histogram_leaves``, the ``segment`` scatter-add) and
 ``histogram_subtract`` (reference serial_tree_learner.cpp:311-320).  These
-are the plain versions the kernel wrappers in ops/histogram_cuda.py fall
-back to for CPU tensors, and what ``chip_smoke.py`` holds each kernel
-against on the card.
+are the plain versions the kernel wrappers in ops/histogram_cuda.py take
+for CPU tensors, and what ``chip_smoke.py`` holds each kernel against on
+the card.
 
-Layout: bins arrive FEATURE-MAJOR ``(F, N)`` (the kernels' layout) and
-histograms are ``(K, F, B, 3)`` with channels (sum_grad, sum_hess, count).
+Layout: bins arrive FEATURE-MAJOR ``(F, N)`` (the kernels' layout; any
+strides) and histograms are ``(F, B, 3)`` or ``(K, F, B, 3)`` with
+channels (sum_grad, sum_hess, count).
+
+Exact-mode weights.  The reference carries g*mask and h*mask as bf16
+hi+lo pairs into an f32 MXU contraction.  The port carries them as 64-bit
+fixed point with one power-of-two scale per channel per tree
+(:func:`pack_weights`) and sums integers, which makes the histogram
+independent of summation order: a kernel and its plain version agree bit
+for bit and every run grows the same tree.  The scale leaves 2^61 of
+headroom for N x max|w|, so each weight keeps about 2^-37 of max|w| of
+absolute precision at 2^24 rows.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["build_histogram_leaves", "histogram_subtract"]
+__all__ = ["FxWeights", "pack_weights", "fx_to_f32", "build_histogram",
+           "scatter_histogram", "build_histogram_leaves",
+           "histogram_subtract"]
+
+_FX_HEADROOM_BITS = 61
+
+
+class FxWeights(NamedTuple):
+    """Per-tree exact-mode weights: ``w`` (3, N) int64 fixed point
+    [g*mask, h*mask, count] and ``inv_scale`` (3,) float64 turning integer
+    sums back into values."""
+    w: torch.Tensor
+    inv_scale: torch.Tensor
+
+
+def _fx_exponent(amax: float, n: int) -> int:
+    if amax <= 0.0 or not math.isfinite(amax):
+        return 0
+    return (_FX_HEADROOM_BITS - math.ceil(math.log2(max(n, 1))) -
+            math.ceil(math.log2(amax)))
+
+
+def pack_weights(grad: torch.Tensor, hess: torch.Tensor,
+                 mask: torch.Tensor) -> FxWeights:
+    """Exact-mode weights for one tree (the counterpart of
+    ``pack_weights8``, histogram_pallas.py:539): g*mask and h*mask in
+    64-bit fixed point, the count channel as strict 0/1 membership (the
+    reference counts rows, not weights)."""
+    n = grad.shape[0]
+    gm = (grad * mask).double()
+    hm = (hess * mask).double()
+    rows, inv = [], []
+    for v in (gm, hm):
+        e = _fx_exponent(float(v.abs().max()) if n else 0.0, n)
+        rows.append(torch.round(v * (2.0 ** e)).to(torch.int64))
+        inv.append(2.0 ** -e)
+    rows.append((mask > 0).to(torch.int64))
+    inv.append(1.0)
+    return FxWeights(torch.stack(rows),
+                     torch.tensor(inv, dtype=torch.float64,
+                                  device=grad.device))
+
+
+def fx_to_f32(h: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
+    """int64 fixed-point sums (..., 3) -> f32 values."""
+    return (h.double() * inv_scale).float()
+
+
+def scatter_histogram(bins_t: torch.Tensor, w3: torch.Tensor, *,
+                      num_bins: int, acc_dtype: torch.dtype) -> torch.Tensor:
+    """(F, B, 3) scatter-add of every row's three weights (the first three
+    rows of ``w3``) into its bin, one ``index_add_`` per feature.  Bin
+    codes at or above ``num_bins`` are ignored, as the kernels ignore
+    them.  ``bins_t`` may be any strided (F, N) view."""
+    f, _ = bins_t.shape
+    out = torch.zeros((f, num_bins, 3), dtype=acc_dtype,
+                      device=bins_t.device)
+    w = w3[:3].to(acc_dtype).t()                                # (N, 3)
+    for j in range(f):
+        b = bins_t[j].long()
+        ok = b < num_bins
+        if bool(ok.all()):
+            out[j].index_add_(0, b, w)
+        else:
+            out[j].index_add_(0, b[ok], w[ok])
+    return out
+
+
+def build_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, mask: torch.Tensor, *,
+                    num_bins: int) -> torch.Tensor:
+    """(F, B, 3) f32 histogram of one leaf: (sum g*mask, sum h*mask,
+    count of rows with mask > 0).
+
+    An int64 ``index_add_`` over the fixed-point weights of
+    :func:`pack_weights`, scaled back to f32: the same integers the CUDA
+    kernel sums, so the two agree bit for bit."""
+    w = pack_weights(grad, hess, mask)
+    return fx_to_f32(scatter_histogram(bins_t, w.w, num_bins=num_bins,
+                                       acc_dtype=torch.int64), w.inv_scale)
 
 
 def build_histogram_leaves(bins_t: torch.Tensor, w3: torch.Tensor,

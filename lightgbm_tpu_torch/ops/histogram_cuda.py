@@ -1,9 +1,14 @@
-"""Hand-written CUDA kernels of the wave grower, their wrappers and their
+"""Hand-written CUDA kernels of the growers, their wrappers and their
 plain PyTorch versions — the counterpart of
 ``lightgbm_tpu/ops/histogram_pallas.py``.
 
-Four entry points, three kernels (csrc/hist_leaves.cu, csrc/row_update.cu):
+Five entry points, four kernels (csrc/hist_single.cu, csrc/hist_leaves.cu,
+csrc/row_update.cu):
 
+* :func:`build_histogram` — ``build_histogram_pallas``
+  (histogram_pallas.py:471): one leaf's (F, B, 3) f32 histogram; the
+  partitioned grower and quantized leaf renewal call its fixed-point form
+  :func:`hist_single` with the tree's packed weights;
 * :func:`build_histogram_leaves_q8` — ``build_histogram_pallas_leaves_q8``
   (histogram_pallas.py:1030): 42 leaf channels of int32 (g_q, h_q, count);
 * :func:`build_histogram_leaves` — ``build_histogram_pallas_leaves``
@@ -21,31 +26,27 @@ to the other.  Each kernel launch adds one to its entry in
 :data:`LAUNCHES`; the plain versions never do.
 
 The reference's ``pipeline`` (dma / blockspec) and ``interpret`` knobs are
-accepted and ignored: both TPU variants collapse into one kernel here.
-Nibble-packed 4-bit bins (``pack_bins4``) are not ported yet.
+accepted and ignored by the leaf-channel and row-update wrappers, and not
+taken by the single-leaf ones: both TPU variants collapse into one kernel
+here.  Nibble-packed 4-bit bins (``pack_bins4``) are not ported yet.
 
-Exact-mode weights.  The reference carries g*mask and h*mask as bf16
-hi+lo pairs into an f32 MXU contraction.  The port carries them as 64-bit
-fixed point with one power-of-two scale per channel per tree
-(:func:`pack_weights`) and sums integers, which makes the histogram
-independent of summation order: the kernel and its plain version agree
-bit for bit and every run grows the same tree.  The scale leaves 2^61 of
-headroom for N x max|w|, so each weight keeps about 2^-37 of max|w| of
-absolute precision at 2^24 rows.
+The exact-mode histograms sum the 64-bit fixed-point weights of
+``ops/histogram.py`` ``pack_weights``; integer sums make each kernel
+equal its plain version bit for bit.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import NamedTuple
 
 import torch
 
+from . import histogram as _plain
+from .histogram import FxWeights, fx_to_f32, pack_weights, scatter_histogram
 from .histogram import build_histogram_leaves as _scatter_leaves
 
-__all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "FxWeights",
-           "pack_weights", "build_histogram_leaves",
+__all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
+           "hist_single", "hist_single_plain", "build_histogram_leaves",
            "build_histogram_leaves_q8", "wave_row_update",
            "wave_trial_channels", "build_histogram_leaves_plain",
            "build_histogram_leaves_q8_plain", "wave_row_update_plain",
@@ -58,58 +59,20 @@ LEAF_CHANNELS = 25
 Q_LEAF_CHANNELS = 42
 
 # launches of each CUDA kernel since the last reset_launches()
-LAUNCHES = {"hist_leaves_q8": 0, "hist_leaves": 0, "wave_row_update": 0,
-            "wave_trial_channels": 0}
+LAUNCHES = {"hist_single": 0, "hist_leaves_q8": 0, "hist_leaves": 0,
+            "wave_row_update": 0, "wave_trial_channels": 0}
 
 _HIST_THREADS = 512
 _HIST_CHUNK = 1 << 18     # rows per block (see csrc/hist_leaves.cu)
 _ROW_THREADS = 256
-_FX_HEADROOM_BITS = 61
+_SINGLE_THREADS = 512
+_SINGLE_SMEM = 200 * 1024   # shared bytes for one block's feature group
+_SINGLE_MIN_CHUNK = 4096    # fewest rows per block (see csrc/hist_single.cu)
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-class FxWeights(NamedTuple):
-    """Per-tree exact-mode weights: ``w`` (3, N) int64 fixed point
-    [g*mask, h*mask, count] and ``inv_scale`` (3,) float64 turning integer
-    sums back into values."""
-    w: torch.Tensor
-    inv_scale: torch.Tensor
-
-
-def _fx_exponent(amax: float, n: int) -> int:
-    if amax <= 0.0 or not math.isfinite(amax):
-        return 0
-    return (_FX_HEADROOM_BITS - math.ceil(math.log2(max(n, 1))) -
-            math.ceil(math.log2(amax)))
-
-
-def pack_weights(grad: torch.Tensor, hess: torch.Tensor,
-                 mask: torch.Tensor) -> FxWeights:
-    """Exact-mode weights for one tree (the counterpart of
-    ``pack_weights8``, histogram_pallas.py:539): g*mask and h*mask in
-    64-bit fixed point, the count channel as strict 0/1 membership (the
-    reference counts rows, not weights)."""
-    n = grad.shape[0]
-    gm = (grad * mask).double()
-    hm = (hess * mask).double()
-    rows, inv = [], []
-    for v in (gm, hm):
-        e = _fx_exponent(float(v.abs().max()) if n else 0.0, n)
-        rows.append(torch.round(v * (2.0 ** e)).to(torch.int64))
-        inv.append(2.0 ** -e)
-    rows.append((mask > 0).to(torch.int64))
-    inv.append(1.0)
-    return FxWeights(torch.stack(rows),
-                     torch.tensor(inv, dtype=torch.float64,
-                                  device=grad.device))
-
-
-def _fx_to_f32(h: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
-    return (h.double() * inv_scale).float()
 
 
 # -- argument checks --------------------------------------------------------
@@ -224,7 +187,7 @@ def build_histogram_leaves_plain(bins_t, w: FxWeights, ch, *,
     scaled back to f32 — the same integers as the kernel."""
     h = _scatter_leaves(bins_t, w.w, ch, num_channels=LEAF_CHANNELS,
                         num_bins=num_bins, acc_dtype=torch.int64)
-    return _fx_to_f32(h, w.inv_scale)
+    return fx_to_f32(h, w.inv_scale)
 
 
 def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
@@ -243,7 +206,108 @@ def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
     _launch_hist("hist_leaves_fx", bins_t, w.w, ch, out, f, n, num_bins,
                  LEAF_CHANNELS)
     LAUNCHES["hist_leaves"] += 1
-    return _fx_to_f32(out, w.inv_scale)
+    return fx_to_f32(out, w.inv_scale)
+
+
+# -- single-leaf histogram -------------------------------------------------------
+
+def _check_single_args(kernel, bins_t, w, num_bins):
+    if bins_t.dim() != 2:
+        raise ValueError(f"{kernel}: bins must be (F, N)")
+    f, n = bins_t.shape
+    dev = bins_t.device
+    if bins_t.dtype != torch.uint8:
+        raise TypeError(f"bins must be torch.uint8, got {bins_t.dtype}")
+    if w.dtype != torch.int64:
+        raise TypeError(f"weights must be torch.int64, got {w.dtype}")
+    if tuple(w.shape) != (3, n):
+        raise ValueError(f"weights must have shape (3, {n}), got "
+                         f"{tuple(w.shape)}")
+    if w.device != dev:
+        raise ValueError(f"weights are on {w.device}, expected {dev}")
+    if n > 1 and w.stride(1) != 1:
+        raise ValueError("each weight row must be contiguous")
+    if min(bins_t.stride()) < 0 or w.stride(0) < 0:
+        raise ValueError(f"{kernel}: negative strides are not taken")
+    _check_device(kernel, dev)
+    if not 1 <= num_bins <= 256:
+        raise ValueError(f"{kernel}: num_bins must be in [1, 256], got "
+                         f"{num_bins}")
+    return f, n
+
+
+def hist_single_plain(bins_t, w: FxWeights, *, num_bins: int):
+    """Plain version: int64 ``index_add_`` of the fixed-point weights."""
+    return scatter_histogram(bins_t, w.w, num_bins=num_bins,
+                             acc_dtype=torch.int64)
+
+
+_SMS = {}
+
+
+def _single_geometry(dev: torch.device, f: int, n: int, num_bins: int):
+    """(features per block, rows per block): as many features as fit the
+    shared budget, and row chunks that give every SM its resident blocks
+    once."""
+    fg = max(1, min(f, _SINGLE_SMEM // (num_bins * 24)))
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    per_sm = max(1, min(2048 // _SINGLE_THREADS,
+                        (220 * 1024) // (fg * num_bins * 24)))
+    groups = -(-f // fg)
+    blocks = max(1, _SMS[idx] * per_sm // groups)
+    return fg, max(_SINGLE_MIN_CHUNK, -(-n // blocks))
+
+
+def hist_single(bins_t: torch.Tensor, w: FxWeights, *,
+                num_bins: int) -> torch.Tensor:
+    """(F, B, 3) int64 fixed-point histogram of one leaf.
+
+    bins_t: (F, n) uint8 view with any strides (the partitioned grower
+    passes ``P[s:e, :F].T`` of its row-major packed rows); ``w``: the
+    tree's :func:`pack_weights` restricted to the same rows
+    (``w.w[:, s:e]``), rows of the leaf carrying their weights and all
+    other rows zeros.  Scale back with :func:`fx_to_f32`."""
+    f, n = _check_single_args("hist_single", bins_t, w.w, num_bins)
+    if bins_t.device.type == "cpu":
+        return hist_single_plain(bins_t, w, num_bins=num_bins)
+    out = torch.zeros((f, num_bins, 3), dtype=torch.int64,
+                      device=bins_t.device)
+    if f == 0 or n == 0:
+        return out
+    from .cuda_lib import library
+    fn = library("hist_single").hist_single
+    if "hist_single" not in _SIGS_SET:
+        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, ll, ll, vp, ll, vp] + [ci] * 6 + [vp]
+        fn.restype = ci
+        _SIGS_SET.add("hist_single")
+    fg, chunk = _single_geometry(bins_t.device, f, n, num_bins)
+    sf, sn = bins_t.stride()
+    _raise_on(fn(_p(bins_t), sf, sn, _p(w.w), w.w.stride(0), _p(out), f, n,
+                 num_bins, fg, chunk, _SINGLE_THREADS, _stream()),
+              "hist_single")
+    LAUNCHES["hist_single"] += 1
+    return out
+
+
+def build_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
+                    hess: torch.Tensor, mask: torch.Tensor, *,
+                    num_bins: int) -> torch.Tensor:
+    """(F, B, 3) f32 histogram of one leaf over masked rows: (sum g*mask,
+    sum h*mask, count of rows with mask > 0).
+
+    bins_t (F, N) uint8, any strides; grad, hess, mask (N,) f32; N need
+    not be a multiple of a row block.  The weights are packed to fixed
+    point for this call (one scale per channel over these rows).  CPU
+    tensors take the plain version, ``ops/histogram.py``
+    ``build_histogram``."""
+    if bins_t.device.type == "cpu":
+        return _plain.build_histogram(bins_t, grad, hess, mask,
+                                      num_bins=num_bins)
+    w = pack_weights(grad, hess, mask)
+    return fx_to_f32(hist_single(bins_t, w, num_bins=num_bins), w.inv_scale)
 
 
 # -- row update ---------------------------------------------------------------

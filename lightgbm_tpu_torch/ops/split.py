@@ -88,7 +88,9 @@ class FeatureSplits(NamedTuple):
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=like.device)
+    # a fill on the device: ``torch.tensor`` would copy from the host and
+    # wait for the device's queue to drain on every call
+    return torch.full((), x, dtype=torch.float32, device=like.device)
 
 
 def _threshold_l1(g: torch.Tensor, l1: float) -> torch.Tensor:

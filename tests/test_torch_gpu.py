@@ -15,12 +15,15 @@ import torch
 
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.ops import cuda_lib
+from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import quantize as tq
 
 F = 6
 PLAINS = ("build_histogram_leaves_q8_plain", "build_histogram_leaves_plain",
           "wave_row_update_plain")
+WAVE_KERNELS = ("hist_leaves_q8", "hist_leaves", "wave_row_update",
+                "wave_trial_channels")
 
 
 @pytest.fixture
@@ -57,7 +60,7 @@ def _run_all(bins, grad, hess, mask, ch, cols, rl, tab, num_bins):
                           torch.tensor(0.002).to(bins.device), gq_max=127,
                           hq_max=127)
     h8 = hc.build_histogram_leaves_q8(bins, wch, ch, num_bins=num_bins)
-    w = hc.pack_weights(grad, hess, mask)
+    w = th.pack_weights(grad, hess, mask)
     hx = hc.build_histogram_leaves(bins, w, ch, num_bins=num_bins)
     ru = hc.wave_row_update(cols, rl, tab)
     tr = hc.wave_trial_channels(cols, rl, tab[4], tab[0], tab[1], tab[2] > 0,
@@ -90,7 +93,7 @@ def test_kernels_match_plain_on_card(cuda_device, monkeypatch, n, num_bins,
     wch, w, h8, hx, (rl_k, ch_k), tr = _run_all(*args, num_bins=num_bins)
     hx2 = hc.build_histogram_leaves(bins, w, ch, num_bins=num_bins)
     torch.cuda.synchronize()
-    assert all(hc.LAUNCHES[k] > before[k] for k in hc.LAUNCHES)
+    assert all(hc.LAUNCHES[k] > before[k] for k in WAVE_KERNELS)
     monkeypatch.undo()
     assert torch.equal(h8, hc.build_histogram_leaves_q8_plain(
         bins, wch, ch, num_bins=num_bins))
@@ -102,6 +105,67 @@ def test_kernels_match_plain_on_card(cuda_device, monkeypatch, n, num_bins,
     assert torch.equal(tr, hc.wave_trial_channels_plain(
         cols, rl, tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0,
         tab[6] > 0))
+
+
+def _single_case(device, f, n, num_bins, layout, seed=1):
+    """bins view, fixed-point weights: feature-major, or a row-major
+    segment ``P[s:e, :F].T`` read through its two strides."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    grad = t((rng.randn(n) * 0.5).astype(np.float32))
+    hess = t((rng.rand(n) * 0.25 + 0.01).astype(np.float32))
+    mask = t((rng.rand(n) < 0.8).astype(np.float32))
+    w = th.pack_weights(grad, hess, mask)
+    if layout == "segment":
+        P = t(rng.randint(0, num_bins, (2 * n, f + 5)).astype(np.uint8))
+        bins = P[n // 2:n // 2 + n, :f].t()
+    else:
+        bins = t(rng.randint(0, num_bins, (f, n)).astype(np.uint8))
+    return bins, w
+
+
+def test_single_leaf_histogram_on_cpu_never_loads_the_kernel_library(
+        monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CUDA library {name} loaded for CPU tensors")
+    monkeypatch.setattr(cuda_lib, "library", refuse)
+    before = dict(hc.LAUNCHES)
+    bins, w = _single_case("cpu", F, 5000, 17, "segment")
+    h = hc.hist_single(bins, w, num_bins=17)
+    assert h.dtype == torch.int64 and h.shape == (F, 17, 3)
+    assert hc.LAUNCHES == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,n,num_bins,layout", [
+    (28, 65536, 256, "feature_major"), (28, 40_000, 256, "segment"),
+    (6, 100_003, 17, "feature_major"), (1, 65536, 256, "feature_major")])
+def test_hist_single_matches_plain_on_card(cuda_device, monkeypatch, f, n,
+                                           num_bins, layout):
+    bins, w = _single_case(cuda_device, f, n, num_bins, layout)
+    monkeypatch.setattr(hc, "hist_single_plain", None)  # must launch
+    before = hc.LAUNCHES["hist_single"]
+    got = hc.hist_single(bins, w, num_bins=num_bins)
+    again = hc.hist_single(bins, w, num_bins=num_bins)
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["hist_single"] == before + 2
+    monkeypatch.undo()
+    assert torch.equal(got, again)
+    assert torch.equal(got, hc.hist_single_plain(bins, w, num_bins=num_bins))
+
+
+@pytest.mark.gpu
+def test_partition_training_on_card_matches_cpu(cuda_device):
+    """The partitioned grower on the card grows the CPU's model: integer
+    histograms and the port's own f32 exp round the same on both."""
+    rng = np.random.RandomState(2)
+    X = rng.randn(6000, F)
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.8).astype(float)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  tree_grow_mode="partition")
+    on_cpu = lt.train(params, lt.Dataset(X, y), 5, device="cpu")
+    on_card = lt.train(params, lt.Dataset(X, y), 5, device=cuda_device)
+    assert on_card.model_to_string() == on_cpu.model_to_string()
 
 
 @pytest.mark.gpu

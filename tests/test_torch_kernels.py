@@ -8,14 +8,17 @@ versions, which are what the CUDA kernels are held against on the card
 (tests/test_torch_gpu.py and ``chip_smoke.py``).
 
 Tolerances: quantized histograms, quantization, the row update, trial
-channels and the split scan are integer or same-order f32 arithmetic and
-must match bit for bit.  The exact (f32) histogram differs by design: the
-reference carries g*mask as bf16 hi+lo pairs (good to about 2^-16
-relative per weight), the port as 64-bit fixed point, so it is held to
-rtol=1e-4 with an absolute floor of 1e-5 of the largest sum; counts are
-exact.
+channels, the split scan and the f32 ``exp`` are integer or same-order
+f32 arithmetic and must match bit for bit.  The exact (f32) histograms
+differ by design: the reference carries g*mask as bf16 hi+lo pairs (good
+to about 2^-16 relative per weight), the port as 64-bit fixed point, so
+the leaf-channel form is held to rtol=1e-4 with an absolute floor of 1e-5
+of the largest sum, as is the single-leaf form; counts are exact.  The
+single-leaf form is also held to a float64 sum of the same rows within
+rtol=1e-6 (its fixed point keeps ~2^-37 of the largest weight).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,8 +29,10 @@ from lightgbm_tpu.ops import histogram_pallas as hp
 from lightgbm_tpu.ops import quantize as jq
 from lightgbm_tpu.ops import split as js
 from lightgbm_tpu_torch.learner.wave import make_wave_grow_fn
+from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import quantize as tq
+from lightgbm_tpu_torch.ops.fmath import exp_f32, sigmoid_f32
 from lightgbm_tpu_torch.ops import split as ts
 
 F = 6
@@ -112,7 +117,7 @@ def test_hist_leaves_f32_within_tolerance(num_bins):
                                             jnp.asarray(hess),
                                             jnp.asarray(mask)),
         jnp.asarray(ch), num_bins=num_bins, interpret=True))
-    w = hc.pack_weights(_t(grad), _t(hess), _t(mask))
+    w = th.pack_weights(_t(grad), _t(hess), _t(mask))
     got = hc.build_histogram_leaves(_t(bins), w, _t(ch),
                                     num_bins=num_bins).numpy()
     assert got.shape == ref.shape and got.dtype == np.float32
@@ -132,13 +137,98 @@ def test_hist_leaves_f32_is_order_free():
     grad, hess, mask = _grad_hess_mask(rng)
     ch = rng.randint(-1, hc.LEAF_CHANNELS, N).astype(np.int8)
     perm = rng.permutation(N)
-    a = hc.build_histogram_leaves(_t(bins), hc.pack_weights(
+    a = hc.build_histogram_leaves(_t(bins), th.pack_weights(
         _t(grad), _t(hess), _t(mask)), _t(ch), num_bins=64)
     b = hc.build_histogram_leaves(
-        _t(bins[:, perm]), hc.pack_weights(_t(grad[perm]), _t(hess[perm]),
+        _t(bins[:, perm]), th.pack_weights(_t(grad[perm]), _t(hess[perm]),
                                            _t(mask[perm])),
         _t(ch[perm]), num_bins=64)
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("layout,num_bins,n_real", [
+    ("feature_major", 256, N),
+    ("row_major_segment", 64, N // 2),   # P[s:e, :F].T, two strides
+    ("ragged", 17, N - 301),             # B=17, rows not a 4096 multiple
+])
+def test_build_histogram_matches_pallas(layout, num_bins, n_real):
+    """The plain single-leaf histogram (what the CUDA kernel is held to on
+    the card) against ``build_histogram_pallas`` in interpret mode.  The
+    reference needs N padded to its row block; the extra rows carry mask
+    0, and the port gets the real rows only."""
+    rng = np.random.RandomState(20)
+    grad, hess, mask = _grad_hess_mask(rng)
+    if layout == "row_major_segment":
+        P = rng.randint(0, num_bins, (2 * N, F + 7)).astype(np.uint8)
+        s0 = 1000
+        seg = _t(P)[s0:s0 + n_real, :F].t()           # strided view
+        assert seg.stride() == (1, F + 7)
+        bins_ref = np.ascontiguousarray(P[s0:s0 + n_real, :F].T)
+        bins_ref = np.pad(bins_ref, ((0, 0), (0, N - n_real)))
+        args = (seg,)
+    else:
+        bins_ref = _bins(rng, num_bins)
+        args = (_t(bins_ref[:, :n_real]),)
+    mask[n_real:] = 0.0
+    ref = np.asarray(hp.build_histogram_pallas(
+        jnp.asarray(bins_ref), jnp.asarray(grad), jnp.asarray(hess),
+        jnp.asarray(mask), num_bins=num_bins, interpret=True))
+    w = [_t(v[:n_real]) for v in (grad, hess, mask)]
+    got = th.build_histogram(*args, *w, num_bins=num_bins).numpy()
+    assert got.shape == ref.shape == (F, num_bins, 3)
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    for c in (0, 1):
+        np.testing.assert_allclose(
+            got[..., c], ref[..., c], rtol=1e-5,
+            atol=1e-5 * np.abs(ref[..., c]).max())
+    exact = np.zeros((F, num_bins, 3))
+    b64 = bins_ref[:, :n_real].astype(np.int64)
+    w64 = np.stack([grad * mask, hess * mask, mask], -1)[:n_real]
+    for j in range(F):
+        np.add.at(exact[j], b64[j], w64.astype(np.float64))
+    np.testing.assert_allclose(got, exact, rtol=1e-6, atol=1e-6)
+    # the wrapper takes the same plain path for CPU tensors
+    assert np.array_equal(
+        hc.build_histogram(*args, *w, num_bins=num_bins).numpy(), got)
+
+
+def test_hist_single_is_order_free_and_subtracts_exactly():
+    """Fixed-point sums: permuting rows gives the same bits, and a parent
+    minus one child's histogram is the other child's, bit for bit (the
+    partitioned grower's subtraction trick)."""
+    rng = np.random.RandomState(21)
+    bins = _bins(rng, 64)
+    grad, hess, mask = _grad_hess_mask(rng)
+    w = th.pack_weights(_t(grad), _t(hess), _t(mask))
+    perm = torch.from_numpy(rng.permutation(N))
+    full = hc.hist_single(_t(bins), w, num_bins=64)
+    shuf = hc.hist_single(_t(bins)[:, perm],
+                          th.FxWeights(w.w[:, perm], w.inv_scale),
+                          num_bins=64)
+    assert full.dtype == torch.int64 and torch.equal(full, shuf)
+    k = 3000
+    left = hc.hist_single(_t(bins)[:, :k],
+                          th.FxWeights(w.w[:, :k], w.inv_scale), num_bins=64)
+    right = hc.hist_single(_t(bins)[:, k:],
+                           th.FxWeights(w.w[:, k:], w.inv_scale),
+                           num_bins=64)
+    assert torch.equal(full - left, right)
+
+
+def test_exp_matches_xla_bitwise():
+    """The port's f32 exp against ``jax.jit(jnp.exp)`` on every 251st f32
+    bit pattern of [-90, 90] (both signs), plus the special values."""
+    top = int(np.array([90.0], np.float32).view(np.int32)[0])
+    pats = np.arange(0, top, 251, dtype=np.int64)
+    bits = np.concatenate([pats, pats | (1 << 31)]).astype(np.uint32)
+    x = np.concatenate([bits.view(np.float32),
+                        np.array([np.inf, -np.inf, 0.0, -0.0, 88.8, -87.4,
+                                  -103.0], np.float32)])
+    ref = np.asarray(jax.jit(jnp.exp)(jnp.asarray(x)))
+    np.testing.assert_array_equal(exp_f32(_t(x)).numpy(), ref)
+    np.testing.assert_array_equal(
+        sigmoid_f32(_t(x[:4096])).numpy(),
+        np.asarray(1.0 / (1.0 + jnp.exp(-jnp.asarray(x[:4096])))))
 
 
 def _row_update_case(rng, w, num_leaves=60):

@@ -7,12 +7,19 @@ their models are compared field by field.
 
 * Quantized training (stochastic_rounding=false) must give the same tree
   structure, leaf values within rtol=1e-6 and, for L2 regression,
-  byte-identical model text.  Binary gradients go through ``exp``, which
-  PyTorch and XLA round differently in the last ulp now and then, so a
-  leaf value may move by an ulp (ROADMAP queue 3).
+  byte-identical model text.  Binary gradients are bitwise the
+  reference's (the port's sigmoid runs XLA:CPU's f32 ``exp`` op for op,
+  ops/fmath.py), but the reference's jitted grower rounds one leaf sum
+  of this case an ulp away from its own unjitted form, which the port
+  follows (ROADMAP queue 3).
 * Exact training must give the same tree structure with predictions
   within rtol=1e-5 (the reference's f32 histograms carry bf16 hi+lo
-  weights, the port's are fixed point).
+  weights, the port's are fixed point).  That holds for the partitioned
+  grower (``tree_grow_mode=partition``) too.
+* Quantized leaf renewal (``quant_train_renew_leaf``) renews leaf values
+  from exact sums, which again differ by the histogram weights' precision:
+  same structure, leaf values within rtol=1e-4, predictions within
+  rtol=1e-5.
 """
 
 import os
@@ -65,7 +72,7 @@ def _trees(text):
 
 def _train_both(objective, quantized, **kw):
     X, y = _data(objective)
-    params = _params(objective, quantized, **kw)
+    params = dict(_params(objective, quantized), **kw)
     ref = lgb.train(params, lgb.Dataset(X, y), ROUNDS)
     port = lt.train(params, lt.Dataset(X, y), ROUNDS, device="cpu")
     return X, ref, port
@@ -96,6 +103,61 @@ def test_quantized_training_matches_reference(objective, wave_size):
                                atol=1e-7)
 
 
+def test_quantized_binary_tree_matches_unjitted_reference():
+    """The first quantized binary tree of the case above, grown by the
+    port's wave grower and by the reference's wave grower run UNJITTED on
+    the same inputs: every leaf and node field bit for bit.  (The
+    reference's jitted grower rounds one leaf sum of this tree an ulp
+    away, ROADMAP queue 3.)"""
+    import jax.numpy as jnp
+    from lightgbm_tpu.learner.wave import make_wave_grow_fn as jax_grow_fn
+    from lightgbm_tpu.ops import split as js
+    from lightgbm_tpu_torch.binning import MissingType
+    from lightgbm_tpu_torch.dataset import pad_rows
+    from lightgbm_tpu_torch.learner.wave import make_wave_grow_fn
+    from lightgbm_tpu_torch.ops import split as ts
+
+    X, y = _data("binary")
+    params = {"objective": "binary", "verbosity": -1}
+    ds = lt.Dataset(X, y, params=params)
+    ds.construct()
+    mappers = [ds.bin_mappers[j] for j in ds.used_feature_map]
+    nb = np.array([m.num_bin for m in mappers], np.int32)
+    hn = np.array([m.missing_type == MissingType.NAN for m in mappers])
+    f, n = len(nb), len(y)
+    npad = pad_rows(n)
+    xt = np.zeros((f, npad), np.uint8)
+    xt[:, :n] = ds.X_binned.T
+    # the first tree's gradients: every score at the boost-from-average
+    # constant, through the port's objective (bitwise the reference's)
+    gb = lt.Booster(params=params, train_set=ds, device="cpu")._gbdt
+    grad, hess = gb.objective.get_gradients(gb.score)
+    g, h, m = (np.pad(v.numpy(), (0, npad - n))
+               for v in (grad, hess, torch.ones(n)))
+    sp = js.SplitParams(any_cat=False)
+    kw = dict(num_leaves=15, num_features=f, max_bins=255, max_depth=-1,
+              wave_size=0, quantized=True, gq_max=2, hq_max=4,
+              spec_ramp=True, exact_endgame=True)
+    ref = jax_grow_fn(jit=False, split_params=sp, hist_impl="pallas",
+                      any_cat=False, interpret=True, stochastic=False, **kw)(
+        jnp.asarray(xt), jnp.asarray(g), jnp.asarray(h), jnp.asarray(m),
+        jnp.asarray(nb), jnp.zeros((f,), bool), jnp.asarray(hn),
+        jnp.zeros((f,), jnp.int32), jnp.zeros((f,), jnp.float32), (),
+        jnp.ones((f,), bool))
+    got = make_wave_grow_fn(split_params=ts.SplitParams(**sp._asdict()),
+                            **kw)(
+        torch.from_numpy(xt), torch.from_numpy(g), torch.from_numpy(h),
+        torch.from_numpy(m), torch.from_numpy(nb), torch.from_numpy(hn),
+        torch.ones(f, dtype=torch.bool))
+    assert got.num_leaves == int(ref.num_leaves) == 15
+    for name in ("split_feature", "threshold_bin", "left_child",
+                 "right_child", "leaf_count", "leaf_weight", "leaf_value",
+                 "internal_weight", "internal_value", "split_gain"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)),
+                                      err_msg=name)
+
+
 @pytest.mark.parametrize("objective", ["regression", "binary"])
 def test_exact_training_matches_reference(objective):
     X, ref, port = _train_both(objective, False)
@@ -103,6 +165,81 @@ def test_exact_training_matches_reference(objective):
                            _trees(port.model_to_string()), 1e-4)
     np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-5,
                                atol=1e-6)
+
+
+def _assert_close_predictions(X, ref, port):
+    np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("objective", ["regression", "binary"])
+def test_partition_training_matches_reference(objective):
+    X, ref, port = _train_both(objective, False,
+                               tree_grow_mode="partition")
+    assert port._gbdt.learner.grow_mode == "partition"
+    assert port._gbdt.last_hist_passes == 0
+    _assert_same_structure(_trees(ref.model_to_string()),
+                           _trees(port.model_to_string()), 1e-4)
+    _assert_close_predictions(X, ref, port)
+
+
+def _warnings_of(fn):
+    from lightgbm_tpu_torch.utils.log import register_log_callback
+    lines = []
+    register_log_callback(lines.append)
+    try:
+        out = fn()
+    finally:
+        register_log_callback(None)
+    return out, "".join(lines)
+
+
+def test_two_leaves_fall_back_to_partition():
+    """tree_grow_mode=wave with num_leaves=2 warns and grows with the
+    partitioned grower, as the reference does."""
+    X, y = _data("regression")
+    params = dict(_params("regression", False), num_leaves=2, verbosity=0)
+    port, said = _warnings_of(lambda: lt.train(params, lt.Dataset(X, y),
+                                               ROUNDS, device="cpu"))
+    assert "falling back to the partitioned grower" in said
+    assert port._gbdt.learner.grow_mode == "partition"
+    ref = lgb.train(params, lgb.Dataset(X, y), ROUNDS)
+    _assert_same_structure(_trees(ref.model_to_string()),
+                           _trees(port.model_to_string()), 1e-4)
+    _assert_close_predictions(X, ref, port)
+
+
+def test_quantized_under_partition_trains_exact():
+    """use_quantized_grad under the partitioned grower warns and trains
+    exact gradients, like the reference."""
+    X, y = _data("binary")
+    params = dict(_params("binary", True), tree_grow_mode="partition",
+                  verbosity=0)
+    port, said = _warnings_of(lambda: lt.train(params, lt.Dataset(X, y),
+                                               ROUNDS, device="cpu"))
+    assert "training with exact gradients" in said
+    assert not port._gbdt.learner.quantized
+    exact = lt.train(dict(params, use_quantized_grad=False),
+                     lt.Dataset(X, y), ROUNDS, device="cpu")
+    np.testing.assert_array_equal(port.predict(X), exact.predict(X))
+    ref = lgb.train(params, lgb.Dataset(X, y), ROUNDS)
+    _assert_same_structure(_trees(ref.model_to_string()),
+                           _trees(port.model_to_string()), 1e-4)
+    _assert_close_predictions(X, ref, port)
+
+
+@pytest.mark.parametrize("objective", ["regression", "binary"])
+def test_quant_train_renew_leaf_matches_reference(objective):
+    X, ref, port = _train_both(objective, True, quant_train_renew_leaf=True)
+    assert port._gbdt.learner.quantized
+    _assert_same_structure(_trees(ref.model_to_string()),
+                           _trees(port.model_to_string()), 1e-4)
+    _assert_close_predictions(X, ref, port)
+    # renewal moved the leaves off their quantized values
+    _, y = _data(objective)
+    plain = lt.train(_params(objective, True), lt.Dataset(X, y), ROUNDS,
+                     device="cpu")
+    assert not np.array_equal(plain.predict(X), port.predict(X))
 
 
 def test_bagging_and_feature_fraction_match_reference():
@@ -141,6 +278,21 @@ def test_reference_model_predicts_the_same_in_the_port():
                                atol=1e-7)
 
 
+def test_reference_partitioned_model_predicts_the_same_in_the_port():
+    """A model the reference's partitioned grower trained, carried into
+    the port through ``convert.trees_from_reference``."""
+    import dataclasses
+    X, y = _data("regression", seed=4)
+    ref = lgb.train(dict(_params("regression", False),
+                         tree_grow_mode="partition"), lgb.Dataset(X, y),
+                    ROUNDS)
+    via_arrays = lt.Booster(model_str=ref.model_to_string(), device="cpu")
+    via_arrays._gbdt.models = trees_from_reference(
+        [dataclasses.asdict(t) for t in ref._gbdt.models])
+    np.testing.assert_allclose(via_arrays.predict(X), ref.predict(X),
+                               rtol=1e-6, atol=1e-7)
+
+
 def test_valid_set_metric_tracks_training():
     X, y = _data("binary", seed=3)
     train = lt.Dataset(X[:4000], y[:4000])
@@ -171,12 +323,14 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(boosting="goss"),
     dict(objective="multiclass", num_class=3),
     dict(monotone_constraints=[1, 0, 0, 0, 0, 0]),
-    dict(tree_grow_mode="partition"),
+    dict(tree_grow_mode="partition", interaction_constraints=[[0, 1]]),
+    dict(tree_grow_mode="partition", forcedsplits_filename="forced.json"),
+    dict(tree_grow_mode="partition", feature_contri=[1.0] * 6),
 ])
 def test_unported_options_raise(extra):
     X, y = _data("regression")
     params = dict(_params("regression", False), **extra)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.train(params, lt.Dataset(X, y), 1, device="cpu")
 
 
@@ -186,6 +340,8 @@ def test_port_imports_without_jax_or_the_reference():
             "sys.modules['lightgbm_tpu'] = None\n"
             "import lightgbm_tpu_torch\n"
             "import lightgbm_tpu_torch.convert\n"
+            "import lightgbm_tpu_torch.learner.partitioned\n"
+            "import lightgbm_tpu_torch.ops.fmath\n"
             "import lightgbm_tpu_torch.ops.cuda_lib\n"
             "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
