@@ -2,7 +2,8 @@
 """Smoke run of lightgbm_tpu_torch on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--rows 10500000] [--rounds 10]
-                          [--test-rows 500000] [--profile] [--out-dir DIR]
+                          [--pack-rounds 5] [--test-rows 500000]
+                          [--profile] [--out-dir DIR]
 
 Phases (any failure exits non-zero and prints no result line):
 
@@ -18,10 +19,15 @@ Phases (any failure exits non-zero and prints no result line):
    f32 ``index_add_``; the single-leaf histogram bit for bit and identical
    across two runs at three shapes (the main path's row-major rows read
    in place at full N and as a half-N segment; ragged N with B=17; the
-   leaf-renewal column F=1, B=256); times beside the bound and the
-   library call;
+   leaf-renewal column F=1, B=256); the three nibble-packed forms
+   (``bins_packed=True``) bit for bit and identical across two runs at
+   the main path's width with B=16 and at a ragged shape (3 row blocks,
+   B=5, 10 of the W channels used); times beside the bound, the plain
+   version and the library call, and for the packed forms the uint8 form
+   at the same B=16 shape;
 3. small models trained on the card against the same models trained on
-   the CPU (plain versions): quantized L2 and partitioned binary model
+   the CPU (plain versions): quantized L2 model text identical at
+   max_bin=255 and at max_bin=15 (packed bins), partitioned binary model
    text identical (failing that, partitioned predictions within 1e-5 and
    the first differing field named), exact binary wave predictions within
    1e-5;
@@ -36,7 +42,19 @@ Phases (any failure exits non-zero and prints no result line):
    round, save, reload, predict; the single-leaf kernel must have
    launched;
 6. 2 rounds of quantized wave training with ``quant_train_renew_leaf`` on
-   the same rows: the single-leaf kernel must launch again.
+   the same rows: the single-leaf kernel must launch again;
+7. the packed wave path: the same rows binned at max_bin=15, exact and
+   quantized for ``--pack-rounds`` rounds (iterations/s, held-out AUC,
+   the bytes of the bin matrix on the card, save/reload/predict); the
+   packed leaf kernels must launch and the uint8 ones must not; then 3
+   rounds of each mode with ``tpu_hist_pack4=false``, printing their rate
+   and whether their trees equal the packed run's (information only);
+8. the histogram autotuner (``tpu_histogram_impl=auto``, 140,000 rows at
+   max_bin=15, 2 rounds, cache file under ``--out-dir``): the probe must
+   launch both single-leaf forms, log both times and the winner and write
+   the cache; with the in-process cache cleared, training again must read
+   the winner from disk and launch no probe; both trainings must run the
+   leaf-kernel form the winner names.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -66,13 +84,23 @@ NUM_FEATURES = 28
 MAX_BIN = 255
 NUM_LEAVES = 255
 
+PACK_MAX_BIN = 15                # the packed configuration's max_bin
+PACK_BINS = 16                   # B of the packed kernels at the main shape
+AUTOTUNE_ROWS = 140_000          # 3.92M binned cells, under the 2^22 gate
+
 KERNELS = {
     "hist_single": ("lightgbm_tpu_torch/csrc/hist_single.cu",
                     "lightgbm_tpu/ops/histogram_pallas.py:471"),
+    "hist_single_packed4": ("lightgbm_tpu_torch/csrc/hist_single.cu",
+                            "lightgbm_tpu/ops/histogram_pallas.py:327"),
     "hist_leaves_q8": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
                        "lightgbm_tpu/ops/histogram_pallas.py:1030"),
+    "hist_leaves_q8_packed4": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                               "lightgbm_tpu/ops/histogram_pallas.py:670"),
     "hist_leaves": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
                     "lightgbm_tpu/ops/histogram_pallas.py:852"),
+    "hist_leaves_packed4": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                            "lightgbm_tpu/ops/histogram_pallas.py:670"),
     "wave_row_update": ("lightgbm_tpu_torch/csrc/row_update.cu",
                         "lightgbm_tpu/ops/histogram_pallas.py:1280"),
     "wave_trial_channels": ("lightgbm_tpu_torch/csrc/row_update.cu",
@@ -329,13 +357,129 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
         torch.cuda.empty_cache()
 
     rec["hist_single"] = single_leaf_phase(torch, gen, dev, n_main, reps)
+    rec.update(packed_phase(torch, gen, dev, n_main, reps))
 
     for name, r in rec.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
+        u8 = (f", uint8 form at B={PACK_BINS} {r['uint8_ms']:.3f} ms"
+              if "uint8_ms" in r else "")
         log(f"[{card}] {name} @ N={n_main}: kernel {r['ms']:.3f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
-            f"{r['plain_ms']:.3f} ms, library {lib}")
+            f"{r['plain_ms']:.3f} ms, library {lib}{u8}")
+    return rec
+
+
+def packed_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
+    """The three nibble-packed kernels against their plain versions, bit
+    for bit and identical across two runs, at the main path's width
+    (F=28, B=16, N = the padded training rows, half the rows in a channel)
+    and at a ragged shape (3 row blocks, B=5, 10 of the W channels used);
+    at the main width, each timed beside its bound, its plain version, one
+    ``index_add_`` on the unpacked bins and its uint8 form at B=16."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.ops import quantize as tq
+    f = NUM_FEATURES
+    rec = {}
+    for tag, n, nb, k_act in (("main", n_main, PACK_BINS, None),
+                              ("ragged", 3 * 4096, 5, 10)):
+        bins = torch.randint(0, nb, (f, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        packed = th.pack_bins4(bins)
+        grad = torch.randn(n, generator=gen, device=dev) * 0.5
+        hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+        keep = torch.rand(n, generator=gen, device=dev) < 0.5
+        gs = (grad * mask).abs().max() / 127
+        hs = (hess * mask).max() / 127
+        wch = tq.quantize_wch(grad, hess, mask, gs, hs, gq_max=127,
+                              hq_max=127)
+        w = th.pack_weights(grad, hess, mask)
+        cases = []
+        for name, k, wts in (("hist_leaves_q8_packed4", hc.Q_LEAF_CHANNELS,
+                              wch),
+                             ("hist_leaves_packed4", hc.LEAF_CHANNELS, w)):
+            ch = torch.randint(0, k_act or k, (n,), generator=gen,
+                               device=dev, dtype=torch.int8)
+            ch = torch.where(keep, ch, torch.full_like(ch, -1)).contiguous()
+            leaf = (hc.build_histogram_leaves_q8 if k == hc.Q_LEAF_CHANNELS
+                    else hc.build_histogram_leaves)
+            plain = (hc.build_histogram_leaves_q8_plain
+                     if k == hc.Q_LEAF_CHANNELS
+                     else hc.build_histogram_leaves_plain)
+            cases.append((name, k, ch, wts,
+                          lambda b, p, leaf=leaf, wts=wts, ch=ch: leaf(
+                              b, wts, ch, num_bins=nb, bins_packed=p),
+                          lambda plain=plain, wts=wts, ch=ch: plain(
+                              packed, wts, ch, num_bins=nb,
+                              bins_packed=True)))
+        cases.append(("hist_single_packed4", 1, None, w,
+                      lambda b, p: hc.hist_single(b, w, num_bins=nb,
+                                                  bins_packed=p),
+                      lambda: hc.hist_single_plain(packed, w, num_bins=nb,
+                                                   bins_packed=True)))
+        for name, k, ch, wts, run, plain in cases:
+            before = dict(hc.LAUNCHES)
+            got = run(packed, True)
+            again = run(packed, True)
+            torch.cuda.synchronize()
+            if hc.LAUNCHES[name] != before[name] + 2:
+                raise AssertionError(f"{name} [{tag}]: the packed kernel "
+                                     "did not launch")
+            want = plain()
+            err = float((got.double() - want.double()).abs().max())
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} [{tag}] differs between two "
+                                     "runs")
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} [{tag}] differs from its "
+                                     f"plain version (max abs err {err})")
+            log(f"kernel {name} [{tag} F={f} N={n} B={nb} K={k}"
+                f"{'' if k_act is None else f' active channels {k_act}'}]: "
+                "bitwise equal to plain, identical across two runs")
+            if tag != "main":
+                continue
+            # bytes: the channel of every row (leaf forms) or the 24
+            # weight bytes of every row (single leaf), the weights of
+            # rows that add, the F bin bytes of every byte pair holding
+            # such a row, the output
+            if ch is None:
+                live = (wts.w != 0).any(dim=0)
+                wbytes, out_b = 24.0 * n, f * nb * 24
+            else:
+                live = (ch >= 0) & (ch < k)
+                wsz = 3 if name == "hist_leaves_q8_packed4" else 24
+                wbytes, out_b = n + wsz * float(live.sum()), k * f * nb * 12
+            active = int(live.sum())
+            pairs = int(live.view(-1, 2).any(dim=1).sum())
+            b_ms, b_by = bound_ms(wbytes + f * pairs + out_b,
+                                  3.0 * f * active)
+            if ch is None:
+                rows = torch.nonzero(live).squeeze(1)
+                idx = (torch.arange(f, device=dev).unsqueeze(1) * nb +
+                       bins[:, rows].long()).reshape(-1)
+                upd = wts.w[:, rows].t().unsqueeze(0).expand(f, -1, -1)
+                upd = upd.reshape(-1, 3).contiguous()
+
+                def lib(idx=idx, upd=upd):
+                    o = torch.zeros((f * nb, 3), dtype=torch.int64,
+                                    device=dev)
+                    o.index_add_(0, idx, upd)
+                    return o
+            else:
+                w3 = wts if k == hc.Q_LEAF_CHANNELS else wts.w
+                lib = _library_hist(torch, bins, w3, ch, k, nb,
+                                    torch.int32 if k == hc.Q_LEAF_CHANNELS
+                                    else torch.int64)
+            rec[name] = dict(
+                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(lambda: run(packed, True), reps),
+                plain_ms=time_ms(plain, 3), library_ms=time_ms(lib, reps),
+                uint8_ms=time_ms(lambda: run(bins, False), reps))
+            del lib
+        del bins, packed, grad, hess, mask, keep, wch, w, cases
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -466,6 +610,15 @@ def small_check(lt, seed: int) -> None:
     if a.model_to_string() != b.model_to_string():
         raise AssertionError("quantized L2 model trained on the card differs "
                              "from the one trained on the CPU")
+    p4 = dict(pq, max_bin=PACK_MAX_BIN, tpu_histogram_impl="pallas")
+    a = lt.train(p4, lt.Dataset(X, logit), 3, device="cuda")
+    b = lt.train(p4, lt.Dataset(X, logit), 3, device="cpu")
+    if not (a._gbdt.learner.pack4 and b._gbdt.learner.pack4):
+        raise AssertionError(f"max_bin={PACK_MAX_BIN} did not pack the bins")
+    if a.model_to_string() != b.model_to_string():
+        raise AssertionError(f"quantized L2 model at max_bin={PACK_MAX_BIN} "
+                             "(packed bins) trained on the card differs "
+                             "from the one trained on the CPU")
     pe = dict(base, objective="binary", use_quantized_grad=False)
     a = lt.train(pe, lt.Dataset(X, y), 3, device="cuda")
     b = lt.train(pe, lt.Dataset(X, y), 3, device="cpu")
@@ -491,15 +644,16 @@ def small_check(lt, seed: int) -> None:
                                  f"predicts {perr} away from the CPU's")
         part = f"partitioned binary predictions within {perr:.3g}"
     log(f"small models (20000x{NUM_FEATURES}, 31 leaves, 3 rounds): "
-        f"quantized L2 model text identical on card and CPU; {part}; exact "
-        f"binary wave predictions within {err:.3g}")
+        f"quantized L2 model text identical on card and CPU, at "
+        f"max_bin={MAX_BIN} and at max_bin={PACK_MAX_BIN} with packed bins; "
+        f"{part}; exact binary wave predictions within {err:.3g}")
 
 
-def mode_params(mode: str) -> dict:
+def mode_params(mode: str, max_bin: int = MAX_BIN, **extra) -> dict:
     """exact / quantized wave, partition (exact), renew (quantized wave
     with leaf renewal)."""
-    return dict(objective="binary", num_leaves=NUM_LEAVES, max_bin=MAX_BIN,
-                learning_rate=0.1, verbosity=-1,
+    return dict(objective="binary", num_leaves=NUM_LEAVES, max_bin=max_bin,
+                learning_rate=0.1, verbosity=-1, **extra,
                 use_quantized_grad=mode in ("quantized", "renew"),
                 quant_train_renew_leaf=(mode == "renew"),
                 tree_grow_mode=("partition" if mode == "partition"
@@ -507,9 +661,14 @@ def mode_params(mode: str) -> dict:
                 stochastic_rounding=False)
 
 
-def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir):
+def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir,
+               tag="", **extra):
+    """Train ``mode`` on ``ds`` for ``rounds`` rounds, print its rate and
+    launches, save, reload and predict the held-out rows; returns the
+    booster."""
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
-    params = mode_params(mode)
+    params = mode_params(mode, **extra)
+    mode = mode + tag
     before = dict(hc.LAUNCHES)
     ticks, syncs = [], []
 
@@ -563,7 +722,150 @@ def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir):
     if not a > 0.6:
         raise AssertionError(f"{mode}: held-out AUC {a} is no better than "
                              "chance")
-    return per_mode
+    return bst
+
+
+def tree_blocks(text: str) -> list:
+    """The ``Tree=`` blocks of a model text, without the parameters."""
+    body = text.split("end of trees")[0]
+    return ["Tree=" + b for b in body.split("Tree=")[1:]]
+
+
+def packed_path(lt, torch, card, Xtr, ytr, Xte, yte, rounds, out_dir,
+                profile):
+    """The wave path at max_bin=15: exact and quantized with packed bins,
+    then ``rounds_off`` rounds of each with ``tpu_hist_pack4=false`` on the
+    same data (information only: the ramp's subsample strides over row
+    pairs when packed and over rows when not, so the trees may differ).
+    ``profile`` adds one profiled iteration of each packed mode."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xtr, ytr, params={"max_bin": PACK_MAX_BIN})
+    ds.construct()
+    log(f"packed path data: max_bin={PACK_MAX_BIN}, binned in "
+        f"{time.perf_counter() - t0:.1f} s")
+    hc.reset_launches()
+    packed = {}
+    for mode in ("exact", "quantized"):
+        packed[mode] = train_mode(lt, torch, card, ds, Xte, yte, mode,
+                                  rounds, out_dir, tag="_pack4",
+                                  max_bin=PACK_MAX_BIN)
+    got = dict(hc.LAUNCHES)
+    gb = packed["exact"]._gbdt
+    X_T = gb.X_T
+    n_pad = X_T.shape[1] * 2
+    log(f"packed path launches: {json.dumps(got)}; bin matrix on the card "
+        f"{tuple(X_T.shape)} {X_T.dtype}, {X_T.numel() * X_T.element_size()} "
+        f"bytes (uint8 bins would take {NUM_FEATURES * n_pad} bytes); peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not gb.learner.pack4 or X_T.shape[1] * 2 != n_pad:
+        raise AssertionError("the packed path did not keep packed bins")
+    need = ("hist_leaves_packed4", "hist_leaves_q8_packed4",
+            "wave_row_update", "wave_trial_channels")
+    missing = [k for k in need if got[k] <= 0]
+    uint8 = [k for k in ("hist_leaves", "hist_leaves_q8") if got[k] != 0]
+    if missing or uint8:
+        raise AssertionError(f"packed path: kernels not launched {missing}, "
+                             f"uint8 leaf kernels launched {uint8}")
+    launches = dict(got)
+    rounds_off = min(rounds, 3)
+    hc.reset_launches()
+    for mode in ("exact", "quantized"):
+        off = train_mode(lt, torch, card, ds, Xte, yte, mode, rounds_off,
+                         out_dir, tag="_pack4_off", max_bin=PACK_MAX_BIN,
+                         tpu_hist_pack4=False)
+        same = (tree_blocks(off.model_to_string()) ==
+                tree_blocks(packed[mode].model_to_string(
+                    num_iteration=rounds_off)))
+        log(f"[{card}] {mode} at max_bin={PACK_MAX_BIN}, tpu_hist_pack4="
+            f"false: first {rounds_off} trees "
+            f"{'equal' if same else 'differ from'} the packed run's "
+            "(information: the ramp's subsample differs by design)")
+    for k, v in hc.LAUNCHES.items():
+        launches[k] += v
+    if profile:
+        for mode in ("exact", "quantized"):
+            profile_iteration(lt, torch, card, ds,
+                              mode_params(mode, max_bin=PACK_MAX_BIN),
+                              mode + "_pack4", out_dir)
+    return launches
+
+
+def autotune_phase(lt, torch, card, seed: int, out_dir: str) -> dict:
+    """``tpu_histogram_impl=auto`` on a small packed-eligible dataset: the
+    probe times both single-leaf forms, logs them and the winner, and
+    writes the cache; with the in-process cache cleared, a second training
+    reads the winner from disk and probes nothing.  Both trainings run the
+    leaf-kernel form the winner names."""
+    from lightgbm_tpu_torch.learner import autotune
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.utils.log import register_log_callback
+    path = os.path.join(out_dir, "hist_autotune.json")
+    if os.path.exists(path):
+        os.remove(path)
+    os.environ["LGBM_TPU_TORCH_AUTOTUNE_CACHE"] = path
+    X, y, _ = higgs_like(AUTOTUNE_ROWS, seed + 2)
+    ds = lt.Dataset(X, y, params={"max_bin": PACK_MAX_BIN})
+    params = dict(objective="binary", num_leaves=63, max_bin=PACK_MAX_BIN,
+                  verbosity=1, metric_freq=0, tpu_histogram_impl="auto")
+    launches = {k: 0 for k in hc.LAUNCHES}
+    winner = None
+    for attempt in ("probe", "from disk"):
+        # a fresh process, as far as the autotuner can tell
+        autotune._CACHE.clear()
+        autotune._DISK_LOADED.clear()
+        lines = []
+        hc.reset_launches()
+        register_log_callback(lines.append)
+        try:
+            bst = lt.train(params, ds, 2)
+        finally:
+            register_log_callback(None)
+        got = dict(hc.LAUNCHES)
+        said = [ln.strip() for ln in lines if "histogram autotune" in ln]
+        log(f"[{card}] autotune {attempt}: {said}; launches "
+            f"{json.dumps(got)}")
+        if len(said) != 1:
+            raise AssertionError(f"autotune {attempt}: expected one "
+                                 f"autotune line, got {said}")
+        pack4 = bst._gbdt.learner.pack4
+        if attempt == "probe":
+            if not (got["hist_single"] > 0 and
+                    got["hist_single_packed4"] > 0):
+                raise AssertionError("the autotune probe did not launch "
+                                     "both single-leaf forms")
+            if not ("pallas=" in said[0] and "pallas:packed4=" in said[0]):
+                raise AssertionError("the probe did not log both times")
+            winner = said[0].rsplit("-> ", 1)[1]
+            with open(path) as fh:
+                stored = json.load(fh)["winners"]
+            key = (f"cuda/{AUTOTUNE_ROWS}x{NUM_FEATURES}x"
+                   f"{bst._gbdt.max_bins}/pallas,pallas:packed4")
+            if stored.get(key) != winner:
+                raise AssertionError(f"cache {stored} lacks {key} -> "
+                                     f"{winner}")
+        else:
+            if "cached winner" not in said[0] or winner not in said[0]:
+                raise AssertionError(f"the winner did not come from disk: "
+                                     f"{said[0]}")
+            if got["hist_single"] or got["hist_single_packed4"]:
+                raise AssertionError("a probe kernel launched although the "
+                                     "winner was on disk")
+        want = "hist_leaves_packed4" if winner == "pallas:packed4" \
+            else "hist_leaves"
+        other = "hist_leaves" if want == "hist_leaves_packed4" \
+            else "hist_leaves_packed4"
+        if pack4 != (winner == "pallas:packed4") or not got[want] or \
+                got[other]:
+            raise AssertionError(f"autotune {attempt}: training ran "
+                                 f"{json.dumps(got)} for winner {winner}")
+        for k, v in got.items():
+            launches[k] += v
+    del os.environ["LGBM_TPU_TORCH_AUTOTUNE_CACHE"]
+    log(f"[{card}] autotune at ({AUTOTUNE_ROWS}, {NUM_FEATURES}, "
+        f"max_bin={PACK_MAX_BIN}): winner {winner}, written to and read "
+        "back from the disk cache; training ran its leaf-kernel form")
+    return launches
 
 
 def profile_iteration(lt, torch, card, ds, params, mode, out_dir) -> None:
@@ -610,6 +912,8 @@ def main(argv=None) -> int:
     ap.add_argument("--test-rows", type=int, default=500_000)
     ap.add_argument("--rounds", type=int, default=10,
                     help="boosting rounds per mode")
+    ap.add_argument("--pack-rounds", type=int, default=5,
+                    help="boosting rounds per mode on the packed path")
     ap.add_argument("--reps", type=int, default=10,
                     help="timed runs per kernel")
     ap.add_argument("--profile", action="store_true",
@@ -642,6 +946,9 @@ def main(argv=None) -> int:
 
     # ---- phase 1: environment and build ----
     t_start = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
@@ -661,9 +968,11 @@ def main(argv=None) -> int:
     from lightgbm_tpu_torch.dataset import pad_rows
     n_pad = pad_rows(args.rows)
     rec = kernel_phase(card, n_pad, args.reps, args.seed)
+    stamp("phase 2, kernels")
 
     # ---- phase 3: the same small model on card and CPU ----
     small_check(lt, args.seed)
+    stamp("phase 3, card vs CPU")
 
     # ---- phase 4: the main path ----
     t0 = time.perf_counter()
@@ -682,6 +991,7 @@ def main(argv=None) -> int:
         f"{time.perf_counter() - t0:.1f} s")
     if args.rows < 10_500_000:
         log(f"main path cut: rows only, 10500000 -> {args.rows}")
+    stamp("main path data")
 
     # ---- phases 4-6: each path with the launch counts from 0 ----
     launches = {k: 0 for k in hc.LAUNCHES}
@@ -709,10 +1019,29 @@ def main(argv=None) -> int:
                                  f"{missing}")
         for k, v in got.items():
             launches[k] += v
+        stamp(f"{name} path")
     if args.profile:
         for mode in ("exact", "quantized", "partition"):
             profile_iteration(lt, torch, card, ds, mode_params(mode), mode,
                               out_dir)
+    del ds
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: the packed wave path at full width ----
+    torch.cuda.reset_peak_memory_stats()
+    if args.pack_rounds < 5:
+        log(f"cut: packed path rounds only, 5 -> {args.pack_rounds} per "
+            "mode")
+    for k, v in packed_path(lt, torch, card, Xtr, ytr, Xte, yte,
+                            args.pack_rounds, out_dir, args.profile).items():
+        launches[k] += v
+    stamp("phase 7, packed path")
+
+    # ---- phase 8: the histogram autotuner ----
+    for k, v in autotune_phase(lt, torch, card, args.seed, out_dir).items():
+        launches[k] += v
+    stamp("phase 8, autotune")
+
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

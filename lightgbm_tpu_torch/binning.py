@@ -22,7 +22,9 @@ the port never imports the JAX package."""
 
 from __future__ import annotations
 
+import concurrent.futures
 import enum
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
@@ -570,13 +572,18 @@ def bin_matrix(X: np.ndarray, mappers: Sequence[BinMapper]) -> np.ndarray:
     mappers.  Returns uint8 when every feature fits in 256 bins else uint16.
 
     The reference's threaded native path (native/binning.cc) is not
-    carried over: this copy always takes the numpy per-column path,
-    which produces the same codes."""
+    carried over: this copy takes the numpy per-column path, which
+    produces the same codes, with the columns spread over a thread pool
+    (numpy's search and conversions release the interpreter lock)."""
     n, f = X.shape
     assert f == len(mappers)
     max_bins = max(m.num_bin for m in mappers)
     dtype = np.uint8 if max_bins <= 256 else np.uint16
     out = np.empty((n, f), dtype=dtype)
-    for j, m in enumerate(mappers):
-        out[:, j] = m.value_to_bin(X[:, j]).astype(dtype)
+
+    def one(j: int) -> None:
+        out[:, j] = mappers[j].value_to_bin(X[:, j]).astype(dtype)
+    workers = max(1, min(f, os.cpu_count() or 1))
+    with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        list(pool.map(one, range(f)))   # re-raises a column's exception
     return out

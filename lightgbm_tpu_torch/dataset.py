@@ -11,7 +11,8 @@ device.  Sparse input, data files, EFB bundling, pre-partitioned
 multi-process ingest and the binary dataset cache are later slices
 (ROADMAP queue 1).  The device copy is the FEATURE-MAJOR ``(F, N_pad)``
 uint8 tensor the histogram and row-update kernels stream, rows padded with
-zeros to the kernels' 4096-row block.
+zeros to the kernels' 4096-row block, or, when every feature fits 16 bins,
+its nibble-packed ``(F, N_pad/2)`` form (:meth:`Dataset.device_bins_packed4`).
 """
 
 from __future__ import annotations
@@ -334,4 +335,30 @@ class Dataset:
             xt = np.zeros((f, pad_rows(n, row_block)), np.uint8)
             xt[:, :n] = self.X_binned.T
             self._device_cache[key] = torch.from_numpy(xt).to(device)
+        return self._device_cache[key]
+
+    def device_bins_packed4(self, device: torch.device) -> torch.Tensor:
+        """The FEATURE-MAJOR nibble-packed ``(F, N_pad/2)`` bin matrix on
+        ``device`` (reference ``lightgbm_tpu/dataset.py:793``
+        ``device_bins_packed4``): two 4-bit bin codes per byte, row 2j in
+        the low nibble of byte j (reference src/io/dense_bin.hpp 4-bit
+        bins), rows zero-padded to a multiple of :data:`ROW_BLOCK`; half
+        the device bytes of :meth:`device_bins`.  Requires every used
+        feature to fit 16 bins.  Cached per device."""
+        self._check_constructed()
+        from .ops.histogram import PACK4_MAX_BINS, pack_bins4
+        device = torch.device(device)
+        key = ("bins_packed4", str(device))
+        if key not in self._device_cache:
+            max_b = int(np.max(self.num_bins_per_feature))
+            if max_b > PACK4_MAX_BINS:
+                raise ValueError(
+                    f"device_bins_packed4 requires every feature to fit "
+                    f"{PACK4_MAX_BINS} bins (max is {max_b}); set "
+                    f"max_bin<={PACK4_MAX_BINS}")
+            n, f = self.X_binned.shape
+            xt = np.zeros((f, pad_rows(n)), np.uint8)
+            xt[:, :n] = self.X_binned.T
+            self._device_cache[key] = pack_bins4(
+                torch.from_numpy(xt)).to(device)
         return self._device_cache[key]

@@ -4,10 +4,11 @@ Port of ``lightgbm_tpu/learner/serial.py``: ``GrownTree``,
 ``CommStrategy`` (the serial strategy's ``leaf_candidates`` and
 ``pair_candidates``, reference serial.py:96-197), ``resolve_hist_impl``,
 ``split_params_from_config``, ``hist_pool_fits`` (:645-652), the grower
-choice of ``SerialTreeLearner`` (:727-776) and its wave and partition
-branches (:784-850, :901-967).  The masked (pool-less) grower, the
-parallel strategies and the autotuner are later slices (ROADMAP queue 1,
-items 7 and 12).
+choice of ``SerialTreeLearner`` (:727-776), its 4-bit packing decision
+(:777-794) and its wave and partition branches (:784-850, :901-967).
+The masked (pool-less) grower and the parallel strategies are later
+slices (ROADMAP queue 1, items 7 and 12); the histogram autotuner is
+``learner/autotune.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..ops.histogram import PACK4_MAX_BINS
 from ..ops.split import SplitParams, local_best_candidates
 from ..utils.log import log_warning
 
@@ -84,13 +86,16 @@ def resolve_hist_impl(config: Config, device: torch.device) -> str:
     """Pick the histogram implementation: ``auto`` (and the reference's
     ``pallas``) resolve to the hand-written CUDA kernels on a ``cuda``
     device and to their plain PyTorch versions on the CPU.  The wrappers
-    dispatch on the tensors' device, so the name only records what ran."""
+    dispatch on the tensors' device, so the name only records what ran.
+    The kernels' bin layout is the learner's decision: packed 4-bit bins
+    under ``tpu_hist_pack4`` unless ``tpu_pallas_pipeline=blockspec``
+    (``SerialTreeLearner.pack4``)."""
     impl = str(config.tpu_histogram_impl)
     if impl not in ("auto", "pallas"):
         raise NotImplementedError(
             f"tpu_histogram_impl={impl!r} selects an XLA formulation of the "
             "reference; lightgbm_tpu_torch has the CUDA kernels and their "
-            "plain versions only (ROADMAP queue 1, item 7: autotune)")
+            "plain versions only")
     return "cuda" if torch.device(device).type == "cuda" else "plain"
 
 
@@ -194,8 +199,14 @@ class SerialTreeLearner:
                         "(tree_grow_mode=wave/auto); training with exact "
                         "gradients instead")
         _check_config(config, self.quantized)
-        # 4-bit packed bins are a layout only; the port keeps uint8 bins
-        self.pack4 = False
+        # the 4-bit packed bin layout (reference serial.py:777-794): two
+        # codes per byte when every feature fits a nibble, on the wave
+        # grower only.  pack4 exists only on the reference's DMA pipeline,
+        # so an explicit blockspec request turns it off.  The port has no
+        # categorical features or EFB, the reference's other two vetoes.
+        self.pack4 = bool(mode == "wave" and config.tpu_hist_pack4 and
+                          self.max_bins <= PACK4_MAX_BINS and
+                          config.tpu_pallas_pipeline != "blockspec")
         self._x_src = self._Xp = None
         if mode == "partition":
             from .partitioned import make_partitioned_grow_fn
@@ -217,18 +228,20 @@ class SerialTreeLearner:
             spec_ramp=bool(config.tpu_speculative_ramp),
             spec_tol=float(config.tpu_spec_tolerance),
             exact_endgame=bool(config.tpu_exact_endgame),
-            renew_leaf=bool(config.quant_train_renew_leaf))
+            renew_leaf=bool(config.quant_train_renew_leaf), pack4=self.pack4)
 
     def train(self, X_T: torch.Tensor, grad: torch.Tensor,
               hess: torch.Tensor, sample_mask: torch.Tensor,
               feature_mask: Optional[torch.Tensor] = None) -> GrownTree:
         """Grow one tree.  ``X_T`` is the dataset's padded feature-major
-        bin matrix (dataset.py ``device_bins``); the per-row vectors carry
-        the N real rows and are zero-padded here (padded rows are out of
-        the bag and contribute nothing).  The partitioned grower reads the
-        ROW-MAJOR copy of ``X_T``, built once per dataset."""
+        bin matrix (dataset.py ``device_bins``, or ``device_bins_packed4``
+        when :attr:`pack4`: two rows per byte, the only copy of the bins on
+        the device); the per-row vectors carry the N real rows and are
+        zero-padded here (padded rows are out of the bag and contribute
+        nothing).  The partitioned grower reads the ROW-MAJOR copy of
+        ``X_T``, built once per dataset."""
         n = grad.shape[0]
-        pad = X_T.shape[1] - n
+        pad = X_T.shape[1] * (2 if self.pack4 else 1) - n
         if feature_mask is None:
             feature_mask = torch.ones((self.num_features,), dtype=torch.bool,
                                       device=self.device)

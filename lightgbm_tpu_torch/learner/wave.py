@@ -24,7 +24,12 @@ Carried over from the reference, with the same semantics:
   histograms;
 * quantized leaf renewal (``quant_train_renew_leaf``, reference
   wave.py:1936-1972): one exact pass of the single-leaf histogram kernel
-  over ``row_leaf`` as a one-feature bin column.
+  over ``row_leaf`` as a one-feature bin column;
+* nibble-packed 4-bit bins (``pack4``, reference wave.py:466-475,
+  :644-679, :877-889, :918-928, :977-981): the leaf kernels read the
+  ``(F, N/2)`` packed matrix in the waves and the ramp, the ramp's
+  subsample strides over packed BYTES (adjacent row pairs), and the few
+  winning feature columns a row update needs are unpacked first.
 
 The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
@@ -33,8 +38,7 @@ count once per wave and the best candidate once per endgame commit.
 Raise ``NotImplementedError`` (ROADMAP queue 1, item 5): voting and
 scatter merges, lazy CEGB, forced splits, interaction constraints,
 by-node sampling and extra-trees (both draw from ``jax.random`` in the
-reference), monotone constraints, categorical features, EFB and packed
-4-bit bins.
+reference), monotone constraints, categorical features and EFB.
 """
 
 from __future__ import annotations
@@ -46,7 +50,8 @@ import numpy as np
 import torch
 
 from ..models.tree import DEFAULT_LEFT_MASK, MISSING_NAN
-from ..ops.histogram import histogram_subtract, pack_weights
+from ..ops.histogram import (PACK4_MAX_BINS, histogram_subtract,
+                             pack_weights, unpack_bins4)
 from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
                                   build_histogram, build_histogram_leaves,
                                   build_histogram_leaves_q8,
@@ -99,19 +104,20 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                       stochastic: bool = False, spec_ramp: bool = False,
                       spec_tol: float = 0.3, spec_subsample: int = 1 << 19,
                       exact_endgame: bool = True, renew_leaf: bool = False,
-                      pack4: bool = False, interpret=None, pipeline=None):
+                      pack4: bool = False):
     """Build the wave single-tree grower.
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
     feature_mask) -> GrownTree`` with ``X_T`` the FEATURE-MAJOR (F, N)
     uint8 bin matrix, N a multiple of the 4096-row block, and every tensor
-    on one device.  ``interpret``/``pipeline`` are the reference's
-    TPU-kernel knobs, accepted and ignored."""
+    on one device.  Under ``pack4`` ``X_T`` is the nibble-packed (F, N/2)
+    matrix (ops/histogram.py ``pack_bins4``).  The reference's
+    ``tpu_pallas_pipeline`` knob reaches the grower only through
+    ``pack4`` (the learner turns packing off for ``blockspec``); the
+    kernels have one form per bin layout."""
     check_supported(split_params)
-    if pack4:
-        raise NotImplementedError(
-            "packed 4-bit bins are not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP queue 2: packed bins)")
+    if pack4 and max_bins > PACK4_MAX_BINS:
+        raise ValueError(f"pack4 bins require max_bin <= {PACK4_MAX_BINS}")
     if quantized and stochastic:
         raise NotImplementedError(
             "stochastic_rounding=true needs the reference's jax.random "
@@ -135,14 +141,20 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
              has_nan: torch.Tensor, feature_mask: torch.Tensor
              ) -> GrownTree:
         dev = X_T.device
-        n = X_T.shape[1]
+        n = X_T.shape[1] * 2 if pack4 else X_T.shape[1]
         nb_full = num_bins.to(_I32)
         hn_full = has_nan
         zf = torch.zeros((), dtype=_F32, device=dev)
         neg_inf = torch.full((), NEG_INF, dtype=_F32, device=dev)
 
+        def cols_of(bins: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
+            """(k, rows) UNPACKED bin columns of the given features: the
+            row update's kernel takes one byte per row."""
+            cols = bins.index_select(0, feats.long())
+            return unpack_bins4(cols) if pack4 else cols
+
         def take_cols(feats: torch.Tensor) -> torch.Tensor:
-            return X_T.index_select(0, feats.long())
+            return cols_of(X_T, feats)
 
         gm = (grad * bag_mask).float()
         hm = (hess * bag_mask).float()
@@ -165,8 +177,10 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
         def hist_kernel(bins, w, ch):
             if quantized:
-                return build_histogram_leaves_q8(bins, w, ch, num_bins=Bb)
-            return build_histogram_leaves(bins, w, ch, num_bins=Bb)
+                return build_histogram_leaves_q8(bins, w, ch, num_bins=Bb,
+                                                 bins_packed=pack4)
+            return build_histogram_leaves(bins, w, ch, num_bins=Bb,
+                                          bins_packed=pack4)
 
         def hist_waves(ch, k=W, with_totals=False):
             """(k, F, Bb, 3) histograms of the wave's leaf channels
@@ -177,11 +191,11 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 return hk
             return hk, dq(hk[:, 0].sum(dim=1).to(hk.dtype))
 
-        def many_candidates(hists, sums, fms):
+        def many_candidates(hists, sums, fms, sums_exact=None):
             """Best-split candidates for a batch of leaves (the f32 scan
             form of the histograms)."""
             return local_best_candidates(dq(hists), sums, nb_full, hn_full,
-                                         fms, sp)
+                                         fms, sp, sums_exact)
 
         fm_row = feature_mask.to(torch.bool)
         hdtype = torch.int32 if quantized else _F32
@@ -232,12 +246,22 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             Kc, K1 = W, W - 1
             stride = max(1, n // max(int(spec_subsample), 4096))
             n_ss = max((n // stride) // 4096 * 4096, 4096)
-            X_ss = X_T[:, ::stride][:, :n_ss].contiguous()
-            if quantized:
-                w_ss = w_all[:, ::stride][:, :n_ss].contiguous()
-            else:
-                w_ss = w_all._replace(
-                    w=w_all.w[:, ::stride][:, :n_ss].contiguous())
+
+            def subsample(a):
+                """Every ``stride``-th row of ``a`` (..., n), the first
+                n_ss.  Under pack4 every ``stride``-th packed BYTE: the
+                subsample keeps adjacent row pairs so the packed kernels
+                consume it directly, and the weights follow the same
+                pairs (reference wave.py:878-889)."""
+                if pack4:
+                    a = a.reshape(a.shape[0], -1, 2)[:, ::stride]
+                    return a[:, :n_ss // 2].reshape(a.shape[0], n_ss)
+                return a[:, ::stride][:, :n_ss].contiguous()
+
+            X_ss = (X_T[:, ::stride][:, :n_ss // 2].contiguous() if pack4
+                    else subsample(X_T))
+            w_ss = (subsample(w_all) if quantized
+                    else w_all._replace(w=subsample(w_all.w)))
             nan_of = torch.where(hn_full, nb_full - 1,
                                  torch.full_like(nb_full, -1))
             fm_k = fm_row.expand(Kc, F)
@@ -292,8 +316,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                     thr_s, fnan_s, dl_s, torch.ones_like(thr_s),
                     sel_l.to(_I32), newids, sel.to(_I32),
                     torch.zeros_like(thr_s)]).contiguous()
-                rl_ss, _ = wave_row_update(
-                    X_ss.index_select(0, feats_cl.long()), rl_ss, tab)
+                rl_ss, _ = wave_row_update(cols_of(X_ss, feats_cl), rl_ss,
+                                           tab)
                 tabs.append((tab, feats_cl))
                 nlp = nlp + int(prefix[-1])
 
@@ -413,16 +437,23 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         # ---- root ----------------------------------------------------------
         def root_state():
             zch = torch.zeros((n,), dtype=torch.int8, device=dev)
+            root_exact = None
             if quantized:
                 rh, rtot = hist_waves(zch, k=1, with_totals=True)
                 root_hist, root_sum = rh[0], rtot[0]
+                # the dequantized totals unrounded (f32(int) x f32 scale
+                # is exact in float64): the reference's jitted root scan
+                # fuses this multiply into its right-side subtractions
+                root_exact = (root_hist[0].sum(dim=0).float().double() *
+                              qscales.double())
             else:
                 root_hist = hist_waves(zch, k=1)[0]
                 root_sum = torch.stack([gm.sum(), hm.sum(), cnt_mask.sum()])
             root_out = leaf_output(root_sum[0], root_sum[1], sp)
-            cand = many_candidates(root_hist.unsqueeze(0),
-                                   root_sum.unsqueeze(0),
-                                   fm_row.unsqueeze(0))
+            cand = many_candidates(
+                root_hist.unsqueeze(0), root_sum.unsqueeze(0),
+                fm_row.unsqueeze(0),
+                None if root_exact is None else root_exact.unsqueeze(0))
             s = empty_state()
             s["leaf_sum"][0] = root_sum
             set_candidates(s, torch.zeros((1,), dtype=torch.long,

@@ -6,7 +6,10 @@ bagging at :228, ``BoostFromAverage`` at :344 with the init score folded
 into the first tree via AddBias at :414-427, score updates at :491).
 
 The boosting loop is host-driven; gradients, sampling masks, tree growth
-and the score update run on the training device.  Each grown tree is
+and the score update run on the training device.  On a ``cuda`` device with
+``tpu_histogram_impl=auto`` and a small binned matrix, the histogram
+autotuner (``learner/autotune.py``, reference gbdt.py:393-420) picks the
+kernels' bin layout first.  Each grown tree is
 pulled to the host once, when it is recorded.  Trees that stopped
 splitting are popped one iteration later, as the reference's deferred
 path does (gbdt.cpp:430-450), so both packages keep the same trees.
@@ -14,6 +17,7 @@ path does (gbdt.cpp:430-450), so both packages keep the same trees.
 
 from __future__ import annotations
 
+import copy
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -21,6 +25,8 @@ import torch
 
 from ..config import Config
 from ..dataset import Dataset
+from ..learner.autotune import (AUTOTUNE_MAX_CELLS, apply_winner,
+                                pick_hist_impl)
 from ..learner.serial import GrownTree, SerialTreeLearner
 from ..metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
@@ -215,10 +221,27 @@ class GBDT:
                         "histogram count channel's 2^24-row exactness "
                         "range; set use_quantized_grad=true for exact "
                         "int32 counts at this scale")
-        self.learner = SerialTreeLearner(cfg, self.num_features,
+        learner_cfg = cfg
+        if (self.device.type == "cuda" and
+                cfg.tpu_histogram_impl == "auto" and
+                train_set.X_binned.size <= AUTOTUNE_MAX_CELLS):
+            # small shapes: time the single-leaf kernel on uint8 and on
+            # packed bins on the real data once (reference
+            # models/gbdt.py:393-420, dataset.cpp:659-670's ShareStates
+            # timing); winners persist per shape in the autotune disk
+            # cache and go to a COPY so the user's 'auto' survives
+            # param round-trips
+            learner_cfg = copy.copy(cfg)
+            apply_winner(learner_cfg, pick_hist_impl(
+                train_set.X_binned, self.max_bins, self.device))
+        self.learner = SerialTreeLearner(learner_cfg, self.num_features,
                                          self.max_bins, num_bins, has_nan,
                                          self.device)
-        self.X_T = train_set.device_bins(self.device)
+        # under pack4 only the nibble-packed half-width matrix lives on
+        # the device (reference learner/serial.py:911-920)
+        self.X_T = (train_set.device_bins_packed4(self.device)
+                    if self.learner.pack4
+                    else train_set.device_bins(self.device))
 
         if self.objective is None and cfg.objective != "none":
             self.objective = create_objective(cfg.objective, cfg,

@@ -3,7 +3,8 @@ plain PyTorch versions — the counterpart of
 ``lightgbm_tpu/ops/histogram_pallas.py``.
 
 Five entry points, four kernels (csrc/hist_single.cu, csrc/hist_leaves.cu,
-csrc/row_update.cu):
+csrc/row_update.cu), the three histograms each in two forms (uint8 bins,
+and nibble-packed bins with ``bins_packed=True``):
 
 * :func:`build_histogram` — ``build_histogram_pallas``
   (histogram_pallas.py:471): one leaf's (F, B, 3) f32 histogram; the
@@ -28,7 +29,15 @@ to the other.  Each kernel launch adds one to its entry in
 The reference's ``pipeline`` (dma / blockspec) and ``interpret`` knobs are
 accepted and ignored by the leaf-channel and row-update wrappers, and not
 taken by the single-leaf ones: both TPU variants collapse into one kernel
-here.  Nibble-packed 4-bit bins (``pack_bins4``) are not ported yet.
+here.
+
+Packed bins (``bins_packed=True``): ``bins_t`` is the ``(F, N/2)`` byte
+matrix of ``ops/histogram.py`` ``pack_bins4`` (row 2j in the low nibble of
+byte j, row 2j+1 in the high one), ``num_bins <= 16``, and N, the row
+count of the weights and channels, a non-zero multiple of the 4096-row
+block, as the reference's ``_check_rows`` demands.  A packed CUDA tensor
+launches the packed kernel (its own :data:`LAUNCHES` key, ``*_packed4``);
+the plain versions unpack and run the uint8 scatter.
 
 The exact-mode histograms sum the 64-bit fixed-point weights of
 ``ops/histogram.py`` ``pack_weights``; integer sums make each kernel
@@ -41,8 +50,10 @@ import ctypes
 
 import torch
 
+from ..dataset import ROW_BLOCK, pad_rows
 from . import histogram as _plain
-from .histogram import FxWeights, fx_to_f32, pack_weights, scatter_histogram
+from .histogram import (PACK4_MAX_BINS, FxWeights, fx_to_f32, pack_weights,
+                        scatter_histogram, unpack_bins4)
 from .histogram import build_histogram_leaves as _scatter_leaves
 
 __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
@@ -58,9 +69,11 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
 LEAF_CHANNELS = 25
 Q_LEAF_CHANNELS = 42
 
-# launches of each CUDA kernel since the last reset_launches()
-LAUNCHES = {"hist_single": 0, "hist_leaves_q8": 0, "hist_leaves": 0,
-            "wave_row_update": 0, "wave_trial_channels": 0}
+# launches of each CUDA kernel form since the last reset_launches()
+LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
+            "hist_leaves_q8_packed4": 0, "hist_leaves": 0,
+            "hist_leaves_packed4": 0, "wave_row_update": 0,
+            "wave_trial_channels": 0}
 
 _HIST_THREADS = 512
 _HIST_CHUNK = 1 << 18     # rows per block (see csrc/hist_leaves.cu)
@@ -130,12 +143,34 @@ def _p(t: torch.Tensor) -> ctypes.c_void_p:
 
 # -- histograms ---------------------------------------------------------------
 
-def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins):
+def _check_packed(kernel: str, n: int, num_bins: int) -> None:
+    """The packed layout's limits (reference histogram_pallas.py:124-130
+    ``_check_rows`` and :502-505)."""
+    if num_bins > PACK4_MAX_BINS:
+        raise ValueError(f"bins_packed requires num_bins <= "
+                         f"{PACK4_MAX_BINS}, got {num_bins}")
+    if num_bins < 1:
+        raise ValueError(f"{kernel}: num_bins must be at least 1, got "
+                         f"{num_bins}")
+    if n % ROW_BLOCK != 0 or n == 0:
+        raise ValueError(
+            f"{kernel} requires the row count to be a non-zero multiple of "
+            f"row_block={ROW_BLOCK}, got N={n}; pad inputs to pad_rows(N) "
+            f"== {pad_rows(max(n, 1))} first (masked/padded rows carry "
+            "weight 0 and contribute nothing)")
+
+
+def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins,
+                     packed=False):
     if bins_t.dim() != 2:
-        raise ValueError(f"{kernel}: bins must be (F, N)")
-    f, n = bins_t.shape
+        raise ValueError(f"{kernel}: bins must be (F, N)" +
+                         (" packed as (F, N/2)" if packed else ""))
+    f, nb = bins_t.shape
+    n = 2 * nb if packed else nb
+    if packed:
+        _check_packed(kernel, n, num_bins)
     dev = bins_t.device
-    _check("bins", bins_t, torch.uint8, (f, n), dev)
+    _check("bins", bins_t, torch.uint8, (f, nb), dev)
     _check("weights", w, w_dtype, (w_rows, n), dev)
     _check("ch", ch, torch.int8, (n,), dev)
     _check_device(kernel, dev)
@@ -145,67 +180,85 @@ def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins):
     return f, n
 
 
-def _launch_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k):
+def _launch_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, packed):
+    """``chunk`` counts bytes of one feature's bins per block: rows in the
+    uint8 form, row pairs in the packed one (the same rows per block)."""
+    fn_name = fn_name + ("_p4" if packed else "")
     fn = _fn("hist_leaves", fn_name, 4, 6)
-    chunk = min(_HIST_CHUNK, max(n, 1))
+    nbytes = bins_t.shape[1]
+    chunk = min(_HIST_CHUNK // 2 if packed else _HIST_CHUNK, max(nbytes, 1))
     _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
                  chunk, _HIST_THREADS, _stream()), fn_name)
 
 
-def build_histogram_leaves_q8_plain(bins_t, wch, ch, *, num_bins: int):
-    """Plain version: int64 ``index_add_`` cast to int32."""
-    return _scatter_leaves(bins_t, wch, ch, num_channels=Q_LEAF_CHANNELS,
-                           num_bins=num_bins,
+def _unpacked(bins_t, bins_packed: bool):
+    return unpack_bins4(bins_t) if bins_packed else bins_t
+
+
+def build_histogram_leaves_q8_plain(bins_t, wch, ch, *, num_bins: int,
+                                    bins_packed: bool = False):
+    """Plain version: int64 ``index_add_`` cast to int32 (packed bins are
+    unpacked first)."""
+    return _scatter_leaves(_unpacked(bins_t, bins_packed), wch, ch,
+                           num_channels=Q_LEAF_CHANNELS, num_bins=num_bins,
                            acc_dtype=torch.int64).to(torch.int32)
 
 
 def build_histogram_leaves_q8(bins_t: torch.Tensor, wch: torch.Tensor,
                               ch: torch.Tensor, *, num_bins: int,
-                              interpret=None, pipeline=None
-                              ) -> torch.Tensor:
+                              interpret=None, pipeline=None,
+                              bins_packed: bool = False) -> torch.Tensor:
     """(42, F, B, 3) int32 histograms of 42 leaf channels in one pass.
 
-    bins_t (F, N) uint8; wch (8, N) int8 [g_q, h_q, count, 0...] from
-    ops/quantize.py ``quantize_wch``; ch (N,) int8 channel, -1 = row in no
-    batched leaf.  Exact integer sums, as the reference."""
+    bins_t (F, N) uint8, or (F, N/2) packed with ``bins_packed``; wch
+    (8, N) int8 [g_q, h_q, count, 0...] from ops/quantize.py
+    ``quantize_wch``; ch (N,) int8 channel, -1 = row in no batched leaf.
+    Exact integer sums, as the reference."""
     f, n = _check_hist_args("build_histogram_leaves_q8", bins_t, wch,
-                            torch.int8, 8, ch, num_bins)
+                            torch.int8, 8, ch, num_bins, bins_packed)
     if bins_t.device.type == "cpu":
         return build_histogram_leaves_q8_plain(bins_t, wch, ch,
-                                               num_bins=num_bins)
+                                               num_bins=num_bins,
+                                               bins_packed=bins_packed)
     out = torch.zeros((Q_LEAF_CHANNELS, f, num_bins, 3), dtype=torch.int32,
                       device=bins_t.device)
     _launch_hist("hist_leaves_q8", bins_t, wch, ch, out, f, n, num_bins,
-                 Q_LEAF_CHANNELS)
-    LAUNCHES["hist_leaves_q8"] += 1
+                 Q_LEAF_CHANNELS, bins_packed)
+    LAUNCHES["hist_leaves_q8_packed4" if bins_packed
+             else "hist_leaves_q8"] += 1
     return out
 
 
 def build_histogram_leaves_plain(bins_t, w: FxWeights, ch, *,
-                                 num_bins: int):
+                                 num_bins: int, bins_packed: bool = False):
     """Plain version: int64 ``index_add_`` of the fixed-point weights,
-    scaled back to f32 — the same integers as the kernel."""
-    h = _scatter_leaves(bins_t, w.w, ch, num_channels=LEAF_CHANNELS,
-                        num_bins=num_bins, acc_dtype=torch.int64)
+    scaled back to f32 — the same integers as the kernel (packed bins are
+    unpacked first)."""
+    h = _scatter_leaves(_unpacked(bins_t, bins_packed), w.w, ch,
+                        num_channels=LEAF_CHANNELS, num_bins=num_bins,
+                        acc_dtype=torch.int64)
     return fx_to_f32(h, w.inv_scale)
 
 
 def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
                            ch: torch.Tensor, *, num_bins: int,
-                           interpret=None, pipeline=None) -> torch.Tensor:
+                           interpret=None, pipeline=None,
+                           bins_packed: bool = False) -> torch.Tensor:
     """(25, F, B, 3) f32 histograms of 25 leaf channels in one pass.
 
-    bins_t (F, N) uint8; ``w`` from :func:`pack_weights`; ch (N,) int8
-    channel, -1 = row in no batched leaf."""
+    bins_t (F, N) uint8, or (F, N/2) packed with ``bins_packed``; ``w``
+    from :func:`pack_weights`; ch (N,) int8 channel, -1 = row in no
+    batched leaf."""
     f, n = _check_hist_args("build_histogram_leaves", bins_t, w.w,
-                            torch.int64, 3, ch, num_bins)
+                            torch.int64, 3, ch, num_bins, bins_packed)
     if bins_t.device.type == "cpu":
-        return build_histogram_leaves_plain(bins_t, w, ch, num_bins=num_bins)
+        return build_histogram_leaves_plain(bins_t, w, ch, num_bins=num_bins,
+                                            bins_packed=bins_packed)
     out = torch.zeros((LEAF_CHANNELS, f, num_bins, 3), dtype=torch.int64,
                       device=bins_t.device)
     _launch_hist("hist_leaves_fx", bins_t, w.w, ch, out, f, n, num_bins,
-                 LEAF_CHANNELS)
-    LAUNCHES["hist_leaves"] += 1
+                 LEAF_CHANNELS, bins_packed)
+    LAUNCHES["hist_leaves_packed4" if bins_packed else "hist_leaves"] += 1
     return fx_to_f32(out, w.inv_scale)
 
 
@@ -236,10 +289,26 @@ def _check_single_args(kernel, bins_t, w, num_bins):
     return f, n
 
 
-def hist_single_plain(bins_t, w: FxWeights, *, num_bins: int):
-    """Plain version: int64 ``index_add_`` of the fixed-point weights."""
-    return scatter_histogram(bins_t, w.w, num_bins=num_bins,
-                             acc_dtype=torch.int64)
+def hist_single_plain(bins_t, w: FxWeights, *, num_bins: int,
+                      bins_packed: bool = False):
+    """Plain version: int64 ``index_add_`` of the fixed-point weights
+    (packed bins are unpacked first)."""
+    return scatter_histogram(_unpacked(bins_t, bins_packed), w.w,
+                             num_bins=num_bins, acc_dtype=torch.int64)
+
+
+def _check_single_packed(bins_t, w, num_bins):
+    """The packed form takes the autotune probe's layout: contiguous
+    (F, N/2) bytes and contiguous (3, N) weights on one device."""
+    if bins_t.dim() != 2:
+        raise ValueError("hist_single: packed bins must be (F, N/2)")
+    f, nb = bins_t.shape
+    dev = bins_t.device
+    _check_packed("hist_single", 2 * nb, num_bins)
+    _check("bins", bins_t, torch.uint8, (f, nb), dev)
+    _check("weights", w, torch.int64, (3, 2 * nb), dev)
+    _check_device("hist_single", dev)
+    return f, nb
 
 
 _SMS = {}
@@ -260,20 +329,30 @@ def _single_geometry(dev: torch.device, f: int, n: int, num_bins: int):
     return fg, max(_SINGLE_MIN_CHUNK, -(-n // blocks))
 
 
-def hist_single(bins_t: torch.Tensor, w: FxWeights, *,
-                num_bins: int) -> torch.Tensor:
+def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
+                bins_packed: bool = False) -> torch.Tensor:
     """(F, B, 3) int64 fixed-point histogram of one leaf.
 
     bins_t: (F, n) uint8 view with any strides (the partitioned grower
     passes ``P[s:e, :F].T`` of its row-major packed rows); ``w``: the
     tree's :func:`pack_weights` restricted to the same rows
     (``w.w[:, s:e]``), rows of the leaf carrying their weights and all
-    other rows zeros.  Scale back with :func:`fx_to_f32`."""
-    f, n = _check_single_args("hist_single", bins_t, w.w, num_bins)
+    other rows zeros.  With ``bins_packed``: contiguous (F, N/2) packed
+    bytes and contiguous (3, N) weights.  Scale back with
+    :func:`fx_to_f32`."""
+    if bins_packed:
+        f, nb = _check_single_packed(bins_t, w.w, num_bins)
+    else:
+        f, n = _check_single_args("hist_single", bins_t, w.w, num_bins)
     if bins_t.device.type == "cpu":
-        return hist_single_plain(bins_t, w, num_bins=num_bins)
+        return hist_single_plain(bins_t, w, num_bins=num_bins,
+                                 bins_packed=bins_packed)
     out = torch.zeros((f, num_bins, 3), dtype=torch.int64,
                       device=bins_t.device)
+    if bins_packed:
+        _launch_single_packed(bins_t, w.w, out, f, nb, num_bins)
+        LAUNCHES["hist_single_packed4"] += 1
+        return out
     if f == 0 or n == 0:
         return out
     from .cuda_lib import library
@@ -292,22 +371,39 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *,
     return out
 
 
+def _launch_single_packed(bins_t, w, out, f, nb, num_bins):
+    from .cuda_lib import library
+    fn = library("hist_single").hist_single_p4
+    if "hist_single_p4" not in _SIGS_SET:
+        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, ci, ll] + [ci] * 4 + [vp]
+        fn.restype = ci
+        _SIGS_SET.add("hist_single_p4")
+    fg, chunk = _single_geometry(bins_t.device, f, 2 * nb, num_bins)
+    _raise_on(fn(_p(bins_t), _p(w), _p(out), f, nb, num_bins, fg,
+                 -(-chunk // 2), _SINGLE_THREADS, _stream()),
+              "hist_single_p4")
+
+
 def build_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
                     hess: torch.Tensor, mask: torch.Tensor, *,
-                    num_bins: int) -> torch.Tensor:
+                    num_bins: int, bins_packed: bool = False
+                    ) -> torch.Tensor:
     """(F, B, 3) f32 histogram of one leaf over masked rows: (sum g*mask,
     sum h*mask, count of rows with mask > 0).
 
     bins_t (F, N) uint8, any strides; grad, hess, mask (N,) f32; N need
-    not be a multiple of a row block.  The weights are packed to fixed
-    point for this call (one scale per channel over these rows).  CPU
-    tensors take the plain version, ``ops/histogram.py``
-    ``build_histogram``."""
+    not be a multiple of a row block.  With ``bins_packed``: contiguous
+    (F, N/2) packed bytes, N a multiple of the 4096-row block.  The
+    weights are packed to fixed point for this call (one scale per
+    channel over these rows).  CPU tensors take the plain version,
+    ``ops/histogram.py`` ``build_histogram``."""
     if bins_t.device.type == "cpu":
-        return _plain.build_histogram(bins_t, grad, hess, mask,
-                                      num_bins=num_bins)
+        return _plain.build_histogram(_unpacked(bins_t, bins_packed), grad,
+                                      hess, mask, num_bins=num_bins)
     w = pack_weights(grad, hess, mask)
-    return fx_to_f32(hist_single(bins_t, w, num_bins=num_bins), w.inv_scale)
+    return fx_to_f32(hist_single(bins_t, w, num_bins=num_bins,
+                                 bins_packed=bins_packed), w.inv_scale)
 
 
 # -- row update ---------------------------------------------------------------

@@ -157,7 +157,9 @@ def _at_bin(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            num_bins: torch.Tensor, has_nan: torch.Tensor,
-                           params: SplitParams) -> FeatureSplits:
+                           params: SplitParams,
+                           parent_exact: torch.Tensor = None
+                           ) -> FeatureSplits:
     """Best numeric split per feature for a batch of leaves.
 
     Args:
@@ -166,6 +168,15 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
       num_bins: (F,) int32 bins per feature, including the trailing NaN
         bin when has_nan.
       has_nan: (F,) bool.
+      parent_exact: optional (..., 3) float64 leaf totals before their
+        rounding to f32: the returned right sums are then ``parent -
+        left`` rounded ONCE, as a fused multiply-subtract rounds them.
+        The quantized root pass passes its dequantized totals (int sum x
+        scale, exact in float64): the reference's jitted grower fuses
+        that multiply into the subtraction that yields the chosen split's
+        right sums, and XLA:CPU contracts the pair into one fused
+        multiply-add.  Its gains keep the rounded totals (there XLA
+        shares the product with the parent gain and does not contract).
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -230,7 +241,10 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                         _at_bin(cum_c, pick)], dim=-1)
     nan3 = torch.cat([nan_g, nan_h, nan_c], dim=-1)              # (..., F, 3)
     left = left + torch.where(use_left.unsqueeze(-1), nan3, zero)
-    right = parent_sum.unsqueeze(-2) - left
+    if parent_exact is None:
+        right = parent_sum.unsqueeze(-2) - left
+    else:
+        right = (parent_exact.unsqueeze(-2) - left.double()).float()
     return FeatureSplits(gain=gain, threshold_bin=pick.to(torch.int32),
                          default_left=use_left & has_nan,
                          left_sum=left, right_sum=right)
@@ -238,12 +252,15 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
 
 def local_best_candidates(hist: torch.Tensor, leaf_sum: torch.Tensor,
                           num_bins: torch.Tensor, has_nan: torch.Tensor,
-                          feature_mask: torch.Tensor, params: SplitParams):
+                          feature_mask: torch.Tensor, params: SplitParams,
+                          parent_exact: torch.Tensor = None):
     """Best split over features for a batch of leaves (the reference's
     ``local_best_candidate`` vmapped): (gain, feat, bin, default_left,
     left_sum, right_sum), each with the batch shape of ``leaf_sum[..., 0]``.
-    The lowest feature wins ties."""
-    fs = best_split_per_feature(hist, leaf_sum, num_bins, has_nan, params)
+    The lowest feature wins ties.  ``parent_exact``: as in
+    :func:`best_split_per_feature`."""
+    fs = best_split_per_feature(hist, leaf_sum, num_bins, has_nan, params,
+                                parent_exact)
     gain = torch.where(feature_mask, fs.gain, _f32(NEG_INF, hist))
     f = torch.argmax(gain, dim=-1)
     fi = f.unsqueeze(-1)

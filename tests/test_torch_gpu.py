@@ -180,3 +180,87 @@ def test_training_on_card_matches_cpu(cuda_device):
     on_cpu = lt.train(params, lt.Dataset(X, y), 5, device="cpu")
     on_card = lt.train(params, lt.Dataset(X, y), 5, device=cuda_device)
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+# -- nibble-packed bins (max_bin <= 16) --------------------------------------
+
+PACKED = ("hist_single_packed4", "hist_leaves_q8_packed4",
+          "hist_leaves_packed4")
+UINT8 = ("hist_single", "hist_leaves_q8", "hist_leaves")
+
+
+def _run_packed(bins_p, grad, hess, mask, ch, num_bins):
+    """The three packed forms on (F, N/2) packed bins: q8 leaves, exact
+    leaves, single leaf."""
+    wch = tq.quantize_wch(grad, hess, mask,
+                          torch.tensor(0.01).to(bins_p.device),
+                          torch.tensor(0.002).to(bins_p.device), gq_max=127,
+                          hq_max=127)
+    w = th.pack_weights(grad, hess, mask)
+    h8 = hc.build_histogram_leaves_q8(bins_p, wch, ch, num_bins=num_bins,
+                                      bins_packed=True)
+    hx = hc.build_histogram_leaves(bins_p, w, ch, num_bins=num_bins,
+                                   bins_packed=True)
+    hs = hc.hist_single(bins_p, w, num_bins=num_bins, bins_packed=True)
+    return wch, w, h8, hx, hs
+
+
+def test_packed_forms_on_cpu_never_load_the_kernel_library(monkeypatch):
+    def refuse(name):
+        raise AssertionError(f"CUDA library {name} loaded for CPU tensors")
+    monkeypatch.setattr(cuda_lib, "library", refuse)
+    before = dict(hc.LAUNCHES)
+    bins, grad, hess, mask, ch, *_ = _inputs(8192, 16, "cpu")
+    bins_p = th.pack_bins4(bins)
+    wch, w, h8, hx, hs = _run_packed(bins_p, grad, hess, mask, ch, 16)
+    assert hc.LAUNCHES == before
+    assert torch.equal(h8, hc.build_histogram_leaves_q8(bins, wch, ch,
+                                                        num_bins=16))
+    assert torch.equal(hx, hc.build_histogram_leaves(bins, w, ch,
+                                                     num_bins=16))
+    assert torch.equal(hs, hc.hist_single(bins, w, num_bins=16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,num_bins", [(65536, 16), (3 * 4096, 5)])
+def test_packed_kernels_match_plain_on_card(cuda_device, monkeypatch, n,
+                                            num_bins):
+    bins, grad, hess, mask, ch, *_ = _inputs(n, num_bins, cuda_device)
+    bins_p = th.pack_bins4(bins)
+    for name in ("build_histogram_leaves_q8_plain",
+                 "build_histogram_leaves_plain", "hist_single_plain"):
+        monkeypatch.setattr(hc, name, None)   # must launch, never fall back
+    before = dict(hc.LAUNCHES)
+    wch, w, h8, hx, hs = _run_packed(bins_p, grad, hess, mask, ch, num_bins)
+    again = _run_packed(bins_p, grad, hess, mask, ch, num_bins)[2:]
+    torch.cuda.synchronize()
+    assert all(hc.LAUNCHES[k] == before[k] + 2 for k in PACKED)
+    assert all(hc.LAUNCHES[k] == before[k] for k in UINT8)
+    monkeypatch.undo()
+    for got, other in zip((h8, hx, hs), again):
+        assert torch.equal(got, other)
+    assert torch.equal(h8, hc.build_histogram_leaves_q8_plain(
+        bins_p, wch, ch, num_bins=num_bins, bins_packed=True))
+    assert torch.equal(hx, hc.build_histogram_leaves_plain(
+        bins_p, w, ch, num_bins=num_bins, bins_packed=True))
+    assert torch.equal(hs, hc.hist_single_plain(bins_p, w, num_bins=num_bins,
+                                                bins_packed=True))
+
+
+@pytest.mark.gpu
+def test_pack4_training_on_card_matches_cpu(cuda_device):
+    """max_bin=15 packs the bins; the quantized L2 model trained on the
+    card through the packed leaf kernel equals the CPU's."""
+    rng = np.random.RandomState(5)
+    X = rng.randn(6000, F)
+    y = 2 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.randn(6000)
+    params = dict(objective="regression", num_leaves=15, verbosity=-1,
+                  max_bin=15, use_quantized_grad=True,
+                  stochastic_rounding=False, tpu_histogram_impl="pallas")
+    on_cpu = lt.train(params, lt.Dataset(X, y), 5, device="cpu")
+    hc.reset_launches()
+    on_card = lt.train(params, lt.Dataset(X, y), 5, device=cuda_device)
+    assert on_card._gbdt.learner.pack4
+    assert hc.LAUNCHES["hist_leaves_q8_packed4"] > 0
+    assert hc.LAUNCHES["hist_leaves_q8"] == 0
+    assert on_card.model_to_string() == on_cpu.model_to_string()

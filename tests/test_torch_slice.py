@@ -5,13 +5,12 @@ the kernels) and ``lightgbm_tpu.train`` with the Pallas kernels in
 interpret mode and the wave grower get the same seeded data and params;
 their models are compared field by field.
 
-* Quantized training (stochastic_rounding=false) must give the same tree
-  structure, leaf values within rtol=1e-6 and, for L2 regression,
-  byte-identical model text.  Binary gradients are bitwise the
+* Quantized training (stochastic_rounding=false) must write byte-identical
+  model text, binary and L2 regression.  Binary gradients are bitwise the
   reference's (the port's sigmoid runs XLA:CPU's f32 ``exp`` op for op,
-  ops/fmath.py), but the reference's jitted grower rounds one leaf sum
-  of this case an ulp away from its own unjitted form, which the port
-  follows (ROADMAP queue 3).
+  ops/fmath.py), and the root's right-child sums are rounded once, as the
+  reference's jitted grower rounds them in a fused multiply-add
+  (ops/split.py ``parent_exact``; ROADMAP queue 3).
 * Exact training must give the same tree structure with predictions
   within rtol=1e-5 (the reference's f32 histograms carry bf16 hi+lo
   weights, the port's are fixed point).  That holds for the partitioned
@@ -97,18 +96,23 @@ def test_quantized_training_matches_reference(objective, wave_size):
     X, ref, port = _train_both(objective, True, tpu_wave_size=wave_size)
     s_ref, s_port = ref.model_to_string(), port.model_to_string()
     _assert_same_structure(_trees(s_ref), _trees(s_port), 1e-6)
-    if objective == "regression":
-        assert s_port == s_ref
+    assert s_port == s_ref
     np.testing.assert_allclose(port.predict(X), ref.predict(X), rtol=1e-6,
                                atol=1e-7)
 
 
 def test_quantized_binary_tree_matches_unjitted_reference():
     """The first quantized binary tree of the case above, grown by the
-    port's wave grower and by the reference's wave grower run UNJITTED on
-    the same inputs: every leaf and node field bit for bit.  (The
-    reference's jitted grower rounds one leaf sum of this tree an ulp
-    away, ROADMAP queue 3.)"""
+    port's wave grower and by the reference's wave grower, jitted (as
+    ``lightgbm_tpu.train`` runs it) and UNJITTED, on the same inputs.
+
+    The jitted grower fuses the root's dequantize multiply (int sum x
+    scale) into the subtraction that yields the root split's right sums,
+    and XLA:CPU contracts the pair into one fused multiply-add; the
+    unjitted grower rounds the product first.  The port rounds that
+    subtraction once too (ops/split.py ``parent_exact``), so it equals the
+    jitted tree in every leaf and node field; the unjitted tree has the
+    same structure and one leaf sum an ulp away (ROADMAP queue 3)."""
     import jax.numpy as jnp
     from lightgbm_tpu.learner.wave import make_wave_grow_fn as jax_grow_fn
     from lightgbm_tpu.ops import split as js
@@ -138,24 +142,33 @@ def test_quantized_binary_tree_matches_unjitted_reference():
     kw = dict(num_leaves=15, num_features=f, max_bins=255, max_depth=-1,
               wave_size=0, quantized=True, gq_max=2, hq_max=4,
               spec_ramp=True, exact_endgame=True)
-    ref = jax_grow_fn(jit=False, split_params=sp, hist_impl="pallas",
-                      any_cat=False, interpret=True, stochastic=False, **kw)(
-        jnp.asarray(xt), jnp.asarray(g), jnp.asarray(h), jnp.asarray(m),
-        jnp.asarray(nb), jnp.zeros((f,), bool), jnp.asarray(hn),
-        jnp.zeros((f,), jnp.int32), jnp.zeros((f,), jnp.float32), (),
-        jnp.ones((f,), bool))
+    args = (jnp.asarray(xt), jnp.asarray(g), jnp.asarray(h), jnp.asarray(m),
+            jnp.asarray(nb), jnp.zeros((f,), bool), jnp.asarray(hn),
+            jnp.zeros((f,), jnp.int32), jnp.zeros((f,), jnp.float32), (),
+            jnp.ones((f,), bool))
+    jitted, unjitted = (
+        jax_grow_fn(jit=jit, split_params=sp, hist_impl="pallas",
+                    any_cat=False, interpret=True, stochastic=False,
+                    **kw)(*args) for jit in (True, False))
     got = make_wave_grow_fn(split_params=ts.SplitParams(**sp._asdict()),
                             **kw)(
         torch.from_numpy(xt), torch.from_numpy(g), torch.from_numpy(h),
         torch.from_numpy(m), torch.from_numpy(nb), torch.from_numpy(hn),
         torch.ones(f, dtype=torch.bool))
-    assert got.num_leaves == int(ref.num_leaves) == 15
+    assert got.num_leaves == int(jitted.num_leaves) == 15
     for name in ("split_feature", "threshold_bin", "left_child",
                  "right_child", "leaf_count", "leaf_weight", "leaf_value",
                  "internal_weight", "internal_value", "split_gain"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
-                                      np.asarray(getattr(ref, name)),
+                                      np.asarray(getattr(jitted, name)),
                                       err_msg=name)
+    for name in ("split_feature", "threshold_bin", "left_child",
+                 "right_child", "leaf_count"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(unjitted, name)),
+                                      err_msg=name)
+    assert not np.array_equal(got.leaf_weight.numpy(),
+                              np.asarray(unjitted.leaf_weight))
 
 
 @pytest.mark.parametrize("objective", ["regression", "binary"])
@@ -247,6 +260,21 @@ def test_bagging_and_feature_fraction_match_reference():
     X, ref, port = _train_both("regression", True, bagging_fraction=0.7,
                                bagging_freq=1, feature_fraction=0.8)
     assert port.model_to_string() == ref.model_to_string()
+
+
+def test_binned_matrix_matches_reference():
+    """The port bins as the reference does, its columns spread over a
+    thread pool: more columns than cores, NaNs, two bin budgets."""
+    rng = np.random.RandomState(6)
+    X = rng.randn(3000, 64) * rng.rand(64) * 10
+    X[rng.rand(*X.shape) < 0.03] = np.nan
+    for max_bin in (15, 255):
+        params = {"max_bin": max_bin, "verbosity": -1}
+        ref = lgb.Dataset(X, rng.rand(3000), params=params)
+        ref.construct(None)
+        port = lt.Dataset(X, rng.rand(3000), params=params)
+        port.construct()
+        np.testing.assert_array_equal(port.X_binned, ref.X_binned)
 
 
 def test_save_load_round_trip(tmp_path):
