@@ -24,7 +24,10 @@ Phases (any failure exits non-zero and prints no result line):
    the main path's width with B=16 and at a ragged shape (3 row blocks,
    B=5, 10 of the W channels used); times beside the bound, the plain
    version and the library call, and for the packed forms the uint8 form
-   at the same B=16 shape;
+   at the same B=16 shape; the four leaf-channel forms again, bit for bit
+   and identical across two runs, on a skewed mix (every row in one of 3
+   channels and 4 bins) and a late wave's (5% of the rows in a channel),
+   each timed beside its ``index_add_``;
 3. small models trained on the card against the same models trained on
    the CPU (plain versions): quantized L2 model text identical at
    max_bin=255 and at max_bin=15 (packed bins), partitioned binary model
@@ -59,6 +62,14 @@ Phases (any failure exits non-zero and prints no result line):
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
 run.
+
+``--profile`` adds, per wave mode (exact and quantized at max_bin=255 and
+15) and for the partitioned grower, one boosting iteration under
+``torch.profiler``; for the wave modes, one more iteration whose
+leaf-channel launches are recorded: the share of each launch's rows in a
+channel, and the whole set of launches replayed at every group of
+channels x features a block can hold against the group the geometry
+picks (written to ``leaf_traffic_<mode>.json`` under ``--out-dir``).
 
 The last two lines of standard output are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -251,14 +262,18 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
         bins, grad, hess, mask, ch = _hist_case(torch, gen, dev, f, n, nb, k)
         wch = q8_weights(grad, hess, mask)
         got = hc.build_histogram_leaves_q8(bins, wch, ch, num_bins=nb)
+        again = hc.build_histogram_leaves_q8(bins, wch, ch, num_bins=nb)
         torch.cuda.synchronize()
         want = hc.build_histogram_leaves_q8_plain(bins, wch, ch, num_bins=nb)
         err = float((got.long() - want.long()).abs().max())
+        if not torch.equal(got, again):
+            raise AssertionError(f"hist_leaves_q8 [{tag}] differs between "
+                                 "two runs")
         if not torch.equal(got, want):
             raise AssertionError(f"hist_leaves_q8 [{tag}] differs from its "
                                  f"plain version (max abs err {err})")
         log(f"kernel hist_leaves_q8 [{tag} F={f} N={n} B={nb} K={k}]: "
-            "bitwise equal to plain")
+            "bitwise equal to plain, identical across two runs")
         if tag == "main":
             active = int(((ch >= 0) & (ch < k)).sum())
             nbytes = n + active * (f + 3) + k * f * nb * 3 * 4
@@ -272,7 +287,7 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
                     bins, wch, ch, num_bins=nb), 3),
                 library_ms=time_ms(lib, reps))
             del lib
-        del wch, got, want
+        del wch, got, again, want
 
         # ---- exact histogram: bitwise vs plain, deterministic ----
         k = hc.LEAF_CHANNELS
@@ -358,6 +373,7 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
 
     rec["hist_single"] = single_leaf_phase(torch, gen, dev, n_main, reps)
     rec.update(packed_phase(torch, gen, dev, n_main, reps))
+    leaf_stress_phase(torch, gen, dev, card, n_main, reps)
 
     for name, r in rec.items():
         lib = ("n/a" if r["library_ms"] is None
@@ -481,6 +497,79 @@ def packed_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
         del bins, packed, grad, hess, mask, keep, wch, w, cases
         torch.cuda.empty_cache()
     return rec
+
+
+def leaf_stress_phase(torch, gen, dev, card, n_main: int, reps: int) -> None:
+    """The four leaf-channel forms at the main path's width on two more row
+    mixes: ``skewed`` (every row in one of 3 channels and one of 4 bins of
+    every feature: the most contention, and the largest per-bin sums of
+    the q8 kernel's packed (g, h)) and ``5% active`` (a late wave: 5% of
+    the rows in a channel); each bit for bit its plain version and
+    identical across two runs, timed beside one ``index_add_`` of the same
+    sums (uint8 forms at B=256, packed at B=16)."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.ops import quantize as tq
+    f, n = NUM_FEATURES, n_main
+    grad = torch.randn(n, generator=gen, device=dev) * 0.5
+    hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+    mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+    wch = tq.quantize_wch(grad, hess, mask, (grad * mask).abs().max() / 127,
+                          (hess * mask).max() / 127, gq_max=127, hq_max=127)
+    w = th.pack_weights(grad, hess, mask)
+    for mix in ("skewed", "5% active"):
+        for nb, packed in ((256, False), (PACK_BINS, True)):
+            hi = 4 if mix == "skewed" else nb
+            bins = torch.randint(0, hi, (f, n), generator=gen, device=dev,
+                                 dtype=torch.uint8)
+            b_in = th.pack_bins4(bins) if packed else bins
+            for q8 in (True, False):
+                k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+                if mix == "skewed":
+                    ch = torch.randint(0, 3, (n,), generator=gen, device=dev,
+                                       dtype=torch.int8)
+                else:
+                    ch = torch.randint(0, k, (n,), generator=gen, device=dev,
+                                       dtype=torch.int8)
+                    keep = torch.rand(n, generator=gen, device=dev) < 0.05
+                    ch = torch.where(keep, ch, torch.full_like(ch, -1))
+                ch = ch.contiguous()
+                run = (hc.build_histogram_leaves_q8 if q8
+                       else hc.build_histogram_leaves)
+                plain = (hc.build_histogram_leaves_q8_plain if q8
+                         else hc.build_histogram_leaves_plain)
+                wts = wch if q8 else w
+                name = (("hist_leaves_q8" if q8 else "hist_leaves") +
+                        ("_packed4" if packed else ""))
+                before = hc.LAUNCHES[name]
+                got = run(b_in, wts, ch, num_bins=nb, bins_packed=packed)
+                again = run(b_in, wts, ch, num_bins=nb, bins_packed=packed)
+                torch.cuda.synchronize()
+                if hc.LAUNCHES[name] != before + 2:
+                    raise AssertionError(f"{name} [{mix}] did not launch")
+                want = plain(b_in, wts, ch, num_bins=nb, bins_packed=packed)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name} [{mix}] differs between "
+                                         "two runs")
+                if not torch.equal(got, want):
+                    err = float((got.double() - want.double()).abs().max())
+                    raise AssertionError(f"{name} [{mix}] differs from its "
+                                         f"plain version (max abs err {err})")
+                del got, again, want
+                lib = _library_hist(torch, bins, wch if q8 else w.w, ch, k,
+                                    nb, torch.int32 if q8 else torch.int64)
+                ms = time_ms(lambda: run(b_in, wts, ch, num_bins=nb,
+                                         bins_packed=packed), reps)
+                lib_ms = time_ms(lib, reps)
+                del lib
+                torch.cuda.empty_cache()
+                log(f"kernel {name} [{mix} F={f} N={n} B={nb} K={k}]: "
+                    "bitwise equal to plain, identical across two runs")
+                log(f"[{card}] {name} [{mix}] @ N={n}: kernel {ms:.3f} ms, "
+                    f"library {lib_ms:.3f} ms ({lib_ms / ms:.2f}x)")
+            del bins, b_in
+    del grad, hess, mask, wch, w
+    torch.cuda.empty_cache()
 
 
 def single_leaf_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
@@ -902,6 +991,77 @@ def profile_iteration(lt, torch, card, ds, params, mode, out_dir) -> None:
         f"{bst._gbdt.last_host_syncs}, -1 = not counted)")
     for e in top[:8]:
         log(f"    {e.key[:60]:60s} {dev_us(e) / 1e3:9.3f} ms  x{e.count}")
+    if mode != "partition":
+        leaf_traffic(torch, card, bst, mode, out_dir)
+
+
+def leaf_traffic(torch, card, bst, mode, out_dir, reps=5) -> None:
+    """The leaf-channel launches of one more boosting iteration of ``bst``:
+    each launch's rows and share of rows in a channel, then all of them
+    replayed (CUDA events, median of ``reps``) at every group of
+    ``leaf_groups`` (forced one at a time) and at the groups
+    ``leaf_geometry`` picks for each launch."""
+    from lightgbm_tpu_torch.learner import wave
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    calls = []
+    real = {name: getattr(wave, name) for name in
+            ("build_histogram_leaves", "build_histogram_leaves_q8")}
+
+    def recorder(fn):
+        def call(bins, w, ch, **kw):
+            calls.append((fn, bins, w, ch.clone(), kw))
+            return fn(bins, w, ch, **kw)
+        return call
+    try:
+        for name, fn in real.items():
+            setattr(wave, name, recorder(fn))
+        bst.update()
+    finally:
+        for name, fn in real.items():
+            setattr(wave, name, fn)
+    torch.cuda.synchronize()
+    fn0, bins0, _, _, kw0 = calls[0]
+    q8 = fn0 is hc.build_histogram_leaves_q8
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    rows = [c.shape[0] for _, _, _, c, _ in calls]
+    active = [int(((c >= 0) & (c < k)).sum()) for _, _, _, c, _ in calls]
+    share = np.array(active) / np.array(rows)
+    f, nb = bins0.shape[0], kw0["num_bins"]
+    packed = kw0.get("bins_packed", False)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def replay():
+        for fn, bins, w, ch, kw in calls:
+            fn(bins, w, ch, **kw)
+    times = {}
+    groups = hc.leaf_groups
+    try:
+        for g in groups(f, nb, k, q8):
+            hc.leaf_groups = lambda *a, g=g: [g]
+            times[g] = time_ms(replay, reps)
+    finally:
+        hc.leaf_groups = groups
+    rule_ms = time_ms(replay, reps)
+    picks = sorted({hc.leaf_geometry(sms, f, n, nb, k, q8, packed)[:2]
+                    for n in rows})
+    best = min(times, key=times.get)
+    log(f"[{card}] leaf traffic {mode}: {len(calls)} launches of "
+        f"{max(rows)} rows or fewer, share of rows in a channel min "
+        f"{share.min():.4f}, median {np.median(share):.4f}, mean "
+        f"{share.mean():.4f}, max {share.max():.4f}, all launches "
+        f"{sum(active) / sum(rows):.4f}; replayed {rule_ms:.3f} ms at the "
+        f"geometry's groups {picks}, fastest group {best} "
+        f"{times[best]:.3f} ms")
+    log("    " + ", ".join(f"{cg}x{fg} {t:.3f}"
+                           for (cg, fg), t in times.items()))
+    with open(os.path.join(out_dir, f"leaf_traffic_{mode}.json"), "w") as fh:
+        json.dump({"card": card, "rows": rows, "active": active,
+                   "groups_ms": {f"{cg}x{fg}": t
+                                 for (cg, fg), t in times.items()},
+                   "rule_ms": rule_ms,
+                   "rule_groups": [list(p) for p in picks]}, fh)
+    del calls
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:

@@ -47,6 +47,7 @@ equal its plain version bit for bit.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -61,7 +62,8 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "build_histogram_leaves_q8", "wave_row_update",
            "wave_trial_channels", "build_histogram_leaves_plain",
            "build_histogram_leaves_q8_plain", "wave_row_update_plain",
-           "wave_trial_channels_plain", "reset_launches"]
+           "wave_trial_channels_plain", "reset_launches", "LeafGeometry",
+           "leaf_groups", "leaf_geometry"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -75,8 +77,6 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_packed4": 0, "wave_row_update": 0,
             "wave_trial_channels": 0}
 
-_HIST_THREADS = 512
-_HIST_CHUNK = 1 << 18     # rows per block (see csrc/hist_leaves.cu)
 _ROW_THREADS = 256
 _SINGLE_THREADS = 512
 _SINGLE_SMEM = 200 * 1024   # shared bytes for one block's feature group
@@ -180,15 +180,101 @@ def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins,
     return f, n
 
 
+# -- leaf-channel geometry (csrc/hist_leaves.cu) -------------------------------
+#
+# One block of 1024 threads per SM (64 registers a thread fill the SM's
+# 65,536); of an H100 SM's 228 KB of shared memory, such a block may use
+# 227 KB.
+LEAF_THREADS = 1024
+BLOCK_SMEM = 232_448
+LEAF_QUEUE_BYTES = 20     # a warp's row queue per thread (kQueue * 4 / 32)
+LEAF_ROW_STEP = 16        # chunks start 16-row aligned (4-byte ch loads)
+LEAF_MAX_BLOCK_ROWS = 1 << 25   # queue entries hold a 25-bit row
+Q8_MAX_BLOCK_ROWS = 1 << 24     # q8 sums (g << 32) + h in 64 bits
+
+
+class LeafGeometry(NamedTuple):
+    """The launch of one leaf-channel histogram: ``cg`` channels x ``fg``
+    features per block, ``c_groups * f_groups`` block columns (channel
+    groups fastest) times ``chunks`` row chunks of ``chunk_rows`` rows,
+    ``smem`` shared bytes per block."""
+    cg: int
+    fg: int
+    c_groups: int
+    f_groups: int
+    chunks: int
+    chunk_rows: int
+    smem: int
+
+
+def _pair_bytes(num_bins: int, q8: bool) -> int:
+    """Shared bytes of one (channel, feature): per bin a packed (g, h) and
+    a count (q8), or g, h and a count (fx)."""
+    return num_bins * (12 if q8 else 20)
+
+
+def leaf_groups(f: int, num_bins: int, k: int, q8: bool) -> list:
+    """The (channels, features) groups one block can hold: for each count
+    of channel groups, its channels and as many features as fit the
+    block's shared memory, spread evenly over the feature groups."""
+    pair = _pair_bytes(num_bins, q8)
+    budget = BLOCK_SMEM - LEAF_THREADS * LEAF_QUEUE_BYTES
+    groups = []
+    for c_groups in range(1, k + 1):
+        cg = -(-k // c_groups)
+        if cg * pair > budget or (groups and groups[-1][0] == cg):
+            continue
+        fg = -(-f // -(-f // min(f, budget // (cg * pair))))
+        groups.append((cg, fg))
+    return groups
+
+
+def leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int, q8: bool,
+                  packed: bool) -> LeafGeometry:
+    """Geometry of ``hist_leaves_{q8,fx}[_p4]`` on a card with ``sms`` SMs:
+    of :func:`leaf_groups`, the one with the fewest block columns (each
+    reads every row's channel byte and queues its own rows), then the
+    most channels per block (its rows lie densest, so their bin and
+    weight gathers share the most sectors); row chunks sized so that the
+    whole grid is one resident round of one block per SM, of at most
+    ``LEAF_MAX_BLOCK_ROWS`` rows (``Q8_MAX_BLOCK_ROWS`` for q8)."""
+    cg, fg = min(leaf_groups(f, num_bins, k, q8),
+                 key=lambda g: (-(-k // g[0]) * -(-f // g[1]), -g[0]))
+    combos = -(-k // cg) * -(-f // fg)
+    steps = max(1, -(-n // LEAF_ROW_STEP))
+    chunks = max(1, min(steps, sms // combos),
+                 -(-n // (Q8_MAX_BLOCK_ROWS if q8 else LEAF_MAX_BLOCK_ROWS)))
+    chunk_rows = -(-steps // chunks) * LEAF_ROW_STEP
+    return LeafGeometry(cg, fg, -(-k // cg), -(-f // fg),
+                        max(1, -(-n // chunk_rows)), chunk_rows,
+                        cg * fg * _pair_bytes(num_bins, q8) +
+                        LEAF_THREADS * LEAF_QUEUE_BYTES)
+
+
+_SMS = {}
+
+
+def _sm_count(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
 def _launch_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, packed):
-    """``chunk`` counts bytes of one feature's bins per block: rows in the
-    uint8 form, row pairs in the packed one (the same rows per block)."""
     fn_name = fn_name + ("_p4" if packed else "")
-    fn = _fn("hist_leaves", fn_name, 4, 6)
-    nbytes = bins_t.shape[1]
-    chunk = min(_HIST_CHUNK // 2 if packed else _HIST_CHUNK, max(nbytes, 1))
+    geo = leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k,
+                        fn_name.startswith("hist_leaves_q8"), packed)
+    from .cuda_lib import library
+    fn = getattr(library("hist_leaves"), fn_name)
+    if fn_name not in _SIGS_SET:
+        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 4 + [ci, ll, ci, ci, ci, ci, ci, ll, ci, vp]
+        fn.restype = ci
+        _SIGS_SET.add(fn_name)
     _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
-                 chunk, _HIST_THREADS, _stream()), fn_name)
+                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows,
+                 int(ch.data_ptr() % 4 == 0), _stream()), fn_name)
 
 
 def _unpacked(bins_t, bins_packed: bool):
@@ -311,21 +397,15 @@ def _check_single_packed(bins_t, w, num_bins):
     return f, nb
 
 
-_SMS = {}
-
-
 def _single_geometry(dev: torch.device, f: int, n: int, num_bins: int):
     """(features per block, rows per block): as many features as fit the
     shared budget, and row chunks that give every SM its resident blocks
     once."""
     fg = max(1, min(f, _SINGLE_SMEM // (num_bins * 24)))
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
     per_sm = max(1, min(2048 // _SINGLE_THREADS,
                         (220 * 1024) // (fg * num_bins * 24)))
     groups = -(-f // fg)
-    blocks = max(1, _SMS[idx] * per_sm // groups)
+    blocks = max(1, _sm_count(dev) * per_sm // groups)
     return fg, max(_SINGLE_MIN_CHUNK, -(-n // blocks))
 
 

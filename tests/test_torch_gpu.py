@@ -182,6 +182,67 @@ def test_training_on_card_matches_cpu(cuda_device):
     assert on_card.model_to_string() == on_cpu.model_to_string()
 
 
+def _leaf_stress(case, device):
+    """(bins, wch, w, ch, num_bins) of one stress case:
+    ``one_bin``: every row in channel 0 and bin 3 of every feature, q8
+    weights at g=-127, h=127 (the most contention, and the largest sums
+    of the q8 kernel's packed (g, h));
+    ``sparse``: 5% of the rows in a channel (a late wave);
+    ``ragged``: B=256 with N not a multiple of the 16-row step."""
+    n = {"one_bin": 3 * 65536, "sparse": 65536, "ragged": 100_007}[case]
+    rng = np.random.RandomState(7)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    grad = (rng.randn(n) * 0.5).astype(np.float32)
+    hess = (rng.rand(n) * 0.25 + 0.01).astype(np.float32)
+    mask = (rng.rand(n) < 0.8).astype(np.float32)
+    if case == "one_bin":
+        bins = np.full((F, n), 3, np.uint8)
+        ch = np.zeros(n, np.int8)
+        wch = np.zeros((8, n), np.int8)
+        wch[0], wch[1], wch[2] = -127, 127, 1
+    else:
+        bins = rng.randint(0, 256, (F, n)).astype(np.uint8)
+        ch = rng.randint(0, hc.Q_LEAF_CHANNELS, n).astype(np.int8)
+        if case == "sparse":
+            ch[rng.rand(n) >= 0.05] = -1
+        wch = rng.randint(-127, 128, (8, n)).astype(np.int8)
+        wch[1] = np.abs(wch[1])
+        wch[2] = rng.rand(n) < 0.8
+    w = th.pack_weights(t(grad), t(hess), t(mask))
+    return t(bins), t(wch), w, t(ch), 256
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["one_bin", "sparse", "ragged"])
+def test_leaf_kernels_stress_match_plain_on_card(cuda_device, monkeypatch,
+                                                 case):
+    """Both leaf kernels (and, at 4096-row multiples, both packed forms on
+    the low 16 bins) bit for bit their plain versions and identical
+    across two launches."""
+    bins, wch, w, ch, nb = _leaf_stress(case, cuda_device)
+    n = bins.shape[1]
+    runs = [(hc.build_histogram_leaves_q8, wch, ch, bins, nb, False),
+            (hc.build_histogram_leaves, w,
+             torch.where(ch < hc.LEAF_CHANNELS, ch, -1).to(torch.int8),
+             bins, nb, False)]
+    if n % 4096 == 0:
+        b16 = th.pack_bins4(bins & 15)
+        runs += [(fn, wts, c, b16, 16, True) for fn, wts, c, *_ in runs]
+    for fn, wts, c, b, num_bins, packed in runs:
+        plain = (hc.build_histogram_leaves_q8_plain
+                 if fn is hc.build_histogram_leaves_q8
+                 else hc.build_histogram_leaves_plain)
+        name = plain.__name__
+        monkeypatch.setattr(hc, name, None)      # must launch
+        got = fn(b, wts, c, num_bins=num_bins, bins_packed=packed)
+        again = fn(b, wts, c, num_bins=num_bins, bins_packed=packed)
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert torch.equal(got, again)
+        assert torch.equal(got, plain(b, wts, c, num_bins=num_bins,
+                                      bins_packed=packed))
+
+
 # -- nibble-packed bins (max_bin <= 16) --------------------------------------
 
 PACKED = ("hist_single_packed4", "hist_leaves_q8_packed4",
