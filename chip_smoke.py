@@ -13,12 +13,17 @@ Phases (any failure exits non-zero and prints no result line):
 2. every kernel's wrapper against its plain PyTorch version on the card,
    at the main path's shape (F=28, B=256, W=25/42, N = the padded training
    rows) and at one ragged shape (N not a multiple of the row block,
-   B=17, fewer than W active splits); quantized histogram, row update and
-   trial channels bit for bit, the exact histogram bit for bit against its
-   plain version, identical across two runs, and within rtol=1e-4 of an
-   f32 ``index_add_``; the single-leaf histogram bit for bit and identical
-   across two runs at three shapes (the main path's row-major rows read
-   in place at full N and as a half-N segment; ragged N with B=17; the
+   B=17, fewer than W active splits); quantized histogram bit for bit;
+   row update and trial channels bit for bit and identical across two
+   runs, reading the (F, N) bin matrix in place (uint8, and nibble-packed
+   at B=16) and on the reference's gathered (W, N) columns, with a chained
+   split and inactive splits whose feature is out of range; the exact
+   histogram bit for bit against its plain version, identical across two
+   runs, and within rtol=1e-4 of an f32 ``index_add_``; the single-leaf
+   histogram bit for bit and identical across two runs at six shapes (the
+   main path's row-major rows read in place at full N, as a half-N
+   segment and as a 50,003-row segment at an odd start; 100,003 rows of
+   width 29, unaligned; ragged N with B=17 feature-major; the
    leaf-renewal column F=1, B=256); the three nibble-packed forms
    (``bins_packed=True``) bit for bit and identical across two runs at
    the main path's width with B=16 and at a ragged shape (3 row blocks,
@@ -69,7 +74,11 @@ run.
 leaf-channel launches are recorded: the share of each launch's rows in a
 channel, and the whole set of launches replayed at every group of
 channels x features a block can hold against the group the geometry
-picks (written to ``leaf_traffic_<mode>.json`` under ``--out-dir``).
+picks (written to ``leaf_traffic_<mode>.json`` under ``--out-dir``), and
+the share of each row update's rows whose leaf an active split takes;
+for the partitioned grower, one more iteration's single-leaf launches
+recorded (rows, start row, strides), replayed at the geometry's rule and
+timed one launch at a time (``single_traffic_partition.json``).
 
 The last two lines of standard output are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -137,9 +146,14 @@ def card_line() -> str:
 
 # -- timing ----------------------------------------------------------------
 
-def time_ms(fn, reps: int) -> float:
+SPIN_CYCLES = 20_000_000         # ~10 ms of a spinning kernel
+
+
+def time_ms(fn, reps: int, spin: int = SPIN_CYCLES) -> float:
     """Median device time of ``fn`` over ``reps`` runs (CUDA events), after
-    one warm-up run."""
+    one warm-up run.  A spinning kernel runs ahead of each timed run, so
+    the host has queued all of ``fn``'s launches before the first event
+    fires: the events time the device, not the host's enqueue."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -147,6 +161,7 @@ def time_ms(fn, reps: int) -> float:
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
         a.record()
         fn()
         b.record()
@@ -196,8 +211,15 @@ def _library_hist(torch, bins, w3, ch, k, num_bins, dtype):
 
 
 def _row_case(torch, gen, dev, w, n, num_bins, num_leaves, n_active):
-    cols = torch.randint(0, num_bins, (w, n), generator=gen, device=dev,
-                         dtype=torch.uint8)
+    """A (F, n) bin matrix, each split's feature (random), the
+    rows' leaves and a table of w splits (the first ``n_active`` active,
+    the rest with a feature out of range, which must never be read)."""
+    bins = torch.randint(0, num_bins, (NUM_FEATURES, n), generator=gen,
+                         device=dev, dtype=torch.uint8)
+    feats = torch.randperm(NUM_FEATURES * 4, generator=gen,
+                           device=dev)[:w] % NUM_FEATURES
+    feats = feats.to(torch.int32)
+    feats[n_active:] = NUM_FEATURES + 7
     rl = torch.randint(0, num_leaves, (n,), generator=gen, device=dev,
                        dtype=torch.int32)
     i32 = torch.int32
@@ -213,15 +235,18 @@ def _row_case(torch, gen, dev, w, n, num_bins, num_leaves, n_active):
             torch.randint(0, 2, (w,), generator=gen, device=dev),
             leaves, num_leaves + torch.arange(w, device=dev), act,
             torch.zeros(w, device=dev)]
-    tab = torch.stack([r.to(i32) for r in rows])
-    return cols, rl, tab.contiguous()
+    tab = torch.stack([r.to(i32) for r in rows]).contiguous()
+    if w > 1:   # a later split catches the rows an earlier one moved
+        tab[4, 1] = tab[5, 0]
+    return bins, feats.contiguous(), rl, tab
 
 
 def _row_work(torch, cols, rl, tab, write_rl: bool):
     """(bytes, operations) a row update needs on these inputs: row->leaf in
-    (and out), the channel out and the table, plus one column byte and a
-    few compares and selects for every (row, active split) pair whose
-    running leaf matches as the splits apply in order."""
+    (and out), the channel out, the table and the split features, plus
+    one column byte and a few compares and selects for every (row, active
+    split) pair whose running leaf matches as the splits apply in order
+    (``cols``: the splits' gathered uint8 columns)."""
     n, w = rl.shape[0], tab.shape[1]
     run = rl.clone()
     need = 0
@@ -233,8 +258,21 @@ def _row_work(torch, cols, rl, tab, write_rl: bool):
             go_left = torch.where(col == tab[1, j], tab[2, j],
                                   (col <= tab[0, j]).to(torch.int32))
             run = torch.where(hit & (go_left == 0), tab[5, j], run)
-    nbytes = 4.0 * n + need + n + 32.0 * w + (4.0 * n if write_rl else 0.0)
+    nbytes = 4.0 * n + need + n + 36.0 * w + (4.0 * n if write_rl else 0.0)
     return nbytes, 6.0 * need + n
+
+
+def _row_forms(torch, hc, bins, feats, rl, tab, packed):
+    """The row update and the trial channels on (bins, feats) in place,
+    each with its plain version: [(name, kernel call, plain call)]."""
+    targs = (tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0, tab[6] > 0)
+    kw = dict(feats=feats, bins_packed=packed)
+    return [("wave_row_update",
+             lambda: hc.wave_row_update(bins, rl, tab, **kw),
+             lambda: hc.wave_row_update_plain(bins, rl, tab, **kw)),
+            ("wave_trial_channels",
+             lambda: hc.wave_trial_channels(bins, rl, *targs, **kw),
+             lambda: hc.wave_trial_channels_plain(bins, rl, *targs, **kw))]
 
 
 def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
@@ -331,44 +369,60 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
         del lib, ref, w, w3, got, again, want, bins, grad, hess, mask, ch
         torch.cuda.empty_cache()
 
-        # ---- row update and trial channels: bitwise ----
+        # ---- row update and trial channels: bitwise, in place ----
         for wn in (hc.LEAF_CHANNELS, hc.Q_LEAF_CHANNELS):
-            cols, rl, tab = _row_case(torch, gen, dev, wn, n, nb, NUM_LEAVES,
-                                      n_act or wn)
-            rl_k, ch_k = hc.wave_row_update(cols, rl, tab)
-            torch.cuda.synchronize()
-            rl_p, ch_p = hc.wave_row_update_plain(cols, rl, tab)
-            if not (torch.equal(rl_k, rl_p) and torch.equal(ch_k, ch_p)):
-                raise AssertionError(f"wave_row_update [{tag} W={wn}] "
-                                     "differs from its plain version")
-            targs = (tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0,
-                     tab[6] > 0)
-            tr_k = hc.wave_trial_channels(cols, rl, *targs)
-            torch.cuda.synchronize()
-            tr_p = hc.wave_trial_channels_plain(cols, rl, *targs)
-            if not torch.equal(tr_k, tr_p):
-                raise AssertionError(f"wave_trial_channels [{tag} W={wn}] "
-                                     "differs from its plain version")
-            log(f"kernel wave_row_update, wave_trial_channels [{tag} W={wn} "
-                f"N={n} active={n_act or wn}]: bitwise equal to plain")
+            n_on = n_act or wn
+            bins, feats, rl, tab = _row_case(torch, gen, dev, wn, n, nb,
+                                             NUM_LEAVES, n_on)
+            p16 = th.pack_bins4(bins[:, :n - n % 2] & 15)
+            tab16 = tab.clone()
+            tab16[0] &= 15
+            tab16[1] = torch.where(tab16[1] >= 0, 15, -1)
+            # the reference's signature: the gathered (W, N) columns
+            cols = bins.index_select(0, feats.long().clamp(0, NUM_FEATURES
+                                                           - 1))
+            cases = [("uint8, in place", bins, feats, rl, tab, False),
+                     ("uint8, gathered columns", cols, None, rl, tab, False),
+                     ("packed, in place", p16, feats, rl[:n - n % 2], tab16,
+                      True)]
+            runs = {}
+            for form, b_in, f_in, rl_in, tab_in, packed in cases:
+                for name, run, plain in _row_forms(torch, hc, b_in, f_in,
+                                                   rl_in, tab_in, packed):
+                    before = hc.LAUNCHES[name]
+                    got, again = run(), run()
+                    torch.cuda.synchronize()
+                    if hc.LAUNCHES[name] != before + 2:
+                        raise AssertionError(f"{name} [{tag} {form}] did "
+                                             "not launch")
+                    want = plain()
+                    if name == "wave_trial_channels":
+                        got, again, want = (got,), (again,), (want,)
+                    for x, y, z in zip(got, again, want):
+                        if not torch.equal(x, y):
+                            raise AssertionError(f"{name} [{tag} {form} "
+                                                 f"W={wn}] differs between "
+                                                 "two runs")
+                        if not torch.equal(x, z):
+                            raise AssertionError(f"{name} [{tag} {form} "
+                                                 f"W={wn}] differs from its "
+                                                 "plain version")
+                    runs[form, name] = (run, plain)
+                log(f"kernel wave_row_update, wave_trial_channels [{tag} "
+                    f"{form} W={wn} N={rl_in.shape[0]} active={n_on}]: "
+                    "bitwise equal to plain, identical across two runs")
             if tag == "main" and wn == hc.LEAF_CHANNELS:
-                for name, fn, plain, write_rl in (
-                        ("wave_row_update",
-                         lambda: hc.wave_row_update(cols, rl, tab),
-                         lambda: hc.wave_row_update_plain(cols, rl, tab),
-                         True),
-                        ("wave_trial_channels",
-                         lambda: hc.wave_trial_channels(cols, rl, *targs),
-                         lambda: hc.wave_trial_channels_plain(cols, rl,
-                                                              *targs),
-                         False)):
-                    b_ms, b_by = bound_ms(*_row_work(torch, cols, rl, tab,
-                                                     write_rl))
-                    rec[name] = dict(max_abs_err=0.0, bound_ms=b_ms,
-                                     bound_by=b_by, ms=time_ms(fn, reps),
-                                     plain_ms=time_ms(plain, 3),
-                                     library_ms=None)
-            del cols, rl, tab, rl_k, ch_k, rl_p, ch_p, tr_k, tr_p
+                for name in ("wave_row_update", "wave_trial_channels"):
+                    run, plain = runs["uint8, in place", name]
+                    b_ms, b_by = bound_ms(*_row_work(
+                        torch, cols, rl, tab, name == "wave_row_update"))
+                    rec[name] = dict(
+                        max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                        ms=time_ms(run, reps), plain_ms=time_ms(plain, 3),
+                        library_ms=None,
+                        packed_ms=time_ms(runs["packed, in place", name][0],
+                                          reps))
+            del bins, feats, rl, tab, p16, tab16, cols, cases, runs
         torch.cuda.empty_cache()
 
     rec["hist_single"] = single_leaf_phase(torch, gen, dev, n_main, reps)
@@ -380,6 +434,8 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
                else f"{r['library_ms']:.3f} ms")
         u8 = (f", uint8 form at B={PACK_BINS} {r['uint8_ms']:.3f} ms"
               if "uint8_ms" in r else "")
+        if "packed_ms" in r:
+            u8 = f", packed in place {r['packed_ms']:.3f} ms"
         log(f"[{card}] {name} @ N={n_main}: kernel {r['ms']:.3f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.3f} ms, library {lib}{u8}")
@@ -574,8 +630,10 @@ def leaf_stress_phase(torch, gen, dev, card, n_main: int, reps: int) -> None:
 
 def single_leaf_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
     """``hist_single`` against its plain version, bit for bit and across
-    two runs, at the shapes its callers give it; timed at the partitioned
-    grower's root pass (the full padded rows, row-major, read in place)."""
+    two runs, at the shapes its callers give it (row-major segments read
+    in place: the root, half N, a short one at an odd start, rows of an
+    odd width; feature-major ragged; the renewal column); timed at the
+    partitioned grower's root pass (the full padded rows, row-major)."""
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     f = NUM_FEATURES
@@ -584,6 +642,10 @@ def single_leaf_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
               n_main),
              ("main, row-major segment, half N", f, n_main, 256, "rows",
               n_main // 4, n_main // 2),
+             ("short row-major segment, odd start", f, n_main, 256, "rows",
+              12_345, 50_003),
+             ("unaligned rows of width 29", f, 1_000_003, 256, "rows29",
+              777, 100_003),
              ("ragged", f, 1_000_003, 17, "features", 0, 1_000_003),
              ("renew column", 1, n_main, 256, "features", 0, n_main)]
     for tag, nf, n, nb, layout, s0, cnt in cases:
@@ -591,10 +653,11 @@ def single_leaf_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
         hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
         mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
         w = th.pack_weights(grad, hess, mask)
-        if layout == "rows":
-            P = torch.randint(0, nb, (n, nf), generator=gen, device=dev,
+        if layout.startswith("rows"):
+            width = nf + 1 if layout == "rows29" else nf
+            P = torch.randint(0, nb, (n, width), generator=gen, device=dev,
                               dtype=torch.uint8)
-            bins = P[s0:s0 + cnt].t()
+            bins = P[s0:s0 + cnt, :nf].t()
         else:
             bins = torch.randint(0, nb, (nf, n), generator=gen, device=dev,
                                  dtype=torch.uint8)
@@ -991,8 +1054,63 @@ def profile_iteration(lt, torch, card, ds, params, mode, out_dir) -> None:
         f"{bst._gbdt.last_host_syncs}, -1 = not counted)")
     for e in top[:8]:
         log(f"    {e.key[:60]:60s} {dev_us(e) / 1e3:9.3f} ms  x{e.count}")
-    if mode != "partition":
+    if mode == "partition":
+        single_traffic(torch, card, bst, out_dir)
+    else:
         leaf_traffic(torch, card, bst, mode, out_dir)
+
+
+def single_traffic(torch, card, bst, out_dir, reps=5) -> None:
+    """The partitioned grower's ``hist_single`` launches of one more
+    boosting iteration of ``bst``: each launch's rows, start row and
+    strides (the views are kept; the grower's leaf-contiguous matrix they
+    read stays alive, and each later segment holds the same rows in
+    another order), then all of them replayed (CUDA events, median of
+    ``reps``) at the geometry's rule, and each launch timed alone; written
+    to ``single_traffic_partition.json``."""
+    from lightgbm_tpu_torch.learner import partitioned
+    calls = []
+    real = partitioned.hist_single
+
+    def call(bins, w, **kw):
+        calls.append((bins, w, kw))
+        return real(bins, w, **kw)
+    partitioned.hist_single = call
+    try:
+        bst.update()
+    finally:
+        partitioned.hist_single = real
+    torch.cuda.synchronize()
+    rows = np.array([b.shape[1] for b, _, _ in calls])
+    starts = [b.storage_offset() // max(b.stride(1), 1) for b, _, _ in calls]
+
+    def replay():
+        for bins, w, kw in calls:
+            real(bins, w, **kw)
+    ms = time_ms(replay, reps, spin=20 * SPIN_CYCLES)
+    # each launch alone (its zero-filled output included), summed by
+    # segment length
+    each = [time_ms(lambda c=c: real(c[0], c[1], **c[2]), 3) for c in calls]
+    edges = (0, 16_384, 65_536, 262_144, 1_048_576, 1 << 62)
+    buckets = []
+    for lo, hi in zip(edges, edges[1:]):
+        sel = [t for t, n in zip(each, rows) if lo <= n < hi]
+        buckets.append((lo, len(sel), float(sum(sel))))
+    log(f"[{card}] single-leaf traffic partition: {len(calls)} launches, "
+        f"rows min {rows.min()}, median {int(np.median(rows))}, mean "
+        f"{rows.mean():.1f}, max {rows.max()}, sum {rows.sum()}; strides "
+        f"{sorted({tuple(b.stride()) for b, _, _ in calls})}; replayed "
+        f"{ms:.3f} ms")
+    log("    launches alone, by rows: " + "; ".join(
+        f">= {lo}: {k} launches, {t:.3f} ms" for lo, k, t in buckets))
+    with open(os.path.join(out_dir, "single_traffic_partition.json"),
+              "w") as fh:
+        json.dump({"card": card, "rows": rows.tolist(), "starts": starts,
+                   "strides": [list(b.stride()) for b, _, _ in calls],
+                   "num_bins": calls[0][2]["num_bins"],
+                   "replay_ms": ms, "launch_ms": each}, fh)
+    del calls
+    torch.cuda.empty_cache()
 
 
 def leaf_traffic(torch, card, bst, mode, out_dir, reps=5) -> None:
@@ -1006,20 +1124,40 @@ def leaf_traffic(torch, card, bst, mode, out_dir, reps=5) -> None:
     calls = []
     real = {name: getattr(wave, name) for name in
             ("build_histogram_leaves", "build_histogram_leaves_q8")}
+    row_real = {name: getattr(wave, name) for name in
+                ("wave_row_update", "wave_trial_channels")}
+    row_calls = []   # (rows, rows whose leaf an active split takes, in place)
 
     def recorder(fn):
         def call(bins, w, ch, **kw):
             calls.append((fn, bins, w, ch.clone(), kw))
             return fn(bins, w, ch, **kw)
         return call
+
+    def row_recorder(fn, trial):
+        def call(cols, rl, *a, **kw):
+            leaves, act = (a[0], a[5]) if trial else (a[0][4], a[0][6] > 0)
+            row_calls.append((rl.shape[0], torch.isin(
+                rl, leaves[act.bool()].to(rl.dtype)).sum(),
+                              "feats" in kw))
+            return fn(cols, rl, *a, **kw)
+        return call
     try:
         for name, fn in real.items():
             setattr(wave, name, recorder(fn))
+        for name, fn in row_real.items():
+            setattr(wave, name, row_recorder(fn, name == "wave_trial_channels"))
         bst.update()
     finally:
-        for name, fn in real.items():
+        for name, fn in {**real, **row_real}.items():
             setattr(wave, name, fn)
     torch.cuda.synchronize()
+    row_share = np.array([int(m) / n for n, m, _ in row_calls])
+    log(f"[{card}] row-update traffic {mode}: {len(row_calls)} launches "
+        f"({sum(p for *_, p in row_calls)} reading the bin matrix in place), "
+        f"share of rows whose leaf an active split takes: min "
+        f"{row_share.min():.4f}, median {np.median(row_share):.4f}, mean "
+        f"{row_share.mean():.4f}, max {row_share.max():.4f}")
     fn0, bins0, _, _, kw0 = calls[0]
     q8 = fn0 is hc.build_histogram_leaves_q8
     k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
@@ -1059,7 +1197,8 @@ def leaf_traffic(torch, card, bst, mode, out_dir, reps=5) -> None:
                    "groups_ms": {f"{cg}x{fg}": t
                                  for (cg, fg), t in times.items()},
                    "rule_ms": rule_ms,
-                   "rule_groups": [list(p) for p in picks]}, fh)
+                   "rule_groups": [list(p) for p in picks],
+                   "row_update_share": row_share.tolist()}, fh)
     del calls
     torch.cuda.empty_cache()
 

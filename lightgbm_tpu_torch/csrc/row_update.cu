@@ -1,101 +1,286 @@
 // Wave row update for the wave grower, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernels of lightgbm_tpu/ops/histogram_pallas.py:
-//   * wave_row_update_pallas (_row_update_kernel, and the DMA form
-//     _row_update_kernel_dma): apply a wave's W numeric splits to every row
-//     in one pass, returning the new row->leaf vector and the
-//     smaller-child channel of each row;
-//   * wave_trial_channels_pallas: the same pass with new_right_id set to
-//     the split leaf, so row->leaf is unchanged and only the channel of
-//     each row's would-be smaller side comes back (the exact endgame).
+//   * wave_row_update_pallas (:1280; _row_update_kernel :1093 via the
+//     pallas_call at :1255, and the DMA form _row_update_kernel_dma :1118
+//     via :1220): apply a wave's W numeric splits to every row in one
+//     pass, returning the new row->leaf vector and the smaller-child
+//     channel of each row;
+//   * wave_trial_channels_pallas (:1314): the same pass with new_right_id
+//     set to the split leaf, so row->leaf is unchanged and only the
+//     channel of each row's would-be smaller side comes back (the exact
+//     endgame).
 //
 // Semantics are those of _row_update_kernel (histogram_pallas.py:1097-1113)
 // exactly: the W splits are applied in order j = 0..W-1 to the running
 // row->leaf value, so a row rerouted by split j can be caught by a later
 // split whose split_leaf is its new leaf; the channel is overwritten by
-// every later split that matches.
+// every later split that matches; the trial form never writes row->leaf.
 //
-// Design.  One thread per row.  The (8, W) int32 split table
-// [threshold, nan_bin, default_left, left_is_smaller, split_leaf,
-//  new_right_id, active, unused] is staged in shared memory once per
-// block.  For each split the thread reads one byte of that split's winning
-// feature column (cols_w is (W, N), so a warp reads 32 consecutive bytes).
+// The split columns are read IN PLACE from the grower's bin matrix: uint8
+// (F, n) or nibble-packed (F, n/2) (row 2j in the low nibble of byte j),
+// with a per-split feature index (clamped into [0, F), as the plain
+// version's gather clamps it; no column is read for an inactive split).
+// The reference, and the first version of this kernel, took a gathered
+// (W, N) copy of the winning columns (unpacked under packed bins).
 //
-// What bounds it on the H100: bytes.  Per row it reads W column bytes and
-// 4 bytes of row->leaf and writes 4 + 1 bytes; at W = 25..42 and 10.5M
-// rows that is 0.3-0.5 GB, 0.1-0.15 ms at 3.35 TB/s.  The compare/select
-// work is a few integer operations per byte.  Loads are single bytes;
-// packing four rows per thread into 32-bit loads is later work.
+// What bounds it on the H100: bytes.  Per row: row->leaf in (4 B) and out
+// (4 B, not in the trial form), the channel out (1 B), and one column byte
+// (half under packed bins) for each split whose leaf the row is in as the
+// splits apply: 9-10 bytes a row, about 0.1 GB and 0.03 ms at 10.5M rows
+// and 3.35 TB/s.  A column byte costs its 32-byte sector where few rows of
+// a split's leaf lie close together.
+//
+// Design.  One resident round of 256-thread blocks (as many as the
+// occupancy API says the SMs hold) walks the rows; a thread takes two
+// quads of 4 consecutive rows a step, each with row->leaf in as one
+// 16-byte load, out as one 16-byte store and the channels as one 4-byte
+// store.  Each block first builds in shared memory the (8, W) table [threshold, nan_bin,
+// default_left, left_is_smaller, split_leaf, new_right_id, active,
+// unused], each split's column offset, a hash from a leaf to its first
+// active split, and for each split the first later active split of its
+// split_leaf and of its new_right_id.  A row then finds its split with one
+// lookup, with no walk over the W splits; its split is its last unless a
+// later split takes the leaf the row is left in (the endgame's flush of a
+// split and then its child), so the column bytes of a thread's eight rows
+// are loaded together after the lookups, one byte per row that a split
+// takes; a row no split takes costs its 9 bytes.  A chained split reads
+// its byte at once and follows its link.  The first version read all W
+// column bytes of every row; a version that loaded each split's column
+// while walking the table ran the trial form slower than that (each load
+// waited on the one before), and one that walked the table and deferred
+// the loads spent ~300 instructions a thread on the walk (PERF.md section
+// 6).
+//
+// Times (NVIDIA H100 80GB HBM3, 700.00 W): chip_smoke.py phase 2 (CUDA
+// events behind a spinning kernel, W=25, N=10,502,144, rows over 255
+// leaves) 0.098 ms, trial form 0.073 ms, where the first version took
+// 0.279 and 0.224 ms on the same timer; on the wave grower's own traffic
+// (torch.profiler) 0.072-0.079 ms a launch, where the first version took
+// 0.226 ms, and 0.34 ms a trial launch, on top of the gather (and
+// unpack) of the winning columns.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kMaxW = 128;
+constexpr int kThreads = 256;
+constexpr int kQuads = 2;            // 4-row quads of a thread per step
+
+constexpr int kSlots = 256;          // leaf -> first split, 2 x kMaxW
+constexpr int kEmpty = INT_MIN;      // a free slot's key
+
+__device__ __forceinline__ int bin_at(const uint8_t* __restrict__ col,
+                                      long long row, bool packed) {
+  return packed ? (__ldg(col + (row >> 1)) >> ((row & 1) * 4)) & 15
+                : __ldg(col + row);
+}
+
+__device__ __forceinline__ int slot_of(int leaf) {
+  return (int)(((unsigned int)leaf * 2654435761u) >> 24);
+}
+
+struct Table {
+  int tab[8 * kMaxW];
+  long long off[kMaxW];
+  int next_left[kMaxW];    // first later active split of split_leaf
+  int next_right[kMaxW];   // first later active split of new_right_id
+  int key[kSlots];
+  int first[kSlots];       // first active split of the slot's leaf
+  int first_min;           // ... of leaf INT_MIN, which no slot can key
+};
+
+// The first active split whose split_leaf is `leaf`, or W.
+__device__ __forceinline__ int first_split(const Table& T, int leaf, int W) {
+  if (leaf == kEmpty) return T.first_min;
+  for (int s = slot_of(leaf);; s = (s + 1) & (kSlots - 1)) {
+    const int k = T.key[s];
+    if (k == leaf) return T.first[s];
+    if (k == kEmpty) return W;
+  }
+}
+
+// vec: rl, rl_out (16 B) and ch (4 B) aligned for vector access.
+template <bool kTrial, bool kPacked>
+__global__ void __launch_bounds__(kThreads)
+row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
+                  const int* __restrict__ feats, const int* __restrict__ rl_in,
+                  const int* __restrict__ tab, int* __restrict__ rl_out,
+                  int8_t* __restrict__ ch_out, int W, long long N, int vec) {
+  __shared__ Table T;
+  for (int i = threadIdx.x; i < 8 * W; i += blockDim.x) T.tab[i] = tab[i];
+  for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
+    T.key[i] = kEmpty;
+    T.first[i] = W;
+  }
+  if (threadIdx.x == 0) T.first_min = W;
+  __syncthreads();
+  const int* act = T.tab + 6 * W;
+  const int* sel = T.tab + 4 * W;
+  const int* nid = T.tab + 5 * W;
+  for (int j = threadIdx.x; j < W; j += blockDim.x) {
+    const int f = feats ? feats[j] : j;
+    T.off[j] = (long long)min(max(f, 0), F - 1) * fstride;
+    int nl = W, nr = W;
+    for (int k = W - 1; k > j; --k) {
+      if (act[k] <= 0) continue;
+      if (sel[k] == sel[j]) nl = k;
+      if (sel[k] == nid[j]) nr = k;
+    }
+    T.next_left[j] = nl;
+    T.next_right[j] = kTrial ? nl : nr;
+    if (act[j] <= 0) continue;
+    if (sel[j] == kEmpty) {
+      atomicMin(&T.first_min, j);
+      continue;
+    }
+    for (int s = slot_of(sel[j]);; s = (s + 1) & (kSlots - 1)) {
+      const int k = atomicCAS(&T.key[s], kEmpty, sel[j]);
+      if (k == kEmpty || k == sel[j]) {
+        atomicMin(&T.first[s], j);
+        break;
+      }
+    }
+  }
+  __syncthreads();
+
+  // rows [4q, 4q + 4) of quads q = base + threadIdx.x + k * blockDim.x,
+  // k < kQuads: each load and store instruction of a warp is contiguous
+  const long long quads = (N + 3) / 4;
+  const long long span = (long long)blockDim.x * kQuads;
+  for (long long base = (long long)blockIdx.x * span; base < quads;
+       base += (long long)gridDim.x * span) {
+    long long r[kQuads];
+    int nv[kQuads];
+    int rl[kQuads][4];
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+      r[k] = 4 * (base + threadIdx.x + (long long)k * blockDim.x);
+      nv[k] = (int)max(0LL, min(4LL, N - r[k]));
+      if ((vec & 1) && nv[k] == 4) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(rl_in + r[k]));
+        rl[k][0] = v.x; rl[k][1] = v.y; rl[k][2] = v.z; rl[k][3] = v.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          rl[k][i] = i < nv[k] ? __ldg(rl_in + r[k] + i) : 0;
+      }
+    }
+    int ch[kQuads][4];
+    int last[kQuads][4];   // each row's last split, applied after the loads
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ch[k][i] = -1;
+        int j = i < nv[k] ? first_split(T, rl[k][i], W) : W;
+        // a split followed by a later one of the row's leaf (the endgame's
+        // flush of a split and then its child) is applied at once
+        while (j < W && (T.next_left[j] < W || T.next_right[j] < W)) {
+          const int b = bin_at(bins + T.off[j], r[k] + i, kPacked);
+          const int go_left = (b == T.tab[W + j]) ? T.tab[2 * W + j]
+                                                  : (b <= T.tab[j] ? 1 : 0);
+          if (go_left == T.tab[3 * W + j]) ch[k][i] = j;
+          if (!kTrial && go_left == 0) rl[k][i] = nid[j];
+          j = go_left ? T.next_left[j] : T.next_right[j];
+        }
+        last[k][i] = j;
+      }
+    }
+    int b[kQuads][4];
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        b[k][i] = last[k][i] < W
+                      ? bin_at(bins + T.off[last[k][i]], r[k] + i, kPacked)
+                      : 0;
+#pragma unroll
+    for (int k = 0; k < kQuads; ++k) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int j = last[k][i];
+        if (j >= W) continue;
+        const int go_left = (b[k][i] == T.tab[W + j])
+                                ? T.tab[2 * W + j]
+                                : (b[k][i] <= T.tab[j] ? 1 : 0);
+        if (go_left == T.tab[3 * W + j]) ch[k][i] = j;
+        if (!kTrial && go_left == 0) rl[k][i] = nid[j];
+      }
+      if ((vec & 1) && nv[k] == 4) {
+        if (!kTrial)
+          *reinterpret_cast<int4*>(rl_out + r[k]) =
+              make_int4(rl[k][0], rl[k][1], rl[k][2], rl[k][3]);
+        *reinterpret_cast<unsigned int*>(ch_out + r[k]) =
+            (unsigned int)(uint8_t)ch[k][0] |
+            ((unsigned int)(uint8_t)ch[k][1] << 8) |
+            ((unsigned int)(uint8_t)ch[k][2] << 16) |
+            ((unsigned int)(uint8_t)ch[k][3] << 24);
+      } else {
+        for (int i = 0; i < nv[k]; ++i) {
+          if (!kTrial) rl_out[r[k] + i] = rl[k][i];
+          ch_out[r[k] + i] = (int8_t)ch[k][i];
+        }
+      }
+    }
+  }
+}
 
 template <bool kTrial>
-__global__ void row_update_kernel(const uint8_t* __restrict__ cols,
-                                  const int* __restrict__ rl_in,
-                                  const int* __restrict__ tab,
-                                  int* __restrict__ rl_out,
-                                  int8_t* __restrict__ ch_out, int W, int N) {
-  __shared__ int s_tab[8 * kMaxW];
-  for (int i = threadIdx.x; i < 8 * W; i += blockDim.x) s_tab[i] = tab[i];
-  __syncthreads();
-  const long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= N) return;
-  int rl = rl_in[r];
-  int ch = -1;
-  for (int j = 0; j < W; ++j) {
-    const int thr = s_tab[0 * W + j];
-    const int nanb = s_tab[1 * W + j];
-    const int dlft = s_tab[2 * W + j];
-    const int small = s_tab[3 * W + j];
-    const int selj = s_tab[4 * W + j];
-    const int newid = s_tab[5 * W + j];
-    const int act = s_tab[6 * W + j];
-    const int col = cols[(long long)j * N + r];
-    const int go_left = (col == nanb) ? dlft : (col <= thr ? 1 : 0);
-    const bool upd = (rl == selj) && (act > 0);
-    if (upd && go_left == small) ch = j;
-    if (!kTrial && upd && go_left == 0) rl = newid;
-  }
-  if (!kTrial) rl_out[r] = rl;
-  ch_out[r] = (int8_t)ch;
+int launch(const void* bins, long long fstride, int F, const void* feats,
+           const void* rl, const void* tab, void* rl_out, void* ch_out, int W,
+           long long N, int packed, int vec, void* stream) {
+  if (W > kMaxW || (F <= 0 && W > 0)) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return 0;
+  auto* kern = packed ? row_update_kernel<kTrial, true>
+                      : row_update_kernel<kTrial, false>;
+  // one resident round: as many blocks as the SMs hold, or fewer
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                        kThreads, 0);
+  if (err != cudaSuccess) return (int)err;
+  const long long span = (long long)kThreads * kQuads;
+  const long long need = ((N + 3) / 4 + span - 1) / span;
+  const long long most = per_sm * sms > 0 ? (long long)per_sm * sms : 1;
+  const int blocks = (int)(need < most ? need : most);
+  kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(bins), fstride, F,
+      static_cast<const int*>(feats), static_cast<const int*>(rl),
+      static_cast<const int*>(tab), static_cast<int*>(rl_out),
+      static_cast<int8_t*>(ch_out), W, N, vec);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// cols (W, N) uint8, rl (N,) int32, tab (8, W) int32 ->
-// rl_out (N,) int32, ch_out (N,) int8.
-int wave_row_update(const void* cols, const void* rl, const void* tab,
-                    void* rl_out, void* ch_out, int W, int N, int threads,
-                    void* stream) {
-  if (W > kMaxW) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + threads - 1) / threads;
-  row_update_kernel<false><<<blocks, threads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cols), static_cast<const int*>(rl),
-      static_cast<const int*>(tab), static_cast<int*>(rl_out),
-      static_cast<int8_t*>(ch_out), W, N);
-  return (int)cudaGetLastError();
+// bins: the (F, fstride) bin matrix, uint8 or nibble-packed (packed = 1);
+// feats: (W,) int32 feature of each split, or null for split j reading row
+// j; rl (N,) int32, tab (8, W) int32 -> rl_out (N,) int32, ch_out (N,)
+// int8.
+int wave_row_update(const void* bins, long long fstride, int F,
+                    const void* feats, const void* rl, const void* tab,
+                    void* rl_out, void* ch_out, int W, long long N,
+                    int packed, int vec, void* stream) {
+  return launch<false>(bins, fstride, F, feats, rl, tab, rl_out, ch_out, W,
+                       N, packed, vec, stream);
 }
 
 // Trial form: rl is read, never written; ch_out (N,) int8.
-int wave_trial_channels(const void* cols, const void* rl, const void* tab,
-                        void* ch_out, int W, int N, int threads,
+int wave_trial_channels(const void* bins, long long fstride, int F,
+                        const void* feats, const void* rl, const void* tab,
+                        void* ch_out, int W, long long N, int packed, int vec,
                         void* stream) {
-  if (W > kMaxW) return (int)cudaErrorInvalidValue;
-  const int blocks = (N + threads - 1) / threads;
-  row_update_kernel<true><<<blocks, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(cols), static_cast<const int*>(rl),
-      static_cast<const int*>(tab), nullptr, static_cast<int8_t*>(ch_out), W,
-      N);
-  return (int)cudaGetLastError();
+  return launch<true>(bins, fstride, F, feats, rl, tab, nullptr, ch_out, W,
+                      N, packed, vec, stream);
 }
 
 }  // extern "C"

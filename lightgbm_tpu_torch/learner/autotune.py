@@ -156,19 +156,42 @@ def _make_runner(impl: str, X_binned: np.ndarray, max_bins: int,
     return run
 
 
+_PROBE_SPIN_CYCLES = 20_000_000      # ~10 ms of a spinning kernel
+_PROBE_SPIN_TRIES = 4                # each try spins 4x longer
+
+
 def _seconds_per_run(run, reps: int, device: torch.device) -> float:
     """Mean time of ``reps`` runs after one warm-up run (which also builds
-    the kernels): CUDA events on the card, the host clock on the CPU."""
+    the kernels): CUDA events on the card, the host clock on the CPU.
+
+    A launch at the probe's shape takes about as long on the card as the
+    host takes to queue it (its output's zero-fill and the launch itself),
+    so events around the bare runs would time the host.  A spinning kernel
+    runs ahead instead: the host queues every run while the card waits,
+    and the events time the card.  If the card reached the first event
+    before the last run was queued, the spin was too short and the runs
+    are timed again behind a longer one."""
     run()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            run()
-        stop.record()
-        stop.synchronize()
+        spin = _PROBE_SPIN_CYCLES
+        for _ in range(_PROBE_SPIN_TRIES):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(spin)
+            start.record()
+            for _ in range(reps):
+                run()
+            stop.record()
+            queued_ahead = not start.query()
+            stop.synchronize()
+            if queued_ahead:
+                break
+            spin *= 4
+        else:
+            log_warning("histogram autotune: the card caught up with the "
+                        "host while the probe was queued; its times "
+                        "include the host's")
         return start.elapsed_time(stop) / 1e3 / reps
     t0 = time.perf_counter()
     for _ in range(reps):

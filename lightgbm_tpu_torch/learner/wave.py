@@ -28,8 +28,8 @@ Carried over from the reference, with the same semantics:
 * nibble-packed 4-bit bins (``pack4``, reference wave.py:466-475,
   :644-679, :877-889, :918-928, :977-981): the leaf kernels read the
   ``(F, N/2)`` packed matrix in the waves and the ramp, the ramp's
-  subsample strides over packed BYTES (adjacent row pairs), and the few
-  winning feature columns a row update needs are unpacked first.
+  subsample strides over packed BYTES (adjacent row pairs), and the row
+  update reads the winning columns' nibbles in place.
 
 The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
@@ -51,7 +51,7 @@ import torch
 
 from ..models.tree import DEFAULT_LEFT_MASK, MISSING_NAN
 from ..ops.histogram import (PACK4_MAX_BINS, histogram_subtract,
-                             pack_weights, unpack_bins4)
+                             pack_weights)
 from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
                                   build_histogram, build_histogram_leaves,
                                   build_histogram_leaves_q8,
@@ -147,14 +147,11 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         zf = torch.zeros((), dtype=_F32, device=dev)
         neg_inf = torch.full((), NEG_INF, dtype=_F32, device=dev)
 
-        def cols_of(bins: torch.Tensor, feats: torch.Tensor) -> torch.Tensor:
-            """(k, rows) UNPACKED bin columns of the given features: the
-            row update's kernel takes one byte per row."""
-            cols = bins.index_select(0, feats.long())
-            return unpack_bins4(cols) if pack4 else cols
-
-        def take_cols(feats: torch.Tensor) -> torch.Tensor:
-            return cols_of(X_T, feats)
+        def route(bins, rl, tab, feats):
+            """The row update reading the split columns of ``bins`` in
+            place (packed under ``pack4``)."""
+            return wave_row_update(bins, rl, tab, feats=feats.to(_I32),
+                                   bins_packed=pack4)
 
         gm = (grad * bag_mask).float()
         hm = (hess * bag_mask).float()
@@ -316,16 +313,14 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                     thr_s, fnan_s, dl_s, torch.ones_like(thr_s),
                     sel_l.to(_I32), newids, sel.to(_I32),
                     torch.zeros_like(thr_s)]).contiguous()
-                rl_ss, _ = wave_row_update(cols_of(X_ss, feats_cl), rl_ss,
-                                           tab)
+                rl_ss, _ = route(X_ss, rl_ss, tab, feats_cl)
                 tabs.append((tab, feats_cl))
                 nlp = nlp + int(prefix[-1])
 
             # route ALL rows through the provisional tree
             rl_full = torch.zeros((n,), dtype=_I32, device=dev)
             for tab, feats_cl in tabs:
-                rl_full, _ = wave_row_update(take_cols(feats_cl), rl_full,
-                                             tab)
+                rl_full, _ = route(X_T, rl_full, tab, feats_cl)
 
             # ONE full-data pass: exact per-prov-leaf channel sums
             h_ch, leaf_tot = hist_waves(rl_full.to(torch.int8), k=Kc,
@@ -498,8 +493,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 thr, f_nan_bin, dleft.to(_I32), left_smaller.to(_I32),
                 sl.to(_I32), new_ids, sel.to(_I32),
                 torch.zeros_like(thr)]).contiguous()
-            s["row_leaf"], ch = wave_row_update(take_cols(feat),
-                                                s["row_leaf"], tab)
+            s["row_leaf"], ch = route(X_T, s["row_leaf"], tab, feat)
 
             # ---- one kernel pass: all W smaller-child histograms ----
             hist_small = hist_waves(ch)
@@ -579,7 +573,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
         if use_endgame:
             num_leaves_now, hist_passes = _endgame(
-                s, num_leaves_now, hist_passes, take_cols, hist_waves,
+                s, num_leaves_now, hist_passes, X_T, hist_waves,
                 many_candidates, nb_full, hn_full, fm_row, neg_inf)
 
         if quantized and renew_leaf:
@@ -615,7 +609,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             row_leaf=s["row_leaf"], hist_passes=int(hist_passes))
 
     # ---- exact endgame (reference wave.py:1710-1933) -----------------------
-    def _endgame(s, num_leaves_now, hist_passes, take_cols, hist_waves,
+    def _endgame(s, num_leaves_now, hist_passes, X_T, hist_waves,
                  many_candidates, nb_full, hn_full, fm_row, neg_inf):
         dev = s["cand_gain"].device
 
@@ -638,8 +632,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                    pend["dleft"][sl_], zero,
                                    pend["leaf"][sl_], pend["newid"][sl_],
                                    pend["act"][sl_], zero]).contiguous()
-                rl, _ = wave_row_update(take_cols(pend["feat"][sl_]), rl,
-                                        tab)
+                rl, _ = wave_row_update(X_T, rl, tab, feats=pend["feat"][sl_],
+                                        bins_packed=pack4)
             return rl
 
         pend, pcnt = pend0(), 0
@@ -656,9 +650,10 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                 torch.full_like(feat, -1))
             small = lsum[:, 2] <= rsum[:, 2]
             ch = wave_trial_channels(
-                take_cols(feat), s["row_leaf"], sel_leaves,
+                X_T, s["row_leaf"], sel_leaves,
                 s["cand_bin"][sel_leaves], fnanb,
-                s["cand_dleft"][sel_leaves], small, sel)
+                s["cand_dleft"][sel_leaves], small, sel,
+                feats=feat.to(_I32), bins_packed=pack4)
             bank = hist_waves(ch)
             slot = torch.full((L,), -1, dtype=torch.long, device=dev)
             _set_drop(slot, sel_leaves,

@@ -20,6 +20,11 @@ and nibble-packed bins with ``bins_packed=True``):
 * :func:`wave_trial_channels` — ``wave_trial_channels_pallas``
   (histogram_pallas.py:1314).
 
+The two row-update entry points take the reference's gathered ``(W, N)``
+winning columns, or, with ``feats=``, the grower's whole bin matrix (uint8
+or, with ``bins_packed``, nibble-packed) read in place; the grower passes
+the latter.
+
 Dispatch is by the device of the tensors: a CPU tensor takes the plain
 version (``*_plain``), a CUDA tensor launches the kernel on
 ``torch.cuda.current_stream()`` or raises.  There is no fallback from one
@@ -63,7 +68,8 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "wave_trial_channels", "build_histogram_leaves_plain",
            "build_histogram_leaves_q8_plain", "wave_row_update_plain",
            "wave_trial_channels_plain", "reset_launches", "LeafGeometry",
-           "leaf_groups", "leaf_geometry"]
+           "leaf_groups", "leaf_geometry", "SingleGeometry",
+           "single_geometry"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -76,11 +82,6 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_q8_packed4": 0, "hist_leaves": 0,
             "hist_leaves_packed4": 0, "wave_row_update": 0,
             "wave_trial_channels": 0}
-
-_ROW_THREADS = 256
-_SINGLE_THREADS = 512
-_SINGLE_SMEM = 200 * 1024   # shared bytes for one block's feature group
-_SINGLE_MIN_CHUNK = 4096    # fewest rows per block (see csrc/hist_single.cu)
 
 
 def reset_launches() -> None:
@@ -126,15 +127,18 @@ def _raise_on(rc: int, kernel: str) -> None:
 _SIGS_SET = set()
 
 
-def _fn(lib_name: str, fn_name: str, nptr: int, nint: int, with_stream=True):
+def _fn(lib_name: str, fn_name: str, argtypes):
+    """``fn_name`` of ``csrc/<lib_name>.cu``, its C signature set once."""
     from .cuda_lib import library
     fn = getattr(library(lib_name), fn_name)
     if fn_name not in _SIGS_SET:
-        fn.argtypes = ([ctypes.c_void_p] * nptr + [ctypes.c_int] * nint +
-                       ([ctypes.c_void_p] if with_stream else []))
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _SIGS_SET.add(fn_name)
     return fn
+
+
+_LL, _VP, _CI = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
 
 
 def _p(t: torch.Tensor) -> ctypes.c_void_p:
@@ -265,13 +269,8 @@ def _launch_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, packed):
     fn_name = fn_name + ("_p4" if packed else "")
     geo = leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k,
                         fn_name.startswith("hist_leaves_q8"), packed)
-    from .cuda_lib import library
-    fn = getattr(library("hist_leaves"), fn_name)
-    if fn_name not in _SIGS_SET:
-        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp] * 4 + [ci, ll, ci, ci, ci, ci, ci, ll, ci, vp]
-        fn.restype = ci
-        _SIGS_SET.add(fn_name)
+    fn = _fn("hist_leaves", fn_name,
+             [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _LL, _CI, _VP])
     _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
                  geo.cg, geo.fg, geo.chunks, geo.chunk_rows,
                  int(ch.data_ptr() % 4 == 0), _stream()), fn_name)
@@ -397,16 +396,71 @@ def _check_single_packed(bins_t, w, num_bins):
     return f, nb
 
 
-def _single_geometry(dev: torch.device, f: int, n: int, num_bins: int):
-    """(features per block, rows per block): as many features as fit the
-    shared budget, and row chunks that give every SM its resident blocks
-    once."""
-    fg = max(1, min(f, _SINGLE_SMEM // (num_bins * 24)))
-    per_sm = max(1, min(2048 // _SINGLE_THREADS,
-                        (220 * 1024) // (fg * num_bins * 24)))
-    groups = -(-f // fg)
-    blocks = max(1, _sm_count(dev) * per_sm // groups)
-    return fg, max(_SINGLE_MIN_CHUNK, -(-n // blocks))
+# -- single-leaf geometry (csrc/hist_single.cu) --------------------------------
+#
+# Per feature a block keeps (B | 1) bins of int64 g, int64 h and a uint32
+# count.  A block of 1024 threads (64 registers each) fills an SM; a block
+# whose histogram fits a quarter of the SM's shared memory runs at 256
+# threads, four to an SM.
+SINGLE_BIN_BYTES = 20
+SINGLE_ROW_STEP = 16          # chunks start 16-row aligned (4-row loads)
+SINGLE_MIN_ROWS = 512         # fewest rows a block takes before features split
+SINGLE_MAX_BLOCK_ROWS = 1 << 31   # the per-block uint32 count of 0/1 rows
+SM_SMEM = 233_472             # an H100 SM's shared memory
+
+
+class SingleGeometry(NamedTuple):
+    """The launch of one single-leaf histogram: ``fg`` features per block
+    in ``f_groups`` groups times ``chunks`` row chunks of ``chunk_rows``
+    rows, blocks of ``threads``, ``smem`` shared bytes per block."""
+    fg: int
+    f_groups: int
+    chunks: int
+    chunk_rows: int
+    threads: int
+    smem: int
+
+
+def single_geometry(sms: int, f: int, n: int, num_bins: int,
+                    layout: str) -> SingleGeometry:
+    """Geometry of ``hist_single[_p4]`` on a card with ``sms`` SMs for a
+    segment of ``n`` rows; ``layout`` is ``rows`` (row-major runs, read
+    as words when a group's features come in fours), ``features`` or
+    ``packed``.
+
+    For each count of feature groups (features spread evenly, in fours
+    for ``rows``; a block whose histogram fits a quarter of an SM runs at
+    256 threads, four to an SM): row chunks of at least
+    ``SINGLE_MIN_ROWS`` rows, as many as fit one resident round.  Of
+    those, the launch whose busiest SM has the least work, counted as
+    one unit per (row, feature) for the adds and one per row for its
+    weights, each block column re-reading them; ties go to fewer
+    groups.  Long segments so take all features in one block per SM;
+    short ones split the features until the grid fills the SMs."""
+    per_feature = (num_bins | 1) * SINGLE_BIN_BYTES
+    fg_max = max(1, min(f, BLOCK_SMEM // per_feature))
+    steps = max(1, -(-n // SINGLE_ROW_STEP))
+    most_chunks = max(1, -(-n // SINGLE_MIN_ROWS))
+    best = None
+    for g in range(1, f + 1):
+        fg = -(-f // g)
+        if layout == "rows" and 4 < fg < f:
+            fg = -(-fg // 4) * 4
+        fg = min(fg, fg_max)
+        groups = -(-f // fg)
+        per_sm = 4 if 4 * (fg * per_feature + 1024) <= SM_SMEM else 1
+        slots = sms * per_sm
+        chunks = max(1, min(most_chunks, slots // groups),
+                     -(-n // SINGLE_MAX_BLOCK_ROWS))
+        chunk_rows = -(-steps // chunks) * SINGLE_ROW_STEP
+        chunks = max(1, -(-n // chunk_rows))
+        rounds = -(-groups * chunks // slots)
+        cost = (fg + 1) * chunk_rows * per_sm * rounds
+        geo = SingleGeometry(fg, groups, chunks, chunk_rows,
+                             LEAF_THREADS // per_sm, fg * per_feature)
+        if best is None or cost < best[0]:
+            best = (cost, geo)
+    return best[1]
 
 
 def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
@@ -417,11 +471,12 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
     passes ``P[s:e, :F].T`` of its row-major packed rows); ``w``: the
     tree's :func:`pack_weights` restricted to the same rows
     (``w.w[:, s:e]``), rows of the leaf carrying their weights and all
-    other rows zeros.  With ``bins_packed``: contiguous (F, N/2) packed
-    bytes and contiguous (3, N) weights.  Scale back with
+    other rows zeros; the count row 0/1.  With ``bins_packed``: contiguous
+    (F, N/2) packed bytes and contiguous (3, N) weights.  Scale back with
     :func:`fx_to_f32`."""
     if bins_packed:
         f, nb = _check_single_packed(bins_t, w.w, num_bins)
+        n = 2 * nb
     else:
         f, n = _check_single_args("hist_single", bins_t, w.w, num_bins)
     if bins_t.device.type == "cpu":
@@ -429,40 +484,35 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
                                  bins_packed=bins_packed)
     out = torch.zeros((f, num_bins, 3), dtype=torch.int64,
                       device=bins_t.device)
-    if bins_packed:
-        _launch_single_packed(bins_t, w.w, out, f, nb, num_bins)
-        LAUNCHES["hist_single_packed4"] += 1
-        return out
     if f == 0 or n == 0:
         return out
-    from .cuda_lib import library
-    fn = library("hist_single").hist_single
-    if "hist_single" not in _SIGS_SET:
-        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, ll, ll, vp, ll, vp] + [ci] * 6 + [vp]
-        fn.restype = ci
-        _SIGS_SET.add("hist_single")
-    fg, chunk = _single_geometry(bins_t.device, f, n, num_bins)
     sf, sn = bins_t.stride()
+    layout = ("packed" if bins_packed else
+              "features" if sn == 1 else "rows")
+    geo = single_geometry(_sm_count(bins_t.device), f, n, num_bins, layout)
+    ptr = bins_t.data_ptr()
+    if bins_packed:
+        fn = _fn("hist_single", "hist_single_p4",
+                 [_VP] * 3 + [_CI, _LL, _CI, _CI, _CI, _LL, _CI, _CI, _VP])
+        _raise_on(fn(_p(bins_t), _p(w.w), _p(out), f, nb, num_bins, geo.fg,
+                     geo.chunks, geo.chunk_rows, geo.threads,
+                     int(ptr % 2 == 0 and nb % 2 == 0), _stream()),
+                  "hist_single_p4")
+        LAUNCHES["hist_single_packed4"] += 1
+        return out
+    if layout == "features":
+        kind = 3 if ptr % 4 == 0 and sf % 4 == 0 else 2
+    else:
+        kind = int(sf == 1 and ptr % 4 == 0 and sn % 4 == 0 and
+                   (geo.fg % 4 == 0 or geo.f_groups == 1))
+    fn = _fn("hist_single", "hist_single",
+             [_VP, _LL, _LL, _VP, _LL, _VP, _CI, _LL, _CI, _CI, _CI, _LL,
+              _CI, _CI, _VP])
     _raise_on(fn(_p(bins_t), sf, sn, _p(w.w), w.w.stride(0), _p(out), f, n,
-                 num_bins, fg, chunk, _SINGLE_THREADS, _stream()),
-              "hist_single")
+                 num_bins, geo.fg, geo.chunks, geo.chunk_rows, geo.threads,
+                 kind, _stream()), "hist_single")
     LAUNCHES["hist_single"] += 1
     return out
-
-
-def _launch_single_packed(bins_t, w, out, f, nb, num_bins):
-    from .cuda_lib import library
-    fn = library("hist_single").hist_single_p4
-    if "hist_single_p4" not in _SIGS_SET:
-        ll, vp, ci = ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, ci, ll] + [ci] * 4 + [vp]
-        fn.restype = ci
-        _SIGS_SET.add("hist_single_p4")
-    fg, chunk = _single_geometry(bins_t.device, f, 2 * nb, num_bins)
-    _raise_on(fn(_p(bins_t), _p(w), _p(out), f, nb, num_bins, fg,
-                 -(-chunk // 2), _SINGLE_THREADS, _stream()),
-              "hist_single_p4")
 
 
 def build_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
@@ -488,27 +538,51 @@ def build_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
 
 # -- row update ---------------------------------------------------------------
 
-def _check_row_args(kernel, cols_w, rl, tab):
+def _check_row_args(kernel, cols_w, rl, tab, feats, bins_packed):
     if cols_w.dim() != 2:
-        raise ValueError(f"{kernel}: cols_w must be (W, N)")
-    wn, n = cols_w.shape
+        raise ValueError(f"{kernel}: cols_w must be (W, N) or, with feats, "
+                         "the (F, N) bin matrix" +
+                         (" packed as (F, N/2)" if bins_packed else ""))
+    if tab.dim() != 2 or rl.dim() != 1:
+        raise ValueError(f"{kernel}: tab must be (8, W) and rl (N,)")
+    wn, n, f = tab.shape[1], rl.shape[0], cols_w.shape[0]
     dev = cols_w.device
-    _check("cols_w", cols_w, torch.uint8, (wn, n), dev)
+    if bins_packed and n % 2:
+        raise ValueError(f"{kernel}: packed bins need an even row count, "
+                         f"got {n}")
+    _check("cols_w", cols_w, torch.uint8,
+           (f, n // 2 if bins_packed else n), dev)
     _check("rl", rl, torch.int32, (n,), dev)
     _check("tab", tab, torch.int32, (8, wn), dev)
+    if feats is None:
+        if f != wn:
+            raise ValueError(f"{kernel}: without feats, cols_w must hold "
+                             f"one column per split ({wn}), got {f}")
+    else:
+        _check("feats", feats, torch.int32, (wn,), dev)
     _check_device(kernel, dev)
     if wn > 128:
         raise ValueError(f"{kernel}: at most 128 splits per pass, got {wn}")
+    if f == 0 and wn > 0:
+        raise ValueError(f"{kernel}: the bin matrix has no feature")
     return wn, n
 
 
-def wave_row_update_plain(cols_w, rl, tab):
-    """Plain version: a Python loop over the W splits of ``torch.where``,
-    in the order and with the overwrites of histogram_pallas.py:1097-1113."""
+def _split_columns(cols_w, feats, bins_packed):
+    """The (W, N) unpacked columns the splits read: the plain versions'
+    gather (a feature outside [0, F) clamped into it, as the kernel does;
+    an inactive split's column is never used)."""
+    if feats is not None:
+        idx = feats.long().clamp(0, cols_w.shape[0] - 1)
+        cols_w = cols_w.index_select(0, idx)
+    return _unpacked(cols_w, bins_packed)
+
+
+def _row_loop(cols, rl, tab):
     rl = rl.clone()
     ch = torch.full_like(rl, -1)
-    cols = cols_w.to(torch.int32)
-    for j in range(cols_w.shape[0]):
+    cols = cols.to(torch.int32)
+    for j in range(cols.shape[0]):
         thr, nanb, dlft, small, selj, newid, act = (tab[i, j]
                                                      for i in range(7))
         col = cols[j]
@@ -519,22 +593,51 @@ def wave_row_update_plain(cols_w, rl, tab):
     return rl, ch.to(torch.int8)
 
 
+def wave_row_update_plain(cols_w, rl, tab, *, feats=None,
+                          bins_packed: bool = False):
+    """Plain version: gather (and unpack) the split columns, then a Python
+    loop over the W splits of ``torch.where``, in the order and with the
+    overwrites of histogram_pallas.py:1097-1113."""
+    return _row_loop(_split_columns(cols_w, feats, bins_packed), rl, tab)
+
+
+def _launch_rows(kernel, cols_w, rl, tab, feats, bins_packed, rl_out, ch):
+    wn, n = tab.shape[1], rl.shape[0]
+    vec = int(rl.data_ptr() % 16 == 0 and ch.data_ptr() % 4 == 0 and
+              (rl_out is None or rl_out.data_ptr() % 16 == 0))
+    fn = _fn("row_update", kernel,
+             [_VP, _LL, _CI] + [_VP] * (4 if rl_out is None else 5) +
+             [_CI, _LL, _CI, _CI, _VP])
+    outs = [_p(ch)] if rl_out is None else [_p(rl_out), _p(ch)]
+    _raise_on(fn(_p(cols_w), cols_w.stride(0), cols_w.shape[0],
+                 _p(feats) if feats is not None else None, _p(rl), _p(tab),
+                 *outs, wn, n, int(bins_packed), vec, _stream()), kernel)
+
+
 def wave_row_update(cols_w: torch.Tensor, rl: torch.Tensor,
-                    tab: torch.Tensor, *, interpret=None, pipeline=None):
+                    tab: torch.Tensor, *, feats: torch.Tensor = None,
+                    bins_packed: bool = False, interpret=None,
+                    pipeline=None):
     """Apply a wave's W numeric splits to every row in one pass.
 
-    cols_w (W, N) uint8 winning feature columns; rl (N,) int32 row->leaf;
-    tab (8, W) int32 rows [threshold_bin, nan_bin (-1 = none),
-    default_left, left_is_smaller, split_leaf, new_right_id, active, 0].
-    Returns (rl_new (N,) int32, ch (N,) int8 smaller-child channel)."""
-    wn, n = _check_row_args("wave_row_update", cols_w, rl, tab)
+    rl (N,) int32 row->leaf; tab (8, W) int32 rows [threshold_bin,
+    nan_bin (-1 = none), default_left, left_is_smaller, split_leaf,
+    new_right_id, active, 0].  ``cols_w`` is the (W, N) uint8 winning
+    columns (the reference's signature), or, with ``feats`` ((W,) int32,
+    the feature of each split), the grower's (F, N) bin matrix read in
+    place; with ``bins_packed`` either is nibble-packed, (.., N/2).  An
+    active split's feature must lie in [0, F); an inactive split's
+    column is never read.  Returns (rl_new (N,) int32, ch (N,) int8
+    smaller-child channel)."""
+    wn, n = _check_row_args("wave_row_update", cols_w, rl, tab, feats,
+                            bins_packed)
     if cols_w.device.type == "cpu":
-        return wave_row_update_plain(cols_w, rl, tab)
+        return wave_row_update_plain(cols_w, rl, tab, feats=feats,
+                                     bins_packed=bins_packed)
     rl_out = torch.empty_like(rl)
     ch = torch.empty((n,), dtype=torch.int8, device=rl.device)
-    fn = _fn("row_update", "wave_row_update", 5, 3)
-    _raise_on(fn(_p(cols_w), _p(rl), _p(tab), _p(rl_out), _p(ch), wn, n,
-                 _ROW_THREADS, _stream()), "wave_row_update")
+    _launch_rows("wave_row_update", cols_w, rl, tab, feats, bins_packed,
+                 rl_out, ch)
     LAUNCHES["wave_row_update"] += 1
     return rl_out, ch
 
@@ -549,29 +652,35 @@ def _trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
 
 
 def wave_trial_channels_plain(cols_w, rl, sel_leaves, thr, nan_bin,
-                              default_left, left_smaller, active):
+                              default_left, left_smaller, active, *,
+                              feats=None, bins_packed: bool = False):
     """Plain version: the row update with new_right_id = split_leaf."""
     tab = _trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
                      active)
-    return wave_row_update_plain(cols_w, rl, tab)[1]
+    return wave_row_update_plain(cols_w, rl, tab, feats=feats,
+                                 bins_packed=bins_packed)[1]
 
 
 def wave_trial_channels(cols_w: torch.Tensor, rl: torch.Tensor,
                         sel_leaves: torch.Tensor, thr: torch.Tensor,
                         nan_bin: torch.Tensor, default_left: torch.Tensor,
                         left_smaller: torch.Tensor, active: torch.Tensor,
-                        *, interpret=None, pipeline=None) -> torch.Tensor:
+                        *, feats: torch.Tensor = None,
+                        bins_packed: bool = False, interpret=None,
+                        pipeline=None) -> torch.Tensor:
     """TRIAL leaf channels of W *candidate* splits: the slot whose SMALLER
     side each row would take, or -1; ``rl`` is not changed (the exact
-    endgame's batched pass, learner/wave.py)."""
+    endgame's batched pass, learner/wave.py).  ``cols_w``, ``feats`` and
+    ``bins_packed`` as in :func:`wave_row_update`."""
     tab = _trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
                      active)
-    wn, n = _check_row_args("wave_trial_channels", cols_w, rl, tab)
+    wn, n = _check_row_args("wave_trial_channels", cols_w, rl, tab, feats,
+                            bins_packed)
     if cols_w.device.type == "cpu":
-        return wave_row_update_plain(cols_w, rl, tab)[1]
+        return wave_row_update_plain(cols_w, rl, tab, feats=feats,
+                                     bins_packed=bins_packed)[1]
     ch = torch.empty((n,), dtype=torch.int8, device=rl.device)
-    fn = _fn("row_update", "wave_trial_channels", 4, 3)
-    _raise_on(fn(_p(cols_w), _p(rl), _p(tab), _p(ch), wn, n, _ROW_THREADS,
-                 _stream()), "wave_trial_channels")
+    _launch_rows("wave_trial_channels", cols_w, rl, tab, feats, bins_packed,
+                 None, ch)
     LAUNCHES["wave_trial_channels"] += 1
     return ch

@@ -325,3 +325,103 @@ def test_pack4_training_on_card_matches_cpu(cuda_device):
     assert hc.LAUNCHES["hist_leaves_q8_packed4"] > 0
     assert hc.LAUNCHES["hist_leaves_q8"] == 0
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+# -- the redesigned single-leaf histogram and the in-place row update --------
+
+def _rows_view(device, f, n, num_bins, seed, width=None, start=3,
+               weights="random"):
+    """A row-major segment ``P[start:start + n, :f].T`` (rows of ``width``
+    bytes, an odd start) and its fixed-point weights: random, all zero,
+    or every row in bin 0 of every feature with equal weights (skew)."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    width = width or f
+    P = rng.randint(0, num_bins, (n + start + 5, width)).astype(np.uint8)
+    grad = (rng.randn(n) * 0.5).astype(np.float32)
+    hess = (rng.rand(n) * 0.25 + 0.01).astype(np.float32)
+    mask = (rng.rand(n) < 0.8).astype(np.float32)
+    if weights == "zero":
+        mask[:] = 0.0
+    elif weights == "skew":
+        P[:] = 0
+        grad[:], hess[:], mask[:] = -0.75, 0.25, 1.0
+    w = th.pack_weights(t(grad), t(hess), t(mask))
+    return t(P)[start:start + n, :f].t(), w
+
+
+def _single_on_card(monkeypatch, bins, w, num_bins):
+    monkeypatch.setattr(hc, "hist_single_plain", None)   # must launch
+    before = hc.LAUNCHES["hist_single"]
+    got = hc.hist_single(bins, w, num_bins=num_bins)
+    again = hc.hist_single(bins, w, num_bins=num_bins)
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["hist_single"] == before + 2
+    monkeypatch.undo()
+    assert torch.equal(got, again)
+    assert torch.equal(got, hc.hist_single_plain(bins, w, num_bins=num_bins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [1, 6, 7, 28, 29])
+@pytest.mark.parametrize("n", [1, 4095, 4097, 100_003])
+@pytest.mark.parametrize("num_bins", [2, 17, 256])
+def test_hist_single_row_major_odd_starts_on_card(cuda_device, monkeypatch,
+                                                  f, n, num_bins):
+    bins, w = _rows_view(cuda_device, f, n, num_bins, seed=f + n)
+    _single_on_card(monkeypatch, bins, w, num_bins)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["zero", "skew", "width 29", "features"])
+def test_hist_single_edge_cases_on_card(cuda_device, monkeypatch, case):
+    """All-zero weights; every row in one bin (the most contention);
+    rows of an odd width (no word loads); a feature-major matrix at an
+    odd column offset (no aligned 32-bit loads)."""
+    if case == "features":
+        rng = np.random.RandomState(4)
+        full = torch.from_numpy(rng.randint(0, 256, (28, 100_010)).astype(
+            np.uint8)).to(cuda_device)
+        bins = full[:, 3:100_006]
+        _, w = _rows_view(cuda_device, 28, 100_003, 256, seed=4)
+    else:
+        bins, w = _rows_view(cuda_device, 28, 100_003, 256, seed=5,
+                             width=29 if case == "width 29" else None,
+                             weights=case if case != "width 29"
+                             else "random")
+    _single_on_card(monkeypatch, bins, w, 256)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n", [65536, 100_002])
+def test_row_update_in_place_on_card(cuda_device, monkeypatch, packed, n):
+    """The row update and trial channels reading the (F, N) matrix in
+    place (uint8, and packed at B=16), with a chained split and inactive
+    splits whose feature is out of range: bit for bit the plain version
+    and identical across two launches."""
+    nb = 16 if packed else 256
+    bins, *_, rl, tab = _inputs(n, nb, cuda_device, w=25, n_active=20)
+    bins = bins if not packed else th.pack_bins4(bins)
+    rng = np.random.RandomState(9)
+    feats = torch.from_numpy(np.concatenate([
+        rng.randint(0, F, 20), F + 1 + np.arange(5)]).astype(np.int32)).to(
+            cuda_device)
+    tab[4, 1] = tab[5, 0]
+    targs = (tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0, tab[6] > 0)
+    kw = dict(feats=feats, bins_packed=packed)
+    for name in ("wave_row_update_plain", "wave_trial_channels_plain"):
+        monkeypatch.setattr(hc, name, None)   # must launch
+    before = dict(hc.LAUNCHES)
+    ru = [hc.wave_row_update(bins, rl, tab, **kw) for _ in range(2)]
+    tr = [hc.wave_trial_channels(bins, rl, *targs, **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["wave_row_update"] == before["wave_row_update"] + 2
+    assert hc.LAUNCHES["wave_trial_channels"] == \
+        before["wave_trial_channels"] + 2
+    monkeypatch.undo()
+    want = hc.wave_row_update_plain(bins, rl, tab, **kw)
+    for got in ru:
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    want_tr = hc.wave_trial_channels_plain(bins, rl, *targs, **kw)
+    assert all(torch.equal(t_, want_tr) for t_ in tr)

@@ -1,5 +1,6 @@
 """The launch geometry of the leaf-channel histogram kernels
-(csrc/hist_leaves.cu) and the q8 kernel's packed (g, h) accumulator.
+(csrc/hist_leaves.cu) and the q8 kernel's packed (g, h) accumulator, and
+of the single-leaf histogram (csrc/hist_single.cu, ``single_geometry``).
 
 The kernel runs only on the card; what decides its blocks is the plain
 Python of ``ops/histogram_cuda.py`` ``leaf_geometry``, checked here on the
@@ -174,3 +175,86 @@ def test_q8_packed_gh_prefix_sums():
     gs, hs = _unpack_gh(acc)
     assert torch.equal(gs, torch.cumsum(g.to(torch.int64), 0))
     assert torch.equal(hs, torch.cumsum(h.to(torch.int64), 0))
+
+
+# -- the single-leaf histogram (csrc/hist_single.cu) --------------------------
+
+SINGLE_ROWS = [1, 17, 2283, 4096, 34_330, 100_003, 250_107, 1_000_003,
+               10_502_144]
+SINGLE_CASES = ([(f, b, layout, n) for f in (1, 6, 7, 28, 29)
+                 for b in (2, 17, 256) for layout in ("rows", "features")
+                 for n in SINGLE_ROWS] +
+                [(f, b, "packed", n) for f in (1, 28) for b in (5, 16)
+                 for n in PACKED_ROWS])
+
+
+def _single_blocks(geo, f, n):
+    """(features, rows) ranges of every block, as hist_single_rows and
+    hist_single_feats compute them from their block index."""
+    for y in range(geo.f_groups):
+        f0 = y * geo.fg
+        for x in range(geo.chunks):
+            r0 = x * geo.chunk_rows
+            yield (f0, min(f, f0 + geo.fg)), (r0, min(n, r0 + geo.chunk_rows))
+
+
+@pytest.mark.parametrize("f,num_bins,layout,n", SINGLE_CASES)
+def test_single_blocks_cover_every_cell_once(f, num_bins, layout, n):
+    geo = hc.single_geometry(SMS, f, n, num_bins, layout)
+    assert geo.chunk_rows % hc.SINGLE_ROW_STEP == 0   # 4-row loads align
+    cover = np.zeros(f, np.int64)
+    rows = {}
+    for (f0, f1), (r0, r1) in _single_blocks(geo, f, n):
+        assert f0 < f1 and r0 < r1                    # no empty block
+        cover[f0:f1] += r1 - r0
+        rows.setdefault(f0, []).append((r0, r1))
+    assert (cover == n).all()
+    for spans in rows.values():                       # chunks tile [0, n)
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("f,num_bins,layout,n", SINGLE_CASES)
+def test_single_geometry_fits_the_sm(f, num_bins, layout, n):
+    geo = hc.single_geometry(SMS, f, n, num_bins, layout)
+    assert geo.smem == geo.fg * (num_bins | 1) * hc.SINGLE_BIN_BYTES
+    assert geo.smem <= hc.BLOCK_SMEM
+    assert geo.threads in (256, hc.LEAF_THREADS)
+    per_sm = hc.LEAF_THREADS // geo.threads        # 64 registers a thread
+    assert per_sm * (geo.smem + SMEM_RESERVED) <= SM_SMEM
+    assert geo.f_groups * geo.chunks <= per_sm * SMS   # one resident round
+    if layout == "rows" and geo.f_groups > 1 and geo.fg > 4:
+        assert geo.fg % 4 == 0        # every group's run starts on a word
+
+
+@pytest.mark.parametrize("f", [1, 6, 28, 29])
+@pytest.mark.parametrize("n", [4096, 13_022, 34_330, 100_003, 250_107,
+                               1_000_003, 10_502_144])
+def test_single_grid_fills_the_sms(f, n):
+    """From a 4,096-row child to the 10.5M-row root, the grid gives 90% of
+    the SMs a block, or every (feature, SINGLE_MIN_ROWS rows) cell its
+    own block when the segment has fewer."""
+    geo = hc.single_geometry(SMS, f, n, 256, "rows")
+    cells = f * -(-n // hc.SINGLE_MIN_ROWS)
+    assert geo.f_groups * geo.chunks >= min(0.9 * SMS, cells)
+
+
+def test_single_geometry_at_the_main_shapes():
+    """The partitioned root takes every feature in one block per SM; the
+    renewal column runs four small blocks to an SM."""
+    root = hc.single_geometry(SMS, F, 10_502_144, 256, "rows")
+    assert (root.fg, root.f_groups, root.chunks, root.threads) == \
+        (F, 1, SMS, hc.LEAF_THREADS)
+    assert root.smem == 143_920
+    renew = hc.single_geometry(SMS, 1, 10_502_144, 256, "features")
+    assert (renew.threads, renew.chunks) == (256, 4 * SMS)
+
+
+def test_single_counts_fit_32_bits():
+    """A block's count is a uint32 sum of 0/1 rows: no block takes more
+    than SINGLE_MAX_BLOCK_ROWS rows, which a uint32 holds."""
+    assert hc.SINGLE_MAX_BLOCK_ROWS <= (1 << 32) - 1
+    n = 3 * hc.SINGLE_MAX_BLOCK_ROWS + 5
+    geo = hc.single_geometry(4, 1, n, 256, "features")
+    assert geo.chunk_rows <= hc.SINGLE_MAX_BLOCK_ROWS
+    assert geo.chunks * geo.chunk_rows >= n
