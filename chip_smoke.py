@@ -32,13 +32,19 @@ Phases (any failure exits non-zero and prints no result line):
    at the same B=16 shape; the four leaf-channel forms again, bit for bit
    and identical across two runs, on a skewed mix (every row in one of 3
    channels and 4 bins) and a late wave's (5% of the rows in a channel),
-   each timed beside its ``index_add_``;
+   each timed beside its ``index_add_``; and the threefry stream
+   (``utils/random.py``, plain integer ops, not a kernel) bit for bit
+   against the CPU's at the main path's N and at a (W, F) node draw;
 3. small models trained on the card against the same models trained on
    the CPU (plain versions): quantized L2 model text identical at
    max_bin=255 and at max_bin=15 (packed bins), partitioned binary model
    text identical (failing that, partitioned predictions within 1e-5 and
    the first differing field named), exact binary wave predictions within
-   1e-5;
+   1e-5; on 10,000 of those rows, with stochastic rounding on,
+   quantized binary, quantized 3-class multiclass and quantized binary with
+   ``feature_fraction_bynode=0.5, extra_trees=true`` model text
+   identical, and L1 with its percentile leaf renewal identical (failing
+   that, predictions within 1e-5 and the first differing field named);
 4. the wave path at full width on synthetic rows shaped like the Higgs
    configuration of BASELINE.md (28 features, max_bin=255,
    num_leaves=255, learning_rate=0.1, binary): ``train`` in exact and in
@@ -62,15 +68,26 @@ Phases (any failure exits non-zero and prints no result line):
    launch both single-leaf forms, log both times and the winner and write
    the cache; with the in-process cache cleared, training again must read
    the winner from disk and launch no probe; both trainings must run the
-   leaf-kernel form the winner names.
+   leaf-kernel form the winner names;
+9. the training surface at full width, on the main path's rows: (a)
+   ``bench.py``'s headline configuration (255 leaves, 255 bins, lr 0.1,
+   ``use_quantized_grad``, 254 levels, stochastic rounding,
+   ``quant_train_renew_leaf``) for ``--rounds`` rounds: iterations/s,
+   held-out AUC, save/reload/predict; the q8 leaf kernel, the row update
+   and the single-leaf kernel (renewal) must launch; (b) 3-class softmax
+   (labels cut at the logit's terciles), quantized with stochastic
+   rounding, ``--mc-rounds`` rounds: iterations/s, held-out
+   multi_logloss, (N, 3) predictions, reload identical; the leaf kernels
+   must launch for each of the 3 class trees of every round.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
 run.
 
 ``--profile`` adds, per wave mode (exact and quantized at max_bin=255 and
-15) and for the partitioned grower, one boosting iteration under
-``torch.profiler``; for the wave modes, one more iteration whose
+15), for the partitioned grower, and for phase 9's headline configuration
+with stochastic rounding and again with round-half-up, one boosting
+iteration under ``torch.profiler``; for the wave modes, one more iteration whose
 leaf-channel launches are recorded: the share of each launch's rows in a
 channel, and the whole set of launches replayed at every group of
 channels x features a block can hold against the group the geometry
@@ -131,6 +148,8 @@ WAVE_KERNELS = ("hist_leaves_q8", "hist_leaves", "wave_row_update",
                 "wave_trial_channels")
 PARTITION_ROUNDS = 3
 RENEW_ROUNDS = 2
+W_CHILDREN = 84                  # a quantized wave's 2 x 42 children
+MC_CLASSES = 3
 
 
 def log(msg: str) -> None:
@@ -709,6 +728,35 @@ def single_leaf_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
     return out
 
 
+def rng_phase(card: str, n_main: int) -> None:
+    """The threefry stream on the card against the CPU's, bit for bit, at
+    the main path's rows (one tree's stochastic rounding draw) and at a
+    (W, F) by-node draw over a wave's children (``W_CHILDREN`` node ids).
+    Integer ops are exact on both, so any difference is a bug."""
+    import torch
+    from lightgbm_tpu_torch.utils.random import (fold_in, host_key,
+                                                 prng_key, uniform)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    # the rounding draw as training makes it: a host key, drawn on the card
+    row_key = fold_in(fold_in(host_key(7), 3), 0)
+    rows_card = uniform(row_key, (n_main,), dev)
+    ids = torch.arange(W_CHILDREN, dtype=torch.int64) * 2 + 1
+    node_card = uniform(fold_in(prng_key(11, dev), ids.to(dev)),
+                        (NUM_FEATURES,))
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    rows_cpu = uniform(row_key, (n_main,), "cpu")
+    node_cpu = uniform(fold_in(prng_key(11), ids), (NUM_FEATURES,))
+    if not (torch.equal(rows_card.cpu(), rows_cpu) and
+            torch.equal(node_card.cpu(), node_cpu)):
+        raise AssertionError("the threefry stream on the card differs from "
+                             "the CPU's")
+    log(f"[{card}] threefry: ({n_main},) row draw and ({W_CHILDREN}, "
+        f"{NUM_FEATURES}) node draw bitwise equal to the CPU's "
+        f"({t_card:.3f} s on the card, first call)")
+
+
 # -- phases 3 to 6: training -------------------------------------------------
 
 def higgs_like(n: int, seed: int):
@@ -799,18 +847,60 @@ def small_check(lt, seed: int) -> None:
         f"quantized L2 model text identical on card and CPU, at "
         f"max_bin={MAX_BIN} and at max_bin={PACK_MAX_BIN} with packed bins; "
         f"{part}; exact binary wave predictions within {err:.3g}")
+    # the slice's new paths on the first 10,000 rows: the CPU half of each
+    # pair is most of this phase's time
+    X, y, logit = X[:10_000], y[:10_000], logit[:10_000]
+    y3 = np.digitize(logit, np.quantile(logit, [1 / 3, 2 / 3])) \
+        .astype(np.float32)
+    ps = dict(base, use_quantized_grad=True, stochastic_rounding=True)
+    for what, params, label in (
+            ("stochastic quantized binary", dict(ps, objective="binary"), y),
+            ("stochastic quantized 3-class multiclass",
+             dict(ps, objective="multiclass", num_class=MC_CLASSES), y3),
+            ("stochastic quantized binary, bynode 0.5 + extra-trees",
+             dict(ps, objective="binary", feature_fraction_bynode=0.5,
+                  extra_trees=True), y)):
+        a = lt.train(params, lt.Dataset(X, label), 3, device="cuda")
+        b = lt.train(params, lt.Dataset(X, label), 3, device="cpu")
+        if a.model_to_string() != b.model_to_string():
+            raise AssertionError(f"{what} model trained on the card differs "
+                                 "from the one trained on the CPU")
+    p1 = dict(base, objective="regression_l1")
+    a = lt.train(p1, lt.Dataset(X, logit), 3, device="cuda")
+    b = lt.train(p1, lt.Dataset(X, logit), 3, device="cpu")
+    sa, sb = a.model_to_string(), b.model_to_string()
+    if sa == sb:
+        l1 = "L1 with leaf renewal model text identical"
+    else:
+        first = next(la.split("=", 1)[0] for la, lb in
+                     zip(sa.splitlines(), sb.splitlines()) if la != lb)
+        l1err = float(np.abs(a.predict(X) - b.predict(X)).max())
+        log(f"L1 model text differs from the CPU's, first in field "
+            f"{first!r}; predictions within {l1err:.3g}")
+        if not l1err <= 1e-5:
+            raise AssertionError(f"L1 model on the card predicts {l1err} "
+                                 "away from the CPU's")
+        l1 = f"L1 with leaf renewal predictions within {l1err:.3g}"
+    log(f"small models (10000x{NUM_FEATURES}, 31 leaves, 3 rounds), "
+        f"stochastic rounding on: quantized binary, 3-class multiclass and "
+        f"binary with bynode sampling and extra-trees model text identical "
+        f"on card and CPU; {l1}")
 
 
 def mode_params(mode: str, max_bin: int = MAX_BIN, **extra) -> dict:
     """exact / quantized wave, partition (exact), renew (quantized wave
-    with leaf renewal)."""
+    with leaf renewal), each with round-half-up; headline (``bench.py``'s:
+    254 levels, stochastic rounding, leaf renewal)."""
+    head = mode == "headline"
     return dict(objective="binary", num_leaves=NUM_LEAVES, max_bin=max_bin,
-                learning_rate=0.1, verbosity=-1, **extra,
-                use_quantized_grad=mode in ("quantized", "renew"),
-                quant_train_renew_leaf=(mode == "renew"),
+                learning_rate=0.1, verbosity=-1, min_data_in_leaf=20,
+                **extra,
+                use_quantized_grad=mode in ("quantized", "renew", "headline"),
+                quant_train_renew_leaf=mode in ("renew", "headline"),
+                num_grad_quant_bins=254 if head else 4,
                 tree_grow_mode=("partition" if mode == "partition"
                                 else "wave"),
-                stochastic_rounding=False)
+                stochastic_rounding=head)
 
 
 def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir,
@@ -875,6 +965,102 @@ def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir,
         raise AssertionError(f"{mode}: held-out AUC {a} is no better than "
                              "chance")
     return bst
+
+
+def surface_phase(lt, torch, card, ds, Xte, yte, logit_tr, logit_te,
+                  rounds: int, mc_rounds: int, out_dir: str,
+                  profile: bool) -> dict:
+    """Phase 9: ``bench.py``'s headline configuration, then 3-class softmax,
+    on the main path's binned rows; returns the launches of both."""
+    import copy
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    launches = {k: 0 for k in hc.LAUNCHES}
+
+    # (a) the headline configuration
+    torch.cuda.reset_peak_memory_stats()
+    hc.reset_launches()
+    bst = train_mode(lt, torch, card, ds, Xte, yte, "headline", rounds,
+                     out_dir)
+    got = dict(hc.LAUNCHES)
+    log(f"headline path launches: {json.dumps(got)}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not (bst._gbdt.learner.quantized and
+            bst._gbdt.config.stochastic_rounding):
+        raise AssertionError("the headline configuration did not train "
+                             "quantized with stochastic rounding")
+    missing = [k for k in ("hist_leaves_q8", "wave_row_update",
+                           "hist_single") if got[k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched by the headline "
+                             f"configuration: {missing}")
+    for k, v in got.items():
+        launches[k] += v
+    del bst
+    if profile:
+        head = mode_params("headline")
+        profile_iteration(lt, torch, card, ds, head, "headline", out_dir,
+                          traffic=False)
+        profile_iteration(lt, torch, card, ds,
+                          dict(head, stochastic_rounding=False),
+                          "headline_half_up", out_dir, traffic=False)
+
+    # (b) 3-class softmax, labels cut at the logit's terciles
+    cuts = np.quantile(logit_tr, [1 / 3, 2 / 3])
+    y3 = np.digitize(logit_tr, cuts).astype(np.float32)
+    y3te = np.digitize(logit_te, cuts).astype(np.int64)
+    ds3 = copy.copy(ds)                 # the same binned rows on the card
+    ds3.metadata = copy.copy(ds.metadata)
+    ds3.metadata.set_label(y3)
+    params = dict(objective="multiclass", num_class=MC_CLASSES,
+                  num_leaves=NUM_LEAVES, max_bin=MAX_BIN, learning_rate=0.1,
+                  verbosity=-1, use_quantized_grad=True)
+    ticks = []
+
+    def tick(env):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    hc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds3, mc_rounds, callbacks=[tick])
+    got = dict(hc.LAUNCHES)
+    steady = ((len(ticks) - 1) / (ticks[-1] - ticks[0])
+              if len(ticks) > 1 else float("nan"))
+    trees = bst.num_trees()
+    log(f"[{card}] train multiclass (K={MC_CLASSES}, quantized, stochastic "
+        f"rounding): {len(ticks)} rounds in {ticks[-1] - t0:.3f} s (first "
+        f"{ticks[0] - t0:.3f} s), steady {steady:.4f} iterations/s, "
+        f"{trees} trees; launches {json.dumps(got)}")
+    if trees != mc_rounds * MC_CLASSES:
+        raise AssertionError(f"multiclass: {trees} trees, expected "
+                             f"{mc_rounds * MC_CLASSES}")
+    short = [k for k in ("hist_leaves_q8", "wave_row_update")
+             if got[k] < trees]
+    if short:
+        raise AssertionError(f"multiclass: {short} launched fewer times "
+                             f"than the {trees} class trees")
+    path = os.path.join(out_dir, "model_multiclass.txt")
+    bst.save_model(path)
+    p = bst.predict(Xte)
+    p2 = lt.Booster(model_file=path).predict(Xte)
+    if p.shape != (len(Xte), MC_CLASSES) or not np.all(np.isfinite(p)):
+        raise AssertionError(f"multiclass: predictions of shape {p.shape}, "
+                             "or not finite")
+    if not np.array_equal(p, p2):
+        raise AssertionError("multiclass: the reloaded model predicts "
+                             "differently")
+    mlog = float(-np.mean(np.log(np.clip(p[np.arange(len(p)), y3te],
+                                         1e-15, None))))
+    log(f"[{card}] multiclass: held-out multi_logloss {mlog:.6f} over "
+        f"{len(Xte)} rows (the class prior gives {np.log(3):.6f}); "
+        f"predictions ({len(Xte)}, {MC_CLASSES}), reloaded model identical")
+    if not mlog < np.log(3):
+        raise AssertionError(f"multiclass: held-out multi_logloss {mlog} "
+                             "is no better than the class prior")
+    for k, v in got.items():
+        launches[k] += v
+    return launches
 
 
 def tree_blocks(text: str) -> list:
@@ -1020,9 +1206,12 @@ def autotune_phase(lt, torch, card, seed: int, out_dir: str) -> dict:
     return launches
 
 
-def profile_iteration(lt, torch, card, ds, params, mode, out_dir) -> None:
+def profile_iteration(lt, torch, card, ds, params, mode, out_dir,
+                      traffic: bool = True) -> None:
     """One boosting iteration under ``torch.profiler``: device time by
-    kernel and the device's busy share, written under ``out_dir``."""
+    kernel and the device's busy share, written under ``out_dir``;
+    ``traffic`` then records one more iteration's launches (partition:
+    single-leaf, wave: leaf-channel and row-update)."""
     from torch.profiler import ProfilerActivity, profile
     bst = lt.Booster(params=params, train_set=ds)
     bst.update()
@@ -1054,6 +1243,8 @@ def profile_iteration(lt, torch, card, ds, params, mode, out_dir) -> None:
         f"{bst._gbdt.last_host_syncs}, -1 = not counted)")
     for e in top[:8]:
         log(f"    {e.key[:60]:60s} {dev_us(e) / 1e3:9.3f} ms  x{e.count}")
+    if not traffic:
+        return
     if mode == "partition":
         single_traffic(torch, card, bst, out_dir)
     else:
@@ -1213,6 +1404,8 @@ def main(argv=None) -> int:
                     help="boosting rounds per mode")
     ap.add_argument("--pack-rounds", type=int, default=5,
                     help="boosting rounds per mode on the packed path")
+    ap.add_argument("--mc-rounds", type=int, default=3,
+                    help="boosting rounds of the multiclass phase")
     ap.add_argument("--reps", type=int, default=10,
                     help="timed runs per kernel")
     ap.add_argument("--profile", action="store_true",
@@ -1267,6 +1460,7 @@ def main(argv=None) -> int:
     from lightgbm_tpu_torch.dataset import pad_rows
     n_pad = pad_rows(args.rows)
     rec = kernel_phase(card, n_pad, args.reps, args.seed)
+    rng_phase(card, n_pad)
     stamp("phase 2, kernels")
 
     # ---- phase 3: the same small model on card and CPU ----
@@ -1275,7 +1469,7 @@ def main(argv=None) -> int:
 
     # ---- phase 4: the main path ----
     t0 = time.perf_counter()
-    X, y, _ = higgs_like(args.rows + args.test_rows, args.seed)
+    X, y, logit = higgs_like(args.rows + args.test_rows, args.seed)
     Xtr, ytr = X[:args.rows], y[:args.rows]
     Xte, yte = X[args.rows:], y[args.rows:]
     t_gen = time.perf_counter() - t0
@@ -1323,8 +1517,6 @@ def main(argv=None) -> int:
         for mode in ("exact", "quantized", "partition"):
             profile_iteration(lt, torch, card, ds, mode_params(mode), mode,
                               out_dir)
-    del ds
-    torch.cuda.empty_cache()
 
     # ---- phase 7: the packed wave path at full width ----
     torch.cuda.reset_peak_memory_stats()
@@ -1340,6 +1532,18 @@ def main(argv=None) -> int:
     for k, v in autotune_phase(lt, torch, card, args.seed, out_dir).items():
         launches[k] += v
     stamp("phase 8, autotune")
+
+    # ---- phase 9: the training surface at full width ----
+    if args.mc_rounds < 3:
+        log(f"cut: multiclass rounds only, 3 -> {args.mc_rounds}")
+    for k, v in surface_phase(lt, torch, card, ds, Xte, yte,
+                              logit[:args.rows], logit[args.rows:],
+                              args.rounds, args.mc_rounds, out_dir,
+                              args.profile).items():
+        launches[k] += v
+    del ds
+    torch.cuda.empty_cache()
+    stamp("phase 9, training surface")
 
 
     kernels = []

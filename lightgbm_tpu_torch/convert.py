@@ -49,7 +49,8 @@ def trees_from_reference(arrays: Sequence[Mapping[str, Any]]) -> List[Tree]:
         if fields.get("is_linear") or np.any(dt[:max(nl - 1, 0)] & CAT_MASK):
             raise NotImplementedError(
                 f"reference tree {i} has categorical nodes or linear "
-                "leaves, which lightgbm_tpu_torch does not carry yet")
+                "leaves, which lightgbm_tpu_torch does not carry yet "
+                "(ROADMAP queue 1)")
         kw = {k: (np.array(fields[k], dtype=t, copy=True) if t is not None
                   else nl) for k, t in _REQUIRED.items()}
         out.append(Tree(shrinkage=float(fields.get("shrinkage", 1.0)), **kw))

@@ -147,11 +147,11 @@ class Dataset:
         if cat_indices:
             raise NotImplementedError(
                 "categorical features are not ported to lightgbm_tpu_torch "
-                "yet (ROADMAP queue 1, item 7: categorical growth)")
+                "yet (ROADMAP queue 1)")
         if cfg.linear_tree:
             raise NotImplementedError(
                 "linear_tree is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1, item 7)")
+                "(ROADMAP queue 1)")
 
         rng = np.random.RandomState(cfg.data_random_seed)
         sample_idx = sample_row_indices(n, int(cfg.bin_construct_sample_cnt),
@@ -168,7 +168,7 @@ class Dataset:
             if getattr(cfg, "forcedbins_filename", ""):
                 raise NotImplementedError(
                     "forcedbins_filename is not ported to lightgbm_tpu_torch "
-                    "yet (ROADMAP queue 1, item 3)")
+                    "yet (ROADMAP queue 1)")
             self.bin_mappers = []
             for j in range(f):
                 col_sample = raw[sample_idx, j]
@@ -194,7 +194,8 @@ class Dataset:
         if max(m.num_bin for m in mappers) > 256:
             raise NotImplementedError(
                 "max_bin > 255 (uint16 bin codes) is not ported to "
-                "lightgbm_tpu_torch yet; the kernels take uint8 bins")
+                "lightgbm_tpu_torch yet (ROADMAP queue 1); the kernels "
+                "take uint8 bins")
         self.X_binned = bin_matrix(raw[:, used], mappers)
         self._set_metadata(n)
         self.constructed = True
@@ -225,7 +226,7 @@ class Dataset:
         if isinstance(data, str) or hasattr(data, "tocsc"):
             raise NotImplementedError(
                 "data files and sparse matrices are not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue 1, item 3); pass a "
+                "lightgbm_tpu_torch yet (ROADMAP queue 1); pass a "
                 "dense numpy array")
         try:  # pandas without a hard dependency
             import pandas as pd  # type: ignore

@@ -30,12 +30,16 @@ Differences from the reference, none of which changes growth:
   (with its gain and which child is smaller) and the left child's row
   count.  ``GrownTree.host_syncs`` counts those reads per tree.
 
+By-node feature sampling and extra-trees thresholds draw one node at a
+time from the ``node_key`` streams (ids 2L for the root, 2t and 2t+1 for
+the children of split t; reference partitioned.py:174-195), the draws the
+wave grower batches over a wave.
+
 Unported options raise ``NotImplementedError`` before the grower is
 built: forced splits, interaction constraints and ``feature_contri`` in
 ``learner/serial.py`` ``_check_config``; categorical features, monotone
-constraints, path smoothing, CEGB, by-node sampling and extra-trees in
-``ops/split.check_supported`` (ROADMAP queue 1, item 7).  The port's
-datasets carry no EFB bundles.
+constraints, path smoothing and CEGB in ``ops/split.check_supported``
+(ROADMAP queue 1).  The port's datasets carry no EFB bundles.
 """
 
 from __future__ import annotations
@@ -45,7 +49,8 @@ import torch
 from ..models.tree import DEFAULT_LEFT_MASK, MISSING_NAN
 from ..ops.histogram import FxWeights, fx_to_f32, pack_weights
 from ..ops.histogram_cuda import hist_single
-from ..ops.split import NEG_INF, SplitParams, check_supported, leaf_output
+from ..ops.split import (NEG_INF, SplitParams, check_supported, leaf_output,
+                         node_draws)
 from .endgame import patch_child_pointers, write_split_records
 from .serial import CommStrategy, GrownTree
 
@@ -61,13 +66,16 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
     """Build the partition-ordered single-tree grower.
 
     Returns ``grow(X, grad, hess, bag_mask, num_bins, has_nan,
-    feature_mask) -> GrownTree`` with ``X`` the ROW-MAJOR (N, F) uint8 bin
-    matrix (left untouched: the grower reorders a copy) and every tensor on
-    one device.  The histogram wrapper runs the CUDA kernel on a card and
-    its plain version on the CPU."""
+    feature_mask, node_key=None) -> GrownTree`` with ``X`` the ROW-MAJOR
+    (N, F) uint8 bin matrix (left untouched: the grower reorders a copy)
+    and every tensor on one device; ``node_key`` holds the keys of the
+    by-node and extra-trees streams.  The histogram wrapper runs the CUDA
+    kernel on a card and its plain version on the CPU."""
     check_supported(split_params)
     if max_bins > 256:
-        raise NotImplementedError("the histogram kernel takes uint8 bins "
+        raise NotImplementedError("uint16 bin codes are not ported to "
+                                  "lightgbm_tpu_torch yet (ROADMAP queue 1): "
+                                  "the histogram kernel takes uint8 bins "
                                   "(max_bin <= 255)")
     L = num_leaves
     F = num_features
@@ -76,14 +84,21 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
 
     def grow(X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              bag_mask: torch.Tensor, num_bins: torch.Tensor,
-             has_nan: torch.Tensor, feature_mask: torch.Tensor
-             ) -> GrownTree:
+             has_nan: torch.Tensor, feature_mask: torch.Tensor,
+             node_key=None) -> GrownTree:
         dev = X.device
         n = X.shape[0]
         nb = num_bins.to(_I32)
         hn = has_nan.to(torch.bool)
         fm = feature_mask.to(torch.bool)
         strat = CommStrategy(nb, hn)
+
+        def node_inputs(first: int, k: int):
+            """The scan's feature masks and extra-trees bins of the nodes
+            ``first .. first + k - 1`` (ids made on the device: a host
+            tensor would wait for the device's queue)."""
+            ids = torch.arange(k, dtype=torch.int64, device=dev) + first
+            return node_draws(node_key, ids, fm, nb, sp)
 
         # ---- pack rows: bins | fixed-point g*bag, h*bag, bag | orig idx ----
         P = X.clone()
@@ -133,8 +148,10 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
         # ---- root ----------------------------------------------------------
         root_hist = hist_of(0, n)
         root_sum = fx_to_f32(Wt.sum(dim=1), inv)
-        cand = strat.leaf_candidates(fx_to_f32(root_hist, inv), root_sum, fm,
-                                     sp)
+        fm0, rb0 = node_inputs(2 * L, 1)
+        cand = strat.leaf_candidates(fx_to_f32(root_hist, inv), root_sum,
+                                     fm0[0], sp,
+                                     None if rb0 is None else rb0[0])
         for name, val in zip(cand_names, cand):
             s[name][0] = val
         s["hists"][0] = root_hist
@@ -196,9 +213,10 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
 
             # ---- both children's candidates: one batched scan ------------
             sums2 = torch.stack([lsum, rsum])
+            fm2, rb2 = node_inputs(2 * t, 2)
             cl_, cr_ = strat.pair_candidates(fx_to_f32(h_l, inv),
                                              fx_to_f32(h_r, inv), lsum, rsum,
-                                             fm, sp)
+                                             fm2, sp, rb2)
             cands = tuple(torch.stack([a, b]) for a, b in zip(cl_, cr_))
             child_depth = leaf_depth[best] + 1
             cg = cands[0]

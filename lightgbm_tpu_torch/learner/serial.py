@@ -7,7 +7,7 @@ Port of ``lightgbm_tpu/learner/serial.py``: ``GrownTree``,
 choice of ``SerialTreeLearner`` (:727-776), its 4-bit packing decision
 (:777-794) and its wave and partition branches (:784-850, :901-967).
 The masked (pool-less) grower and the parallel strategies are later
-slices (ROADMAP queue 1, items 7 and 12); the histogram autotuner is
+slices (ROADMAP queue 1); the histogram autotuner is
 ``learner/autotune.py``.
 """
 
@@ -21,7 +21,8 @@ import torch
 from ..config import Config
 from ..ops.histogram import PACK4_MAX_BINS
 from ..ops.split import SplitParams, local_best_candidates
-from ..utils.log import log_warning
+from ..utils.log import log_info, log_warning
+from ..utils.random import host_key
 
 __all__ = ["SerialTreeLearner", "GrownTree", "CommStrategy",
            "resolve_hist_impl", "split_params_from_config",
@@ -58,27 +59,33 @@ class CommStrategy:
     split candidates of one leaf, or of a split's two children in one
     batched scan (the reference's vmap).  Parallel strategies, which
     insert collectives at these points, are not ported yet (ROADMAP queue
-    1, item 12)."""
+    1)."""
 
     def __init__(self, num_bins: torch.Tensor, has_nan: torch.Tensor):
         self.num_bins_full = num_bins
         self.has_nan_full = has_nan
 
-    def leaf_candidates(self, hist, leaf_sum, feature_mask, params):
+    def leaf_candidates(self, hist, leaf_sum, feature_mask, params,
+                        rand_bins=None):
         """(gain, feat, bin, default_left, left_sum, right_sum) of one
-        leaf's (F, B, 3) f32 histogram."""
-        out = local_best_candidates(hist.unsqueeze(0), leaf_sum.unsqueeze(0),
-                                    self.num_bins_full, self.has_nan_full,
-                                    feature_mask.unsqueeze(0), params)
+        leaf's (F, B, 3) f32 histogram; ``rand_bins`` (F,) the node's
+        extra-trees thresholds or None."""
+        out = local_best_candidates(
+            hist.unsqueeze(0), leaf_sum.unsqueeze(0), self.num_bins_full,
+            self.has_nan_full, feature_mask.unsqueeze(0), params,
+            rand_bins=None if rand_bins is None else rand_bins.unsqueeze(0))
         return tuple(o[0] for o in out)
 
     def pair_candidates(self, hist_l, hist_r, lsum, rsum, feature_mask,
-                        params):
-        """Both children's candidates in ONE batched scan."""
+                        params, rand_bins=None):
+        """Both children's candidates in ONE batched scan;
+        ``feature_mask`` (F,) or one row per child (2, F), ``rand_bins``
+        (2, F) or None."""
         out = local_best_candidates(torch.stack([hist_l, hist_r]),
                                     torch.stack([lsum, rsum]),
                                     self.num_bins_full, self.has_nan_full,
-                                    feature_mask.expand(2, -1), params)
+                                    feature_mask.expand(2, -1), params,
+                                    rand_bins=rand_bins)
         return tuple(o[0] for o in out), tuple(o[1] for o in out)
 
 
@@ -133,21 +140,29 @@ def hist_pool_fits(config: Config, num_features: int, max_bins: int) -> bool:
     """Keep per-leaf histograms when they fit the budget (reference
     histogram_pool_size, default -1 = a 1 GiB cap).  The budget counts
     the reference's f32 pool, so the port picks the grower it picks; the
-    port's partitioned pool holds int64 sums, twice those bytes."""
-    pool_bytes = config.num_leaves * num_features * max_bins * 3 * 4
+    port's partitioned pool holds int64 sums, twice those bytes
+    (:func:`pool_bytes`)."""
+    pool = config.num_leaves * num_features * max_bins * 3 * 4
     budget = (float(config.histogram_pool_size) * (1 << 20)
               if config.histogram_pool_size > 0 else (1 << 30))
-    return pool_bytes <= budget
+    return pool <= budget
 
 
-def _check_config(config: Config, quantized: bool) -> None:
+def pool_bytes(config: Config, num_features: int, max_bins: int,
+               grow_mode: str) -> int:
+    """Bytes of the port's histogram pool: (L, F, B, 3) int64 fixed-point
+    sums on the partitioned grower, f32 (exact) or int32 (quantized) on
+    the wave grower."""
+    item = 8 if grow_mode == "partition" else 4
+    return config.num_leaves * num_features * max_bins * 3 * item
+
+
+def _check_config(config: Config) -> None:
     """Raise for configurations neither ported grower carries."""
     unported = [
         ("forcedsplits_filename", bool(config.forcedsplits_filename)),
         ("interaction_constraints", bool(config.interaction_constraints)),
         ("feature_contri", bool(config.feature_contri)),
-        ("stochastic_rounding=true", quantized and
-         bool(config.stochastic_rounding)),
     ]
     for what, on in unported:
         if on:
@@ -191,14 +206,17 @@ class SerialTreeLearner:
             raise NotImplementedError(
                 "the histogram pool does not fit histogram_pool_size: the "
                 "reference takes its masked grower, which is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue 1, item 7)")
+                "lightgbm_tpu_torch yet (ROADMAP queue 1)")
         self.grow_mode = mode
         self.quantized = bool(config.use_quantized_grad) and mode == "wave"
         if config.use_quantized_grad and not self.quantized:
             log_warning("use_quantized_grad requires the wave grower "
                         "(tree_grow_mode=wave/auto); training with exact "
                         "gradients instead")
-        _check_config(config, self.quantized)
+        _check_config(config)
+        log_info(f"histogram pool: "
+                 f"{pool_bytes(config, num_features, self.max_bins, mode)} "
+                 f"bytes on the {mode} grower")
         # the 4-bit packed bin layout (reference serial.py:777-794): two
         # codes per byte when every feature fits a nibble, on the wave
         # grower only.  pack4 exists only on the reference's DMA pipeline,
@@ -208,6 +226,7 @@ class SerialTreeLearner:
                           self.max_bins <= PACK4_MAX_BINS and
                           config.tpu_pallas_pipeline != "blockspec")
         self._x_src = self._Xp = None
+        self._quant_calls = 0
         if mode == "partition":
             from .partitioned import make_partitioned_grow_fn
             self._grow = make_partitioned_grow_fn(
@@ -232,14 +251,20 @@ class SerialTreeLearner:
 
     def train(self, X_T: torch.Tensor, grad: torch.Tensor,
               hess: torch.Tensor, sample_mask: torch.Tensor,
-              feature_mask: Optional[torch.Tensor] = None) -> GrownTree:
+              feature_mask: Optional[torch.Tensor] = None,
+              node_key: Optional[torch.Tensor] = None,
+              quant_key: Optional[torch.Tensor] = None) -> GrownTree:
         """Grow one tree.  ``X_T`` is the dataset's padded feature-major
         bin matrix (dataset.py ``device_bins``, or ``device_bins_packed4``
         when :attr:`pack4`: two rows per byte, the only copy of the bins on
         the device); the per-row vectors carry the N real rows and are
         zero-padded here (padded rows are out of the bag and contribute
         nothing).  The partitioned grower reads the ROW-MAJOR copy of
-        ``X_T``, built once per dataset."""
+        ``X_T``, built once per dataset.  ``quant_key`` keys the
+        quantized tree's stochastic rounding (a per-call stream when None,
+        reference serial.py:933-939); ``node_key`` holds the keys of the
+        by-node and extra-trees streams (zeros when None); both are host
+        keys (utils/random.py)."""
         n = grad.shape[0]
         pad = X_T.shape[1] * (2 if self.pack4 else 1) - n
         if feature_mask is None:
@@ -249,13 +274,22 @@ class SerialTreeLearner:
             grad = torch.nn.functional.pad(grad, (0, pad))
             hess = torch.nn.functional.pad(hess, (0, pad))
             sample_mask = torch.nn.functional.pad(sample_mask, (0, pad))
+        if node_key is None:
+            node_key = ((0, 0), (0, 0))
         if self.grow_mode == "partition":
             if self._x_src is not X_T:  # strong ref: ids can be recycled
                 self._Xp = X_T.t().contiguous()
                 self._x_src = X_T
-            X_T = self._Xp
-        grown = self._grow(X_T, grad, hess, sample_mask, self.num_bins,
-                           self.has_nan, feature_mask)
+            grown = self._grow(self._Xp, grad, hess, sample_mask,
+                               self.num_bins, self.has_nan, feature_mask,
+                               node_key)
+        else:
+            if self.quantized and quant_key is None:
+                self._quant_calls += 1
+                quant_key = host_key(self._quant_calls)
+            grown = self._grow(X_T, grad, hess, sample_mask, self.num_bins,
+                               self.has_nan, feature_mask, quant_key,
+                               node_key)
         if pad:
             grown = grown._replace(row_leaf=grown.row_leaf[:n])
         return grown

@@ -20,8 +20,13 @@ Carried over from the reference, with the same semantics:
   budget drops below 2W, one batched trial-channel pass precomputes the
   frontier candidates' smaller children, and splits commit in the true
   sequential best-first order;
-* exact (f32) and quantized (int8 -> int32, deterministic rounding)
-  histograms;
+* exact (f32) and quantized (int8 -> int32) histograms, with stochastic
+  rounding drawn from the port's threefry stream (utils/random.py) under
+  the tree's ``quant_key``, or round-half-up;
+* by-node feature sampling and extra-trees thresholds (reference
+  wave.py:834-856): one batched draw per wave over the children's node
+  ids (2t, 2t+1 for node t; 2L for the root) from the ``node_key`` rows,
+  the streams the partitioned grower draws one node at a time;
 * quantized leaf renewal (``quant_train_renew_leaf``, reference
   wave.py:1936-1972): one exact pass of the single-leaf histogram kernel
   over ``row_leaf`` as a one-feature bin column;
@@ -35,10 +40,9 @@ The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
 count once per wave and the best candidate once per endgame commit.
 
-Raise ``NotImplementedError`` (ROADMAP queue 1, item 5): voting and
-scatter merges, lazy CEGB, forced splits, interaction constraints,
-by-node sampling and extra-trees (both draw from ``jax.random`` in the
-reference), monotone constraints, categorical features and EFB.
+Not ported (ROADMAP queue 1; refused before the grower is built): voting
+and scatter merges, lazy CEGB, forced splits, interaction constraints,
+monotone constraints, categorical features and EFB.
 """
 
 from __future__ import annotations
@@ -56,9 +60,9 @@ from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
                                   build_histogram, build_histogram_leaves,
                                   build_histogram_leaves_q8,
                                   wave_row_update, wave_trial_channels)
-from ..ops.quantize import dequant_scales, quantize_wch
+from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
 from ..ops.split import (NEG_INF, SplitParams, check_supported, leaf_gain,
-                         leaf_output, local_best_candidates)
+                         leaf_output, local_best_candidates, node_draws)
 from .endgame import patch_child_pointers, write_split_records
 from .serial import GrownTree
 
@@ -108,23 +112,23 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     """Build the wave single-tree grower.
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
-    feature_mask) -> GrownTree`` with ``X_T`` the FEATURE-MAJOR (F, N)
-    uint8 bin matrix, N a multiple of the 4096-row block, and every tensor
-    on one device.  Under ``pack4`` ``X_T`` is the nibble-packed (F, N/2)
-    matrix (ops/histogram.py ``pack_bins4``).  The reference's
-    ``tpu_pallas_pipeline`` knob reaches the grower only through
-    ``pack4`` (the learner turns packing off for ``blockspec``); the
-    kernels have one form per bin layout."""
+    feature_mask, quant_key=None, node_key=None) -> GrownTree`` with
+    ``X_T`` the FEATURE-MAJOR (F, N) uint8 bin matrix, N a multiple of the
+    4096-row block, and every tensor on one device.  ``quant_key`` keys
+    the tree's stochastic rounding; ``node_key`` holds the keys of the
+    by-node sampling stream ([0]) and the extra-trees stream ([1]) (host
+    keys or (2,) tensors, utils/random.py).  Under ``pack4`` ``X_T`` is
+    the nibble-packed (F, N/2) matrix (ops/histogram.py ``pack_bins4``).
+    The reference's ``tpu_pallas_pipeline`` knob reaches the grower only
+    through ``pack4`` (the learner turns packing off for ``blockspec``);
+    the kernels have one form per bin layout."""
     check_supported(split_params)
     if pack4 and max_bins > PACK4_MAX_BINS:
         raise ValueError(f"pack4 bins require max_bin <= {PACK4_MAX_BINS}")
-    if quantized and stochastic:
-        raise NotImplementedError(
-            "stochastic_rounding=true needs the reference's jax.random "
-            "threefry stream (ROADMAP queue 1, item 2); set "
-            "stochastic_rounding=false")
     if max_bins > 256:
-        raise NotImplementedError("the wave kernels take uint8 bins "
+        raise NotImplementedError("uint16 bin codes are not ported to "
+                                  "lightgbm_tpu_torch yet (ROADMAP queue 1): "
+                                  "the wave kernels take uint8 bins "
                                   "(max_bin <= 255)")
     L = num_leaves
     F = num_features
@@ -132,14 +136,19 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     sp = split_params
     ch_cap = Q_WAVE_SIZE if quantized else WAVE_SIZE
     W = max(1, min(int(wave_size) or ch_cap, ch_cap, L - 1))
-    use_spec = (spec_ramp and max_depth <= 0 and W >= 2 and L >= 3 * W)
-    use_endgame = exact_endgame and L > 2
+    use_bynode = sp.feature_fraction_bynode < 1.0
+    use_et = sp.extra_trees
+    # the per-node streams keep the plain ramp and the tapered waves, as
+    # the reference gates them (wave.py:339-365)
+    use_spec = (spec_ramp and max_depth <= 0 and W >= 2 and L >= 3 * W and
+                not use_bynode and not use_et)
+    use_endgame = exact_endgame and L > 2 and not use_bynode and not use_et
     EG = 2 * W   # pending-commit capacity (budget < 2W at endgame entry)
 
     def grow(X_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              bag_mask: torch.Tensor, num_bins: torch.Tensor,
-             has_nan: torch.Tensor, feature_mask: torch.Tensor
-             ) -> GrownTree:
+             has_nan: torch.Tensor, feature_mask: torch.Tensor,
+             quant_key=None, node_key=None) -> GrownTree:
         dev = X_T.device
         n = X_T.shape[1] * 2 if pack4 else X_T.shape[1]
         nb_full = num_bins.to(_I32)
@@ -159,12 +168,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         if quantized:
             # per-tree linear quantization scales
             # (gradient_discretizer.cpp DiscretizeGradients)
-            g_scale = torch.clamp(gm.abs().max(), min=1e-30) / gq_max
-            h_scale = torch.clamp(hm.max(), min=1e-30) / hq_max
+            g_scale, h_scale = quant_scales(gm.abs().max(), hm.max(),
+                                            gq_max, hq_max)
             qscales = dequant_scales(g_scale, h_scale)
             w_all = quantize_wch(grad, hess, bag_mask, g_scale, h_scale,
-                                 gq_max=gq_max, hq_max=hq_max,
-                                 stochastic=False)
+                                 quant_key, gq_max=gq_max, hq_max=hq_max,
+                                 stochastic=stochastic)
         else:
             w_all = pack_weights(grad, hess, bag_mask)
 
@@ -188,13 +197,19 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 return hk
             return hk, dq(hk[:, 0].sum(dim=1).to(hk.dtype))
 
-        def many_candidates(hists, sums, fms, sums_exact=None):
+        def many_candidates(hists, sums, fms, sums_exact=None,
+                            rand_bins=None):
             """Best-split candidates for a batch of leaves (the f32 scan
             form of the histograms)."""
             return local_best_candidates(dq(hists), sums, nb_full, hn_full,
-                                         fms, sp, sums_exact)
+                                         fms, sp, sums_exact, rand_bins)
 
         fm_row = feature_mask.to(torch.bool)
+
+        def node_inputs(ids):
+            """The scan's feature masks and extra-trees bins of the nodes
+            ``ids``: one batched draw for all of them."""
+            return node_draws(node_key, ids, fm_row, nb_full, sp)
         hdtype = torch.int32 if quantized else _F32
 
         def empty_state() -> Dict[str, torch.Tensor]:
@@ -445,10 +460,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 root_hist = hist_waves(zch, k=1)[0]
                 root_sum = torch.stack([gm.sum(), hm.sum(), cnt_mask.sum()])
             root_out = leaf_output(root_sum[0], root_sum[1], sp)
+            fm0, rb0 = node_inputs(torch.full((1,), 2 * L,
+                                              dtype=torch.int64, device=dev))
             cand = many_candidates(
-                root_hist.unsqueeze(0), root_sum.unsqueeze(0),
-                fm_row.unsqueeze(0),
-                None if root_exact is None else root_exact.unsqueeze(0))
+                root_hist.unsqueeze(0), root_sum.unsqueeze(0), fm0,
+                None if root_exact is None else root_exact.unsqueeze(0),
+                rb0)
             s = empty_state()
             s["leaf_sum"][0] = root_sum
             set_candidates(s, torch.zeros((1,), dtype=torch.long,
@@ -509,7 +526,9 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             child_depth = s["leaf_depth"][sl] + 1
             hists2 = torch.cat([hist_l, hist_r])
             sums2 = torch.cat([lsum, rsum])
-            cands = many_candidates(hists2, sums2, fm_row.expand(2 * W, F))
+            ids2 = torch.cat([2 * node_ids, 2 * node_ids + 1]).long()
+            fm2, rb2 = node_inputs(ids2)
+            cands = many_candidates(hists2, sums2, fm2, rand_bins=rb2)
             depth_ok = (torch.ones_like(sel) if max_depth <= 0
                         else child_depth < max_depth)
             cg = torch.where(torch.cat([depth_ok, depth_ok]) &

@@ -1,8 +1,8 @@
 """Boosting-mode factory.
 
 Port of ``lightgbm_tpu/models/boosting.py`` ``create_boosting`` for plain
-GBDT; GOSS, DART and RF are a later slice of the port (ROADMAP queue 1,
-item 7)."""
+GBDT; GOSS, DART and RF are a later slice of the port (ROADMAP
+queue 1)."""
 
 from __future__ import annotations
 
@@ -23,6 +23,5 @@ def create_boosting(config: Config, train_set: Optional[Dataset],
     if config.boosting != "gbdt":
         raise NotImplementedError(
             f"boosting={config.boosting!r} is not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP queue 1, item 7: GOSS, DART "
-            "and RF)")
+            "lightgbm_tpu_torch yet (GOSS, DART and RF: ROADMAP queue 1)")
     return GBDT(config, train_set, device=device)

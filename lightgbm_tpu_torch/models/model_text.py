@@ -274,7 +274,7 @@ def string_to_model(model_str: str, config, source: str = "<model string>",
     if average_output:
         raise NotImplementedError(
             "random-forest models (average_output) are not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP queue 1, item 7)")
+            "lightgbm_tpu_torch yet (ROADMAP queue 1)")
     gbdt = GBDT(cfg, None, device=device)
     gbdt.config = cfg
     gbdt.num_tree_per_iteration = k
@@ -290,7 +290,7 @@ def string_to_model(model_str: str, config, source: str = "<model string>",
         from ..objective import create_objective
         try:
             gbdt.objective = create_objective(obj_name, cfg, gbdt.device)
-        except (ValueError, NotImplementedError):
+        except ValueError:
             gbdt.objective = None
 
     # trees

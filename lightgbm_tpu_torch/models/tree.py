@@ -6,7 +6,7 @@ host-side :class:`Tree` is a copy; :class:`TreeBatch` stacks an ensemble
 into tensors on the prediction device and :func:`predict_raw` is the plain
 vectorized tree walk (every row advances one level per step).  The
 reference's dense matmul walk and serving compiler wait for a later slice
-(ROADMAP queue 1, item 8).
+(ROADMAP queue 1).
 
 decision_type bit layout follows the reference (tree.h decision_type):
   bit0: categorical, bit1: default_left, bits 2-3: missing type
@@ -188,7 +188,7 @@ class TreeBatch:
                                np.uint8) & CAT_MASK):
                 raise NotImplementedError(
                     "categorical and linear trees are not ported to "
-                    "lightgbm_tpu_torch yet (ROADMAP queue 1, item 7)")
+                    "lightgbm_tpu_torch yet (ROADMAP queue 1)")
         self.num_trees = len(trees)
         self.max_leaves = max(max(t.max_leaves, t.num_leaves) for t in trees)
         ml = self.max_leaves

@@ -1,8 +1,7 @@
 """Objective functions: gradients/hessians as torch math on the training
 device (reference include/LightGBM/objective_function.h:19, factory
 src/objective/objective_function.cpp:15).  Port of
-``lightgbm_tpu/objective/__init__.py`` for the objectives this slice of
-the port carries: binary and L2 regression."""
+``lightgbm_tpu/objective/__init__.py``: all 16 objectives."""
 
 from __future__ import annotations
 
@@ -13,20 +12,32 @@ import torch
 from ..config import Config
 from .base import ObjectiveFunction
 from .binary import BinaryLogloss
-from .regression import RegressionL2
+from .multiclass import MulticlassOVA, MulticlassSoftmax
+from .rank import LambdarankNDCG, RankXENDCG
+from .regression import (Fair, Gamma, Huber, Mape, Poisson, Quantile,
+                         RegressionL1, RegressionL2, Tweedie)
+from .xentropy import CrossEntropy, CrossEntropyLambda
 
 __all__ = ["create_objective", "ObjectiveFunction"]
 
 _REGISTRY = {
     "regression": RegressionL2,
+    "regression_l1": RegressionL1,
+    "huber": Huber,
+    "fair": Fair,
+    "poisson": Poisson,
+    "quantile": Quantile,
+    "mape": Mape,
+    "gamma": Gamma,
+    "tweedie": Tweedie,
     "binary": BinaryLogloss,
+    "multiclass": MulticlassSoftmax,
+    "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG,
+    "rank_xendcg": RankXENDCG,
 }
-
-# objectives the JAX package has and the port does not yet carry
-_NOT_PORTED = ("regression_l1", "huber", "fair", "poisson", "quantile",
-               "mape", "gamma", "tweedie", "multiclass", "multiclassova",
-               "cross_entropy", "cross_entropy_lambda", "lambdarank",
-               "rank_xendcg")
 
 
 def create_objective(name: str, config: Config,
@@ -36,10 +47,6 @@ def create_objective(name: str, config: Config,
     gradients)."""
     if name in ("none", None, ""):
         return None
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"objective '{name}' is not ported to lightgbm_tpu_torch yet "
-            "(ROADMAP queue 1, item 3: objectives)")
     if name not in _REGISTRY:
         raise ValueError(f"Unknown objective: {name}. "
                          f"Known: {sorted(_REGISTRY)}")

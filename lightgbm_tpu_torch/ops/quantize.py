@@ -7,17 +7,19 @@ levels, histograms accumulate exact int32 sums
 (ops/histogram_cuda.py ``build_histogram_leaves_q8``), and split gains are
 computed on the dequantized sums.
 
-Only deterministic rounding (``stochastic=False``, round-half-up) is
-ported.  Stochastic rounding draws from ``jax.random`` in the reference;
-until the port has a bit-exact threefry (ROADMAP queue 1, item 2) it
-raises rather than drawing different bits.
+Stochastic rounding (the default) draws its uniforms from the port's
+threefry stream (utils/random.py), which is ``jax.random``'s bit for bit,
+so the port rounds every row as the reference does.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["quant_levels", "quantize_wch", "dequant_scales"]
+from ..utils.random import fold_in, uniform
+
+__all__ = ["quant_levels", "quantize_wch", "quant_scales",
+           "dequant_scales"]
 
 
 def quant_levels(num_grad_quant_bins: int) -> tuple:
@@ -29,25 +31,45 @@ def quant_levels(num_grad_quant_bins: int) -> tuple:
     return max(1, min(qb // 2, 127)), max(1, min(qb, 127))
 
 
+def quant_scales(gmax: torch.Tensor, hmax: torch.Tensor, gq_max: int,
+                 hq_max: int):
+    """Per-tree scales ``max(gmax, 1e-30) / gq_max`` and the same for the
+    hessians, as the reference's jitted grower computes them: XLA rewrites
+    a division by a constant into a multiply by its f32 reciprocal (an ulp
+    away from the quotient at 127 levels), so the port multiplies too, on
+    every device."""
+    def scale(m, q):
+        inv = torch.full((), 1.0, dtype=torch.float32, device=m.device) / q
+        return torch.clamp(m, min=1e-30) * inv
+    return scale(gmax, gq_max), scale(hmax, hq_max)
+
+
 def quantize_wch(grad: torch.Tensor, hess: torch.Tensor,
                  bag_mask: torch.Tensor, g_scale: torch.Tensor,
-                 h_scale: torch.Tensor, *, gq_max: int, hq_max: int,
+                 h_scale: torch.Tensor, key: torch.Tensor = None, *,
+                 gq_max: int, hq_max: int,
                  stochastic: bool = False) -> torch.Tensor:
     """(8, N) int8 FEATURE-MAJOR weight rows [g_q, h_q, count, 0, ...].
 
     ``g_scale``/``h_scale`` are the per-tree dequantization scales
-    (0-d f32 tensors, g ~= g_q * g_scale).  Round-half-up:
-    ``floor(x + 0.5)``, the reference's ``stochastic=False`` branch, bit
-    for bit."""
-    if stochastic:
-        raise NotImplementedError(
-            "stochastic_rounding=true needs the reference's jax.random "
-            "threefry stream, which lightgbm_tpu_torch does not reproduce "
-            "yet (ROADMAP queue 1, item 2); set stochastic_rounding=false")
+    (0-d f32 tensors, g ~= g_q * g_scale).  Stochastic rounding
+    ``floor(x + u)`` draws u from ``uniform(fold_in(key, 0), (N,))`` for
+    the gradients and ``fold_in(key, 1)`` for the hessians (``key`` the
+    tree's threefry key, utils/random.py); ``stochastic=False`` rounds half
+    up.  Both are the reference's branches bit for bit."""
+    if stochastic and key is None:
+        raise ValueError("stochastic rounding draws from a threefry key: "
+                         "pass the tree's quant_key")
+    n = grad.shape[0]
     gm = (grad * bag_mask) / g_scale
     hm = (hess * bag_mask) / h_scale
-    g_q = torch.clamp(torch.floor(gm + 0.5), -gq_max, gq_max).to(torch.int8)
-    h_q = torch.clamp(torch.floor(hm + 0.5), 0, hq_max).to(torch.int8)
+    if stochastic:
+        ug = uniform(fold_in(key, 0), (n,), grad.device)
+        uh = uniform(fold_in(key, 1), (n,), grad.device)
+    else:
+        ug = uh = 0.5
+    g_q = torch.clamp(torch.floor(gm + ug), -gq_max, gq_max).to(torch.int8)
+    h_q = torch.clamp(torch.floor(hm + uh), 0, hq_max).to(torch.int8)
     out = torch.zeros((8, grad.shape[0]), dtype=torch.int8,
                       device=grad.device)
     out[0] = g_q

@@ -7,10 +7,14 @@ all features (and all candidate leaves of a wave) at once; the
 missing-direction double scan becomes two masked gain tensors.
 
 Covered: l1/l2, min_data_in_leaf / min_sum_hessian_in_leaf,
-min_gain_to_split, max_delta_step, NaN bins with default_left, and the
-lowest-feature (then lowest-bin) tie-break of the reference's argmax.
-Categorical splits, monotone constraints, path smoothing, CEGB,
-extra-trees and feature_contri raise ``NotImplementedError``.
+min_gain_to_split, max_delta_step, NaN bins with default_left, the
+lowest-feature (then lowest-bin) tie-break of the reference's argmax, and
+the two per-node random draws (reference split.py:73-74, :258-262, and
+the growers' ``node_mask`` / ``node_rand``): by-node feature sampling
+(:func:`node_feature_mask`) and the extra-trees threshold, one random
+bin per feature per node (:func:`node_rand_bins`).  Categorical splits,
+monotone constraints, path smoothing, CEGB and feature_contri raise
+``NotImplementedError``.
 
 Bitwise parity.  Every gain is computed with the reference's f32
 operations in the reference's order, and the bin-axis cumulative sum
@@ -23,11 +27,16 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
+
+from ..utils.random import fold_in, uniform
 
 __all__ = ["SplitParams", "FeatureSplits", "best_split_per_feature",
            "leaf_output", "leaf_gain", "cumsum_bins", "BIG", "NEG_INF",
-           "local_best_candidates", "check_supported"]
+           "local_best_candidates", "check_supported", "node_feature_mask",
+           "node_rand_bins", "node_draws"]
 
 NEG_INF = -1e30
 BIG = 1e30  # "unbounded" leaf-output constraint sentinel
@@ -67,14 +76,53 @@ def check_supported(params: SplitParams) -> None:
         ("monotone_constraints", params.use_monotone),
         ("path_smooth", params.path_smooth > 0.0),
         ("cost-effective gradient boosting (cegb_*)", params.use_cegb),
-        ("extra_trees", params.extra_trees),
-        ("feature_fraction_bynode", params.feature_fraction_bynode < 1.0),
     ]
     for what, on in unported:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1, items 4-5 and 7)")
+                "(ROADMAP queue 1)")
+
+
+def node_feature_mask(key: torch.Tensor, ids: torch.Tensor,
+                      num_features: int, fraction: float) -> torch.Tensor:
+    """(k, F) by-node feature samples of the nodes ``ids`` (ColSampler
+    bynode, reference col_sampler.hpp): each node keeps its
+    ceil(F * fraction) features of highest ``uniform(fold_in(key, id),
+    (F,))``, ``key`` the by-node stream's key (utils/random.py).  All
+    nodes in one draw."""
+    kcnt = max(1, int(math.ceil(num_features * fraction)))
+    r = uniform(fold_in(key, ids), (num_features,))
+    kth = torch.topk(r, kcnt, dim=-1).values[..., -1:]
+    return r >= kth
+
+
+def node_rand_bins(key: torch.Tensor, ids: torch.Tensor,
+                   num_bins: torch.Tensor) -> torch.Tensor:
+    """(k, F) int32 extra-trees thresholds of the nodes ``ids`` (ExtraTrees,
+    feature_histogram.hpp USE_RAND): ``min(int(u * (hi + 1)), hi)`` with
+    ``hi = max(num_bins - 2, 0)`` (numeric features) and u from
+    ``uniform(fold_in(key, id), (F,))``, ``key`` the extra-trees stream's
+    key.  The float-to-int conversion truncates, as jax's does."""
+    hi = torch.clamp(num_bins.to(torch.int32) - 2, min=0)
+    u = uniform(fold_in(key, ids), (num_bins.shape[0],))
+    return torch.minimum((u * (hi + 1).float()).to(torch.int32), hi)
+
+
+def node_draws(node_key, ids: torch.Tensor, feature_mask: torch.Tensor,
+               num_bins: torch.Tensor, params: SplitParams):
+    """The split scan's per-node inputs of the nodes ``ids``: (k, F)
+    feature masks (``feature_mask`` and, under by-node sampling, the
+    node's sample) and (k, F) extra-trees bins or None.  ``node_key``
+    holds the by-node stream's key ([0]) and the extra-trees stream's
+    ([1]), reference models/gbdt.py:866-881."""
+    fms = feature_mask.expand(ids.shape[0], num_bins.shape[0])
+    if params.feature_fraction_bynode < 1.0:
+        fms = fms & node_feature_mask(node_key[0], ids, num_bins.shape[0],
+                                      params.feature_fraction_bynode)
+    rb = node_rand_bins(node_key[1], ids, num_bins) \
+        if params.extra_trees else None
+    return fms, rb
 
 
 class FeatureSplits(NamedTuple):
@@ -158,7 +206,8 @@ def _at_bin(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            num_bins: torch.Tensor, has_nan: torch.Tensor,
                            params: SplitParams,
-                           parent_exact: torch.Tensor = None
+                           parent_exact: torch.Tensor = None,
+                           rand_bins: torch.Tensor = None
                            ) -> FeatureSplits:
     """Best numeric split per feature for a batch of leaves.
 
@@ -177,6 +226,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
         right sums, and XLA:CPU contracts the pair into one fused
         multiply-add.  Its gains keep the rounded totals (there XLA
         shares the product with the parent gain and does not contract).
+      rand_bins: optional (..., F) int32 extra-trees thresholds: each
+        feature is scanned at that one bin only (:func:`node_rand_bins`).
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -197,6 +248,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            bins_r < num_bins.unsqueeze(1))
     thr_valid = torch.where(hn_f, bins_r < nan_bin,
                             bins_r < num_bins.unsqueeze(1) - 1)
+    if params.extra_trees and rand_bins is not None:
+        thr_valid = thr_valid & (bins_r == rand_bins.unsqueeze(-1))
 
     hg, hh, hc = hist[..., 0], hist[..., 1], hist[..., 2]       # (..., F, B)
     hg_m = torch.where(real_bin, hg, zero)
@@ -253,14 +306,15 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
 def local_best_candidates(hist: torch.Tensor, leaf_sum: torch.Tensor,
                           num_bins: torch.Tensor, has_nan: torch.Tensor,
                           feature_mask: torch.Tensor, params: SplitParams,
-                          parent_exact: torch.Tensor = None):
+                          parent_exact: torch.Tensor = None,
+                          rand_bins: torch.Tensor = None):
     """Best split over features for a batch of leaves (the reference's
     ``local_best_candidate`` vmapped): (gain, feat, bin, default_left,
     left_sum, right_sum), each with the batch shape of ``leaf_sum[..., 0]``.
-    The lowest feature wins ties.  ``parent_exact``: as in
-    :func:`best_split_per_feature`."""
+    The lowest feature wins ties.  ``parent_exact`` and ``rand_bins``: as
+    in :func:`best_split_per_feature`."""
     fs = best_split_per_feature(hist, leaf_sum, num_bins, has_nan, params,
-                                parent_exact)
+                                parent_exact, rand_bins)
     gain = torch.where(feature_mask, fs.gain, _f32(NEG_INF, hist))
     f = torch.argmax(gain, dim=-1)
     fi = f.unsqueeze(-1)

@@ -425,3 +425,44 @@ def test_row_update_in_place_on_card(cuda_device, monkeypatch, packed, n):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     want_tr = hc.wave_trial_channels_plain(bins, rl, *targs, **kw)
     assert all(torch.equal(t_, want_tr) for t_ in tr)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 4097, 10_502_144])
+def test_threefry_on_card_matches_cpu(cuda_device, n):
+    """The threefry stream is integer arithmetic: the card draws the CPU's
+    bits, for one tree's rows and for a wave's (W, F) node draws."""
+    from lightgbm_tpu_torch.utils.random import fold_in, prng_key, uniform
+    on_cpu = uniform(fold_in(prng_key(42), 3), (n,))
+    on_card = uniform(fold_in(prng_key(42, cuda_device), 3), (n,))
+    assert torch.equal(on_card.cpu(), on_cpu)
+    ids = torch.arange(50) * 2 + 1
+    node_cpu = uniform(fold_in(prng_key(7), ids), (28,))
+    node_card = uniform(fold_in(prng_key(7, cuda_device),
+                                ids.to(cuda_device)), (28,))
+    assert torch.equal(node_card.cpu(), node_cpu)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    dict(objective="binary"),
+    dict(objective="regression", num_grad_quant_bins=254),
+    dict(objective="multiclass", num_class=3),
+    dict(objective="binary", feature_fraction_bynode=0.5, extra_trees=True),
+])
+def test_stochastic_quantized_training_on_card_matches_cpu(cuda_device,
+                                                           extra):
+    """Quantized training with stochastic rounding (the default) on the
+    card writes the CPU's model text: the stream and the integer
+    histograms are the same bits on both."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(6000, F)
+    z = 2 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.randn(6000)
+    y = {"binary": (z > 0.5).astype(float),
+         "multiclass": np.digitize(z, [-1.0, 1.0]).astype(float)}.get(
+             extra["objective"], z)
+    params = dict(num_leaves=15, verbosity=-1, use_quantized_grad=True,
+                  **extra)
+    on_cpu = lt.train(params, lt.Dataset(X, y), 3, device="cpu")
+    on_card = lt.train(params, lt.Dataset(X, y), 3, device=cuda_device)
+    assert on_card.model_to_string() == on_cpu.model_to_string()

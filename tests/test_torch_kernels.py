@@ -77,8 +77,10 @@ def test_quantize_wch_bitwise(levels):
 
 
 def test_quantize_stochastic_raises():
+    """Stochastic rounding is ported (tests/test_torch_objectives.py);
+    without the tree's threefry key it refuses instead of rounding."""
     z = torch.zeros(8)
-    with pytest.raises(NotImplementedError, match="threefry"):
+    with pytest.raises(ValueError, match="threefry"):
         tq.quantize_wch(z, z, z, torch.tensor(1.0), torch.tensor(1.0),
                         gq_max=1, hq_max=1, stochastic=True)
 

@@ -163,3 +163,28 @@ def test_partition_is_row_order_free():
         assert torch.equal(getattr(a, name), getattr(b, name)), name
     np.testing.assert_array_equal(a.row_leaf.numpy()[perm],
                                   b.row_leaf.numpy())
+
+
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+@pytest.mark.parametrize("leaves,features,bins", [(255, 28, 256),
+                                                  (31, 6, 64)])
+def test_pool_budget_picks_the_reference_grower(leaves, features, bins,
+                                                delta):
+    """``hist_pool_fits`` decides as the reference's does at the
+    ``histogram_pool_size`` budget and one leaf beside it (the budget
+    counts the reference's f32 pool); ``pool_bytes`` is what the port
+    really holds: int64 sums on the partitioned grower, twice the f32
+    bytes."""
+    from lightgbm_tpu.config import Config as JConfig
+    from lightgbm_tpu.learner.serial import hist_pool_fits as ref_fits
+    from lightgbm_tpu_torch.config import Config
+    from lightgbm_tpu_torch.learner.serial import hist_pool_fits, pool_bytes
+    f32_pool = leaves * features * bins * 3 * 4
+    mb = f32_pool / (1 << 20)            # the budget sits at the pool
+    params = dict(num_leaves=leaves + delta, histogram_pool_size=mb)
+    cfg, jcfg = Config(params), JConfig(params)
+    assert hist_pool_fits(cfg, features, bins) == \
+        ref_fits(jcfg, features, bins) == (delta <= 0)
+    assert pool_bytes(cfg, features, bins, "partition") == \
+        2 * pool_bytes(cfg, features, bins, "wave") == \
+        2 * (leaves + delta) * features * bins * 3 * 4

@@ -347,9 +347,9 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("extra", [
-    dict(stochastic_rounding=True, use_quantized_grad=True),
+    dict(tree_learner="data"),
     dict(boosting="goss"),
-    dict(objective="multiclass", num_class=3),
+    dict(objective="none"),
     dict(monotone_constraints=[1, 0, 0, 0, 0, 0]),
     dict(tree_grow_mode="partition", interaction_constraints=[[0, 1]]),
     dict(tree_grow_mode="partition", forcedsplits_filename="forced.json"),
