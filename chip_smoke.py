@@ -32,7 +32,12 @@ Phases (any failure exits non-zero and prints no result line):
    at the same B=16 shape; the four leaf-channel forms again, bit for bit
    and identical across two runs, on a skewed mix (every row in one of 3
    channels and 4 bins) and a late wave's (5% of the rows in a channel),
-   each timed beside its ``index_add_``; and the threefry stream
+   each timed beside its ``index_add_``; the row update's categorical /
+   EFB form (``wave_row_update_ext``) bit for bit and identical across
+   two runs at the main path's N and W=25, over a (32, N) bundle-space
+   matrix and a wave that mixes numeric, categorical (membership) and
+   bundled (decoded) splits, timed beside its bound, its plain version
+   and the numeric form on the same rows; and the threefry stream
    (``utils/random.py``, plain integer ops, not a kernel) bit for bit
    against the CPU's at the main path's N and at a (W, F) node draw;
 3. small models trained on the card against the same models trained on
@@ -45,6 +50,10 @@ Phases (any failure exits non-zero and prints no result line):
    ``feature_fraction_bynode=0.5, extra_trees=true`` model text
    identical, and L1 with its percentile leaf renewal identical (failing
    that, predictions within 1e-5 and the first differing field named);
+   and model text identical for three more: categorical quantized with
+   stochastic rounding (28 numeric + 3, 40, 1,000-category columns),
+   EFB quantized from a CSR matrix (8 dense + 240 indicator columns), and
+   categorical + EFB on the partitioned grower (exact);
 4. the wave path at full width on synthetic rows shaped like the Higgs
    configuration of BASELINE.md (28 features, max_bin=255,
    num_leaves=255, learning_rate=0.1, binary): ``train`` in exact and in
@@ -78,15 +87,28 @@ Phases (any failure exits non-zero and prints no result line):
    (labels cut at the logit's terciles), quantized with stochastic
    rounding, ``--mc-rounds`` rounds: iterations/s, held-out
    multi_logloss, (N, 3) predictions, reload identical; the leaf kernels
-   must launch for each of the 3 class trees of every round.
+   must launch for each of the 3 class trees of every round;
+10. the dataset features at full width: (a) the main path's rows plus
+   three Zipf-skewed categorical columns of 3, 40 and 1,000 categories
+   entering the logit (one-vs-rest, sorted subsets and the bin cap),
+   255 leaves: the headline configuration for ``--rounds`` rounds, exact
+   mode for 3 and the partitioned grower for 2 (iterations/s, held-out
+   AUC, categorical nodes, launches; the q8 / exact leaf kernels, the
+   row update's categorical form and ``hist_single`` must launch); (b) a
+   ``scipy.sparse.csr_matrix`` of 2,097,152 rows (cut from 10.5M for
+   host set-up time): 8 ``higgs_like`` columns and 240 indicator columns
+   in 24 mutually exclusive groups of 10 (values 1-3, each group set in
+   30% of the rows), bundled into at most half as many device columns
+   (G printed), quantized and exact wave training for 5 rounds each.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
 run.
 
 ``--profile`` adds, per wave mode (exact and quantized at max_bin=255 and
-15), for the partitioned grower, and for phase 9's headline configuration
-with stochastic rounding and again with round-half-up, one boosting
+15), for the partitioned grower, for phase 9's headline configuration
+with stochastic rounding and again with round-half-up, and for the
+headline configuration on phase 10a's categorical rows, one boosting
 iteration under ``torch.profiler``; for the wave modes, one more iteration whose
 leaf-channel launches are recorded: the share of each launch's rows in a
 channel, and the whole set of launches replayed at every group of
@@ -142,6 +164,10 @@ KERNELS = {
                         "lightgbm_tpu/ops/histogram_pallas.py:1280"),
     "wave_trial_channels": ("lightgbm_tpu_torch/csrc/row_update.cu",
                             "lightgbm_tpu/ops/histogram_pallas.py:1314"),
+    # the categorical / EFB form of the row update, which also takes the
+    # reference's XLA fallback (lightgbm_tpu/learner/wave.py:1341-1420)
+    "wave_row_update_ext": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                            "lightgbm_tpu/ops/histogram_pallas.py:1280"),
 }
 
 WAVE_KERNELS = ("hist_leaves_q8", "hist_leaves", "wave_row_update",
@@ -150,6 +176,13 @@ PARTITION_ROUNDS = 3
 RENEW_ROUNDS = 2
 W_CHILDREN = 84                  # a quantized wave's 2 x 42 children
 MC_CLASSES = 3
+CAT_CARDS = (3, 40, 1000)        # phase 10a's categorical columns
+CAT_EXACT_ROUNDS = 3
+CAT_PARTITION_ROUNDS = 2
+EFB_ROWS = 2_097_152             # phase 10b, cut from 10.5M for set-up time
+EFB_DENSE = (21, 22, 23, 25, 12, 27, 4, 0)   # higgs_like columns kept
+EFB_GROUPS, EFB_GROUP_SIZE = 24, 10
+EFB_ROUNDS = 5
 
 
 def log(msg: str) -> None:
@@ -444,6 +477,7 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
             del bins, feats, rl, tab, p16, tab16, cols, cases, runs
         torch.cuda.empty_cache()
 
+    rec["wave_row_update_ext"] = ext_row_phase(torch, gen, dev, n_main, reps)
     rec["hist_single"] = single_leaf_phase(torch, gen, dev, n_main, reps)
     rec.update(packed_phase(torch, gen, dev, n_main, reps))
     leaf_stress_phase(torch, gen, dev, card, n_main, reps)
@@ -455,10 +489,107 @@ def kernel_phase(card: str, n_main: int, reps: int, seed: int) -> dict:
               if "uint8_ms" in r else "")
         if "packed_ms" in r:
             u8 = f", packed in place {r['packed_ms']:.3f} ms"
+        if "numeric_ms" in r:
+            u8 = (f", the numeric form on the same rows "
+                  f"{r['numeric_ms']:.3f} ms")
         log(f"[{card}] {name} @ N={n_main}: kernel {r['ms']:.3f} ms, "
             f"bound {r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
             f"{r['plain_ms']:.3f} ms, library {lib}{u8}")
     return rec
+
+
+def ext_row_phase(torch, gen, dev, n: int, reps: int) -> dict:
+    """The row update's categorical / EFB form against its plain version,
+    bit for bit and identical across two runs, at the main path's N and
+    W=25 over a wave that mixes numeric, categorical and bundled splits:
+    a (32, N) bin matrix of 8 numeric columns (255 bins), 3 categorical
+    ones (3, 40 and 255 bins) and 21 bundles of ten 4-bin features each
+    (31 bundle bins); 9 numeric splits, 8 categorical ones (random member
+    bins), 6 bundled ones and 2 inactive ones whose column is out of
+    range.  Split leaves are distinct and no split takes a leaf another
+    creates (the grower's waves under categorical features or EFB).
+    Timed beside its bound, its plain version and the numeric form on the
+    same rows and table."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    i32 = torch.int32
+    g_cols, w = 32, hc.LEAF_CHANNELS
+    nbins = torch.tensor([255] * 8 + [3, 40, 255] + [31] * 21, device=dev)
+    bins = (torch.rand((g_cols, n), generator=gen, device=dev) *
+            nbins.unsqueeze(1)).to(torch.uint8)
+    kind = [0] * 9 + [1] * 8 + [2] * 6 + [0] * 2     # numeric, cat, bundled
+    cols, is_cat, off, nb, dft, single, thr = [], [], [], [], [], [], []
+    member = torch.zeros((w, 256), dtype=torch.bool, device=dev)
+    for j, k in enumerate(kind):
+        if k == 0:
+            c = j % 8
+            cols.append(c if j < 23 else g_cols + 5 + j)
+            is_cat.append(0), off.append(0), nb.append(255), dft.append(0)
+            single.append(1), thr.append(int(torch.randint(
+                0, 254, (1,), generator=gen, device=dev)))
+        elif k == 1:
+            c = 8 + j % 3
+            card = int(nbins[c])
+            member[j, :card] = torch.rand(card, generator=gen,
+                                          device=dev) < 0.4
+            cols.append(c), is_cat.append(1), off.append(0)
+            nb.append(card), dft.append(0), single.append(1), thr.append(0)
+        else:
+            c = 11 + (j * 3) % 21
+            feat_in_bundle = j % 10
+            cols.append(c), is_cat.append(0)
+            off.append(1 + 3 * feat_in_bundle), nb.append(4)
+            dft.append(0), single.append(0), thr.append(j % 3)
+    t = lambda a: torch.tensor(a, dtype=i32, device=dev)
+    leaves = torch.randperm(NUM_LEAVES, generator=gen, device=dev)[:w]
+    act = t([1] * 23 + [0] * 2)
+    nan_bin = torch.where(t(kind) == 0, 254, -1).to(i32)
+    tab = torch.stack([
+        t(thr), nan_bin,
+        torch.randint(0, 2, (w,), generator=gen, device=dev).to(i32),
+        torch.randint(0, 2, (w,), generator=gen, device=dev).to(i32),
+        leaves.to(i32), (NUM_LEAVES + torch.arange(w, device=dev)).to(i32),
+        act, torch.zeros(w, dtype=i32, device=dev)]).contiguous()
+    feats = t(cols)
+    rl = torch.randint(0, NUM_LEAVES, (n,), generator=gen, device=dev,
+                       dtype=i32)
+    dec = hc.split_decode(t(is_cat), member, t(off), t(nb), t(dft),
+                          t(single))
+
+    def run():
+        return hc.wave_row_update(bins, rl, tab, feats=feats, decode=dec)
+
+    def plain():
+        return hc.wave_row_update_plain(bins, rl, tab, feats=feats,
+                                        decode=dec)
+
+    before = hc.LAUNCHES["wave_row_update_ext"]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if hc.LAUNCHES["wave_row_update_ext"] != before + 2:
+        raise AssertionError("wave_row_update_ext did not launch")
+    want = plain()
+    for x, y, z in zip(got, again, want):
+        if not torch.equal(x, y):
+            raise AssertionError("wave_row_update_ext differs between two "
+                                 "runs")
+        if not torch.equal(x, z):
+            raise AssertionError("wave_row_update_ext differs from its plain "
+                                 "version")
+    moved = int((got[0] != rl).sum())
+    in_ch = int((got[1] >= 0).sum())
+    # bytes: row->leaf in and out, the channel out, the tables, and one
+    # column byte for every row an active split takes
+    hits = int(((rl.unsqueeze(0) == tab[4].unsqueeze(1)) &
+                (tab[6] > 0).unsqueeze(1)).sum())
+    b_ms, b_by = bound_ms(9.0 * n + hits + w * (36 + 20 + 32), 10.0 * hits + n)
+    log(f"kernel wave_row_update_ext [main W={w} N={n}: 9 numeric, 8 "
+        f"categorical, 6 bundled, 2 inactive splits; {hits} rows in a "
+        f"split leaf, {moved} moved right, {in_ch} in a channel]: bitwise "
+        "equal to plain, identical across two runs")
+    numeric = lambda: hc.wave_row_update(bins, rl, tab, feats=feats)
+    return dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                ms=time_ms(run, reps), plain_ms=time_ms(plain, 3),
+                library_ms=None, numeric_ms=time_ms(numeric, reps))
 
 
 def packed_phase(torch, gen, dev, n_main: int, reps: int) -> dict:
@@ -787,6 +918,58 @@ def higgs_like(n: int, seed: int):
     return X, y, logit.astype(np.float32)
 
 
+def cat_columns(n: int, seed: int, logit: np.ndarray):
+    """Phase 10a's categorical columns: one per ``CAT_CARDS`` entry
+    (3, 40 and 1,000 categories), Zipf-skewed, each entering the logit
+    with a random effect per category.  Returns the (n, 3) float32
+    columns and the new logit."""
+    rng = np.random.default_rng(seed + 11)
+    cols = np.empty((n, len(CAT_CARDS)), np.float32)
+    z = logit.astype(np.float32)
+    for i, card in enumerate(CAT_CARDS):
+        v = (rng.zipf(1.3, n) - 1) % card
+        cols[:, i] = v
+        z = z + (0.6 * rng.standard_normal(card)).astype(np.float32)[v]
+    return cols, z
+
+
+def draw_labels(z: np.ndarray, seed: int) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    return (rng.random(len(z), dtype=np.float32) <
+            1.0 / (1.0 + np.exp(-z))).astype(np.float32)
+
+
+def efb_csr(n: int, seed: int):
+    """Phase 10b's data as a ``scipy.sparse.csr_matrix``: the 8
+    ``higgs_like`` columns ``EFB_DENSE`` and ``EFB_GROUPS`` groups of
+    ``EFB_GROUP_SIZE`` mutually exclusive indicator columns (a group sets
+    one of its columns, to 1, 2 or 3, in 30% of the rows), each value
+    entering the logit.  Returns (matrix, labels)."""
+    import scipy.sparse as sps
+    X, _, logit = higgs_like(n, seed)
+    nd = len(EFB_DENSE)
+    rng = np.random.default_rng(seed + 13)
+    rows = [np.repeat(np.arange(n), nd)]
+    cols = [np.tile(np.arange(nd), n)]
+    vals = [X[:, list(EFB_DENSE)].ravel()]
+    del X
+    z = logit
+    for g in range(EFB_GROUPS):
+        on = np.nonzero(rng.random(n) < 0.3)[0]
+        k = rng.integers(0, EFB_GROUP_SIZE, len(on))
+        v = rng.integers(1, 4, len(on))
+        rows.append(on)
+        cols.append(nd + g * EFB_GROUP_SIZE + k)
+        vals.append(v.astype(np.float32))
+        eff = (0.3 * rng.standard_normal((EFB_GROUP_SIZE, 3))).astype(
+            np.float32)
+        z[on] += eff[k, v - 1]
+    mat = sps.csr_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(n, nd + EFB_GROUPS * EFB_GROUP_SIZE))
+    return mat, draw_labels(z, seed + 14)
+
+
 def auc(y: np.ndarray, p: np.ndarray) -> float:
     """Rank AUC with ties at their average rank."""
     order = np.argsort(p, kind="mergesort")
@@ -885,6 +1068,45 @@ def small_check(lt, seed: int) -> None:
         f"stochastic rounding on: quantized binary, 3-class multiclass and "
         f"binary with bynode sampling and extra-trees model text identical "
         f"on card and CPU; {l1}")
+    # categorical features and EFB bundles on 10,000 rows
+    cats, z = cat_columns(len(X), seed, logit)
+    yc = draw_labels(z, seed + 3)
+    Xc = np.concatenate([X, cats], axis=1)
+    cat_idx = list(range(NUM_FEATURES, NUM_FEATURES + len(CAT_CARDS)))
+    mat, ye = efb_csr(10_000, seed + 5)
+    both = np.concatenate([np.asarray(mat.todense()), cats], axis=1)
+    both_idx = list(range(mat.shape[1], both.shape[1]))
+    yb = draw_labels(z + 0.5 * np.nan_to_num(both[:, 0]), seed + 4)
+    for what, params, data, label, cidx in (
+            ("categorical quantized (stochastic rounding)",
+             dict(ps, objective="binary"), Xc, yc, cat_idx),
+            ("EFB quantized (CSR input)",
+             dict(base, objective="binary", use_quantized_grad=True), mat,
+             ye, "auto"),
+            ("categorical + EFB partitioned (exact)",
+             dict(base, objective="binary", tree_grow_mode="partition"),
+             both, yb, both_idx)):
+        a = lt.train(params, lt.Dataset(data, label, categorical_feature=cidx),
+                     3, device="cuda")
+        b = lt.train(params, lt.Dataset(data, label, categorical_feature=cidx),
+                     3, device="cpu")
+        sa, sb = a.model_to_string(), b.model_to_string()
+        if cidx != "auto" and "num_cat=0\n" in sa and \
+                sa.count("num_cat=0\n") == sa.count("num_cat="):
+            raise AssertionError(f"{what}: no categorical split")
+        if "EFB" in what and a._gbdt.train_set.efb is None:
+            raise AssertionError(f"{what}: nothing bundled")
+        if sa != sb:
+            first = next(la.split("=", 1)[0] for la, lb in
+                         zip(sa.splitlines(), sb.splitlines()) if la != lb)
+            raise AssertionError(f"{what} model trained on the card differs "
+                                 f"from the one trained on the CPU, first "
+                                 f"in field {first!r}")
+    log(f"small models (10000 rows, 31 leaves, 3 rounds): categorical "
+        f"quantized with stochastic rounding ({NUM_FEATURES} numeric + "
+        f"{len(CAT_CARDS)} categorical columns), EFB quantized from CSR "
+        f"({mat.shape[1]} columns) and categorical + EFB partitioned model "
+        f"text identical on card and CPU")
 
 
 def mode_params(mode: str, max_bin: int = MAX_BIN, **extra) -> dict:
@@ -952,14 +1174,14 @@ def train_mode(lt, torch, card, ds, Xte, yte, mode, rounds, out_dir,
     p = bst.predict(Xte)
     t_pred = time.perf_counter() - t1
     p2 = again.predict(Xte)
-    if p.shape != (len(Xte),) or not np.all(np.isfinite(p)):
+    if p.shape != (Xte.shape[0],) or not np.all(np.isfinite(p)):
         raise AssertionError(f"{mode}: predictions not finite or of wrong "
                              "shape")
     if not np.array_equal(p, p2):
         raise AssertionError(f"{mode}: the reloaded model predicts "
                              "differently")
     a = auc(yte, p)
-    log(f"[{card}] {mode}: held-out AUC {a:.6f} over {len(Xte)} rows "
+    log(f"[{card}] {mode}: held-out AUC {a:.6f} over {Xte.shape[0]} rows "
         f"(reloaded model identical); predict {t_pred:.3f} s")
     if not a > 0.6:
         raise AssertionError(f"{mode}: held-out AUC {a} is no better than "
@@ -1061,6 +1283,110 @@ def surface_phase(lt, torch, card, ds, Xte, yte, logit_tr, logit_te,
     for k, v in got.items():
         launches[k] += v
     return launches
+
+
+def _path_runs(lt, torch, card, ds, Xte, yte, runs, out_dir, tag,
+               what: str) -> dict:
+    """Train each (mode, rounds, kernels that must launch) of ``runs`` on
+    ``ds`` with the launch counts from 0; returns the launches."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    launches = {k: 0 for k in hc.LAUNCHES}
+    for mode, rounds, needs in runs:
+        torch.cuda.reset_peak_memory_stats()
+        hc.reset_launches()
+        bst = train_mode(lt, torch, card, ds, Xte, yte, mode, rounds,
+                         out_dir, tag=tag)
+        got = dict(hc.LAUNCHES)
+        text = bst.model_to_string()
+        n_cat = sum(int(ln.split("=")[1]) for ln in text.splitlines()
+                    if ln.startswith("num_cat="))
+        log(f"{what} {mode} path launches: {json.dumps(got)}; "
+            f"{n_cat} categorical nodes; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        missing = [k for k in needs if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by the {what} "
+                                 f"{mode} path: {missing}")
+        if tag == "_categorical" and n_cat == 0:
+            raise AssertionError(f"{what} {mode}: no categorical split")
+        for k, v in got.items():
+            launches[k] += v
+        del bst
+    return launches
+
+
+def categorical_phase(lt, torch, card, X, logit, rows, rounds, out_dir,
+                      seed, profile) -> dict:
+    """Phase 10a: the Higgs-shaped rows plus the ``CAT_CARDS`` categorical
+    columns (one-vs-rest, sorted subsets, the bin cap), 255 leaves: the
+    headline configuration for ``rounds`` rounds, exact mode for
+    ``CAT_EXACT_ROUNDS`` and the partitioned grower for
+    ``CAT_PARTITION_ROUNDS``."""
+    t0 = time.perf_counter()
+    cats, z = cat_columns(len(X), seed, logit)
+    y = draw_labels(z, seed + 12)
+    Xc = np.concatenate([X, cats], axis=1)
+    del cats
+    cat_idx = list(range(NUM_FEATURES, NUM_FEATURES + len(CAT_CARDS)))
+    ds = lt.Dataset(Xc[:rows], y[:rows], categorical_feature=cat_idx,
+                    params={"max_bin": MAX_BIN})
+    ds.construct()
+    ds.device_bins(torch.device("cuda"))
+    torch.cuda.synchronize()
+    mappers = [ds.bin_mappers[j] for j in cat_idx]
+    log(f"[{card}] categorical data: {rows} rows x {Xc.shape[1]} columns "
+        f"({len(cat_idx)} categorical of {list(CAT_CARDS)} categories, "
+        f"binned to {[m.num_bin for m in mappers]} bins), device bin "
+        f"matrix {ds.X_binned.nbytes / 1e6:.1f} MB; built, binned and moved "
+        f"in {time.perf_counter() - t0:.1f} s")
+    runs = [("headline", rounds, ("hist_leaves_q8", "wave_row_update_ext",
+                                  "hist_single")),
+            ("exact", CAT_EXACT_ROUNDS, ("hist_leaves",
+                                         "wave_row_update_ext")),
+            ("partition", CAT_PARTITION_ROUNDS, ("hist_single",))]
+    log(f"cut: categorical rounds only: headline {rounds}, exact "
+        f"{CAT_EXACT_ROUNDS}, partition {CAT_PARTITION_ROUNDS}")
+    launches = _path_runs(lt, torch, card, ds, Xc[rows:], y[rows:], runs,
+                          out_dir, "_categorical", "categorical")
+    if profile:
+        profile_iteration(lt, torch, card, ds, mode_params("headline"),
+                          "headline_categorical", out_dir, traffic=False)
+    return launches
+
+
+def efb_phase(lt, torch, card, seed, out_dir) -> dict:
+    """Phase 10b: ``EFB_ROWS`` rows of :func:`efb_csr` as a CSR matrix
+    (never densified), EFB-bundled into at most half as many device
+    columns; quantized and exact wave training for ``EFB_ROUNDS`` rounds
+    each."""
+    t0 = time.perf_counter()
+    test = 100_000
+    mat, y = efb_csr(EFB_ROWS + test, seed + 21)
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ds = lt.Dataset(mat[:EFB_ROWS], y[:EFB_ROWS], params={"max_bin": MAX_BIN})
+    ds.construct()
+    ds.device_bins(torch.device("cuda"))
+    torch.cuda.synchronize()
+    f = mat.shape[1]
+    if ds.efb is None:
+        raise AssertionError("EFB: the indicator columns were not bundled")
+    g, bb = ds.efb.n_bundles, ds.efb.bundle_bins
+    log(f"[{card}] EFB data: CSR {EFB_ROWS} rows x {f} columns, {mat.nnz} "
+        f"stored values (generated in {t_gen:.1f} s); bundled into G={g} "
+        f"device columns, {bb} bundle bins, device bin matrix "
+        f"{ds.X_binned.nbytes / 1e6:.1f} MB, in "
+        f"{time.perf_counter() - t0:.1f} s")
+    log(f"cut: EFB rows 10500000 -> {EFB_ROWS} (host set-up time), "
+        f"{EFB_ROUNDS} rounds per mode")
+    if not g <= f // 2:
+        raise AssertionError(f"EFB: {g} device columns for {f} features "
+                             f"(at most {f // 2} expected)")
+    runs = [("quantized", EFB_ROUNDS, ("hist_leaves_q8",
+                                       "wave_row_update_ext")),
+            ("exact", EFB_ROUNDS, ("hist_leaves", "wave_row_update_ext"))]
+    return _path_runs(lt, torch, card, ds, mat[EFB_ROWS:], y[EFB_ROWS:],
+                      runs, out_dir, "_efb", "EFB")
 
 
 def tree_blocks(text: str) -> list:
@@ -1544,6 +1870,19 @@ def main(argv=None) -> int:
     del ds
     torch.cuda.empty_cache()
     stamp("phase 9, training surface")
+
+    # ---- phase 10: categorical features, EFB and CSR input ----
+    for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,
+                                  args.rounds, out_dir, args.seed,
+                                  args.profile).items():
+        launches[k] += v
+    del X, Xtr, Xte, logit
+    torch.cuda.empty_cache()
+    stamp("phase 10a, categorical")
+    for k, v in efb_phase(lt, torch, card, args.seed, out_dir).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    stamp("phase 10b, EFB and CSR")
 
 
     kernels = []

@@ -109,6 +109,8 @@ class Booster:
                 else None
         if hasattr(data, "to_numpy"):
             data = data.to_numpy(dtype=np.float64, na_value=np.nan)
+        if hasattr(data, "todense"):   # scipy sparse, as the reference
+            data = np.asarray(data.todense())
         return self._gbdt.predict(np.asarray(data, dtype=np.float64),
                                   raw_score=raw_score,
                                   start_iteration=start_iteration,

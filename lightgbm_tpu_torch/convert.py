@@ -32,12 +32,18 @@ _REQUIRED = {
     "leaf_value": np.float64, "leaf_weight": np.float64,
     "leaf_count": np.int64,
 }
+# categorical nodes: bitsets over raw category values and the binned
+# membership the training-time walks read
+_CATEGORICAL = {"cat_boundaries": np.int32, "cat_threshold": np.uint32,
+                "cat_member_bins": bool}
 
 
 def trees_from_reference(arrays: Sequence[Mapping[str, Any]]) -> List[Tree]:
     """One port ``Tree`` per mapping of reference ``Tree`` fields.
 
-    Numeric trees only: a tree with categorical nodes or linear leaves
+    Categorical nodes carry over with their bitsets (``cat_boundaries``,
+    ``cat_threshold``) and, when the reference tree has them, their
+    binned memberships (``cat_member_bins``).  A tree with linear leaves
     raises ``NotImplementedError`` (not ported yet)."""
     out = []
     for i, fields in enumerate(arrays):
@@ -46,12 +52,20 @@ def trees_from_reference(arrays: Sequence[Mapping[str, Any]]) -> List[Tree]:
             raise ValueError(f"reference tree {i} lacks fields {missing}")
         nl = int(fields["num_leaves"])
         dt = np.asarray(fields["decision_type"], np.uint8)
-        if fields.get("is_linear") or np.any(dt[:max(nl - 1, 0)] & CAT_MASK):
+        if fields.get("is_linear"):
             raise NotImplementedError(
-                f"reference tree {i} has categorical nodes or linear "
-                "leaves, which lightgbm_tpu_torch does not carry yet "
-                "(ROADMAP queue 1)")
+                f"reference tree {i} has linear leaves, which "
+                "lightgbm_tpu_torch does not carry yet (ROADMAP queue 1)")
         kw = {k: (np.array(fields[k], dtype=t, copy=True) if t is not None
                   else nl) for k, t in _REQUIRED.items()}
+        if np.any(dt[:max(nl - 1, 0)] & CAT_MASK):
+            for k, t in _CATEGORICAL.items():
+                if fields.get(k) is not None:
+                    kw[k] = np.array(fields[k], dtype=t, copy=True)
+            if kw.get("cat_boundaries") is None or \
+                    kw.get("cat_threshold") is None:
+                raise ValueError(f"reference tree {i} has categorical "
+                                 "nodes but no cat_boundaries / "
+                                 "cat_threshold")
         out.append(Tree(shrinkage=float(fields.get("shrinkage", 1.0)), **kw))
     return out

@@ -52,6 +52,19 @@
 // the loads spent ~300 instructions a thread on the walk (PERF.md section
 // 6).
 //
+// The categorical / EFB form (wave_row_update_ext) replaces the XLA
+// fallback the reference runs for those shapes (lightgbm_tpu/learner/
+// wave.py:1341-1420: a (W, B) membership table and efb.make_bundle_decode
+// over the gathered columns).  Its block also holds, per split, a decode
+// row [is_categorical, f_offset, f_nbins, f_default, f_single] and a
+// 256-bit membership bitset in shared memory (W x 52 bytes); each
+// decision first turns the bundle column's byte into the feature's bin
+// (the inverse of efb.py's offset encoding) and a categorical split then
+// reads its bit.  The walk over a row's splits is the numeric form's, so
+// both forms keep the in-order semantics above.  It reads the same bytes
+// as the numeric form and adds a few integer operations a row; the
+// numeric form is compiled without them.
+//
 // Times (NVIDIA H100 80GB HBM3, 700.00 W): chip_smoke.py phase 2 (CUDA
 // events behind a spinning kernel, W=25, N=10,502,144, rows over 255
 // leaves) 0.098 ms, trial form 0.073 ms, where the first version took
@@ -93,6 +106,35 @@ struct Table {
   int first_min;           // ... of leaf INT_MIN, which no slot can key
 };
 
+constexpr int kWords = 8;           // 256-bit membership of a split
+
+// The categorical / EFB form's per-split table; empty in the numeric form.
+template <bool kExt>
+struct Ext {
+  int dec[5 * kMaxW];                // is_cat, offset, nbins, default, single
+  unsigned int member[kMaxW * kWords];
+};
+template <>
+struct Ext<false> {};
+
+// Split j's decision on its column byte v: 1 = left.
+template <bool kExt>
+__device__ __forceinline__ int decide(const Table& T, const Ext<kExt>& E,
+                                      int j, int v, int W) {
+  int b = v;
+  if constexpr (kExt) {
+    if (!E.dec[4 * W + j]) {
+      const int u = v - E.dec[W + j];
+      const int d = E.dec[3 * W + j];
+      b = (u >= 0 && u < E.dec[2 * W + j] - 1) ? u + (u >= d ? 1 : 0) : d;
+    }
+    if (E.dec[j])
+      return (int)((E.member[j * kWords + ((b >> 5) & (kWords - 1))] >>
+                    (b & 31)) & 1u);
+  }
+  return (b == T.tab[W + j]) ? T.tab[2 * W + j] : (b <= T.tab[j] ? 1 : 0);
+}
+
 // The first active split whose split_leaf is `leaf`, or W.
 __device__ __forceinline__ int first_split(const Table& T, int leaf, int W) {
   if (leaf == kEmpty) return T.first_min;
@@ -104,14 +146,23 @@ __device__ __forceinline__ int first_split(const Table& T, int leaf, int W) {
 }
 
 // vec: rl, rl_out (16 B) and ch (4 B) aligned for vector access.
-template <bool kTrial, bool kPacked>
+// dec (5, W), member (W, kWords): the categorical / EFB form's inputs.
+template <bool kTrial, bool kPacked, bool kExt>
 __global__ void __launch_bounds__(kThreads)
 row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
                   const int* __restrict__ feats, const int* __restrict__ rl_in,
                   const int* __restrict__ tab, int* __restrict__ rl_out,
-                  int8_t* __restrict__ ch_out, int W, long long N, int vec) {
+                  int8_t* __restrict__ ch_out, const int* __restrict__ dec,
+                  const int* __restrict__ member, int W, long long N,
+                  int vec) {
   __shared__ Table T;
+  __shared__ Ext<kExt> E;
   for (int i = threadIdx.x; i < 8 * W; i += blockDim.x) T.tab[i] = tab[i];
+  if constexpr (kExt) {
+    for (int i = threadIdx.x; i < 5 * W; i += blockDim.x) E.dec[i] = dec[i];
+    for (int i = threadIdx.x; i < kWords * W; i += blockDim.x)
+      E.member[i] = (unsigned int)member[i];
+  }
   for (int i = threadIdx.x; i < kSlots; i += blockDim.x) {
     T.key[i] = kEmpty;
     T.first[i] = W;
@@ -180,9 +231,8 @@ row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
         // a split followed by a later one of the row's leaf (the endgame's
         // flush of a split and then its child) is applied at once
         while (j < W && (T.next_left[j] < W || T.next_right[j] < W)) {
-          const int b = bin_at(bins + T.off[j], r[k] + i, kPacked);
-          const int go_left = (b == T.tab[W + j]) ? T.tab[2 * W + j]
-                                                  : (b <= T.tab[j] ? 1 : 0);
+          const int go_left =
+              decide(T, E, j, bin_at(bins + T.off[j], r[k] + i, kPacked), W);
           if (go_left == T.tab[3 * W + j]) ch[k][i] = j;
           if (!kTrial && go_left == 0) rl[k][i] = nid[j];
           j = go_left ? T.next_left[j] : T.next_right[j];
@@ -204,9 +254,7 @@ row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
       for (int i = 0; i < 4; ++i) {
         const int j = last[k][i];
         if (j >= W) continue;
-        const int go_left = (b[k][i] == T.tab[W + j])
-                                ? T.tab[2 * W + j]
-                                : (b[k][i] <= T.tab[j] ? 1 : 0);
+        const int go_left = decide(T, E, j, b[k][i], W);
         if (go_left == T.tab[3 * W + j]) ch[k][i] = j;
         if (!kTrial && go_left == 0) rl[k][i] = nid[j];
       }
@@ -229,14 +277,16 @@ row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
   }
 }
 
-template <bool kTrial>
+template <bool kTrial, bool kExt>
 int launch(const void* bins, long long fstride, int F, const void* feats,
-           const void* rl, const void* tab, void* rl_out, void* ch_out, int W,
-           long long N, int packed, int vec, void* stream) {
+           const void* rl, const void* tab, void* rl_out, void* ch_out,
+           const void* dec, const void* member, int W, long long N,
+           int packed, int vec, void* stream) {
   if (W > kMaxW || (F <= 0 && W > 0)) return (int)cudaErrorInvalidValue;
+  if (kExt && (packed || !dec || !member)) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
-  auto* kern = packed ? row_update_kernel<kTrial, true>
-                      : row_update_kernel<kTrial, false>;
+  auto* kern = packed ? row_update_kernel<kTrial, true, false>
+                      : row_update_kernel<kTrial, false, kExt>;
   // one resident round: as many blocks as the SMs hold, or fewer
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -254,7 +304,8 @@ int launch(const void* bins, long long fstride, int F, const void* feats,
       static_cast<const uint8_t*>(bins), fstride, F,
       static_cast<const int*>(feats), static_cast<const int*>(rl),
       static_cast<const int*>(tab), static_cast<int*>(rl_out),
-      static_cast<int8_t*>(ch_out), W, N, vec);
+      static_cast<int8_t*>(ch_out), static_cast<const int*>(dec),
+      static_cast<const int*>(member), W, N, vec);
   return (int)cudaGetLastError();
 }
 
@@ -270,8 +321,21 @@ int wave_row_update(const void* bins, long long fstride, int F,
                     const void* feats, const void* rl, const void* tab,
                     void* rl_out, void* ch_out, int W, long long N,
                     int packed, int vec, void* stream) {
-  return launch<false>(bins, fstride, F, feats, rl, tab, rl_out, ch_out, W,
-                       N, packed, vec, stream);
+  return launch<false, false>(bins, fstride, F, feats, rl, tab, rl_out,
+                              ch_out, nullptr, nullptr, W, N, packed, vec,
+                              stream);
+}
+
+// Categorical / EFB form (uint8 bins): dec (5, W) int32 rows
+// [is_categorical, f_offset, f_nbins, f_default, f_single], member
+// (W, 8) int32 bitsets of the bins that go left.
+int wave_row_update_ext(const void* bins, long long fstride, int F,
+                        const void* feats, const void* rl, const void* tab,
+                        void* rl_out, void* ch_out, const void* dec,
+                        const void* member, int W, long long N, int packed,
+                        int vec, void* stream) {
+  return launch<false, true>(bins, fstride, F, feats, rl, tab, rl_out,
+                             ch_out, dec, member, W, N, packed, vec, stream);
 }
 
 // Trial form: rl is read, never written; ch_out (N,) int8.
@@ -279,8 +343,9 @@ int wave_trial_channels(const void* bins, long long fstride, int F,
                         const void* feats, const void* rl, const void* tab,
                         void* ch_out, int W, long long N, int packed, int vec,
                         void* stream) {
-  return launch<true>(bins, fstride, F, feats, rl, tab, nullptr, ch_out, W,
-                      N, packed, vec, stream);
+  return launch<true, false>(bins, fstride, F, feats, rl, tab, nullptr,
+                             ch_out, nullptr, nullptr, W, N, packed, vec,
+                             stream);
 }
 
 }  // extern "C"

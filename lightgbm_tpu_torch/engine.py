@@ -1,8 +1,9 @@
 """Training entry point.
 
-Port of ``lightgbm_tpu/engine.py`` ``train`` (reference engine.py:15)
-without checkpoint/resume, continuous publishing or the flight recorder
-(later slices).  Training runs on ``device`` (default ``cuda``); when no
+Port of ``lightgbm_tpu/engine.py`` ``train`` (reference engine.py:15),
+continued training from ``init_model`` included, without
+checkpoint/resume, continuous publishing or the flight recorder (later
+slices).  Training runs on ``device`` (default ``cuda``); when no
 card is usable and the CPU was not asked for, it raises.
 """
 
@@ -24,8 +25,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
           callbacks: Optional[List[Callable]] = None,
-          device=None, **kwargs) -> Booster:
-    """Train a boosted model."""
+          device=None, init_model=None, **kwargs) -> Booster:
+    """Train a boosted model.  ``init_model`` (a Booster or a model file)
+    continues training: its trees stay in the returned model, as the
+    reference's ``init_model`` keeps them (engine.py:202-212)."""
     params = dict(params or {})
     params.update(kwargs)
     dev = device_from(params, device)
@@ -36,6 +39,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                  "n_estimators")):
         num_boost_round = cfg.num_iterations
     booster = Booster(params=params, train_set=train_set, device=dev)
+    if init_model is not None:
+        init_bst = init_model if isinstance(init_model, Booster) else \
+            Booster(model_file=str(init_model), params=params, device=dev)
+        booster._gbdt.init_from_model(init_bst._gbdt)
     if valid_sets is not None:
         if not isinstance(valid_sets, (list, tuple)):
             valid_sets = [valid_sets]

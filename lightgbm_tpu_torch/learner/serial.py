@@ -5,7 +5,8 @@ Port of ``lightgbm_tpu/learner/serial.py``: ``GrownTree``,
 ``pair_candidates``, reference serial.py:96-197), ``resolve_hist_impl``,
 ``split_params_from_config``, ``hist_pool_fits`` (:645-652), the grower
 choice of ``SerialTreeLearner`` (:727-776), its 4-bit packing decision
-(:777-794) and its wave and partition branches (:784-850, :901-967).
+(:777-794), its EFB descriptors (:688-703) and its wave and partition
+branches (:784-850, :901-967).
 The masked (pool-less) grower and the parallel strategies are later
 slices (ROADMAP queue 1); the histogram autotuner is
 ``learner/autotune.py``.
@@ -52,6 +53,9 @@ class GrownTree(NamedTuple):
     #                                 with the split leaf, not with N)
     host_syncs: int = -1            # device-to-host reads of the grower
     #                                 (partitioned grower; -1 = not counted)
+    cat_member: Optional[torch.Tensor] = None   # (L-1, B) bool LEFT bins
+    #                                 of categorical nodes (None: no
+    #                                 categorical feature)
 
 
 class CommStrategy:
@@ -61,19 +65,22 @@ class CommStrategy:
     insert collectives at these points, are not ported yet (ROADMAP queue
     1)."""
 
-    def __init__(self, num_bins: torch.Tensor, has_nan: torch.Tensor):
+    def __init__(self, num_bins: torch.Tensor, has_nan: torch.Tensor,
+                 is_cat: Optional[torch.Tensor] = None):
         self.num_bins_full = num_bins
         self.has_nan_full = has_nan
+        self.is_cat_full = is_cat
 
     def leaf_candidates(self, hist, leaf_sum, feature_mask, params,
                         rand_bins=None):
-        """(gain, feat, bin, default_left, left_sum, right_sum) of one
-        leaf's (F, B, 3) f32 histogram; ``rand_bins`` (F,) the node's
-        extra-trees thresholds or None."""
+        """(gain, feat, bin, default_left, left_sum, right_sum,
+        cat_member) of one leaf's (F, B, 3) f32 histogram; ``rand_bins``
+        (F,) the node's extra-trees thresholds or None."""
         out = local_best_candidates(
             hist.unsqueeze(0), leaf_sum.unsqueeze(0), self.num_bins_full,
             self.has_nan_full, feature_mask.unsqueeze(0), params,
-            rand_bins=None if rand_bins is None else rand_bins.unsqueeze(0))
+            rand_bins=None if rand_bins is None else rand_bins.unsqueeze(0),
+            is_cat=self.is_cat_full)
         return tuple(o[0] for o in out)
 
     def pair_candidates(self, hist_l, hist_r, lsum, rsum, feature_mask,
@@ -85,7 +92,8 @@ class CommStrategy:
                                     torch.stack([lsum, rsum]),
                                     self.num_bins_full, self.has_nan_full,
                                     feature_mask.expand(2, -1), params,
-                                    rand_bins=rand_bins)
+                                    rand_bins=rand_bins,
+                                    is_cat=self.is_cat_full)
         return tuple(o[0] for o in out), tuple(o[1] for o in out)
 
 
@@ -107,12 +115,23 @@ def resolve_hist_impl(config: Config, device: torch.device) -> str:
 
 
 def split_params_from_config(config: Config,
+                             num_bins: Optional[np.ndarray] = None,
                              is_cat: Optional[np.ndarray] = None
                              ) -> SplitParams:
+    """The scan's parameters (reference serial.py:574-625): the
+    sorted-subset search is on when some categorical feature has more
+    than ``max_cat_to_onehot`` bins, and ``cat_idx`` lists the
+    categorical features (the serial learners scan full feature space,
+    reference serial.py:709-716)."""
     mc = config.monotone_constraints or []
     use_cegb = bool(config.cegb_penalty_split > 0.0 or
                     config.cegb_penalty_feature_coupled or
                     config.cegb_penalty_feature_lazy)
+    cats = (np.zeros(0, bool) if is_cat is None
+            else np.asarray(is_cat, bool))
+    use_cat_subset = bool(
+        num_bins is not None and
+        np.any(cats & (np.asarray(num_bins) > int(config.max_cat_to_onehot))))
     return SplitParams(
         lambda_l1=float(config.lambda_l1),
         lambda_l2=float(config.lambda_l2),
@@ -128,12 +147,14 @@ def split_params_from_config(config: Config,
         max_cat_to_onehot=int(config.max_cat_to_onehot),
         max_cat_threshold=int(config.max_cat_threshold),
         min_data_per_group=int(config.min_data_per_group),
+        use_cat_subset=use_cat_subset,
+        cat_idx=tuple(int(j) for j in np.nonzero(cats)[0]),
         use_cegb=use_cegb,
         cegb_tradeoff=float(config.cegb_tradeoff),
         cegb_penalty_split=float(config.cegb_penalty_split),
         feature_fraction_bynode=float(config.feature_fraction_bynode),
         extra_trees=bool(config.extra_trees),
-        any_cat=bool(is_cat is not None and np.any(np.asarray(is_cat))))
+        any_cat=bool(cats.any()))
 
 
 def hist_pool_fits(config: Config, num_features: int, max_bins: int) -> bool:
@@ -177,7 +198,8 @@ class SerialTreeLearner:
 
     def __init__(self, config: Config, num_features: int, max_bins: int,
                  num_bins: np.ndarray, has_nan: np.ndarray,
-                 device: torch.device):
+                 device: torch.device, is_cat: Optional[np.ndarray] = None,
+                 efb=None):
         self.config = config
         self.device = torch.device(device)
         self.max_bins = int(max_bins)
@@ -186,13 +208,24 @@ class SerialTreeLearner:
                                         device=self.device)
         self.has_nan = torch.as_tensor(has_nan, dtype=torch.bool,
                                        device=self.device)
-        self.split_params = split_params_from_config(config)
+        if is_cat is None:
+            is_cat = np.zeros(num_features, bool)
+        self.is_cat = torch.as_tensor(is_cat, dtype=torch.bool,
+                                      device=self.device)
+        any_cat = bool(np.any(is_cat))
+        self.split_params = split_params_from_config(config, num_bins, is_cat)
         self.hist_impl = resolve_hist_impl(config, self.device)
+        # EFB (dataset.py ``efb``, a BundleInfo): the growers build and
+        # pool histograms in bundle space (reference serial.py:688-703)
+        self.efb = efb
+        from ..efb import efb_arrays
+        self._efb = None if efb is None else efb_arrays(efb, self.device)
+        pool_f, pool_b = ((efb.n_bundles, efb.bundle_bins) if efb is not None
+                          else (num_features, self.max_bins))
         # grower choice (reference serial.py:723-776); both of the port's
         # histogram paths (CUDA kernel, plain version) stand for the
         # reference's pallas impl
-        self.use_hist_pool = hist_pool_fits(config, num_features,
-                                            self.max_bins)
+        self.use_hist_pool = hist_pool_fits(config, pool_f, pool_b)
         wave_ok = self.use_hist_pool and int(config.num_leaves) > 2
         mode = str(config.tree_grow_mode)
         if mode == "wave" and not wave_ok:
@@ -215,15 +248,16 @@ class SerialTreeLearner:
                         "gradients instead")
         _check_config(config)
         log_info(f"histogram pool: "
-                 f"{pool_bytes(config, num_features, self.max_bins, mode)} "
+                 f"{pool_bytes(config, pool_f, pool_b, mode)} "
                  f"bytes on the {mode} grower")
         # the 4-bit packed bin layout (reference serial.py:777-794): two
         # codes per byte when every feature fits a nibble, on the wave
-        # grower only.  pack4 exists only on the reference's DMA pipeline,
-        # so an explicit blockspec request turns it off.  The port has no
-        # categorical features or EFB, the reference's other two vetoes.
+        # grower only, never under categorical features or EFB.  pack4
+        # exists only on the reference's DMA pipeline, so an explicit
+        # blockspec request turns it off.
         self.pack4 = bool(mode == "wave" and config.tpu_hist_pack4 and
-                          self.max_bins <= PACK4_MAX_BINS and
+                          self.max_bins <= PACK4_MAX_BINS and not any_cat and
+                          efb is None and
                           config.tpu_pallas_pipeline != "blockspec")
         self._x_src = self._Xp = None
         self._quant_calls = 0
@@ -232,7 +266,7 @@ class SerialTreeLearner:
             self._grow = make_partitioned_grow_fn(
                 num_leaves=int(config.num_leaves), num_features=num_features,
                 max_bins=self.max_bins, max_depth=int(config.max_depth),
-                split_params=self.split_params)
+                split_params=self.split_params, efb=self._efb)
             return
         from ..ops.quantize import quant_levels
         gq_max, hq_max = quant_levels(int(config.num_grad_quant_bins))
@@ -247,7 +281,8 @@ class SerialTreeLearner:
             spec_ramp=bool(config.tpu_speculative_ramp),
             spec_tol=float(config.tpu_spec_tolerance),
             exact_endgame=bool(config.tpu_exact_endgame),
-            renew_leaf=bool(config.quant_train_renew_leaf), pack4=self.pack4)
+            renew_leaf=bool(config.quant_train_renew_leaf), pack4=self.pack4,
+            efb=self._efb)
 
     def train(self, X_T: torch.Tensor, grad: torch.Tensor,
               hess: torch.Tensor, sample_mask: torch.Tensor,
@@ -282,14 +317,14 @@ class SerialTreeLearner:
                 self._x_src = X_T
             grown = self._grow(self._Xp, grad, hess, sample_mask,
                                self.num_bins, self.has_nan, feature_mask,
-                               node_key)
+                               node_key, is_cat=self.is_cat)
         else:
             if self.quantized and quant_key is None:
                 self._quant_calls += 1
                 quant_key = host_key(self._quant_calls)
             grown = self._grow(X_T, grad, hess, sample_mask, self.num_bins,
                                self.has_nan, feature_mask, quant_key,
-                               node_key)
+                               node_key, is_cat=self.is_cat)
         if pad:
             grown = grown._replace(row_leaf=grown.row_leaf[:n])
         return grown

@@ -1,7 +1,7 @@
 """Wave grower — leaf-wise growth with no physical row movement.
 
 Port of ``lightgbm_tpu/learner/wave.py`` ``make_wave_grow_fn`` for the
-serial, numeric, non-EFB configuration.  Growth proceeds in *waves*: each
+serial learner.  Growth proceeds in *waves*: each
 wave splits the top-``wave_size`` leaves by candidate gain, applies the W
 splits to the per-row ``row_leaf`` vector in one kernel pass
 (ops/histogram_cuda.py ``wave_row_update``), and builds the wave's SMALLER
@@ -34,15 +34,22 @@ Carried over from the reference, with the same semantics:
   :644-679, :877-889, :918-928, :977-981): the leaf kernels read the
   ``(F, N/2)`` packed matrix in the waves and the ramp, the ramp's
   subsample strides over packed BYTES (adjacent row pairs), and the row
-  update reads the winning columns' nibbles in place.
+  update reads the winning columns' nibbles in place;
+* categorical features and EFB bundles (reference wave.py:285-295,
+  :545-549, :1313-1420): histograms are built and pooled in bundle space
+  (G, Bb) and expanded to feature space (efb.py ``make_expand_hist``)
+  before every scan; each split records its categorical LEFT bins
+  (``cat_member``); the row update's categorical / EFB form decodes the
+  bundle column and decides by membership on the device; the speculative
+  ramp, the endgame and packed bins are off, as the reference gates them.
 
 The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
 count once per wave and the best candidate once per endgame commit.
 
 Not ported (ROADMAP queue 1; refused before the grower is built): voting
-and scatter merges, lazy CEGB, forced splits, interaction constraints,
-monotone constraints, categorical features and EFB.
+and scatter merges, lazy CEGB, forced splits, interaction constraints and
+monotone constraints.
 """
 
 from __future__ import annotations
@@ -53,12 +60,13 @@ from typing import Dict
 import numpy as np
 import torch
 
-from ..models.tree import DEFAULT_LEFT_MASK, MISSING_NAN
+from ..efb import make_expand_hist
+from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
 from ..ops.histogram import (PACK4_MAX_BINS, histogram_subtract,
                              pack_weights)
 from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
                                   build_histogram, build_histogram_leaves,
-                                  build_histogram_leaves_q8,
+                                  build_histogram_leaves_q8, split_decode,
                                   wave_row_update, wave_trial_channels)
 from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
 from ..ops.split import (NEG_INF, SplitParams, check_supported, leaf_gain,
@@ -69,6 +77,8 @@ from .serial import GrownTree
 __all__ = ["make_wave_grow_fn", "WAVE_SIZE", "Q_WAVE_SIZE", "wave_taper_k"]
 
 WAVE_SIZE = LEAF_CHANNELS        # 25 leaves per exact pass
+CAND_NAMES = ("cand_gain", "cand_feat", "cand_bin", "cand_dleft",
+              "cand_lsum", "cand_rsum", "cand_member")
 Q_WAVE_SIZE = Q_LEAF_CHANNELS    # 42 leaves per quantized pass
 
 _I32 = torch.int32
@@ -108,23 +118,28 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                       stochastic: bool = False, spec_ramp: bool = False,
                       spec_tol: float = 0.3, spec_subsample: int = 1 << 19,
                       exact_endgame: bool = True, renew_leaf: bool = False,
-                      pack4: bool = False):
+                      pack4: bool = False, efb=None):
     """Build the wave single-tree grower.
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
-    feature_mask, quant_key=None, node_key=None) -> GrownTree`` with
-    ``X_T`` the FEATURE-MAJOR (F, N) uint8 bin matrix, N a multiple of the
-    4096-row block, and every tensor on one device.  ``quant_key`` keys
-    the tree's stochastic rounding; ``node_key`` holds the keys of the
-    by-node sampling stream ([0]) and the extra-trees stream ([1]) (host
-    keys or (2,) tensors, utils/random.py).  Under ``pack4`` ``X_T`` is
+    feature_mask, quant_key=None, node_key=None, is_cat=None) ->
+    GrownTree`` with ``X_T`` the FEATURE-MAJOR (G, N) uint8 bin matrix (G
+    = F, or the bundles of ``efb``, an ``efb.EfbArrays``), N a multiple of
+    the 4096-row block, ``is_cat`` the (F,) categorical flags (read when
+    ``split_params.any_cat``) and every tensor on one device.
+    ``quant_key`` keys the tree's stochastic rounding; ``node_key`` holds
+    the keys of the by-node sampling stream ([0]) and the extra-trees
+    stream ([1]) (host keys or (2,) tensors, utils/random.py).  Under ``pack4`` ``X_T`` is
     the nibble-packed (F, N/2) matrix (ops/histogram.py ``pack_bins4``).
     The reference's ``tpu_pallas_pipeline`` knob reaches the grower only
     through ``pack4`` (the learner turns packing off for ``blockspec``);
     the kernels have one form per bin layout."""
     check_supported(split_params)
-    if pack4 and max_bins > PACK4_MAX_BINS:
-        raise ValueError(f"pack4 bins require max_bin <= {PACK4_MAX_BINS}")
+    any_cat = bool(split_params.any_cat)
+    use_efb = efb is not None
+    if pack4 and (max_bins > PACK4_MAX_BINS or any_cat or use_efb):
+        raise ValueError(f"pack4 bins require numeric non-EFB data with "
+                         f"max_bin <= {PACK4_MAX_BINS}")
     if max_bins > 256:
         raise NotImplementedError("uint16 bin codes are not ported to "
                                   "lightgbm_tpu_torch yet (ROADMAP queue 1): "
@@ -132,35 +147,59 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                   "(max_bin <= 255)")
     L = num_leaves
     F = num_features
-    Bb = max_bins
+    G, Bb = (efb.n_bundles, efb.bundle_bins) if use_efb else (F, max_bins)
     sp = split_params
+    expand = make_expand_hist(efb, F)
+    # the row update's categorical / EFB form (the reference's XLA
+    # fallback, wave.py:1341-1420)
+    ext_rows = any_cat or use_efb
     ch_cap = Q_WAVE_SIZE if quantized else WAVE_SIZE
     W = max(1, min(int(wave_size) or ch_cap, ch_cap, L - 1))
     use_bynode = sp.feature_fraction_bynode < 1.0
     use_et = sp.extra_trees
-    # the per-node streams keep the plain ramp and the tapered waves, as
-    # the reference gates them (wave.py:339-365)
+    # the per-node streams, categorical features and EFB keep the plain
+    # ramp and the tapered waves, as the reference gates them
+    # (wave.py:339-365)
+    plain = use_bynode or use_et or any_cat or use_efb or max_bins > 255
     use_spec = (spec_ramp and max_depth <= 0 and W >= 2 and L >= 3 * W and
-                not use_bynode and not use_et)
-    use_endgame = exact_endgame and L > 2 and not use_bynode and not use_et
+                not plain)
+    use_endgame = exact_endgame and L > 2 and not plain
     EG = 2 * W   # pending-commit capacity (budget < 2W at endgame entry)
 
     def grow(X_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              bag_mask: torch.Tensor, num_bins: torch.Tensor,
              has_nan: torch.Tensor, feature_mask: torch.Tensor,
-             quant_key=None, node_key=None) -> GrownTree:
+             quant_key=None, node_key=None, is_cat=None) -> GrownTree:
         dev = X_T.device
         n = X_T.shape[1] * 2 if pack4 else X_T.shape[1]
         nb_full = num_bins.to(_I32)
         hn_full = has_nan
+        ic_full = (is_cat.to(torch.bool) if any_cat and is_cat is not None
+                   else torch.zeros((F,), dtype=torch.bool, device=dev))
         zf = torch.zeros((), dtype=_F32, device=dev)
         neg_inf = torch.full((), NEG_INF, dtype=_F32, device=dev)
 
-        def route(bins, rl, tab, feats):
+        def route(bins, rl, tab, feats, member=None):
             """The row update reading the split columns of ``bins`` in
-            place (packed under ``pack4``)."""
-            return wave_row_update(bins, rl, tab, feats=feats.to(_I32),
-                                   bins_packed=pack4)
+            place (packed under ``pack4``); under categorical features or
+            EFB its categorical / EFB form, which reads each feature's
+            bundle column, decodes it and decides categorical splits by
+            the (W, B) ``member`` table."""
+            if not ext_rows:
+                return wave_row_update(bins, rl, tab, feats=feats.to(_I32),
+                                       bins_packed=pack4)
+            fl = feats.long()
+            if use_efb:
+                col = efb.f_bundle[fl]
+                dec = (efb.f_offset[fl], efb.f_nbins[fl],
+                       efb.f_default[fl], efb.f_single[fl])
+            else:
+                col = feats
+                dec = (torch.zeros_like(feats), nb_full[fl],
+                       torch.zeros_like(feats), torch.ones_like(feats))
+            return wave_row_update(
+                bins, rl, tab, feats=col.to(_I32),
+                decode=split_decode(ic_full[fl], member, *dec))
 
         gm = (grad * bag_mask).float()
         hm = (hess * bag_mask).float()
@@ -199,10 +238,13 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
         def many_candidates(hists, sums, fms, sums_exact=None,
                             rand_bins=None):
-            """Best-split candidates for a batch of leaves (the f32 scan
-            form of the histograms)."""
-            return local_best_candidates(dq(hists), sums, nb_full, hn_full,
-                                         fms, sp, sums_exact, rand_bins)
+            """Best-split candidates for a batch of leaves: the scan on
+            the dequantized histograms, expanded to feature space under
+            EFB (the reference's ``_scan_hists``, wave.py:591-599)."""
+            return local_best_candidates(
+                expand(dq(hists), sums), sums, nb_full, hn_full,
+                fms, sp, sums_exact, rand_bins,
+                ic_full if any_cat else None)
 
         fm_row = feature_mask.to(torch.bool)
 
@@ -225,10 +267,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 "cand_dleft": z((L,), torch.bool),
                 "cand_lsum": z((L, 3), _F32),
                 "cand_rsum": z((L, 3), _F32),
-                "hists": z((L, F, Bb, 3), hdtype),
+                "cand_member": z((L, max_bins), torch.bool),
+                "hists": z((L, G, Bb, 3), hdtype),
                 "split_feature": z((L - 1,), _I32, -1),
                 "threshold_bin": z((L - 1,), _I32),
                 "nan_bin": z((L - 1,), _I32, -1),
+                "cat_member": z((L - 1, max_bins), torch.bool),
                 "decision_type": z((L - 1,), _I32),
                 "left_child": z((L - 1,), _I32),
                 "right_child": z((L - 1,), _I32),
@@ -244,9 +288,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         def set_candidates(s, idx, cands, valid=None):
             valid = torch.ones_like(idx, dtype=torch.bool) \
                 if valid is None else valid
-            for name, val in zip(("cand_gain", "cand_feat", "cand_bin",
-                                  "cand_dleft", "cand_lsum", "cand_rsum"),
-                                 cands):
+            for name, val in zip(CAND_NAMES, cands):
                 _set_drop(s[name], idx, val, valid)
 
         # ---- speculative ramp ------------------------------------------
@@ -495,6 +537,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             dleft = s["cand_dleft"][sl]
             lsum = s["cand_lsum"][sl]
             rsum = s["cand_rsum"][sl]
+            member = s["cand_member"][sl]                  # (W, B)
             psum_ = s["leaf_sum"][sl]
             prefix = torch.cumsum(sel.to(_I32), 0).to(_I32)
             total_new = int(prefix[-1])
@@ -502,6 +545,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             node_ids = (nl0 - 1) + prefix - 1
             left_smaller = lsum[:, 2] <= rsum[:, 2]
             fnan = hn_full[feat.long()]
+            fcat = ic_full[feat.long()]
             f_nan_bin = torch.where(fnan, nb_full[feat.long()] - 1,
                                     torch.full_like(feat, -1))
 
@@ -510,7 +554,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 thr, f_nan_bin, dleft.to(_I32), left_smaller.to(_I32),
                 sl.to(_I32), new_ids, sel.to(_I32),
                 torch.zeros_like(thr)]).contiguous()
-            s["row_leaf"], ch = route(X_T, s["row_leaf"], tab, feat)
+            s["row_leaf"], ch = route(X_T, s["row_leaf"], tab, feat, member)
 
             # ---- one kernel pass: all W smaller-child histograms ----
             hist_small = hist_waves(ch)
@@ -549,11 +593,16 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
             # ---- tree node records ----
             nidx = node_ids.long()
-            dt_bits = (torch.where(dleft, DEFAULT_LEFT_MASK, 0) |
-                       torch.where(fnan, MISSING_NAN, 0)).to(_I32)
+            # a categorical node sends NaN (bin 0's side) as its member
+            # bin 0 goes (reference wave.py:1652-1656)
+            dleft_rec = torch.where(fcat, member[:, 0], dleft)
+            dt_bits = (torch.where(fcat, CAT_MASK, 0) |
+                       torch.where(dleft_rec, DEFAULT_LEFT_MASK, 0) |
+                       torch.where(fnan & ~fcat, MISSING_NAN, 0)).to(_I32)
             for name, val in (("split_feature", feat),
                               ("threshold_bin", thr),
                               ("nan_bin", f_nan_bin),
+                              ("cat_member", member),
                               ("decision_type", dt_bits),
                               ("split_gain", vals),
                               ("internal_value",
@@ -625,7 +674,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             internal_count=s["internal_count"],
             leaf_value=s["leaf_value"], leaf_weight=s["leaf_weight"],
             leaf_count=s["leaf_count"], num_leaves=int(num_leaves_now),
-            row_leaf=s["row_leaf"], hist_passes=int(hist_passes))
+            row_leaf=s["row_leaf"], hist_passes=int(hist_passes),
+            cat_member=s["cat_member"] if any_cat else None)
 
     # ---- exact endgame (reference wave.py:1710-1933) -----------------------
     def _endgame(s, num_leaves_now, hist_passes, X_T, hist_waves,
@@ -726,9 +776,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         s["hists"][new_id] = hist_r
         s["leaf_sum"][idx2] = sums2
         s["leaf_depth"][idx2] = child_depth
-        for name, val in zip(("cand_gain", "cand_feat", "cand_bin",
-                              "cand_dleft", "cand_lsum", "cand_rsum"),
-                             (cg2,) + tuple(cnds[1:])):
+        for name, val in zip(CAND_NAMES, (cg2,) + tuple(cnds[1:])):
             s[name][idx2] = val.to(s[name].dtype)
         s["leaf_value"][idx2] = torch.stack([out_l, out_r])
         s["leaf_weight"][idx2] = sums2[:, 1]

@@ -42,7 +42,8 @@ from ..objective.base import weighted_percentile
 from ..utils.log import log_info, log_warning
 from ..utils.random import fold_in, host_key, host_rng
 from ..utils.timer import FunctionTimer
-from .tree import DEFAULT_LEFT_MASK, Tree, TreeBatch, predict_raw
+from ..efb import make_bundle_decode
+from .tree import CAT_MASK, DEFAULT_LEFT_MASK, Tree, TreeBatch, predict_raw
 
 __all__ = ["GBDT", "bagging_mask_np", "feature_mask_np"]
 
@@ -51,9 +52,12 @@ EPSILON = 1e-12
 
 def _grown_to_tree(grown: GrownTree, shrinkage: float, dataset: Dataset,
                    leaf_value_override: Optional[np.ndarray] = None) -> Tree:
-    """Pull one grown tree to host and attach raw-value thresholds
-    (numeric nodes; the reference's categorical bitsets are not ported);
-    ``leaf_value_override`` replaces the leaf values (renewal)."""
+    """Pull one grown tree to host, attach raw-value thresholds and the
+    categorical bitsets (reference models/gbdt.py:44-100, tree.h:85
+    SplitCategorical: a categorical node stores a rank into
+    ``cat_boundaries``; its ``cat_threshold`` words are a bitset over raw
+    category values); ``leaf_value_override`` replaces the leaf values
+    (renewal)."""
     num_leaves = int(grown.num_leaves)
 
     def host(t):
@@ -61,11 +65,29 @@ def _grown_to_tree(grown: GrownTree, shrinkage: float, dataset: Dataset,
 
     split_feature = host(grown.split_feature)
     threshold_bin = host(grown.threshold_bin)
+    decision_type = host(grown.decision_type)
+    member = None if grown.cat_member is None else host(grown.cat_member)
     mappers = [dataset.bin_mappers[j] for j in dataset.used_feature_map]
     thresh = np.zeros(len(split_feature), dtype=np.float64)
+    cat_boundaries: List[int] = [0]
+    cat_words: List[int] = []
+    has_cat = False
     for i in range(num_leaves - 1):
         f = int(split_feature[i])
-        if f >= 0:
+        if f < 0:
+            continue
+        if decision_type[i] & CAT_MASK:
+            has_cat = True
+            b2c = mappers[f].bin_to_cat
+            cats = [int(b2c[b]) for b in np.nonzero(member[i])[0]
+                    if b < len(b2c)] or [0]
+            wd = np.zeros(max(cats) // 32 + 1, np.uint32)
+            for c in cats:
+                wd[c // 32] |= np.uint32(1 << (c % 32))
+            thresh[i] = float(len(cat_boundaries) - 1)   # rank
+            cat_words.extend(int(w) for w in wd)
+            cat_boundaries.append(len(cat_words))
+        else:
             thresh[i] = mappers[f].bin_to_value(int(threshold_bin[i]))
     tree = Tree(
         num_leaves=max(num_leaves, 1),
@@ -73,7 +95,7 @@ def _grown_to_tree(grown: GrownTree, shrinkage: float, dataset: Dataset,
         threshold_bin=threshold_bin.astype(np.int32),
         nan_bin=host(grown.nan_bin).astype(np.int32),
         threshold=thresh,
-        decision_type=host(grown.decision_type).astype(np.uint8),
+        decision_type=decision_type.astype(np.uint8),
         left_child=host(grown.left_child).astype(np.int32),
         right_child=host(grown.right_child).astype(np.int32),
         split_gain=host(grown.split_gain),
@@ -85,10 +107,24 @@ def _grown_to_tree(grown: GrownTree, shrinkage: float, dataset: Dataset,
                     else np.asarray(leaf_value_override, np.float64)),
         leaf_weight=host(grown.leaf_weight).astype(np.float64),
         leaf_count=host(grown.leaf_count).astype(np.int64),
+        cat_boundaries=(np.asarray(cat_boundaries, np.int32)
+                        if has_cat else None),
+        cat_threshold=(np.asarray(cat_words, np.uint32)
+                       if has_cat else None),
+        cat_member_bins=member[:max(num_leaves - 1, 1)] if has_cat else None,
     )
     if shrinkage != 1.0:
         tree.shrink(shrinkage)
     return tree
+
+
+def _tree_cat_member(tree: Tree) -> np.ndarray:
+    """Binned categorical membership of a host tree's binned walk
+    (reference models/gbdt.py:104-110): width-1 zeros when the tree has
+    no categorical node."""
+    if tree.cat_member_bins is not None:
+        return np.asarray(tree.cat_member_bins, bool)
+    return np.zeros((max(len(tree.split_feature), 1), 1), bool)
 
 
 def _update_score(score: torch.Tensor, row_leaf: torch.Tensor,
@@ -144,11 +180,14 @@ def feature_mask_np(cfg, num_features: int,
     return mask
 
 
-def _walk_binned(bins: torch.Tensor, tree: Tree,
-                 leaf_value: torch.Tensor) -> torch.Tensor:
-    """One tree's walk on a BINNED row-major (N, F) matrix (valid-set score
+def _walk_binned(bins: torch.Tensor, tree: Tree, leaf_value: torch.Tensor,
+                 efb=None) -> torch.Tensor:
+    """One tree's walk on a BINNED row-major (N, G) matrix (valid-set score
     updates, reference models/tree.py ``_walk_impl``): the NaN bin follows
-    ``default_left``, other bins compare with the threshold bin."""
+    ``default_left``, other bins compare with the threshold bin, and a
+    categorical node goes left on its member bins.  Under EFB (``efb``,
+    an ``efb.EfbArrays``) each node reads its feature's bundle column and
+    decodes it (reference ``_walk_binned_efb``)."""
     n = bins.shape[0]
     dev = bins.device
     if tree.num_leaves <= 1:
@@ -160,16 +199,24 @@ def _walk_binned(bins: torch.Tensor, tree: Tree,
     nb = torch.as_tensor(tree.nan_bin[:k], dtype=torch.int32, device=dev)
     dl = torch.as_tensor((tree.decision_type[:k] & DEFAULT_LEFT_MASK) != 0,
                          device=dev)
+    ic = torch.as_tensor((tree.decision_type[:k] & CAT_MASK) != 0,
+                         device=dev)
+    mem = torch.as_tensor(_tree_cat_member(tree)[:k], device=dev)
+    bm = mem.shape[1]
     lc = torch.as_tensor(tree.left_child[:k], dtype=torch.long, device=dev)
     rc = torch.as_tensor(tree.right_child[:k], dtype=torch.long, device=dev)
+    col_of = sf if efb is None else efb.f_bundle[sf].long()
+    decode = make_bundle_decode(efb)
     rows = torch.arange(n, device=dev)
     node = torch.zeros((n,), dtype=torch.long, device=dev)
     out = torch.zeros((n,), dtype=torch.float32, device=dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     while bool(active.any()):
         nd = node.clamp(min=0)
-        b = bins[rows, sf[nd]].to(torch.int32)
+        b = decode(bins[rows, col_of[nd]].to(torch.int32), sf[nd])
         go_left = torch.where(b == nb[nd], dl[nd], b <= tb[nd])
+        go_left = torch.where(ic[nd], mem[nd, b.long().clamp(max=bm - 1)],
+                              go_left)
         new_node = torch.where(active, torch.where(go_left, lc[nd], rc[nd]),
                                node)
         hit = active & (new_node < 0)
@@ -222,6 +269,7 @@ class GBDT:
         num_bins = np.array([m.num_bin for m in mappers], np.int32)
         has_nan = np.array([m.missing_type == MissingType.NAN
                             for m in mappers], bool)
+        is_cat = np.array([m.is_categorical for m in mappers], bool)
         if self.num_data > (1 << 24) and not cfg.use_quantized_grad:
             log_warning(f"num_data={self.num_data} exceeds the f32 "
                         "histogram count channel's 2^24-row exactness "
@@ -230,6 +278,7 @@ class GBDT:
         learner_cfg = cfg
         if (self.device.type == "cuda" and
                 cfg.tpu_histogram_impl == "auto" and
+                train_set.efb is None and
                 train_set.X_binned.size <= AUTOTUNE_MAX_CELLS):
             # small shapes: time the single-leaf kernel on uint8 and on
             # packed bins on the real data once (reference
@@ -242,7 +291,8 @@ class GBDT:
                 train_set.X_binned, self.max_bins, self.device))
         self.learner = SerialTreeLearner(learner_cfg, self.num_features,
                                          self.max_bins, num_bins, has_nan,
-                                         self.device)
+                                         self.device, is_cat=is_cat,
+                                         efb=train_set.efb)
         # under pack4 only the nibble-packed half-width matrix lives on
         # the device (reference learner/serial.py:911-920)
         self.X_T = (train_set.device_bins_packed4(self.device)
@@ -314,10 +364,90 @@ class GBDT:
         for m in metrics:
             m.init(valid_set.metadata, n)
         self.valid_sets.append((name, valid_set))
-        self.valid_scores.append(torch.as_tensor(score0, device=self.device))
+        bins = torch.as_tensor(valid_set.X_binned, device=self.device)
+        valid_set._device_cache["bins_rm"] = bins
+        # continued training: the loaded trees' scores (reference
+        # models/gbdt.py:764-778)
+        self.valid_scores.append(self._score_models(
+            torch.as_tensor(score0, device=self.device), bins))
         self.valid_metrics.append(metrics)
-        valid_set._device_cache["bins_rm"] = torch.as_tensor(
-            valid_set.X_binned, device=self.device)
+
+    def _score_models(self, score: torch.Tensor,
+                      bins: torch.Tensor) -> torch.Tensor:
+        """``score`` plus every recorded tree's output on the binned
+        row-major ``bins`` (class c's trees at i * K + c)."""
+        k = self.num_tree_per_iteration
+        for t, tree in enumerate(self.models):
+            delta = _walk_binned(
+                bins, tree, torch.as_tensor(tree.leaf_value.astype(
+                    np.float32), device=self.device), self.learner._efb)
+            if k == 1:
+                score = score + delta
+            else:
+                score[:, t % k] += delta
+        return score
+
+    # -- continued training (reference models/gbdt.py:1432-1497) -------------
+    def _align_loaded_tree(self, tree: Tree) -> Tree:
+        """Re-key a loaded tree (real feature indices, raw thresholds) onto
+        this training Dataset: inner feature indices, and threshold_bin,
+        nan_bin and the categorical nodes' member bins recovered through
+        the bin mappers, so the binned walks can score it."""
+        from ..binning import MissingType
+        ds = self.train_set
+        inner_of_real = {int(r): i for i, r in
+                         enumerate(ds.used_feature_map)}
+        t = copy.copy(tree)
+        t.split_feature = np.array(tree.split_feature, np.int32, copy=True)
+        t.threshold_bin = np.zeros_like(t.split_feature)
+        t.nan_bin = np.full_like(t.split_feature, -1)
+        member_bins = None
+        for i in range(t.num_leaves - 1):
+            rf = int(tree.split_feature[i])
+            if rf not in inner_of_real:
+                raise ValueError(
+                    f"loaded model splits on feature {rf}, which is trivial "
+                    f"(constant) in the continued-training dataset")
+            f = inner_of_real[rf]
+            t.split_feature[i] = f
+            m = ds.bin_mappers[int(ds.used_feature_map[f])]
+            if m.is_categorical:
+                if member_bins is None:
+                    member_bins = np.zeros((max(t.num_leaves - 1, 1),
+                                            self.max_bins), bool)
+                bins = [m.cat_to_bin[c] for c in tree.cat_values(i)
+                        if c in m.cat_to_bin]
+                member_bins[i, bins] = True
+                t.threshold_bin[i] = bins[0] if bins else 0
+            else:
+                t.threshold_bin[i] = int(
+                    m.value_to_bin(np.array([tree.threshold[i]]))[0])
+            if m.missing_type == MissingType.NAN:
+                t.nan_bin[i] = m.num_bin - 1
+        t.cat_member_bins = member_bins
+        return t
+
+    def init_from_model(self, other: "GBDT") -> None:
+        """Prime this booster with an existing model's trees and keep
+        boosting (continued training, reference models/gbdt.py:1482):
+        the loaded trees stay in the model and score the training rows."""
+        k = self.num_tree_per_iteration
+        ok = getattr(other, "num_tree_per_iteration", 1)
+        if ok != k:
+            raise ValueError(f"init_model has {ok} trees/iteration, this "
+                             f"training configuration needs {k}")
+        self.models = [self._align_loaded_tree(t) for t in other.models]
+        self.iter_ = len(self.models) // max(k, 1)
+        # the loaded first tree already carries any boost-from-average bias
+        self._pending_bias[:] = 0.0
+        score0 = np.zeros(self._score_shape(self.num_data), np.float32)
+        md = self.train_set.metadata
+        if md.init_score is not None:
+            score0 = score0 + md.init_score.reshape(score0.shape).astype(
+                np.float32)
+        self.score = self._score_models(
+            torch.as_tensor(score0, device=self.device),
+            torch.as_tensor(self.train_set.X_binned, device=self.device))
 
     # -- one boosting iteration (gbdt.cpp:369 TrainOneIter) ------------------
     def train_one_iter(self) -> bool:
@@ -457,7 +587,8 @@ class GBDT:
                 shrinkage)
         lv = leaf_value * shrinkage
         for vi, (_, vset) in enumerate(self.valid_sets):
-            delta = _walk_binned(vset._device_cache["bins_rm"], tree, lv)
+            delta = _walk_binned(vset._device_cache["bins_rm"], tree, lv,
+                                 self.learner._efb)
             if k == 1:
                 self.valid_scores[vi] = self.valid_scores[vi] + delta
             else:

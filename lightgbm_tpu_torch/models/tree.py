@@ -4,7 +4,8 @@ Port of ``lightgbm_tpu/models/tree.py`` (reference: include/LightGBM/tree.h:25
 ``Tree`` — flat arrays, child pointers ``~leaf_index`` for leaves).  The
 host-side :class:`Tree` is a copy; :class:`TreeBatch` stacks an ensemble
 into tensors on the prediction device and :func:`predict_raw` is the plain
-vectorized tree walk (every row advances one level per step).  The
+vectorized tree walk (every row advances one level per step), deciding
+categorical nodes by their bitsets over raw category values.  The
 reference's dense matmul walk and serving compiler wait for a later slice
 (ROADMAP queue 1).
 
@@ -177,18 +178,18 @@ class Tree:
 
 class TreeBatch:
     """Stacked tensors for T trees of identical max size on one device
-    (numeric trees; categorical and linear trees are not ported yet)."""
+    (linear trees are not ported yet).  Categorical nodes carry their
+    bitset words over raw category values, (T, L-1, W) ``cat_words``
+    (reference models/tree.py:252-288)."""
 
     def __init__(self, trees: List[Tree], device=torch.device("cpu")):
         if not trees:
             raise ValueError("no trees")
         for t in trees:
-            if t.is_linear or np.any(
-                    np.asarray(t.decision_type[:t.num_internal()],
-                               np.uint8) & CAT_MASK):
+            if t.is_linear:
                 raise NotImplementedError(
-                    "categorical and linear trees are not ported to "
-                    "lightgbm_tpu_torch yet (ROADMAP queue 1)")
+                    "linear trees are not ported to lightgbm_tpu_torch yet "
+                    "(ROADMAP queue 1)")
         self.num_trees = len(trees)
         self.max_leaves = max(max(t.max_leaves, t.num_leaves) for t in trees)
         ml = self.max_leaves
@@ -209,13 +210,44 @@ class TreeBatch:
         self.leaf_value = stack("leaf_value", ml, np.float32)
         self.num_leaves = torch.as_tensor(
             np.array([t.num_leaves for t in trees], np.int64), device=dev)
+        # None when no tree has a categorical node
+        self.cat_words = None
+        if not any(np.any(np.asarray(t.decision_type[:t.num_internal()],
+                                     np.uint8) & CAT_MASK) for t in trees):
+            return
+        wmax = 1
+        for t in trees:
+            if t.cat_boundaries is not None:
+                wmax = max([wmax] + list(np.diff(t.cat_boundaries)))
+            else:  # legacy single-category nodes: threshold IS the category
+                for i in range(t.num_internal()):
+                    if t.decision_type[i] & CAT_MASK:
+                        wmax = max(wmax, int(t.threshold[i]) // 32 + 1)
+        words = np.zeros((len(trees), max(ml - 1, 1), int(wmax)), np.int64)
+        for ti, t in enumerate(trees):
+            for i in range(t.num_internal()):
+                if not t.decision_type[i] & CAT_MASK:
+                    continue
+                if t.cat_boundaries is not None:
+                    rank = int(t.threshold[i])
+                    lo = int(t.cat_boundaries[rank])
+                    hi = int(t.cat_boundaries[rank + 1])
+                    words[ti, i, :hi - lo] = t.cat_threshold[lo:hi]
+                else:
+                    v = int(t.threshold[i])
+                    words[ti, i, v // 32] |= 1 << (v % 32)
+        self.cat_words = torch.as_tensor(words, device=dev)
 
 
 def _walk_raw(X: torch.Tensor, split_feature, threshold, decision_type,
-              left_child, right_child, leaf_value, num_leaves) -> torch.Tensor:
-    """One tree's walk on RAW float features (the reference's numeric
-    ``_walk_raw``): NaN goes to ``default_left`` under missing type NaN,
-    otherwise counts as 0.0."""
+              left_child, right_child, leaf_value, num_leaves,
+              cat_words=None) -> torch.Tensor:
+    """One tree's walk on RAW float features (the reference's
+    ``_walk_raw``, models/tree.py:604-654): NaN goes to ``default_left``
+    under missing type NaN, otherwise counts as 0.0; a categorical node
+    goes left when its bitset ``cat_words`` ((L-1, W) int64 holding
+    uint32 words) holds the value, NaN following ``default_left`` and a
+    negative or fractional value going right."""
     n = X.shape[0]
     if int(num_leaves) <= 1:
         return leaf_value[0].expand(n).clone()
@@ -233,6 +265,18 @@ def _walk_raw(X: torch.Tensor, split_feature, threshold, decision_type,
         v_num = torch.where(is_nan & ~miss_nan, torch.zeros_like(v), v)
         go_left = torch.where(is_nan & miss_nan, dleft,
                               v_num <= threshold[nd])
+        if cat_words is not None:
+            w = cat_words.shape[1]
+            is_cat = (dt & CAT_MASK) != 0
+            # the reference's int32 cast and its integrality check
+            vn = torch.where(is_nan, torch.full_like(v, -1.0), v)
+            vi = vn.clamp(max=2.0 ** 31 - 128).to(torch.int32)
+            in_range = (vi >= 0) & (vi < w * 32) & (vi.to(v.dtype) == vn)
+            vc = vi.clamp(0, w * 32 - 1).long()
+            word = cat_words.reshape(-1)[nd * w + vc // 32]
+            bit = (word >> (vc % 32)) & 1
+            go_cat = torch.where(is_nan, dleft, in_range & (bit > 0))
+            go_left = torch.where(is_cat, go_cat, go_left)
         nxt = torch.where(go_left, left_child[nd], right_child[nd])
         new_node = torch.where(active, nxt, node)
         hit = active & (new_node < 0)
@@ -255,5 +299,7 @@ def predict_raw(batch: TreeBatch, X: torch.Tensor,
         out = out + _walk_raw(X, batch.split_feature[t], batch.threshold[t],
                               batch.decision_type[t], batch.left_child[t],
                               batch.right_child[t], batch.leaf_value[t],
-                              batch.num_leaves[t])
+                              batch.num_leaves[t],
+                              None if batch.cat_words is None
+                              else batch.cat_words[t])
     return out

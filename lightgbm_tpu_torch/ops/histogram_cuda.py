@@ -16,7 +16,10 @@ and nibble-packed bins with ``bins_packed=True``):
   (histogram_pallas.py:852): 25 leaf channels of f32 (g*mask, h*mask,
   count);
 * :func:`wave_row_update` — ``wave_row_update_pallas``
-  (histogram_pallas.py:1280);
+  (histogram_pallas.py:1280); with ``decode=`` (:class:`SplitDecode`) its
+  categorical / EFB form, which also decides categorical splits by
+  membership and decodes bundled columns (the reference's XLA fallback,
+  learner/wave.py:1341-1420);
 * :func:`wave_trial_channels` — ``wave_trial_channels_pallas``
   (histogram_pallas.py:1314).
 
@@ -68,6 +71,7 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "wave_trial_channels", "build_histogram_leaves_plain",
            "build_histogram_leaves_q8_plain", "wave_row_update_plain",
            "wave_trial_channels_plain", "reset_launches", "LeafGeometry",
+           "SplitDecode", "split_decode", "MEMBER_WORDS",
            "leaf_groups", "leaf_geometry", "SingleGeometry",
            "single_geometry"]
 
@@ -81,7 +85,7 @@ Q_LEAF_CHANNELS = 42
 LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_q8_packed4": 0, "hist_leaves": 0,
             "hist_leaves_packed4": 0, "wave_row_update": 0,
-            "wave_trial_channels": 0}
+            "wave_row_update_ext": 0, "wave_trial_channels": 0}
 
 
 def reset_launches() -> None:
@@ -538,7 +542,8 @@ def build_histogram(bins_t: torch.Tensor, grad: torch.Tensor,
 
 # -- row update ---------------------------------------------------------------
 
-def _check_row_args(kernel, cols_w, rl, tab, feats, bins_packed):
+def _check_row_args(kernel, cols_w, rl, tab, feats, bins_packed,
+                    decode=None):
     if cols_w.dim() != 2:
         raise ValueError(f"{kernel}: cols_w must be (W, N) or, with feats, "
                          "the (F, N) bin matrix" +
@@ -560,12 +565,61 @@ def _check_row_args(kernel, cols_w, rl, tab, feats, bins_packed):
                              f"one column per split ({wn}), got {f}")
     else:
         _check("feats", feats, torch.int32, (wn,), dev)
+    if decode is not None:
+        if bins_packed:
+            raise ValueError(f"{kernel}: the categorical / EFB form reads "
+                             "uint8 bins")
+        _check("decode.dec", decode.dec, torch.int32, (5, wn), dev)
+        _check("decode.member", decode.member, torch.int32,
+               (wn, MEMBER_WORDS), dev)
     _check_device(kernel, dev)
     if wn > 128:
         raise ValueError(f"{kernel}: at most 128 splits per pass, got {wn}")
     if f == 0 and wn > 0:
         raise ValueError(f"{kernel}: the bin matrix has no feature")
     return wn, n
+
+
+# bitset words of a split's categorical membership: 256 bins
+MEMBER_WORDS = 8
+
+
+class SplitDecode(NamedTuple):
+    """Per-split inputs of the row update's categorical / EFB form.
+
+    ``dec`` (5, W) int32 rows [is_categorical, f_offset, f_nbins,
+    f_default, f_single]: how split j turns its column byte v into its
+    feature's bin b (``efb.make_bundle_decode``: b = v when f_single,
+    else u = v - f_offset, b = u + (u >= f_default) for 0 <= u <
+    f_nbins - 1 and f_default otherwise), and whether it then goes left by
+    membership instead of the threshold.  ``member`` (W, 8) int32: bit b
+    of word b // 32 set when bin b goes left (the bits of each int32 as
+    uint32)."""
+    dec: torch.Tensor
+    member: torch.Tensor
+
+
+def split_decode(is_cat: torch.Tensor, member: torch.Tensor,
+                 f_offset: torch.Tensor, f_nbins: torch.Tensor,
+                 f_default: torch.Tensor, f_single: torch.Tensor
+                 ) -> SplitDecode:
+    """A :class:`SplitDecode` from per-split (W,) flags and decode
+    parameters and the (W, B) bool membership, B <= 256."""
+    i32 = torch.int32
+    w, b = member.shape
+    if b > 32 * MEMBER_WORDS:
+        raise ValueError(f"membership over {b} bins; at most "
+                         f"{32 * MEMBER_WORDS}")
+    m = torch.nn.functional.pad(member.to(torch.int64),
+                                (0, 32 * MEMBER_WORDS - b))
+    weights = torch.bitwise_left_shift(
+        torch.ones(32, dtype=torch.int64, device=member.device),
+        torch.arange(32, dtype=torch.int64, device=member.device))
+    words = (m.reshape(w, MEMBER_WORDS, 32) * weights).sum(dim=-1)
+    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
+    dec = torch.stack([is_cat.to(i32), f_offset.to(i32), f_nbins.to(i32),
+                       f_default.to(i32), f_single.to(i32)]).contiguous()
+    return SplitDecode(dec, words.to(i32).contiguous())
 
 
 def _split_columns(cols_w, feats, bins_packed):
@@ -578,15 +632,33 @@ def _split_columns(cols_w, feats, bins_packed):
     return _unpacked(cols_w, bins_packed)
 
 
-def _row_loop(cols, rl, tab):
+def _decide(col, j, tab, decode):
+    """Split j's decision over its (N,) int32 column: 1 = left.  With
+    ``decode``, the column is decoded to its feature's bins first and a
+    categorical split reads its membership bit."""
+    thr, nanb, dlft = tab[0, j], tab[1, j], tab[2, j]
+    if decode is not None:
+        is_cat, off, nb, dft, single = (decode.dec[i, j] for i in range(5))
+        u = col - off
+        mapped = torch.where((u >= 0) & (u < nb - 1),
+                             u + (u >= dft).to(torch.int32), dft)
+        col = torch.where(single > 0, col, mapped)
+        word = decode.member[j].to(torch.int64).index_select(
+            0, (col >> 5).long().clamp(0, MEMBER_WORDS - 1))
+        bit = ((word >> (col & 31).to(torch.int64)) & 1).to(torch.int32)
+    go_left = torch.where(col == nanb, dlft, (col <= thr).to(torch.int32))
+    if decode is not None:
+        go_left = torch.where(is_cat > 0, bit, go_left)
+    return go_left
+
+
+def _row_loop(cols, rl, tab, decode=None):
     rl = rl.clone()
     ch = torch.full_like(rl, -1)
     cols = cols.to(torch.int32)
     for j in range(cols.shape[0]):
-        thr, nanb, dlft, small, selj, newid, act = (tab[i, j]
-                                                     for i in range(7))
-        col = cols[j]
-        go_left = torch.where(col == nanb, dlft, (col <= thr).to(torch.int32))
+        small, selj, newid, act = (tab[i, j] for i in range(3, 7))
+        go_left = _decide(cols[j], j, tab, decode)
         upd = (rl == selj) & (act > 0)
         ch = torch.where(upd & (go_left == small), j, ch)
         rl = torch.where(upd & (go_left == 0), newid, rl)
@@ -594,51 +666,62 @@ def _row_loop(cols, rl, tab):
 
 
 def wave_row_update_plain(cols_w, rl, tab, *, feats=None,
-                          bins_packed: bool = False):
+                          bins_packed: bool = False,
+                          decode: SplitDecode = None):
     """Plain version: gather (and unpack) the split columns, then a Python
     loop over the W splits of ``torch.where``, in the order and with the
-    overwrites of histogram_pallas.py:1097-1113."""
-    return _row_loop(_split_columns(cols_w, feats, bins_packed), rl, tab)
+    overwrites of histogram_pallas.py:1097-1113; with ``decode``, each
+    split's column decoded and categorical splits decided by
+    membership."""
+    return _row_loop(_split_columns(cols_w, feats, bins_packed), rl, tab,
+                     decode)
 
 
-def _launch_rows(kernel, cols_w, rl, tab, feats, bins_packed, rl_out, ch):
+def _launch_rows(kernel, cols_w, rl, tab, feats, bins_packed, rl_out, ch,
+                 decode=None):
     wn, n = tab.shape[1], rl.shape[0]
     vec = int(rl.data_ptr() % 16 == 0 and ch.data_ptr() % 4 == 0 and
               (rl_out is None or rl_out.data_ptr() % 16 == 0))
+    ext = [] if decode is None else [_p(decode.dec), _p(decode.member)]
     fn = _fn("row_update", kernel,
              [_VP, _LL, _CI] + [_VP] * (4 if rl_out is None else 5) +
-             [_CI, _LL, _CI, _CI, _VP])
+             [_VP] * len(ext) + [_CI, _LL, _CI, _CI, _VP])
     outs = [_p(ch)] if rl_out is None else [_p(rl_out), _p(ch)]
     _raise_on(fn(_p(cols_w), cols_w.stride(0), cols_w.shape[0],
                  _p(feats) if feats is not None else None, _p(rl), _p(tab),
-                 *outs, wn, n, int(bins_packed), vec, _stream()), kernel)
+                 *outs, *ext, wn, n, int(bins_packed), vec, _stream()),
+              kernel)
 
 
 def wave_row_update(cols_w: torch.Tensor, rl: torch.Tensor,
                     tab: torch.Tensor, *, feats: torch.Tensor = None,
-                    bins_packed: bool = False, interpret=None,
-                    pipeline=None):
-    """Apply a wave's W numeric splits to every row in one pass.
+                    bins_packed: bool = False, decode: SplitDecode = None,
+                    interpret=None, pipeline=None):
+    """Apply a wave's W splits to every row in one pass.
 
     rl (N,) int32 row->leaf; tab (8, W) int32 rows [threshold_bin,
     nan_bin (-1 = none), default_left, left_is_smaller, split_leaf,
     new_right_id, active, 0].  ``cols_w`` is the (W, N) uint8 winning
     columns (the reference's signature), or, with ``feats`` ((W,) int32,
-    the feature of each split), the grower's (F, N) bin matrix read in
+    the column of each split), the grower's (F, N) bin matrix read in
     place; with ``bins_packed`` either is nibble-packed, (.., N/2).  An
-    active split's feature must lie in [0, F); an inactive split's
-    column is never read.  Returns (rl_new (N,) int32, ch (N,) int8
-    smaller-child channel)."""
+    active split's column must lie in [0, F); an inactive split's
+    column is never read.  ``decode`` (:class:`SplitDecode`, uint8 bins
+    only) selects the categorical / EFB form: each split's byte is
+    decoded to its feature's bin and a categorical split goes left by
+    membership.  Returns (rl_new (N,) int32, ch (N,) int8 smaller-child
+    channel)."""
     wn, n = _check_row_args("wave_row_update", cols_w, rl, tab, feats,
-                            bins_packed)
+                            bins_packed, decode)
     if cols_w.device.type == "cpu":
         return wave_row_update_plain(cols_w, rl, tab, feats=feats,
-                                     bins_packed=bins_packed)
+                                     bins_packed=bins_packed, decode=decode)
     rl_out = torch.empty_like(rl)
     ch = torch.empty((n,), dtype=torch.int8, device=rl.device)
-    _launch_rows("wave_row_update", cols_w, rl, tab, feats, bins_packed,
-                 rl_out, ch)
-    LAUNCHES["wave_row_update"] += 1
+    kernel = "wave_row_update" if decode is None else "wave_row_update_ext"
+    _launch_rows(kernel, cols_w, rl, tab, feats, bins_packed, rl_out, ch,
+                 decode)
+    LAUNCHES[kernel] += 1
     return rl_out, ch
 
 

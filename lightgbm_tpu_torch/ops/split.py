@@ -1,4 +1,4 @@
-"""Vectorized split finding over histogram bins, numeric features.
+"""Vectorized split finding over histogram bins.
 
 Port of ``lightgbm_tpu/ops/split.py`` (reference:
 src/treelearner/feature_histogram.hpp ``FindBestThresholdSequentially``):
@@ -12,8 +12,12 @@ lowest-feature (then lowest-bin) tie-break of the reference's argmax, and
 the two per-node random draws (reference split.py:73-74, :258-262, and
 the growers' ``node_mask`` / ``node_rand``): by-node feature sampling
 (:func:`node_feature_mask`) and the extra-trees threshold, one random
-bin per feature per node (:func:`node_rand_bins`).  Categorical splits,
-monotone constraints, path smoothing, CEGB and feature_contri raise
+bin per feature per node (:func:`node_rand_bins`), and the categorical
+search (reference split.py:331-470, feature_histogram.hpp
+``FindBestThresholdCategoricalInner``): one-vs-rest for features of at
+most ``max_cat_to_onehot`` bins, the sorted-subset search above it, with
+each feature's LEFT-side bins returned as ``cat_member``.  Monotone
+constraints, path smoothing, CEGB and feature_contri raise
 ``NotImplementedError``.
 
 Bitwise parity.  Every gain is computed with the reference's f32
@@ -72,7 +76,6 @@ class SplitParams(NamedTuple):
 def check_supported(params: SplitParams) -> None:
     """Raise for split features this slice of the port does not carry."""
     unported = [
-        ("categorical features", params.any_cat),
         ("monotone_constraints", params.use_monotone),
         ("path_smooth", params.path_smooth > 0.0),
         ("cost-effective gradient boosting (cegb_*)", params.use_cegb),
@@ -133,6 +136,7 @@ class FeatureSplits(NamedTuple):
     default_left: torch.Tensor   # (..., F) bool
     left_sum: torch.Tensor       # (..., F, 3)
     right_sum: torch.Tensor      # (..., F, 3)
+    cat_member: torch.Tensor     # (..., F, B) bool: categorical LEFT bins
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -207,9 +211,10 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            num_bins: torch.Tensor, has_nan: torch.Tensor,
                            params: SplitParams,
                            parent_exact: torch.Tensor = None,
-                           rand_bins: torch.Tensor = None
+                           rand_bins: torch.Tensor = None,
+                           is_cat: torch.Tensor = None
                            ) -> FeatureSplits:
-    """Best numeric split per feature for a batch of leaves.
+    """Best split per feature for a batch of leaves.
 
     Args:
       hist: (..., F, B, 3) float32 (grad, hess, count) histograms.
@@ -228,6 +233,10 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
         shares the product with the parent gain and does not contract).
       rand_bins: optional (..., F) int32 extra-trees thresholds: each
         feature is scanned at that one bin only (:func:`node_rand_bins`).
+      is_cat: optional (F,) bool, the categorical features (read when
+        ``params.any_cat``): one-vs-rest at ``num_bins <=
+        max_cat_to_onehot``, else the sorted-subset search over the
+        features ``params.cat_idx`` (all F when empty).
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -290,37 +299,185 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     use_left = best_l_gain > best_r_gain
     gain = torch.where(use_left, best_l_gain, best_r_gain)
     pick = torch.where(use_left, best_l_bin, best_r_bin)
+    thr = pick.to(torch.int32)
     left = torch.stack([_at_bin(cum_g, pick), _at_bin(cum_h, pick),
                         _at_bin(cum_c, pick)], dim=-1)
     nan3 = torch.cat([nan_g, nan_h, nan_c], dim=-1)              # (..., F, 3)
     left = left + torch.where(use_left.unsqueeze(-1), nan3, zero)
+    default_left = use_left & has_nan
+    if params.any_cat and is_cat is not None:
+        cat_gain, cat_member, cat_left = _categorical(
+            hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
+            min_gain_shift.unsqueeze(-1), num_bins, is_cat, params,
+            rand_bins, bins_r)
+        gain = torch.where(is_cat, cat_gain, gain)
+        cat_member = cat_member & is_cat.unsqueeze(-1) & \
+            (gain > NEG_INF / 2).unsqueeze(-1)
+        # the first member bin stands as the threshold (display only: the
+        # row decision reads the membership)
+        cat_thr = torch.argmax(cat_member.to(torch.int8), dim=-1)
+        thr = torch.where(is_cat, cat_thr.to(torch.int32), thr)
+        left = torch.where(is_cat.unsqueeze(-1), cat_left, left)
+        default_left = default_left & ~is_cat
+    else:
+        cat_member = torch.zeros(hg.shape, dtype=torch.bool, device=dev)
     if parent_exact is None:
         right = parent_sum.unsqueeze(-2) - left
     else:
         right = (parent_exact.unsqueeze(-2) - left.double()).float()
-    return FeatureSplits(gain=gain, threshold_bin=pick.to(torch.int32),
-                         default_left=use_left & has_nan,
-                         left_sum=left, right_sum=right)
+    return FeatureSplits(gain=gain, threshold_bin=thr,
+                         default_left=default_left, left_sum=left,
+                         right_sum=right, cat_member=cat_member)
+
+
+def _categorical(hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
+                 min_gain_shift, num_bins, is_cat, params, rand_bins,
+                 bins_r):
+    """Per-feature best categorical split (reference split.py:331-470):
+    (gain, (..., F, B) LEFT membership, (..., F, 3) left sums), in the
+    reference's f32 operations and order."""
+    *lead, f, b = hg_m.shape
+    dev = hg_m.device
+    l1 = params.lambda_l1
+    min_h = params.min_sum_hessian_in_leaf
+    min_cnt = float(params.min_data_in_leaf)
+    cat_l2 = params.lambda_l2 + params.cat_l2
+    neg_inf = _f32(NEG_INF, hg_m)
+    zero = _f32(0.0, hg_m)
+    use_et = params.extra_trees and rand_bins is not None
+
+    # ---- one-vs-rest: category bin b goes left, the rest right
+    crg, crh, crc = tot_g - hg_m, tot_h - hh_m, tot_c - hc_m
+    cgl = leaf_gain(hg_m, hh_m, l1, cat_l2)
+    cgr = leaf_gain(crg, crh, l1, cat_l2)
+    cat_ok = ((hc_m >= min_cnt) & (crc >= min_cnt) &
+              (hh_m >= min_h) & (crh >= min_h) & real_bin)
+    if use_et:  # one random category per node
+        cat_ok = cat_ok & (bins_r == rand_bins.unsqueeze(-1))
+    cat_gain = cgl + cgr - min_gain_shift
+    cat_gain = torch.where(cat_ok & (cat_gain > 0), cat_gain, neg_inf)
+    oh_bin = torch.argmax(cat_gain, dim=-1)
+    oh_gain = _at_bin(cat_gain, oh_bin)
+    oh_member = bins_r == oh_bin.unsqueeze(-1)
+    oh_left = torch.stack([_at_bin(hg_m, oh_bin), _at_bin(hh_m, oh_bin),
+                           _at_bin(hc_m, oh_bin)], dim=-1)
+    if not params.use_cat_subset:
+        return oh_gain, oh_member, oh_left
+
+    # ---- sorted subsets: categories ordered by g / (h + cat_smooth),
+    # prefixes scanned from both ends up to max_cat_threshold; the LEFT
+    # child takes the subset.  Only the categorical columns are sorted.
+    ci = (torch.as_tensor(params.cat_idx, dtype=torch.long, device=dev)
+          if params.cat_idx else torch.arange(f, device=dev))
+    nc = ci.shape[0]
+    hgc, hhc, hcc = (a.index_select(-2, ci) for a in (hg_m, hh_m, hc_m))
+    real_bin_c = real_bin.index_select(0, ci)
+    mdpg = float(params.min_data_per_group)
+    # candidate categories: count >= cat_smooth (the reference reuses
+    # cat_smooth as the per-category minimum count)
+    cat_valid = real_bin_c & (hcc >= params.cat_smooth)
+    # a true f32 division, as the reference's (the divisor is no constant)
+    ratio = torch.where(cat_valid, hgc / (hhc + params.cat_smooth),
+                        _f32(BIG, hg_m))
+    order = torch.sort(ratio, dim=-1, stable=True).indices       # (..., nc, B)
+    pos = torch.arange(b, dtype=torch.int32, device=dev)
+    rank = torch.empty_like(order).scatter_(
+        -1, order, pos.to(order.dtype).expand(order.shape).contiguous())
+    used = cat_valid.sum(dim=-1, dtype=torch.int32).unsqueeze(-1)  # (.., nc, 1)
+    pos_used = pos < used
+
+    def fwd_bwd(plane):
+        sh = torch.where(pos_used, torch.gather(plane, -1, order), zero)
+        cumf = cumsum_bins(sh)
+        total_used = cumf[..., -1:]
+        # prefix of the (i+1) LARGEST ratios = total_used - cumf[used-2-i]
+        bidx = used - 2 - pos
+        tb = torch.gather(cumf, -1, bidx.clamp(0, b - 1).long())
+        return cumf, total_used - torch.where(bidx >= 0, tb, zero)
+
+    cumf_g, cumb_g = fwd_bwd(hgc)
+    cumf_h, cumb_h = fwd_bwd(hhc)
+    cumf_c, cumb_c = fwd_bwd(hcc)
+    max_pos = torch.minimum(
+        torch.clamp((used + 1) // 2, max=params.max_cat_threshold), used)
+    pos_ok = pos < max_pos
+    if use_et:  # one random subset size per node
+        rb_c = rand_bins.index_select(-1, ci).unsqueeze(-1)
+        pos_ok = pos_ok & (pos == rb_c % torch.clamp(max_pos, min=1))
+    # XLA rewrites the division by the constant min_data_per_group into a
+    # multiply by its f32 reciprocal; the port multiplies the same way
+    inv_mdpg = _f32(1.0 / mdpg, hg_m)
+    min_rc = max(min_cnt, mdpg)
+
+    def subset_gain(lg, lh, lc):
+        rg, rh, rc = tot_g - lg, tot_h - lh, tot_c - lc
+        # group spacing: a position counts once min_data_per_group rows
+        # accumulated past the last counted multiple (the reference's
+        # approximation of its per-group spacing)
+        gcross = torch.floor(lc * inv_mdpg)
+        gprev = torch.cat([torch.full_like(gcross[..., :1], -1.0),
+                           gcross[..., :-1]], dim=-1)
+        ok = (pos_ok & (lc >= min_cnt) & (lh >= min_h) &
+              (rc >= min_rc) & (rh >= min_h) & (gcross > gprev))
+        g = (leaf_gain(lg, lh, l1, cat_l2) + leaf_gain(rg, rh, l1, cat_l2) -
+             min_gain_shift)
+        return torch.where(ok & (g > 0), g, neg_inf)
+
+    gain_f = subset_gain(cumf_g, cumf_h, cumf_c)
+    gain_bk = subset_gain(cumb_g, cumb_h, cumb_c)
+    f_pos = torch.argmax(gain_f, dim=-1)
+    f_best = _at_bin(gain_f, f_pos)
+    b_pos = torch.argmax(gain_bk, dim=-1)
+    b_best = _at_bin(gain_bk, b_pos)
+    use_bk = b_best > f_best
+    sub_gain = torch.where(use_bk, b_best, f_best)
+    sub_pos = torch.where(use_bk, b_pos, f_pos).unsqueeze(-1)
+    sub_left = torch.where(
+        use_bk.unsqueeze(-1),
+        torch.stack([_at_bin(cumb_g, b_pos), _at_bin(cumb_h, b_pos),
+                     _at_bin(cumb_c, b_pos)], dim=-1),
+        torch.stack([_at_bin(cumf_g, f_pos), _at_bin(cumf_h, f_pos),
+                     _at_bin(cumf_c, f_pos)], dim=-1))
+    # forward: ranks [0, pos]; backward: the top (pos+1) ranks of the used
+    # range
+    sub_member = torch.where(use_bk.unsqueeze(-1),
+                             (rank >= used - 1 - sub_pos) & (rank < used),
+                             rank <= sub_pos)
+    # scatter the categorical columns back into feature space
+    cat_gain = torch.full(tuple(lead) + (f,), NEG_INF, dtype=hg_m.dtype,
+                          device=dev).index_copy(-1, ci, sub_gain)
+    cat_left = torch.zeros(tuple(lead) + (f, 3), dtype=hg_m.dtype,
+                           device=dev).index_copy(-2, ci, sub_left)
+    cat_mem = torch.zeros(tuple(lead) + (f, b), dtype=torch.bool,
+                          device=dev).index_copy(-2, ci, sub_member)
+    use_subset = is_cat & (num_bins > params.max_cat_to_onehot)
+    return (torch.where(use_subset, cat_gain, oh_gain),
+            torch.where(use_subset.unsqueeze(-1), cat_mem, oh_member),
+            torch.where(use_subset.unsqueeze(-1), cat_left, oh_left))
 
 
 def local_best_candidates(hist: torch.Tensor, leaf_sum: torch.Tensor,
                           num_bins: torch.Tensor, has_nan: torch.Tensor,
                           feature_mask: torch.Tensor, params: SplitParams,
                           parent_exact: torch.Tensor = None,
-                          rand_bins: torch.Tensor = None):
+                          rand_bins: torch.Tensor = None,
+                          is_cat: torch.Tensor = None):
     """Best split over features for a batch of leaves (the reference's
     ``local_best_candidate`` vmapped): (gain, feat, bin, default_left,
-    left_sum, right_sum), each with the batch shape of ``leaf_sum[..., 0]``.
-    The lowest feature wins ties.  ``parent_exact`` and ``rand_bins``: as
-    in :func:`best_split_per_feature`."""
+    left_sum, right_sum, cat_member), each with the batch shape of
+    ``leaf_sum[..., 0]`` (``cat_member`` (..., B)).  The lowest feature
+    wins ties.  ``parent_exact``, ``rand_bins`` and ``is_cat``: as in
+    :func:`best_split_per_feature`."""
     fs = best_split_per_feature(hist, leaf_sum, num_bins, has_nan, params,
-                                parent_exact, rand_bins)
+                                parent_exact, rand_bins, is_cat)
     gain = torch.where(feature_mask, fs.gain, _f32(NEG_INF, hist))
     f = torch.argmax(gain, dim=-1)
     fi = f.unsqueeze(-1)
     fi3 = fi.unsqueeze(-1).expand(*f.shape, 1, 3)
+    fib = fi.unsqueeze(-1).expand(*f.shape, 1, fs.cat_member.shape[-1])
     return (torch.gather(gain, -1, fi).squeeze(-1), f.to(torch.int32),
             torch.gather(fs.threshold_bin, -1, fi).squeeze(-1),
             torch.gather(fs.default_left, -1, fi).squeeze(-1),
             torch.gather(fs.left_sum, -2, fi3).squeeze(-2),
-            torch.gather(fs.right_sum, -2, fi3).squeeze(-2))
+            torch.gather(fs.right_sum, -2, fi3).squeeze(-2),
+            torch.gather(fs.cat_member, -2, fib).squeeze(-2))

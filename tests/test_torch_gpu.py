@@ -466,3 +466,94 @@ def test_stochastic_quantized_training_on_card_matches_cpu(cuda_device,
     on_cpu = lt.train(params, lt.Dataset(X, y), 3, device="cpu")
     on_card = lt.train(params, lt.Dataset(X, y), 3, device=cuda_device)
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+def _ext_case(n, device, seed=3, w=25):
+    """A (12, n) bundle-space bin matrix and a wave of numeric,
+    categorical and bundled splits (the last two inactive, their column
+    out of range), each split on a leaf of its own."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    nbins = np.array([255] * 4 + [3, 40, 255] + [31] * 5)
+    bins = (rng.rand(12, n) * nbins[:, None]).astype(np.uint8)
+    kind = np.arange(w) % 3                     # numeric, categorical, bundled
+    cols = np.where(kind == 0, np.arange(w) % 4,
+                    np.where(kind == 1, 4 + np.arange(w) % 3,
+                             7 + np.arange(w) % 5))
+    cols[w - 2:] = 12 + np.arange(2)
+    member = np.zeros((w, 256), bool)
+    for j in np.nonzero(kind == 1)[0]:
+        member[j, :nbins[cols[j]]] = rng.rand(nbins[cols[j]]) < 0.4
+    single = (kind != 2).astype(np.int32)
+    off = np.where(kind == 2, 1 + 3 * (np.arange(w) % 10), 0)
+    nb = np.where(kind == 2, 4, nbins[np.minimum(cols, 11)])
+    dec = hc.split_decode(t(kind == 1), t(member), t(off), t(nb),
+                          t(np.zeros(w, np.int32)), t(single))
+    rl = t(rng.randint(0, 60, n).astype(np.int32))
+    tab = t(np.stack([
+        np.where(kind == 2, np.arange(w) % 3, rng.randint(0, 254, w)),
+        np.where(kind == 0, 254, -1), rng.randint(0, 2, w),
+        rng.randint(0, 2, w), rng.choice(60, w, replace=False),
+        60 + np.arange(w), (np.arange(w) < w - 2).astype(int),
+        np.zeros(w, int)]).astype(np.int32))
+    return t(bins), rl, tab, t(cols.astype(np.int32)), dec
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [65536, 100_002, 10_502_144])
+def test_row_update_ext_on_card(cuda_device, monkeypatch, n):
+    """The row update's categorical / EFB form: bundled columns decoded and
+    categorical splits decided by membership on the card, bit for bit the
+    plain version and identical across two launches."""
+    bins, rl, tab, cols, dec = _ext_case(n, cuda_device)
+    monkeypatch.setattr(hc, "wave_row_update_plain", None)   # must launch
+    before = hc.LAUNCHES["wave_row_update_ext"]
+    got = [hc.wave_row_update(bins, rl, tab, feats=cols, decode=dec)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["wave_row_update_ext"] == before + 2
+    monkeypatch.undo()
+    want = hc.wave_row_update_plain(bins, rl, tab, feats=cols, decode=dec)
+    for rl_k, ch_k in got:
+        assert torch.equal(rl_k, want[0]) and torch.equal(ch_k, want[1])
+    assert bool((want[1] >= 0).any()) and bool((want[0] != rl).any())
+
+
+def _cat_efb_data(n=6000, seed=0):
+    """Two numeric columns, categorical columns 2-4 (3, 40, 12 categories)
+    and 8 exclusive indicator columns that EFB bundles."""
+    rng = np.random.RandomState(seed)
+    X = np.zeros((n, 13))
+    X[:, :2] = rng.randn(n, 2)
+    X[:, 2] = rng.randint(0, 3, n)
+    X[:, 3] = np.minimum(rng.zipf(1.3, n) - 1, 39)
+    X[:, 4] = rng.randint(0, 12, n)
+    pick = rng.randint(0, 9, n)
+    for j in range(8):
+        m = pick == j + 1
+        X[m, 5 + j] = rng.choice((1, 2), m.sum())
+    z = (X[:, 0] + 0.8 * (X[:, 2] == 1) + rng.randn(40)[X[:, 3].astype(int)]
+         + 0.6 * (X[:, 6] > 0) + 0.3 * rng.randn(n))
+    return X, (z > 0.3).astype(float)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra,cats", [
+    (dict(use_quantized_grad=True), [2, 3, 4]),
+    (dict(use_quantized_grad=True, stochastic_rounding=False), "auto"),
+    (dict(tree_grow_mode="partition"), [2, 3, 4]),
+])
+def test_categorical_and_efb_training_on_card_matches_cpu(cuda_device,
+                                                          extra, cats):
+    """Categorical features and EFB bundles on the card write the CPU's
+    model text: quantized categorical with stochastic rounding, quantized
+    EFB, and both on the partitioned grower."""
+    X, y = _cat_efb_data()
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  min_data_per_group=20, cat_smooth=5.0, **extra)
+    on_cpu = lt.train(params, lt.Dataset(X, y, categorical_feature=cats), 3,
+                      device="cpu")
+    on_card = lt.train(params, lt.Dataset(X, y, categorical_feature=cats),
+                       3, device=cuda_device)
+    assert on_card._gbdt.train_set.efb is not None
+    assert on_card.model_to_string() == on_cpu.model_to_string()

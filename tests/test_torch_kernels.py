@@ -341,8 +341,8 @@ def test_split_scan_bitwise(l1, l2, mds):
 def test_split_unported_options_raise():
     with pytest.raises(NotImplementedError, match="monotone"):
         ts.check_supported(ts.SplitParams(any_cat=False, use_monotone=True))
-    with pytest.raises(NotImplementedError, match="categorical"):
-        ts.check_supported(ts.SplitParams())
+    with pytest.raises(NotImplementedError, match="path_smooth"):
+        ts.check_supported(ts.SplitParams(path_smooth=1.0))
 
 
 def _grow_inputs(seed=12, nb=64):
