@@ -53,7 +53,12 @@ Phases (any failure exits non-zero and prints no result line):
    and model text identical for three more: categorical quantized with
    stochastic rounding (28 numeric + 3, 40, 1,000-category columns),
    EFB quantized from a CSR matrix (8 dense + 240 indicator columns), and
-   categorical + EFB on the partitioned grower (exact);
+   categorical + EFB on the partitioned grower (exact); and for the
+   split options at 15 leaves: wave quantized with monotone intermediate
+   + interaction constraints, wave quantized with smoothing + CEGB
+   split / coupled + ``feature_contri`` + forced splits (endgame on),
+   partitioned exact with monotone basic + forced splits, and the
+   masked grower (exact, no histogram pool);
 4. the wave path at full width on synthetic rows shaped like the Higgs
    configuration of BASELINE.md (28 features, max_bin=255,
    num_leaves=255, learning_rate=0.1, binary): ``train`` in exact and in
@@ -99,7 +104,22 @@ Phases (any failure exits non-zero and prints no result line):
    host set-up time): 8 ``higgs_like`` columns and 240 indicator columns
    in 24 mutually exclusive groups of 10 (values 1-3, each group set in
    30% of the rows), bundled into at most half as many device columns
-   (G printed), quantized and exact wave training for 5 rounds each.
+   (G printed), quantized and exact wave training for 5 rounds each;
+11. the split and grower options on the main path's binned rows (run
+   after phase 9, while they are on the card): (a) the headline
+   configuration with monotone +1, -1, +1, -1 constraints on four
+   high-level columns (intermediate) and interaction constraints in two
+   groups, 5 rounds; (b) quantized wave with ``path_smooth``, CEGB split
+   and coupled penalties, ``feature_contri`` and a 3-level forced-split
+   JSON, 5 rounds; (c) exact wave with lazy CEGB, 3 rounds; (d) the
+   partitioned grower with monotone basic bounds and the forced splits,
+   2 rounds; (e) the masked grower (``histogram_pool_size=16``), 2
+   rounds.  Each checks held-out AUC and its kernels' launches; (a) and
+   (d) predictions monotone along each constrained column over 1,000
+   held-out rows x 32 grid points, (a) no root-to-leaf path mixing two
+   interaction groups, (b) and (d) every tree opening with the forced
+   splits, (e) at least a root pass and 2 ``hist_single`` passes per
+   split.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -982,7 +1002,56 @@ def auc(y: np.ndarray, p: np.ndarray) -> float:
                  (npos * nneg))
 
 
-def small_check(lt, seed: int) -> None:
+# phase 3's and phase 11's split options on the Higgs-shaped columns: four
+# of the seven high-level columns constrained +1, -1, +1, -1, interaction
+# groups splitting the columns in two, and forced splits three levels
+# deep (BFS order: root, its children, their children)
+MONO_COLS = (21, 22, 23, 25)
+MONO_SIGNS = (1, -1, 1, -1)
+IC_GROUPS = ([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 21, 22, 23, 25],
+             [14, 15, 16, 17, 18, 19, 20, 24, 26, 27])
+FORCED = {"feature": 21, "threshold": 1.0,
+          "left": {"feature": 23, "threshold": 0.8,
+                   "left": {"feature": 25, "threshold": 0.5},
+                   "right": {"feature": 22, "threshold": 1.2}},
+          "right": {"feature": 22, "threshold": 1.5,
+                    "left": {"feature": 27, "threshold": 0.0},
+                    "right": {"feature": 26, "threshold": 0.0}}}
+FORCED_FEATURES = [21, 23, 22, 25, 22, 27, 26]      # the nodes in BFS order
+OPTION_ROUNDS = {"11a": 5, "11b": 5, "11c": 3, "11d": 2, "11e": 2}
+MASKED_POOL_MB = 16     # the 255 x 28 x 256 f32 pool takes 22 MB
+
+
+def option_params(out_dir: str, part: str) -> dict:
+    """The split options of phase 3's and phase 11's parts: monotone
+    intermediate + interaction constraints (a), smoothing + CEGB split and
+    coupled penalties + feature_contri + forced splits (b), lazy CEGB (c),
+    monotone basic + forced splits (d), no pool: the masked grower (e)."""
+    mono = [0] * NUM_FEATURES
+    for c, sgn in zip(MONO_COLS, MONO_SIGNS):
+        mono[c] = sgn
+    forced = os.path.join(out_dir, "forced_splits.json")
+    with open(forced, "w") as fh:
+        json.dump(FORCED, fh)
+    contri = [1.0] * NUM_FEATURES
+    for c in (0, 3, 5, 9, 13, 17):
+        contri[c] = 0.7
+    return {
+        "a": dict(monotone_constraints=mono,
+                  monotone_constraints_method="intermediate",
+                  interaction_constraints=",".join(
+                      str(g).replace(" ", "") for g in IC_GROUPS)),
+        "b": dict(path_smooth=10.0, cegb_penalty_split=1e-6,
+                  cegb_penalty_feature_coupled=[5.0] * NUM_FEATURES,
+                  feature_contri=contri, forcedsplits_filename=forced),
+        "c": dict(cegb_penalty_feature_lazy=[1e-7 * (1 + c % 4)
+                                             for c in range(NUM_FEATURES)]),
+        "d": dict(monotone_constraints=mono, forcedsplits_filename=forced),
+        "e": dict(histogram_pool_size=MASKED_POOL_MB),
+    }[part]
+
+
+def small_check(lt, seed: int, out_dir: str) -> None:
     """The same small model on the card and on the CPU."""
     X, y, logit = higgs_like(20_000, seed + 1)
     base = dict(num_leaves=31, max_bin=MAX_BIN, verbosity=-1,
@@ -1107,6 +1176,39 @@ def small_check(lt, seed: int) -> None:
         f"{len(CAT_CARDS)} categorical columns), EFB quantized from CSR "
         f"({mat.shape[1]} columns) and categorical + EFB partitioned model "
         f"text identical on card and CPU")
+    # the split options on 10,000 rows and 15 leaves (the CPU half of each
+    # pair is most of the time); the masked grower's pool budget is cut
+    # with the leaves (15 x 28 x 256 f32 bins take 1.3 MB)
+    base = dict(base, num_leaves=15)
+    pq = dict(base, objective="binary", use_quantized_grad=True)
+    for what, params, mode in (
+            ("wave quantized, monotone intermediate + interaction",
+             dict(pq, **option_params(out_dir, "a")), "wave"),
+            ("wave quantized, smoothing + CEGB split/coupled + "
+             "feature_contri + forced splits",
+             dict(pq, **option_params(out_dir, "b")), "wave"),
+            ("partitioned exact, monotone basic + forced splits",
+             dict(base, objective="binary", tree_grow_mode="partition",
+                  **option_params(out_dir, "d")), "partition"),
+            ("masked exact", dict(base, objective="binary",
+                                  histogram_pool_size=1), "masked")):
+        a = lt.train(params, lt.Dataset(X, y), 3, device="cuda")
+        b = lt.train(params, lt.Dataset(X, y), 3, device="cpu")
+        if a._gbdt.learner.grow_mode != mode:
+            raise AssertionError(f"{what}: trained on the "
+                                 f"{a._gbdt.learner.grow_mode} grower")
+        sa, sb = a.model_to_string(), b.model_to_string()
+        if sa != sb:
+            first = next(la.split("=", 1)[0] for la, lb in
+                         zip(sa.splitlines(), sb.splitlines()) if la != lb)
+            raise AssertionError(f"{what} model trained on the card differs "
+                                 f"from the one trained on the CPU, first "
+                                 f"in field {first!r}")
+    log("small models (10000 rows, 15 leaves, 3 rounds): wave quantized "
+        "with monotone intermediate + interaction constraints, wave "
+        "quantized with smoothing + CEGB + feature_contri + forced splits "
+        "(endgame on), partitioned exact with monotone basic + forced "
+        "splits and the masked grower model text identical on card and CPU")
 
 
 def mode_params(mode: str, max_bin: int = MAX_BIN, **extra) -> dict:
@@ -1282,6 +1384,129 @@ def surface_phase(lt, torch, card, ds, Xte, yte, logit_tr, logit_te,
                              "is no better than the class prior")
     for k, v in got.items():
         launches[k] += v
+    return launches
+
+
+def _leaf_paths(tree):
+    """The inner features on every root-to-leaf path of a host tree."""
+    if tree.num_leaves <= 1:
+        return [set()]
+    out, stack = [], [(0, frozenset())]
+    while stack:
+        node, feats = stack.pop()
+        feats = feats | {int(tree.split_feature[node])}
+        for child in (tree.left_child[node], tree.right_child[node]):
+            if child < 0:
+                out.append(feats)
+            else:
+                stack.append((int(child), feats))
+    return out
+
+
+def monotone_violations(bst, Xte, rows: int = 1000, steps: int = 32):
+    """Steps against the constraint along each constrained column
+    (reference tests/test_monotone.py ``_is_monotone``): ``rows`` held-out
+    rows, each column swept over a ``steps``-point grid between its 1%
+    and 99% quantiles, raw scores compared step by step."""
+    out = {}
+    base = Xte[:rows]
+    for c, sgn in zip(MONO_COLS, MONO_SIGNS):
+        lo, hi = np.nanquantile(Xte[:, c], [0.01, 0.99])
+        grid = np.linspace(lo, hi, steps, dtype=np.float32)
+        batch = np.repeat(base, steps, axis=0)
+        batch[:, c] = np.tile(grid, len(base))
+        raw = bst.predict(batch, raw_score=True).reshape(len(base), steps)
+        out[c] = int((np.diff(raw, axis=1) * sgn < -1e-6).sum())
+    return out
+
+
+def options_phase(lt, torch, card, ds, Xte, yte, out_dir: str) -> dict:
+    """Phase 11: the split and grower options at full width on the main
+    path's binned rows (255 leaves, 255 bins): (a) the headline
+    configuration with monotone intermediate constraints on four
+    high-level columns and interaction constraints in two groups, (b)
+    quantized wave with smoothing, CEGB split and coupled penalties,
+    feature_contri and three levels of forced splits, (c) exact wave with
+    lazy CEGB, (d) the partitioned grower with monotone basic bounds and
+    the forced splits, (e) the masked grower (no histogram pool under a
+    16 MB budget).  Returns the launches."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    launches = {k: 0 for k in hc.LAUNCHES}
+    used = list(ds.used_feature_map)
+    runs = [("11a", "headline", "a", ("hist_leaves_q8", "wave_row_update",
+                                       "hist_single")),
+            ("11b", "quantized", "b", ("hist_leaves_q8", "wave_row_update",
+                                        "wave_trial_channels")),
+            ("11c", "exact", "c", ("hist_leaves", "wave_row_update")),
+            ("11d", "partition", "d", ("hist_single",)),
+            ("11e", "exact", "e", ("hist_single",))]
+    log("cut: option rounds only: " + ", ".join(
+        f"{k} {v}" for k, v in OPTION_ROUNDS.items()))
+    for part, mode, opt, needs in runs:
+        rounds = OPTION_ROUNDS[part]
+        hc.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        bst = train_mode(lt, torch, card, ds, Xte, yte, mode, rounds,
+                         out_dir, tag=f"_{part}",
+                         **option_params(out_dir, opt))
+        got = dict(hc.LAUNCHES)
+        gbdt = bst._gbdt
+        trees = gbdt.models
+        splits = [t.num_leaves - 1 for t in trees]
+        log(f"phase {part} launches: {json.dumps(got)}; grower "
+            f"{gbdt.learner.grow_mode}, splits per tree {splits}; peak "
+            f"device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        missing = [k for k in needs if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched by phase {part}: "
+                                 f"{missing}")
+        want_mode = {"d": "partition", "e": "masked"}.get(opt, "wave")
+        if gbdt.learner.grow_mode != want_mode:
+            raise AssertionError(f"phase {part} trained on the "
+                                 f"{gbdt.learner.grow_mode} grower")
+        if opt in ("a", "d"):
+            bad = monotone_violations(bst, Xte)
+            log(f"phase {part}: steps against the constraint over 1000 "
+                f"held-out rows x 32 grid points per constrained column: "
+                f"{bad}")
+            if any(bad.values()):
+                raise AssertionError(f"phase {part}: predictions not "
+                                     f"monotone: {bad}")
+        if opt == "a":
+            groups = [{used.index(f) for f in g if f in used}
+                      for g in IC_GROUPS]
+            mixed = sum(1 for t in trees for path in _leaf_paths(t)
+                        if not any(path <= g for g in groups))
+            log(f"phase {part}: {mixed} root-to-leaf paths mix features "
+                f"of two interaction groups")
+            if mixed:
+                raise AssertionError(f"phase {part}: {mixed} paths break "
+                                     "the interaction constraints")
+        if opt in ("b", "d"):
+            want = [used.index(f) for f in FORCED_FEATURES]
+            opened = sum(list(t.split_feature[:len(want)]) == want
+                         for t in trees)
+            log(f"phase {part}: {opened} of {len(trees)} trees open with "
+                f"the {len(want)} forced splits")
+            if opened != len(trees):
+                raise AssertionError(f"phase {part}: a tree does not open "
+                                     "with the forced splits")
+        if opt == "c":
+            lazy = gbdt.learner._lazy_used
+            log(f"phase {part}: lazy CEGB bitmap {tuple(lazy.shape)} "
+                f"({lazy.numel() / 1e6:.1f} MB packed), "
+                f"{int(lazy.count_nonzero())} bytes marked")
+        if opt == "e":
+            need = sum(1 + 2 * k for k in splits)
+            log(f"phase {part}: {got['hist_single']} hist_single launches "
+                f"for {sum(splits)} splits (root + 2 per split: {need})")
+            if got["hist_single"] < need:
+                raise AssertionError(f"phase {part}: {got['hist_single']} "
+                                     f"hist_single launches, {need} needed")
+        for k, v in got.items():
+            launches[k] += v
+        del bst
     return launches
 
 
@@ -1790,7 +2015,7 @@ def main(argv=None) -> int:
     stamp("phase 2, kernels")
 
     # ---- phase 3: the same small model on card and CPU ----
-    small_check(lt, args.seed)
+    small_check(lt, args.seed, out_dir)
     stamp("phase 3, card vs CPU")
 
     # ---- phase 4: the main path ----
@@ -1867,9 +2092,15 @@ def main(argv=None) -> int:
                               args.rounds, args.mc_rounds, out_dir,
                               args.profile).items():
         launches[k] += v
+    stamp("phase 9, training surface")
+
+    # ---- phase 11: the split and grower options at full width ----
+    for k, v in options_phase(lt, torch, card, ds, Xte, yte,
+                              out_dir).items():
+        launches[k] += v
     del ds
     torch.cuda.empty_cache()
-    stamp("phase 9, training surface")
+    stamp("phase 11, split and grower options")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,

@@ -43,10 +43,13 @@ fixed-point sums make each default-bin fix exact), and a split decides
 its rows on the feature's decoded bin, by membership for a categorical
 split.
 
-Unported options raise ``NotImplementedError`` before the grower is
-built: forced splits, interaction constraints and ``feature_contri`` in
-``learner/serial.py`` ``_check_config``; monotone constraints, path
-smoothing and CEGB in ``ops/split.check_supported`` (ROADMAP queue 1).
+The split options (reference partitioned.py:101-155, :440-471,
+:613-614): basic monotone bounds, path smoothing, interaction
+constraints (each leaf's path of used features limits its children's
+scan), CEGB and ``feature_contri`` through the scan, and forced splits
+as the first ``n_forced`` steps of the loop: a fixed (leaf, feature, bin)
+split whatever its gain, its child sums read from the leaf's pooled
+histogram.
 """
 
 from __future__ import annotations
@@ -57,10 +60,11 @@ from ..efb import make_bundle_decode, make_expand_hist
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
 from ..ops.histogram import FxWeights, fx_to_f32, pack_weights
 from ..ops.histogram_cuda import hist_single
-from ..ops.split import (NEG_INF, SplitParams, check_supported, leaf_output,
-                         node_draws)
+from ..ops.split import (BIG, NEG_INF, SplitParams, cumsum_bins, leaf_gain,
+                         leaf_output, leaf_output_smoothed, node_draws)
 from .endgame import patch_child_pointers, write_split_records
-from .serial import CommStrategy, GrownTree
+from .serial import (CommStrategy, GrownTree, basic_bounds, child_outputs,
+                     interaction_allowed, interaction_groups_mask)
 
 __all__ = ["make_partitioned_grow_fn"]
 
@@ -70,18 +74,25 @@ _F32 = torch.float32
 
 def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
                              max_bins: int, max_depth: int,
-                             split_params: SplitParams, efb=None):
+                             split_params: SplitParams, efb=None,
+                             forced_splits: tuple = (),
+                             interaction_groups: tuple = (),
+                             feature_contri: tuple = ()):
     """Build the partition-ordered single-tree grower.
 
     Returns ``grow(X, grad, hess, bag_mask, num_bins, has_nan,
-    feature_mask, node_key=None, is_cat=None) -> GrownTree`` with ``X``
-    the ROW-MAJOR (N, G) uint8 bin matrix (G = F, or the bundles of
-    ``efb``, an ``efb.EfbArrays``; left untouched: the grower reorders a
-    copy) and every tensor on one device; ``node_key`` holds the keys of
-    the by-node and extra-trees streams, ``is_cat`` the (F,) categorical
-    flags (read when ``split_params.any_cat``).  The histogram wrapper
-    runs the CUDA kernel on a card and its plain version on the CPU."""
-    check_supported(split_params)
+    feature_mask, node_key=None, is_cat=None, monotone=None,
+    cegb_penalty=None) -> GrownTree`` with ``X`` the ROW-MAJOR (N, G)
+    uint8 bin matrix (G = F, or the bundles of ``efb``, an
+    ``efb.EfbArrays``; left untouched: the grower reorders a copy) and
+    every tensor on one device; ``node_key`` holds the keys of the
+    by-node and extra-trees streams, ``is_cat`` the (F,) categorical
+    flags (read when ``split_params.any_cat``), ``monotone`` the (F,)
+    constraint directions and ``cegb_penalty`` the (F,) coupled CEGB
+    penalties.  ``forced_splits`` are BFS (leaf, inner feature, bin)
+    triples, ``interaction_groups`` tuples of inner features and
+    ``feature_contri`` (F,) gain scales.  The histogram wrapper runs the
+    CUDA kernel on a card and its plain version on the CPU."""
     if max_bins > 256:
         raise NotImplementedError("uint16 bin codes are not ported to "
                                   "lightgbm_tpu_torch yet (ROADMAP queue 1): "
@@ -94,11 +105,15 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
     any_cat = bool(sp.any_cat)
     expand = make_expand_hist(efb, F)
     decode = make_bundle_decode(efb)
+    use_mc = sp.use_monotone
+    use_ic = len(interaction_groups) > 0
+    n_forced = min(len(forced_splits), L - 1)
 
     def grow(X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              bag_mask: torch.Tensor, num_bins: torch.Tensor,
              has_nan: torch.Tensor, feature_mask: torch.Tensor,
-             node_key=None, is_cat=None) -> GrownTree:
+             node_key=None, is_cat=None, monotone=None,
+             cegb_penalty=None) -> GrownTree:
         dev = X.device
         n = X.shape[0]
         G = X.shape[1]
@@ -107,7 +122,16 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
         fm = feature_mask.to(torch.bool)
         ic = (is_cat.to(torch.bool) if any_cat and is_cat is not None
               else torch.zeros((F,), dtype=torch.bool, device=dev))
-        strat = CommStrategy(nb, hn, ic if any_cat else None)
+        mono = (monotone.to(_I32) if use_mc
+                else torch.zeros((F,), dtype=_I32, device=dev))
+        strat = CommStrategy(
+            nb, hn, ic if any_cat else None,
+            monotone=mono if use_mc else None,
+            cegb=cegb_penalty if sp.use_cegb else None,
+            contri=(torch.tensor(feature_contri, dtype=_F32, device=dev)
+                    if feature_contri else None))
+        groups = (interaction_groups_mask(interaction_groups, F, dev)
+                  if use_ic else None)
 
         def node_inputs(first: int, k: int):
             """The scan's feature masks and extra-trees bins of the nodes
@@ -172,39 +196,80 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
         # ---- root ----------------------------------------------------------
         root_hist = hist_of(0, n)
         root_sum = fx_to_f32(Wt.sum(dim=1), inv)
+        zero = torch.zeros((), dtype=_F32, device=dev)
+        root_out = leaf_output_smoothed(root_sum[0], root_sum[1],
+                                        root_sum[2], zero, sp)
         fm0, rb0 = node_inputs(2 * L, 1)
-        cand = strat.leaf_candidates(scan_form(root_hist), root_sum,
-                                     fm0[0], sp,
-                                     None if rb0 is None else rb0[0])
+        if use_ic:
+            path0 = torch.zeros((F,), dtype=torch.bool, device=dev)
+            fm0 = fm0 & interaction_allowed(groups, path0)
+        cand = strat.leaf_candidates(
+            scan_form(root_hist), root_sum, fm0[0], sp,
+            None if rb0 is None else rb0[0],
+            bound=torch.tensor([-BIG, BIG], dtype=_F32, device=dev),
+            depth=torch.zeros((), dtype=_I32, device=dev),
+            parent_out=root_out)
         for name, val in zip(cand_names, cand):
             s[name][0] = val
         s["hists"][0] = root_hist
         s["leaf_sum"][0] = root_sum
-        s["leaf_value"][0] = leaf_output(root_sum[0], root_sum[1], sp)
+        s["leaf_value"][0] = root_out
         s["leaf_weight"][0] = root_sum[1]
         s["leaf_count"][0] = root_sum[2]
         leaf_start[0], leaf_seg[0] = 0, n
         num_leaves_now = 1
+        leaf_mn = torch.full((L,), -BIG, dtype=_F32, device=dev)
+        leaf_mx = torch.full((L,), BIG, dtype=_F32, device=dev)
+        leaf_path = torch.zeros((L, F), dtype=torch.bool, device=dev)
 
         ar = torch.arange(n, device=dev)
         ids = torch.arange(L, device=dev)
         for t in range(L - 1):
-            # ---- best leaf, its gain and its smaller side: one host read --
-            # (indexing with a 0-d device tensor would read it on the host:
-            # every device-side index below is a 1-element tensor)
-            b1 = torch.argmax(s["cand_gain"]).view(1)
-            info = torch.cat([
-                b1.double(), s["cand_gain"].index_select(0, b1).double(),
-                (s["cand_lsum"].index_select(0, b1)[:, 2] <=
-                 s["cand_rsum"].index_select(0, b1)[:, 2]).double()]).tolist()
-            syncs += 1
-            best, bgain, left_smaller = int(info[0]), info[1], info[2] > 0
-            if not bgain > 0:
-                break
+            if t < n_forced:
+                # ForceSplits (reference partitioned.py:440-471): a fixed
+                # (leaf, feature, bin) split whatever its gain, default
+                # right, its child sums the cumulative bins of the leaf's
+                # pooled histogram; an empty leaf is skipped
+                best, f_, b_ = (int(v) for v in forced_splits[t])
+                if leaf_seg[best] == 0:
+                    continue
+                psum = s["leaf_sum"][best].clone()
+                fh = scan_form(s["hists"][best])[f_]            # (B, 3)
+                lsum = cumsum_bins(fh.t())[:, min(b_, max_bins - 1)]
+                rsum = psum - lsum
+                gain = (leaf_gain(lsum[0], lsum[1], sp.lambda_l1,
+                                  sp.lambda_l2) +
+                        leaf_gain(rsum[0], rsum[1], sp.lambda_l1,
+                                  sp.lambda_l2) -
+                        leaf_gain(psum[0], psum[1], sp.lambda_l1,
+                                  sp.lambda_l2) - sp.min_gain_to_split)
+                feat = torch.tensor(f_, dtype=_I32, device=dev)
+                thr = torch.tensor(b_, dtype=_I32, device=dev)
+                dleft = torch.zeros((), dtype=torch.bool, device=dev)
+                member = torch.zeros((max_bins,), dtype=torch.bool,
+                                     device=dev)
+                left_smaller = bool(lsum[2] <= rsum[2])
+                syncs += 1
+            else:
+                # ---- best leaf, its gain and its smaller side: one host
+                # read (indexing with a 0-d device tensor would read it on
+                # the host: every device-side index below is a 1-element
+                # tensor)
+                b1 = torch.argmax(s["cand_gain"]).view(1)
+                info = torch.cat([
+                    b1.double(), s["cand_gain"].index_select(0, b1).double(),
+                    (s["cand_lsum"].index_select(0, b1)[:, 2] <=
+                     s["cand_rsum"].index_select(0, b1)[:, 2]).double()
+                ]).tolist()
+                syncs += 1
+                best, bgain, left_smaller = (int(info[0]), info[1],
+                                             info[2] > 0)
+                if not bgain > 0:
+                    break
+                gain, feat, thr, dleft, lsum, rsum, member = (
+                    s[k][best].clone() for k in cand_names)
+                psum = s["leaf_sum"][best].clone()
             new_id, node = t + 1, t
-            gain, feat, thr, dleft, lsum, rsum, member = (
-                s[k][best].clone() for k in cand_names)
-            psum = s["leaf_sum"][best].clone()
             f1 = feat.long().view(1)
             fnan = hn.index_select(0, f1)[0]
             fcat = ic.index_select(0, f1)[0]
@@ -240,23 +305,42 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
             big = s["hists"][best] - small
             h_l, h_r = (small, big) if left_smaller else (big, small)
 
+            # ---- children's outputs and monotone bounds -----------------
+            out_l, out_r = child_outputs(lsum, rsum, s["leaf_value"][best],
+                                         sp)
+            bounds = None
+            idx2 = torch.cat([ids[best:best + 1], ids[new_id:new_id + 1]])
+            if use_mc:
+                m = torch.where(fcat, 0, mono.index_select(0, f1)[0])
+                out_l, out_r, bl, br = basic_bounds(
+                    out_l, out_r, leaf_mn[best], leaf_mx[best], m)
+                bounds = torch.stack([torch.stack(bl), torch.stack(br)])
+                leaf_mn[idx2], leaf_mx[idx2] = bounds[:, 0], bounds[:, 1]
+
             # ---- both children's candidates: one batched scan ------------
             sums2 = torch.stack([lsum, rsum])
             fm2, rb2 = node_inputs(2 * t, 2)
-            cl_, cr_ = strat.pair_candidates(scan_form(h_l), scan_form(h_r),
-                                             lsum, rsum, fm2, sp, rb2)
-            cands = tuple(torch.stack([a, b]) for a, b in zip(cl_, cr_))
+            if use_ic:
+                path = leaf_path[best] | (torch.arange(F, device=dev) ==
+                                          feat.long())
+                leaf_path[idx2] = path
+                fm2 = fm2 & interaction_allowed(groups, path)
             child_depth = leaf_depth[best] + 1
+            cl_, cr_ = strat.pair_candidates(
+                scan_form(h_l), scan_form(h_r), lsum, rsum, fm2, sp, rb2,
+                bounds=bounds,
+                depth=torch.tensor(child_depth, dtype=_I32, device=dev),
+                parent_outs=torch.stack([out_l, out_r]))
+            cands = tuple(torch.stack([a, b]) for a, b in zip(cl_, cr_))
             cg = cands[0]
             if max_depth > 0 and child_depth >= max_depth:
                 cg = torch.full_like(cg, NEG_INF)
-            idx2 = torch.cat([ids[best:best + 1], ids[new_id:new_id + 1]])
             for name, val in zip(cand_names, (cg,) + tuple(cands[1:])):
                 s[name][idx2] = val.to(s[name].dtype)
             s["hists"][best] = h_l
             s["hists"][new_id] = h_r
             s["leaf_sum"][idx2] = sums2
-            s["leaf_value"][idx2] = leaf_output(sums2[:, 0], sums2[:, 1], sp)
+            s["leaf_value"][idx2] = torch.stack([out_l, out_r])
             s["leaf_weight"][idx2] = sums2[:, 1]
             s["leaf_count"][idx2] = sums2[:, 2]
             leaf_start[best], leaf_seg[best] = start, nl

@@ -43,13 +43,26 @@ Carried over from the reference, with the same semantics:
   bundle column and decides by membership on the device; the speculative
   ramp, the endgame and packed bins are off, as the reference gates them.
 
+* the split options (reference wave.py:316-363, :446-453,
+  :1163-1254, :1282-1330, :1444-1600): path smoothing, CEGB and
+  ``feature_contri`` through the scan; forced splits as committed waves
+  grouped ahead of time (a wave never splits a leaf created in the same
+  wave); interaction constraints through each leaf's path of used
+  features; basic monotone bounds, and intermediate ones: each leaf keeps
+  its bin-space region box and the W splits of a wave tighten the bounds
+  of every geometrically contiguous leaf one after another (a host loop
+  over W on the small (L,) arrays); lazy CEGB, a (F, N/8) bitmap of the
+  (feature, row) pairs already computed that lasts across trees, with
+  per-(feature, child) unused row counts.  The speculative ramp is off
+  under every option; the exact endgame only under monotone constraints,
+  interaction constraints and lazy CEGB, as the reference gates them.
+
 The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
 count once per wave and the best candidate once per endgame commit.
 
-Not ported (ROADMAP queue 1; refused before the grower is built): voting
-and scatter merges, lazy CEGB, forced splits, interaction constraints and
-monotone constraints.
+Not ported (ROADMAP queue 1): the voting and scatter merges of the
+data-parallel strategies.
 """
 
 from __future__ import annotations
@@ -69,12 +82,16 @@ from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
                                   build_histogram_leaves_q8, split_decode,
                                   wave_row_update, wave_trial_channels)
 from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
-from ..ops.split import (NEG_INF, SplitParams, check_supported, leaf_gain,
-                         leaf_output, local_best_candidates, node_draws)
+from ..ops.fmath import _fma
+from ..ops.split import (BIG, NEG_INF, SplitParams, cumsum_bins, leaf_gain,
+                         leaf_output, leaf_output_smoothed,
+                         local_best_candidates, node_draws)
 from .endgame import patch_child_pointers, write_split_records
-from .serial import GrownTree
+from .serial import (GrownTree, basic_bounds, child_outputs,
+                     interaction_allowed, interaction_groups_mask)
 
-__all__ = ["make_wave_grow_fn", "WAVE_SIZE", "Q_WAVE_SIZE", "wave_taper_k"]
+__all__ = ["make_wave_grow_fn", "WAVE_SIZE", "Q_WAVE_SIZE", "wave_taper_k",
+           "forced_wave_groups", "lazy_bitmap_init", "LAZY_PACK"]
 
 WAVE_SIZE = LEAF_CHANNELS        # 25 leaves per exact pass
 CAND_NAMES = ("cand_gain", "cand_feat", "cand_bin", "cand_dleft",
@@ -100,6 +117,54 @@ def _topk(vals: torch.Tensor, k: int):
     return v[:k], i[:k]
 
 
+def forced_wave_groups(forced_splits: tuple, L: int, W: int) -> list:
+    """BFS-ordered (leaf, feature, bin) forced splits grouped into waves
+    ahead of time (reference wave.py:361-390): a wave takes at most W
+    splits and never splits a leaf twice or a leaf created in the same
+    wave, which keeps the sequential right-child numbering of the
+    triples."""
+    waves: list = []
+    cur: list = []
+    blocked: set = set()
+    nl_sim = 1
+    for (leaf, f, b) in forced_splits[:min(len(forced_splits), L - 1)]:
+        if leaf in blocked or len(cur) == W:
+            waves.append(cur)
+            cur, blocked = [], set()
+        cur.append((leaf, f, b))
+        blocked.add(leaf)
+        blocked.add(nl_sim)
+        nl_sim += 1
+    if cur:
+        waves.append(cur)
+    return waves
+
+
+# lazy CEGB's bitmap: one bit per (feature, row), packed LSB first
+LAZY_PACK = 8
+_BIT_SHIFTS = torch.arange(LAZY_PACK, dtype=torch.uint8)
+
+
+def lazy_bitmap_init(num_features: int, n: int, device) -> torch.Tensor:
+    """A fresh (F, N/8) 'feature computed for row' bitmap (the
+    reference's feature_used_in_data_, allocated once per training
+    run)."""
+    return torch.zeros((num_features, n // LAZY_PACK), dtype=torch.uint8,
+                       device=device)
+
+
+def _pack_bits(m: torch.Tensor) -> torch.Tensor:
+    """(N,) bool -> (N/8,) uint8, LSB first."""
+    b = m.reshape(-1, LAZY_PACK).to(torch.uint8)
+    return (b << _BIT_SHIFTS.to(m.device)).sum(dim=1, dtype=torch.uint8)
+
+
+def _unpack_bits(p: torch.Tensor) -> torch.Tensor:
+    """(N/8,) uint8 -> (N,) bool, LSB first."""
+    sh = _BIT_SHIFTS.to(p.device)
+    return ((p.unsqueeze(-1) >> sh) & 1).reshape(-1).to(torch.bool)
+
+
 def _set_drop(arr: torch.Tensor, idx: torch.Tensor, val,
               valid: torch.Tensor) -> None:
     """``arr.at[idx].set(val, mode="drop")`` for the lanes where ``valid``
@@ -118,15 +183,27 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                       stochastic: bool = False, spec_ramp: bool = False,
                       spec_tol: float = 0.3, spec_subsample: int = 1 << 19,
                       exact_endgame: bool = True, renew_leaf: bool = False,
-                      pack4: bool = False, efb=None):
+                      pack4: bool = False, efb=None, mc_inter: bool = False,
+                      forced_splits: tuple = (),
+                      interaction_groups: tuple = (),
+                      feature_contri: tuple = (), cegb_lazy: tuple = ()):
     """Build the wave single-tree grower.
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
-    feature_mask, quant_key=None, node_key=None, is_cat=None) ->
-    GrownTree`` with ``X_T`` the FEATURE-MAJOR (G, N) uint8 bin matrix (G
-    = F, or the bundles of ``efb``, an ``efb.EfbArrays``), N a multiple of
-    the 4096-row block, ``is_cat`` the (F,) categorical flags (read when
-    ``split_params.any_cat``) and every tensor on one device.
+    feature_mask, quant_key=None, node_key=None, is_cat=None,
+    monotone=None, cegb_penalty=None, lazy_used=None) -> GrownTree`` with
+    ``X_T`` the FEATURE-MAJOR (G, N) uint8 bin matrix (G = F, or the
+    bundles of ``efb``, an ``efb.EfbArrays``), N a multiple of the
+    4096-row block, ``is_cat`` the (F,) categorical flags (read when
+    ``split_params.any_cat``), ``monotone`` the (F,) constraint
+    directions, ``cegb_penalty`` the (F,) coupled CEGB penalties and
+    every tensor on one device.  Under lazy CEGB (``cegb_lazy``, (F,)
+    penalties pre-scaled by the tradeoff) ``lazy_used`` is the bitmap of
+    :func:`lazy_bitmap_init` and ``grow`` returns (tree, updated bitmap).
+    ``mc_inter`` selects intermediate monotone constraints;
+    ``forced_splits`` are BFS (leaf, inner feature, bin) triples,
+    ``interaction_groups`` tuples of inner features and
+    ``feature_contri`` (F,) gain scales.
     ``quant_key`` keys the tree's stochastic rounding; ``node_key`` holds
     the keys of the by-node sampling stream ([0]) and the extra-trees
     stream ([1]) (host keys or (2,) tensors, utils/random.py).  Under ``pack4`` ``X_T`` is
@@ -134,7 +211,6 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     The reference's ``tpu_pallas_pipeline`` knob reaches the grower only
     through ``pack4`` (the learner turns packing off for ``blockspec``);
     the kernels have one form per bin layout."""
-    check_supported(split_params)
     any_cat = bool(split_params.any_cat)
     use_efb = efb is not None
     if pack4 and (max_bins > PACK4_MAX_BINS or any_cat or use_efb):
@@ -157,19 +233,31 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     W = max(1, min(int(wave_size) or ch_cap, ch_cap, L - 1))
     use_bynode = sp.feature_fraction_bynode < 1.0
     use_et = sp.extra_trees
-    # the per-node streams, categorical features and EFB keep the plain
-    # ramp and the tapered waves, as the reference gates them
-    # (wave.py:339-365)
-    plain = use_bynode or use_et or any_cat or use_efb or max_bins > 255
+    use_mc = sp.use_monotone
+    use_sm = sp.path_smooth > 0.0
+    use_ic = len(interaction_groups) > 0
+    use_lazy = len(cegb_lazy) > 0
+    # the reference gates its two fast paths apart (wave.py:339-363):
+    # the exact endgame is off only under the per-wave state it cannot
+    # carry (monotone bounds, interaction paths, the lazy bitmap, the
+    # per-node streams) and the categorical / EFB shapes; the
+    # speculative ramp also under smoothing, CEGB, feature_contri and
+    # forced splits
+    no_endgame = (use_bynode or use_et or any_cat or use_efb or
+                  max_bins > 255 or use_mc or use_ic or use_lazy)
     use_spec = (spec_ramp and max_depth <= 0 and W >= 2 and L >= 3 * W and
-                not plain)
-    use_endgame = exact_endgame and L > 2 and not plain
+                not (no_endgame or use_sm or sp.use_cegb or feature_contri
+                     or forced_splits))
+    use_endgame = exact_endgame and L > 2 and not no_endgame
     EG = 2 * W   # pending-commit capacity (budget < 2W at endgame entry)
+    forced_waves = forced_wave_groups(forced_splits, L, W)
+    mc_inter = mc_inter and use_mc
 
     def grow(X_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
              bag_mask: torch.Tensor, num_bins: torch.Tensor,
              has_nan: torch.Tensor, feature_mask: torch.Tensor,
-             quant_key=None, node_key=None, is_cat=None) -> GrownTree:
+             quant_key=None, node_key=None, is_cat=None, monotone=None,
+             cegb_penalty=None, lazy_used=None):
         dev = X_T.device
         n = X_T.shape[1] * 2 if pack4 else X_T.shape[1]
         nb_full = num_bins.to(_I32)
@@ -178,6 +266,19 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                    else torch.zeros((F,), dtype=torch.bool, device=dev))
         zf = torch.zeros((), dtype=_F32, device=dev)
         neg_inf = torch.full((), NEG_INF, dtype=_F32, device=dev)
+        mono = (monotone.to(_I32) if use_mc
+                else torch.zeros((F,), dtype=_I32, device=dev))
+        # the scans' per-feature penalties (reference wave.py:524-527)
+        cegb_full = None
+        if sp.use_cegb:
+            cegb_full = (cegb_penalty.to(_F32) if cegb_penalty is not None
+                         else torch.zeros((F,), dtype=_F32, device=dev))
+        contri = (torch.tensor(feature_contri, dtype=_F32, device=dev)
+                  if feature_contri else None)
+        groups = (interaction_groups_mask(interaction_groups, F, dev)
+                  if use_ic else None)
+        lazy_pen = (torch.tensor(cegb_lazy, dtype=_F32, device=dev)
+                    if use_lazy else None)
 
         def route(bins, rl, tab, feats, member=None):
             """The row update reading the split columns of ``bins`` in
@@ -237,14 +338,20 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             return hk, dq(hk[:, 0].sum(dim=1).to(hk.dtype))
 
         def many_candidates(hists, sums, fms, sums_exact=None,
-                            rand_bins=None):
+                            rand_bins=None, bounds=None, depths=None,
+                            pouts=None, cegb=None):
             """Best-split candidates for a batch of leaves: the scan on
             the dequantized histograms, expanded to feature space under
-            EFB (the reference's ``_scan_hists``, wave.py:591-599)."""
+            EFB (the reference's ``_scan_hists``, wave.py:591-599), with
+            the leaves' monotone ``bounds`` (k, 2), ``depths`` (k,), own
+            outputs ``pouts`` (k,) and CEGB penalties ``cegb`` ((k, F),
+            the lazy costs; else the coupled ones)."""
             return local_best_candidates(
                 expand(dq(hists), sums), sums, nb_full, hn_full,
                 fms, sp, sums_exact, rand_bins,
-                ic_full if any_cat else None)
+                ic_full if any_cat else None, monotone=mono, bound=bounds,
+                depth=depths, cegb_penalty=cegb_full if cegb is None
+                else cegb, gain_scale=contri, parent_out=pouts)
 
         fm_row = feature_mask.to(torch.bool)
 
@@ -283,6 +390,10 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 "leaf_value": z((L,), _F32),
                 "leaf_weight": z((L,), _F32),
                 "leaf_count": z((L,), _F32),
+                # monotone bounds, the features on each leaf's path
+                "leaf_mn": z((L,), _F32, -BIG),
+                "leaf_mx": z((L,), _F32, BIG),
+                "leaf_path": z((L, F), torch.bool),
             }
 
         def set_candidates(s, idx, cands, valid=None):
@@ -501,13 +612,32 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             else:
                 root_hist = hist_waves(zch, k=1)[0]
                 root_sum = torch.stack([gm.sum(), hm.sum(), cnt_mask.sum()])
-            root_out = leaf_output(root_sum[0], root_sum[1], sp)
+            root_out = leaf_output_smoothed(root_sum[0], root_sum[1],
+                                            root_sum[2], zf, sp)
             fm0, rb0 = node_inputs(torch.full((1,), 2 * L,
                                               dtype=torch.int64, device=dev))
+            if use_ic:
+                fm0 = fm0 & interaction_allowed(
+                    groups, torch.zeros((F,), dtype=torch.bool, device=dev))
+            cegb0 = None
+            if use_lazy:
+                # charge only the in-bag rows whose bit is still unset in
+                # the bitmap that lasts across trees (reference
+                # wave.py:1169-1187)
+                in_bag = bag_mask > 0
+                used_root = torch.stack([
+                    (_unpack_bits(used[f]) & in_bag).sum()
+                    for f in range(F)]).to(_F32)
+                unused = torch.clamp(root_sum[2] - used_root, min=0.0)
+                cegb0 = _fma(lazy_pen, unused,
+                             cegb_full).unsqueeze(0)
             cand = many_candidates(
                 root_hist.unsqueeze(0), root_sum.unsqueeze(0), fm0,
                 None if root_exact is None else root_exact.unsqueeze(0),
-                rb0)
+                rb0, bounds=torch.tensor([[-BIG, BIG]], dtype=_F32,
+                                         device=dev),
+                depths=torch.zeros((1,), dtype=_I32, device=dev),
+                pouts=root_out.view(1), cegb=cegb0)
             s = empty_state()
             s["leaf_sum"][0] = root_sum
             set_candidates(s, torch.zeros((1,), dtype=torch.long,
@@ -518,29 +648,67 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             s["leaf_count"][0] = root_sum[2]
             return s, 1, 1
 
+        if use_lazy:
+            used = (lazy_used if lazy_used is not None
+                    else lazy_bitmap_init(F, n, dev))
         if use_spec:
             s, num_leaves_now, hist_passes = spec_state()
         else:
             s, num_leaves_now, hist_passes = root_state()
+        if mc_inter:
+            # each leaf's bin-space region box, on the host: the wave's
+            # intermediate refinement runs there
+            box_lo = torch.zeros((L, F), dtype=_I32)
+            box_hi = (nb_full.cpu() - 1).expand(L, F).clone()
+        if use_lazy:
+            s["used"] = used
 
         jarange = torch.arange(W, dtype=_I32, device=dev)
 
         # ---- one wave ----------------------------------------------------
-        def body(s, nl0):
-            budget = L - nl0
-            k_eff = wave_taper_k(budget, W)
-            vals, sel_leaves = _topk(s["cand_gain"], W)
-            sel = (vals > 0) & (jarange < k_eff)
-            sl = sel_leaves
-            feat = s["cand_feat"][sl]
-            thr = s["cand_bin"][sl]
-            dleft = s["cand_dleft"][sl]
-            lsum = s["cand_lsum"][sl]
-            rsum = s["cand_rsum"][sl]
-            member = s["cand_member"][sl]                  # (W, B)
-            psum_ = s["leaf_sum"][sl]
+        def body(s, nl0, forced=None):
+            if forced is None:
+                budget = L - nl0
+                k_eff = wave_taper_k(budget, W)
+                vals, sel_leaves = _topk(s["cand_gain"], W)
+                sel = (vals > 0) & (jarange < k_eff)
+                sl = sel_leaves
+                feat = s["cand_feat"][sl]
+                thr = s["cand_bin"][sl]
+                dleft = s["cand_dleft"][sl]
+                lsum = s["cand_lsum"][sl]
+                rsum = s["cand_rsum"][sl]
+                member = s["cand_member"][sl]              # (W, B)
+                psum_ = s["leaf_sum"][sl]
+            else:
+                # a forced wave (reference wave.py:1282-1330): fixed
+                # (leaf, feature, bin) splits whatever their gain, default
+                # right, child sums the cumulative bins of the leaf's
+                # pooled histogram; an empty leaf is skipped
+                k = len(forced)
+                trip = torch.tensor(list(forced) + [(0, 0, 0)] * (W - k),
+                                    dtype=_I32, device=dev)
+                sl = trip[:, 0].long()
+                feat, thr = trip[:, 1].contiguous(), trip[:, 2].contiguous()
+                psum_ = s["leaf_sum"][sl]
+                sel = (jarange < k) & (psum_[:, 2] > 0)
+                dleft = torch.zeros((W,), dtype=torch.bool, device=dev)
+                member = torch.zeros((W, max_bins), dtype=torch.bool,
+                                     device=dev)
+                exh = expand(dq(s["hists"][sl]), psum_)    # (W, F, B, 3)
+                fh = exh[torch.arange(W, device=dev), feat.long()]
+                csum = cumsum_bins(fh.transpose(1, 2))     # (W, 3, B)
+                lsum = csum[torch.arange(W, device=dev), :,
+                            torch.clamp(thr, 0, max_bins - 1).long()]
+                rsum = psum_ - lsum
+
+                def lg(v):
+                    return leaf_gain(v[:, 0], v[:, 1], sp.lambda_l1,
+                                     sp.lambda_l2)
+                vals = lg(lsum) + lg(rsum) - lg(psum_) - sp.min_gain_to_split
             prefix = torch.cumsum(sel.to(_I32), 0).to(_I32)
-            total_new = int(prefix[-1])
+            sel_h = sel.cpu()
+            total_new = int(sel_h.sum())
             new_ids = nl0 + prefix - 1
             node_ids = (nl0 - 1) + prefix - 1
             left_smaller = lsum[:, 2] <= rsum[:, 2]
@@ -550,6 +718,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                     torch.full_like(feat, -1))
 
             # ---- row_leaf + wave-channel update: one kernel pass ----
+            rl_old = s["row_leaf"]
             tab = torch.stack([
                 thr, f_nan_bin, dleft.to(_I32), left_smaller.to(_I32),
                 sl.to(_I32), new_ids, sel.to(_I32),
@@ -563,24 +732,48 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             hist_l = torch.where(ls4, hist_small, hist_big)
             hist_r = torch.where(ls4, hist_big, hist_small)
 
-            out_l = leaf_output(lsum[:, 0], lsum[:, 1], sp)
-            out_r = leaf_output(rsum[:, 0], rsum[:, 1], sp)
+            # ---- children's outputs (smoothed toward the split leaf's
+            # own value) and monotone bounds ----
+            out_l, out_r = child_outputs(lsum, rsum, s["leaf_value"][sl], sp)
+            bounds2 = None
+            if mc_inter:
+                out_l, out_r, bnd_l, bnd_r = intermediate_bounds(
+                    s, sel_h, sl, feat, thr, fcat, new_ids, out_l, out_r)
+                bounds2 = torch.cat([bnd_l, bnd_r])
+            elif use_mc:
+                m = torch.where(fcat, 0, mono[feat.long()])
+                out_l, out_r, bl, br = basic_bounds(
+                    out_l, out_r, s["leaf_mn"][sl], s["leaf_mx"][sl], m)
+                bounds2 = torch.cat([torch.stack(bl, dim=1),
+                                     torch.stack(br, dim=1)])
 
             # ---- children candidates: one batched scan over 2W ----
             child_depth = s["leaf_depth"][sl] + 1
             hists2 = torch.cat([hist_l, hist_r])
             sums2 = torch.cat([lsum, rsum])
             ids2 = torch.cat([2 * node_ids, 2 * node_ids + 1]).long()
+            idx2 = torch.cat([sl, new_ids.long()])
+            v2 = torch.cat([sel, sel])
             fm2, rb2 = node_inputs(ids2)
-            cands = many_candidates(hists2, sums2, fm2, rand_bins=rb2)
+            if use_ic:
+                path = s["leaf_path"][sl] | (
+                    torch.arange(F, device=dev).unsqueeze(0) ==
+                    feat.long().unsqueeze(1))
+                path2 = torch.cat([path, path])
+                fm2 = fm2 & interaction_allowed(groups, path2)
+                _set_drop(s["leaf_path"], idx2, path2, v2)
+            cegb2 = (lazy_costs(s, rl_old, sel_h, sl, feat, idx2, v2,
+                                sums2) if use_lazy else None)
+            cands = many_candidates(
+                hists2, sums2, fm2, rand_bins=rb2, bounds=bounds2,
+                depths=torch.cat([child_depth, child_depth]),
+                pouts=torch.cat([out_l, out_r]), cegb=cegb2)
             depth_ok = (torch.ones_like(sel) if max_depth <= 0
                         else child_depth < max_depth)
             cg = torch.where(torch.cat([depth_ok, depth_ok]) &
                              torch.cat([sel, sel]), cands[0], neg_inf)
 
             # ---- state updates (invalid lanes dropped) ----
-            idx2 = torch.cat([sl, new_ids.long()])
-            v2 = torch.cat([sel, sel])
             _set_drop(s["hists"], sl, hist_l, sel)
             _set_drop(s["hists"], new_ids.long(), hist_r, sel)
             _set_drop(s["leaf_sum"], idx2, sums2, v2)
@@ -590,6 +783,9 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             _set_drop(s["leaf_value"], idx2, torch.cat([out_l, out_r]), v2)
             _set_drop(s["leaf_weight"], idx2, sums2[:, 1], v2)
             _set_drop(s["leaf_count"], idx2, sums2[:, 2], v2)
+            if use_mc and not mc_inter:
+                _set_drop(s["leaf_mn"], idx2, bounds2[:, 0], v2)
+                _set_drop(s["leaf_mx"], idx2, bounds2[:, 1], v2)
 
             # ---- tree node records ----
             nidx = node_ids.long()
@@ -625,6 +821,94 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 s[name] = arr
             return total_new
 
+        def intermediate_bounds(s, sel_h, sl, feat, thr, fcat, new_ids,
+                                out_l, out_r):
+            """Intermediate monotone constraints for a wave (reference
+            wave.py:1444-1560, IntermediateLeafConstraints): each child
+            is bounded by its SIBLING's output, and every new output caps
+            the leaves whose region box touches the child's across one
+            constrained feature.  The W splits are refined one after
+            another on the host, so later slots see earlier slots'
+            bounds.  Returns the children's outputs and (W, 2) bounds."""
+            mn_all, mx_all = s["leaf_mn"].cpu(), s["leaf_mx"].cpu()
+            ol_all, or_all = out_l.cpu(), out_r.cpu()
+            sl_h, feat_h, thr_h = sl.cpu(), feat.cpu().long(), thr.cpu()
+            fcat_h, new_h = fcat.cpu(), new_ids.cpu().long()
+            mono_h = mono.cpu()
+            inc, dec = (mono_h > 0).unsqueeze(0), (mono_h < 0).unsqueeze(0)
+            bnd_l = torch.zeros((W, 2), dtype=_F32)
+            bnd_r = torch.zeros((W, 2), dtype=_F32)
+            for j in range(W):
+                if not bool(sel_h[j]):
+                    continue
+                p, fj, r = int(sl_h[j]), int(feat_h[j]), int(new_h[j])
+                mj = 0 if bool(fcat_h[j]) else int(mono_h[fj])
+                pmn, pmx = mn_all[p].clone(), mx_all[p].clone()
+                ol = torch.minimum(torch.maximum(ol_all[j], pmn), pmx)
+                orr = torch.minimum(torch.maximum(or_all[j], pmn), pmx)
+                # bounds tightened by earlier slots can cross a stale
+                # candidate's outputs: collapse to the shared boundary
+                if (mj > 0 and ol > orr) or (mj < 0 and ol < orr):
+                    mid = torch.minimum(torch.maximum((ol + orr) / 2.0, pmn),
+                                        pmx)
+                    ol, orr = mid, mid
+                mn_l = torch.maximum(pmn, orr) if mj < 0 else pmn
+                mx_l = torch.minimum(pmx, orr) if mj > 0 else pmx
+                mn_r = torch.maximum(pmn, ol) if mj > 0 else pmn
+                mx_r = torch.minimum(pmx, ol) if mj < 0 else pmx
+                lo_p, hi_p = box_lo[p].clone(), box_hi[p].clone()
+                hi_l, lo_r = hi_p.clone(), lo_p.clone()
+                if not bool(fcat_h[j]):
+                    hi_l[fj] = thr_h[j]
+                    lo_r[fj] = thr_h[j] + 1
+                for c_lo, c_hi, c_out in ((lo_p, hi_l, ol), (lo_r, hi_p, orr)):
+                    inter = (box_lo <= c_hi) & (box_hi >= c_lo)   # (L, F)
+                    onlyf = ((~inter).sum(dim=1) == 1).unsqueeze(1) & ~inter
+                    below = onlyf & (box_hi < c_lo)
+                    above = onlyf & (box_lo > c_hi)
+                    capmax = ((below & inc) | (above & dec)).any(dim=1)
+                    capmin = ((above & inc) | (below & dec)).any(dim=1)
+                    mx_all = torch.where(capmax, torch.minimum(mx_all, c_out),
+                                         mx_all)
+                    mn_all = torch.where(capmin, torch.maximum(mn_all, c_out),
+                                         mn_all)
+                mn_all[p], mn_all[r] = mn_l, mn_r
+                mx_all[p], mx_all[r] = mx_l, mx_r
+                box_hi[p], box_hi[r] = hi_l, hi_p
+                box_lo[r] = lo_r
+                ol_all[j], or_all[j] = ol, orr
+                bnd_l[j, 0], bnd_l[j, 1] = mn_l, mx_l
+                bnd_r[j, 0], bnd_r[j, 1] = mn_r, mx_r
+            s["leaf_mn"] = mn_all.to(dev)
+            s["leaf_mx"] = mx_all.to(dev)
+            return (ol_all.to(dev), or_all.to(dev), bnd_l.to(dev),
+                    bnd_r.to(dev))
+
+        def lazy_costs(s, rl_old, sel_h, sl, feat, idx2, v2, sums2):
+            """Lazy CEGB (reference wave.py:1574-1600): mark the wave's
+            split features computed for every in-bag row of the split
+            leaves, then charge each child the lazy penalty of every
+            feature per in-bag row still unmarked.  Returns the (2W, F)
+            per-child penalties (the coupled ones plus the lazy ones, one
+            fused multiply-add as in the reference)."""
+            used_b = s["used"]
+            in_bag = bag_mask > 0
+            leaf_feat = torch.full((L,), -1, dtype=torch.long, device=dev)
+            _set_drop(leaf_feat, sl, feat.long(), sel_h.to(dev))
+            row_feat = torch.where(in_bag, leaf_feat[rl_old.long()], -1)
+            for f in sorted(set(feat.cpu()[sel_h].tolist())):
+                used_b[f] |= _pack_bits(row_feat == f)
+            rl = s["row_leaf"].long()
+            cid = torch.where(v2, idx2, torch.full_like(idx2, L))
+            used_cnt = torch.stack([
+                torch.bincount(rl[_unpack_bits(used_b[f]) & in_bag],
+                               minlength=L + 1)[cid]
+                for f in range(F)]).to(_F32)                  # (F, 2W)
+            unused = torch.clamp(sums2[:, 2].unsqueeze(0) - used_cnt,
+                                 min=0.0)
+            return _fma(lazy_pen.unsqueeze(1), unused,
+                        cegb_full.unsqueeze(1)).t()
+
         def keep_waving(nl, done):
             go = (not done) and nl < L
             if use_endgame:
@@ -632,6 +916,9 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 go = go and nl + 2 * W <= L
             return go
 
+        for fw in forced_waves:      # the ForceSplits prefix
+            num_leaves_now += body(s, num_leaves_now, forced=fw)
+            hist_passes += 1
         done = False
         while keep_waving(num_leaves_now, done):
             total_new = body(s, num_leaves_now)
@@ -657,13 +944,19 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 parts.append(build_histogram(bins1, grad, hess, m,
                                              num_bins=256)[0])
             gh = torch.cat(parts)[:L, :2]
-            vals = leaf_output(gh[:, 0], gh[:, 1], sp)
+            # under smoothing the recorded (pre-renewal) value stands in
+            # for the parent, as in the reference
+            vals = leaf_output_smoothed(gh[:, 0], gh[:, 1], s["leaf_count"],
+                                        s["leaf_value"], sp)
+            if use_mc:
+                vals = torch.minimum(torch.maximum(vals, s["leaf_mn"]),
+                                     s["leaf_mx"])
             live = torch.arange(L, device=dev) < num_leaves_now
             ok = live & (s["leaf_count"] > 0)
             s["leaf_value"] = torch.where(ok, vals, s["leaf_value"])
             s["leaf_weight"] = torch.where(ok, gh[:, 1], s["leaf_weight"])
 
-        return GrownTree(
+        tree = GrownTree(
             split_feature=s["split_feature"],
             threshold_bin=s["threshold_bin"], nan_bin=s["nan_bin"],
             decision_type=s["decision_type"],
@@ -676,6 +969,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             leaf_count=s["leaf_count"], num_leaves=int(num_leaves_now),
             row_leaf=s["row_leaf"], hist_passes=int(hist_passes),
             cat_member=s["cat_member"] if any_cat else None)
+        return (tree, s["used"]) if use_lazy else tree
 
     # ---- exact endgame (reference wave.py:1710-1933) -----------------------
     def _endgame(s, num_leaves_now, hist_passes, X_T, hist_waves,
@@ -763,11 +1057,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         hist_l = torch.where(left_smaller, hist_small, hist_big)
         hist_r = torch.where(left_smaller, hist_big, hist_small)
         child_depth = s["leaf_depth"][b] + 1
-        out_l = leaf_output(lsum[0], lsum[1], sp)
-        out_r = leaf_output(rsum[0], rsum[1], sp)
+        out_l, out_r = child_outputs(lsum, rsum, s["leaf_value"][b], sp)
         sums2 = torch.stack([lsum, rsum])
         cnds = many_candidates(torch.stack([hist_l, hist_r]), sums2,
-                               fm_row.expand(2, fm_row.shape[0]))
+                               fm_row.expand(2, fm_row.shape[0]),
+                               depths=child_depth.expand(2),
+                               pouts=torch.stack([out_l, out_r]))
         cg2 = cnds[0]
         if max_depth > 0:
             cg2 = torch.where(child_depth < max_depth, cg2, neg_inf)

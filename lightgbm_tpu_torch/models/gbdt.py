@@ -8,7 +8,10 @@ objective, K trees per iteration for multiclass ((N, K) scores, class
 trees interleaved in the model), the percentile leaf refit of L1,
 quantile and MAPE, and the device RNG keys of each tree (stochastic
 rounding, by-node sampling, extra-trees), drawn as the reference draws
-them (reference gbdt.py:866-881).
+them (reference gbdt.py:866-881), and the split options in inner-feature
+space (monotone constraints, forced splits, interaction constraints,
+``feature_contri``, lazy CEGB; reference models/gbdt.py:584-670), with
+the coupled CEGB penalties charged until each feature's first use.
 
 The boosting loop is host-driven; gradients, sampling masks, tree growth
 and the score update run on the training device.  On a ``cuda`` device with
@@ -18,9 +21,9 @@ kernels' bin layout first.  Each grown tree is
 pulled to the host once, when it is recorded.  Trees that stopped
 splitting are popped one iteration later, as the reference's deferred
 path does (gbdt.cpp:430-450), so both packages keep the same trees;
-objectives that renew leaves record each tree at once and stop in the
-iteration whose trees are all stumps, as the reference's undeferred path
-does.
+objectives that renew leaves, and coupled CEGB, record each tree at
+once and stop in the iteration whose trees are all stumps, as the
+reference's undeferred path does.
 """
 
 from __future__ import annotations
@@ -289,10 +292,26 @@ class GBDT:
             learner_cfg = copy.copy(cfg)
             apply_winner(learner_cfg, pick_hist_impl(
                 train_set.X_binned, self.max_bins, self.device))
-        self.learner = SerialTreeLearner(learner_cfg, self.num_features,
-                                         self.max_bins, num_bins, has_nan,
-                                         self.device, is_cat=is_cat,
-                                         efb=train_set.efb)
+        self.learner = SerialTreeLearner(
+            learner_cfg, self.num_features, self.max_bins, num_bins,
+            has_nan, self.device, is_cat=is_cat, efb=train_set.efb,
+            monotone=self._inner_monotone(),
+            forced_splits=self._parse_forced_splits(),
+            interaction_groups=self._parse_interaction_constraints(),
+            feature_contri=self._inner_contri(),
+            cegb_lazy=self._inner_cegb_lazy())
+        # coupled CEGB penalties charge a feature until its first use,
+        # tracked on the host across trees (reference models/gbdt.py
+        # :482-497); the used set is updated per tree, so every tree is
+        # recorded at once (the reference's undeferred path)
+        self._cegb_coupled = None
+        if cfg.cegb_penalty_feature_coupled:
+            full = np.zeros(train_set.num_total_features, np.float64)
+            cpl = cfg.cegb_penalty_feature_coupled
+            full[:len(cpl)] = [float(v) for v in cpl]
+            self._cegb_coupled = (full[train_set.used_feature_map] *
+                                  float(cfg.cegb_tradeoff))
+            self._cegb_used = np.zeros(self.num_features, bool)
         # under pack4 only the nibble-packed half-width matrix lives on
         # the device (reference learner/serial.py:911-920)
         self.X_T = (train_set.device_bins_packed4(self.device)
@@ -334,6 +353,99 @@ class GBDT:
             self.train_metrics = create_metrics(cfg)
             for m in self.train_metrics:
                 m.init(md, self.num_data)
+
+    # -- the split options in inner-feature space (copies of the
+    # reference's host parsers, models/gbdt.py:584-670) ----------------------
+    def _inner_monotone(self) -> Optional[np.ndarray]:
+        """config.monotone_constraints (original column indexing, may be
+        shorter than the column count) on the inner used-feature axis."""
+        mc = self.config.monotone_constraints
+        if not mc or not any(int(v) != 0 for v in mc):
+            return None
+        ts = self.train_set
+        full = np.zeros(ts.num_total_features, np.int32)
+        full[:len(mc)] = [int(v) for v in mc]
+        return full[ts.used_feature_map]
+
+    def _parse_forced_splits(self) -> tuple:
+        """forcedsplits_filename JSON -> BFS-ordered (leaf, inner feature,
+        threshold bin) triples (reference serial_tree_learner.cpp:450
+        ForceSplits)."""
+        fn = self.config.forcedsplits_filename
+        if not fn:
+            return ()
+        import json
+        from collections import deque
+        with open(fn) as fh:
+            root = json.load(fh)
+        ts = self.train_set
+        inner_of_real = {int(r): i for i, r in enumerate(ts.used_feature_map)}
+        mappers = [ts.bin_mappers[j] for j in ts.used_feature_map]
+        out = []
+        q = deque([(root, 0)])
+        next_id = 1
+        while q and len(out) < self.config.num_leaves - 1:
+            node, leaf = q.popleft()
+            if not node or "feature" not in node:
+                continue
+            rf = int(node["feature"])
+            if rf not in inner_of_real:
+                log_warning(f"forced split on trivial/unknown feature {rf} "
+                            f"skipped (with its subtree)")
+                continue
+            f = inner_of_real[rf]
+            b = int(mappers[f].value_to_bin(
+                np.array([float(node["threshold"])]))[0])
+            out.append((leaf, f, b))
+            new_id = next_id
+            next_id += 1
+            if "left" in node:
+                q.append((node["left"], leaf))
+            if "right" in node:
+                q.append((node["right"], new_id))
+        return tuple(out)
+
+    def _inner_cegb_lazy(self) -> tuple:
+        """cegb_penalty_feature_lazy on the inner features, pre-scaled by
+        cegb_tradeoff (like the coupled penalties)."""
+        lz = self.config.cegb_penalty_feature_lazy
+        if not lz:
+            return ()
+        full = np.zeros(self.train_set.num_total_features, np.float64)
+        full[:len(lz)] = [float(v) for v in lz]
+        inner = full[self.train_set.used_feature_map] * \
+            float(self.config.cegb_tradeoff)
+        if not np.any(inner):
+            return ()  # numerically a no-op: skip the bitmap
+        return tuple(float(v) for v in inner)
+
+    def _inner_contri(self) -> tuple:
+        """config.feature_contri (original column indexing) -> per-inner-
+        feature gain multipliers (feature_histogram.hpp:94 penalty)."""
+        fc = self.config.feature_contri
+        if not fc:
+            return ()
+        ts = self.train_set
+        full = np.ones(ts.num_total_features, np.float64)
+        full[:len(fc)] = [float(v) for v in fc]
+        return tuple(full[ts.used_feature_map])
+
+    def _parse_interaction_constraints(self) -> tuple:
+        """config.interaction_constraints "[0,1],[2,3]" -> tuples of INNER
+        feature indices (reference col_sampler.hpp constraint sets)."""
+        spec = self.config.interaction_constraints
+        if not spec:
+            return ()
+        import re
+        ts = self.train_set
+        inner_of_real = {int(r): i for i, r in enumerate(ts.used_feature_map)}
+        groups = []
+        for grp in re.findall(r"\[([^\]]*)\]", str(spec)):
+            feats = [inner_of_real[int(v)] for v in grp.split(",")
+                     if v.strip() and int(v) in inner_of_real]
+            if feats:
+                groups.append(tuple(sorted(set(feats))))
+        return tuple(groups)
 
     def _score_shape(self, n: int) -> tuple:
         k = self.num_tree_per_iteration
@@ -486,16 +598,22 @@ class GBDT:
             for cid in range(k):
                 g = grad if k == 1 else grad[:, cid].contiguous()
                 h = hess if k == 1 else hess[:, cid].contiguous()
+                extra = self._tree_keys(self.iter_ * k + cid)
+                if self._cegb_coupled is not None:
+                    extra["cegb_penalty"] = torch.as_tensor(
+                        np.where(self._cegb_used, 0.0, self._cegb_coupled),
+                        dtype=torch.float32, device=self.device)
                 grown = self.learner.train(self.X_T, g, h, self._bag_mask,
-                                           feature_mask=fmask,
-                                           **self._tree_keys(self.iter_ * k
-                                                             + cid))
+                                           feature_mask=fmask, **extra)
                 self.last_hist_passes = grown.hist_passes
                 self.last_host_syncs = grown.host_syncs
                 tree = self._record_tree(grown, cid)
+                if self._cegb_coupled is not None:
+                    sf = tree.split_feature[:tree.num_leaves - 1]
+                    self._cegb_used[sf[sf >= 0]] = True
                 leaves.append(tree.num_leaves)
             self.iter_ += 1
-            if self._renews:
+            if self._undeferred:
                 # recorded at once, as the reference's undeferred path: no
                 # lagged pop, the stump iteration stays and training stops
                 self._prev_iter_leaves = None
@@ -528,6 +646,13 @@ class GBDT:
     @property
     def _renews(self) -> bool:
         return bool(getattr(self.objective, "is_renew_tree_output", False))
+
+    @property
+    def _undeferred(self) -> bool:
+        """Trees recorded at once and the stump iteration kept, as the
+        reference's undeferred path runs leaf renewal and coupled CEGB
+        (models/gbdt.py:498, :1013-1016)."""
+        return self._renews or self._cegb_coupled is not None
 
     def _current_shrinkage(self) -> float:
         return float(self.config.learning_rate)

@@ -116,6 +116,12 @@ def scatter_histogram(bins_t: torch.Tensor, w3: torch.Tensor, *,
     f, _ = bins_t.shape
     out = torch.zeros((f, num_bins, 3), dtype=acc_dtype,
                       device=bins_t.device)
+    active = w3[:3].any(dim=0)
+    if not bool(active.all()):
+        # rows whose three weights are zero add nothing: leave them out
+        # (a masked leaf's pass carries mostly such rows)
+        rows = active.nonzero().squeeze(1)
+        bins_t, w3 = bins_t[:, rows], w3[:, rows]
     w = w3[:3].to(acc_dtype).t()                                # (N, 3)
     for j in range(f):
         b = bins_t[j].long()

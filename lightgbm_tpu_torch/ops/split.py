@@ -16,15 +16,25 @@ bin per feature per node (:func:`node_rand_bins`), and the categorical
 search (reference split.py:331-470, feature_histogram.hpp
 ``FindBestThresholdCategoricalInner``): one-vs-rest for features of at
 most ``max_cat_to_onehot`` bins, the sorted-subset search above it, with
-each feature's LEFT-side bins returned as ``cat_member``.  Monotone
-constraints, path smoothing, CEGB and feature_contri raise
-``NotImplementedError``.
+each feature's LEFT-side bins returned as ``cat_member``; and the
+split options (reference split.py:126-163, :233-330, :503-515): path
+smoothing (:func:`leaf_output_smoothed`), monotone constraints (outputs
+clamped to the leaf's bounds, splits against the constraint dropped,
+``monotone_penalty`` by depth), the CEGB split and per-feature penalties
+and ``feature_contri``'s gain scale.
 
 Bitwise parity.  Every gain is computed with the reference's f32
 operations in the reference's order, and the bin-axis cumulative sum
 reproduces XLA:CPU's summation order (:func:`cumsum_bins`), so on the
 same f32 histograms the port picks the same splits and the same sums as
-the JAX package.
+the JAX package.  Where the reference's scan multiplies and adds in one
+fused loop, XLA:CPU contracts the pair into one fused multiply-add (the
+smoothing blend, the gain of a given output); the port rounds those
+pairs once too (ops/fmath.py ``_fma``).  Which product of a sum of two
+is fused follows the operand order LLVM gives each fused loop: the port
+takes the choice of the reference's root, wave and endgame scans; under
+smoothing with forced splits or monotone bounds some of the reference's
+loops take the other one (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -36,11 +46,13 @@ import math
 import torch
 
 from ..utils.random import fold_in, uniform
+from .fmath import _fma, exp_f32
 
 __all__ = ["SplitParams", "FeatureSplits", "best_split_per_feature",
-           "leaf_output", "leaf_gain", "cumsum_bins", "BIG", "NEG_INF",
-           "local_best_candidates", "check_supported", "node_feature_mask",
-           "node_rand_bins", "node_draws"]
+           "leaf_output", "leaf_output_smoothed", "leaf_gain",
+           "monotone_penalty_factor", "cumsum_bins", "BIG", "NEG_INF",
+           "local_best_candidates", "node_feature_mask", "node_rand_bins",
+           "node_draws"]
 
 NEG_INF = -1e30
 BIG = 1e30  # "unbounded" leaf-output constraint sentinel
@@ -71,20 +83,6 @@ class SplitParams(NamedTuple):
     feature_fraction_bynode: float = 1.0
     extra_trees: bool = False
     any_cat: bool = True
-
-
-def check_supported(params: SplitParams) -> None:
-    """Raise for split features this slice of the port does not carry."""
-    unported = [
-        ("monotone_constraints", params.use_monotone),
-        ("path_smooth", params.path_smooth > 0.0),
-        ("cost-effective gradient boosting (cegb_*)", params.use_cegb),
-    ]
-    for what, on in unported:
-        if on:
-            raise NotImplementedError(
-                f"{what} is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1)")
 
 
 def node_feature_mask(key: torch.Tensor, ids: torch.Tensor,
@@ -169,6 +167,51 @@ def leaf_output(g: torch.Tensor, h: torch.Tensor,
     return out
 
 
+def leaf_output_smoothed(g: torch.Tensor, h: torch.Tensor, cnt: torch.Tensor,
+                         parent_out, params: SplitParams) -> torch.Tensor:
+    """Leaf value with path smoothing (feature_histogram.hpp
+    ``CalculateSplittedLeafOutput`` USE_SMOOTHING): the raw output,
+    clipped to ``max_delta_step`` first, shrinks toward the parent's
+    output by ``path_smooth / (cnt + path_smooth)``."""
+    out = leaf_output(g, h, params)
+    if params.path_smooth > 0.0:
+        f = cnt / (cnt + params.path_smooth)
+        # out * f + parent * (1 - f): in the reference's growers XLA:CPU
+        # fuses the first product into the add
+        out = _fma(out, f, parent_out * (1.0 - f))
+    return out
+
+
+def _gain_given_output(g, h, out, l1: float, l2: float,
+                       fused: str = "linear") -> torch.Tensor:
+    """Objective improvement of a leaf held at ``out`` (feature_histogram
+    .hpp ``GetLeafGainGivenOutput``): -(2 t out + (h + l2) out^2).
+    XLA:CPU fuses one product into the add: the linear term's in the
+    scan's per-bin loop, the square's in the per-leaf (parent) gain."""
+    t = _threshold_l1(g, l1)
+    if fused == "linear":
+        return -_fma(2.0 * t, out, (h + l2) * out * out)
+    return -_fma(out, (h + l2) * out, 2.0 * t * out)
+
+
+def monotone_penalty_factor(depth: torch.Tensor,
+                            penalty: float) -> torch.Tensor:
+    """Gain multiplier of splits on monotone features at ``depth``
+    (monotone_constraints.hpp ``ComputeMonotoneSplitGainPenalty``).
+    ``jnp.exp2`` lowers to e^(x ln 2) with XLA:CPU's exp, which
+    :func:`exp_f32` reproduces."""
+    eps = 1e-15
+    d = depth.float()
+    ln2 = torch.full((), 0.693147182, dtype=torch.float32, device=d.device)
+
+    def exp2(x):
+        return exp_f32(ln2 * x)
+    lo = 1.0 - penalty / exp2(d) + eps
+    hi = 1.0 - exp2(penalty - 1.0 - d) + eps
+    return torch.where(penalty >= d + 1.0, _f32(eps, d),
+                       lo if penalty <= 1.0 else hi)
+
+
 _XLA_SCAN_BLOCK = 16
 
 
@@ -212,7 +255,13 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            params: SplitParams,
                            parent_exact: torch.Tensor = None,
                            rand_bins: torch.Tensor = None,
-                           is_cat: torch.Tensor = None
+                           is_cat: torch.Tensor = None,
+                           monotone: torch.Tensor = None,
+                           bound: torch.Tensor = None,
+                           depth: torch.Tensor = None,
+                           cegb_penalty: torch.Tensor = None,
+                           gain_scale: torch.Tensor = None,
+                           parent_out: torch.Tensor = None
                            ) -> FeatureSplits:
     """Best split per feature for a batch of leaves.
 
@@ -237,6 +286,14 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
         ``params.any_cat``): one-vs-rest at ``num_bins <=
         max_cat_to_onehot``, else the sorted-subset search over the
         features ``params.cat_idx`` (all F when empty).
+      monotone, bound, depth: read under ``params.use_monotone``: the
+        (F,) constraint directions, the leaves' (..., 2) output bounds
+        (min, max) and (...,) depths (``monotone_penalty``).
+      cegb_penalty: optional (F,) or (..., F) per-feature CEGB penalty,
+        added to the split penalty under ``params.use_cegb``.
+      gain_scale: optional (F,) ``feature_contri`` gain multipliers.
+      parent_out: (...,) the leaves' own outputs, the smoothing target
+        under ``params.path_smooth``.
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -247,8 +304,31 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     zero = _f32(0.0, hist)
 
     ps = parent_sum.unsqueeze(-2)                                # (..., 1, 3)
-    parent_gain = leaf_gain(ps[..., 0], ps[..., 1], l1, l2)      # (..., 1)
+    use_mc = params.use_monotone
+    use_sm = params.path_smooth > 0.0
+    if use_sm:
+        # the leaf's own (smoothed) output is its children's smoothing
+        # target and sets the gain shift (GetLeafGain USE_SMOOTHING)
+        po = parent_out.unsqueeze(-1)                            # (..., 1)
+        parent_gain = _gain_given_output(ps[..., 0], ps[..., 1], po, l1, l2,
+                                         fused="square")
+        po = po.unsqueeze(-1)                                    # (..., 1, 1)
+    else:
+        po = None
+        parent_gain = leaf_gain(ps[..., 0], ps[..., 1], l1, l2)  # (..., 1)
     min_gain_shift = parent_gain + params.min_gain_to_split
+    if use_mc:
+        mn = bound[..., 0].unsqueeze(-1).unsqueeze(-1)           # (..., 1, 1)
+        mx = bound[..., 1].unsqueeze(-1).unsqueeze(-1)
+        mono = monotone.to(torch.int32)
+        if is_cat is not None:
+            mono = torch.where(is_cat, 0, mono)
+        mono = mono.unsqueeze(-1)                                # (F, 1)
+        pen = (monotone_penalty_factor(depth, params.monotone_penalty)
+               .unsqueeze(-1).unsqueeze(-1)
+               if params.monotone_penalty > 0.0 else None)
+    pair_gain = _pair_gain_fn(params, po, mn if use_mc else None,
+                              mx if use_mc else None)
 
     bins_r = torch.arange(b, dtype=torch.int32, device=dev).unsqueeze(0)
     nan_bin = (num_bins - 1).to(torch.int32).unsqueeze(1)        # (F, 1)
@@ -275,19 +355,28 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     cum_c = cumsum_bins(hc_m)
     tot_g, tot_h, tot_c = ps[..., 0:1], ps[..., 1:2], ps[..., 2:3]
 
-    def dir_gain(lg, lh, lc):
+    def dir_gain(lg, lh, lc, blend_fused="parent"):
         rg, rh, rc = tot_g - lg, tot_h - lh, tot_c - lc
         ok = ((lc >= min_cnt) & (rc >= min_cnt) &
               (lh >= min_h) & (rh >= min_h) & thr_valid)
-        gl = leaf_gain(lg, lh, l1, l2)
-        gr = leaf_gain(rg, rh, l1, l2)
+        gl, gr, out_l, out_r = pair_gain(lg, lh, lc, rg, rh, rc, l2,
+                                         blend_fused)
+        if use_mc:
+            # splits against the constraint are dropped (GetSplitGains
+            # USE_MC)
+            viol = (((mono > 0) & (out_l > out_r)) |
+                    ((mono < 0) & (out_l < out_r)))
+            ok = ok & ~viol
         g = gl + gr - min_gain_shift.unsqueeze(-1)
+        if use_mc and pen is not None:
+            g = torch.where(mono != 0, g * pen, g)
         return torch.where(ok & (g > 0), g, neg_inf)
 
     # numerical, missing->right (left = cum of real bins up to b)
     gain_r = dir_gain(cum_g, cum_h, cum_c)
     # numerical, missing->left (NaN bin joins the left side)
-    gain_l = dir_gain(cum_g + nan_g, cum_h + nan_h, cum_c + nan_c)
+    # XLA:CPU fuses this direction's smoothing blend the other way round
+    gain_l = dir_gain(cum_g + nan_g, cum_h + nan_h, cum_c + nan_c, "own")
     gain_l = torch.where(hn_f, gain_l, neg_inf)
 
     # argmax returns the first maximal index, as jnp.argmax does
@@ -309,7 +398,7 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
         cat_gain, cat_member, cat_left = _categorical(
             hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
             min_gain_shift.unsqueeze(-1), num_bins, is_cat, params,
-            rand_bins, bins_r)
+            rand_bins, bins_r, pair_gain)
         gain = torch.where(is_cat, cat_gain, gain)
         cat_member = cat_member & is_cat.unsqueeze(-1) & \
             (gain > NEG_INF / 2).unsqueeze(-1)
@@ -321,6 +410,7 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
         default_left = default_left & ~is_cat
     else:
         cat_member = torch.zeros(hg.shape, dtype=torch.bool, device=dev)
+    gain = _penalize(gain, ps[..., 2], params, cegb_penalty, gain_scale)
     if parent_exact is None:
         right = parent_sum.unsqueeze(-2) - left
     else:
@@ -330,9 +420,65 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                          right_sum=right, cat_member=cat_member)
 
 
+def _pair_gain_fn(params: SplitParams, po, mn, mx):
+    """``pair_gain(lg, lh, lc, rg, rh, rc, l2, blend_fused) -> (gain_l,
+    gain_r, out_l, out_r)`` of a split's two children
+    (feature_histogram.hpp ``GetSplitGains``): the closed-form gains, or
+    under path smoothing (target ``po``) or monotone bounds (``mn``,
+    ``mx``) the gains of the outputs the children can take, clipped to
+    ``max_delta_step`` before the blend and clamped to the bounds last
+    (``out_*`` None without either option).  ``blend_fused`` names the
+    product of the smoothing blend that XLA:CPU fuses into its add in
+    that part of the reference's scan: the parent's ("parent") or the
+    child's own ("own")."""
+    l1 = params.lambda_l1
+    use_sm = po is not None
+    use_mc = mn is not None
+
+    def child_out(sg, sh, sc, l2, blend_fused):
+        t = _threshold_l1(sg, l1)
+        d = sh + l2
+        out = torch.where(d > 0, -t / d, _f32(0.0, sg))
+        if params.max_delta_step > 0.0:
+            out = torch.clamp(out, -params.max_delta_step,
+                              params.max_delta_step)
+        if use_sm:
+            fac = sc / (sc + params.path_smooth)
+            out = (_fma(po, 1.0 - fac, out * fac) if blend_fused == "parent"
+                   else _fma(out, fac, po * (1.0 - fac)))
+        return torch.minimum(torch.maximum(out, mn), mx) if use_mc else out
+
+    def pair_gain(lg, lh, lc, rg, rh, rc, l2, blend_fused="parent"):
+        if not (use_sm or use_mc):
+            return leaf_gain(lg, lh, l1, l2), leaf_gain(rg, rh, l1, l2), \
+                None, None
+        out_l = child_out(lg, lh, lc, l2, blend_fused)
+        out_r = child_out(rg, rh, rc, l2, blend_fused)
+        return (_gain_given_output(lg, lh, out_l, l1, l2),
+                _gain_given_output(rg, rh, out_r, l1, l2), out_l, out_r)
+    return pair_gain
+
+
+def _penalize(gain, cnt, params: SplitParams, cegb_penalty, gain_scale):
+    """Each feature's best gain less the CEGB penalty, tradeoff x
+    penalty_split x the leaf's count plus the feature's own, then scaled
+    by ``feature_contri`` (reference split.py:503-515); invalid gains
+    stay NEG_INF.  The count's product is per leaf, computed outside the
+    per-feature loop, so XLA:CPU rounds it before the add."""
+    valid = gain > NEG_INF / 2
+    if params.use_cegb:
+        delta = cnt * (params.cegb_tradeoff * params.cegb_penalty_split)
+        if cegb_penalty is not None:
+            delta = delta + cegb_penalty
+        gain = torch.where(valid, gain - delta, gain)
+    if gain_scale is not None:
+        gain = torch.where(valid, gain * gain_scale, gain)
+    return gain
+
+
 def _categorical(hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
                  min_gain_shift, num_bins, is_cat, params, rand_bins,
-                 bins_r):
+                 bins_r, pair_gain):
     """Per-feature best categorical split (reference split.py:331-470):
     (gain, (..., F, B) LEFT membership, (..., F, 3) left sums), in the
     reference's f32 operations and order."""
@@ -348,8 +494,7 @@ def _categorical(hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
 
     # ---- one-vs-rest: category bin b goes left, the rest right
     crg, crh, crc = tot_g - hg_m, tot_h - hh_m, tot_c - hc_m
-    cgl = leaf_gain(hg_m, hh_m, l1, cat_l2)
-    cgr = leaf_gain(crg, crh, l1, cat_l2)
+    cgl, cgr, _, _ = pair_gain(hg_m, hh_m, hc_m, crg, crh, crc, cat_l2)
     cat_ok = ((hc_m >= min_cnt) & (crc >= min_cnt) &
               (hh_m >= min_h) & (crh >= min_h) & real_bin)
     if use_et:  # one random category per node
@@ -419,8 +564,8 @@ def _categorical(hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
                            gcross[..., :-1]], dim=-1)
         ok = (pos_ok & (lc >= min_cnt) & (lh >= min_h) &
               (rc >= min_rc) & (rh >= min_h) & (gcross > gprev))
-        g = (leaf_gain(lg, lh, l1, cat_l2) + leaf_gain(rg, rh, l1, cat_l2) -
-             min_gain_shift)
+        gl_, gr_, _, _ = pair_gain(lg, lh, lc, rg, rh, rc, cat_l2)
+        g = gl_ + gr_ - min_gain_shift
         return torch.where(ok & (g > 0), g, neg_inf)
 
     gain_f = subset_gain(cumf_g, cumf_h, cumf_c)
@@ -461,15 +606,16 @@ def local_best_candidates(hist: torch.Tensor, leaf_sum: torch.Tensor,
                           feature_mask: torch.Tensor, params: SplitParams,
                           parent_exact: torch.Tensor = None,
                           rand_bins: torch.Tensor = None,
-                          is_cat: torch.Tensor = None):
+                          is_cat: torch.Tensor = None, **options):
     """Best split over features for a batch of leaves (the reference's
     ``local_best_candidate`` vmapped): (gain, feat, bin, default_left,
     left_sum, right_sum, cat_member), each with the batch shape of
     ``leaf_sum[..., 0]`` (``cat_member`` (..., B)).  The lowest feature
-    wins ties.  ``parent_exact``, ``rand_bins`` and ``is_cat``: as in
-    :func:`best_split_per_feature`."""
+    wins ties.  ``parent_exact``, ``rand_bins``, ``is_cat`` and the split
+    options (``monotone``, ``bound``, ``depth``, ``cegb_penalty``,
+    ``gain_scale``, ``parent_out``): as in :func:`best_split_per_feature`."""
     fs = best_split_per_feature(hist, leaf_sum, num_bins, has_nan, params,
-                                parent_exact, rand_bins, is_cat)
+                                parent_exact, rand_bins, is_cat, **options)
     gain = torch.where(feature_mask, fs.gain, _f32(NEG_INF, hist))
     f = torch.argmax(gain, dim=-1)
     fi = f.unsqueeze(-1)

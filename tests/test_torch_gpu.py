@@ -557,3 +557,43 @@ def test_categorical_and_efb_training_on_card_matches_cpu(cuda_device,
                        3, device=cuda_device)
     assert on_card._gbdt.train_set.efb is not None
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    dict(use_quantized_grad=True, monotone_constraints=[1, -1, 0, 1, 0, 0],
+         monotone_constraints_method="intermediate",
+         interaction_constraints="[0,1,3],[2,4,5]"),
+    dict(use_quantized_grad=True, path_smooth=2.0, cegb_penalty_split=0.01,
+         cegb_penalty_feature_coupled=[2.0] * F,
+         feature_contri=[1.0, 0.6, 1.0, 0.9, 1.0, 0.5], forced=True),
+    dict(tree_grow_mode="partition", monotone_constraints=[1, -1, 0, 1, 0, 0],
+         forced=True),
+    dict(histogram_pool_size=0.1),      # no pool: the masked grower
+], ids=["monotone_interaction", "penalties_forced", "partition",
+        "masked"])
+def test_split_options_on_card_match_cpu(cuda_device, tmp_path, extra):
+    """The split and grower options on the card write the CPU's model
+    text (chip_smoke.py phase 3's four configurations) at 6,001 rows, not
+    a multiple of the 4096-row block: wave quantized with monotone
+    intermediate and interaction constraints, wave quantized with
+    smoothing, CEGB, feature_contri and forced splits (endgame on),
+    partitioned exact with monotone basic and forced splits, and the
+    masked grower."""
+    import json
+    rng = np.random.RandomState(0)
+    X = rng.randn(6001, F)
+    z = 2 * X[:, 0] + np.sin(3 * X[:, 1]) + X[:, 3] + 0.1 * rng.randn(6001)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1, **extra)
+    if params.pop("forced", False):
+        path = tmp_path / "forced.json"
+        path.write_text(json.dumps({
+            "feature": 1, "threshold": 0.5,
+            "left": {"feature": 0, "threshold": -0.3},
+            "right": {"feature": 3, "threshold": 0.1}}))
+        params["forcedsplits_filename"] = str(path)
+    y = (z > 0.5).astype(float)
+    on_cpu = lt.train(params, lt.Dataset(X, y), 3, device="cpu")
+    on_card = lt.train(params, lt.Dataset(X, y), 3, device=cuda_device)
+    assert on_card._gbdt.learner.grow_mode == on_cpu._gbdt.learner.grow_mode
+    assert on_card.model_to_string() == on_cpu.model_to_string()

@@ -338,11 +338,53 @@ def test_split_scan_bitwise(l1, l2, mds):
                                   jnp.asarray(parent[1:2]), sp_ref)))
 
 
-def test_split_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="monotone"):
-        ts.check_supported(ts.SplitParams(any_cat=False, use_monotone=True))
-    with pytest.raises(NotImplementedError, match="path_smooth"):
-        ts.check_supported(ts.SplitParams(path_smooth=1.0))
+def test_split_scan_runs_every_lifted_option():
+    """The scan carries every split option the reference's scan does (the
+    refusals are gone): a constraint against the split drops it, the
+    bounds clamp the outputs, smoothing and CEGB move the gains, and
+    ``feature_contri`` scales them (bitwise the reference's in
+    tests/test_torch_options.py)."""
+    rng = np.random.RandomState(3)
+    counts = rng.poisson(30, (F, 16)).astype(np.float32)
+    g = np.cumsum(np.ones((F, 16)), axis=1) - 8.0      # rises with the bin
+    hist = _t(np.stack([g, counts, counts], -1).astype(np.float32))
+    parent = hist[0].sum(dim=0)
+    nb = _t(np.full(F, 16, np.int32))
+    hn = _t(np.zeros(F, bool))
+    base = ts.SplitParams(min_data_in_leaf=5, any_cat=False)
+    plain = ts.best_split_per_feature(hist, parent, nb, hn, base)
+    assert bool((plain.gain > 0).all())
+    wide = _t(np.array([-1e30, 1e30], np.float32))
+    # g rises with the bin: the left output exceeds the right, so an
+    # increasing constraint drops every split and a decreasing one keeps
+    # them, with the same gains inside unbounded limits
+    for sign, kept in ((1, False), (-1, True)):
+        mc = ts.best_split_per_feature(
+            hist, parent, nb, hn, base._replace(use_monotone=True),
+            monotone=_t(np.full(F, sign, np.int32)), bound=wide,
+            depth=_t(np.int32(0)))
+        assert bool((mc.gain > 0).all()) == kept
+    narrow = ts.best_split_per_feature(
+        hist, parent, nb, hn, base._replace(use_monotone=True),
+        monotone=_t(np.zeros(F, np.int32)),
+        bound=_t(np.array([-0.01, 0.01], np.float32)),
+        depth=_t(np.int32(0)))
+    assert bool((narrow.gain < plain.gain).all())
+    smooth = ts.best_split_per_feature(
+        hist, parent, nb, hn, base._replace(path_smooth=50.0),
+        parent_out=_t(np.float32(0.0)))
+    assert bool((smooth.gain < plain.gain).all())
+    pen = _t(np.arange(F, dtype=np.float32))
+    cegb = ts.best_split_per_feature(
+        hist, parent, nb, hn,
+        base._replace(use_cegb=True, cegb_penalty_split=0.01),
+        cegb_penalty=pen)
+    torch.testing.assert_close(cegb.gain,
+                               plain.gain - parent[2] * 0.01 - pen)
+    scale = _t(np.linspace(0.5, 1.0, F).astype(np.float32))
+    contri = ts.best_split_per_feature(hist, parent, nb, hn, base,
+                                       gain_scale=scale)
+    torch.testing.assert_close(contri.gain, plain.gain * scale)
 
 
 def _grow_inputs(seed=12, nb=64):

@@ -350,10 +350,10 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(tree_learner="data"),
     dict(boosting="goss"),
     dict(objective="none"),
-    dict(monotone_constraints=[1, 0, 0, 0, 0, 0]),
-    dict(tree_grow_mode="partition", interaction_constraints=[[0, 1]]),
-    dict(tree_grow_mode="partition", forcedsplits_filename="forced.json"),
-    dict(tree_grow_mode="partition", feature_contri=[1.0] * 6),
+    dict(linear_tree=True),
+    dict(boosting="dart"),
+    dict(boosting="rf", bagging_freq=1, bagging_fraction=0.5),
+    dict(forcedbins_filename="forced_bins.json"),
 ])
 def test_unported_options_raise(extra):
     X, y = _data("regression")
