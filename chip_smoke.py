@@ -119,7 +119,32 @@ Phases (any failure exits non-zero and prints no result line):
    held-out rows x 32 grid points, (a) no root-to-leaf path mixing two
    interaction groups, (b) and (d) every tree opening with the forced
    splits, (e) at least a root pass and 2 ``hist_single`` passes per
-   split.
+   split;
+12. multi-model training, after phase 11 on the main path's binned rows:
+   (a) every model-axis kernel form (``*_lanes``: both leaf histograms at
+   the main shape and packed at B=16, the row update in its numeric and
+   categorical / EFB forms and its trial form at W=42, the single-leaf
+   histogram over four lanes' row-major segments of different lengths)
+   at L=4 lanes with their own gradients, channels and tables, bit for
+   bit against its plain version and against 4 single launches and
+   identical across two runs, the one launch timed against the 4 single
+   launches beside the bound, the plain version and one ``index_add_``
+   over lanes x channels; (b) ``train_many`` of the headline
+   configuration with ``lambda_l2`` 0, 1, 4, 16 for 3 rounds: models 0
+   and 3 write the text of a standalone ``train()``, model-rounds/s
+   against the standalone rate, model-axis launches per iteration
+   against 4 x the standalone's single launches; (c) ``cv``, 4 folds of
+   1,048,576 rows, 3 rounds, of the headline configuration (stochastic
+   rounding and the speculative ramp on, drawing over each fold's rows)
+   and of the exact wave with the ramp off, on rows binned beforehand:
+   each time the batched fast path's metric history equals the per-fold
+   loop's, both timed; (d)
+   partitioned lanes, 2 variants, 2 rounds, text equal to ``train()``;
+   (e) 2 variants for 1 round at 1,048,576 rows on packed bins (quantized
+   and exact) and with a categorical column, text equal to ``train()``.
+   Every batch runs with the counts set to 0 and must launch its
+   model-axis forms and no single form; the histogram autotune probe's
+   single launches are counted apart.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -147,6 +172,7 @@ directory without the package beside it, the script exits non-zero.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import subprocess
@@ -313,25 +339,31 @@ def _row_case(torch, gen, dev, w, n, num_bins, num_leaves, n_active):
     return bins, feats.contiguous(), rl, tab
 
 
-def _row_work(torch, cols, rl, tab, write_rl: bool):
+def _row_work(torch, cols, rl, tab, write_rl: bool, seen=None, feats=None):
     """(bytes, operations) a row update needs on these inputs: row->leaf in
     (and out), the channel out, the table and the split features, plus
     one column byte and a few compares and selects for every (row, active
     split) pair whose running leaf matches as the splits apply in order
-    (``cols``: the splits' gathered uint8 columns)."""
+    (``cols``: the splits' gathered uint8 columns).  With ``seen``, an
+    (F, N) bool map of bin bytes, and the splits' ``feats``, the column
+    bytes are marked there instead of counted, so that the lanes of one
+    shared matrix count each byte once (the caller adds ``seen.sum()``)."""
     n, w = rl.shape[0], tab.shape[1]
     run = rl.clone()
-    need = 0
+    hits = 0
     for j in range(w):
         hit = (run == tab[4, j]) & (tab[6, j] > 0)
-        need += int(hit.sum())
+        hits += int(hit.sum())
+        if seen is not None:
+            seen[int(feats[j])] |= hit
         if write_rl:
             col = cols[j].to(torch.int32)
             go_left = torch.where(col == tab[1, j], tab[2, j],
                                   (col <= tab[0, j]).to(torch.int32))
             run = torch.where(hit & (go_left == 0), tab[5, j], run)
+    need = hits if seen is None else 0
     nbytes = 4.0 * n + need + n + 36.0 * w + (4.0 * n if write_rl else 0.0)
-    return nbytes, 6.0 * need + n
+    return nbytes, 6.0 * hits + n
 
 
 def _row_forms(torch, hc, bins, feats, rl, tab, packed):
@@ -1945,6 +1977,472 @@ def leaf_traffic(torch, card, bst, mode, out_dir, reps=5) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phase 12: the model-axis kernels and multi-model training --------------
+
+LANES = 4
+# the model-axis forms: the reference's jax.vmap of the same entry points
+# (pallas_call's batching rule makes the batch axis a grid dimension,
+# lightgbm_tpu/ops/histogram_pallas.py:45-48)
+LANE_KERNELS = {
+    "hist_leaves_q8_lanes": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                             "lightgbm_tpu/ops/histogram_pallas.py:1030"),
+    "hist_leaves_q8_lanes_packed4": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                                     "lightgbm_tpu/ops/histogram_pallas.py:670"),
+    "hist_leaves_lanes": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                          "lightgbm_tpu/ops/histogram_pallas.py:852"),
+    "hist_leaves_lanes_packed4": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                                  "lightgbm_tpu/ops/histogram_pallas.py:670"),
+    "wave_row_update_lanes": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                              "lightgbm_tpu/ops/histogram_pallas.py:1280"),
+    "wave_row_update_ext_lanes": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                                  "lightgbm_tpu/ops/histogram_pallas.py:1280"),
+    "wave_trial_channels_lanes": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                                  "lightgbm_tpu/ops/histogram_pallas.py:1314"),
+    "hist_single_lanes": ("lightgbm_tpu_torch/csrc/hist_single.cu",
+                          "lightgbm_tpu/ops/histogram_pallas.py:471"),
+}
+MANY_L2 = (0.0, 1.0, 4.0, 16.0)      # phase 12b's variants
+MANY_ROUNDS = 3
+CV_ROWS = 1_048_576                  # phase 12c's rows
+CV_FOLDS = 4
+SIDE_ROWS = 1_048_576                # phase 12e's packed / categorical rows
+
+
+def _tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+def _lane_case(torch, card, name, tag, lanes_fn, single_fns, plain_fn,
+               nbytes, ops, lib_fn, reps) -> dict:
+    """One model-axis form: bitwise against its plain version and against
+    one single launch per lane, identical across two runs; the one launch
+    timed against the L single launches, the bound, the plain version and
+    the library call."""
+    got, again = _tuple(lanes_fn()), _tuple(lanes_fn())
+    torch.cuda.synchronize()
+    want = _tuple(plain_fn())
+    err = 0.0
+    for x, y, z in zip(got, again, want):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name} [{tag}] differs between two runs")
+        err = max(err, float((x.double() - z.double()).abs().max()))
+        if not torch.equal(x, z):
+            raise AssertionError(f"{name} [{tag}] differs from its plain "
+                                 f"version (max abs err {err})")
+    del want
+    for lane, fn in enumerate(single_fns):
+        for x, one in zip(got, _tuple(fn())):
+            if not torch.equal(x[lane], one):
+                raise AssertionError(f"{name} [{tag}] lane {lane} differs "
+                                     "from its single launch")
+    del got, again
+    b_ms, b_by = bound_ms(nbytes, ops)
+    out = dict(max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lanes_fn, reps),
+               singles_ms=time_ms(lambda: [fn() for fn in single_fns], reps),
+               plain_ms=time_ms(plain_fn, 1),
+               library_ms=None if lib_fn is None else time_ms(lib_fn, reps))
+    log(f"[{card}] kernel {name} [{tag}, L={len(single_fns)}]: bitwise "
+        f"equal to plain and to {len(single_fns)} single launches, "
+        f"identical across two runs; one launch {out['ms']:.3f} ms, "
+        f"{len(single_fns)} single launches {out['singles_ms']:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by})")
+    return out
+
+
+def _lane_library(torch, bins, w3s, chs, k, num_bins, dtype):
+    """One ``index_add_`` over lanes x channels (the library yardstick of
+    the lane histograms; the port never calls it)."""
+    f = bins.shape[0]
+    idx, upd = [], []
+    for lane, (w3, ch) in enumerate(zip(w3s, chs)):
+        rows = torch.nonzero((ch >= 0) & (ch < k)).squeeze(1)
+        idx.append((((ch[rows].long() + lane * k).unsqueeze(0) * f +
+                     torch.arange(f, device=bins.device).unsqueeze(1)) *
+                    num_bins + bins[:, rows].long()).reshape(-1))
+        upd.append(w3[:3, rows].to(dtype).t().unsqueeze(0)
+                   .expand(f, -1, -1).reshape(-1, 3))
+    idx, upd = torch.cat(idx), torch.cat(upd).contiguous()
+    size = len(w3s) * k * f * num_bins
+
+    def call():
+        out = torch.zeros((size, 3), dtype=dtype, device=bins.device)
+        out.index_add_(0, idx, upd)
+        return out
+    return call
+
+
+def lane_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
+    """Phase 12a: every model-axis form at L = 4 lanes with their own
+    gradients, channels and tables over one shared bin matrix: the leaf
+    histograms (q8 and exact) at the main shape and packed at B=16, the
+    row update (numeric and categorical / EFB forms, W=42) and its trial
+    form, and the single-leaf histogram over four lanes' row-major
+    segments of different lengths."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.ops import quantize as tq
+    f, L = NUM_FEATURES, LANES
+    rec = {}
+    bins = torch.randint(0, 256, (f, n), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    lanes = []
+    for _ in range(L):
+        grad = torch.randn(n, generator=gen, device=dev) * 0.5
+        hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+        ch = torch.randint(0, hc.Q_LEAF_CHANNELS, (n,), generator=gen,
+                           device=dev, dtype=torch.int8)
+        keep = torch.rand(n, generator=gen, device=dev) < 0.5
+        ch = torch.where(keep, ch, torch.full_like(ch, -1)).contiguous()
+        wch = tq.quantize_wch(grad, hess, mask, (grad * mask).abs().max() /
+                              127, (hess * mask).max() / 127, gq_max=127,
+                              hq_max=127)
+        lanes.append((wch, th.pack_weights(grad, hess, mask), ch))
+        del grad, hess, mask, keep
+    for packed in (False, True):
+        b = th.pack_bins4(bins & 15) if packed else bins
+        nb = PACK_BINS if packed else 256
+        sfx = "_packed4" if packed else ""
+        tag = f"B={nb}" + (", packed" if packed else "") + f" F={f} N={n}"
+        for q8 in (True, False):
+            k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+            ws = [x[0] if q8 else x[1] for x in lanes]
+            chs = [x[2] if q8 else torch.where(x[2] < k, x[2], -1)
+                   .contiguous() for x in lanes]
+            many = (hc.build_histogram_leaves_q8_lanes if q8
+                    else hc.build_histogram_leaves_lanes)
+            one = (hc.build_histogram_leaves_q8 if q8
+                   else hc.build_histogram_leaves)
+            plain = (hc.build_histogram_leaves_q8_lanes_plain if q8
+                     else hc.build_histogram_leaves_lanes_plain)
+            # each lane's channels and the weights of its rows that add;
+            # the shared bins once, for every row (row pair, packed) that
+            # adds in some lane; each lane's output (int32 q8, int64 fx)
+            live = [(c >= 0) & (c < k) for c in chs]
+            active = sum(int(x.sum()) for x in live)
+            anyl = torch.stack(live).any(dim=0)
+            if packed:
+                anyl = anyl.view(-1, 2).any(dim=1)
+            nbytes = (L * n + active * (3 if q8 else 24) +
+                      f * int(anyl.sum()) +
+                      L * k * f * nb * 3 * (4 if q8 else 8))
+            del live, anyl
+            lib = _lane_library(torch, bins & 15 if packed else bins,
+                                [w if q8 else w.w for w in ws], chs, k, nb,
+                                torch.int32 if q8 else torch.int64)
+            name = ("hist_leaves_q8_lanes" if q8 else "hist_leaves_lanes") + \
+                sfx
+            rec[name] = _lane_case(
+                torch, card, name, tag,
+                lambda: many(b, ws, chs, num_bins=nb, bins_packed=packed),
+                [lambda i=i: one(b, ws[i], chs[i], num_bins=nb,
+                                 bins_packed=packed) for i in range(L)],
+                lambda: plain(b, ws, chs, num_bins=nb, bins_packed=packed),
+                nbytes, 3.0 * f * active, lib, reps)
+            del lib, ws, chs
+            torch.cuda.empty_cache()
+        del b
+
+    # ---- the row update, its categorical / EFB form and its trial form ----
+    wn = hc.Q_LEAF_CHANNELS
+    rows = [_row_case(torch, gen, dev, wn, n, 256, NUM_LEAVES, wn - 2)[1:]
+            for _ in range(L)]
+    feats = [r[0] for r in rows]
+    rls = [r[1] for r in rows]
+    tabs = [r[2] for r in rows]
+    def lane_work(write_rl: bool):
+        """The lanes' (bytes, operations): their own vectors and tables,
+        and each bin byte of the shared matrix once."""
+        seen = torch.zeros(bins.shape, dtype=torch.bool, device=dev)
+        works = [_row_work(torch, bins.index_select(0, fc), rl, tab,
+                           write_rl, seen, fc)
+                 for fc, rl, tab in zip(
+                     [ft.long().clamp(0, f - 1) for ft in feats], rls, tabs)]
+        return (sum(w_[0] for w_ in works) + float(seen.sum()),
+                sum(w_[1] for w_ in works))
+    nbytes, ops = lane_work(True)
+    rec["wave_row_update_lanes"] = _lane_case(
+        torch, card, "wave_row_update_lanes", f"W={wn} N={n}",
+        lambda: hc.wave_row_update_lanes(bins, rls, tabs, feats=feats),
+        [lambda i=i: hc.wave_row_update(bins, rls[i], tabs[i],
+                                        feats=feats[i]) for i in range(L)],
+        lambda: hc.wave_row_update_lanes_plain(bins, rls, tabs, feats=feats),
+        nbytes, ops, None, reps)
+    decs = []
+    for _ in range(L):
+        is_cat = torch.rand(wn, generator=gen, device=dev) < 0.4
+        member = torch.rand((wn, 256), generator=gen, device=dev) < 0.4
+        z = torch.zeros(wn, dtype=torch.int32, device=dev)
+        decs.append(hc.split_decode(is_cat, member, z, z + 256, z, z + 1))
+    rec["wave_row_update_ext_lanes"] = _lane_case(
+        torch, card, "wave_row_update_ext_lanes", f"W={wn} N={n}, 40% categorical",
+        lambda: hc.wave_row_update_lanes(bins, rls, tabs, feats=feats,
+                                         decode=decs),
+        [lambda i=i: hc.wave_row_update(bins, rls[i], tabs[i],
+                                        feats=feats[i], decode=decs[i])
+         for i in range(L)],
+        lambda: hc.wave_row_update_lanes_plain(bins, rls, tabs, feats=feats,
+                                               decode=decs),
+        nbytes + L * wn * 52, ops + 4.0 * L * n, None, reps)
+    trial = [(t[4], t[0], t[1], t[2] > 0, t[3] > 0, t[6] > 0) for t in tabs]
+    ttabs = [hc.trial_tab(*a) for a in trial]
+    tbytes, tops = lane_work(False)
+    rec["wave_trial_channels_lanes"] = _lane_case(
+        torch, card, "wave_trial_channels_lanes", f"W={wn} N={n}",
+        lambda: hc.wave_trial_channels_lanes(bins, rls, ttabs, feats=feats),
+        [lambda i=i: hc.wave_trial_channels(bins, rls[i], *trial[i],
+                                            feats=feats[i])
+         for i in range(L)],
+        lambda: hc.wave_trial_channels_lanes_plain(bins, rls, ttabs,
+                                                   feats=feats),
+        tbytes, tops, None, reps)
+    del rows, feats, rls, tabs, decs, ttabs, trial
+    torch.cuda.empty_cache()
+
+    # ---- the single-leaf histogram over each lane's own row-major copy ----
+    segs = [(0, n), (n // 4, n // 2), (12_345, 50_003), (n // 3, n // 5)]
+    P = [bins.t().contiguous() for _ in range(L)]
+    sb = [p[s:s + c].t() for p, (s, c) in zip(P, segs)]
+    sw = [th.FxWeights(x[1].w[:, s:s + c], x[1].inv_scale)
+          for x, (s, c) in zip(lanes, segs)]
+    act = [(w.w != 0).any(dim=0) for w in sw]
+    nact = sum(int(a.sum()) for a in act)
+    nbytes = sum(24.0 * c for _, c in segs) + f * nact + L * f * 256 * 24
+    idx, upd = [], []
+    for lane, (b_, w_, a_) in enumerate(zip(sb, sw, act)):
+        r_ = torch.nonzero(a_).squeeze(1)
+        idx.append(((lane * f + torch.arange(f, device=dev).unsqueeze(1)) *
+                    256 + b_[:, r_].long()).reshape(-1))
+        upd.append(w_.w[:, r_].t().unsqueeze(0).expand(f, -1, -1)
+                   .reshape(-1, 3))
+    idx, upd = torch.cat(idx), torch.cat(upd).contiguous()
+
+    def lib():
+        o = torch.zeros((L * f * 256, 3), dtype=torch.int64, device=dev)
+        o.index_add_(0, idx, upd)
+        return o
+    rec["hist_single_lanes"] = _lane_case(
+        torch, card, "hist_single_lanes",
+        f"row-major segments of {[c for _, c in segs]} rows, F={f} B=256",
+        lambda: hc.hist_single_lanes(sb, sw, num_bins=256),
+        [lambda i=i: hc.hist_single(sb[i], sw[i], num_bins=256)
+         for i in range(L)],
+        lambda: hc.hist_single_lanes_plain(sb, sw, num_bins=256),
+        nbytes, 3.0 * f * nact, lib, reps)
+    del P, sb, sw, idx, upd, lib, lanes, bins
+    torch.cuda.empty_cache()
+    for name, r in rec.items():
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
+        log(f"[{card}] {name} @ L={L} N={n}: one launch {r['ms']:.3f} ms, "
+            f"{L} single launches {r['singles_ms']:.3f} ms, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.3f} ms, library {lib}")
+    return rec
+
+
+def _lane_launches(hc) -> dict:
+    return {k: v for k, v in hc.LAUNCHES.items() if "_lanes" in k}
+
+
+def _single_launches(hc) -> dict:
+    return {k: v for k, v in hc.LAUNCHES.items() if "_lanes" not in k and v}
+
+
+def many_phase(lt, torch, card, ds, Xtr, ytr, out_dir: str) -> dict:
+    """Phase 12b-e: ``train_many``, ``cv`` and the partitioned lanes on the
+    card.  Returns each model-axis form's launches over those runs."""
+    from lightgbm_tpu_torch.models import gbdt as tg
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    launches = {k: 0 for k in LANE_KERNELS}
+    # the histogram autotuner's probe (small shapes, models/gbdt.py
+    # learner_config) times single launches: they are recorded apart, and
+    # a batch may launch no other single form
+    probe = collections.Counter()
+    real_pick = tg.pick_hist_impl
+
+    def pick(*a, **k):
+        before = dict(hc.LAUNCHES)
+        try:
+            return real_pick(*a, **k)
+        finally:
+            probe.update({k_: v - before[k_]
+                          for k_, v in hc.LAUNCHES.items()})
+
+    def reset():
+        hc.reset_launches()
+        probe.clear()
+
+    def count(tag, needs):
+        got = _lane_launches(hc)
+        single = {k: v - probe[k] for k, v in _single_launches(hc).items()
+                  if v - probe[k]}
+        log(f"phase 12{tag} launches: {json.dumps(got)}; single forms "
+            f"{json.dumps(single)} (and the autotune probe's "
+            f"{json.dumps({k: v for k, v in probe.items() if v})})")
+        missing = [k for k in needs if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"phase 12{tag}: kernels not launched: "
+                                 f"{missing}")
+        if single:
+            raise AssertionError(f"phase 12{tag}: a batch launched single "
+                                 f"forms {single}")
+        for k in launches:
+            launches[k] += got[k]
+        return got
+
+    tg.pick_hist_impl = pick
+    try:
+        return _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir,
+                          reset, count, launches)
+    finally:
+        tg.pick_hist_impl = real_pick
+
+
+def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
+               launches) -> dict:
+
+    # (b) train_many: the headline configuration, 4 variants
+    head = mode_params("headline")
+    variants = [{"lambda_l2": v} for v in MANY_L2]
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mb = lt.train_many(head, ds, MANY_ROUNDS, variants=variants,
+                       device="cuda")
+    torch.cuda.synchronize()
+    t_many = time.perf_counter() - t0
+    got = count("b", ("hist_leaves_q8_lanes", "wave_row_update_lanes",
+                      "hist_single_lanes"))
+    rate_many = LANES * MANY_ROUNDS / t_many
+    t_one, single = [], None
+    for m in (0, len(MANY_L2) - 1):
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = lt.train({**head, **variants[m]}, ds, MANY_ROUNDS,
+                       device="cuda")
+        torch.cuda.synchronize()
+        t_one.append(time.perf_counter() - t0)
+        single = single or dict(hc.LAUNCHES)
+        if ref.model_to_string() != mb[m].model_to_string():
+            raise AssertionError(f"phase 12b: train_many model {m} "
+                                 f"(lambda_l2={MANY_L2[m]}) text differs "
+                                 "from train()")
+        mb[m].save_model(os.path.join(out_dir, f"many_{m}.txt"))
+    rate_one = MANY_ROUNDS / float(np.mean(t_one))
+    per_it = {k: v / MANY_ROUNDS for k, v in got.items() if v}
+    four = {k.replace("_lanes", ""): LANES * single[k.replace("_lanes", "")]
+            / MANY_ROUNDS for k in per_it
+            if k.replace("_lanes", "") in single}
+    log(f"[{card}] phase 12b train_many headline x{LANES} (lambda_l2 "
+        f"{list(MANY_L2)}), {MANY_ROUNDS} rounds: {rate_many:.4f} "
+        f"model-rounds/s in {t_many:.2f} s; standalone train() "
+        f"{rate_one:.4f} rounds/s; models 0 and {len(MANY_L2) - 1} text "
+        "identical to train()")
+    log(f"[{card}] phase 12b launches per iteration: model-axis "
+        f"{json.dumps(per_it)}; {LANES} x standalone single "
+        f"{json.dumps(four)}")
+    del mb, ref
+    torch.cuda.empty_cache()
+
+    # (c) cv: four folds at 1,048,576 rows, fast path against the per-fold
+    # loop: the headline configuration (stochastic rounding and the
+    # speculative ramp on, both drawing over each fold's own rows), then
+    # the exact wave with the ramp off; the rows are binned first, outside
+    # the timed runs
+    rows = min(CV_ROWS, len(ytr))
+    dcv = lt.Dataset(Xtr[:rows], ytr[:rows], params={"max_bin": MAX_BIN})
+    dcv.construct()
+    kw = dict(num_boost_round=MANY_ROUNDS, nfold=CV_FOLDS, seed=7,
+              device="cuda")
+
+    def timed_cv(params, many: bool):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = lt.cv({**params, "tpu_cv_many": many}, dcv, **kw)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    reset()
+    t_hf, h_fast = timed_cv(head, True)
+    count("c headline", ("hist_leaves_q8_lanes", "wave_row_update_lanes",
+                         "hist_single_lanes"))
+    t_hs, h_slow = timed_cv(head, False)
+    if h_fast != h_slow:
+        raise AssertionError(f"phase 12c: the headline cv fast path's metric "
+                             f"history {h_fast} differs from the per-fold "
+                             f"loop's {h_slow}")
+    log(f"[{card}] phase 12c cv headline (ramp, stochastic rounding), "
+        f"{CV_FOLDS} folds of {rows} rows, {MANY_ROUNDS} rounds: fast path "
+        f"{t_hf:.2f} s, per-fold loop {t_hs:.2f} s, metric history "
+        f"identical {json.dumps({k: v[-1] for k, v in h_fast.items()})}")
+
+    # the exact wave with the ramp off
+    exact = mode_params("exact", tpu_speculative_ramp=False)
+    reset()
+    t_fast, fast = timed_cv(exact, True)
+    count("c exact", ("hist_leaves_lanes", "wave_row_update_lanes",
+                      "wave_trial_channels_lanes"))
+    t_slow, slow = timed_cv(exact, False)
+    if fast != slow:
+        raise AssertionError(f"phase 12c: the exact cv fast path's metric "
+                             f"history {fast} differs from the per-fold "
+                             f"loop's {slow}")
+    log(f"[{card}] phase 12c cv exact wave (ramp off), {CV_FOLDS} folds of "
+        f"{rows} rows, {MANY_ROUNDS} rounds: fast path {t_fast:.2f} s, "
+        f"per-fold loop {t_slow:.2f} s, metric history identical "
+        f"{json.dumps({k: v[-1] for k, v in fast.items()})}")
+    del dcv
+    torch.cuda.empty_cache()
+
+    # (d) partitioned lanes
+    part = mode_params("partition")
+    pv = [{"lambda_l2": 0.0}, {"lambda_l2": 4.0}]
+    reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mb = lt.train_many(part, ds, 2, variants=pv, device="cuda")
+    torch.cuda.synchronize()
+    t_part = time.perf_counter() - t0
+    count("d", ("hist_single_lanes",))
+    for m, v in enumerate(pv):
+        ref = lt.train({**part, **v}, ds, 2, device="cuda")
+        if ref.model_to_string() != mb[m].model_to_string():
+            raise AssertionError(f"phase 12d: partitioned lane {m} text "
+                                 "differs from train()")
+    log(f"[{card}] phase 12d partitioned train_many x2, 2 rounds: "
+        f"{2 * 2 / t_part:.4f} model-rounds/s, text identical to train()")
+    del mb, ref
+    torch.cuda.empty_cache()
+
+    # (e) the packed and the categorical / EFB forms on their paths
+    rows = min(SIDE_ROWS, len(ytr))
+    packed_ds = lt.Dataset(Xtr[:rows], ytr[:rows],
+                           params={"max_bin": PACK_MAX_BIN})
+    Xc = np.c_[Xtr[:rows], (np.abs(Xtr[:rows, 0] * 7).astype(np.int64) % 40)]
+    cat_ds = lt.Dataset(Xc, ytr[:rows], params={"max_bin": MAX_BIN},
+                        categorical_feature=[NUM_FEATURES])
+    side = [("packed quantized", mode_params("quantized", PACK_MAX_BIN),
+             packed_ds, ("hist_leaves_q8_lanes_packed4",)),
+            ("packed exact", mode_params("exact", PACK_MAX_BIN), packed_ds,
+             ("hist_leaves_lanes_packed4",)),
+            ("categorical", mode_params("quantized"), cat_ds,
+             ("wave_row_update_ext_lanes",))]
+    for tag, params, d, needs in side:
+        reset()
+        mb = lt.train_many(params, d, 1, variants=pv, device="cuda")
+        count(f"e {tag}", needs)
+        ref = lt.train({**params, **pv[1]}, d, 1, device="cuda")
+        if ref.model_to_string() != mb[1].model_to_string():
+            raise AssertionError(f"phase 12e ({tag}): lane text differs "
+                                 "from train()")
+        log(f"phase 12e {tag} train_many x2 at {rows} rows: text identical "
+            "to train()")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2098,9 +2596,19 @@ def main(argv=None) -> int:
     for k, v in options_phase(lt, torch, card, ds, Xte, yte,
                               out_dir).items():
         launches[k] += v
+    stamp("phase 11, split and grower options")
+
+    # ---- phase 12: model-axis kernels and multi-model training ----
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 12)
+    rec.update(lane_kernel_phase(torch, gen, torch.device("cuda"), card,
+                                 n_pad, args.reps))
+    stamp("phase 12a, model-axis kernels")
+    for k, v in many_phase(lt, torch, card, ds, Xtr, ytr, out_dir).items():
+        launches[k] += v
     del ds
     torch.cuda.empty_cache()
-    stamp("phase 11, split and grower options")
+    stamp("phase 12b-e, train_many and cv")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,
@@ -2117,7 +2625,7 @@ def main(argv=None) -> int:
 
 
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
+    for name, (source, replaces) in {**KERNELS, **LANE_KERNELS}.items():
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

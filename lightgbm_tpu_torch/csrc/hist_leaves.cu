@@ -171,9 +171,17 @@ __global__ void __launch_bounds__(kThreads)
 hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
                    const int8_t* __restrict__ ch, void* __restrict__ out,
                    int F, long long N, int B, int K, int cg, int fg,
-                   long long chunk_rows, int vec) {
+                   long long chunk_rows, int vec,
+                   const long long* __restrict__ lanes, int L) {
   constexpr bool Q8 = sizeof(W) == 1;
   extern __shared__ __align__(16) unsigned char smem[];
+  if (lanes) {   // the model-axis form: lane blockIdx.z's inputs
+    const int z = blockIdx.z;
+    w = reinterpret_cast<const W*>(lanes[z]);
+    ch = reinterpret_cast<const int8_t*>(lanes[L + z]);
+    out = static_cast<unsigned char*>(out) +
+          (long long)z * K * F * B * 3 * (Q8 ? 4 : 8);
+  }
 
   const int c_groups = (K + cg - 1) / cg;
   const int c0 = (blockIdx.x % c_groups) * cg;
@@ -283,11 +291,15 @@ hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
   }
 }
 
+// lanes: null for one lane, else the device table (2, L) of each lane's
+// weight and channel pointers, with out the lanes' (L, K, F, B, 3).
 template <typename W, bool PACKED>
 int launch(const void* bins, const void* w, const void* ch, void* out, int F,
            long long N, int B, int K, int cg, int fg, int chunks,
-           long long chunk_rows, int vec, void* stream) {
-  if (F <= 0 || N <= 0 || K <= 0) return 0;
+           long long chunk_rows, int vec, void* stream,
+           const long long* lanes = nullptr, int L = 1) {
+  if (F <= 0 || N <= 0 || K <= 0 || L <= 0) return 0;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
   if (cg >= (1 << kChBits) || chunk_rows > (1LL << (32 - kChBits)))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)cg * fg * B * (sizeof(W) == 1 ? 12 : 20) +
@@ -297,12 +309,12 @@ int launch(const void* bins, const void* w, const void* ch, void* out, int F,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int combos = ((K + cg - 1) / cg) * ((F + fg - 1) / fg);
-  dim3 grid(combos, chunks);
+  dim3 grid(combos, chunks, L);
   hist_leaves_kernel<W, PACKED>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const uint8_t*>(bins), static_cast<const W*>(w),
           static_cast<const int8_t*>(ch), out, F, N, B, K, cg, fg,
-          chunk_rows, vec);
+          chunk_rows, vec, lanes, L);
   return (int)cudaGetLastError();
 }
 
@@ -350,6 +362,40 @@ int hist_leaves_fx_p4(const void* bins, const void* w, const void* ch,
                       void* stream) {
   return launch<long long, true>(bins, w, ch, out, F, N, B, K, cg, fg,
                                  chunks, chunk_rows, vec, stream);
+}
+
+// The model-axis forms (the reference's vmap of the entry points above,
+// the batch axis a leading grid dimension): L lanes share the bins and
+// each has its own weights and channels.  lanes: device (2, L) int64
+// table [weight pointer of lane l, channel pointer of lane l]; out
+// (L, K, F, B, 3), zero-filled by the caller; vec: every lane's ch is
+// 4-byte aligned.  Grid (combos, chunks, L): lane l's blocks are the
+// single form's blocks on its inputs, so each lane's sums are the single
+// launch's, bit for bit.
+int hist_leaves_q8_lanes(const void* bins, const void* lanes, void* out,
+                         int L, int F, long long N, int B, int K, int cg,
+                         int fg, int chunks, long long chunk_rows, int vec,
+                         int packed, void* stream) {
+  const long long* t = static_cast<const long long*>(lanes);
+  return packed ? launch<int8_t, true>(bins, nullptr, nullptr, out, F, N, B,
+                                       K, cg, fg, chunks, chunk_rows, vec,
+                                       stream, t, L)
+                : launch<int8_t, false>(bins, nullptr, nullptr, out, F, N, B,
+                                        K, cg, fg, chunks, chunk_rows, vec,
+                                        stream, t, L);
+}
+
+int hist_leaves_fx_lanes(const void* bins, const void* lanes, void* out,
+                         int L, int F, long long N, int B, int K, int cg,
+                         int fg, int chunks, long long chunk_rows, int vec,
+                         int packed, void* stream) {
+  const long long* t = static_cast<const long long*>(lanes);
+  return packed ? launch<long long, true>(bins, nullptr, nullptr, out, F, N,
+                                          B, K, cg, fg, chunks, chunk_rows,
+                                          vec, stream, t, L)
+                : launch<long long, false>(bins, nullptr, nullptr, out, F, N,
+                                           B, K, cg, fg, chunks, chunk_rows,
+                                           vec, stream, t, L);
 }
 
 }  // extern "C"

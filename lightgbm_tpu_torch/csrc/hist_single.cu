@@ -121,6 +121,20 @@ __device__ __forceinline__ void flush(const Hist& H, unsigned long long* out,
   }
 }
 
+// The model-axis form: lane blockIdx.z's segment from the device table
+// (4, L) [bins pointer, weights pointer, rows, weight row stride] and its
+// (F, B, 3) slice of the (L, F, B, 3) result.  A block past its lane's
+// rows walks none and flushes nothing.
+#define LANE_INPUTS()                                               \
+  do {                                                              \
+    const int z_ = blockIdx.z;                                      \
+    bins = reinterpret_cast<const uint8_t*>(lanes[z_]);             \
+    w = reinterpret_cast<const long long*>(lanes[L + z_]);          \
+    n = lanes[2 * L + z_];                                          \
+    ws = lanes[3 * L + z_];                                         \
+    out += (long long)z_ * F * B * 3;                               \
+  } while (0)
+
 // ROWS: block (x, y) takes rows [x * chunk_rows, ...) and features
 // [y * fg, ...).  words: sf == 1 and every row's run of the group's
 // features starts 4-byte aligned (fg a multiple of 4, or one group).
@@ -128,8 +142,13 @@ __global__ void __launch_bounds__(1024)
 hist_single_rows(const uint8_t* __restrict__ bins, long long sf,
                  long long sn, const long long* __restrict__ w, long long ws,
                  unsigned long long* __restrict__ out, int F, long long n,
-                 int B, int fg, long long chunk_rows, int words) {
+                 int B, int fg, long long chunk_rows, int words,
+                 const long long* __restrict__ lanes, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (lanes) {
+    LANE_INPUTS();
+    words = words && (reinterpret_cast<uintptr_t>(bins) & 3) == 0;
+  }
   const int f0 = blockIdx.y * fg;
   const int nf = min(fg, F - f0);
   const long long r0 = (long long)blockIdx.x * chunk_rows;
@@ -224,8 +243,13 @@ __global__ void __launch_bounds__(1024)
 hist_single_feats(const uint8_t* __restrict__ bins, long long sf,
                   const long long* __restrict__ w, long long ws,
                   unsigned long long* __restrict__ out, int F, long long n,
-                  int B, int fg, long long chunk_rows, int vec) {
+                  int B, int fg, long long chunk_rows, int vec,
+                  const long long* __restrict__ lanes, int L) {
   extern __shared__ __align__(16) unsigned char smem[];
+  if (lanes) {
+    LANE_INPUTS();
+    vec = vec && (reinterpret_cast<uintptr_t>(bins) & 3) == 0;
+  }
   const int f0 = blockIdx.y * fg;
   const int nf = min(fg, F - f0);
   const long long r0 = (long long)blockIdx.x * chunk_rows;
@@ -333,11 +357,11 @@ int hist_single(const void* bins, long long sf, long long sn, const void* w,
     if ((err = prepare(hist_single_rows, smem)) != 0) return err;
     hist_single_rows<<<grid, threads, smem, st>>>(b, sf, sn, wp, ws, o, F, n,
                                                   B, fg, chunk_rows,
-                                                  layout == 1);
+                                                  layout == 1, nullptr, 1);
   } else {
     if ((err = prepare(hist_single_feats<false>, smem)) != 0) return err;
     hist_single_feats<false><<<grid, threads, smem, st>>>(
-        b, sf, wp, ws, o, F, n, B, fg, chunk_rows, layout == 3);
+        b, sf, wp, ws, o, F, n, B, fg, chunk_rows, layout == 3, nullptr, 1);
   }
   return (int)cudaGetLastError();
 }
@@ -357,7 +381,43 @@ int hist_single_p4(const void* bins, const void* w, void* out, int F,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bins), nb, static_cast<const long long*>(w),
       2 * nb, static_cast<unsigned long long*>(out), F, 2 * nb, B, fg,
-      chunk_rows, vec);
+      chunk_rows, vec, nullptr, 1);
+  return (int)cudaGetLastError();
+}
+
+// The model-axis form (the reference's vmap of build_histogram_pallas):
+// L lanes' segments, each with its own bins view, weights and row count,
+// all with the strides (sf, sn) and F features.  lanes: device (4, L)
+// int64 table [bins pointer, weights pointer, rows, weight row stride];
+// out (L, F, B, 3) int64, zero-filled by the caller.  Grid (chunks,
+// ceil(F / fg), L), the chunks sized for the longest segment; layout as
+// in hist_single, word and 32-bit loads taken per lane where its bins
+// pointer is 4-byte aligned.  Lane l's blocks are the single form's
+// blocks on its segment, so its sums are the single launch's, bit for
+// bit.
+int hist_single_lanes(const void* lanes, long long sf, long long sn,
+                      void* out, int L, int F, int B, int fg, int chunks,
+                      long long chunk_rows, int threads, int layout,
+                      void* stream) {
+  if (F <= 0 || L <= 0) return 0;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(fg, B);
+  const dim3 grid(chunks, (F + fg - 1) / fg, L);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long* t = static_cast<const long long*>(lanes);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  int err;
+  if (layout < 2) {
+    if ((err = prepare(hist_single_rows, smem)) != 0) return err;
+    hist_single_rows<<<grid, threads, smem, st>>>(nullptr, sf, sn, nullptr, 0,
+                                                  o, F, 0, B, fg, chunk_rows,
+                                                  layout == 1, t, L);
+  } else {
+    if ((err = prepare(hist_single_feats<false>, smem)) != 0) return err;
+    hist_single_feats<false><<<grid, threads, smem, st>>>(
+        nullptr, sf, nullptr, 0, o, F, 0, B, fg, chunk_rows, layout == 3, t,
+        L);
+  }
   return (int)cudaGetLastError();
 }
 

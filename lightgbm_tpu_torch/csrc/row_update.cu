@@ -154,9 +154,21 @@ row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
                   const int* __restrict__ tab, int* __restrict__ rl_out,
                   int8_t* __restrict__ ch_out, const int* __restrict__ dec,
                   const int* __restrict__ member, int W, long long N,
-                  int vec) {
+                  int vec, const long long* __restrict__ lanes, int L) {
   __shared__ Table T;
   __shared__ Ext<kExt> E;
+  if (lanes) {   // the model-axis form: lane blockIdx.y's inputs
+    const int z = blockIdx.y;
+    feats = reinterpret_cast<const int*>(lanes[z]);
+    rl_in = reinterpret_cast<const int*>(lanes[L + z]);
+    tab = reinterpret_cast<const int*>(lanes[2 * L + z]);
+    if constexpr (kExt) {
+      dec = reinterpret_cast<const int*>(lanes[3 * L + z]);
+      member = reinterpret_cast<const int*>(lanes[4 * L + z]);
+    }
+    if (!kTrial) rl_out += (long long)z * N;
+    ch_out += (long long)z * N;
+  }
   for (int i = threadIdx.x; i < 8 * W; i += blockDim.x) T.tab[i] = tab[i];
   if constexpr (kExt) {
     for (int i = threadIdx.x; i < 5 * W; i += blockDim.x) E.dec[i] = dec[i];
@@ -277,14 +289,20 @@ row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
   }
 }
 
+// lanes: null for one lane, else the device table (3, L), or (5, L) in
+// the categorical / EFB form, of each lane's feats, rl, tab[, dec,
+// member] pointers, with rl_out and ch_out the lanes' (L, N).
 template <bool kTrial, bool kExt>
 int launch(const void* bins, long long fstride, int F, const void* feats,
            const void* rl, const void* tab, void* rl_out, void* ch_out,
            const void* dec, const void* member, int W, long long N,
-           int packed, int vec, void* stream) {
+           int packed, int vec, void* stream,
+           const long long* lanes = nullptr, int L = 1) {
   if (W > kMaxW || (F <= 0 && W > 0)) return (int)cudaErrorInvalidValue;
-  if (kExt && (packed || !dec || !member)) return (int)cudaErrorInvalidValue;
-  if (N <= 0) return 0;
+  if (kExt && (packed || ((!dec || !member) && !lanes)))
+    return (int)cudaErrorInvalidValue;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
+  if (N <= 0 || L <= 0) return 0;
   auto* kern = packed ? row_update_kernel<kTrial, true, false>
                       : row_update_kernel<kTrial, false, kExt>;
   // one resident round: as many blocks as the SMs hold, or fewer
@@ -298,14 +316,16 @@ int launch(const void* bins, long long fstride, int F, const void* feats,
   if (err != cudaSuccess) return (int)err;
   const long long span = (long long)kThreads * kQuads;
   const long long need = ((N + 3) / 4 + span - 1) / span;
-  const long long most = per_sm * sms > 0 ? (long long)per_sm * sms : 1;
+  // the lanes share the resident round
+  long long most = per_sm * sms > 0 ? (long long)per_sm * sms : 1;
+  most = most / L > 0 ? most / L : 1;
   const int blocks = (int)(need < most ? need : most);
-  kern<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<dim3(blocks, L), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bins), fstride, F,
       static_cast<const int*>(feats), static_cast<const int*>(rl),
       static_cast<const int*>(tab), static_cast<int*>(rl_out),
       static_cast<int8_t*>(ch_out), static_cast<const int*>(dec),
-      static_cast<const int*>(member), W, N, vec);
+      static_cast<const int*>(member), W, N, vec, lanes, L);
   return (int)cudaGetLastError();
 }
 
@@ -346,6 +366,44 @@ int wave_trial_channels(const void* bins, long long fstride, int F,
   return launch<true, false>(bins, fstride, F, feats, rl, tab, nullptr,
                              ch_out, nullptr, nullptr, W, N, packed, vec,
                              stream);
+}
+
+// The model-axis forms (the reference's vmap of the entry points above,
+// the batch axis a leading grid dimension): L lanes apply their own W
+// splits to their own row->leaf vectors, reading the shared bin matrix in
+// place.  lanes: device int64 table (3, L) [feats, rl, tab pointers of
+// lane l], (5, L) with [dec, member] in the categorical / EFB form;
+// rl_out and ch_out (L, N).  vec: every lane's rl 16-byte aligned and N a
+// multiple of 4.  Grid (blocks, L): lane l's blocks build lane l's table
+// and walk its rows as the single form does.
+int wave_row_update_lanes(const void* bins, long long fstride, int F,
+                          const void* lanes, void* rl_out, void* ch_out,
+                          int L, int W, long long N, int packed, int vec,
+                          void* stream) {
+  return launch<false, false>(bins, fstride, F, nullptr, nullptr, nullptr,
+                              rl_out, ch_out, nullptr, nullptr, W, N, packed,
+                              vec, stream,
+                              static_cast<const long long*>(lanes), L);
+}
+
+int wave_row_update_ext_lanes(const void* bins, long long fstride, int F,
+                              const void* lanes, void* rl_out, void* ch_out,
+                              int L, int W, long long N, int packed, int vec,
+                              void* stream) {
+  return launch<false, true>(bins, fstride, F, nullptr, nullptr, nullptr,
+                             rl_out, ch_out, nullptr, nullptr, W, N, packed,
+                             vec, stream,
+                             static_cast<const long long*>(lanes), L);
+}
+
+int wave_trial_channels_lanes(const void* bins, long long fstride, int F,
+                              const void* lanes, void* ch_out, int L, int W,
+                              long long N, int packed, int vec,
+                              void* stream) {
+  return launch<true, false>(bins, fstride, F, nullptr, nullptr, nullptr,
+                             nullptr, ch_out, nullptr, nullptr, W, N, packed,
+                             vec, stream,
+                             static_cast<const long long*>(lanes), L);
 }
 
 }  // extern "C"

@@ -59,9 +59,9 @@ import torch
 from ..efb import make_bundle_decode, make_expand_hist
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
 from ..ops.histogram import FxWeights, fx_to_f32, pack_weights
-from ..ops.histogram_cuda import hist_single
 from ..ops.split import (BIG, NEG_INF, SplitParams, cumsum_bins, leaf_gain,
                          leaf_output, leaf_output_smoothed, node_draws)
+from . import lanes as kc
 from .endgame import patch_child_pointers, write_split_records
 from .serial import (CommStrategy, GrownTree, basic_bounds, child_outputs,
                      interaction_allowed, interaction_groups_mask)
@@ -92,7 +92,9 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
     penalties.  ``forced_splits`` are BFS (leaf, inner feature, bin)
     triples, ``interaction_groups`` tuples of inner features and
     ``feature_contri`` (F,) gain scales.  The histogram wrapper runs the
-    CUDA kernel on a card and its plain version on the CPU."""
+    CUDA kernel on a card and its plain version on the CPU.  ``grow.gen``
+    is the same grower as a generator of kernel requests
+    (learner/lanes.py)."""
     if max_bins > 256:
         raise NotImplementedError("uint16 bin codes are not ported to "
                                   "lightgbm_tpu_torch yet (ROADMAP queue 1): "
@@ -109,11 +111,11 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
     use_ic = len(interaction_groups) > 0
     n_forced = min(len(forced_splits), L - 1)
 
-    def grow(X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-             bag_mask: torch.Tensor, num_bins: torch.Tensor,
-             has_nan: torch.Tensor, feature_mask: torch.Tensor,
-             node_key=None, is_cat=None, monotone=None,
-             cegb_penalty=None) -> GrownTree:
+    def grow_gen(X: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                 bag_mask: torch.Tensor, num_bins: torch.Tensor,
+                 has_nan: torch.Tensor, feature_mask: torch.Tensor,
+                 node_key=None, is_cat=None, monotone=None,
+                 cegb_penalty=None):
         dev = X.device
         n = X.shape[0]
         G = X.shape[1]
@@ -150,8 +152,9 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
         def hist_of(start: int, cnt: int) -> torch.Tensor:
             """(G, Bb, 3) int64 histogram of one contiguous segment."""
             e = start + cnt
-            return hist_single(P[start:e].t(), FxWeights(Wt[:, start:e], inv),
-                               num_bins=Bb)
+            return (yield kc.single(P[start:e].t(),
+                                    FxWeights(Wt[:, start:e], inv),
+                                    num_bins=Bb))
 
         def scan_form(h: torch.Tensor) -> torch.Tensor:
             """A leaf's (F, B, 3) f32 scan histogram: expanded to feature
@@ -194,7 +197,7 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
         leaf_depth = [0] * L
 
         # ---- root ----------------------------------------------------------
-        root_hist = hist_of(0, n)
+        root_hist = yield from hist_of(0, n)
         root_sum = fx_to_f32(Wt.sum(dim=1), inv)
         zero = torch.zeros((), dtype=_F32, device=dev)
         root_out = leaf_output_smoothed(root_sum[0], root_sum[1],
@@ -300,8 +303,8 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
             nr = cnt - nl
 
             # ---- smaller child by kernel, larger by subtraction ----------
-            small = hist_of(start, nl) if left_smaller else \
-                hist_of(start + nl, nr)
+            small = yield from (hist_of(start, nl) if left_smaller else
+                                hist_of(start + nl, nr))
             big = s["hists"][best] - small
             h_l, h_r = (small, big) if left_smaller else (big, small)
 
@@ -389,4 +392,8 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
             row_leaf=row_leaf, hist_passes=0, host_syncs=syncs,
             cat_member=s["cat_member"] if any_cat else None)
 
+    def grow(*args, **kwargs) -> GrownTree:
+        return kc.run_single(grow_gen(*args, **kwargs))
+
+    grow.gen = grow_gen
     return grow

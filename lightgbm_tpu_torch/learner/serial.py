@@ -556,27 +556,34 @@ class SerialTreeLearner:
                           config.tpu_pallas_pipeline != "blockspec")
         self._x_src = self._Xp = None
         self._quant_calls = 0
-        grower = dict(num_leaves=int(config.num_leaves),
-                      num_features=num_features, max_bins=self.max_bins,
-                      max_depth=int(config.max_depth),
-                      split_params=self.split_params)
-        options = dict(forced_splits=tuple(tuple(f) for f in forced_splits),
-                       interaction_groups=tuple(
-                           tuple(g) for g in interaction_groups),
-                       feature_contri=tuple(float(v)
-                                            for v in feature_contri))
+        self._grower = dict(num_leaves=int(config.num_leaves),
+                            num_features=num_features,
+                            max_bins=self.max_bins,
+                            max_depth=int(config.max_depth))
+        self._options = dict(
+            forced_splits=tuple(tuple(f) for f in forced_splits),
+            interaction_groups=tuple(tuple(g) for g in interaction_groups),
+            feature_contri=tuple(float(v) for v in feature_contri))
+        self._mc_inter = mc_inter
+        self._cegb_lazy = tuple(float(v) for v in cegb_lazy)
+        # the lanes' growers share the speculative ramp's row subsample
+        self._subsample = {}
+        self._lane_grows = {}
+        self._grow = self._make_grow(self.split_params)
+
+    def _make_grow(self, sp: SplitParams):
+        """This learner's grower with the scan parameters ``sp``."""
+        config, mode = self.config, self.grow_mode
         if mode == "masked":
-            self._grow = make_grow_fn(**grower)
-            return
+            return make_grow_fn(split_params=sp, **self._grower)
         if mode == "partition":
             from .partitioned import make_partitioned_grow_fn
-            self._grow = make_partitioned_grow_fn(efb=self._efb, **grower,
-                                                  **options)
-            return
+            return make_partitioned_grow_fn(efb=self._efb, split_params=sp,
+                                            **self._grower, **self._options)
         from ..ops.quantize import quant_levels
         gq_max, hq_max = quant_levels(int(config.num_grad_quant_bins))
         from .wave import make_wave_grow_fn
-        self._grow = make_wave_grow_fn(
+        return make_wave_grow_fn(
             wave_size=int(config.tpu_wave_size), quantized=self.quantized,
             gq_max=gq_max, hq_max=hq_max,
             stochastic=bool(config.stochastic_rounding),
@@ -584,9 +591,20 @@ class SerialTreeLearner:
             spec_tol=float(config.tpu_spec_tolerance),
             exact_endgame=bool(config.tpu_exact_endgame),
             renew_leaf=bool(config.quant_train_renew_leaf), pack4=self.pack4,
-            efb=self._efb, mc_inter=mc_inter,
-            cegb_lazy=tuple(float(v) for v in cegb_lazy), **grower,
-            **options)
+            efb=self._efb, mc_inter=self._mc_inter,
+            cegb_lazy=self._cegb_lazy, subsample_cache=self._subsample,
+            split_params=sp, **self._grower, **self._options)
+
+    def lane_grower(self, sp: SplitParams):
+        """The grower of a lane whose swept scan parameters are ``sp``
+        (the reference builds its vmapped grower from each lane's
+        parameters, multitrain/batched.py:529-534); lanes with equal
+        parameters share one."""
+        if sp == self.split_params:
+            return self._grow
+        if sp not in self._lane_grows:
+            self._lane_grows[sp] = self._make_grow(sp)
+        return self._lane_grows[sp]
 
     def train(self, X_T: torch.Tensor, grad: torch.Tensor,
               hess: torch.Tensor, sample_mask: torch.Tensor,
@@ -606,6 +624,46 @@ class SerialTreeLearner:
         by-node and extra-trees streams (zeros when None); both are host
         keys (utils/random.py).  ``cegb_penalty`` (F,) is the coupled
         CEGB penalty of the features not used yet (zeros when None)."""
+        args, kw, n, pad = self._inputs(X_T, grad, hess, sample_mask,
+                                        feature_mask, node_key, quant_key,
+                                        cegb_penalty)
+        grown = self._grow(*args, **kw)
+        if self._use_lazy:
+            grown, self._lazy_used = grown
+        return grown._replace(row_leaf=grown.row_leaf[:n]) if pad else grown
+
+    def train_lanes(self, X_T: torch.Tensor, lanes: list,
+                    split_params: list) -> list:
+        """Grow one tree per lane in lockstep (learner/lanes.py
+        ``run_lanes``): lane l's grower is :meth:`lane_grower` of
+        ``split_params[l]`` and its inputs the :meth:`train` keyword
+        arguments ``lanes[l]`` (grad, hess, sample_mask, feature_mask,
+        node_key, quant_key), over the one shared bin matrix ``X_T``, and
+        ``own_rows``, the rows of a lane that trains on a subset (its draws
+        over row positions are then a run's on those rows alone; the wave
+        grower's ``own_rows``).
+        Each kernel the lanes wait on launches once, in its model-axis
+        form, for all of them; each lane's tree is the one :meth:`train`
+        grows from its inputs."""
+        from .lanes import run_lanes
+        if self.grow_mode == "masked" or self._use_lazy:
+            raise ValueError("the masked grower and lazy CEGB grow no "
+                             "lanes")
+        gens, cut = [], []
+        for lane, sp in zip(lanes, split_params):
+            args, kw, n, pad = self._inputs(X_T, **lane)
+            gens.append(self.lane_grower(sp).gen(*args, **kw))
+            cut.append(n if pad else None)
+        return [t if c is None else t._replace(row_leaf=t.row_leaf[:c])
+                for t, c in zip(run_lanes(gens), cut)]
+
+    def _inputs(self, X_T, grad, hess, sample_mask, feature_mask=None,
+                node_key=None, quant_key=None, cegb_penalty=None,
+                own_rows=None):
+        """The grower's arguments for one tree: the per-row vectors padded
+        to the bin matrix's rows, the defaults filled in, the partitioned
+        grower's row-major copy.  Returns (args, kwargs, real rows,
+        padded rows)."""
         n = grad.shape[0]
         pad = X_T.shape[1] * (2 if self.pack4 else 1) - n
         if feature_mask is None:
@@ -631,36 +689,29 @@ class SerialTreeLearner:
                     self.split_params.feature_fraction_bynode < 1.0:
                 log_warning("cegb / feature_fraction_bynode are not applied "
                             "on the pool-less fallback grower")
-            grown = self._grow(X_T, grad, hess, sample_mask, self.num_bins,
-                               self.has_nan, feature_mask,
-                               is_cat=self.is_cat, monotone=self.monotone)
-        elif self.grow_mode == "partition":
-            grown = self._grow(self._Xp, grad, hess, sample_mask,
-                               self.num_bins, self.has_nan, feature_mask,
-                               node_key, is_cat=self.is_cat,
-                               monotone=self.monotone,
-                               cegb_penalty=cegb_penalty)
-        else:
-            if self.quantized and quant_key is None:
-                self._quant_calls += 1
-                quant_key = host_key(self._quant_calls)
-            lazy = {}
-            if self._use_lazy:
-                # the used-feature bitmap lasts for the whole training run
-                # (the reference's feature_used_in_data_)
-                from .wave import lazy_bitmap_init
-                if self._lazy_used is None:
-                    self._lazy_used = lazy_bitmap_init(
-                        self.num_features, X_T.shape[1] *
-                        (2 if self.pack4 else 1), self.device)
-                lazy["lazy_used"] = self._lazy_used
-            grown = self._grow(X_T, grad, hess, sample_mask, self.num_bins,
-                               self.has_nan, feature_mask, quant_key,
-                               node_key, is_cat=self.is_cat,
-                               monotone=self.monotone,
-                               cegb_penalty=cegb_penalty, **lazy)
-            if self._use_lazy:
-                grown, self._lazy_used = grown
-        if pad:
-            grown = grown._replace(row_leaf=grown.row_leaf[:n])
-        return grown
+            return ((X_T, grad, hess, sample_mask, self.num_bins,
+                     self.has_nan, feature_mask),
+                    dict(is_cat=self.is_cat, monotone=self.monotone), n, pad)
+        if self.grow_mode == "partition":
+            return ((self._Xp, grad, hess, sample_mask, self.num_bins,
+                     self.has_nan, feature_mask, node_key),
+                    dict(is_cat=self.is_cat, monotone=self.monotone,
+                         cegb_penalty=cegb_penalty), n, pad)
+        if self.quantized and quant_key is None:
+            self._quant_calls += 1
+            quant_key = host_key(self._quant_calls)
+        lazy = {}
+        if self._use_lazy:
+            # the used-feature bitmap lasts for the whole training run
+            # (the reference's feature_used_in_data_)
+            from .wave import lazy_bitmap_init
+            if self._lazy_used is None:
+                self._lazy_used = lazy_bitmap_init(
+                    self.num_features, X_T.shape[1] *
+                    (2 if self.pack4 else 1), self.device)
+            lazy["lazy_used"] = self._lazy_used
+        return ((X_T, grad, hess, sample_mask, self.num_bins, self.has_nan,
+                 feature_mask, quant_key, node_key),
+                dict(is_cat=self.is_cat, monotone=self.monotone,
+                     cegb_penalty=cegb_penalty, own_rows=own_rows, **lazy),
+                n, pad)

@@ -68,24 +68,24 @@ data-parallel strategies.
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from ..dataset import pad_rows
 from ..efb import make_expand_hist
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
-from ..ops.histogram import (PACK4_MAX_BINS, histogram_subtract,
-                             pack_weights)
-from ..ops.histogram_cuda import (LEAF_CHANNELS, Q_LEAF_CHANNELS,
-                                  build_histogram, build_histogram_leaves,
-                                  build_histogram_leaves_q8, split_decode,
-                                  wave_row_update, wave_trial_channels)
+from ..ops.histogram import (PACK4_MAX_BINS, fx_to_f32, histogram_subtract,
+                             pack_bins4, pack_weights)
+from ..ops.histogram_cuda import LEAF_CHANNELS, Q_LEAF_CHANNELS, split_decode
 from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
 from ..ops.fmath import _fma
-from ..ops.split import (BIG, NEG_INF, SplitParams, cumsum_bins, leaf_gain,
+from ..ops.split import (BIG, FORCED_NAN_LEFT_REFUSED, NEG_INF, SplitParams,
+                         cumsum_bins, leaf_gain,
                          leaf_output, leaf_output_smoothed,
                          local_best_candidates, node_draws)
+from . import lanes as kc
 from .endgame import patch_child_pointers, write_split_records
 from .serial import (GrownTree, basic_bounds, child_outputs,
                      interaction_allowed, interaction_groups_mask)
@@ -186,7 +186,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                       pack4: bool = False, efb=None, mc_inter: bool = False,
                       forced_splits: tuple = (),
                       interaction_groups: tuple = (),
-                      feature_contri: tuple = (), cegb_lazy: tuple = ()):
+                      feature_contri: tuple = (), cegb_lazy: tuple = (),
+                      subsample_cache: Optional[dict] = None):
     """Build the wave single-tree grower.
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
@@ -210,7 +211,21 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     the nibble-packed (F, N/2) matrix (ops/histogram.py ``pack_bins4``).
     The reference's ``tpu_pallas_pipeline`` knob reaches the grower only
     through ``pack4`` (the learner turns packing off for ``blockspec``);
-    the kernels have one form per bin layout."""
+    the kernels have one form per bin layout.
+
+    ``own_rows`` (a sorted (n,) int64 tensor, or None = every row) are
+    the rows a masked lane of a batch trains on (multitrain/batched.py
+    ``sample_masks``; every other row has zero weight): the draws over row
+    positions (stochastic rounding and the speculative ramp's subsample)
+    are then those of a run on the compacted ``n`` rows, so the lane grows
+    the tree that run grows.
+
+    ``grow.gen`` is the same grower as a generator of kernel requests
+    (learner/lanes.py), which ``grow`` drives with single launches and
+    the batch trainer drives in lockstep with other lanes.
+    ``subsample_cache`` (a dict shared by the lanes' growers) keeps the
+    speculative ramp's row subsample of the bin matrix, so the lanes'
+    ramp passes read one matrix and share launches."""
     any_cat = bool(split_params.any_cat)
     use_efb = efb is not None
     if pack4 and (max_bins > PACK4_MAX_BINS or any_cat or use_efb):
@@ -253,13 +268,15 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     forced_waves = forced_wave_groups(forced_splits, L, W)
     mc_inter = mc_inter and use_mc
 
-    def grow(X_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
-             bag_mask: torch.Tensor, num_bins: torch.Tensor,
-             has_nan: torch.Tensor, feature_mask: torch.Tensor,
-             quant_key=None, node_key=None, is_cat=None, monotone=None,
-             cegb_penalty=None, lazy_used=None):
+    def grow_gen(X_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
+                 bag_mask: torch.Tensor, num_bins: torch.Tensor,
+                 has_nan: torch.Tensor, feature_mask: torch.Tensor,
+                 quant_key=None, node_key=None, is_cat=None, monotone=None,
+                 cegb_penalty=None, lazy_used=None, own_rows=None):
         dev = X_T.device
         n = X_T.shape[1] * 2 if pack4 else X_T.shape[1]
+        # the padded row count of a run on the lane's own rows
+        n_own = n if own_rows is None else pad_rows(own_rows.shape[0])
         nb_full = num_bins.to(_I32)
         hn_full = has_nan
         ic_full = (is_cat.to(torch.bool) if any_cat and is_cat is not None
@@ -287,8 +304,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             bundle column, decodes it and decides categorical splits by
             the (W, B) ``member`` table."""
             if not ext_rows:
-                return wave_row_update(bins, rl, tab, feats=feats.to(_I32),
-                                       bins_packed=pack4)
+                return (yield kc.row_update(
+                    bins, rl, tab, feats=feats.to(_I32), bins_packed=pack4))
             fl = feats.long()
             if use_efb:
                 col = efb.f_bundle[fl]
@@ -298,13 +315,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 col = feats
                 dec = (torch.zeros_like(feats), nb_full[fl],
                        torch.zeros_like(feats), torch.ones_like(feats))
-            return wave_row_update(
+            return (yield kc.row_update(
                 bins, rl, tab, feats=col.to(_I32),
-                decode=split_decode(ic_full[fl], member, *dec))
+                decode=split_decode(ic_full[fl], member, *dec)))
 
         gm = (grad * bag_mask).float()
         hm = (hess * bag_mask).float()
-        cnt_mask = (bag_mask > 0).float()
         if quantized:
             # per-tree linear quantization scales
             # (gradient_discretizer.cpp DiscretizeGradients)
@@ -313,7 +329,9 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             qscales = dequant_scales(g_scale, h_scale)
             w_all = quantize_wch(grad, hess, bag_mask, g_scale, h_scale,
                                  quant_key, gq_max=gq_max, hq_max=hq_max,
-                                 stochastic=stochastic)
+                                 stochastic=stochastic,
+                                 own=(None if own_rows is None
+                                      else (own_rows, n_own)))
         else:
             w_all = pack_weights(grad, hess, bag_mask)
 
@@ -323,23 +341,23 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
         def hist_kernel(bins, w, ch):
             if quantized:
-                return build_histogram_leaves_q8(bins, w, ch, num_bins=Bb,
-                                                 bins_packed=pack4)
-            return build_histogram_leaves(bins, w, ch, num_bins=Bb,
-                                          bins_packed=pack4)
+                return (yield kc.leaves_q8(bins, w, ch, num_bins=Bb,
+                                           bins_packed=pack4))
+            return (yield kc.leaves_fx(bins, w, ch, num_bins=Bb,
+                                       bins_packed=pack4))
 
         def hist_waves(ch, k=W, with_totals=False):
             """(k, F, Bb, 3) histograms of the wave's leaf channels
             (quantized: exact int32 channel sums) and, optionally, the
             (k, 3) f32 channel totals from feature 0's bins."""
-            hk = hist_kernel(X_T, w_all, ch)[:k]
+            hk = (yield from hist_kernel(X_T, w_all, ch))[:k]
             if not with_totals:
                 return hk
             return hk, dq(hk[:, 0].sum(dim=1).to(hk.dtype))
 
         def many_candidates(hists, sums, fms, sums_exact=None,
                             rand_bins=None, bounds=None, depths=None,
-                            pouts=None, cegb=None):
+                            pouts=None, cegb=None, nan_left_refused=False):
             """Best-split candidates for a batch of leaves: the scan on
             the dequantized histograms, expanded to feature space under
             EFB (the reference's ``_scan_hists``, wave.py:591-599), with
@@ -351,7 +369,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 fms, sp, sums_exact, rand_bins,
                 ic_full if any_cat else None, monotone=mono, bound=bounds,
                 depth=depths, cegb_penalty=cegb_full if cegb is None
-                else cegb, gain_scale=contri, parent_out=pouts)
+                else cegb, gain_scale=contri, parent_out=pouts,
+                nan_left_refused=nan_left_refused)
 
         fm_row = feature_mask.to(torch.bool)
 
@@ -409,8 +428,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             wave.py:861-1136).  Replaces the root pass and the first
             ~log2(W) ramp waves."""
             Kc, K1 = W, W - 1
-            stride = max(1, n // max(int(spec_subsample), 4096))
-            n_ss = max((n // stride) // 4096 * 4096, 4096)
+            stride = max(1, n_own // max(int(spec_subsample), 4096))
+            n_ss = max((n_own // stride) // 4096 * 4096, 4096)
 
             def subsample(a):
                 """Every ``stride``-th row of ``a`` (..., n), the first
@@ -423,8 +442,36 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                     return a[:, :n_ss // 2].reshape(a.shape[0], n_ss)
                 return a[:, ::stride][:, :n_ss].contiguous()
 
-            X_ss = (X_T[:, ::stride][:, :n_ss // 2].contiguous() if pack4
-                    else subsample(X_T))
+            if own_rows is not None:
+                # the subsample's positions among the lane's own rows
+                # (positions past them are the compacted run's zero
+                # padding), gathered from the shared matrix: per lane
+                if pack4:
+                    j = torch.arange(0, n_own // 2, stride,
+                                     device=dev)[:n_ss // 2]
+                    q = torch.stack([2 * j, 2 * j + 1], 1).reshape(-1)
+                else:
+                    q = torch.arange(0, n_own, stride, device=dev)[:n_ss]
+                pad = q >= own_rows.shape[0]
+                p = own_rows[q.clamp(max=own_rows.shape[0] - 1)]
+                if pack4:
+                    X_ss = (X_T[:, p // 2] >> (4 * (p % 2)).to(
+                        torch.uint8)) & 15
+                    X_ss = pack_bins4(X_ss.masked_fill(pad, 0))
+                else:
+                    X_ss = X_T[:, p].masked_fill(pad, 0)
+
+                def subsample(a):
+                    return a[:, p].masked_fill(pad, 0)
+            else:
+                src, X_ss = (subsample_cache or {}).get(
+                    (stride, n_ss), (None, None))
+                if src is not X_T:   # a strong ref: ids can be recycled
+                    X_ss = (X_T[:, ::stride][:, :n_ss // 2].contiguous()
+                            if pack4 else subsample(X_T))
+                    if subsample_cache is not None:
+                        subsample_cache.clear()
+                        subsample_cache[(stride, n_ss)] = (X_T, X_ss)
             w_ss = (subsample(w_all) if quantized
                     else w_all._replace(w=subsample(w_all.w)))
             nan_of = torch.where(hn_full, nb_full - 1,
@@ -446,7 +493,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             Rm = torch.zeros((K1, Kc), dtype=torch.bool, device=dev)
             tabs = []
             for _t in range(max(1, int(math.ceil(math.log2(Kc))))):
-                h_ss = hist_kernel(X_ss, w_ss, rl_ss.to(torch.int8))[:Kc]
+                h_ss = (yield from hist_kernel(X_ss, w_ss,
+                                               rl_ss.to(torch.int8)))[:Kc]
                 sums_pl = dq(h_ss[:, 0].sum(dim=1).to(h_ss.dtype))
                 cnds = many_candidates(h_ss, sums_pl, fm_k)
                 g = torch.where(jar < nlp, cnds[0], neg_inf)
@@ -481,18 +529,18 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                     thr_s, fnan_s, dl_s, torch.ones_like(thr_s),
                     sel_l.to(_I32), newids, sel.to(_I32),
                     torch.zeros_like(thr_s)]).contiguous()
-                rl_ss, _ = route(X_ss, rl_ss, tab, feats_cl)
+                rl_ss, _ = yield from route(X_ss, rl_ss, tab, feats_cl)
                 tabs.append((tab, feats_cl))
                 nlp = nlp + int(prefix[-1])
 
             # route ALL rows through the provisional tree
             rl_full = torch.zeros((n,), dtype=_I32, device=dev)
             for tab, feats_cl in tabs:
-                rl_full, _ = route(X_T, rl_full, tab, feats_cl)
+                rl_full, _ = yield from route(X_T, rl_full, tab, feats_cl)
 
             # ONE full-data pass: exact per-prov-leaf channel sums
-            h_ch, leaf_tot = hist_waves(rl_full.to(torch.int8), k=Kc,
-                                        with_totals=True)
+            h_ch, leaf_tot = yield from hist_waves(rl_full.to(torch.int8),
+                                                   k=Kc, with_totals=True)
             hf_ch = dq(h_ch)
 
             # exact node aggregates: sums over descendant leaves in leaf
@@ -602,7 +650,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             zch = torch.zeros((n,), dtype=torch.int8, device=dev)
             root_exact = None
             if quantized:
-                rh, rtot = hist_waves(zch, k=1, with_totals=True)
+                rh, rtot = yield from hist_waves(zch, k=1, with_totals=True)
                 root_hist, root_sum = rh[0], rtot[0]
                 # the dequantized totals unrounded (f32(int) x f32 scale
                 # is exact in float64): the reference's jitted root scan
@@ -610,8 +658,11 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 root_exact = (root_hist[0].sum(dim=0).float().double() *
                               qscales.double())
             else:
-                root_hist = hist_waves(zch, k=1)[0]
-                root_sum = torch.stack([gm.sum(), hm.sum(), cnt_mask.sum()])
+                root_hist = (yield from hist_waves(zch, k=1))[0]
+                # the fixed-point totals: order-free, so a tree does not
+                # depend on the rows' order or on zero-weight rows (a
+                # masked fold grows the tree of its row subset)
+                root_sum = fx_to_f32(w_all.w.sum(dim=1), w_all.inv_scale)
             root_out = leaf_output_smoothed(root_sum[0], root_sum[1],
                                             root_sum[2], zf, sp)
             fm0, rb0 = node_inputs(torch.full((1,), 2 * L,
@@ -652,9 +703,9 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             used = (lazy_used if lazy_used is not None
                     else lazy_bitmap_init(F, n, dev))
         if use_spec:
-            s, num_leaves_now, hist_passes = spec_state()
+            s, num_leaves_now, hist_passes = yield from spec_state()
         else:
-            s, num_leaves_now, hist_passes = root_state()
+            s, num_leaves_now, hist_passes = yield from root_state()
         if mc_inter:
             # each leaf's bin-space region box, on the host: the wave's
             # intermediate refinement runs there
@@ -723,10 +774,11 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 thr, f_nan_bin, dleft.to(_I32), left_smaller.to(_I32),
                 sl.to(_I32), new_ids, sel.to(_I32),
                 torch.zeros_like(thr)]).contiguous()
-            s["row_leaf"], ch = route(X_T, s["row_leaf"], tab, feat, member)
+            s["row_leaf"], ch = yield from route(X_T, s["row_leaf"], tab, feat,
+                                                 member)
 
             # ---- one kernel pass: all W smaller-child histograms ----
-            hist_small = hist_waves(ch)
+            hist_small = yield from hist_waves(ch)
             hist_big = histogram_subtract(s["hists"][sl], hist_small)
             ls4 = left_smaller.view(W, 1, 1, 1)
             hist_l = torch.where(ls4, hist_small, hist_big)
@@ -764,10 +816,15 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 _set_drop(s["leaf_path"], idx2, path2, v2)
             cegb2 = (lazy_costs(s, rl_old, sel_h, sl, feat, idx2, v2,
                                 sums2) if use_lazy else None)
+            # the reference's forced waves recheck the NaN-left gain with
+            # the other fused product at some widths (ops/split.py
+            # FORCED_NAN_LEFT_REFUSED)
             cands = many_candidates(
                 hists2, sums2, fm2, rand_bins=rb2, bounds=bounds2,
                 depths=torch.cat([child_depth, child_depth]),
-                pouts=torch.cat([out_l, out_r]), cegb=cegb2)
+                pouts=torch.cat([out_l, out_r]), cegb=cegb2,
+                nan_left_refused=(forced is not None and
+                                  W in FORCED_NAN_LEFT_REFUSED))
             depth_ok = (torch.ones_like(sel) if max_depth <= 0
                         else child_depth < max_depth)
             cg = torch.where(torch.cat([depth_ok, depth_ok]) &
@@ -917,17 +974,17 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             return go
 
         for fw in forced_waves:      # the ForceSplits prefix
-            num_leaves_now += body(s, num_leaves_now, forced=fw)
+            num_leaves_now += yield from body(s, num_leaves_now, forced=fw)
             hist_passes += 1
         done = False
         while keep_waving(num_leaves_now, done):
-            total_new = body(s, num_leaves_now)
+            total_new = yield from body(s, num_leaves_now)
             num_leaves_now += total_new
             done = total_new == 0
             hist_passes += 1
 
         if use_endgame:
-            num_leaves_now, hist_passes = _endgame(
+            num_leaves_now, hist_passes = yield from _endgame(
                 s, num_leaves_now, hist_passes, X_T, hist_waves,
                 many_candidates, nb_full, hn_full, fm_row, neg_inf)
 
@@ -941,8 +998,9 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             parts = []
             for c in range((L + 255) // 256):
                 m = bag_mask * (rl // 256 == c).to(bag_mask.dtype)
-                parts.append(build_histogram(bins1, grad, hess, m,
-                                             num_bins=256)[0])
+                wfx = pack_weights(grad, hess, m)
+                h1 = yield kc.single(bins1, wfx, num_bins=256)
+                parts.append(fx_to_f32(h1, wfx.inv_scale)[0])
             gh = torch.cat(parts)[:L, :2]
             # under smoothing the recorded (pre-renewal) value stands in
             # for the parent, as in the reference
@@ -995,13 +1053,15 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                    pend["dleft"][sl_], zero,
                                    pend["leaf"][sl_], pend["newid"][sl_],
                                    pend["act"][sl_], zero]).contiguous()
-                rl, _ = wave_row_update(X_T, rl, tab, feats=pend["feat"][sl_],
-                                        bins_packed=pack4)
+                rl, _ = yield kc.row_update(
+                    X_T, rl, tab, feats=pend["feat"][sl_],
+                    bins_packed=pack4)
             return rl
 
         pend, pcnt = pend0(), 0
         while num_leaves_now < L and float(s["cand_gain"].max()) > 0:
-            s["row_leaf"] = apply_pending(s["row_leaf"], pend, pcnt)
+            s["row_leaf"] = yield from apply_pending(s["row_leaf"], pend,
+                                                     pcnt)
             pend, pcnt = pend0(), 0
             vals, sel_leaves = _topk(s["cand_gain"], W)
             sel = vals > 0
@@ -1012,12 +1072,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                 nb_full[feat.long()] - 1,
                                 torch.full_like(feat, -1))
             small = lsum[:, 2] <= rsum[:, 2]
-            ch = wave_trial_channels(
+            ch = yield kc.trial(
                 X_T, s["row_leaf"], sel_leaves,
                 s["cand_bin"][sel_leaves], fnanb,
                 s["cand_dleft"][sel_leaves], small, sel,
                 feats=feat.to(_I32), bins_packed=pack4)
-            bank = hist_waves(ch)
+            bank = yield from hist_waves(ch)
             slot = torch.full((L,), -1, dtype=torch.long, device=dev)
             _set_drop(slot, sel_leaves,
                       torch.arange(W, device=dev), sel)
@@ -1035,7 +1095,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 num_leaves_now += 1
                 pcnt += 1
             hist_passes += 1
-        s["row_leaf"] = apply_pending(s["row_leaf"], pend, pcnt)
+        s["row_leaf"] = yield from apply_pending(s["row_leaf"], pend, pcnt)
         return num_leaves_now, hist_passes
 
     def _commit(s, b, slot_b, bank, nl0, many_candidates, nb_full, hn_full,
@@ -1091,4 +1151,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                        ("newid", new_id), ("act", 1)):
             pend[k_][pcnt] = v_
 
+    def grow(*args, **kwargs):
+        return kc.run_single(grow_gen(*args, **kwargs))
+
+    grow.gen = grow_gen
     return grow

@@ -34,6 +34,7 @@ import torch
 
 __all__ = ["FxWeights", "pack_weights", "fx_to_f32", "build_histogram",
            "scatter_histogram", "build_histogram_leaves",
+           "build_histogram_leaves_lanes", "scatter_histogram_lanes",
            "histogram_subtract", "PACK4_MAX_BINS", "pack_bins4",
            "unpack_bins4"]
 
@@ -103,7 +104,12 @@ def pack_weights(grad: torch.Tensor, hess: torch.Tensor,
 
 
 def fx_to_f32(h: torch.Tensor, inv_scale: torch.Tensor) -> torch.Tensor:
-    """int64 fixed-point sums (..., 3) -> f32 values."""
+    """int64 fixed-point sums (..., 3) -> f32 values; ``inv_scale`` (3,),
+    or (L, 3) for the (L, ..., 3) sums of L lanes, each lane scaled by
+    its own tree's scale."""
+    if inv_scale.dim() == 2:
+        inv_scale = inv_scale.reshape(inv_scale.shape[0],
+                                      *([1] * (h.dim() - 2)), 3)
     return (h.double() * inv_scale).float()
 
 
@@ -159,23 +165,73 @@ def build_histogram_leaves(bins_t: torch.Tensor, w3: torch.Tensor,
     them.  Accumulates in ``acc_dtype`` with ``index_add_`` over a
     flattened (channel, feature, bin) index."""
     k = num_channels
-    f, n = bins_t.shape
     rows = torch.nonzero((ch >= 0) & (ch < k)).squeeze(1)
+    return _scatter_channels(bins_t[:, rows], ch[rows].long(), w3[:3, rows],
+                             num_channels=k, num_bins=num_bins,
+                             acc_dtype=acc_dtype)
+
+
+def _scatter_channels(b: torch.Tensor, c: torch.Tensor, w3: torch.Tensor, *,
+                      num_channels: int, num_bins: int,
+                      acc_dtype: torch.dtype) -> torch.Tensor:
+    """(K, F, B, 3) from M rows: ``b`` (F, M) bins, ``c`` (M,) channels in
+    [0, K), ``w3`` (3, M) weights; one ``index_add_`` over a flattened
+    (channel, feature, bin) index, bins at or above ``num_bins``
+    ignored."""
+    k = num_channels
+    f = b.shape[0]
     out = torch.zeros((k * f * num_bins, 3), dtype=acc_dtype,
-                      device=bins_t.device)
-    if rows.numel() == 0:
+                      device=b.device)
+    if c.numel() == 0:
         return out.reshape(k, f, num_bins, 3)
-    c = ch[rows].long()
-    b = bins_t[:, rows].long()                                 # (F, M)
-    fidx = torch.arange(f, device=bins_t.device).unsqueeze(1)
+    b = b.long()
+    fidx = torch.arange(f, device=b.device).unsqueeze(1)
     idx = (c.unsqueeze(0) * f + fidx) * num_bins + b           # (F, M)
-    w = w3[:3, rows].to(acc_dtype).t()                         # (M, 3)
+    w = w3.to(acc_dtype).t()                                   # (M, 3)
     upd = w.unsqueeze(0).expand(f, -1, -1).reshape(-1, 3)
     ok = (b < num_bins).reshape(-1)
     if not bool(ok.all()):
         idx, upd = idx.reshape(-1)[ok], upd[ok]
     out.index_add_(0, idx.reshape(-1), upd)
     return out.reshape(k, f, num_bins, 3)
+
+
+def build_histogram_leaves_lanes(bins_t: torch.Tensor, w3s, chs, *,
+                                 num_channels: int, num_bins: int,
+                                 acc_dtype: torch.dtype) -> torch.Tensor:
+    """(L, K, F, B, 3): :func:`build_histogram_leaves` of L lanes over the
+    shared ``bins_t``, lane l with its own weights ``w3s[l]`` and channels
+    ``chs[l]``; one ``index_add_`` with the lane folded into the channel
+    index (lane * K + channel)."""
+    k = num_channels
+    bs, cs, ws = [], [], []
+    for lane, (w3, ch) in enumerate(zip(w3s, chs)):
+        rows = torch.nonzero((ch >= 0) & (ch < k)).squeeze(1)
+        bs.append(bins_t[:, rows])
+        cs.append(ch[rows].long() + lane * k)
+        ws.append(w3[:3, rows])
+    lanes = len(cs)
+    h = _scatter_channels(torch.cat(bs, dim=1), torch.cat(cs),
+                          torch.cat(ws, dim=1), num_channels=lanes * k,
+                          num_bins=num_bins, acc_dtype=acc_dtype)
+    return h.reshape(lanes, k, *h.shape[1:])
+
+
+def scatter_histogram_lanes(bins, w3s, *, num_bins: int,
+                            acc_dtype: torch.dtype) -> torch.Tensor:
+    """(L, F, B, 3): :func:`scatter_histogram` of L lanes, lane l's rows
+    the (F, n_l) view ``bins[l]`` with weights ``w3s[l]`` (3, n_l); one
+    ``index_add_`` with the lane as the channel index."""
+    bs, cs, ws = [], [], []
+    for lane, (b, w3) in enumerate(zip(bins, w3s)):
+        rows = w3[:3].any(dim=0).nonzero().squeeze(1)
+        bs.append(b[:, rows])
+        cs.append(torch.full((rows.numel(),), lane, dtype=torch.long,
+                             device=b.device))
+        ws.append(w3[:3, rows])
+    return _scatter_channels(torch.cat(bs, dim=1), torch.cat(cs),
+                             torch.cat(ws, dim=1), num_channels=len(cs),
+                             num_bins=num_bins, acc_dtype=acc_dtype)
 
 
 def histogram_subtract(parent: torch.Tensor,

@@ -73,7 +73,14 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "wave_trial_channels_plain", "reset_launches", "LeafGeometry",
            "SplitDecode", "split_decode", "MEMBER_WORDS",
            "leaf_groups", "leaf_geometry", "SingleGeometry",
-           "single_geometry"]
+           "single_geometry", "trial_tab", "MAX_LANES",
+           "lane_leaf_geometry", "lane_single_geometry",
+           "build_histogram_leaves_q8_lanes",
+           "build_histogram_leaves_q8_lanes_plain",
+           "build_histogram_leaves_lanes", "build_histogram_leaves_lanes_plain",
+           "hist_single_lanes", "hist_single_lanes_plain",
+           "wave_row_update_lanes", "wave_row_update_lanes_plain",
+           "wave_trial_channels_lanes", "wave_trial_channels_lanes_plain"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -85,7 +92,12 @@ Q_LEAF_CHANNELS = 42
 LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_q8_packed4": 0, "hist_leaves": 0,
             "hist_leaves_packed4": 0, "wave_row_update": 0,
-            "wave_row_update_ext": 0, "wave_trial_channels": 0}
+            "wave_row_update_ext": 0, "wave_trial_channels": 0,
+            # the model-axis forms: one launch for every lane of a group
+            "hist_single_lanes": 0, "hist_leaves_q8_lanes": 0,
+            "hist_leaves_q8_lanes_packed4": 0, "hist_leaves_lanes": 0,
+            "hist_leaves_lanes_packed4": 0, "wave_row_update_lanes": 0,
+            "wave_row_update_ext_lanes": 0, "wave_trial_channels_lanes": 0}
 
 
 def reset_launches() -> None:
@@ -725,8 +737,10 @@ def wave_row_update(cols_w: torch.Tensor, rl: torch.Tensor,
     return rl_out, ch
 
 
-def _trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
-               active):
+def trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
+              active):
+    """The (8, W) row-update table of a trial pass: new_right_id =
+    split_leaf, so row->leaf never changes."""
     i32 = torch.int32
     return torch.stack([thr.to(i32), nan_bin.to(i32), default_left.to(i32),
                         left_smaller.to(i32), sel_leaves.to(i32),
@@ -738,7 +752,7 @@ def wave_trial_channels_plain(cols_w, rl, sel_leaves, thr, nan_bin,
                               default_left, left_smaller, active, *,
                               feats=None, bins_packed: bool = False):
     """Plain version: the row update with new_right_id = split_leaf."""
-    tab = _trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
+    tab = trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
                      active)
     return wave_row_update_plain(cols_w, rl, tab, feats=feats,
                                  bins_packed=bins_packed)[1]
@@ -755,7 +769,7 @@ def wave_trial_channels(cols_w: torch.Tensor, rl: torch.Tensor,
     side each row would take, or -1; ``rl`` is not changed (the exact
     endgame's batched pass, learner/wave.py).  ``cols_w``, ``feats`` and
     ``bins_packed`` as in :func:`wave_row_update`."""
-    tab = _trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
+    tab = trial_tab(sel_leaves, thr, nan_bin, default_left, left_smaller,
                      active)
     wn, n = _check_row_args("wave_trial_channels", cols_w, rl, tab, feats,
                             bins_packed)
@@ -766,4 +780,347 @@ def wave_trial_channels(cols_w: torch.Tensor, rl: torch.Tensor,
     _launch_rows("wave_trial_channels", cols_w, rl, tab, feats, bins_packed,
                  None, ch)
     LAUNCHES["wave_trial_channels"] += 1
+    return ch
+
+
+# -- the model-axis (lane) forms ----------------------------------------------
+#
+# The reference batches its entry points under ``jax.vmap``: pallas_call's
+# batching rule makes the batch axis a leading grid dimension
+# (histogram_pallas.py:45-48), which is how multitrain/batched.py runs M
+# models' kernels in one launch.  The forms below take L lanes' inputs,
+# each lane's own tensors (a sequence, or one stacked (L, ...) tensor),
+# over ONE shared bin matrix, and launch once for all of them; the lane is
+# the kernel's leading grid dimension, so each lane's output is bitwise
+# the single launch's on that lane.  The kernels find each lane's inputs
+# through a small device table of pointers (no stacking copy).  Each plain
+# version is one ``index_add_`` with the lane folded into the channel
+# index (histograms) or the single plain version per lane (row update).
+
+# the grid's y / z limit, the most lanes one launch can take; a batch is
+# capped far below it, at ``tpu_multitrain_batch`` lanes (default 256),
+# by multitrain/__init__.py ``train_many``
+MAX_LANES = 65_535
+
+
+def _seq(x) -> list:
+    """A sequence of per-lane tensors from a sequence or a stacked (L, ...)
+    tensor."""
+    return list(x.unbind(0)) if isinstance(x, torch.Tensor) else list(x)
+
+
+def _lane_count(kernel: str, *seqs) -> int:
+    lanes = {len(q) for q in seqs if q is not None}
+    if len(lanes) != 1:
+        raise ValueError(f"{kernel}: every per-lane input needs one entry "
+                         f"per lane, got {sorted(lanes)}")
+    lanes = lanes.pop()
+    if not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"{kernel}: 1 to {MAX_LANES} lanes, got {lanes}")
+    return lanes
+
+
+def _lane_table(rows, dev) -> torch.Tensor:
+    """The kernels' (len(rows), L) int64 table of per-lane pointers and
+    sizes, on the device: copied from pinned host memory without waiting
+    (a copy from pageable memory would hold the host until the stream
+    reaches it)."""
+    return torch.tensor(rows, dtype=torch.int64).pin_memory().to(
+        dev, non_blocking=True)
+
+
+def build_histogram_leaves_q8_lanes_plain(bins_t, wch, ch, *, num_bins: int,
+                                          bins_packed: bool = False):
+    """Plain version: one int64 ``index_add_`` over lanes x channels, cast
+    to int32."""
+    return _plain.build_histogram_leaves_lanes(
+        _unpacked(bins_t, bins_packed), _seq(wch), _seq(ch),
+        num_channels=Q_LEAF_CHANNELS, num_bins=num_bins,
+        acc_dtype=torch.int64).to(torch.int32)
+
+
+def _lane_chunks(units: int, lanes: int, slots: int, lo: int, hi: int) -> int:
+    """Row chunks per lane for a grid of ``units`` block columns x chunks x
+    ``lanes`` over ``slots`` resident blocks: the count in [lo, hi] whose
+    rounds of blocks cost least per chunk of rows (ceil(units x lanes x
+    c / slots) / c), the fewest on a tie (each chunk flushes its
+    histogram once)."""
+    best = None
+    for c in range(max(1, lo), max(lo, hi) + 1):
+        cost = -(-units * lanes * c // slots) / c
+        if best is None or cost < best[0] - 1e-12:
+            best = (cost, c)
+    return best[1]
+
+
+def lane_leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
+                       q8: bool, packed: bool, lanes: int) -> LeafGeometry:
+    """Geometry of the model-axis leaf kernels: the single form's groups
+    (:func:`leaf_geometry`), and per lane the row chunks whose grid of
+    block columns x chunks x lanes fills whole resident rounds best, from
+    the fewest the row cap allows to the single form's count (the single
+    form's chunks times L lanes would queue L rounds; a quarter of them
+    per lane can leave SMs idle)."""
+    geo = leaf_geometry(sms, f, n, num_bins, k, q8, packed)
+    combos = geo.c_groups * geo.f_groups
+    steps = max(1, -(-n // LEAF_ROW_STEP))
+    lo = -(-n // (Q8_MAX_BLOCK_ROWS if q8 else LEAF_MAX_BLOCK_ROWS))
+    c = _lane_chunks(combos, lanes, sms, lo, geo.chunks)
+    chunk_rows = -(-steps // c) * LEAF_ROW_STEP
+    return geo._replace(chunks=max(1, -(-n // chunk_rows)),
+                        chunk_rows=chunk_rows)
+
+
+def lane_single_geometry(sms: int, f: int, rows, num_bins: int,
+                         layout: str) -> SingleGeometry:
+    """Geometry of ``hist_single_lanes`` over lanes of ``rows`` rows each:
+    :func:`single_geometry`'s feature groups and block size for all the
+    lanes' rows as one segment, and one chunk length for every lane,
+    short enough that the lanes' blocks (each lane's rows rounded up to
+    whole chunks) fit one resident round.  The grid's chunk count is the
+    longest lane's; a shorter lane's surplus blocks walk no rows."""
+    total = max(1, sum(rows))
+    geo = single_geometry(sms, f, total, num_bins, layout)
+    per_sm = LEAF_THREADS // geo.threads
+    fit = max(1, sms * per_sm // geo.f_groups - len(rows))
+    chunk_rows = -(-total // fit)
+    chunk_rows = max(SINGLE_MIN_ROWS,
+                     -(-chunk_rows // SINGLE_ROW_STEP) * SINGLE_ROW_STEP)
+    chunk_rows = min(chunk_rows, SINGLE_MAX_BLOCK_ROWS)
+    return geo._replace(chunks=max(1, -(-max(rows) // chunk_rows)),
+                        chunk_rows=chunk_rows)
+
+
+def _launch_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins, k,
+                       packed):
+    lanes = len(ws)
+    geo = lane_leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k,
+                             fn_name.startswith("hist_leaves_q8"), packed,
+                             lanes)
+    table = _lane_table([[w.data_ptr() for w in ws],
+                         [c.data_ptr() for c in chs]], bins_t.device)
+    vec = int(all(c.data_ptr() % 4 == 0 for c in chs))
+    fn = _fn("hist_leaves", fn_name,
+             [_VP] * 3 + [_CI, _CI, _LL, _CI, _CI, _CI, _CI, _CI, _LL, _CI,
+                          _CI, _VP])
+    _raise_on(fn(_p(bins_t), _p(table), _p(out), lanes, f, n, num_bins, k,
+                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows, vec,
+                 int(packed), _stream()), fn_name)
+
+
+def build_histogram_leaves_q8_lanes(bins_t: torch.Tensor, wch, ch, *,
+                                    num_bins: int,
+                                    bins_packed: bool = False
+                                    ) -> torch.Tensor:
+    """(L, 42, F, B, 3) int32: :func:`build_histogram_leaves_q8` of L lanes
+    in one launch.  ``bins_t`` is shared; ``wch`` and ``ch`` hold each
+    lane's (8, N) int8 weights and (N,) int8 channels."""
+    wch, ch = _seq(wch), _seq(ch)
+    lanes = _lane_count("build_histogram_leaves_q8_lanes", wch, ch)
+    f = n = None
+    for w_, c_ in zip(wch, ch):
+        f, n = _check_hist_args("build_histogram_leaves_q8_lanes", bins_t,
+                                w_, torch.int8, 8, c_, num_bins, bins_packed)
+    if bins_t.device.type == "cpu":
+        return build_histogram_leaves_q8_lanes_plain(
+            bins_t, wch, ch, num_bins=num_bins, bins_packed=bins_packed)
+    out = torch.zeros((lanes, Q_LEAF_CHANNELS, f, num_bins, 3),
+                      dtype=torch.int32, device=bins_t.device)
+    _launch_hist_lanes("hist_leaves_q8_lanes", bins_t, wch, ch, out, f, n,
+                       num_bins, Q_LEAF_CHANNELS, bins_packed)
+    LAUNCHES["hist_leaves_q8_lanes_packed4" if bins_packed
+             else "hist_leaves_q8_lanes"] += 1
+    return out
+
+
+def _lane_scales(ws) -> torch.Tensor:
+    return torch.stack([w.inv_scale for w in ws])
+
+
+def build_histogram_leaves_lanes_plain(bins_t, ws, ch, *, num_bins: int,
+                                       bins_packed: bool = False):
+    """Plain version: one int64 ``index_add_`` over lanes x channels of the
+    fixed-point weights, each lane scaled back with its own scale."""
+    ws = list(ws)
+    h = _plain.build_histogram_leaves_lanes(
+        _unpacked(bins_t, bins_packed), [w.w for w in ws], _seq(ch),
+        num_channels=LEAF_CHANNELS, num_bins=num_bins, acc_dtype=torch.int64)
+    return fx_to_f32(h, _lane_scales(ws))
+
+
+def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
+                                 num_bins: int, bins_packed: bool = False
+                                 ) -> torch.Tensor:
+    """(L, 25, F, B, 3) f32: :func:`build_histogram_leaves` of L lanes in
+    one launch.  ``ws`` holds each lane's :class:`FxWeights` (its tree's
+    own scale), ``ch`` each lane's (N,) int8 channels."""
+    ws, ch = list(ws), _seq(ch)
+    lanes = _lane_count("build_histogram_leaves_lanes", ws, ch)
+    f = n = None
+    for w_, c_ in zip(ws, ch):
+        f, n = _check_hist_args("build_histogram_leaves_lanes", bins_t,
+                                w_.w, torch.int64, 3, c_, num_bins,
+                                bins_packed)
+    if bins_t.device.type == "cpu":
+        return build_histogram_leaves_lanes_plain(
+            bins_t, ws, ch, num_bins=num_bins, bins_packed=bins_packed)
+    out = torch.zeros((lanes, LEAF_CHANNELS, f, num_bins, 3),
+                      dtype=torch.int64, device=bins_t.device)
+    _launch_hist_lanes("hist_leaves_fx_lanes", bins_t, [w.w for w in ws], ch,
+                       out, f, n, num_bins, LEAF_CHANNELS, bins_packed)
+    LAUNCHES["hist_leaves_lanes_packed4" if bins_packed
+             else "hist_leaves_lanes"] += 1
+    return fx_to_f32(out, _lane_scales(ws))
+
+
+def _weights_of(w) -> torch.Tensor:
+    return w.w if isinstance(w, FxWeights) else w
+
+
+def hist_single_lanes_plain(bins, ws, *, num_bins: int):
+    """Plain version: one int64 ``index_add_`` with the lane as the channel
+    index."""
+    return _plain.scatter_histogram_lanes(
+        _seq(bins), [_weights_of(w) for w in ws], num_bins=num_bins,
+        acc_dtype=torch.int64)
+
+
+def hist_single_lanes(bins, ws, *, num_bins: int) -> torch.Tensor:
+    """(L, F, B, 3) int64: :func:`hist_single` of L lanes in one launch.
+    ``bins[l]`` is lane l's (F, n_l) uint8 view (a segment of its own
+    row-major rows, or a feature-major matrix; every lane's view with the
+    same strides), ``ws[l]`` its :class:`FxWeights` or (3, n_l) int64
+    weights over the same rows.  Scale back per lane with
+    :func:`fx_to_f32`."""
+    bins, ws = _seq(bins), [_weights_of(w) for w in ws]
+    lanes = _lane_count("hist_single_lanes", bins, ws)
+    strides = {b.stride() for b in bins}
+    if len(strides) != 1 or len({b.shape[0] for b in bins}) != 1:
+        raise ValueError("hist_single_lanes: every lane's bins need the same "
+                         "feature count and strides")
+    f = n = None
+    rows = []
+    for b, w in zip(bins, ws):
+        f, n = _check_single_args("hist_single_lanes", b, w, num_bins)
+        rows.append(n)
+    if bins[0].device.type == "cpu":
+        return hist_single_lanes_plain(bins, ws, num_bins=num_bins)
+    dev = bins[0].device
+    out = torch.zeros((lanes, f, num_bins, 3), dtype=torch.int64, device=dev)
+    if f == 0 or max(rows) == 0:
+        return out
+    sf, sn = bins[0].stride()
+    layout = "features" if sn == 1 else "rows"
+    geo = lane_single_geometry(_sm_count(dev), f, rows, num_bins, layout)
+    if layout == "features":
+        kind = 3 if sf % 4 == 0 else 2
+    else:
+        kind = int(sf == 1 and sn % 4 == 0 and
+                   (geo.fg % 4 == 0 or geo.f_groups == 1))
+    table = _lane_table([[b.data_ptr() for b in bins],
+                         [w.data_ptr() for w in ws], rows,
+                         [w.stride(0) for w in ws]], dev)
+    fn = _fn("hist_single", "hist_single_lanes",
+             [_VP, _LL, _LL, _VP, _CI, _CI, _CI, _CI, _CI, _LL, _CI, _CI,
+              _VP])
+    _raise_on(fn(_p(table), sf, sn, _p(out), lanes, f, num_bins, geo.fg,
+                 geo.chunks, geo.chunk_rows, geo.threads, kind, _stream()),
+              "hist_single_lanes")
+    LAUNCHES["hist_single_lanes"] += 1
+    return out
+
+
+def _check_row_lanes(kernel, cols_w, rl, tab, feats, bins_packed, decode):
+    lanes = _lane_count(kernel, rl, tab, feats,
+                        None if decode is None else decode)
+    wn = n = None
+    for l_ in range(lanes):
+        wn, n = _check_row_args(kernel, cols_w, rl[l_], tab[l_], feats[l_],
+                                bins_packed,
+                                None if decode is None else decode[l_])
+    if len({t.shape[1] for t in tab}) != 1:
+        raise ValueError(f"{kernel}: every lane needs the same W")
+    return lanes, wn, n
+
+
+def wave_row_update_lanes_plain(cols_w, rl, tab, *, feats,
+                                bins_packed: bool = False, decode=None):
+    """Plain version: the single plain version on each lane, stacked."""
+    outs = [wave_row_update_plain(
+        cols_w, r, t, feats=f, bins_packed=bins_packed,
+        decode=None if decode is None else decode[i])
+        for i, (r, t, f) in enumerate(zip(_seq(rl), _seq(tab), _seq(feats)))]
+    return (torch.stack([o[0] for o in outs]),
+            torch.stack([o[1] for o in outs]))
+
+
+def _launch_rows_lanes(kernel, cols_w, rl, tab, feats, bins_packed, rl_out,
+                       ch, decode=None):
+    lanes, wn, n = len(rl), tab[0].shape[1], rl[0].shape[0]
+    rows = [[f.data_ptr() for f in feats], [r.data_ptr() for r in rl],
+            [t.data_ptr() for t in tab]]
+    if decode is not None:
+        rows += [[d.dec.data_ptr() for d in decode],
+                 [d.member.data_ptr() for d in decode]]
+    vec = int(n % 4 == 0 and all(r.data_ptr() % 16 == 0 for r in rl) and
+              ch.data_ptr() % 16 == 0 and
+              (rl_out is None or rl_out.data_ptr() % 16 == 0))
+    table = _lane_table(rows, cols_w.device)
+    outs = [_p(ch)] if rl_out is None else [_p(rl_out), _p(ch)]
+    fn = _fn("row_update", kernel,
+             [_VP, _LL, _CI] + [_VP] * (1 + len(outs)) +
+             [_CI, _CI, _LL, _CI, _CI, _VP])
+    _raise_on(fn(_p(cols_w), cols_w.stride(0), cols_w.shape[0], _p(table),
+                 *outs, lanes, wn, n, int(bins_packed), vec, _stream()),
+              kernel)
+
+
+def wave_row_update_lanes(cols_w: torch.Tensor, rl, tab, *, feats,
+                          bins_packed: bool = False, decode=None):
+    """:func:`wave_row_update` of L lanes in one launch, over the shared
+    (F, N) bin matrix ``cols_w`` (nibble-packed with ``bins_packed``) read
+    in place.  ``rl``, ``tab`` and ``feats`` hold each lane's (N,) int32
+    row->leaf, (8, W) int32 table and (W,) int32 split columns; ``decode``
+    each lane's :class:`SplitDecode` (the categorical / EFB form).
+    Returns (rl_new (L, N) int32, ch (L, N) int8)."""
+    rl, tab, feats = _seq(rl), _seq(tab), _seq(feats)
+    decode = None if decode is None else list(decode)
+    lanes, wn, n = _check_row_lanes("wave_row_update_lanes", cols_w, rl,
+                                    tab, feats, bins_packed, decode)
+    if cols_w.device.type == "cpu":
+        return wave_row_update_lanes_plain(cols_w, rl, tab, feats=feats,
+                                           bins_packed=bins_packed,
+                                           decode=decode)
+    rl_out = torch.empty((lanes, n), dtype=torch.int32, device=cols_w.device)
+    ch = torch.empty((lanes, n), dtype=torch.int8, device=cols_w.device)
+    kernel = ("wave_row_update_lanes" if decode is None
+              else "wave_row_update_ext_lanes")
+    _launch_rows_lanes(kernel, cols_w, rl, tab, feats, bins_packed, rl_out,
+                       ch, decode)
+    LAUNCHES[kernel] += 1
+    return rl_out, ch
+
+
+def wave_trial_channels_lanes_plain(cols_w, rl, tab, *, feats,
+                                    bins_packed: bool = False):
+    """Plain version: the single plain version on each lane, stacked."""
+    return wave_row_update_lanes_plain(cols_w, rl, tab, feats=feats,
+                                       bins_packed=bins_packed)[1]
+
+
+def wave_trial_channels_lanes(cols_w: torch.Tensor, rl, tab, *, feats,
+                              bins_packed: bool = False) -> torch.Tensor:
+    """:func:`wave_trial_channels` of L lanes in one launch: ``tab`` holds
+    each lane's (8, W) :func:`trial_tab`, ``rl`` and ``feats`` as in
+    :func:`wave_row_update_lanes`.  Returns ch (L, N) int8."""
+    rl, tab, feats = _seq(rl), _seq(tab), _seq(feats)
+    lanes, wn, n = _check_row_lanes("wave_trial_channels_lanes", cols_w, rl,
+                                    tab, feats, bins_packed, None)
+    if cols_w.device.type == "cpu":
+        return wave_trial_channels_lanes_plain(cols_w, rl, tab, feats=feats,
+                                               bins_packed=bins_packed)
+    ch = torch.empty((lanes, n), dtype=torch.int8, device=cols_w.device)
+    _launch_rows_lanes("wave_trial_channels_lanes", cols_w, rl, tab, feats,
+                       bins_packed, None, ch)
+    LAUNCHES["wave_trial_channels_lanes"] += 1
     return ch

@@ -48,7 +48,7 @@ def quantize_wch(grad: torch.Tensor, hess: torch.Tensor,
                  bag_mask: torch.Tensor, g_scale: torch.Tensor,
                  h_scale: torch.Tensor, key: torch.Tensor = None, *,
                  gq_max: int, hq_max: int,
-                 stochastic: bool = False) -> torch.Tensor:
+                 stochastic: bool = False, own=None) -> torch.Tensor:
     """(8, N) int8 FEATURE-MAJOR weight rows [g_q, h_q, count, 0, ...].
 
     ``g_scale``/``h_scale`` are the per-tree dequantization scales
@@ -56,7 +56,10 @@ def quantize_wch(grad: torch.Tensor, hess: torch.Tensor,
     ``floor(x + u)`` draws u from ``uniform(fold_in(key, 0), (N,))`` for
     the gradients and ``fold_in(key, 1)`` for the hessians (``key`` the
     tree's threefry key, utils/random.py); ``stochastic=False`` rounds half
-    up.  Both are the reference's branches bit for bit."""
+    up.  Both are the reference's branches bit for bit.  ``own`` = (rows,
+    n_pad) draws as a run over only the rows ``rows`` (padded to n_pad)
+    would, each row's draw at its own position (rows outside it have zero
+    weight and round to 0 with any draw)."""
     if stochastic and key is None:
         raise ValueError("stochastic rounding draws from a threefry key: "
                          "pass the tree's quant_key")
@@ -64,8 +67,13 @@ def quantize_wch(grad: torch.Tensor, hess: torch.Tensor,
     gm = (grad * bag_mask) / g_scale
     hm = (hess * bag_mask) / h_scale
     if stochastic:
-        ug = uniform(fold_in(key, 0), (n,), grad.device)
-        uh = uniform(fold_in(key, 1), (n,), grad.device)
+        m = n if own is None else own[1]
+        ug = uniform(fold_in(key, 0), (m,), grad.device)
+        uh = uniform(fold_in(key, 1), (m,), grad.device)
+        if own is not None:
+            rows = own[0]
+            ug = torch.zeros_like(gm).index_copy_(0, rows, ug[:len(rows)])
+            uh = torch.zeros_like(hm).index_copy_(0, rows, uh[:len(rows)])
     else:
         ug = uh = 0.5
     g_q = torch.clamp(torch.floor(gm + ug), -gq_max, gq_max).to(torch.int8)

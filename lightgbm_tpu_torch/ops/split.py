@@ -261,7 +261,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            depth: torch.Tensor = None,
                            cegb_penalty: torch.Tensor = None,
                            gain_scale: torch.Tensor = None,
-                           parent_out: torch.Tensor = None
+                           parent_out: torch.Tensor = None,
+                           nan_left_refused: bool = False
                            ) -> FeatureSplits:
     """Best split per feature for a batch of leaves.
 
@@ -294,6 +295,12 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
       gain_scale: optional (F,) ``feature_contri`` gain multipliers.
       parent_out: (...,) the leaves' own outputs, the smoothing target
         under ``params.path_smooth``.
+      nan_left_refused: under path smoothing, the NaN-left gain of each
+        feature's chosen bin is computed again with the parent's gain
+        fused the other way round (its linear term's product), as the
+        reference's forced waves do at some wave widths
+        (:data:`FORCED_NAN_LEFT_REFUSED`): XLA:CPU recomputes that gain in
+        a loop of its own there, and LLVM contracts the other product.
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -355,7 +362,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     cum_c = cumsum_bins(hc_m)
     tot_g, tot_h, tot_c = ps[..., 0:1], ps[..., 1:2], ps[..., 2:3]
 
-    def dir_gain(lg, lh, lc, blend_fused="parent"):
+    def dir_gain(lg, lh, lc, blend_fused="parent", shift=None):
+        shift = min_gain_shift if shift is None else shift
         rg, rh, rc = tot_g - lg, tot_h - lh, tot_c - lc
         ok = ((lc >= min_cnt) & (rc >= min_cnt) &
               (lh >= min_h) & (rh >= min_h) & thr_valid)
@@ -367,7 +375,7 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
             viol = (((mono > 0) & (out_l > out_r)) |
                     ((mono < 0) & (out_l < out_r)))
             ok = ok & ~viol
-        g = gl + gr - min_gain_shift.unsqueeze(-1)
+        g = gl + gr - shift.unsqueeze(-1)
         if use_mc and pen is not None:
             g = torch.where(mono != 0, g * pen, g)
         return torch.where(ok & (g > 0), g, neg_inf)
@@ -383,6 +391,13 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     best_r_bin = torch.argmax(gain_r, dim=-1)
     best_r_gain = _at_bin(gain_r, best_r_bin)
     best_l_bin = torch.argmax(gain_l, dim=-1)
+    if nan_left_refused and use_sm:
+        shift = _gain_given_output(ps[..., 0], ps[..., 1], po.squeeze(-1),
+                                   l1, l2, fused="linear") + \
+            params.min_gain_to_split
+        gain_l = torch.where(hn_f, dir_gain(cum_g + nan_g, cum_h + nan_h,
+                                            cum_c + nan_c, "own", shift),
+                             neg_inf)
     best_l_gain = _at_bin(gain_l, best_l_bin)
 
     use_left = best_l_gain > best_r_gain
@@ -599,6 +614,12 @@ def _categorical(hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
     return (torch.where(use_subset, cat_gain, oh_gain),
             torch.where(use_subset.unsqueeze(-1), cat_mem, oh_member),
             torch.where(use_subset.unsqueeze(-1), cat_left, oh_left))
+
+
+# The wave widths at which the reference's forced waves recompute the
+# chosen bin's NaN-left gain with the parent gain's other product fused (read in its dumped LLVM IR at W = 4, 6, 14 and 42; W = 4 keeps the
+# scan's own fusion, and other widths are not known)
+FORCED_NAN_LEFT_REFUSED = frozenset({6, 14, 42})
 
 
 def local_best_candidates(hist: torch.Tensor, leaf_sum: torch.Tensor,

@@ -38,6 +38,10 @@ from lightgbm_tpu_torch.ops import split as ts
 
 from test_torch_objectives import _leaf_of, _trees
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 CATS = [2, 3, 4]
 
 

@@ -34,6 +34,10 @@ from lightgbm_tpu_torch import efb as tefb
 from test_torch_objectives import (_assert_predictions,
                                    _assert_same_structure)
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 HERE = os.path.dirname(os.path.abspath(__file__))
 BINARY_TRAIN = os.path.join(HERE, "..", "examples", "binary_classification",
                             "binary.train")

@@ -24,11 +24,16 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 
 from test_torch_objectives import _assert_predictions, _assert_same_structure
+
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 EXAMPLES = os.path.join(HERE, "..", "examples")

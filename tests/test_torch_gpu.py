@@ -597,3 +597,219 @@ def test_split_options_on_card_match_cpu(cuda_device, tmp_path, extra):
     on_card = lt.train(params, lt.Dataset(X, y), 3, device=cuda_device)
     assert on_card._gbdt.learner.grow_mode == on_cpu._gbdt.learner.grow_mode
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+# -- the model-axis (lane) forms ---------------------------------------------
+
+LANE_PLAINS = ("build_histogram_leaves_q8_lanes_plain",
+               "build_histogram_leaves_lanes_plain", "hist_single_lanes_plain",
+               "wave_row_update_lanes_plain", "wave_trial_channels_lanes_plain")
+
+
+def _lane_inputs(lanes, n, num_bins, device, w=6):
+    """L lanes' weights, channels, row->leaf vectors and split tables
+    over one (F, n) bin matrix, and each lane's segment of its own
+    row-major copy of it."""
+    rng = np.random.RandomState(lanes)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    bins = t(rng.randint(0, num_bins, (F, n)).astype(np.uint8))
+    grad = t((rng.randn(lanes, n) * 0.5).astype(np.float32))
+    hess = t((rng.rand(lanes, n) * 0.25 + 0.01).astype(np.float32))
+    mask = t((rng.rand(lanes, n) < 0.8).astype(np.float32))
+    ch = t(rng.randint(-1, hc.Q_LEAF_CHANNELS, (lanes, n)).astype(np.int8))
+    wch = torch.stack([tq.quantize_wch(
+        grad[i], hess[i], mask[i], torch.tensor(0.01, device=device),
+        torch.tensor(0.002, device=device), gq_max=127, hq_max=127)
+        for i in range(lanes)])
+    fx = [th.pack_weights(grad[i] * (i + 1), hess[i], mask[i])
+          for i in range(lanes)]
+    rl = t(rng.randint(0, 60, (lanes, n)).astype(np.int32))
+    feats = t(rng.randint(0, F, (lanes, w)).astype(np.int32))
+    tab = t(np.stack([np.stack([
+        rng.randint(0, num_bins, w), np.where(rng.rand(w) < 0.5,
+                                              num_bins - 1, -1),
+        rng.randint(0, 2, w), rng.randint(0, 2, w),
+        rng.choice(60, w, replace=False), 60 + np.arange(w),
+        (rng.rand(w) < 0.8).astype(int), np.zeros(w, int)])
+        for _ in range(lanes)]).astype(np.int32))
+    rows = [bins.t().contiguous() for _ in range(lanes)]
+    segs = [(i * 97 + 5, n - i * 1001) for i in range(lanes)]
+    single = ([r[s:e].t() for r, (s, e) in zip(rows, segs)],
+              [th.FxWeights(f.w[:, s:e], f.inv_scale)
+               for f, (s, e) in zip(fx, segs)])
+    return bins, wch, fx, ch, rl, feats, tab, single
+
+
+def _run_lanes(bins, wch, fx, ch, rl, feats, tab, single, num_bins,
+               packed=False):
+    b = th.pack_bins4(bins) if packed else bins
+    tabs = [hc.trial_tab(t[4], t[0], t[1], t[2] > 0, t[3] > 0, t[6] > 0)
+            for t in tab]
+    out = [hc.build_histogram_leaves_q8_lanes(b, wch, ch, num_bins=num_bins,
+                                              bins_packed=packed),
+           hc.build_histogram_leaves_lanes(
+               b, fx, torch.where(ch < hc.LEAF_CHANNELS, ch, -1),
+               num_bins=num_bins, bins_packed=packed),
+           *hc.wave_row_update_lanes(b, rl, tab, feats=feats,
+                                     bins_packed=packed),
+           hc.wave_trial_channels_lanes(b, rl, tabs, feats=feats,
+                                        bins_packed=packed)]
+    if not packed:
+        out.append(hc.hist_single_lanes(*single, num_bins=num_bins))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3, 4])
+@pytest.mark.parametrize("packed", [False, True])
+def test_lane_kernels_match_plain_and_single_on_card(cuda_device,
+                                                     monkeypatch, lanes,
+                                                     packed):
+    """Every model-axis kernel, one launch for all lanes, bitwise against
+    its plain version and against L single launches; identical twice."""
+    n, num_bins = 102_400, (16 if packed else 256)
+    args = _lane_inputs(lanes, n, num_bins, cuda_device)
+    if packed:
+        args = (args[0] & 15,) + args[1:6] + (args[6].clone(),) + args[7:]
+        args[6][:, 0] &= 15
+        args[6][:, 1] = torch.where(args[6][:, 1] >= 0, 15, -1)
+    for name in LANE_PLAINS:
+        monkeypatch.setattr(hc, name, None)      # must launch
+    before = dict(hc.LAUNCHES)
+    got = _run_lanes(*args, num_bins, packed)
+    again = _run_lanes(*args, num_bins, packed)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    suffix = "_packed4" if packed else ""
+    for key in ("hist_leaves_q8_lanes" + suffix, "hist_leaves_lanes" + suffix,
+                "wave_row_update_lanes", "wave_trial_channels_lanes") + \
+            (() if packed else ("hist_single_lanes",)):
+        assert hc.LAUNCHES[key] == before[key] + 2, key
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    bins, wch, fx, ch, rl, feats, tab, single = args
+    b = th.pack_bins4(bins) if packed else bins
+    chx = torch.where(ch < hc.LEAF_CHANNELS, ch, -1)
+    assert torch.equal(got[0], hc.build_histogram_leaves_q8_lanes_plain(
+        b, wch, ch, num_bins=num_bins, bins_packed=packed))
+    assert torch.equal(got[1], hc.build_histogram_leaves_lanes_plain(
+        b, fx, chx, num_bins=num_bins, bins_packed=packed))
+    rl_p, ch_p = hc.wave_row_update_lanes_plain(b, rl, tab, feats=feats,
+                                                bins_packed=packed)
+    assert torch.equal(got[2], rl_p) and torch.equal(got[3], ch_p)
+    if not packed:
+        assert torch.equal(got[5], hc.hist_single_lanes_plain(
+            *single, num_bins=num_bins))
+    for i in range(lanes):
+        assert torch.equal(got[0][i], hc.build_histogram_leaves_q8(
+            b, wch[i], ch[i], num_bins=num_bins, bins_packed=packed))
+        assert torch.equal(got[1][i], hc.build_histogram_leaves(
+            b, fx[i], chx[i], num_bins=num_bins, bins_packed=packed))
+        rl1, ch1 = hc.wave_row_update(b, rl[i], tab[i], feats=feats[i],
+                                      bins_packed=packed)
+        assert torch.equal(got[2][i], rl1) and torch.equal(got[3][i], ch1)
+        t = tab[i]
+        assert torch.equal(got[4][i], hc.wave_trial_channels(
+            b, rl[i], t[4], t[0], t[1], t[2] > 0, t[3] > 0, t[6] > 0,
+            feats=feats[i], bins_packed=packed))
+        if not packed:
+            assert torch.equal(got[5][i], hc.hist_single(
+                single[0][i], single[1][i], num_bins=num_bins))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    dict(use_quantized_grad=True, tpu_wave_size=4),
+    dict(tree_grow_mode="partition"),
+], ids=["quantized_wave", "partition"])
+def test_train_many_on_card_matches_cpu(cuda_device, extra):
+    """``train_many`` on the card writes the CPU's model text per model,
+    and launches only model-axis forms."""
+    rng = np.random.RandomState(0)
+    X = rng.randn(6001, F)
+    y = 2 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.randn(6001)
+    params = dict(objective="regression", num_leaves=15, verbosity=-1,
+                  **extra)
+    variants = [{"lambda_l2": 0.0}, {"lambda_l2": 4.0}, {"lambda_l1": 0.5}]
+    on_cpu = lt.train_many(params, lt.Dataset(X, y), 3, variants=variants,
+                           device="cpu")
+    hc.reset_launches()
+    on_card = lt.train_many(params, lt.Dataset(X, y), 3, variants=variants,
+                            device=cuda_device)
+    single = [k for k, v in hc.LAUNCHES.items()
+              if v and not k.endswith(("_lanes", "_lanes_packed4"))]
+    assert sum(v for k, v in hc.LAUNCHES.items() if "_lanes" in k) > 0
+    assert single in ([], ["hist_single", "hist_single_packed4"],
+                      ["hist_single"], ["hist_single_packed4"])  # autotune
+    for a, b in zip(on_cpu, on_card):
+        assert a.model_to_string() == b.model_to_string()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["exact", "quantized_stochastic",
+                                  "quantized_pack4"])
+def test_masked_lanes_draw_over_own_rows_on_card(cuda_device, mode):
+    """Two lanes over one 20,000-row matrix on the card, each training on
+    its own rows, grow the trees of standalone card runs on their
+    compacted rows (the ramp at ``spec_subsample=4096`` gathers each
+    lane's subsample from the shared matrix; stochastic rounding draws
+    over the lane's rows); quantized, the CPU's trees too (exact f32
+    scans differ between the card and the CPU in the last bits)."""
+    from lightgbm_tpu_torch.dataset import pad_rows
+    from lightgbm_tpu_torch.learner import lanes as kc
+    from lightgbm_tpu_torch.learner.wave import make_wave_grow_fn
+    from lightgbm_tpu_torch.ops import split as ts
+    from lightgbm_tpu_torch.utils.random import host_key
+    rng = np.random.RandomState(5)
+    n, f, nb = 20_000, 6, 15
+    bins = rng.randint(0, nb, (f, n)).astype(np.uint8)
+    grad = ((bins[0] / nb - 0.5) * 3 + (bins[1] > 9) +
+            rng.randn(n) * 0.5).astype(np.float32)
+    hess = rng.uniform(0.1, 0.3, n).astype(np.float32)
+    quantized, pack4 = mode != "exact", mode == "quantized_pack4"
+    grow = make_wave_grow_fn(
+        num_leaves=31, num_features=f, max_bins=nb, max_depth=0,
+        split_params=ts.SplitParams(min_data_in_leaf=5,
+                                    min_sum_hessian_in_leaf=0.0,
+                                    any_cat=False),
+        wave_size=4, quantized=quantized, stochastic=quantized,
+        spec_ramp=True, spec_subsample=4096, pack4=pack4)
+
+    def inputs(rows, compact, dev):
+        m = len(rows) if compact else n
+        b = np.zeros((f, pad_rows(m)), np.uint8)
+        b[:, :m] = bins[:, rows] if compact else bins
+        vec = np.zeros((3, b.shape[1]), np.float32)
+        vec[:2, :m] = (grad[rows], hess[rows]) if compact else (grad, hess)
+        vec[2, :m] = 1.0
+        if not compact:
+            vec[2] = 0.0
+            vec[2, rows] = 1.0
+        bt = torch.as_tensor(b, device=dev)
+        return (th.pack_bins4(bt) if pack4 else bt,
+                *torch.as_tensor(vec, device=dev).unbind(0),
+                torch.full((f,), nb, dtype=torch.int32, device=dev),
+                torch.zeros(f, dtype=torch.bool, device=dev),
+                torch.ones(f, dtype=torch.bool, device=dev), host_key(3))
+
+    own = [np.sort(rng.choice(n, 15_000, replace=False)),
+           np.sort(rng.choice(n, 17_000, replace=False))]
+    got = {}
+    for dev in ("cpu", cuda_device):
+        hc.reset_launches()
+        got[dev] = kc.run_lanes([grow.gen(*inputs(r, False, dev),
+                                          own_rows=torch.as_tensor(
+                                              r, device=dev))
+                                 for r in own])
+    assert hc.LAUNCHES["wave_row_update_lanes"] > 0
+    for rows, lane, cpu in zip(own, got[cuda_device], got["cpu"]):
+        alone = grow(*inputs(rows, True, cuda_device))
+        for name in alone._fields:
+            a, b, c = (getattr(t, name) for t in (alone, lane, cpu))
+            if name == "row_leaf":
+                a, b, c = a[:len(rows)], b[rows], c[rows]
+            if torch.is_tensor(a):
+                assert torch.equal(a, b), name
+                assert not quantized or torch.equal(a.cpu(), c), name
+            else:
+                assert a == b and (not quantized or a == c), name

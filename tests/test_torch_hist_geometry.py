@@ -18,6 +18,10 @@ import torch
 
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 F = 28
 SMS = 132          # H100 SXM
 SM_THREADS = 2048  # resident threads an H100 SM holds

@@ -35,6 +35,10 @@ from lightgbm_tpu_torch.ops import quantize as tq
 from lightgbm_tpu_torch.ops.fmath import exp_f32, sigmoid_f32
 from lightgbm_tpu_torch.ops import split as ts
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 F = 6
 N = 8192
 

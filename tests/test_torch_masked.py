@@ -28,11 +28,16 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.learner import serial as port_serial
 from lightgbm_tpu_torch.models.tree import DEFAULT_LEFT_MASK
+
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
 
 N, F, ROUNDS, LEAVES = 3000, 6, 3, 7
 MONO = [1, -1, 0, 1, 0, 0]

@@ -42,6 +42,10 @@ from lightgbm_tpu_torch.objective.base import weighted_percentile
 from lightgbm_tpu_torch.ops.split import node_feature_mask, node_rand_bins
 from lightgbm_tpu_torch.utils.random import prng_key
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 N, F, ROUNDS = 2000, 5, 3
 STRUCTURE = ("num_leaves", "split_feature", "threshold", "decision_type",
              "left_child", "right_child", "leaf_count", "internal_count")

@@ -31,9 +31,13 @@ import jax.numpy as jnp
 import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu.ops import split as js
-from lightgbm_tpu_torch.learner import wave as port_wave
 from lightgbm_tpu_torch.models.tree import DEFAULT_LEFT_MASK
+from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import split as ts
+
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
 
 N, F, ROUNDS, LEAVES = 3000, 6, 3, 7
 MONO = [1, -1, 0, 1, 0, 0]
@@ -104,8 +108,8 @@ def test_quantized_text_matches_reference(option, stochastic, tmp_path,
     params = _params(OPTIONS[option], stochastic, tmp_path)
     ref = lgb.train(params, lgb.Dataset(X, y), ROUNDS)
     endgame = []
-    trial = port_wave.wave_trial_channels
-    monkeypatch.setattr(port_wave, "wave_trial_channels",
+    trial = hc.wave_trial_channels
+    monkeypatch.setattr(hc, "wave_trial_channels",
                         lambda *a, **k: endgame.append(1) or trial(*a, **k))
     capsys.readouterr()
     port = lt.train(params, lt.Dataset(X, y), ROUNDS, device="cpu")
@@ -191,9 +195,7 @@ def test_split_scan_options_bitwise(option):
     dict(monotone_constraints=MONO, tpu_wave_size=4, num_leaves=31),
 ], ids=["forced", "monotone"])
 def test_smoothing_combined_within_fma_rounding(extra, tmp_path):
-    """Path smoothing with forced splits or monotone bounds: the same
-    trees as the reference, every split gain within 1e-6 of the tree's
-    largest and every value within rtol 1e-6, not byte-identical text.
+    """Path smoothing with forced splits or monotone bounds.
 
     XLA:CPU fuses a multiply into the add that follows it (one rounding),
     and which product of the smoothing blend and of the gain
@@ -201,15 +203,20 @@ def test_smoothing_combined_within_fma_rounding(extra, tmp_path):
     gives each fused loop.  The port fixes one choice per formula, the
     one the reference's root, wave and endgame scans take (byte-identical
     text under smoothing alone, test above).  The forced waves' scans
-    recompute the NaN-left gain at its best bin with the other parent
-    term at some wave widths, and clamped outputs change the order with
-    the wave width too, so
-    these gains can move by an ulp of their terms and a NaN side with no
+    recompute the NaN-left gain at its best bin with the parent gain's
+    other product fused at W = 6, 14 and 42 (not at 4); the port mirrors
+    that (ops/split.py ``FORCED_NAN_LEFT_REFUSED``), so forced splits
+    (W = 6 here) write byte-identical text.  Under monotone bounds the
+    clamped outputs change the order with the wave width too: the same
+    trees as the reference, every split gain within 1e-6 of the tree's
+    largest and every value within rtol 1e-6, and a NaN side with no
     rows in it can tie the other way (ROADMAP queue 3)."""
     X, y = _data()
     params = _params(dict(path_smooth=2.0, **extra), False, tmp_path)
     ref = lgb.train(params, lgb.Dataset(X, y), ROUNDS)
     port = lt.train(params, lt.Dataset(X, y), ROUNDS, device="cpu")
+    if "forcedsplits_filename" in extra:
+        assert port.model_to_string() == ref.model_to_string()
     t_ref, t_port = _trees(ref.model_to_string()), \
         _trees(port.model_to_string())
     assert len(t_ref) == len(t_port) == ROUNDS

@@ -42,6 +42,10 @@ from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 from lightgbm_tpu_torch.ops import split as ts
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 F = 6
 N = 8192
 
@@ -294,8 +298,7 @@ def test_pack4_ramp_subsample_keeps_row_pairs(monkeypatch):
     def spy(b, w, ch, *, num_bins, bins_packed=False):
         seen.append((bins_packed, th.unpack_bins4(b) if bins_packed else b))
         return real(b, w, ch, num_bins=num_bins, bins_packed=bins_packed)
-    import lightgbm_tpu_torch.learner.wave as wave_mod
-    monkeypatch.setattr(wave_mod, "build_histogram_leaves_q8", spy)
+    monkeypatch.setattr(hc, "build_histogram_leaves_q8", spy)
     make_wave_grow_fn(pack4=True, **kw)(th.pack_bins4(_t(bins)), *args)
     ss = [b for packed, b in seen if packed and b.shape[1] == 4096]
     assert ss, "the ramp ran no subsample pass"

@@ -29,6 +29,10 @@ from lightgbm_tpu_torch.learner.partitioned import make_partitioned_grow_fn
 from lightgbm_tpu_torch.models.tree import DEFAULT_LEFT_MASK
 from lightgbm_tpu_torch.ops import split as ts
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 F = 5
 N = 8192
 

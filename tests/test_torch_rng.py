@@ -19,6 +19,10 @@ from hypothesis import given, settings, strategies as st
 from lightgbm_tpu_torch.utils.random import (fold_in, host_key, prng_key,
                                              threefry2x32, uniform)
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 SEEDS = [0, 1, 42, 2 ** 31 - 1, -1, -5, 2 ** 31, 2 ** 32 - 1, 2 ** 32 + 5,
          2 ** 40, -2 ** 31 - 1, 2 ** 63 - 1]
 DATA = [0, 1, 7, 2 ** 31]

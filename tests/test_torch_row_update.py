@@ -19,6 +19,10 @@ from lightgbm_tpu.ops import histogram_pallas as hp
 from lightgbm_tpu_torch.ops import histogram as th
 from lightgbm_tpu_torch.ops import histogram_cuda as hc
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 F = 9
 N = 8192
 LEAVES = 60

@@ -33,6 +33,10 @@ import lightgbm_tpu as lgb
 import lightgbm_tpu_torch as lt
 from lightgbm_tpu_torch.convert import trees_from_reference
 
+# many small tensor ops per test and several test processes: one
+# intra-op thread each (faster than a pool per process here)
+torch.set_num_threads(1)
+
 N, F, ROUNDS = 6000, 6, 5
 STRUCTURE = ("num_leaves", "split_feature", "threshold", "decision_type",
              "left_child", "right_child", "leaf_count", "internal_count")
