@@ -124,7 +124,9 @@ Phases (any failure exits non-zero and prints no result line):
    (a) every model-axis kernel form (``*_lanes``: both leaf histograms at
    the main shape and packed at B=16, the row update in its numeric and
    categorical / EFB forms and its trial form at W=42, the single-leaf
-   histogram over four lanes' row-major segments of different lengths)
+   histogram over four lanes' row-major segments of different lengths,
+   and its packed form over 4 lanes of N/2 rows sharing one
+   nibble-packed matrix)
    at L=4 lanes with their own gradients, channels and tables, bit for
    bit against its plain version and against 4 single launches and
    identical across two runs, the one launch timed against the 4 single
@@ -144,7 +146,27 @@ Phases (any failure exits non-zero and prints no result line):
    and exact) and with a categorical column, text equal to ``train()``.
    Every batch runs with the counts set to 0 and must launch its
    model-axis forms and no single form; the histogram autotune probe's
-   single launches are counted apart.
+   single launches are counted apart;
+13. the boosting variants and the rest of the training surface, after
+   phase 12 on the main path's binned rows, each part with the counts
+   set to 0, its kernels' launches asserted, its iterations/s and a
+   held-out AUC above 0.6: (a) GOSS on the headline configuration
+   (top_rate 0.2, other_rate 0.1, learning_rate 0.25, 8 rounds; at least
+   4 sampled iterations, the active-row share and the host ms of each
+   draw); (b) DART on the headline configuration (drop_rate 0.1, 8
+   rounds; drops per iteration, the bytes of the prediction cache); (c)
+   RF on the exact wave (bag 0.632 every round, feature_fraction 0.8, 8
+   rounds; save, reload, predict identically); (d) linear trees on the
+   exact wave (5 rounds; the raw matrix's bytes on the card, the moment
+   pass's ms per tree, linear leaves per tree); (e) a custom objective
+   (binary logloss in numpy) and metric (AUC), quantized, 5 rounds, and
+   the same run at 300,000 rows on the card and the CPU with identical
+   text; (f) on (a)'s model: ``pred_leaf`` over the held-out rows (the
+   leaf values at the indices sum to the raw score), ``pred_early_stop``,
+   ``rollback_one_iter`` then one round, ``refit`` onto the held-out
+   rows; (g) ``train_many`` of GOSS x 4 (rate sweep, learning_rate 0.5)
+   and DART x 4 (drop-rate sweep), 6 rounds: one group each, models 0
+   and 3 write the text of ``train()``, only model-axis forms launch.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -2000,6 +2022,10 @@ LANE_KERNELS = {
                                   "lightgbm_tpu/ops/histogram_pallas.py:1314"),
     "hist_single_lanes": ("lightgbm_tpu_torch/csrc/hist_single.cu",
                           "lightgbm_tpu/ops/histogram_pallas.py:471"),
+    # the packed single-leaf form under vmap (only the autotune probe calls
+    # the packed single form, and never under vmap: phase 12a holds it)
+    "hist_single_lanes_packed4": ("lightgbm_tpu_torch/csrc/hist_single.cu",
+                                  "lightgbm_tpu/ops/histogram_pallas.py:446"),
 }
 MANY_L2 = (0.0, 1.0, 4.0, 16.0)      # phase 12b's variants
 MANY_ROUNDS = 3
@@ -2078,7 +2104,9 @@ def lane_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
     histograms (q8 and exact) at the main shape and packed at B=16, the
     row update (numeric and categorical / EFB forms, W=42) and its trial
     form, and the single-leaf histogram over four lanes' row-major
-    segments of different lengths."""
+    segments of different lengths, and its packed form over a shared
+    nibble-packed matrix."""
+    from lightgbm_tpu_torch.dataset import ROW_BLOCK
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     from lightgbm_tpu_torch.ops import quantize as tq
@@ -2230,7 +2258,46 @@ def lane_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
          for i in range(L)],
         lambda: hc.hist_single_lanes_plain(sb, sw, num_bins=256),
         nbytes, 3.0 * f * nact, lib, reps)
-    del P, sb, sw, idx, upd, lib, lanes, bins
+    del P, sb, sw, idx, upd, lib
+    torch.cuda.empty_cache()
+
+    # ---- the packed single-leaf histogram: each lane's weights over one
+    # shared (F, m/2) nibble-packed matrix of m = N/2 rows ----
+    m = (n // 2) // ROW_BLOCK * ROW_BLOCK
+    codes = (bins[:, :m] & 15).contiguous()
+    pk = th.pack_bins4(codes)
+    pw = [th.FxWeights(x[1].w[:, :m].contiguous(), x[1].inv_scale)
+          for x in lanes]
+    act = [(w.w != 0).any(dim=0) for w in pw]
+    nact = sum(int(a.sum()) for a in act)
+    pairs = int(torch.stack(act).any(dim=0).view(-1, 2).any(dim=1).sum())
+    nbytes = L * 24.0 * m + f * pairs + L * f * PACK_BINS * 24
+    idx, upd = [], []
+    for lane, (w_, a_) in enumerate(zip(pw, act)):
+        r_ = torch.nonzero(a_).squeeze(1)
+        idx.append(((lane * f + torch.arange(f, device=dev).unsqueeze(1)) *
+                    PACK_BINS + codes[:, r_].long()).reshape(-1))
+        upd.append(w_.w[:, r_].t().unsqueeze(0).expand(f, -1, -1)
+                   .reshape(-1, 3))
+    idx, upd = torch.cat(idx), torch.cat(upd).contiguous()
+    del codes
+
+    def lib_p4():
+        o = torch.zeros((L * f * PACK_BINS, 3), dtype=torch.int64,
+                        device=dev)
+        o.index_add_(0, idx, upd)
+        return o
+    rec["hist_single_lanes_packed4"] = _lane_case(
+        torch, card, "hist_single_lanes_packed4",
+        f"(F, N/2) packed, {m} rows each, F={f} B={PACK_BINS}",
+        lambda: hc.hist_single_lanes([pk] * L, pw, num_bins=PACK_BINS,
+                                     bins_packed=True),
+        [lambda i=i: hc.hist_single(pk, pw[i], num_bins=PACK_BINS,
+                                    bins_packed=True) for i in range(L)],
+        lambda: hc.hist_single_lanes_plain([pk] * L, pw, num_bins=PACK_BINS,
+                                           bins_packed=True),
+        nbytes, 3.0 * f * nact, lib_p4, reps)
+    del pk, pw, idx, upd, lanes, bins
     torch.cuda.empty_cache()
     for name, r in rec.items():
         lib = ("n/a" if r["library_ms"] is None
@@ -2443,6 +2510,320 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
     return launches
 
 
+# -- phase 13: the boosting variants and the rest of the training surface ----
+
+VARIANT_ROUNDS = 8                   # (a)-(c)
+VARIANT_LR = 0.25                    # GOSS warms up int(1 / lr) = 4 rounds
+GOSS_RATES = (0.2, 0.1)              # (a): top_rate, other_rate
+LINEAR_ROUNDS = 5                    # (d)
+FOBJ_ROUNDS = 5                      # (e)
+FOBJ_CHECK_ROWS = 300_000            # (e): the card-against-CPU text check
+MANY_VARIANT_ROUNDS = 6              # (g)
+MANY_GOSS = ((0.2, 0.1), (0.3, 0.1), (0.2, 0.2), (0.1, 0.1))
+MANY_DART = (0.05, 0.1, 0.2, 0.4)
+HEAD_KERNELS = ("hist_leaves_q8", "wave_row_update", "hist_single")
+EXACT_KERNELS = ("hist_leaves", "wave_row_update")
+
+
+def logloss_fobj(preds, dataset):
+    """Phase 13e's custom objective: binary logloss in numpy over the raw
+    scores."""
+    label = dataset.get_label()
+    p = 1.0 / (1.0 + np.exp(-preds.astype(np.float64)))
+    return p - label, p * (1.0 - p)
+
+
+def auc_feval(preds, dataset):
+    """Phase 13e's custom metric: the rank AUC of the raw scores, ties at
+    their average rank, ranked on the card (a host sort of 10.5M scores
+    each round would take seconds)."""
+    import torch
+    p = torch.as_tensor(preds, device="cuda")
+    y = torch.as_tensor(dataset.get_label(), device="cuda")
+    ps, order = torch.sort(p)
+    _, counts = torch.unique_consecutive(ps, return_counts=True)
+    first = torch.cumsum(counts, 0) - counts
+    ranks = torch.repeat_interleave(first + (counts + 1) / 2.0, counts)
+    pos = y[order] > 0
+    npos = float(pos.sum())
+    nneg = len(preds) - npos
+    return ("auc_feval", float((ranks[pos].double().sum() -
+                                npos * (npos + 1) / 2) / (npos * nneg)),
+            True)
+
+
+def _variant_train(lt, torch, hc, card, tag, params, ds, rounds, Xte, yte,
+                   needs, callbacks=(), **kw):
+    """One phase 13 training run with the launch counts from 0: its rate,
+    launches and held-out AUC, which must beat chance; returns the booster
+    and the launches."""
+    hc.reset_launches()
+    ticks = []
+
+    def tick(env):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, rounds, callbacks=[*callbacks, tick],
+                   device="cuda", **kw)
+    got = dict(hc.LAUNCHES)
+    missing = [k for k in needs if got[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 13{tag}: kernels not launched: "
+                             f"{missing}")
+    rate = len(ticks) / (ticks[-1] - t0)
+    steady = ((len(ticks) - 1) / (ticks[-1] - ticks[0])
+              if len(ticks) > 1 else float("nan"))
+    p = bst.predict(Xte)
+    if not np.all(np.isfinite(p)):
+        raise AssertionError(f"phase 13{tag}: predictions not finite")
+    a = auc(yte, p)
+    log(f"[{card}] phase 13{tag}: {len(ticks)} rounds, {rate:.4f} "
+        f"iterations/s (steady {steady:.4f}), held-out AUC {a:.6f}; "
+        f"launches {json.dumps({k: v for k, v in got.items() if v})}")
+    if not a > 0.6:
+        raise AssertionError(f"phase 13{tag}: held-out AUC {a} is no better "
+                             "than chance")
+    return bst, got
+
+
+def variants_phase(lt, torch, card, ds, Xtr, ytr, Xte, yte,
+                   out_dir: str) -> dict:
+    """Phase 13: GOSS, DART, RF, linear trees, a custom objective and
+    metric, the Booster's model surgery, and GOSS / DART ``train_many``,
+    on the main path's binned rows.  Returns the launches of every part."""
+    from lightgbm_tpu_torch.learner import linear as tlin
+    from lightgbm_tpu_torch.models import boosting as tb
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    total = collections.Counter()
+    head = mode_params("headline")
+
+    # (a) GOSS on the headline configuration: the host draw timed, with
+    # the device-to-host copy of g and h and the mask's upload
+    draws = []
+    real_goss = tb.GOSS._prepare_iter_sampling
+
+    def timed_goss(self, grad, hess):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_goss(self, grad, hess)
+        torch.cuda.synchronize()
+        draws.append((time.perf_counter() - t0, float(out[2].mean())))
+        return out
+
+    tb.GOSS._prepare_iter_sampling = timed_goss
+    try:
+        goss, got = _variant_train(
+            lt, torch, hc, card, "a goss", {
+                **head, "boosting": "goss", "learning_rate": VARIANT_LR,
+                "top_rate": GOSS_RATES[0], "other_rate": GOSS_RATES[1]},
+            ds, VARIANT_ROUNDS, Xte, yte, HEAD_KERNELS)
+    finally:
+        tb.GOSS._prepare_iter_sampling = real_goss
+    total.update(got)
+    sampled = [(ms, share) for ms, share in draws if share < 1.0]
+    if len(sampled) < 4:
+        raise AssertionError(f"phase 13a: GOSS sampled {len(sampled)} "
+                             "iterations, expected at least 4")
+    log(f"[{card}] phase 13a GOSS top_rate {GOSS_RATES[0]} other_rate "
+        f"{GOSS_RATES[1]} lr {VARIANT_LR}: {len(sampled)} of "
+        f"{len(draws)} iterations sampled, active-row share "
+        f"{np.mean([s for _, s in sampled]):.4f}; host draw "
+        f"{1e3 * np.mean([ms for ms, _ in sampled]):.1f} ms per sampled "
+        f"iteration ({2 * 4 * len(ytr) / 1e6:.0f} MB of g/h to the host), "
+        f"{1e3 * np.mean([ms for ms, s in draws if s == 1.0]):.1f} ms in "
+        "warm-up")
+
+    # (b) DART on the headline configuration
+    drops = []
+    dart, got = _variant_train(
+        lt, torch, hc, card, "b dart",
+        {**head, "boosting": "dart", "drop_rate": 0.1}, ds, VARIANT_ROUNDS,
+        Xte, yte, HEAD_KERNELS,
+        callbacks=[lambda env: drops.append(len(env.model._gbdt._drop_idx))])
+    total.update(got)
+    log(f"[{card}] phase 13b DART drop_rate 0.1: trees dropped per "
+        f"iteration {drops}; base-prediction cache "
+        f"{sum(t.numel() * 4 for t in dart._gbdt._base_pred) / 2**20:.1f} "
+        "MiB on the card "
+        f"({VARIANT_ROUNDS} x {len(ytr)} f32)")
+    del dart
+    torch.cuda.empty_cache()
+
+    # (c) RF, exact wave
+    rf, got = _variant_train(
+        lt, torch, hc, card, "c rf",
+        {**mode_params("exact"), "boosting": "rf", "bagging_fraction": 0.632,
+         "bagging_freq": 1, "feature_fraction": 0.8},
+        ds, VARIANT_ROUNDS, Xte, yte, EXACT_KERNELS)
+    total.update(got)
+    rf.save_model(os.path.join(out_dir, "model_rf.txt"))
+    again = lt.Booster(model_file=os.path.join(out_dir, "model_rf.txt"))
+    if not np.array_equal(again.predict(Xte[:10_000]),
+                          rf.predict(Xte[:10_000])):
+        raise AssertionError("phase 13c: the reloaded RF model predicts "
+                             "differently")
+    del rf, again
+    torch.cuda.empty_cache()
+
+    # (d) linear trees, exact wave: the raw used columns (kept by phase 4's
+    # Dataset) go to the card beside the bins; each tree's moment pass
+    # timed
+    moments = []
+    real_moments = tlin._moments
+
+    def timed_moments(*a, **k):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = real_moments(*a, **k)
+        torch.cuda.synchronize()
+        moments.append(time.perf_counter() - t1)
+        return out
+
+    tlin._moments = timed_moments
+    try:
+        lin, got = _variant_train(
+            lt, torch, hc, card, "d linear",
+            {**mode_params("exact"), "linear_tree": True}, ds,
+            LINEAR_ROUNDS, Xte, yte, EXACT_KERNELS)
+    finally:
+        tlin._moments = real_moments
+    total.update(got)
+    g = lin._gbdt
+    linear_leaves = [sum(1 for c in t.leaf_coeff if c) for t in g.models]
+    log(f"[{card}] phase 13d linear trees: raw matrix "
+        f"{g.X_raw_dev.numel() * 4 / 2**30:.3f} GiB on the card; moment "
+        f"pass {1e3 * np.mean(moments):.1f} ms per tree "
+        f"({[round(1e3 * x, 1) for x in moments]}); linear leaves per tree "
+        f"{linear_leaves}")
+    if not any(linear_leaves):
+        raise AssertionError("phase 13d: no leaf got a linear model")
+    del lin, g
+    torch.cuda.empty_cache()
+
+    # (e) a quantized custom objective and metric; the text at 300K rows
+    # equal on the card and on the CPU
+    qparams = {**mode_params("quantized"), "objective": "none",
+               "metric": "none"}
+    hist = {}
+    fo, got = _variant_train(
+        lt, torch, hc, card, "e fobj", qparams, ds, FOBJ_ROUNDS, Xte, yte,
+        ("hist_leaves_q8", "wave_row_update"),
+        callbacks=[lt.record_evaluation(hist)], fobj=logloss_fobj,
+        feval=auc_feval)
+    total.update(got)
+    log(f"[{card}] phase 13e feval history (training AUC): "
+        f"{[round(v, 6) for v in hist['training']['auc_feval']]}")
+    del fo
+    rows = min(FOBJ_CHECK_ROWS, len(ytr))
+    texts, secs = [], []
+    for dev in ("cuda", "cpu"):
+        d = lt.Dataset(Xtr[:rows], ytr[:rows], params={"max_bin": MAX_BIN})
+        t0 = time.perf_counter()
+        texts.append(lt.train(qparams, d, FOBJ_ROUNDS, fobj=logloss_fobj,
+                              device=dev).model_to_string())
+        secs.append(time.perf_counter() - t0)
+    if texts[0] != texts[1]:
+        raise AssertionError("phase 13e: the custom-objective model text "
+                             f"at {rows} rows differs between card and CPU")
+    log(f"[{card}] phase 13e at {rows} rows: model text identical on the "
+        f"card ({secs[0]:.1f} s) and the CPU ({secs[1]:.1f} s)")
+
+    # (f) the Booster's model surgery on (a)'s model
+    raw = goss.predict(Xte, raw_score=True)
+    t0 = time.perf_counter()
+    lp = goss.predict(Xte, pred_leaf=True)
+    t_leaf = time.perf_counter() - t0
+    vals = np.zeros(len(yte))
+    for i, tree in enumerate(goss._gbdt.models):
+        vals += tree.leaf_value[lp[:, i]]
+    if lp.shape != (len(yte), VARIANT_ROUNDS) or \
+            not np.allclose(vals, raw, rtol=1e-5,
+                            atol=1e-5 * np.abs(raw).max()):
+        raise AssertionError("phase 13f: the leaf values at pred_leaf's "
+                             "indices do not sum to the raw score")
+    t0 = time.perf_counter()
+    es = goss.predict(Xte, raw_score=True, pred_early_stop=True,
+                      pred_early_stop_freq=2, pred_early_stop_margin=4.0)
+    t_es = time.perf_counter() - t0
+    stopped = float(np.mean(es != raw))
+    a_es = auc(yte, es)
+    if not a_es > 0.6:
+        raise AssertionError(f"phase 13f: early-stopped AUC {a_es}")
+    hc.reset_launches()
+    goss.rollback_one_iter()
+    goss.update()
+    got = dict(hc.LAUNCHES)
+    total.update(got)
+    missing = [k for k in HEAD_KERNELS if got[k] <= 0]
+    if missing or goss.num_trees() != VARIANT_ROUNDS:
+        raise AssertionError(f"phase 13f: rollback then one round launched "
+                             f"no {missing} or kept {goss.num_trees()} trees")
+    a_rb = auc(yte, goss.predict(Xte))
+    t0 = time.perf_counter()
+    refit = goss.refit(Xte, yte, decay_rate=0.9)
+    t_refit = time.perf_counter() - t0
+    a_refit = auc(yte, refit.predict(Xte))
+    log(f"[{card}] phase 13f surgery on 13a's model: pred_leaf over "
+        f"{len(yte)} rows in {t_leaf:.2f} s, leaf values sum to the raw "
+        f"score; pred_early_stop (freq 2, margin 4) {t_es:.2f} s, "
+        f"{stopped:.3f} of the rows stopped early, AUC {a_es:.6f}; "
+        f"rollback + 1 round AUC {a_rb:.6f} (launches "
+        f"{json.dumps({k: v for k, v in got.items() if v})}); refit onto "
+        f"the held-out rows in {t_refit:.2f} s, AUC there {a_refit:.6f}")
+    if not (a_rb > 0.6 and a_refit > 0.6):
+        raise AssertionError(f"phase 13f: AUC {a_rb} / {a_refit}")
+    del goss, refit
+    torch.cuda.empty_cache()
+
+    # (g) GOSS and DART batches through train_many
+    for kind, extra, variants in (
+            ("goss", {"boosting": "goss", "learning_rate": 0.5},
+             [{"top_rate": a, "other_rate": b} for a, b in MANY_GOSS]),
+            ("dart", {"boosting": "dart"},
+             [{"drop_rate": r} for r in MANY_DART])):
+        params = {**head, **extra}
+        hc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mb = lt.train_many(params, ds, MANY_VARIANT_ROUNDS,
+                           variants=variants, device="cuda", strict=True)
+        torch.cuda.synchronize()
+        t_many = time.perf_counter() - t0
+        got = dict(hc.LAUNCHES)
+        lanes = {k: v for k, v in got.items() if "_lanes" in k and v}
+        single = {k: v for k, v in got.items() if "_lanes" not in k and v}
+        missing = [k for k in ("hist_leaves_q8_lanes",
+                               "wave_row_update_lanes", "hist_single_lanes")
+                   if got[k] <= 0]
+        if missing or single or mb.num_groups != 1:
+            raise AssertionError(f"phase 13g {kind}: lanes missing "
+                                 f"{missing}, single forms {single}, "
+                                 f"{mb.num_groups} groups")
+        total.update(got)
+        for m in (0, len(variants) - 1):
+            ref = lt.train({**params, **variants[m]}, ds,
+                           MANY_VARIANT_ROUNDS, device="cuda")
+            if ref.model_to_string() != mb[m].model_to_string():
+                raise AssertionError(f"phase 13g {kind}: model {m} text "
+                                     "differs from train()")
+        a = [auc(yte, mb[m].predict(Xte)) for m in range(len(variants))]
+        if not min(a) > 0.6:
+            raise AssertionError(f"phase 13g {kind}: held-out AUC {a}")
+        log(f"[{card}] phase 13g train_many {kind} x{len(variants)} "
+            f"({variants}), {MANY_VARIANT_ROUNDS} rounds: "
+            f"{len(variants) * MANY_VARIANT_ROUNDS / t_many:.4f} "
+            f"model-rounds/s, models 0 and {len(variants) - 1} text "
+            f"identical to train(); held-out AUC {[round(x, 6) for x in a]}; "
+            f"model-axis launches per iteration "
+            f"{json.dumps({k: v / MANY_VARIANT_ROUNDS for k, v in lanes.items()})}")
+        del mb, ref
+        torch.cuda.empty_cache()
+    return dict(total)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2523,7 +2904,10 @@ def main(argv=None) -> int:
     Xte, yte = X[args.rows:], y[args.rows:]
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    ds = lt.Dataset(Xtr, ytr, params={"max_bin": MAX_BIN})
+    # linear_tree keeps the raw used columns beside the bins for phase
+    # 13d (no other phase reads them)
+    ds = lt.Dataset(Xtr, ytr, params={"max_bin": MAX_BIN,
+                                      "linear_tree": True})
     ds.construct()
     ds.device_bins(torch.device("cuda"))
     torch.cuda.synchronize()
@@ -2606,9 +2990,15 @@ def main(argv=None) -> int:
     stamp("phase 12a, model-axis kernels")
     for k, v in many_phase(lt, torch, card, ds, Xtr, ytr, out_dir).items():
         launches[k] += v
+    stamp("phase 12b-e, train_many and cv")
+
+    # ---- phase 13: boosting variants and the training surface ----
+    for k, v in variants_phase(lt, torch, card, ds, Xtr, ytr, Xte, yte,
+                               out_dir).items():
+        launches[k] += v
     del ds
     torch.cuda.empty_cache()
-    stamp("phase 12b-e, train_many and cv")
+    stamp("phase 13, boosting variants and the training surface")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,

@@ -38,13 +38,34 @@ _CATEGORICAL = {"cat_boundaries": np.int32, "cat_threshold": np.uint32,
                 "cat_member_bins": bool}
 
 
+def _linear_fields(i: int, fields: Mapping[str, Any]) -> dict:
+    """A linear tree's per-leaf models: constants, coefficients and the
+    features by real and by inner index (reference tree.h
+    leaf_const_ / leaf_coeff_ / leaf_features_)."""
+    for k in ("leaf_const", "leaf_coeff", "leaf_features"):
+        if fields.get(k) is None:
+            raise ValueError(f"reference tree {i} has linear leaves but "
+                             f"no {k}")
+    real = [[int(f) for f in fs] for fs in fields["leaf_features"]]
+    inner = fields.get("leaf_features_inner")
+    return {"is_linear": True,
+            "leaf_const": np.array(fields["leaf_const"], np.float64,
+                                   copy=True),
+            "leaf_coeff": [[float(c) for c in cs]
+                           for cs in fields["leaf_coeff"]],
+            "leaf_features": real,
+            "leaf_features_inner": (real if inner is None else
+                                    [[int(f) for f in fs] for fs in inner])}
+
+
 def trees_from_reference(arrays: Sequence[Mapping[str, Any]]) -> List[Tree]:
     """One port ``Tree`` per mapping of reference ``Tree`` fields.
 
     Categorical nodes carry over with their bitsets (``cat_boundaries``,
     ``cat_threshold``) and, when the reference tree has them, their
-    binned memberships (``cat_member_bins``).  A tree with linear leaves
-    raises ``NotImplementedError`` (not ported yet)."""
+    binned memberships (``cat_member_bins``), and linear leaves with
+    their constants, coefficients and features (``leaf_const``,
+    ``leaf_coeff``, ``leaf_features`` and ``leaf_features_inner``)."""
     out = []
     for i, fields in enumerate(arrays):
         missing = [k for k in _REQUIRED if k not in fields]
@@ -52,12 +73,10 @@ def trees_from_reference(arrays: Sequence[Mapping[str, Any]]) -> List[Tree]:
             raise ValueError(f"reference tree {i} lacks fields {missing}")
         nl = int(fields["num_leaves"])
         dt = np.asarray(fields["decision_type"], np.uint8)
-        if fields.get("is_linear"):
-            raise NotImplementedError(
-                f"reference tree {i} has linear leaves, which "
-                "lightgbm_tpu_torch does not carry yet (ROADMAP queue 1)")
         kw = {k: (np.array(fields[k], dtype=t, copy=True) if t is not None
                   else nl) for k, t in _REQUIRED.items()}
+        if fields.get("is_linear"):
+            kw.update(_linear_fields(i, fields))
         if np.any(dt[:max(nl - 1, 0)] & CAT_MASK):
             for k, t in _CATEGORICAL.items():
                 if fields.get(k) is not None:

@@ -385,16 +385,21 @@ int hist_single_p4(const void* bins, const void* w, void* out, int F,
   return (int)cudaGetLastError();
 }
 
-// The model-axis form (the reference's vmap of build_histogram_pallas):
+// The model-axis form (the reference's vmap of build_histogram_pallas,
+// uint8 and packed):
 // L lanes' segments, each with its own bins view, weights and row count,
 // all with the strides (sf, sn) and F features.  lanes: device (4, L)
 // int64 table [bins pointer, weights pointer, rows, weight row stride];
 // out (L, F, B, 3) int64, zero-filled by the caller.  Grid (chunks,
 // ceil(F / fg), L), the chunks sized for the longest segment; layout as
 // in hist_single, word and 32-bit loads taken per lane where its bins
-// pointer is 4-byte aligned.  Lane l's blocks are the single form's
-// blocks on its segment, so its sums are the single launch's, bit for
-// bit.
+// pointer is 4-byte aligned; layout 4 is the packed form (each lane's bins
+// (F, nb) contiguous nibble-packed bytes, sf = nb, its rows 2 * nb; the
+// reference's vmap of build_histogram_pallas(bins_packed=True), :446),
+// layout 5 the same with 16-bit loads, taken per lane where its bins
+// pointer is 4-byte aligned.
+// Lane l's blocks are the single form's blocks on its segment, so its
+// sums are the single launch's, bit for bit.
 int hist_single_lanes(const void* lanes, long long sf, long long sn,
                       void* out, int L, int F, int B, int fg, int chunks,
                       long long chunk_rows, int threads, int layout,
@@ -412,10 +417,15 @@ int hist_single_lanes(const void* lanes, long long sf, long long sn,
     hist_single_rows<<<grid, threads, smem, st>>>(nullptr, sf, sn, nullptr, 0,
                                                   o, F, 0, B, fg, chunk_rows,
                                                   layout == 1, t, L);
-  } else {
+  } else if (layout < 4) {
     if ((err = prepare(hist_single_feats<false>, smem)) != 0) return err;
     hist_single_feats<false><<<grid, threads, smem, st>>>(
         nullptr, sf, nullptr, 0, o, F, 0, B, fg, chunk_rows, layout == 3, t,
+        L);
+  } else {
+    if ((err = prepare(hist_single_feats<true>, smem)) != 0) return err;
+    hist_single_feats<true><<<grid, threads, smem, st>>>(
+        nullptr, sf, nullptr, 0, o, F, 0, B, fg, chunk_rows, layout == 5, t,
         L);
   }
   return (int)cudaGetLastError();

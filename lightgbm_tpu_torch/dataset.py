@@ -11,7 +11,8 @@ What the port carries: dense numpy / pandas input, scipy sparse matrices
 (``io_utils.load_data_file``), categorical features, and Exclusive
 Feature Bundling (``efb.py``; reference dataset.py:437-484): when
 bundling shrinks the matrix, the device copy holds one column per bundle.
-Pre-partitioned multi-process ingest, forced bins, ``max_bin`` > 255 and
+Under ``linear_tree`` the raw used columns stay too, in f32 (``raw_used``,
+dense input only).  Pre-partitioned multi-process ingest, forced bins, ``max_bin`` > 255 and
 the binary dataset cache are later slices (ROADMAP queue 1).  The device
 copy is the FEATURE-MAJOR ``(G, N_pad)`` uint8 tensor the histogram and
 row-update kernels stream (G = features, or bundles under EFB), rows
@@ -138,6 +139,7 @@ class Dataset:
         self.used_feature_map: Optional[np.ndarray] = None  # inner -> real
         self.num_total_features = 0
         self.efb = None  # BundleInfo when EFB-bundled (efb.py)
+        self.raw_used: Optional[np.ndarray] = None  # (N, F) f32, linear_tree
         self._device_cache: Dict[Any, Any] = {}
 
     # -- construction --------------------------------------------------------
@@ -154,10 +156,12 @@ class Dataset:
         self.feature_names_ = feature_names
         self.efb = None
         cat_indices = self._resolve_categoricals(feature_names)
-        if cfg.linear_tree:
-            raise NotImplementedError(
-                "linear_tree is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1)")
+        if cfg.linear_tree and sparse:
+            # linear leaves fit on RAW dense values (linear_tree_learner.cpp
+            # reads raw columns); the reference refuses this too
+            raise ValueError("linear_tree requires dense input (the "
+                             "per-leaf linear fits read raw feature "
+                             "values); densify or disable linear_tree")
 
         rng = np.random.RandomState(cfg.data_random_seed)
         sample_idx = sample_row_indices(n, int(cfg.bin_construct_sample_cnt),
@@ -248,6 +252,10 @@ class Dataset:
                 self.X_binned[:, jj] = col
         else:
             self.X_binned = bin_matrix(raw[:, used], mappers)
+        # linear trees fit on the raw values of the used columns
+        # (reference dataset.py:343-351)
+        self.raw_used = (np.ascontiguousarray(raw[:, used], np.float32)
+                         if cfg.linear_tree else None)
         self._set_metadata(n)
         self.constructed = True
         if self.free_raw_data:
@@ -403,6 +411,8 @@ class Dataset:
         sub = copy.copy(self)
         sub._device_cache = {}
         sub.X_binned = self.X_binned[idx]
+        if self.raw_used is not None:
+            sub.raw_used = self.raw_used[idx]
         sub.metadata = Metadata()
         if self.metadata.label is not None:
             sub.metadata.set_label(self.metadata.label[idx])

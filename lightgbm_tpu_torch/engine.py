@@ -1,9 +1,9 @@
 """Training and cross-validation entry points.
 
 Port of ``lightgbm_tpu/engine.py``: ``train`` (reference engine.py:15),
-continued training from ``init_model`` included, without
-checkpoint/resume, continuous publishing or the flight recorder (later
-slices); and ``cv`` with ``CVBooster``, ``CVAggregator`` and
+continued training from ``init_model`` and custom objectives and metrics
+(``fobj``, ``feval``) included, without checkpoint/resume, continuous
+publishing or the flight recorder (later slices); and ``cv`` with ``CVBooster``, ``CVAggregator`` and
 ``_make_n_folds`` (reference engine.py:400-590), whose folds train as one
 batch (multitrain/cv.py) when ``tpu_cv_many`` and the configuration
 allow it.  Training runs on ``device`` (default ``cuda``); when no card
@@ -32,11 +32,17 @@ def train(params: Dict[str, Any], train_set: Dataset,
           num_boost_round: int = 100,
           valid_sets: Optional[List[Dataset]] = None,
           valid_names: Optional[List[str]] = None,
-          callbacks: Optional[List[Callable]] = None,
-          device=None, init_model=None, **kwargs) -> Booster:
-    """Train a boosted model.  ``init_model`` (a Booster or a model file)
-    continues training: its trees stay in the returned model, as the
-    reference's ``init_model`` keeps them (engine.py:202-212)."""
+          fobj: Optional[Callable] = None,
+          feval: Optional[Callable] = None,
+          init_model=None, callbacks: Optional[List[Callable]] = None,
+          device=None, **kwargs) -> Booster:
+    """Train a boosted model (reference engine.py:145-400).
+    ``init_model`` (a Booster or a model file) continues training: its
+    trees stay in the returned model, as the reference's ``init_model``
+    keeps them.  ``fobj(preds, train_set) -> (grad, hess)`` replaces the
+    objective (it gets the raw scores as host numpy); ``feval(preds,
+    dataset) -> (name, value, higher_is_better)`` adds a metric on the
+    training set and every valid set."""
     params = dict(params or {})
     params.update(kwargs)
     dev = device_from(params, device)
@@ -46,6 +52,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                                  "num_rounds", "num_trees", "num_tree",
                                  "n_estimators")):
         num_boost_round = cfg.num_iterations
+    if fobj is not None:
+        params["objective"] = "none"
     booster = Booster(params=params, train_set=train_set, device=dev)
     if init_model is not None:
         init_bst = init_model if isinstance(init_model, Booster) else \
@@ -85,11 +93,12 @@ def train(params: Dict[str, Any], train_set: Dataset,
     for it in range(num_boost_round):
         for cb in before:
             cb(CallbackEnv(booster, params, it, 0, num_boost_round, None))
-        if booster.update():
+        if booster.update(fobj=fobj):
             break
         results = []
-        if booster._gbdt.train_metrics or booster._gbdt.valid_sets:
-            results = booster.eval_train() + booster.eval_valid()
+        if booster._gbdt.train_metrics or booster._gbdt.valid_sets or \
+                feval:
+            results = booster.eval_train(feval) + booster.eval_valid(feval)
         try:
             for cb in after:
                 cb(CallbackEnv(booster, params, it, 0, num_boost_round,
@@ -217,22 +226,14 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
     (default true) the folds train as one batch over the parent
     dataset's bins (multitrain/cv.py); configurations the batch cannot
     take run the per-fold loop, which, as the reference's, calls no
-    ``callbacks`` and starts from no ``init_model``.  Custom objectives
-    and metrics (``fobj``, ``feval``) are not ported and raise."""
+    ``callbacks`` and starts from no ``init_model``; a custom objective
+    or metric (``fobj``, ``feval``) takes that loop."""
     params = dict(params or {})
     params.update(kwargs)
     if metrics is not None:
         params["metric"] = metrics
     dev = device_from(params, device)
-    for name, val in (("fobj", fobj), ("feval", feval)):
-        if val is not None:
-            raise NotImplementedError(
-                f"cv({name}=...) is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1 item 5)")
     cfg = Config(params)
-    if cfg.boosting != "gbdt":
-        from .models.boosting import create_boosting
-        create_boosting(cfg, None, dev)   # the standalone's refusal
     if cfg.objective in ("lambdarank", "rank_xendcg"):
         stratified = False
     train_set.construct(cfg)
@@ -279,12 +280,12 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
         agg = collections.defaultdict(list)
         hib_map: Dict[str, bool] = {}
         for bst in cvbooster.boosters:
-            bst.update()
-            for ds, name, val, hib in bst.eval_valid():
+            bst.update(fobj=fobj)
+            for ds, name, val, hib in bst.eval_valid(feval):
                 agg[f"{ds} {name}"].append(val)
                 hib_map[f"{ds} {name}"] = hib
             if eval_train_metric:
-                for ds, name, val, hib in bst.eval_train():
+                for ds, name, val, hib in bst.eval_train(feval):
                     agg[f"train {name}"].append(val)
         if aggr.update(it, agg, hib_map):
             break

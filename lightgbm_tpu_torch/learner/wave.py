@@ -81,7 +81,8 @@ from ..ops.histogram import (PACK4_MAX_BINS, fx_to_f32, histogram_subtract,
 from ..ops.histogram_cuda import LEAF_CHANNELS, Q_LEAF_CHANNELS, split_decode
 from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
 from ..ops.fmath import _fma
-from ..ops.split import (BIG, FORCED_NAN_LEFT_REFUSED, NEG_INF, SplitParams,
+from ..ops.split import (BIG, FORCED_NAN_LEFT_REFUSED,
+                         MONOTONE_SMOOTH_NAN_LEFT_SQUARE, NEG_INF, SplitParams,
                          cumsum_bins, leaf_gain,
                          leaf_output, leaf_output_smoothed,
                          local_best_candidates, node_draws)
@@ -357,7 +358,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
         def many_candidates(hists, sums, fms, sums_exact=None,
                             rand_bins=None, bounds=None, depths=None,
-                            pouts=None, cegb=None, nan_left_refused=False):
+                            pouts=None, cegb=None, nan_left_refused=False,
+                            nan_left_square=False):
             """Best-split candidates for a batch of leaves: the scan on
             the dequantized histograms, expanded to feature space under
             EFB (the reference's ``_scan_hists``, wave.py:591-599), with
@@ -370,7 +372,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 ic_full if any_cat else None, monotone=mono, bound=bounds,
                 depth=depths, cegb_penalty=cegb_full if cegb is None
                 else cegb, gain_scale=contri, parent_out=pouts,
-                nan_left_refused=nan_left_refused)
+                nan_left_refused=nan_left_refused,
+                nan_left_square=nan_left_square)
 
         fm_row = feature_mask.to(torch.bool)
 
@@ -817,14 +820,17 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             cegb2 = (lazy_costs(s, rl_old, sel_h, sl, feat, idx2, v2,
                                 sums2) if use_lazy else None)
             # the reference's forced waves recheck the NaN-left gain with
-            # the other fused product at some widths (ops/split.py
-            # FORCED_NAN_LEFT_REFUSED)
+            # the other fused product at some widths, and under monotone
+            # bounds its children scans fuse the NaN-left gains' square
+            # term at others (ops/split.py FORCED_NAN_LEFT_REFUSED,
+            # MONOTONE_SMOOTH_NAN_LEFT_SQUARE)
             cands = many_candidates(
                 hists2, sums2, fm2, rand_bins=rb2, bounds=bounds2,
                 depths=torch.cat([child_depth, child_depth]),
                 pouts=torch.cat([out_l, out_r]), cegb=cegb2,
                 nan_left_refused=(forced is not None and
-                                  W in FORCED_NAN_LEFT_REFUSED))
+                                  W in FORCED_NAN_LEFT_REFUSED),
+                nan_left_square=W in MONOTONE_SMOOTH_NAN_LEFT_SQUARE)
             depth_ok = (torch.ones_like(sel) if max_depth <= 0
                         else child_depth < max_depth)
             cg = torch.where(torch.cat([depth_ok, depth_ok]) &

@@ -46,9 +46,11 @@ from ..utils.log import log_info, log_warning
 from ..utils.random import fold_in, host_key, host_rng
 from ..utils.timer import FunctionTimer
 from ..efb import make_bundle_decode
-from .tree import CAT_MASK, DEFAULT_LEFT_MASK, Tree, TreeBatch, predict_raw
+from .tree import (CAT_MASK, DEFAULT_LEFT_MASK, Tree, TreeBatch, predict_leaf,
+                   predict_raw, predict_raw_early_stop)
 
-__all__ = ["GBDT", "bagging_mask_np", "feature_mask_np", "learner_config"]
+__all__ = ["GBDT", "bagging_mask_np", "goss_sample_np", "feature_mask_np",
+           "learner_config", "true_divide"]
 
 EPSILON = 1e-12
 
@@ -130,6 +132,15 @@ def _tree_cat_member(tree: Tree) -> np.ndarray:
     return np.zeros((max(len(tree.split_feature), 1), 1), bool)
 
 
+def true_divide(x: torch.Tensor, w: float) -> torch.Tensor:
+    """``x / f32(w)`` rounded as one division on every device.  PyTorch's
+    CUDA ``tensor / python_scalar`` multiplies by the scalar's reciprocal
+    (two roundings) and its CPU one divides; the reference's eager ``jnp``
+    division divides.  A 0-dim divisor on ``x``'s own device takes the
+    division kernel on both."""
+    return x / torch.full((), w, dtype=torch.float32, device=x.device)
+
+
 def _update_score(score: torch.Tensor, row_leaf: torch.Tensor,
                   leaf_value: torch.Tensor, shrinkage: float) -> torch.Tensor:
     """score + (leaf_value * shrinkage)[row_leaf]: the multiply and the add
@@ -176,6 +187,52 @@ def bagging_mask_np(cfg, n: int, iteration: int,
     mask = np.zeros(n, np.float32)
     mask[rows] = sub
     return mask
+
+
+def goss_sample_np(cfg, grad: np.ndarray, hess: np.ndarray, iteration: int,
+                   rows: Optional[np.ndarray] = None):
+    """Host GOSS draw (goss.hpp:103-152): keep the top ``top_rate`` rows by
+    |grad*hess|, Bernoulli-sample ``other_rate`` of the rest at b/(1-a) and
+    amplify the survivors' gradients by (1-a)/b; sampling is skipped for the
+    first 1/learning_rate iterations (goss.hpp:157).  Copy of the
+    reference's ``goss_sample_np`` (lightgbm_tpu/models/gbdt.py:223-270),
+    drawing from the same Philox stream (``host_rng``), so the standalone
+    GOSS trainer and the multi-model batch thin the same rows.  ``rows``
+    restricts the draw to those rows (a masked fold): thresholds and draws
+    over the compacted subset, scattered back to full length.
+
+    Returns ``(mask, mult)`` float32 (n,) arrays, 0/1 survivorship and the
+    per-row gradient multiplier, or None when sampling is inactive this
+    iteration (warm-up, or top_rate + other_rate >= 1)."""
+    a, b = float(cfg.top_rate), float(cfg.other_rate)
+    warmup = int(1.0 / max(float(cfg.learning_rate), 1e-12))
+    if iteration < warmup or a + b >= 1.0:
+        return None
+    grad = np.asarray(grad)
+    hess = np.asarray(hess)
+    score = np.abs(grad * hess)
+    if score.ndim == 2:  # multiclass: sum |g*h| over classes (goss.hpp:118)
+        score = score.sum(axis=1)
+    n = len(score)
+    sub = score if rows is None else score[rows]
+    nn = len(sub)
+    k = max(1, int(nn * a))
+    thr = np.partition(sub, nn - k)[nn - k]
+    top = sub >= thr
+    rng = host_rng(cfg.bagging_seed, iteration)
+    rest_p = b / max(1.0 - a, 1e-12)
+    keep_rest = (~top) & (rng.random(nn) < rest_p)
+    amp = (1.0 - a) / max(b, 1e-12)
+    sub_mask = (top | keep_rest).astype(np.float32)
+    sub_mult = np.where(keep_rest, np.float32(amp),
+                        np.float32(1.0)).astype(np.float32)
+    if rows is None:
+        return sub_mask, sub_mult
+    mask = np.zeros(n, np.float32)
+    mask[rows] = sub_mask
+    mult = np.ones(n, np.float32)
+    mult[rows] = sub_mult
+    return mask, mult
 
 
 def feature_mask_np(cfg, num_features: int,
@@ -262,6 +319,12 @@ class GBDT:
     """Boosting driver (reference src/boosting/gbdt.h:540 ``GBDT``)."""
 
     name = "gbdt"
+    # Trees whose stump iteration the lagged check pops one iteration
+    # later (the reference's deferred path); DART and RF record each tree
+    # at once and keep the stump iteration (reference models/gbdt.py:323,
+    # models/boosting.py:68, :222), as do linear trees, leaf renewal and
+    # coupled CEGB (``_undeferred``).
+    _defer_trees = True
 
     def __init__(self, config: Config, train_set: Optional[Dataset],
                  objective: Optional[ObjectiveFunction] = None,
@@ -279,6 +342,8 @@ class GBDT:
         self.best_iteration = -1
         self.num_tree_per_iteration = 1
         self._prev_iter_leaves: Optional[List[int]] = None
+        self._linear = False
+        self.X_raw_dev: Optional[torch.Tensor] = None
         if train_set is not None:
             self._init_train(train_set)
 
@@ -333,6 +398,19 @@ class GBDT:
         self.X_T = (train_set.device_bins_packed4(self.device)
                     if self.learner.pack4
                     else train_set.device_bins(self.device))
+        self._is_cat_np = is_cat
+        # linear leaves fit on the raw values of the used columns, kept on
+        # the device (reference models/gbdt.py:503-523)
+        self._linear = bool(cfg.linear_tree)
+        if self._linear and self.name != "gbdt":
+            log_warning(f"linear_tree is not supported with "
+                        f"boosting={self.name}; training plain trees")
+            self._linear = False
+        self.X_raw_dev = None
+        if self._linear:
+            self._defer_trees = False
+            self.X_raw_dev = torch.as_tensor(train_set.raw_used,
+                                             device=self.device)
 
         if self.objective is None and cfg.objective != "none":
             self.objective = create_objective(cfg.objective, cfg,
@@ -363,6 +441,7 @@ class GBDT:
         self.score = torch.as_tensor(score0, device=self.device)
         self._bag_mask = torch.ones(self.num_data, dtype=torch.float32,
                                     device=self.device)
+        self._last_sample_mask = self._bag_mask
 
         self.train_metrics = []
         if cfg.is_provide_training_metric:
@@ -497,18 +576,26 @@ class GBDT:
         # continued training: the loaded trees' scores (reference
         # models/gbdt.py:764-778)
         self.valid_scores.append(self._score_models(
-            torch.as_tensor(score0, device=self.device), bins))
+            torch.as_tensor(score0, device=self.device), bins,
+            lambda: torch.as_tensor(valid_set.raw_used, device=self.device)))
         self.valid_metrics.append(metrics)
 
-    def _score_models(self, score: torch.Tensor,
-                      bins: torch.Tensor) -> torch.Tensor:
+    def _score_models(self, score: torch.Tensor, bins: torch.Tensor,
+                      raw) -> torch.Tensor:
         """``score`` plus every recorded tree's output on the binned
-        row-major ``bins`` (class c's trees at i * K + c)."""
+        row-major ``bins``, tree by tree in f32 (class c's trees at i * K +
+        c); a linear tree reads the rows' raw used columns, ``raw()``."""
+        from ..learner.linear import linear_score_delta
         k = self.num_tree_per_iteration
         for t, tree in enumerate(self.models):
-            delta = _walk_binned(
-                bins, tree, torch.as_tensor(tree.leaf_value.astype(
-                    np.float32), device=self.device), self.learner._efb)
+            if tree.is_linear:
+                delta = linear_score_delta(
+                    raw(), self._leaf_index_walk(bins, tree),
+                    *self._linear_device_arrays(tree))
+            else:
+                delta = _walk_binned(
+                    bins, tree, torch.as_tensor(tree.leaf_value.astype(
+                        np.float32), device=self.device), self.learner._efb)
             if k == 1:
                 score = score + delta
             else:
@@ -568,25 +655,62 @@ class GBDT:
         self.iter_ = len(self.models) // max(k, 1)
         # the loaded first tree already carries any boost-from-average bias
         self._pending_bias[:] = 0.0
-        score0 = np.zeros(self._score_shape(self.num_data), np.float32)
-        md = self.train_set.metadata
-        if md.init_score is not None:
-            score0 = score0 + md.init_score.reshape(score0.shape).astype(
-                np.float32)
-        self.score = self._score_models(
-            torch.as_tensor(score0, device=self.device),
-            torch.as_tensor(self.train_set.X_binned, device=self.device))
+        self._rebuild_scores()
+
+    # -- sampling (bagging / GOSS hooks) -------------------------------------
+    def _prepare_iter_sampling(self, grad: torch.Tensor, hess: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+        """Per-iteration row sampling: (grad, hess, mask).  Plain GBDT
+        bags (gbdt.cpp:228, resampled every bagging_freq iterations);
+        GOSS overrides (reference models/gbdt.py:777-792)."""
+        cfg = self.config
+        label = (self.train_set.metadata.label
+                 if cfg.objective == "binary" else None)
+        bag = bagging_mask_np(cfg, self.num_data, self.iter_, label=label)
+        if bag is not None:
+            self._bag_mask = torch.as_tensor(bag, device=self.device)
+        return grad, hess, self._bag_mask
+
+    def _coerce_gradients(self, a) -> torch.Tensor:
+        """Explicit (custom objective) gradients as f32 on the device:
+        (N,), or for K classes (N, K), (K, N) or the flat CLASS-MAJOR
+        layout of length N * K (the reference's ``_coerce``,
+        models/gbdt.py:812-830; c_api.cpp UpdateOneIterCustom)."""
+        k = self.num_tree_per_iteration
+        n = self.num_data
+        a = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a,
+                       np.float32)
+        if k == 1:
+            a = a.reshape((n,))
+        elif a.ndim == 2:
+            if a.shape == (k, n) and a.shape != (n, k):
+                a = a.T
+            elif a.shape != (n, k):
+                raise ValueError(
+                    f"custom objective gradients have shape {a.shape}; "
+                    f"expected ({n}, {k}) or flat class-major length "
+                    f"{n * k}")
+        else:
+            a = a.reshape((k, n)).T
+        return torch.as_tensor(np.ascontiguousarray(a), device=self.device)
 
     # -- one boosting iteration (gbdt.cpp:369 TrainOneIter) ------------------
-    def train_one_iter(self) -> bool:
+    def train_one_iter(self, grad=None, hess=None) -> bool:
+        """One boosting iteration; ``grad`` / ``hess`` are a custom
+        objective's gradients (boosting.h:85), else the objective's."""
         cfg = self.config
         k = self.num_tree_per_iteration
         with FunctionTimer("GBDT::train_one_iter"):
-            if self.objective is None:
-                raise NotImplementedError(
-                    "custom objectives (objective='none') are not ported to "
-                    "lightgbm_tpu_torch yet (ROADMAP queue 1)")
-            grad, hess = self.objective.get_gradients(self.score)
+            if grad is None or hess is None:
+                if self.objective is None:
+                    raise ValueError("no objective: pass gradients "
+                                     "explicitly (custom objective path, "
+                                     "boosting.h:85)")
+                grad, hess = self.objective.get_gradients(self.score)
+            else:
+                grad = self._coerce_gradients(grad)
+                hess = self._coerce_gradients(hess)
             # lagged no-split stop, as the reference's deferred-tree path:
             # when the previous iteration grew only stumps, pop them (the
             # first iteration's are kept: they carry the boost-from-average
@@ -604,22 +728,19 @@ class GBDT:
             fm = feature_mask_np(cfg, self.num_features, self.iter_)
             fmask = None if fm is None else torch.as_tensor(
                 fm, device=self.device)
-            label = (self.train_set.metadata.label
-                     if cfg.objective == "binary" else None)
-            bag = bagging_mask_np(cfg, self.num_data, self.iter_,
-                                  label=label)
-            if bag is not None:
-                self._bag_mask = torch.as_tensor(bag, device=self.device)
+            grad, hess, mask = self._prepare_iter_sampling(grad, hess)
+            self._last_sample_mask = mask
             leaves = []
             for cid in range(k):
                 g = grad if k == 1 else grad[:, cid].contiguous()
                 h = hess if k == 1 else hess[:, cid].contiguous()
+                self._cur_gh = (g, h)
                 extra = self._tree_keys(self.iter_ * k + cid)
                 if self._cegb_coupled is not None:
                     extra["cegb_penalty"] = torch.as_tensor(
                         np.where(self._cegb_used, 0.0, self._cegb_coupled),
                         dtype=torch.float32, device=self.device)
-                grown = self.learner.train(self.X_T, g, h, self._bag_mask,
+                grown = self.learner.train(self.X_T, g, h, mask,
                                            feature_mask=fmask, **extra)
                 self.last_hist_passes = grown.hist_passes
                 self.last_host_syncs = grown.host_syncs
@@ -666,9 +787,10 @@ class GBDT:
     @property
     def _undeferred(self) -> bool:
         """Trees recorded at once and the stump iteration kept, as the
-        reference's undeferred path runs leaf renewal and coupled CEGB
-        (models/gbdt.py:498, :1013-1016)."""
-        return self._renews or self._cegb_coupled is not None
+        reference's undeferred path runs DART, RF, linear trees, leaf
+        renewal and coupled CEGB (models/gbdt.py:498, :511, :1013-1016)."""
+        return (not self._defer_trees or self._renews or
+                self._cegb_coupled is not None)
 
     def _current_shrinkage(self) -> float:
         return float(self.config.learning_rate)
@@ -693,7 +815,7 @@ class GBDT:
         elif self.train_set.metadata.weight is not None:
             w = np.asarray(self.train_set.metadata.weight)
         row_leaf = grown.row_leaf.cpu().numpy()
-        rows = np.nonzero(self._bag_mask.cpu().numpy() > 0)[0]
+        rows = np.nonzero(self._last_sample_mask.cpu().numpy() > 0)[0]
         rows = rows[np.argsort(row_leaf[rows], kind="stable")]
         bounds = np.searchsorted(row_leaf[rows],
                                  np.arange(int(grown.num_leaves) + 1))
@@ -706,6 +828,8 @@ class GBDT:
         return out
 
     def _record_tree(self, grown: GrownTree, class_id: int = 0) -> Tree:
+        if self._linear:
+            return self._record_tree_linear(grown, class_id)
         shrinkage = self._current_shrinkage()
         renewed = (self._renew_leaf_values(grown, class_id)
                    if self._renews else None)
@@ -736,6 +860,218 @@ class GBDT:
                 self.valid_scores[vi][:, class_id] += delta
         return tree
 
+    def _linear_device_arrays(self, tree: Tree):
+        """A linear tree's per-leaf models padded into device tensors:
+        (L, K) features, feature mask and coefficients, (L,) constants and
+        plain leaf values (reference models/gbdt.py:1061-1076)."""
+        L = tree.max_leaves
+        feats = tree.leaf_features_inner
+        K = max(1, max((len(f) for f in feats), default=1))
+        lf = np.zeros((L, K), np.int64)
+        fm = np.zeros((L, K), np.float32)
+        co = np.zeros((L, K), np.float32)
+        for i, (fs, cs) in enumerate(zip(feats, tree.leaf_coeff)):
+            lf[i, :len(fs)] = fs
+            fm[i, :len(fs)] = 1.0
+            co[i, :len(cs)] = cs
+        dev = self.device
+        return (torch.as_tensor(lf, device=dev),
+                torch.as_tensor(fm, device=dev),
+                torch.as_tensor(co, device=dev),
+                torch.as_tensor(np.asarray(tree.leaf_const, np.float32),
+                                device=dev),
+                torch.as_tensor(np.asarray(tree.leaf_value, np.float32),
+                                device=dev))
+
+    def _leaf_index_walk(self, bins: torch.Tensor, tree: Tree) -> torch.Tensor:
+        """Each row's leaf in ``tree`` on a binned row-major matrix."""
+        idx = torch.arange(tree.max_leaves, dtype=torch.float32,
+                           device=self.device)
+        return _walk_binned(bins, tree, idx, self.learner._efb).long()
+
+    def _record_tree_linear(self, grown: GrownTree, class_id: int) -> Tree:
+        """``_record_tree`` of a linear tree: fit each leaf's linear model
+        on the raw branch features (learner/linear.py), then record
+        (reference models/gbdt.py:1078-1137)."""
+        from ..learner.linear import fit_linear_leaves, linear_score_delta
+        shrinkage = self._current_shrinkage()
+        g, h = self._cur_gh
+        nl = max(int(grown.num_leaves), 1)
+        tree = _grown_to_tree(grown, 1.0, self.train_set)
+        feats_i, coefs, const = fit_linear_leaves(
+            self.X_raw_dev, g, h, self._last_sample_mask, grown.row_leaf,
+            tree.split_feature, tree.left_child, tree.right_child, nl,
+            self._is_cat_np, float(self.config.linear_lambda),
+            tree.leaf_value)
+        real_map, _, _ = self.feature_mapping()
+        tree.is_linear = True
+        tree.leaf_const = np.asarray(const, np.float64)
+        tree.leaf_coeff = coefs
+        tree.leaf_features_inner = feats_i
+        tree.leaf_features = [[int(real_map[f]) for f in fs]
+                              for fs in feats_i]
+        if shrinkage != 1.0:
+            tree.shrink(shrinkage)
+        # score updates with the shrunk values before the bias (the scores
+        # already carry the boost-from-average bias)
+        arrs = self._linear_device_arrays(tree)
+        delta = linear_score_delta(self.X_raw_dev, grown.row_leaf, *arrs)
+        k = self.num_tree_per_iteration
+        if k == 1:
+            self.score = self.score + delta
+        else:
+            self.score[:, class_id] += delta
+        for vi, (_, vset) in enumerate(self.valid_sets):
+            vleaf = self._leaf_index_walk(vset._device_cache["bins_rm"],
+                                          tree)
+            vraw = vset._device_cache.get("raw")
+            if vraw is None:
+                vraw = torch.as_tensor(vset.raw_used, device=self.device)
+                vset._device_cache["raw"] = vraw
+            vdelta = linear_score_delta(vraw, vleaf, *arrs)
+            if k == 1:
+                self.valid_scores[vi] = self.valid_scores[vi] + vdelta
+            else:
+                self.valid_scores[vi][:, class_id] += vdelta
+        bias = self._pending_bias[class_id] if self.iter_ == 0 else 0.0
+        if abs(bias) > EPSILON:
+            tree.add_bias(bias)
+        self.models.append(tree)
+        return tree
+
+    # -- model surgery (reference models/gbdt.py:1534-1770) -------------------
+    def rollback_one_iter(self) -> None:
+        """Drop the last iteration's trees and rebuild the scores
+        (reference gbdt.cpp:454 RollbackOneIter)."""
+        if self.iter_ <= 0:
+            return
+        for _ in range(self.num_tree_per_iteration):
+            if self.models:
+                self.models.pop()
+        self.iter_ -= 1
+        self._rebuild_scores()
+
+    def _rebuild_scores(self) -> None:
+        """The training scores from the init score and every recorded
+        tree, walked on the binned rows tree by tree in f32 (reference
+        models/gbdt.py:1720-1769); with no tree left, the pending
+        boost-from-average bias comes back."""
+        k = self.num_tree_per_iteration
+        score0 = np.zeros(self._score_shape(self.num_data), np.float32)
+        md = self.train_set.metadata
+        if md.init_score is not None:
+            score0 += md.init_score.reshape(score0.shape).astype(np.float32)
+        elif not self.models and self.config.boost_from_average and \
+                self.objective is not None:
+            score0 += (np.float32(self._pending_bias[0]) if k == 1 else
+                       self._pending_bias[None, :].astype(np.float32))
+        self.score = self._score_models(
+            torch.as_tensor(score0, device=self.device),
+            torch.as_tensor(self.train_set.X_binned, device=self.device),
+            self._raw_train)
+
+    def _raw_train(self) -> torch.Tensor:
+        """The training rows' raw used columns on the device (linear
+        leaves predict from them)."""
+        if self.X_raw_dev is None:
+            if self.train_set.raw_used is None:
+                raise ValueError(
+                    "refit of a linear-tree model needs raw feature "
+                    "values; construct the dataset with linear_tree=true")
+            self.X_raw_dev = torch.as_tensor(self.train_set.raw_used,
+                                             device=self.device)
+        return self.X_raw_dev
+
+    def reset_train_data(self, new_train: Dataset) -> None:
+        """Swap the training dataset under the model (reference
+        GBDT::ResetTrainingData, models/gbdt.py:1534-1559): the new rows
+        take this model's bin mappers, the learner, objective and metrics
+        rebuild, the trees re-key onto the new rows and the scores
+        rebuild."""
+        if not new_train.constructed and new_train.reference is None \
+                and self.train_set is not None:
+            new_train.reference = self.train_set
+        models = self.models
+        valid_state = (self.valid_sets, self.valid_scores,
+                       self.valid_metrics)
+        self._init_train(new_train)
+        self.valid_sets, self.valid_scores, self.valid_metrics = valid_state
+        if models:
+            k = max(self.num_tree_per_iteration, 1)
+            self.models = [self._align_loaded_tree(t) for t in models]
+            self.iter_ = len(self.models) // k
+            self._pending_bias[:] = 0.0
+            self._rebuild_scores()
+
+    def refit_trees(self, source: "GBDT", leaf_preds: np.ndarray) -> None:
+        """Re-learn every tree's leaf values on this dataset with the
+        structures fixed (reference gbdt.cpp:285 RefitTree,
+        models/gbdt.py:1561-1638): scores restart from the init score,
+        gradients are recomputed per iteration, and each leaf's value
+        becomes decay * old + (1 - decay) * the closed-form output of its
+        rows, scaled by the tree's shrinkage."""
+        from ..ops.split import leaf_output
+        from ..learner.linear import linear_score_delta
+        if self.objective is None:
+            raise ValueError("cannot refit without an objective")
+        k = self.num_tree_per_iteration
+        trees = [self._align_loaded_tree(t) for t in source.models]
+        n = self.num_data
+        if leaf_preds.shape != (n, len(trees)):
+            raise ValueError(f"leaf_preds shape {leaf_preds.shape} != "
+                             f"({n}, {len(trees)})")
+        decay = float(self.config.refit_decay_rate)
+        sp = self.learner.split_params
+        md = self.train_set.metadata
+        score = np.zeros(self._score_shape(n), np.float32)
+        if md.init_score is not None:
+            score = score + md.init_score.reshape(score.shape).astype(
+                np.float32)
+        for it in range(len(trees) // max(k, 1)):
+            grad, hess = self.objective.get_gradients(
+                torch.as_tensor(score, device=self.device))
+            grad = grad.cpu().numpy()
+            hess = hess.cpu().numpy()
+            for cid in range(k):
+                ti = it * k + cid
+                tree = trees[ti]
+                g = grad if k == 1 else grad[:, cid]
+                h = hess if k == 1 else hess[:, cid]
+                lp = leaf_preds[:, ti]
+                nl = tree.num_leaves
+                sum_g = np.bincount(lp, weights=g, minlength=nl)[:nl]
+                sum_h = np.bincount(lp, weights=h, minlength=nl)[:nl] + \
+                    EPSILON
+                new_out = leaf_output(
+                    torch.as_tensor(sum_g.astype(np.float32)),
+                    torch.as_tensor(sum_h.astype(np.float32)),
+                    sp).numpy().astype(np.float64)
+                new_out *= tree.shrinkage
+                old_vals = tree.leaf_value[:len(new_out)].copy()
+                tree.leaf_value = decay * old_vals + (1.0 - decay) * new_out
+                tree.leaf_count = np.bincount(
+                    lp, minlength=nl)[:nl].astype(np.int64)
+                if tree.is_linear:
+                    # linear leaves keep their coefficients (the reference
+                    # refits the leaf output only); the constant shifts by
+                    # the output's change
+                    shift = tree.leaf_value - old_vals
+                    tree.leaf_const = tree.leaf_const[:len(shift)] + shift
+                    delta = linear_score_delta(
+                        self._raw_train(),
+                        torch.as_tensor(lp, device=self.device),
+                        *self._linear_device_arrays(tree)).cpu().numpy()
+                else:
+                    delta = tree.leaf_value[lp].astype(np.float32)
+                if k == 1:
+                    score += delta
+                else:
+                    score[:, cid] += delta
+        self.models = trees
+        self.iter_ = len(trees) // max(k, 1)
+        self._pending_bias[:] = 0.0
+        self.score = torch.as_tensor(score, device=self.device)
+
     # -- evaluation ------------------------------------------------------------
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
         out = []
@@ -758,10 +1094,22 @@ class GBDT:
     # -- prediction ------------------------------------------------------------
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0,
-                num_iteration: Optional[int] = None) -> np.ndarray:
+                num_iteration: Optional[int] = None,
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                pred_early_stop: bool = False,
+                pred_early_stop_freq: Optional[int] = None,
+                pred_early_stop_margin: Optional[float] = None
+                ) -> np.ndarray:
         """(N,) predictions, or (N, K) for a K-class model (class c's trees
         are at indices i * K + c), through the objective's output
-        transform unless ``raw_score``."""
+        transform unless ``raw_score``; ``pred_leaf`` gives the (N, T)
+        leaf indices and ``pred_early_stop`` the margin-based early exit
+        (reference models/gbdt.py:1255-1427)."""
+        if pred_contrib:
+            raise NotImplementedError(
+                "pred_contrib (SHAP values, models/shap.py and the explain "
+                "compiler) is not ported to lightgbm_tpu_torch yet "
+                "(ROADMAP queue 1 item 7)")
         X = np.asarray(X, np.float32)
         if X.ndim == 1:
             X = X.reshape(1, -1)
@@ -773,17 +1121,59 @@ class GBDT:
         t0 = start_iteration * k
         t1 = len(self.models) if num_iteration is None else min(
             len(self.models), (start_iteration + num_iteration) * k)
-        cols = []
-        for c in range(k):
-            trees = [self.models[t] for t in range(t0, t1) if t % k == c]
-            cols.append(predict_raw(TreeBatch(trees, self.device), Xi)
-                        if trees else
-                        torch.zeros((X.shape[0],), dtype=torch.float32,
-                                    device=self.device))
-        raw = cols[0] if k == 1 else torch.stack(cols, dim=1)
+        if pred_leaf:
+            if t1 <= t0:
+                return np.zeros((X.shape[0], 0), np.int32)
+            return predict_leaf(TreeBatch(self.models[t0:t1], self.device),
+                                Xi).cpu().numpy()
+        raw = None
+        if pred_early_stop or self.config.pred_early_stop:
+            raw = self._predict_early_stop(
+                Xi, t0, t1,
+                pred_early_stop_freq or self.config.pred_early_stop_freq,
+                pred_early_stop_margin if pred_early_stop_margin is not None
+                else self.config.pred_early_stop_margin)
+            if raw is not None and k == 1:
+                raw = raw[:, 0]
+        if raw is None:
+            cols = []
+            for c in range(k):
+                trees = [self.models[t] for t in range(t0, t1) if t % k == c]
+                cols.append(predict_raw(TreeBatch(trees, self.device), Xi)
+                            if trees else
+                            torch.zeros((X.shape[0],), dtype=torch.float32,
+                                        device=self.device))
+            raw = cols[0] if k == 1 else torch.stack(cols, dim=1)
         if raw_score or self.objective is None:
             return raw.cpu().numpy()
         return self.objective.convert_output(raw).cpu().numpy()
+
+    def _predict_early_stop(self, Xi: torch.Tensor, t0: int, t1: int,
+                            freq: int, margin: float
+                            ) -> Optional[torch.Tensor]:
+        """Margin-based prediction early stop (prediction_early_stop.cpp),
+        binary and multiclass only: (N, K) raw scores, or None where it
+        does not apply (reference models/gbdt.py:1365-1402)."""
+        k = self.num_tree_per_iteration
+        if k > 1:
+            mode = "multiclass"
+        elif self.config.objective == "binary":
+            mode = "binary"
+        else:
+            log_warning("pred_early_stop applies to binary/multiclass "
+                        "objectives only; predicting normally")
+            return None
+        if t1 <= t0:
+            return torch.zeros((Xi.shape[0], k), dtype=torch.float32,
+                               device=self.device)
+        if any(t.is_linear for t in self.models):
+            log_warning("pred_early_stop is not supported with linear "
+                        "trees; predicting normally")
+            return None
+        per_class = [TreeBatch(self.models[t0 + c:t1:k], self.device)
+                     for c in range(k)]
+        return predict_raw_early_stop(per_class, Xi, float(margin),
+                                      max(1, int(freq)), mode)
 
     @property
     def current_iteration(self) -> int:

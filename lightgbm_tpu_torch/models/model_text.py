@@ -272,10 +272,12 @@ def string_to_model(model_str: str, config, source: str = "<model string>",
     cfg = config.update(params)
 
     if average_output:
-        raise NotImplementedError(
-            "random-forest models (average_output) are not ported to "
-            "lightgbm_tpu_torch yet (ROADMAP queue 1)")
-    gbdt = GBDT(cfg, None, device=device)
+        # a random forest: predictions average the trees (reference
+        # models/model_text.py:270)
+        from .boosting import RF
+        gbdt = RF(cfg, None, device=device)
+    else:
+        gbdt = GBDT(cfg, None, device=device)
     gbdt.config = cfg
     gbdt.num_tree_per_iteration = k
     gbdt.num_features = max_feature_idx + 1

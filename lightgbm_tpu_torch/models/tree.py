@@ -5,9 +5,12 @@ Port of ``lightgbm_tpu/models/tree.py`` (reference: include/LightGBM/tree.h:25
 host-side :class:`Tree` is a copy; :class:`TreeBatch` stacks an ensemble
 into tensors on the prediction device and :func:`predict_raw` is the plain
 vectorized tree walk (every row advances one level per step), deciding
-categorical nodes by their bitsets over raw category values.  The
-reference's dense matmul walk and serving compiler wait for a later slice
-(ROADMAP queue 1).
+categorical nodes by their bitsets over raw category values, and
+evaluating linear leaves (``const + Σ coef·x``, the plain leaf value where
+a leaf feature is NaN).  :func:`predict_leaf` gives each row's leaf index
+per tree and :func:`predict_raw_early_stop` the margin-based early exit
+(reference prediction_early_stop.cpp).  The reference's dense matmul walk
+and serving compiler wait for a later slice (ROADMAP queue 1).
 
 decision_type bit layout follows the reference (tree.h decision_type):
   bit0: categorical, bit1: default_left, bits 2-3: missing type
@@ -22,7 +25,8 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-__all__ = ["Tree", "TreeBatch", "predict_raw"]
+__all__ = ["Tree", "TreeBatch", "predict_raw", "predict_leaf",
+           "predict_raw_early_stop"]
 
 CAT_MASK = 1
 DEFAULT_LEFT_MASK = 2
@@ -177,19 +181,15 @@ class Tree:
 
 
 class TreeBatch:
-    """Stacked tensors for T trees of identical max size on one device
-    (linear trees are not ported yet).  Categorical nodes carry their
-    bitset words over raw category values, (T, L-1, W) ``cat_words``
-    (reference models/tree.py:252-288)."""
+    """Stacked tensors for T trees of identical max size on one device.
+    Categorical nodes carry their bitset words over raw category values,
+    (T, L-1, W) ``cat_words``, and linear leaves their models, (T, L, K)
+    ``leaf_feat`` / ``leaf_fmask`` / ``leaf_coef`` and (T, L)
+    ``leaf_const`` (reference models/tree.py:252-319)."""
 
     def __init__(self, trees: List[Tree], device=torch.device("cpu")):
         if not trees:
             raise ValueError("no trees")
-        for t in trees:
-            if t.is_linear:
-                raise NotImplementedError(
-                    "linear trees are not ported to lightgbm_tpu_torch yet "
-                    "(ROADMAP queue 1)")
         self.num_trees = len(trees)
         self.max_leaves = max(max(t.max_leaves, t.num_leaves) for t in trees)
         ml = self.max_leaves
@@ -210,6 +210,33 @@ class TreeBatch:
         self.leaf_value = stack("leaf_value", ml, np.float32)
         self.num_leaves = torch.as_tensor(
             np.array([t.num_leaves for t in trees], np.int64), device=dev)
+        self.has_linear = any(t.is_linear for t in trees)
+        if self.has_linear:
+            lk = 1
+            for t in trees:
+                if t.is_linear:
+                    lk = max(lk, max((len(f) for f in _leaf_feats(t)),
+                                     default=1))
+            lconst = np.zeros((len(trees), ml), np.float32)
+            lcoef = np.zeros((len(trees), ml, lk), np.float32)
+            lfeat = np.zeros((len(trees), ml, lk), np.int64)
+            lfmask = np.zeros((len(trees), ml, lk), bool)
+            lflag = np.zeros((len(trees),), bool)
+            for ti, t in enumerate(trees):
+                if not t.is_linear:
+                    continue
+                lflag[ti] = True
+                lconst[ti, :len(t.leaf_const)] = t.leaf_const
+                for leaf, (fs, cs) in enumerate(zip(_leaf_feats(t),
+                                                    t.leaf_coeff)):
+                    lfeat[ti, leaf, :len(fs)] = fs
+                    lfmask[ti, leaf, :len(fs)] = True
+                    lcoef[ti, leaf, :len(cs)] = cs
+            self.leaf_const = torch.as_tensor(lconst, device=dev)
+            self.leaf_coef = torch.as_tensor(lcoef, device=dev)
+            self.leaf_feat = torch.as_tensor(lfeat, device=dev)
+            self.leaf_fmask = torch.as_tensor(lfmask, device=dev)
+            self.linear_flag = lflag
         # None when no tree has a categorical node
         self.cat_words = None
         if not any(np.any(np.asarray(t.decision_type[:t.num_internal()],
@@ -239,9 +266,17 @@ class TreeBatch:
         self.cat_words = torch.as_tensor(words, device=dev)
 
 
+def _leaf_feats(t: Tree) -> List[List[int]]:
+    """A linear tree's per-leaf features on the prediction matrix's
+    columns: inner indices when trained here, the file's for a loaded
+    model (its inner map is the identity)."""
+    return t.leaf_features_inner if t.leaf_features_inner is not None \
+        else t.leaf_features
+
+
 def _walk_raw(X: torch.Tensor, split_feature, threshold, decision_type,
               left_child, right_child, leaf_value, num_leaves,
-              cat_words=None) -> torch.Tensor:
+              cat_words=None, want_leaf: bool = False):
     """One tree's walk on RAW float features (the reference's
     ``_walk_raw``, models/tree.py:604-654): NaN goes to ``default_left``
     under missing type NaN, otherwise counts as 0.0; a categorical node
@@ -250,9 +285,13 @@ def _walk_raw(X: torch.Tensor, split_feature, threshold, decision_type,
     negative or fractional value going right."""
     n = X.shape[0]
     if int(num_leaves) <= 1:
-        return leaf_value[0].expand(n).clone()
+        out = leaf_value[0].expand(n).clone()
+        if want_leaf:
+            return out, torch.zeros((n,), dtype=torch.long, device=X.device)
+        return out
     node = torch.zeros((n,), dtype=torch.long, device=X.device)
     out = torch.zeros((n,), dtype=torch.float32, device=X.device)
+    leaf = torch.zeros((n,), dtype=torch.long, device=X.device)
     rows = torch.arange(n, device=X.device)
     active = torch.ones((n,), dtype=torch.bool, device=X.device)
     while bool(active.any()):
@@ -281,9 +320,33 @@ def _walk_raw(X: torch.Tensor, split_feature, threshold, decision_type,
         new_node = torch.where(active, nxt, node)
         hit = active & (new_node < 0)
         out = torch.where(hit, leaf_value[(~new_node).clamp(min=0)], out)
+        leaf = torch.where(hit, (~new_node).clamp(min=0), leaf)
         node = new_node
         active = node >= 0
+    if want_leaf:
+        return out, leaf
     return out
+
+
+def _tree_out(batch: TreeBatch, X: torch.Tensor, t: int,
+              want_leaf: bool = False):
+    """Tree ``t``'s output per row on raw features: the plain leaf value,
+    or a linear leaf's const + Σ coef·x with the plain value where a leaf
+    feature is NaN (reference tree.cpp PredictionFunLinear,
+    models/tree.py:722-733); with ``want_leaf`` also the leaf index."""
+    linear = batch.has_linear and bool(batch.linear_flag[t])
+    val, leaf = _walk_raw(X, batch.split_feature[t], batch.threshold[t],
+                          batch.decision_type[t], batch.left_child[t],
+                          batch.right_child[t], batch.leaf_value[t],
+                          batch.num_leaves[t],
+                          None if batch.cat_words is None
+                          else batch.cat_words[t], want_leaf=True)
+    if linear:
+        from ..learner.linear import linear_score_delta
+        val = linear_score_delta(X, leaf, batch.leaf_feat[t],
+                                 batch.leaf_fmask[t], batch.leaf_coef[t],
+                                 batch.leaf_const[t], batch.leaf_value[t])
+    return (val, leaf) if want_leaf else val
 
 
 def predict_raw(batch: TreeBatch, X: torch.Tensor,
@@ -296,10 +359,44 @@ def predict_raw(batch: TreeBatch, X: torch.Tensor,
     X = X.to(torch.float32)
     out = torch.zeros((X.shape[0],), dtype=torch.float32, device=X.device)
     for t in range(start_iteration, t_end):
-        out = out + _walk_raw(X, batch.split_feature[t], batch.threshold[t],
-                              batch.decision_type[t], batch.left_child[t],
-                              batch.right_child[t], batch.leaf_value[t],
-                              batch.num_leaves[t],
-                              None if batch.cat_words is None
-                              else batch.cat_words[t])
+        out = out + _tree_out(batch, X, t)
+    return out
+
+
+def predict_leaf(batch: TreeBatch, X: torch.Tensor) -> torch.Tensor:
+    """(N, T) int32 leaf index of every row in every tree (reference
+    models/gbdt.py:1404-1427 ``_predict_leaf``)."""
+    X = X.to(torch.float32)
+    return torch.stack([_tree_out(batch, X, t, want_leaf=True)[1]
+                        for t in range(batch.num_trees)],
+                       dim=1).to(torch.int32)
+
+
+def predict_raw_early_stop(per_class: List[TreeBatch], X: torch.Tensor,
+                           margin: float, freq: int,
+                           mode: str) -> torch.Tensor:
+    """(N, K) raw scores with a per-row margin-based early exit across
+    trees (reference prediction_early_stop.cpp:54 binary, stop once
+    2|raw| > margin, and :25 multiclass, once the top-2 gap exceeds it;
+    checked every ``freq`` trees; models/tree.py:364-411).  A stopped row
+    keeps its partial sum; the tree loop ends once every row stopped."""
+    X = X.to(torch.float32)
+    n = X.shape[0]
+    k = len(per_class)
+    out = torch.zeros((n, k), dtype=torch.float32, device=X.device)
+    stopped = torch.zeros((n,), dtype=torch.bool, device=X.device)
+    zero = torch.zeros((), dtype=torch.float32, device=X.device)
+    for t in range(per_class[0].num_trees):
+        deltas = [torch.where(stopped, zero, _tree_out(b, X, t))
+                  for b in per_class]
+        out = out + torch.stack(deltas, dim=1)
+        if (t + 1) % freq == 0:
+            if mode == "binary":
+                stop_now = 2.0 * torch.abs(out[:, 0]) > margin
+            else:
+                top2 = torch.topk(out, 2, dim=1).values
+                stop_now = (top2[:, 0] - top2[:, 1]) > margin
+            stopped = stopped | stop_now
+            if bool(stopped.all()):
+                break
     return out

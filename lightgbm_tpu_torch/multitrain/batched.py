@@ -32,9 +32,12 @@ subset grows (the reference's masked models draw over all N rows and
 match their subset runs only where no such draw enters).
 
 Multiclass runs as an (M, K) grid of lanes, class-major (lane = m*K + c);
-ranking runs over the shared query layout.  GOSS and DART lanes are not
-ported (ROADMAP queue 1 item 5): a batch of them raises the standalone's
-``NotImplementedError``.
+ranking runs over the shared query layout.  GOSS and DART batch too
+(reference batched.py:607-830): a GOSS lane takes the standalone's host
+draw (``gbdt.goss_sample_np``) over its own rows and never bags; a DART
+model draws its drops as the standalone does (``boosting.dart_drops``)
+and drops, re-adds and rescales its trees with the standalone's axpys on
+its own lanes' scores.
 """
 
 from __future__ import annotations
@@ -50,10 +53,10 @@ from ..config import Config
 from ..dataset import Dataset, Metadata
 from ..learner.serial import SerialTreeLearner, split_params_from_config
 from ..metric import create_metrics
-from ..models.boosting import create_boosting
+from ..models.boosting import dart_drops, dart_factor, dart_shrinkage
 from ..models.gbdt import (EPSILON, GBDT, _grown_to_tree, _update_score,
                            _walk_binned, bagging_mask_np, feature_mask_np,
-                           learner_config)
+                           goss_sample_np, learner_config, true_divide)
 from ..objective import create_objective
 from ..utils.random import fold_in, host_key
 
@@ -121,7 +124,10 @@ class _ModelState:
                  "active",
                  "kept_iters", "best_iteration", "best_score", "stopper",
                  "history", "metrics_per_valid", "stop_reason", "trees",
-                 "leaves")
+                 "leaves",
+                 # DART (models/boosting.py DART's state, per model)
+                 "weights", "sum_weight", "cur_shrinkage", "drops",
+                 "base", "vbase", "hbase")
 
     def __init__(self, cfg: Config, params: Dict[str, Any]) -> None:
         self.cfg = cfg
@@ -140,6 +146,13 @@ class _ModelState:
         self.stop_reason = ""
         self.trees: list = []                # host Trees, it * K + c
         self.leaves: List[List[int]] = []    # per iteration, per class
+        self.weights: List[float] = []       # DART: each iteration's weight
+        self.sum_weight = 0.0
+        self.cur_shrinkage = float(cfg.learning_rate)
+        self.drops: List[int] = []           # DART: this iteration's drops
+        self.base: list = []     # DART, per iteration, per class: (N,) raw
+        self.vbase: list = []    # ... per valid set, per class
+        self.hbase: list = []    # ... held-out rows (cv), per class
 
 
 class BatchTrainer:
@@ -167,8 +180,9 @@ class BatchTrainer:
         reason = batch_reject_reason(cfg, train_set)
         if reason:
             raise MultiTrainError(reason)
-        # the standalone's refusals (GOSS, DART, ...), raised as they are
-        self._shim = create_boosting(cfg, None, self.device)
+        self._shim = GBDT(cfg, None, device=self.device)
+        self._goss = cfg.boosting == "goss"
+        self._dart = cfg.boosting == "dart"
         self.train_set = train_set
         self.n = train_set.num_data()
         self.num_features = train_set.num_feature()
@@ -256,8 +270,25 @@ class BatchTrainer:
 
         self._init_scores()
         self._init_valid(valid_sets or [], valid_names or [])
+        self.hscores: Optional[List[torch.Tensor]] = None
+        self.heldout: Optional[List[torch.Tensor]] = None
         self._steps = 0
         self._masks: Optional[List[torch.Tensor]] = None
+
+    def track_heldout(self, rows: List[np.ndarray]) -> None:
+        """DART: score model m's held-out ``rows[m]`` as the per-fold
+        loop scores its valid set (the tree's delta, then the drops'
+        rescale by the weight's change), not as its training score (the
+        drop, then the re-add); the cv fast path reads them here.  Other
+        boostings' held-out rows take the valid set's ops in the training
+        score already."""
+        if not self._dart:
+            return
+        K = self.K
+        self.heldout = [torch.as_tensor(np.asarray(r, np.int64),
+                                        device=self.device) for r in rows]
+        self.hscores = [self.score[m * K + c][self.heldout[m]].clone()
+                        for m in range(self.M) for c in range(K)]
 
     # -- setup ---------------------------------------------------------------
     def _lane_vec(self, a: np.ndarray) -> torch.Tensor:
@@ -347,8 +378,9 @@ class BatchTrainer:
             label = np.asarray(self.train_set.metadata.label)
         out = []
         for st in self.states:
-            base = bagging_mask_np(st.cfg, self.n, it, label=label,
-                                   rows=st.rows)
+            # GOSS never bags (the standalone's sampling replaces it)
+            base = None if self._goss else bagging_mask_np(
+                st.cfg, self.n, it, label=label, rows=st.rows)
             if base is None:
                 if st.rows is None:
                     out.append(None)
@@ -395,13 +427,18 @@ class BatchTrainer:
                     all(x <= 1 for x in st.leaves[it - 1]):
                 st.active = False
                 st.stop_reason = "no-split"
-                st.kept_iters = max(1, it - 1)
+                # DART records each tree at once and keeps the stump
+                # iteration (models/boosting.py); the others pop it unless
+                # it is the model's only one
+                st.kept_iters = it if self._dart else max(1, it - 1)
 
     def step_once(self, it: int) -> None:
         """One boosting iteration of every active model: all their trees
         (M x K lanes) grow in lockstep."""
         K = self.K
         masks = self._lane_masks(it)
+        if self._dart:
+            self._dart_drop(it)
         lanes, sps, owner = [], [], []
         for m, st in enumerate(self.states):
             if not st.active:
@@ -410,9 +447,12 @@ class BatchTrainer:
             fm = feature_mask_np(st.cfg, self.num_features, it)
             fmask = None if fm is None else torch.as_tensor(
                 fm, device=self.device)
+            base = masks[m]
+            if self._goss:
+                grad, hess, base = self._goss_lane(m, it, grad, hess, base)
             bag = (torch.ones(self.n, dtype=torch.float32,
                               device=self.device)
-                   if masks[m] is None else self._lane_vec(masks[m]))
+                   if base is None else self._lane_vec(base))
             for c in range(K):
                 g = grad if k is None else grad[:, c].contiguous()
                 h = hess if k is None else hess[:, c].contiguous()
@@ -424,16 +464,82 @@ class BatchTrainer:
         grown = self.learner.train_lanes(self.X_T, lanes, sps)
         for (m, c), gt in zip(owner, grown):
             self._record(m, c, gt, it)
+        if self._dart:
+            self._dart_normalize()
         self._steps += 1
         for st in self.states:
             if st.active:
                 st.kept_iters = self._steps
 
+    # -- GOSS and DART (the standalone's host state, per model) -------------
+    def _goss_lane(self, m: int, it: int, grad, hess, base):
+        """The standalone ``GOSS._prepare_iter_sampling`` of model m over
+        its own rows: the amplified gradients and the row mask (its base
+        mask, the rows indicator, times the survivorship)."""
+        st = self.states[m]
+        gm = goss_sample_np(st.cfg, grad.cpu().numpy(), hess.cpu().numpy(),
+                            it, rows=st.rows)
+        if gm is None:
+            return grad, hess, base
+        mask, mult = gm
+        scale = torch.as_tensor(mult, device=self.device)
+        if grad.dim() == 2:
+            scale = scale[:, None]
+        return grad * scale, hess * scale, (mask if base is None
+                                            else base * mask)
+
+    def _dart_drop(self, it: int) -> None:
+        """Each active model's drops (``boosting.dart_drops``, its own
+        seeds and weights): the dropped trees leave its lanes' TRAIN
+        scores, and its new tree's shrinkage follows (the standalone
+        ``DART.train_one_iter``)."""
+        K = self.K
+        for m, st in enumerate(self.states):
+            st.drops = []
+            if not st.active:
+                continue
+            st.drops = dart_drops(st.cfg, it, st.weights, st.sum_weight)
+            for d in st.drops:
+                for c in range(K):
+                    lane = m * K + c
+                    self.score[lane] = self.score[lane] - \
+                        st.base[d][c] * st.weights[d]
+            st.cur_shrinkage = dart_shrinkage(st.cfg, len(st.drops))
+
+    def _dart_normalize(self) -> None:
+        """The standalone ``DART._normalize`` of each model that dropped:
+        each dropped tree rescales by k/(k+1) (its host trees shrink in
+        place), its train score re-adds it at the new weight, and the
+        valid (and held-out) scores move by the weight's change."""
+        K = self.K
+        for m, st in enumerate(self.states):
+            if not st.drops:
+                continue
+            factor = dart_factor(st.cfg, len(st.drops))
+            for d in st.drops:
+                old_w = st.weights[d]
+                new_w = old_w * factor
+                st.weights[d] = new_w
+                st.sum_weight -= old_w - new_w
+                for c in range(K):
+                    lane = m * K + c
+                    st.trees[d * K + c].shrink(factor)
+                    self.score[lane] = self.score[lane] + \
+                        st.base[d][c] * new_w
+                    for vi in range(len(self.valid_sets)):
+                        self.vscores[vi][lane] = self.vscores[vi][lane] + \
+                            st.vbase[d][vi][c] * (new_w - old_w)
+                    if self.hscores is not None:
+                        self.hscores[lane] = self.hscores[lane] + \
+                            st.hbase[d][c] * (new_w - old_w)
+
     def _record(self, m: int, c: int, grown, it: int) -> None:
-        """The standalone's ``GBDT._record_tree`` on lane (m, c)."""
+        """The standalone's ``GBDT._record_tree`` on lane (m, c), and
+        DART's bookkeeping of the new tree."""
         st = self.states[m]
         lane = m * self.K + c
-        shrinkage = float(st.cfg.learning_rate)
+        shrinkage = (st.cur_shrinkage if self._dart
+                     else float(st.cfg.learning_rate))
         tree = _grown_to_tree(grown, shrinkage, self.train_set)
         if it == 0 and abs(st.bias[c]) > EPSILON:
             tree.add_bias(st.bias[c])
@@ -444,9 +550,31 @@ class BatchTrainer:
         self.score[lane] = _update_score(self.score[lane], grown.row_leaf,
                                          grown.leaf_value, shrinkage)
         lv = grown.leaf_value * shrinkage
+        vb = []
         for vi, (_, _, bins) in enumerate(self.valid_sets):
             delta = _walk_binned(bins, tree, lv, self.learner._efb)
-            self.vscores[vi][lane] = self.vscores[vi][lane] + delta
+            before = self.vscores[vi][lane]
+            self.vscores[vi][lane] = before + delta
+            if self._dart:
+                vb.append(true_divide(self.vscores[vi][lane] - before,
+                                      shrinkage))
+        if not self._dart:
+            return
+        if c == 0:
+            st.weights.append(shrinkage)
+            st.sum_weight += shrinkage
+            st.base.append([])
+            st.vbase.append([[] for _ in self.valid_sets])
+            st.hbase.append([])
+        st.base[-1].append(grown.leaf_value[grown.row_leaf.long()])
+        for vi, v in enumerate(vb):
+            st.vbase[-1][vi].append(v)
+        if self.hscores is not None:
+            before = self.hscores[lane]
+            self.hscores[lane] = before + lv[
+                grown.row_leaf.long()[self.heldout[m]]]
+            st.hbase[-1].append(true_divide(self.hscores[lane] - before,
+                                            shrinkage))
 
     # -- evaluation / early stopping ----------------------------------------
     def _model_score(self, lanes: List[torch.Tensor], m: int,
@@ -462,6 +590,14 @@ class BatchTrainer:
         """Model m's current TRAIN score, optionally at row indices
         ``rows`` (the cv fast path reads held-out rows here)."""
         return self._model_score(self.score, m, rows)
+
+    def host_heldout_score(self, m: int, rows) -> np.ndarray:
+        """Model m's scores on its held-out ``rows``: the DART held-out
+        lanes when :meth:`track_heldout` keeps them, else the training
+        score there."""
+        if self.hscores is None:
+            return self.host_lane_score(m, rows)
+        return self._model_score(self.hscores, m)
 
     def eval_all(self, it: int, num_boost_round: int) -> None:
         if not self.valid_sets:
@@ -520,6 +656,11 @@ class BatchTrainer:
             gb.iter_ = st.kept_iters
             lanes = self.score[m * K:(m + 1) * K]
             gb.score = lanes[0] if K == 1 else torch.stack(lanes, dim=1)
+            if self._dart:
+                kept = st.kept_iters
+                gb._weights = list(st.weights[:kept])
+                gb._sum_weight = float(sum(st.weights[:kept]))
+                gb._cur_shrinkage = st.cur_shrinkage
             bst.best_iteration = st.best_iteration
             bst.best_score = st.best_score
             boosters.append(bst)

@@ -81,6 +81,7 @@ def cv_many(params: Dict[str, Any], train_set: Dataset,
         return torch.as_tensor(idx, device=trainer.device), mts
 
     valid = [fold_metrics(k, te) for k, (_, te) in enumerate(folds)]
+    trainer.track_heldout([te for _, te in folds])
     train = ([fold_metrics(k, tr) for k, (tr, _) in enumerate(folds)]
              if eval_train_metric else [])
 
@@ -91,7 +92,7 @@ def cv_many(params: Dict[str, Any], train_set: Dataset,
         hib_map: Dict[str, bool] = {}
         for k in range(nfold):
             rows, mts = valid[k]
-            held_out = trainer.host_lane_score(k, rows)
+            held_out = trainer.host_heldout_score(k, rows)
             for mt in mts:
                 for name, val, hib in mt.eval(held_out):
                     agg[f"valid {name}"].append(val)

@@ -94,7 +94,8 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_packed4": 0, "wave_row_update": 0,
             "wave_row_update_ext": 0, "wave_trial_channels": 0,
             # the model-axis forms: one launch for every lane of a group
-            "hist_single_lanes": 0, "hist_leaves_q8_lanes": 0,
+            "hist_single_lanes": 0, "hist_single_lanes_packed4": 0,
+            "hist_leaves_q8_lanes": 0,
             "hist_leaves_q8_lanes_packed4": 0, "hist_leaves_lanes": 0,
             "hist_leaves_lanes_packed4": 0, "wave_row_update_lanes": 0,
             "wave_row_update_ext_lanes": 0, "wave_trial_channels_lanes": 0}
@@ -977,42 +978,58 @@ def _weights_of(w) -> torch.Tensor:
     return w.w if isinstance(w, FxWeights) else w
 
 
-def hist_single_lanes_plain(bins, ws, *, num_bins: int):
+def hist_single_lanes_plain(bins, ws, *, num_bins: int,
+                            bins_packed: bool = False):
     """Plain version: one int64 ``index_add_`` with the lane as the channel
-    index."""
+    index (packed bins are unpacked first)."""
     return _plain.scatter_histogram_lanes(
-        _seq(bins), [_weights_of(w) for w in ws], num_bins=num_bins,
+        [_unpacked(b, bins_packed) for b in _seq(bins)],
+        [_weights_of(w) for w in ws], num_bins=num_bins,
         acc_dtype=torch.int64)
 
 
-def hist_single_lanes(bins, ws, *, num_bins: int) -> torch.Tensor:
+def hist_single_lanes(bins, ws, *, num_bins: int,
+                      bins_packed: bool = False) -> torch.Tensor:
     """(L, F, B, 3) int64: :func:`hist_single` of L lanes in one launch.
     ``bins[l]`` is lane l's (F, n_l) uint8 view (a segment of its own
     row-major rows, or a feature-major matrix; every lane's view with the
     same strides), ``ws[l]`` its :class:`FxWeights` or (3, n_l) int64
-    weights over the same rows.  Scale back per lane with
+    weights over the same rows.  With ``bins_packed`` (the reference's
+    ``vmap`` of ``build_histogram_pallas(bins_packed=True)``): each lane's
+    contiguous (F, N/2) nibble-packed bytes, all of one width, and its
+    contiguous (3, N) weights.  Scale back per lane with
     :func:`fx_to_f32`."""
     bins, ws = _seq(bins), [_weights_of(w) for w in ws]
     lanes = _lane_count("hist_single_lanes", bins, ws)
     strides = {b.stride() for b in bins}
-    if len(strides) != 1 or len({b.shape[0] for b in bins}) != 1:
+    if len(strides) != 1 or len({b.shape for b in bins} if bins_packed
+                                else {b.shape[0] for b in bins}) != 1:
         raise ValueError("hist_single_lanes: every lane's bins need the same "
-                         "feature count and strides")
+                         "feature count and strides"
+                         + (" and width" if bins_packed else ""))
     f = n = None
     rows = []
     for b, w in zip(bins, ws):
-        f, n = _check_single_args("hist_single_lanes", b, w, num_bins)
+        if bins_packed:
+            f, nb = _check_single_packed(b, w, num_bins)
+            n = 2 * nb
+        else:
+            f, n = _check_single_args("hist_single_lanes", b, w, num_bins)
         rows.append(n)
     if bins[0].device.type == "cpu":
-        return hist_single_lanes_plain(bins, ws, num_bins=num_bins)
+        return hist_single_lanes_plain(bins, ws, num_bins=num_bins,
+                                       bins_packed=bins_packed)
     dev = bins[0].device
     out = torch.zeros((lanes, f, num_bins, 3), dtype=torch.int64, device=dev)
     if f == 0 or max(rows) == 0:
         return out
     sf, sn = bins[0].stride()
-    layout = "features" if sn == 1 else "rows"
+    layout = ("packed" if bins_packed else
+              "features" if sn == 1 else "rows")
     geo = lane_single_geometry(_sm_count(dev), f, rows, num_bins, layout)
-    if layout == "features":
+    if layout == "packed":
+        kind = 5 if sf % 4 == 0 else 4
+    elif layout == "features":
         kind = 3 if sf % 4 == 0 else 2
     else:
         kind = int(sf == 1 and sn % 4 == 0 and
@@ -1026,7 +1043,8 @@ def hist_single_lanes(bins, ws, *, num_bins: int) -> torch.Tensor:
     _raise_on(fn(_p(table), sf, sn, _p(out), lanes, f, num_bins, geo.fg,
                  geo.chunks, geo.chunk_rows, geo.threads, kind, _stream()),
               "hist_single_lanes")
-    LAUNCHES["hist_single_lanes"] += 1
+    LAUNCHES["hist_single_lanes_packed4" if bins_packed
+             else "hist_single_lanes"] += 1
     return out
 
 

@@ -262,7 +262,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                            cegb_penalty: torch.Tensor = None,
                            gain_scale: torch.Tensor = None,
                            parent_out: torch.Tensor = None,
-                           nan_left_refused: bool = False
+                           nan_left_refused: bool = False,
+                           nan_left_square: bool = False
                            ) -> FeatureSplits:
     """Best split per feature for a batch of leaves.
 
@@ -301,6 +302,11 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
         reference's forced waves do at some wave widths
         (:data:`FORCED_NAN_LEFT_REFUSED`): XLA:CPU recomputes that gain in
         a loop of its own there, and LLVM contracts the other product.
+      nan_left_square: under path smoothing with monotone bounds, the
+        NaN-left direction's child gains fuse their square term's
+        product (``_gain_given_output`` ``fused="square"``), as the
+        reference's wave children scans do at some wave widths
+        (:data:`MONOTONE_SMOOTH_NAN_LEFT_SQUARE`).
     """
     b = hist.shape[-2]
     dev = hist.device
@@ -362,13 +368,14 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     cum_c = cumsum_bins(hc_m)
     tot_g, tot_h, tot_c = ps[..., 0:1], ps[..., 1:2], ps[..., 2:3]
 
-    def dir_gain(lg, lh, lc, blend_fused="parent", shift=None):
+    def dir_gain(lg, lh, lc, blend_fused="parent", shift=None,
+                 gain_fused="linear"):
         shift = min_gain_shift if shift is None else shift
         rg, rh, rc = tot_g - lg, tot_h - lh, tot_c - lc
         ok = ((lc >= min_cnt) & (rc >= min_cnt) &
               (lh >= min_h) & (rh >= min_h) & thr_valid)
         gl, gr, out_l, out_r = pair_gain(lg, lh, lc, rg, rh, rc, l2,
-                                         blend_fused)
+                                         blend_fused, gain_fused)
         if use_mc:
             # splits against the constraint are dropped (GetSplitGains
             # USE_MC)
@@ -384,7 +391,10 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
     gain_r = dir_gain(cum_g, cum_h, cum_c)
     # numerical, missing->left (NaN bin joins the left side)
     # XLA:CPU fuses this direction's smoothing blend the other way round
-    gain_l = dir_gain(cum_g + nan_g, cum_h + nan_h, cum_c + nan_c, "own")
+    left_fused = "square" if nan_left_square and use_sm and use_mc \
+        else "linear"
+    gain_l = dir_gain(cum_g + nan_g, cum_h + nan_h, cum_c + nan_c, "own",
+                      gain_fused=left_fused)
     gain_l = torch.where(hn_f, gain_l, neg_inf)
 
     # argmax returns the first maximal index, as jnp.argmax does
@@ -396,7 +406,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
                                    l1, l2, fused="linear") + \
             params.min_gain_to_split
         gain_l = torch.where(hn_f, dir_gain(cum_g + nan_g, cum_h + nan_h,
-                                            cum_c + nan_c, "own", shift),
+                                            cum_c + nan_c, "own", shift,
+                                            left_fused),
                              neg_inf)
     best_l_gain = _at_bin(gain_l, best_l_bin)
 
@@ -436,8 +447,8 @@ def best_split_per_feature(hist: torch.Tensor, parent_sum: torch.Tensor,
 
 
 def _pair_gain_fn(params: SplitParams, po, mn, mx):
-    """``pair_gain(lg, lh, lc, rg, rh, rc, l2, blend_fused) -> (gain_l,
-    gain_r, out_l, out_r)`` of a split's two children
+    """``pair_gain(lg, lh, lc, rg, rh, rc, l2, blend_fused, gain_fused)
+    -> (gain_l, gain_r, out_l, out_r)`` of a split's two children
     (feature_histogram.hpp ``GetSplitGains``): the closed-form gains, or
     under path smoothing (target ``po``) or monotone bounds (``mn``,
     ``mx``) the gains of the outputs the children can take, clipped to
@@ -445,7 +456,8 @@ def _pair_gain_fn(params: SplitParams, po, mn, mx):
     (``out_*`` None without either option).  ``blend_fused`` names the
     product of the smoothing blend that XLA:CPU fuses into its add in
     that part of the reference's scan: the parent's ("parent") or the
-    child's own ("own")."""
+    child's own ("own"); ``gain_fused`` the product of the children's
+    gains (``_gain_given_output``'s ``fused``)."""
     l1 = params.lambda_l1
     use_sm = po is not None
     use_mc = mn is not None
@@ -463,14 +475,16 @@ def _pair_gain_fn(params: SplitParams, po, mn, mx):
                    else _fma(out, fac, po * (1.0 - fac)))
         return torch.minimum(torch.maximum(out, mn), mx) if use_mc else out
 
-    def pair_gain(lg, lh, lc, rg, rh, rc, l2, blend_fused="parent"):
+    def pair_gain(lg, lh, lc, rg, rh, rc, l2, blend_fused="parent",
+                  gain_fused="linear"):
         if not (use_sm or use_mc):
             return leaf_gain(lg, lh, l1, l2), leaf_gain(rg, rh, l1, l2), \
                 None, None
         out_l = child_out(lg, lh, lc, l2, blend_fused)
         out_r = child_out(rg, rh, rc, l2, blend_fused)
-        return (_gain_given_output(lg, lh, out_l, l1, l2),
-                _gain_given_output(rg, rh, out_r, l1, l2), out_l, out_r)
+        return (_gain_given_output(lg, lh, out_l, l1, l2, gain_fused),
+                _gain_given_output(rg, rh, out_r, l1, l2, gain_fused),
+                out_l, out_r)
     return pair_gain
 
 
@@ -620,6 +634,17 @@ def _categorical(hg_m, hh_m, hc_m, real_bin, tot_g, tot_h, tot_c,
 # chosen bin's NaN-left gain with the parent gain's other product fused (read in its dumped LLVM IR at W = 4, 6, 14 and 42; W = 4 keeps the
 # scan's own fusion, and other widths are not known)
 FORCED_NAN_LEFT_REFUSED = frozenset({6, 14, 42})
+# The wave widths at which, under path smoothing with monotone bounds, the
+# reference's children scans fuse the square term's product into the
+# NaN-left direction's child gains: W = 4.  There XLA:CPU computes those
+# gains inside the bins' argmax fusion and the chosen bin's gather
+# fusion, whose machine code adds ((h + l2) out) * out in one fused
+# multiply-add, while the NaN-right gains' own fusion fuses (2 t) * out
+# (read in the dumped object code; the same choice found by trying every
+# combination of the scan's fused products against the reference's
+# quantized text, basic and intermediate bounds).  W = 3, 6, 8, 14 and 42
+# keep the scan's own fusion; W = 2 differs elsewhere, not found.
+MONOTONE_SMOOTH_NAN_LEFT_SQUARE = frozenset({4})
 
 
 def local_best_candidates(hist: torch.Tensor, leaf_sum: torch.Tensor,

@@ -813,3 +813,116 @@ def test_masked_lanes_draw_over_own_rows_on_card(cuda_device, mode):
                 assert not quantized or torch.equal(a.cpu(), c), name
             else:
                 assert a == b and (not quantized or a == c), name
+
+
+def _variant_data(n=6000, seed=0):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F)
+    z = 2 * X[:, 0] + np.sin(3 * X[:, 1]) + 0.1 * rng.randn(n)
+    return X, (z > 0.5).astype(float)
+
+
+def _logloss_fobj(preds, dataset):
+    label = dataset.get_label()
+    p = 1.0 / (1.0 + np.exp(-preds.astype(np.float64)))
+    return p - label, p * (1.0 - p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    dict(boosting="goss", learning_rate=0.5),
+    dict(boosting="dart", drop_rate=0.5, skip_drop=0.0),
+    dict(boosting="dart", drop_rate=0.5, skip_drop=0.0,
+         xgboost_dart_mode=True, objective="multiclass", num_class=3),
+    dict(boosting="rf", bagging_fraction=0.6, bagging_freq=1,
+         feature_fraction=0.8),
+    dict(objective="none"),
+], ids=["goss", "dart", "dart_multiclass", "rf", "fobj"])
+def test_boosting_variants_on_card_match_cpu(cuda_device, extra):
+    """Quantized GOSS, DART (its divisions by a weight divide on the card
+    as on the CPU), RF (its averages too) and a custom objective write
+    the CPU's model text on the card, with a valid set."""
+    X, y = _variant_data()
+    if extra.get("objective") == "multiclass":
+        y = np.digitize(2 * X[:, 0], [-1.0, 1.0]).astype(float)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  use_quantized_grad=True)
+    params.update(extra)
+    fobj = _logloss_fobj if extra.get("objective") == "none" else None
+    out = []
+    for dev in ("cpu", cuda_device):
+        d = lt.Dataset(X, y)
+        v = lt.Dataset(X[:1000], y[:1000], reference=d)
+        bst = lt.train(params, d, 5, valid_sets=[v], fobj=fobj, device=dev)
+        out.append((bst.model_to_string(),
+                    bst._gbdt.valid_scores[0].cpu().numpy()))
+    assert out[1][0] == out[0][0]
+    np.testing.assert_array_equal(out[1][1], out[0][1])
+
+
+@pytest.mark.gpu
+def test_linear_trees_on_card_match_cpu(cuda_device):
+    """Linear trees: the f64 moment products differ between cuBLAS and
+    the CPU in the last bits; predictions within 1e-5 of the scale."""
+    X, y = _variant_data()
+    params = dict(objective="regression", num_leaves=15, verbosity=-1,
+                  linear_tree=True, linear_lambda=0.1)
+    z = 2 * X[:, 0] + np.abs(X[:, 1]) * X[:, 1]
+    raw = [lt.train(params, lt.Dataset(X, z), 5, device=dev).predict(X)
+           for dev in ("cpu", cuda_device)]
+    np.testing.assert_allclose(raw[1], raw[0], rtol=0,
+                               atol=1e-5 * np.abs(raw[0]).max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("boosting", ["goss", "dart"])
+def test_goss_dart_lanes_on_card_match_standalone(cuda_device, boosting):
+    """GOSS and DART lanes on the card write the text of standalone card
+    runs, launching only model-axis forms (the autotune probe aside)."""
+    X, y = _variant_data(6001)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  use_quantized_grad=True, boosting=boosting,
+                  learning_rate=0.5, skip_drop=0.0)
+    variants = ([{"top_rate": 0.2, "other_rate": 0.1},
+                 {"top_rate": 0.3, "other_rate": 0.2}]
+                if boosting == "goss" else
+                [{"drop_rate": 0.2}, {"drop_rate": 0.6}])
+    hc.reset_launches()
+    mb = lt.train_many(params, lt.Dataset(X, y), 5, variants=variants,
+                       device=cuda_device, strict=True)
+    assert hc.LAUNCHES["hist_leaves_q8_lanes"] > 0
+    for m, v in enumerate(variants):
+        alone = lt.train({**params, **v}, lt.Dataset(X, y), 5,
+                         device=cuda_device)
+        assert mb[m].model_to_string() == alone.model_to_string()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_packed_single_lanes_on_card(cuda_device, monkeypatch, lanes):
+    """The packed single-leaf model-axis form launches on the card, bitwise
+    its plain version and L packed single launches, identical twice."""
+    rng = np.random.RandomState(11)
+    n = 3 * 4096
+    packs = [th.pack_bins4(torch.from_numpy(
+        rng.randint(0, 16, (F, n)).astype(np.uint8)).to(cuda_device))
+        for _ in range(lanes)]
+    ws = [th.pack_weights(*(torch.from_numpy(a.astype(np.float32))
+                            .to(cuda_device) for a in
+                            (rng.randn(n), rng.rand(n) + 0.1,
+                             rng.rand(n) < 0.7)))
+          for _ in range(lanes)]
+    monkeypatch.setattr(hc, "hist_single_lanes_plain", None)   # must launch
+    before = hc.LAUNCHES["hist_single_lanes_packed4"]
+    got = hc.hist_single_lanes(packs, ws, num_bins=16, bins_packed=True)
+    again = hc.hist_single_lanes(packs, ws, num_bins=16, bins_packed=True)
+    monkeypatch.undo()
+    assert hc.LAUNCHES["hist_single_lanes_packed4"] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, hc.hist_single_lanes_plain(
+        [p.cpu() for p in packs], [th.FxWeights(w.w.cpu(), w.inv_scale.cpu())
+                                   for w in ws], num_bins=16,
+        bins_packed=True).to(cuda_device))
+    for i in range(lanes):
+        assert torch.equal(got[i], hc.hist_single(
+            packs[i], ws[i], num_bins=16, bins_packed=True))

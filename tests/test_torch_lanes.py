@@ -128,6 +128,33 @@ def test_hist_single_lanes_bitwise(lanes):
     np.testing.assert_array_equal(f32.numpy(), np.asarray(ref))
 
 
+@pytest.mark.parametrize("lanes", [1, 3])
+def test_hist_single_lanes_packed_bitwise(lanes):
+    """The packed form: each lane's feature-major (F, N/2) nibble-packed
+    bytes (the autotune probe's layout) against L packed single launches
+    and the reference's ``jax.vmap`` of ``build_histogram_pallas(...,
+    bins_packed=True)`` in interpret mode."""
+    rng = np.random.RandomState(40 + lanes)
+    codes = rng.randint(0, B, (lanes, F, N)).astype(np.uint8)
+    packed = [th.pack_bins4(_t(c)) for c in codes]
+    g, h, m = _weights(rng, lanes)
+    ws = [th.pack_weights(_t(g[i]), _t(h[i]), _t(m[i]))
+          for i in range(lanes)]
+    got = hc.hist_single_lanes(packed, ws, num_bins=B, bins_packed=True)
+    assert got.shape == (lanes, F, B, 3) and got.dtype == torch.int64
+    for lane in range(lanes):
+        assert torch.equal(got[lane], hc.hist_single(
+            packed[lane], ws[lane], num_bins=B, bins_packed=True))
+    assert torch.equal(got, hc.hist_single_lanes(
+        [_t(c) for c in codes], ws, num_bins=B))
+    f32 = th.fx_to_f32(got, torch.stack([w.inv_scale for w in ws]))
+    ref = jax.vmap(lambda bb, gg, hh, mm: hp.build_histogram_pallas(
+        bb, gg, hh, mm, num_bins=B, interpret=True, bins_packed=True))(
+            jnp.asarray(np.stack([p.numpy() for p in packed])),
+            jnp.asarray(g), jnp.asarray(h), jnp.asarray(m))
+    np.testing.assert_array_equal(f32.numpy(), np.asarray(ref))
+
+
 def _row_case(rng, lanes, w, num_leaves=40):
     bins = rng.randint(0, 64, (F + 2, N)).astype(np.uint8)
     rl = rng.randint(0, num_leaves, (lanes, N)).astype(np.int32)

@@ -206,14 +206,71 @@ def test_launches_group_across_identical_lanes(monkeypatch):
     assert all(b.model_to_string() == ref.model_to_string() for b in mb)
 
 
+GOSS_DART = {
+    # rate sweeps in one batch; learning_rate 0.5 so that iterations 2-4
+    # of 5 sample (GOSS skips the first int(1 / learning_rate))
+    "goss": ({"boosting": "goss", "learning_rate": 0.5},
+             [{"top_rate": 0.2, "other_rate": 0.1},
+              {"top_rate": 0.3, "other_rate": 0.2},
+              {"top_rate": 0.2, "other_rate": 0.1, "lambda_l1": 0.5}]),
+    "dart": ({"boosting": "dart", "skip_drop": 0.0},
+             [{"drop_rate": 0.1}, {"drop_rate": 0.5},
+              {"drop_rate": 0.5, "uniform_drop": True},
+              {"drop_rate": 0.5, "xgboost_dart_mode": True}]),
+}
+
+
 @pytest.mark.parametrize("boosting", ["goss", "dart"])
 def test_goss_and_dart_raise(boosting):
+    """GOSS and DART no longer raise: a batch of them trains as ONE group
+    (their rates are host-swept), each model's text that of its
+    standalone ``train()``, and ``cv`` takes the batched fold path."""
     X, y = _data(n=400)
-    params = {**BASE, "boosting": boosting}
-    with pytest.raises(NotImplementedError, match="boosting"):
-        lt.train_many(params, lt.Dataset(X, y), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="boosting"):
-        lt.cv(params, lt.Dataset(X, y), 2, nfold=2, device="cpu")
+    extra, vs = GOSS_DART[boosting]
+    params = {**BASE, **QUANT, "num_leaves": 7, **extra}
+    mb = lt.train_many(params, lt.Dataset(X, y), 5, variants=vs,
+                       device="cpu", strict=True)
+    assert mb.num_groups == 1 and mb.batched_indices == list(range(len(vs)))
+    _assert_texts(mb, mb.variant_params, X, y, 5)
+    out = lt.cv(params, lt.Dataset(X, y), 2, nfold=2, device="cpu")
+    assert len(out["valid l2-mean"]) == 2
+
+
+@pytest.mark.parametrize("case", ["exact", "multiclass", "valid_early_stop"])
+@pytest.mark.parametrize("boosting", ["goss", "dart"])
+def test_goss_dart_lanes_equal_train(boosting, case):
+    """GOSS and DART lanes against their standalone runs: the exact wave,
+    3-class models (K lanes per model), and a valid set with per-model
+    early stopping (DART rescales the valid scores per drop)."""
+    X, y = _data()
+    extra, vs = GOSS_DART[boosting]
+    params = {**BASE, **QUANT, "num_leaves": 7, **extra}
+    kw = {}
+    if case == "exact":
+        params = {**params, "use_quantized_grad": False}
+    elif case == "multiclass":
+        y = np.digitize(y, [-1.0, 1.0]).astype(float)
+        params = {**params, "objective": "multiclass", "num_class": 3}
+        vs = vs[:2]
+    else:
+        params = {**params, "early_stopping_round": 1, "metric": "l2"}
+    rounds = 5
+    if case == "valid_early_stop":
+        Xv, yv = _data(seed=3, n=300)
+        yv = yv + 2.0 * np.sin(Xv[:, 2] * 4)
+        d = lt.Dataset(X, y)
+        mb = lt.train_many(params, d, rounds, variants=vs, device="cpu",
+                           valid_sets=[lt.Dataset(Xv, yv, reference=d)])
+        for m, p in enumerate(mb.variant_params):
+            d2 = lt.Dataset(X, y)
+            ref = lt.train(p, d2, rounds, device="cpu",
+                           valid_sets=[lt.Dataset(Xv, yv, reference=d2)])
+            assert mb[m].model_to_string() == ref.model_to_string()
+            assert mb[m].best_iteration == ref.best_iteration
+        return
+    mb = lt.train_many(params, lt.Dataset(X, y), rounds, variants=vs,
+                       device="cpu", strict=True)
+    _assert_texts(mb, mb.variant_params, X, y, rounds)
 
 
 # -- against the reference package -------------------------------------------
@@ -238,6 +295,26 @@ def test_quantized_train_many_matches_reference(pallas_wave):
     assert ref.fallback_indices == []
     mb = lt.train_many(params, lt.Dataset(X, y), 2, variants=variants_,
                        device="cpu")
+    for m in range(len(variants_)):
+        assert mb[m].model_to_string() == ref[m].model_to_string()
+
+
+def test_quantized_goss_train_many_matches_reference():
+    """The reference's ``test_bit_identity_goss_batch`` sweep
+    (tests/test_multitrain.py:177-191) on the quantized wave: each GOSS
+    model of the port's batch writes the reference batch's text."""
+    X, y = _data(n=600)
+    params = {**BASE, "num_leaves": 7, "tree_grow_mode": "wave",
+              "tpu_histogram_impl": "pallas", "tpu_speculative_ramp": False,
+              "use_quantized_grad": True, "stochastic_rounding": False,
+              "boosting": "goss", "learning_rate": 0.5}
+    variants_ = GOSS_DART["goss"][1]
+    ref = lgb.train_many(params, lgb.Dataset(X, y), num_boost_round=4,
+                         variants=variants_)
+    assert ref.fallback_indices == [] and ref.num_groups == 1
+    mb = lt.train_many(params, lt.Dataset(X, y), 4, variants=variants_,
+                       device="cpu")
+    assert mb.fallback_indices == [] and mb.num_groups == 1
     for m in range(len(variants_)):
         assert mb[m].model_to_string() == ref[m].model_to_string()
 
@@ -282,7 +359,8 @@ def test_variant_helpers_match_reference(spec):
 REJECT = [{"tree_learner": "data"},
           {"boosting": "rf", "bagging_freq": 1, "bagging_fraction": 0.5},
           {"objective": "none"}, {"linear_tree": True},
-          {"cegb_penalty_split": 0.1}, {}]
+          {"cegb_penalty_split": 0.1}, {"boosting": "goss"},
+          {"boosting": "dart"}, {}]
 
 
 def test_reject_reasons_and_strict_match_reference():
@@ -307,6 +385,46 @@ def test_reject_reasons_and_strict_match_reference():
                        variants=[{"lambda_l1": 0.5},
                                  {"cegb_penalty_split": 0.1}])
     assert mb.batched_indices == [0] and mb.fallback_indices == [1]
+
+
+def test_cv_reject_reasons_match_reference():
+    """``cv`` leaves the batched fold path for a custom objective or
+    metric with the reference's reasons, and the batch refuses an
+    objective-less (fobj) model as the reference does."""
+    from lightgbm_tpu.multitrain import cv as ref_cv
+    from lightgbm_tpu_torch.multitrain import cv as port_cv
+
+    def fobj(p, d):
+        return p, p
+
+    for args in [(fobj, None, None, None, None),
+                 (None, lambda p, d: ("e", 0.0, False), None, None, None),
+                 (None, None, None, None, None)]:
+        assert port_cv.cv_reject_reason(*args) == \
+            ref_cv.cv_reject_reason(*args)
+    assert batched._objective_reject_reason(None) == \
+        ref_batched._objective_reject_reason(None)
+
+
+@pytest.mark.parametrize("boosting", ["goss", "dart"])
+def test_goss_dart_cv_fast_path_equals_fold_loop(boosting):
+    """The batched folds of GOSS (each fold's draw over its own rows) and
+    DART (the held-out rows scored as the loop scores its valid set) give
+    the per-fold loop's metric history and trees."""
+    X, y = _data()
+    extra, _ = GOSS_DART[boosting]
+    params = {**BASE, **QUANT, "num_leaves": 7, **extra,
+              "drop_rate": 0.5}
+    kw = dict(num_boost_round=5, nfold=3, seed=7, eval_train_metric=True,
+              return_cvbooster=True, device="cpu")
+    fast = lt.cv(params, lt.Dataset(X, y), **kw)
+    slow = lt.cv({**params, "tpu_cv_many": False}, lt.Dataset(X, y), **kw)
+    assert sorted(fast) == sorted(slow)
+    for k in fast:
+        if k != "cvbooster":
+            assert fast[k] == slow[k], k
+    assert [_trees_text(b) for b in fast["cvbooster"].boosters] == \
+        [_trees_text(b) for b in slow["cvbooster"].boosters]
 
 
 # -- cv ----------------------------------------------------------------------

@@ -352,11 +352,11 @@ def test_default_device_without_cuda_raises(monkeypatch):
 
 @pytest.mark.parametrize("extra", [
     dict(tree_learner="data"),
-    dict(boosting="goss"),
-    dict(objective="none"),
-    dict(linear_tree=True),
-    dict(boosting="dart"),
-    dict(boosting="rf", bagging_freq=1, bagging_fraction=0.5),
+    dict(tree_learner="voting"),
+    dict(tree_learner="feature"),
+    dict(max_bin=511),
+    dict(max_bin=4095),
+    dict(tree_learner="data", max_bin=511),
     dict(forcedbins_filename="forced_bins.json"),
 ])
 def test_unported_options_raise(extra):
