@@ -160,13 +160,30 @@ Phases (any failure exits non-zero and prints no result line):
    exact wave (5 rounds; the raw matrix's bytes on the card, the moment
    pass's ms per tree, linear leaves per tree); (e) a custom objective
    (binary logloss in numpy) and metric (AUC), quantized, 5 rounds, and
-   the same run at 300,000 rows on the card and the CPU with identical
+   the same run (2 rounds) at 300,000 rows on the card and the CPU with identical
    text; (f) on (a)'s model: ``pred_leaf`` over the held-out rows (the
    leaf values at the indices sum to the raw score), ``pred_early_stop``,
    ``rollback_one_iter`` then one round, ``refit`` onto the held-out
    rows; (g) ``train_many`` of GOSS x 4 (rate sweep, learning_rate 0.5)
-   and DART x 4 (drop-rate sweep), 6 rounds: one group each, models 0
-   and 3 write the text of ``train()``, only model-axis forms launch.
+   and DART x 4 (drop-rate sweep), 4 rounds: one group each, models 0
+   and 3 write the text of ``train()``, only model-axis forms launch;
+14. checkpoint / resume, serving and explanation, after phase 13: (a)
+   the headline configuration on the main path's binned rows, 3 rounds
+   with checkpointing (bundles under ``--out-dir``) and a resume to 6,
+   against 6 uninterrupted rounds: model text identical, the resumed
+   run's kernels launched, the bundle's bytes and its write, load and
+   restore seconds; (b) phase 9a's headline model (10 trees) and a
+   64-tree x 255-leaf model (64 quantized rounds on 262,144 of the
+   rows): ``Booster.predict`` on the held-out rows through the dense
+   program within 1e-5 of the walk, ``pred_leaf`` identical, ``auto``
+   serving the dense program; the lowering and the program timed apart,
+   the program's peak memory; ``CompiledPredictor`` at each bucket (1,
+   8, 64, 512, 4096) within 1e-5 of the walk, both timed; no counted
+   ``serve_compiler_fallback``; (c) ``pred_contrib`` of the 64-tree model
+   on 4,096 held-out rows, dense on the card, against the f64 host walk
+   (``models/shap.py``) on the first 256 of them within rtol 1e-4 (atol
+   1e-4 of the scale), the rows summing to the raw score, no counted
+   ``serve_explain_fallback``; both timed.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -2518,7 +2535,8 @@ GOSS_RATES = (0.2, 0.1)              # (a): top_rate, other_rate
 LINEAR_ROUNDS = 5                    # (d)
 FOBJ_ROUNDS = 5                      # (e)
 FOBJ_CHECK_ROWS = 300_000            # (e): the card-against-CPU text check
-MANY_VARIANT_ROUNDS = 6              # (g)
+FOBJ_CHECK_ROUNDS = 2                # cut from 5 for the run's time
+MANY_VARIANT_ROUNDS = 4              # (g); cut from 6 for phase 14's time
 MANY_GOSS = ((0.2, 0.1), (0.3, 0.1), (0.2, 0.2), (0.1, 0.1))
 MANY_DART = (0.05, 0.1, 0.2, 0.4)
 HEAD_KERNELS = ("hist_leaves_q8", "wave_row_update", "hist_single")
@@ -2722,14 +2740,16 @@ def variants_phase(lt, torch, card, ds, Xtr, ytr, Xte, yte,
     for dev in ("cuda", "cpu"):
         d = lt.Dataset(Xtr[:rows], ytr[:rows], params={"max_bin": MAX_BIN})
         t0 = time.perf_counter()
-        texts.append(lt.train(qparams, d, FOBJ_ROUNDS, fobj=logloss_fobj,
+        texts.append(lt.train(qparams, d, FOBJ_CHECK_ROUNDS,
+                              fobj=logloss_fobj,
                               device=dev).model_to_string())
         secs.append(time.perf_counter() - t0)
     if texts[0] != texts[1]:
         raise AssertionError("phase 13e: the custom-objective model text "
                              f"at {rows} rows differs between card and CPU")
-    log(f"[{card}] phase 13e at {rows} rows: model text identical on the "
-        f"card ({secs[0]:.1f} s) and the CPU ({secs[1]:.1f} s)")
+    log(f"[{card}] phase 13e at {rows} rows, {FOBJ_CHECK_ROUNDS} rounds: "
+        f"model text identical on the card ({secs[0]:.1f} s) and the CPU "
+        f"({secs[1]:.1f} s)")
 
     # (f) the Booster's model surgery on (a)'s model
     raw = goss.predict(Xte, raw_score=True)
@@ -2822,6 +2842,215 @@ def variants_phase(lt, torch, card, ds, Xtr, ytr, Xte, yte,
         del mb, ref
         torch.cuda.empty_cache()
     return dict(total)
+
+
+# -- phase 14: checkpoint / resume, serving and explanation ------------------
+
+RESUME_ROUNDS, RESUME_CUT = 6, 3     # (a)
+SERVE_ROWS = 262_144                 # (b) the 64-tree model's rows
+SERVE_TREES = 64
+EXPLAIN_ROWS = 4096                  # (c)
+# the f64 host walk checks the first 256 of them: it costs 15-37 ms a
+# row at 64 x 255 leaves on the host CPU of an H100 machine (60.7 s for
+# all 4,096), past phase 14's 90 s alone
+EXPLAIN_WALK_ROWS = 256
+
+
+def _ms(torch, fn, reps: int = 3) -> float:
+    """Median host wall ms of ``fn`` (which ends in a copy to the host,
+    so the card has finished), after one warm-up run."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def resume_phase(lt, torch, card, ds, out_dir: str) -> dict:
+    """Phase 14a: the headline configuration on the main path's binned
+    rows, 6 rounds uninterrupted against 3 rounds with checkpointing and
+    a resume to 6: byte-identical text; the bundle's bytes, its write
+    seconds and the restore seconds."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.resilience.checkpoint import load_checkpoint
+    from lightgbm_tpu_torch.telemetry.metrics import default_registry
+    head = mode_params("headline")
+    full = lt.train(head, ds, RESUME_ROUNDS).model_to_string()
+    ck = os.path.join(out_dir, "resume.ckpt")
+    if os.path.isdir(ck):
+        for name in os.listdir(ck):
+            os.unlink(os.path.join(ck, name))
+    lt.train({**head, "checkpoint_dir": ck, "snapshot_freq": RESUME_CUT,
+              "output_model": os.path.join(out_dir, "resume_model.txt")},
+             ds, RESUME_CUT)
+    writes = default_registry().histogram(
+        "checkpoint_write_seconds").values_of()
+    path = os.path.join(ck, "ckpt_iter%08d.npz" % RESUME_CUT)
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    bundle = load_checkpoint(ck)
+    t_load = time.perf_counter() - t0
+    first = []
+
+    def at_first(env):
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.perf_counter())
+    at_first.before_iteration = True
+    hc.reset_launches()
+    t0 = time.perf_counter()
+    res = lt.train(head, ds, RESUME_ROUNDS, resume_from=bundle,
+                   callbacks=[at_first])
+    got = dict(hc.LAUNCHES)
+    missing = [k for k in ("hist_leaves_q8", "wave_row_update",
+                           "hist_single") if got[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 14a: the resumed run did not launch "
+                             f"{missing}")
+    if res.model_to_string() != full:
+        raise AssertionError("phase 14a: the resumed model text differs "
+                             "from the uninterrupted run's")
+    log(f"[{card}] phase 14a resume (headline, {ds.num_data()} rows): "
+        f"{RESUME_CUT} + {RESUME_ROUNDS - RESUME_CUT} rounds text identical "
+        f"to {RESUME_ROUNDS} uninterrupted; bundle {nbytes} bytes, write "
+        f"{max(writes):.3f} s (max of {len(writes)}), load {t_load:.3f} s, "
+        f"restore to the first resumed iteration {first[0] - t0:.3f} s; "
+        f"launches {json.dumps(got)}")
+    return got
+
+
+def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
+    """Phase 14b-c: the dense serving program against the walk on the
+    card, for phase 9a's headline model and a 64-tree model, then
+    ``pred_contrib`` of the 64-tree model, dense against the host walk."""
+    from lightgbm_tpu_torch.explain import compiler as ec
+    from lightgbm_tpu_torch.models.shap import predict_contrib
+    from lightgbm_tpu_torch.serve import compiler as sc
+    from lightgbm_tpu_torch.telemetry.metrics import default_registry
+    fb0, efb0 = sc.fallback_counts(), ec.explain_fallback_counts()
+    t0 = time.perf_counter()
+    big = lt.train(mode_params("quantized"),
+                   lt.Dataset(Xtr[:SERVE_ROWS], ytr[:SERVE_ROWS],
+                              params={"max_bin": MAX_BIN}), SERVE_TREES)
+    log(f"[{card}] phase 14b: {SERVE_TREES}-tree model on {SERVE_ROWS} rows "
+        f"trained in {time.perf_counter() - t0:.1f} s")
+    models = {"headline": os.path.join(out_dir, "model_headline.txt"),
+              f"{SERVE_TREES}x{NUM_LEAVES}": big.model_to_string()}
+    for tag, src in models.items():
+        text = src if "\n" in src else open(src).read()
+        routes = {mode: lt.Booster(model_str=text,
+                                   params={"tpu_predict_compiler": mode})
+                  for mode in ("dense", "walk", "auto")}
+        trees = routes["dense"].num_trees()
+        # the lowering (host numpy, per predict call as the reference's)
+        # and the program on the card, apart
+        g = routes["dense"]._gbdt
+        t0 = time.perf_counter()
+        exe, _ = sc.compile_ensemble(g.models, 1, g.num_features,
+                                     mode="dense", device=g.device)
+        t_lower = time.perf_counter() - t0
+        Xd = torch.as_tensor(Xte, device=g.device)
+        t_prog = _ms(torch, lambda: exe.predict_raw(Xd).cpu())
+        del exe, Xd
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        dense = routes["dense"].predict(Xte, raw_score=True)
+        t_dense = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        t0 = time.perf_counter()
+        walk = routes["walk"].predict(Xte, raw_score=True)
+        t_walk = time.perf_counter() - t0
+        err = float(np.abs(dense - walk).max())
+        if not err <= 1e-5 or not np.all(np.isfinite(dense)):
+            raise AssertionError(f"phase 14b {tag}: dense raw scores "
+                                 f"{err} from the walk's")
+        leaf_d = routes["dense"].predict(Xte, pred_leaf=True)
+        leaf_w = routes["walk"].predict(Xte, pred_leaf=True)
+        if not np.array_equal(leaf_d, leaf_w):
+            raise AssertionError(f"phase 14b {tag}: pred_leaf differs")
+        if not np.array_equal(routes["auto"].predict(Xte[:4096],
+                                                     raw_score=True),
+                              dense[:4096]):
+            raise AssertionError(f"phase 14b {tag}: auto did not serve "
+                                 f"the dense program")
+        rows = len(Xte)
+        log(f"[{card}] phase 14b {tag} ({trees} trees) Booster.predict "
+            f"{rows} rows: dense {t_dense * 1e3:.1f} ms "
+            f"({t_dense * 1e3 / (rows / 1e6) / trees:.3f} ms per 1M rows "
+            f"per tree), walk {t_walk * 1e3:.1f} ms "
+            f"({t_walk * 1e3 / (rows / 1e6) / trees:.3f}); max |dense - "
+            f"walk| {err:.3g}; pred_leaf identical; dense program peak "
+            f"{peak / 2**30:.3f} GiB above the tables; of the dense call, "
+            f"lowering {t_lower * 1e3:.1f} ms and the program on the card "
+            f"{t_prog:.1f} ms ({t_prog / (rows / 1e6) / trees:.3f} ms per "
+            f"1M rows per tree)")
+        preds = {mode: routes[mode].to_predictor(compiler=mode)
+                 for mode in ("dense", "walk")}
+        if preds["dense"].info()["compiler"] != "dense":
+            raise AssertionError(f"phase 14b {tag}: the predictor did not "
+                                 "compile the dense program")
+        per_bucket = {}
+        for b in (1, 8, 64, 512, 4096):
+            Xb = Xte[:b]
+            outs = {m: p.predict_raw(Xb) for m, p in preds.items()}
+            e = float(np.abs(outs["dense"] - outs["walk"]).max())
+            if not e <= 1e-5:
+                raise AssertionError(f"phase 14b {tag}: predictor bucket "
+                                     f"{b} dense {e} from the walk")
+            per_bucket[b] = {m: round(_ms(torch, lambda p=p: p.predict_raw(
+                Xb)), 3) for m, p in preds.items()}
+        log(f"[{card}] phase 14b {tag} CompiledPredictor ms per bucket "
+            f"(dense, walk): {json.dumps(per_bucket)}; bucket histogram "
+            f"{preds['dense'].stats.snapshot()['bucket_histogram']}")
+        del routes, preds
+        torch.cuda.empty_cache()
+    if sc.fallback_counts() != fb0:
+        raise AssertionError(f"phase 14b: serve_compiler_fallback moved: "
+                             f"{fb0} -> {sc.fallback_counts()}")
+
+    # (c) explanation of the 64-tree model
+    Xq = Xte[:EXPLAIN_ROWS]
+    bst = lt.Booster(model_str=models[f"{SERVE_TREES}x{NUM_LEAVES}"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = bst.predict(Xq, pred_contrib=True)
+    t_dense = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bst.predict(Xq, pred_contrib=True)
+    t_warm = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    walk = predict_contrib(bst._gbdt,
+                           np.asarray(Xq[:EXPLAIN_WALK_ROWS], np.float32))
+    t_walk = time.perf_counter() - t0
+    dense_all, dense = dense, dense[:EXPLAIN_WALK_ROWS]
+    scale = float(np.abs(walk).max())
+    # rtol 1e-4 with an atol of 1e-4 of the scale (tests/test_torch_explain.py)
+    err = float(np.max(np.abs(dense - walk) /
+                       (1e-4 * (np.abs(walk) + scale))))
+    raw = bst.predict(Xq, raw_score=True)
+    add = float(np.abs(dense_all.sum(axis=1) - raw).max())
+    batches = default_registry().counter(
+        ec.EXPLAIN_FALLBACK_BATCHES, labels=("reason", "model"))
+    fell = sum(v for _, v in batches.series())
+    if ec.explain_fallback_counts() != efb0 or fell:
+        raise AssertionError(f"phase 14c: serve_explain_fallback moved: "
+                             f"{efb0} -> {ec.explain_fallback_counts()}, "
+                             f"{fell} fallback batches")
+    if not err <= 1.0:
+        raise AssertionError(f"phase 14c: dense SHAP values {err} x the "
+                             f"tolerance from the host walk's")
+    log(f"[{card}] phase 14c pred_contrib {EXPLAIN_ROWS} rows x "
+        f"{SERVE_TREES} trees: dense {t_dense * 1e3:.1f} ms (first call, "
+        f"lowering included; {t_warm:.1f} ms again), host f64 walk "
+        f"{t_walk * 1e3:.1f} ms over the first {EXPLAIN_WALK_ROWS} rows; "
+        f"there max |dense - walk| {np.abs(dense - walk).max():.3g} "
+        f"({err:.3g} of rtol 1e-4, atol 1e-4 x {scale:.4g}); rows sum to "
+        f"the raw score within {add:.3g}; explain fallbacks 0")
 
 
 def main(argv=None) -> int:
@@ -2996,9 +3225,17 @@ def main(argv=None) -> int:
     for k, v in variants_phase(lt, torch, card, ds, Xtr, ytr, Xte, yte,
                                out_dir).items():
         launches[k] += v
+    stamp("phase 13, boosting variants and the training surface")
+
+    # ---- phase 14: checkpoint / resume, serving and explanation ----
+    for k, v in resume_phase(lt, torch, card, ds, out_dir).items():
+        launches[k] += v
     del ds
     torch.cuda.empty_cache()
-    stamp("phase 13, boosting variants and the training surface")
+    stamp("phase 14a, resume")
+    serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir)
+    torch.cuda.empty_cache()
+    stamp("phase 14b-c, serving and explanation")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,

@@ -208,6 +208,19 @@ class Booster:
                                   pred_early_stop_freq=pred_early_stop_freq,
                                   pred_early_stop_margin=pred_early_stop_margin)
 
+    def to_predictor(self, num_iteration: Optional[int] = None,
+                     warmup: bool = False, **kwargs):
+        """Serving handle for this model (reference basic.py:201): a
+        :class:`~lightgbm_tpu_torch.serve.CompiledPredictor` holding the
+        ensemble's compiled program on the booster's device
+        (``warmup=True`` runs every shape bucket ahead of the first
+        request)."""
+        from .serve import CompiledPredictor
+        pred = CompiledPredictor(self, num_iteration=num_iteration, **kwargs)
+        if warmup:
+            pred.warmup()
+        return pred
+
     # -- model IO ------------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:

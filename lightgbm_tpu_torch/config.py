@@ -126,7 +126,7 @@ _PARAMS: List[ParamSpec] = [
     _p("output_model", str, "LightGBM_model.txt", ("model_output", "model_out")),
     _p("saved_feature_importance_type", int, 0),
     _p("snapshot_freq", int, -1, ("save_period",)),
-    # fault tolerance (lightgbm_tpu/resilience/): full-state checkpoint
+    # fault tolerance (resilience/checkpoint.py): full-state checkpoint
     # bundles next to the reference's model-text snapshots.  checkpoint_dir
     # defaults to "<output_model>.ckpt" when snapshot_freq > 0; setting it
     # explicitly enables checkpointing even without snapshot_freq (then
@@ -308,34 +308,36 @@ _PARAMS: List[ParamSpec] = [
     # resume/checkpoint_dir: it never changes the model (quantized path)
     # and is excluded from the model-text params dump.
     _p("tpu_ingest_mode", str, "hbm"),
-    # --- inference compiler (lightgbm_tpu/serve/compiler.py) ---
-    # dense = force the fused dense MXU program (one loop-free jitted
-    # program per row bucket: one-hot threshold compares, categorical
-    # bitset-membership contraction, quantized leaf tables); walk = the
-    # sequential per-tree walk; auto = dense whenever the ensemble
-    # lowers AND the backend profits (always on TPU; on CPU a host cost
-    # model keeps the walk where it measures faster and RECORDS the
-    # fallback reason in the serve_compiler_fallback counter).
+    # --- inference compiler (serve/compiler.py) ---
+    # dense = force the fused dense program (threshold compares,
+    # categorical bitset-membership contraction, quantized leaf tables);
+    # walk = the sequential per-tree walk; auto = dense whenever the
+    # ensemble lowers AND the device profits (always on cuda; on the CPU
+    # the reference's cost model keeps the walk where it measured faster
+    # and RECORDS the fallback reason in the serve_compiler_fallback
+    # counter).
     _p("tpu_predict_compiler", str, "auto"),
     # leaf-table quantization for the dense program: 0 = exact f32
     # leaves, 8/16 = i8/i16 leaf codes + per-tree f32 scale dequantized
     # in the final contraction (abs error <= sum of per-tree scales / 2)
     _p("tpu_predict_leaf_bits", int, 0),
-    # pjit-shard the dense program's tree axis over this many devices
-    # (0/1 = single device); partial scores merge in ONE psum per
-    # request (collective contract serve/dense_predict/score_psum)
+    # shard the dense program's tree axis over this many devices (0/1 =
+    # single device); > 1 raises until the port serves across cards
+    # (ROADMAP queue 1 item 10)
     _p("tpu_predict_shard", int, 0, check=">=0"),
-    # --- explanation compiler (lightgbm_tpu/explain/) ---
+    # --- explanation compiler (explain/) ---
     # dense = force the loop-free dense TreeSHAP program (per-leaf
-    # root-path slot tensors contracted with the PR-13 condition
-    # matrix; exact f32 leaf values, never quantized); walk = the host
+    # root-path slot tensors contracted with the serving program's
+    # condition matrix; exact f32 leaf values, never quantized); walk = the host
     # TreeSHAP recursion (models/shap.py); auto = dense whenever the
     # ensemble lowers — no CPU cost model: the host walk is Python-
     # recursive, so the vectorized program wins on every backend — with
     # any lowering fallback (depth/table budget) RECORDED in the
     # serve_explain_fallback counter, never silent
     _p("tpu_explain_compiler", str, "auto"),
-    # --- continuous-learning lane (lightgbm_tpu/publish/) ---
+    # --- continuous-learning lane (lightgbm_tpu/publish/; the port's
+    # train, cv and train_many raise on these until ROADMAP queue 1 item
+    # 11b, as on flight_dir) ---
     # publish_dir: when set, the trainer appends a per-round model delta
     # journal there (publish/delta.py) every publish_every rounds (0 =
     # every round) plus a forced publish on the preemption drain path

@@ -422,6 +422,41 @@ class Dataset:
             sub.metadata.set_init_score(self.metadata.init_score[idx])
         return sub
 
+    def fingerprint(self) -> Dict[str, Any]:
+        """Identity of the binned training matrix for checkpoint/resume
+        validation (reference dataset.py:605-648): the shape, a sha256
+        over every used mapper's bin edges and category map, and a crc32
+        over the binned codes, the same fields and values as the
+        reference's for the same data.  Cached: the crc over the host's
+        ``X_binned`` is the one non-trivial cost, and the binned matrix
+        does not change once constructed."""
+        self._check_constructed()
+        fp = self._device_cache.get("_fingerprint")
+        if fp is not None:
+            return fp
+        import hashlib
+        import zlib
+        h = hashlib.sha256()
+        for j in self.used_feature_map:
+            m = self.bin_mappers[j]
+            h.update(f"{int(j)}:{m.num_bin}:{int(m.is_categorical)}:"
+                     f"{m.missing_type.value}".encode())
+            if m.bin_upper_bound is not None:
+                h.update(np.ascontiguousarray(
+                    m.bin_upper_bound, np.float64).tobytes())
+            if m.cat_to_bin:
+                h.update(repr(sorted(m.cat_to_bin.items())).encode())
+        fp = {
+            "num_data": int(self.num_data()),
+            "binned_shape": [int(v) for v in self.X_binned.shape],
+            "num_features": int(self.num_feature()),
+            "binning_sha256": h.hexdigest(),
+            "data_crc32": int(zlib.crc32(
+                np.ascontiguousarray(self.X_binned).tobytes())),
+        }
+        self._device_cache["_fingerprint"] = fp
+        return fp
+
     def _check_constructed(self) -> None:
         if not self.constructed:
             raise RuntimeError("Dataset not constructed yet; call construct() "

@@ -1,20 +1,34 @@
 """Training and cross-validation entry points.
 
-Port of ``lightgbm_tpu/engine.py``: ``train`` (reference engine.py:15),
-continued training from ``init_model`` and custom objectives and metrics
-(``fobj``, ``feval``) included, without checkpoint/resume, continuous
-publishing or the flight recorder (later slices); and ``cv`` with ``CVBooster``, ``CVAggregator`` and
-``_make_n_folds`` (reference engine.py:400-590), whose folds train as one
-batch (multitrain/cv.py) when ``tpu_cv_many`` and the configuration
-allow it.  Training runs on ``device`` (default ``cuda``); when no card
-is usable and the CPU was not asked for, it raises.
+Port of ``lightgbm_tpu/engine.py``: ``train`` (reference engine.py:145),
+continued training from ``init_model``, custom objectives and metrics
+(``fobj``, ``feval``) and fault tolerance; and ``cv`` with ``CVBooster``,
+``CVAggregator`` and ``_make_n_folds`` (reference engine.py:400-590),
+whose folds train as one batch (multitrain/cv.py) when ``tpu_cv_many``
+and the configuration allow it.  Training runs on ``device`` (default
+``cuda``); when no card is usable and the CPU was not asked for, it
+raises.
+
+Fault tolerance (reference engine.py:40-145, :245-400): with
+``snapshot_freq > 0`` (or ``checkpoint_dir`` set) the loop writes the
+reference's ``output_model.snapshot_iter_N`` model text every
+``snapshot_freq`` rounds and flushes a full-state checkpoint bundle
+through :mod:`.resilience.checkpoint` (atomic, a bounded ring with a
+``LATEST`` pointer, the reference's on-disk format); ``train(...,
+resume_from=...)`` or ``resume=latest`` continues a preempted run
+bit-identically.  While checkpointing is on, a SIGTERM or SIGINT drains
+the iteration in flight, flushes one final bundle and raises
+:class:`TrainingPreempted`.  The continuous-learning lane
+(``publish_dir``), the flight recorder (``flight_dir``) and the chaos
+layer come with the serving tier (ROADMAP queue 1 item 11b):
+``publish_dir``, ``publish_every`` and ``flight_dir`` raise until then.
 """
 
 from __future__ import annotations
 
 import collections
 import copy
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Union
 
 import numpy as np
 
@@ -23,9 +37,133 @@ from .callback import (CallbackEnv, EarlyStopException, early_stopping,
                        print_evaluation)
 from .config import Config
 from .dataset import Dataset
-from .utils.log import log_info
+from .resilience.checkpoint import (CKPT_SOFT_KEYS, CKPT_STRUCTURAL_KEYS,
+                                    Checkpoint, CheckpointError,
+                                    CheckpointManager, PreemptionGuard,
+                                    TrainingPreempted, load_checkpoint,
+                                    resolve_checkpoint)
+from .telemetry.metrics import default_registry
+from .utils.log import log_info, log_warning
+from .utils.random import rng_checkpoint_state
 
 __all__ = ["train", "cv", "CVBooster", "CVAggregator"]
+
+# params whose drift across a resume either breaks the continuation or
+# its bit-identity; recorded into every checkpoint bundle
+_CKPT_PARAM_KEYS = CKPT_STRUCTURAL_KEYS + CKPT_SOFT_KEYS
+
+
+def reject_publishing(cfg: Config, context: str) -> None:
+    """Refuse the continuous-learning and flight-recorder parameters,
+    which the port does not carry yet: never train silently without
+    what the parameters asked for."""
+    offending = [k for k, v in (
+        ("publish_dir", str(cfg.publish_dir or "")),
+        ("publish_every", int(cfg.publish_every) != 0),
+        ("flight_dir", str(cfg.flight_dir or "")),
+    ) if v]
+    if offending:
+        raise NotImplementedError(
+            f"{', '.join(offending)} in {context}: the delta publisher "
+            f"and the flight recorder are not ported to "
+            f"lightgbm_tpu_torch yet (ROADMAP queue 1 item 11b)")
+
+
+def _resolve_resume(cfg: Config, ckpt_dir: str):
+    """Map config's ``resume`` param to a checkpoint path.  ``latest`` is
+    cold-start friendly: an empty or absent checkpoint dir means "first
+    run of this job", not an error (reference engine.py:48-65)."""
+    want = str(cfg.resume).strip()
+    if not want:
+        return None
+    if want.lower() in ("latest", "auto", "true", "1"):
+        if not ckpt_dir:
+            raise ValueError("resume=latest needs snapshot_freq>0 or "
+                             "checkpoint_dir to locate checkpoints")
+        path = resolve_checkpoint(ckpt_dir)
+        if path is None:
+            log_info(f"resume=latest: no checkpoint in {ckpt_dir} yet; "
+                     "starting fresh")
+        return path
+    return want
+
+
+def _capture(booster: Booster, train_set: Dataset, cfg: Config,
+             callbacks_after: List[Callable],
+             history: Dict[str, Dict[str, List[float]]]) -> Checkpoint:
+    """Bundle the full boosting state at the current iteration boundary,
+    after the iteration's eval callbacks ran (reference engine.py:68)."""
+    g = booster._gbdt
+    arrays = g.capture_checkpoint_arrays()
+    return Checkpoint(
+        iteration=int(g.iter_),
+        model_text=booster.model_to_string(),
+        score=arrays["score"],
+        valid_names=arrays["valid_names"],
+        valid_scores=arrays["valid_scores"],
+        eval_history=copy.deepcopy(history),
+        early_stop=[cb.state_dict() for cb in callbacks_after
+                    if hasattr(cb, "state_dict")],
+        rng_state=rng_checkpoint_state(cfg),
+        fingerprint=train_set.fingerprint(),
+        params={k: getattr(cfg, k) for k in _CKPT_PARAM_KEYS},
+        cegb_used=arrays["cegb_used"],
+        prev_iter_leaves=arrays["prev_iter_leaves"],
+    )
+
+
+def _restore(ckpt: Checkpoint, booster: Booster, train_set: Dataset,
+             cfg: Config, callbacks_after: List[Callable]) -> int:
+    """Continue from a bundle: validate it, restore the boosting state and
+    the callbacks' bookkeeping, return the first iteration to run
+    (reference engine.py:94-142)."""
+    ckpt.validate_config(cfg)
+    ckpt.validate_dataset(train_set)
+    g = booster._gbdt
+    names_now = [name for name, _ in g.valid_sets]
+    if list(ckpt.valid_names) != names_now:
+        raise CheckpointError(
+            f"checkpoint tracked valid sets {list(ckpt.valid_names)} but "
+            f"this run registered {names_now}; resume with the same "
+            f"valid_sets/valid_names to continue the eval streams")
+    g.restore_boosting_state(ckpt.model_text, ckpt.iteration, ckpt.score,
+                             ckpt.valid_scores, ckpt.cegb_used,
+                             ckpt.prev_iter_leaves)
+    stoppers = [cb for cb in callbacks_after if hasattr(cb, "load_state_dict")]
+    if ckpt.early_stop and stoppers and \
+            len(stoppers) != len(ckpt.early_stop):
+        raise CheckpointError(
+            f"checkpoint carries {len(ckpt.early_stop)} early-stopping "
+            f"states but this run registered {len(stoppers)} early-stopping "
+            f"callbacks; resume with the same callbacks to keep the "
+            f"continuation bit-identical")
+    for cb, state in zip(stoppers, ckpt.early_stop):
+        # a knob that steers the stop decision must match the saved run
+        for key, label in (("rounds", "stopping_rounds"),
+                           ("first_metric_only", "first_metric_only")):
+            saved = state.get(key)
+            now = getattr(cb, key, None)
+            if saved is not None and now is not None and saved != now:
+                raise CheckpointError(
+                    f"checkpoint early-stopping {label} is {saved} but "
+                    f"this run registered {label}={now}; resume with the "
+                    f"same early-stopping configuration to keep the "
+                    f"continuation bit-identical")
+        cb.load_state_dict(state)
+    if ckpt.early_stop and not stoppers and any(
+            s.get("trackers") for s in ckpt.early_stop):
+        log_warning("checkpoint carries early-stopping state but this run "
+                    "has no early-stopping callback; patience restarts")
+    for cb in callbacks_after:
+        er = getattr(cb, "eval_result", None)
+        if isinstance(er, dict):
+            er.clear()
+            er.update(copy.deepcopy(ckpt.eval_history))
+    default_registry().counter(
+        "resume_total", "training runs continued from a checkpoint").inc()
+    log_info(f"resuming training from iteration {ckpt.iteration} "
+             f"({len(g.models)} trees restored)")
+    return int(ckpt.iteration)
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -35,6 +173,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
           fobj: Optional[Callable] = None,
           feval: Optional[Callable] = None,
           init_model=None, callbacks: Optional[List[Callable]] = None,
+          resume_from: Optional[Union[str, Checkpoint]] = None,
           device=None, **kwargs) -> Booster:
     """Train a boosted model (reference engine.py:145-400).
     ``init_model`` (a Booster or a model file) continues training: its
@@ -42,11 +181,15 @@ def train(params: Dict[str, Any], train_set: Dataset,
     keeps them.  ``fobj(preds, train_set) -> (grad, hess)`` replaces the
     objective (it gets the raw scores as host numpy); ``feval(preds,
     dataset) -> (name, value, higher_is_better)`` adds a metric on the
-    training set and every valid set."""
+    training set and every valid set.  ``resume_from`` continues a
+    checkpointed run (a bundle path, a checkpoint directory, or a loaded
+    :class:`Checkpoint`); with the same data, params and seeds the result
+    is bit-identical to a run that never stopped."""
     params = dict(params or {})
     params.update(kwargs)
     dev = device_from(params, device)
     cfg = Config(params)
+    reject_publishing(cfg, "train")
     if any(k in params for k in ("num_iterations", "num_iteration",
                                  "n_iter", "num_boost_round", "num_round",
                                  "num_rounds", "num_trees", "num_tree",
@@ -90,24 +233,93 @@ def train(params: Dict[str, Any], train_set: Dataset,
     after = sorted((cb for cb in callbacks
                     if not getattr(cb, "before_iteration", False)),
                    key=lambda cb: getattr(cb, "order", 0))
-    for it in range(num_boost_round):
-        for cb in before:
-            cb(CallbackEnv(booster, params, it, 0, num_boost_round, None))
-        if booster.update(fobj=fobj):
-            break
-        results = []
-        if booster._gbdt.train_metrics or booster._gbdt.valid_sets or \
-                feval:
-            results = booster.eval_train(feval) + booster.eval_valid(feval)
-        try:
-            for cb in after:
+
+    # -- fault tolerance (reference engine.py:245-257) ------------------------
+    ckpt_dir = str(cfg2.checkpoint_dir or "")
+    snap_freq = int(cfg2.snapshot_freq)
+    if not ckpt_dir and snap_freq > 0:
+        ckpt_dir = f"{cfg2.output_model}.ckpt"
+    if ckpt_dir and snap_freq <= 0:
+        # an explicit checkpoint_dir without a cadence: ~100 bundles a
+        # run (a bundle holds the whole model so far, so flushing every
+        # iteration of a long run would make checkpoint cost quadratic)
+        snap_freq = max(1, num_boost_round // 100)
+    manager = CheckpointManager(ckpt_dir, keep=int(cfg2.checkpoint_keep)) \
+        if ckpt_dir else None
+
+    if resume_from is None and cfg2.resume:
+        resume_from = _resolve_resume(cfg2, ckpt_dir)
+    ckpt: Optional[Checkpoint] = None
+    if isinstance(resume_from, Checkpoint):
+        ckpt = resume_from
+    elif resume_from:
+        ckpt = load_checkpoint(str(resume_from))
+    start_iter = 0
+    # the engine's own eval history: bundles carry it even when the user
+    # registered no record_evaluation callback
+    run_history: Dict[str, Dict[str, List[float]]] = {}
+    if ckpt is not None:
+        if init_model is not None:
+            raise CheckpointError(
+                "both init_model and resume_from given: a checkpoint "
+                "restore replaces the whole model, which would silently "
+                "drop the init_model trees; continue from the checkpoint "
+                "alone, or start a fresh run from init_model")
+        start_iter = _restore(ckpt, booster, train_set, cfg2, after)
+        run_history = copy.deepcopy(ckpt.eval_history)
+
+    def _flush(final: bool = False) -> Optional[str]:
+        if manager is None:
+            return None
+        path = manager.save(_capture(booster, train_set, cfg2, after,
+                                     run_history))
+        if final:
+            log_info(f"final checkpoint flushed to {path}")
+        return path
+
+    # the guard turns a SIGTERM/SIGINT into a drain-and-flush exit; it is
+    # installed only while checkpointing is on, so a plain Ctrl-C on an
+    # uncheckpointed run stays KeyboardInterrupt
+    with PreemptionGuard(enabled=manager is not None) as guard:
+        for it in range(start_iter, num_boost_round):
+            for cb in before:
                 cb(CallbackEnv(booster, params, it, 0, num_boost_round,
-                               results))
-        except EarlyStopException as e:
-            booster.best_iteration = e.best_iteration + 1
-            for ds_name, eval_name, score, _ in e.best_score:
-                booster.best_score.setdefault(ds_name, {})[eval_name] = score
-            break
+                               None))
+            if booster.update(fobj=fobj):
+                break
+            if cfg2.snapshot_freq > 0 and (it + 1) % cfg2.snapshot_freq == 0:
+                # the reference's model-text snapshot (gbdt.cpp:277-281),
+                # written atomically
+                booster.save_model(
+                    f"{cfg2.output_model}.snapshot_iter_{it + 1}")
+            results = []
+            if booster._gbdt.train_metrics or booster._gbdt.valid_sets or \
+                    feval:
+                results = booster.eval_train(feval) + \
+                    booster.eval_valid(feval)
+            if manager is not None:
+                for data_name, eval_name, value, _ in results:
+                    run_history.setdefault(data_name, {}).setdefault(
+                        eval_name, []).append(value)
+            try:
+                for cb in after:
+                    cb(CallbackEnv(booster, params, it, 0, num_boost_round,
+                                   results))
+            except EarlyStopException as e:
+                booster.best_iteration = e.best_iteration + 1
+                for ds_name, eval_name, score, _ in e.best_score:
+                    booster.best_score.setdefault(ds_name, {})[eval_name] = \
+                        score
+                _flush()
+                break
+            # the bundle flushes AFTER the iteration's eval callbacks, so
+            # eval history and early-stop bookkeeping restore to the same
+            # boundary
+            if manager is not None and (it + 1) % snap_freq == 0:
+                _flush()
+            if guard.fired is not None:
+                raise TrainingPreempted(guard.fired, booster=booster,
+                                        checkpoint=_flush(final=True))
     return booster
 
 
@@ -234,6 +446,7 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
         params["metric"] = metrics
     dev = device_from(params, device)
     cfg = Config(params)
+    reject_publishing(cfg, "cv")
     if cfg.objective in ("lambdarank", "rank_xendcg"):
         stratified = False
     train_set.construct(cfg)
@@ -256,7 +469,7 @@ def cv(params: Dict[str, Any], train_set: Dataset, num_boost_round: int = 100,
                                cfg, eval_train_metric=eval_train_metric,
                                return_cvbooster=return_cvbooster,
                                device=dev)
-            except MultiTrainError as e:
+            except (MultiTrainError, CheckpointError) as e:
                 reason = str(e)
         log_info(f"cv: per-fold loop (batched fold driver unavailable: "
                  f"{reason})")

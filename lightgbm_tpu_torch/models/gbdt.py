@@ -657,6 +657,74 @@ class GBDT:
         self._pending_bias[:] = 0.0
         self._rebuild_scores()
 
+    # -- checkpoint/resume (resilience/checkpoint.py rides these;
+    #    reference models/gbdt.py:1641-1706) ---------------------------------
+    def capture_checkpoint_arrays(self) -> dict:
+        """The mutable boosting state beyond the model text, copied to the
+        host with its exact bits: the f32 train and valid scores
+        (rebuilding them from trees re-rounds in another order and can
+        move the last ulp, forking the rest of the run), the coupled CEGB
+        used-feature set and the lagged stump-stop bookkeeping.  Every
+        other draw is a function of (seed, iteration): bagging redraws
+        its block's mask each iteration, GOSS counts its warm-up from
+        ``iter_``, and the tree keys fold the tree index."""
+        prev = self._prev_iter_leaves
+        return {
+            "score": self.score.cpu().numpy(),
+            "valid_names": [name for name, _ in self.valid_sets],
+            "valid_scores": [s.cpu().numpy() for s in self.valid_scores],
+            "cegb_used": (None if self._cegb_coupled is None
+                          else self._cegb_used.copy()),
+            "prev_iter_leaves": (None if prev is None
+                                 else [int(x) for x in prev]),
+        }
+
+    def restore_boosting_state(self, model_text: str, iteration: int,
+                               score: np.ndarray,
+                               valid_scores: List[np.ndarray],
+                               cegb_used: Optional[np.ndarray] = None,
+                               prev_iter_leaves: Optional[List[int]] = None
+                               ) -> None:
+        """Continue boosting from a checkpoint: the trees reload from model
+        text (%.17g round-trips every double) and re-key onto this
+        dataset's binning (``_align_loaded_tree``); the scores restore
+        from their saved f32 bits, not from a walk over the trees."""
+        if self.name in ("dart", "rf"):
+            raise ValueError(
+                f"checkpoint/resume is not supported for boosting="
+                f"{self.name}: its per-tree weight/averaging caches "
+                f"(DART drop weights, RF running tree sums) are not part "
+                f"of the model text")
+        from .model_text import string_to_model
+        loaded = string_to_model(model_text, self.config)
+        k = self.num_tree_per_iteration
+        ok = getattr(loaded, "num_tree_per_iteration", 1)
+        if ok != k:
+            raise ValueError(f"checkpoint model has {ok} trees/iteration, "
+                             f"this training configuration needs {k}")
+        self.models = [self._align_loaded_tree(t) for t in loaded.models]
+        self.iter_ = int(iteration)
+        # tree 0 already carries any boost-from-average bias
+        self._pending_bias[:] = 0.0
+        score = np.asarray(score, np.float32)
+        want = self._score_shape(self.num_data)
+        if score.shape != want:
+            raise ValueError(f"checkpoint score shape {score.shape} does "
+                             f"not match this dataset ({want})")
+        self.score = torch.as_tensor(score, device=self.device)
+        if len(valid_scores) != len(self.valid_scores):
+            raise ValueError(
+                f"checkpoint carries {len(valid_scores)} validation score "
+                f"sets, this run registered {len(self.valid_scores)} "
+                f"valid sets")
+        self.valid_scores = [
+            torch.as_tensor(np.asarray(vs, np.float32), device=self.device)
+            for vs in valid_scores]
+        if cegb_used is not None and self._cegb_coupled is not None:
+            self._cegb_used[:] = np.asarray(cegb_used, bool)
+        self._prev_iter_leaves = (None if prev_iter_leaves is None else
+                                  [int(x) for x in prev_iter_leaves])
+
     # -- sampling (bagging / GOSS hooks) -------------------------------------
     def _prepare_iter_sampling(self, grad: torch.Tensor, hess: torch.Tensor
                                ) -> Tuple[torch.Tensor, torch.Tensor,
@@ -1092,6 +1160,74 @@ class GBDT:
         return out
 
     # -- prediction ------------------------------------------------------------
+    def _dense_program(self, t0: int, t1: int, num_features: int):
+        """The serving compiler's fused program for trees [t0, t1) on this
+        booster's device, or None when the walk serves this call (mode,
+        cost model or lowering budget; serve/compiler.py counts the
+        reason).  Memoized per predict call, so row chunks lower once
+        (reference models/gbdt.py:1184-1207)."""
+        cache = self._predict_cache
+        ck = ("dense", t0, t1)
+        if cache is not None and ck in cache:
+            return cache[ck]
+        from ..serve.compiler import compile_ensemble
+        cfg = self.config
+        k = self.num_tree_per_iteration
+        dense, _reason = compile_ensemble(
+            self.models[t0:t1], k, num_features,
+            class_ids=[t % k for t in range(t0, t1)],
+            mode=cfg.tpu_predict_compiler,
+            leaf_bits=int(cfg.tpu_predict_leaf_bits),
+            shard=int(cfg.tpu_predict_shard), device=self.device)
+        if cache is not None:
+            cache[ck] = dense
+        return dense
+
+    def _explain_program(self, t0: int, t1: int, num_features: int):
+        """The explain compiler's dense TreeSHAP program for trees
+        [t0, t1), or None when the host walk serves (reason counted by
+        explain/compiler.py); memoized per call (reference
+        models/gbdt.py:1209-1230)."""
+        cache = self._predict_cache
+        ck = ("explain", t0, t1)
+        if cache is not None and ck in cache:
+            return cache[ck]
+        from ..explain.compiler import compile_explain
+        k = self.num_tree_per_iteration
+        exe, _reason = compile_explain(
+            self.models[t0:t1], k, num_features,
+            class_ids=[t % k for t in range(t0, t1)],
+            mode=self.config.tpu_explain_compiler,
+            num_cols=self.num_features + 1, device=self.device)
+        if cache is not None:
+            cache[ck] = exe
+        return exe
+
+    def _predict_contrib(self, Xi: np.ndarray, start_iteration: int,
+                         num_iteration: Optional[int]) -> np.ndarray:
+        """SHAP contributions through ``tpu_explain_compiler``: the dense
+        TreeSHAP program when it lowers, else the host walk; the dense
+        result is additivity-checked, and a failed check falls back with
+        a counted reason (reference models/gbdt.py:1232-1253)."""
+        from .shap import predict_contrib, trees_window
+        t0, t1 = trees_window(self, start_iteration, num_iteration)
+        exe = self._explain_program(t0, t1, Xi.shape[1]) if t1 > t0 \
+            else None
+        if exe is not None:
+            from ..explain.compiler import (ExplainAdditivityError,
+                                            note_explain_fallback_batch)
+            if any(t.is_linear for t in self.models[t0:t1]):
+                log_warning("pred_contrib on linear trees attributes each "
+                            "leaf's PLAIN output (per-leaf linear terms "
+                            "are not decomposed)")
+            try:
+                return exe.explain(Xi)
+            except ExplainAdditivityError:
+                note_explain_fallback_batch("additivity", "")
+        return predict_contrib(self, Xi, start_iteration, num_iteration)
+
+    _predict_cache = None
+
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 start_iteration: int = 0,
                 num_iteration: Optional[int] = None,
@@ -1103,20 +1239,50 @@ class GBDT:
         """(N,) predictions, or (N, K) for a K-class model (class c's trees
         are at indices i * K + c), through the objective's output
         transform unless ``raw_score``; ``pred_leaf`` gives the (N, T)
-        leaf indices and ``pred_early_stop`` the margin-based early exit
-        (reference models/gbdt.py:1255-1427)."""
-        if pred_contrib:
-            raise NotImplementedError(
-                "pred_contrib (SHAP values, models/shap.py and the explain "
-                "compiler) is not ported to lightgbm_tpu_torch yet "
-                "(ROADMAP queue 1 item 7)")
+        leaf indices, ``pred_contrib`` the (N, (F + 1) * K) SHAP values
+        and ``pred_early_stop`` the margin-based early exit (reference
+        models/gbdt.py:1255-1427).  Raw scores and leaves go through the
+        serving compiler's dense program (``tpu_predict_compiler``) or
+        the walk, SHAP values through ``tpu_explain_compiler``."""
         X = np.asarray(X, np.float32)
         if X.ndim == 1:
             X = X.reshape(1, -1)
+        # one lowering per call however the call chunks
+        own_cache = self._predict_cache is None
+        if own_cache:
+            self._predict_cache = {}
+        try:
+            return self._predict_cached(
+                X, raw_score, start_iteration, num_iteration, pred_leaf,
+                pred_contrib, pred_early_stop, pred_early_stop_freq,
+                pred_early_stop_margin)
+        finally:
+            if own_cache:
+                self._predict_cache = None
+
+    def _predict_cached(self, X, raw_score, start_iteration, num_iteration,
+                        pred_leaf, pred_contrib, pred_early_stop,
+                        pred_early_stop_freq, pred_early_stop_margin
+                        ) -> np.ndarray:
+        # very large batches predict in row chunks, smaller for wide
+        # models (the reference's rule, models/gbdt.py:1290); the dense
+        # program blocks its rows further by its byte budget
+        chunk = min(1 << 20,
+                    max(1 << 14, (1 << 28) //
+                        max(int(self.config.num_leaves), 256)))
+        if X.shape[0] > chunk:
+            return np.concatenate([self._predict_cached(
+                X[lo:lo + chunk], raw_score, start_iteration,
+                num_iteration, pred_leaf, pred_contrib, pred_early_stop,
+                pred_early_stop_freq, pred_early_stop_margin)
+                for lo in range(0, X.shape[0], chunk)], axis=0)
         used = self.train_set.used_feature_map \
             if self.train_set is not None else np.arange(X.shape[1])
-        Xi = torch.as_tensor(np.ascontiguousarray(X[:, used]),
-                             device=self.device)
+        Xi_np = np.ascontiguousarray(X[:, used])
+        if pred_contrib:
+            return self._predict_contrib(Xi_np, start_iteration,
+                                         num_iteration)
+        Xi = torch.as_tensor(Xi_np, device=self.device)
         k = self.num_tree_per_iteration
         t0 = start_iteration * k
         t1 = len(self.models) if num_iteration is None else min(
@@ -1124,6 +1290,11 @@ class GBDT:
         if pred_leaf:
             if t1 <= t0:
                 return np.zeros((X.shape[0], 0), np.int32)
+            # pred-leaf rides the dense program too (the hit one-hot's
+            # argmax is the leaf index)
+            dense = self._dense_program(t0, t1, Xi.shape[1])
+            if dense is not None:
+                return dense.predict_leaf(Xi).cpu().numpy()
             return predict_leaf(TreeBatch(self.models[t0:t1], self.device),
                                 Xi).cpu().numpy()
         raw = None
@@ -1136,14 +1307,23 @@ class GBDT:
             if raw is not None and k == 1:
                 raw = raw[:, 0]
         if raw is None:
-            cols = []
-            for c in range(k):
-                trees = [self.models[t] for t in range(t0, t1) if t % k == c]
-                cols.append(predict_raw(TreeBatch(trees, self.device), Xi)
-                            if trees else
-                            torch.zeros((X.shape[0],), dtype=torch.float32,
-                                        device=self.device))
-            raw = cols[0] if k == 1 else torch.stack(cols, dim=1)
+            dense = self._dense_program(t0, t1, Xi.shape[1]) \
+                if t1 > t0 else None
+            if dense is not None:
+                raw = dense.predict_raw(Xi)
+                raw = raw[:, 0] if k == 1 else raw
+            else:
+                cols = []
+                for c in range(k):
+                    trees = [self.models[t] for t in range(t0, t1)
+                             if t % k == c]
+                    cols.append(predict_raw(TreeBatch(trees, self.device),
+                                            Xi)
+                                if trees else
+                                torch.zeros((X.shape[0],),
+                                            dtype=torch.float32,
+                                            device=self.device))
+                raw = cols[0] if k == 1 else torch.stack(cols, dim=1)
         if raw_score or self.objective is None:
             return raw.cpu().numpy()
         return self.objective.convert_output(raw).cpu().numpy()

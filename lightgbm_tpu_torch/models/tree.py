@@ -9,8 +9,13 @@ categorical nodes by their bitsets over raw category values, and
 evaluating linear leaves (``const + Σ coef·x``, the plain leaf value where
 a leaf feature is NaN).  :func:`predict_leaf` gives each row's leaf index
 per tree and :func:`predict_raw_early_stop` the margin-based early exit
-(reference prediction_early_stop.cpp).  The reference's dense matmul walk
-and serving compiler wait for a later slice (ROADMAP queue 1).
+(reference prediction_early_stop.cpp).  :class:`TreeBatch` also carries
+the root-path matrices the dense serving program lowers from
+(``path_dir``, ``plen_right``, ``plen_total``; models/dense_predict.py);
+``SHAPE_BUCKETS`` / :func:`bucket_rows` / :func:`pad_rows` are the
+serving row ladder, and :func:`ensemble_serve_fields` /
+:func:`predict_raw_ensemble` the walk route of the compiled predictor
+(serve/predictor.py).
 
 decision_type bit layout follows the reference (tree.h decision_type):
   bit0: categorical, bit1: default_left, bits 2-3: missing type
@@ -26,12 +31,41 @@ import numpy as np
 import torch
 
 __all__ = ["Tree", "TreeBatch", "predict_raw", "predict_leaf",
-           "predict_raw_early_stop"]
+           "predict_raw_early_stop", "SHAPE_BUCKETS", "bucket_rows",
+           "pad_rows", "ensemble_serve_fields", "predict_raw_ensemble"]
 
 CAT_MASK = 1
 DEFAULT_LEFT_MASK = 2
 MISSING_ZERO = 1 << 2
 MISSING_NAN = 2 << 2
+
+# Row-count ladder for compiled prediction (reference models/tree.py:44):
+# requests pad up to the next bucket so arbitrary batch sizes map to a
+# handful of program shapes; beyond the ladder, sizes round up to the
+# next MULTIPLE of the top bucket (waste under one bucket).
+SHAPE_BUCKETS = (1, 8, 64, 512, 4096)
+
+
+def bucket_rows(n: int, ladder=SHAPE_BUCKETS) -> int:
+    """Smallest ladder bucket holding ``n`` rows (multiple of the top
+    bucket above the ladder's end)."""
+    if n <= 0:
+        return ladder[0]
+    for b in ladder:
+        if n <= b:
+            return b
+    top = ladder[-1]
+    return (n + top - 1) // top * top
+
+
+def pad_rows(X: np.ndarray, ladder=SHAPE_BUCKETS) -> np.ndarray:
+    """Zero-pad ``X`` (N, F) up to its row bucket.  Padding rows cannot
+    perturb real rows: every prediction path reduces per row."""
+    nb = bucket_rows(X.shape[0], ladder)
+    if nb == X.shape[0]:
+        return X
+    return np.concatenate(
+        [X, np.zeros((nb - X.shape[0], X.shape[1]), X.dtype)], axis=0)
 
 
 @dataclasses.dataclass
@@ -237,10 +271,10 @@ class TreeBatch:
             self.leaf_feat = torch.as_tensor(lfeat, device=dev)
             self.leaf_fmask = torch.as_tensor(lfmask, device=dev)
             self.linear_flag = lflag
+        self._path_matrices(trees)
         # None when no tree has a categorical node
         self.cat_words = None
-        if not any(np.any(np.asarray(t.decision_type[:t.num_internal()],
-                                     np.uint8) & CAT_MASK) for t in trees):
+        if not self.has_cat:
             return
         wmax = 1
         for t in trees:
@@ -264,6 +298,46 @@ class TreeBatch:
                     v = int(t.threshold[i])
                     words[ti, i, v // 32] |= 1 << (v % 32)
         self.cat_words = torch.as_tensor(words, device=dev)
+
+
+    def _path_matrices(self, trees: List[Tree]) -> None:
+        """The dense walk's root-path matrices (reference
+        models/tree.py:322-356), host numpy: ``path_dir[t, n, l]`` = +1
+        when node n sits on leaf l's root path expecting a LEFT decision,
+        -1 expecting RIGHT; ``plen_right`` counts a path's right turns
+        and ``plen_total`` its length (1e9 for leaf slots beyond
+        ``num_leaves``, which no row reaches)."""
+        ml = self.max_leaves
+        self.has_cat = any(bool(np.bitwise_and(
+            np.asarray(t.decision_type[:max(t.num_leaves - 1, 0)],
+                       np.uint8), CAT_MASK).any()) for t in trees)
+        pd = np.zeros((len(trees), max(ml - 1, 1), ml), np.int8)
+        pr = np.zeros((len(trees), ml), np.float32)
+        pt = np.full((len(trees), ml), 1e9, np.float32)
+        for ti, t in enumerate(trees):
+            if t.num_leaves <= 1:
+                pt[ti, 0] = 0.0
+                continue
+            lc = np.asarray(t.left_child)
+            rc = np.asarray(t.right_child)
+            work = [(0, [])]
+            while work:
+                node, path = work.pop()
+                for child, d in ((int(lc[node]), 1), (int(rc[node]), -1)):
+                    p2 = path + [(node, d)]
+                    if child < 0:
+                        leaf = ~child
+                        if leaf < ml:
+                            for nn_, dd in p2:
+                                pd[ti, nn_, leaf] = dd
+                            pr[ti, leaf] = float(
+                                sum(1 for _, dd in p2 if dd < 0))
+                            pt[ti, leaf] = float(len(p2))
+                    else:
+                        work.append((child, p2))
+        self.path_dir = pd
+        self.plen_right = pr
+        self.plen_total = pt
 
 
 def _leaf_feats(t: Tree) -> List[List[int]]:
@@ -400,3 +474,37 @@ def predict_raw_early_stop(per_class: List[TreeBatch], X: torch.Tensor,
             if bool(stopped.all()):
                 break
     return out
+
+
+def ensemble_serve_fields(batch: TreeBatch, start: int = 0,
+                          end: Optional[int] = None):
+    """One class's ensemble for :func:`predict_raw_ensemble` (reference
+    models/tree.py:779): ``(kind, batch, (t0, t1))``, ``kind`` a tag of
+    the walk it takes: ``const`` for an all-stump ensemble (the
+    constants' sum), ``walk`` / ``walk_lin`` for the sequential tree walk
+    (``_walk_raw``; linear leaves evaluated), which the port takes for
+    numeric and categorical ensembles alike (the reference's per-tree
+    path-matrix scan is its MXU form; the dense program of
+    serve/compiler.py takes its place)."""
+    t1 = batch.num_trees if end is None else min(end, batch.num_trees)
+    t0 = min(start, t1)
+    if batch.max_leaves <= 1:
+        kind = "const"
+    else:
+        kind = "walk_lin" if batch.has_linear else "walk"
+    return kind, batch, (t0, t1)
+
+
+def predict_raw_ensemble(X: torch.Tensor, per_class, kinds) -> torch.Tensor:
+    """(N, K) raw scores of the per-class ensembles from
+    :func:`ensemble_serve_fields` (reference models/tree.py:811)."""
+    X = X.to(torch.float32)
+    cols = []
+    for (batch, (t0, t1)), kind in zip(per_class, kinds):
+        if kind == "const":
+            cols.append(batch.leaf_value[t0:t1, 0].sum().expand(X.shape[0]))
+        elif kind in ("walk", "walk_lin"):
+            cols.append(predict_raw(batch, X, t0, t1 - t0))
+        else:
+            raise ValueError(f"unknown ensemble kind: {kind}")
+    return torch.stack(cols, dim=1)

@@ -110,6 +110,8 @@ def train_many(params: Dict[str, Any], train_set: Dataset,
     """
     params = dict(params or {})
     params.update(kwargs)
+    from ..engine import reject_publishing
+    reject_publishing(Config(params), "train_many")
     if strict:
         allow_fallback = False
     if sample_masks is not None:

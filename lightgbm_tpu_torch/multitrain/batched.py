@@ -58,6 +58,7 @@ from ..models.gbdt import (EPSILON, GBDT, _grown_to_tree, _update_score,
                            _walk_binned, bagging_mask_np, feature_mask_np,
                            goss_sample_np, learner_config, true_divide)
 from ..objective import create_objective
+from ..resilience.checkpoint import reject_checkpointing
 from ..utils.random import fold_in, host_key
 
 __all__ = ["MultiTrainError", "BatchTrainer", "batch_reject_reason"]
@@ -176,6 +177,7 @@ class BatchTrainer:
         self.cfgs = [Config(p) for p in self.params]
         cfg = self.cfgs[0]
         self.cfg = cfg
+        reject_checkpointing(cfg, "train_many")
         train_set.construct(cfg)
         reason = batch_reject_reason(cfg, train_set)
         if reason:

@@ -926,3 +926,119 @@ def test_packed_single_lanes_on_card(cuda_device, monkeypatch, lanes):
     for i in range(lanes):
         assert torch.equal(got[i], hc.hist_single(
             packs[i], ws[i], num_bins=16, bins_packed=True))
+
+
+# -- checkpoint / resume, serving and explanation on the card -----------------
+
+def _serve_data(n=8000, seed=3, cat=False):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F)
+    X[rng.rand(n, F) < 0.03] = np.nan
+    if cat:
+        X[:, 3] = rng.randint(0, 40, n)
+    z = np.nan_to_num(X[:, 0]) + np.nan_to_num(X[:, 1]) ** 2
+    if cat:
+        z = z + (X[:, 3] % 3 == 0)
+    return X, (z > 0.8).astype(float)
+
+
+@pytest.mark.gpu
+def test_resume_on_card_matches_uninterrupted(cuda_device, tmp_path):
+    """3 rounds with checkpointing and a resume to 6 on the card write the
+    text of 6 uninterrupted rounds (stochastic rounding, bagging at a
+    period that does not divide the cut, by-node sampling)."""
+    X, y = _serve_data()
+    params = dict(objective="binary", num_leaves=31, verbosity=-1,
+                  use_quantized_grad=True, bagging_fraction=0.8,
+                  bagging_freq=2, feature_fraction_bynode=0.5)
+    full = lt.train(params, lt.Dataset(X, y), 6, device=cuda_device)
+    ck = str(tmp_path / "ck")
+    lt.train({**params, "checkpoint_dir": ck}, lt.Dataset(X, y), 3,
+             device=cuda_device)
+    res = lt.train({**params, "checkpoint_dir": ck, "resume": "latest"},
+                   lt.Dataset(X, y), 6, device=cuda_device)
+    assert res.model_to_string() == full.model_to_string()
+
+
+def _card_model(cuda_device, cat=False, **extra):
+    X, y = _serve_data(cat=cat)
+    params = dict(objective="binary", num_leaves=31, verbosity=-1,
+                  use_quantized_grad=True, **extra)
+    kw = {"categorical_feature": [3]} if cat else {}
+    return lt.train(params, lt.Dataset(X, y, **kw), 8, device=cuda_device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cat", [False, True], ids=["numeric", "categorical"])
+def test_dense_serving_on_card_matches_walk(cuda_device, cat):
+    """On the card ``auto`` serves the dense program with no counted
+    fallback; its raw scores are within 1e-5 of the walk's, ``pred_leaf``
+    is identical, and the predictor equals the walk at every bucket."""
+    from lightgbm_tpu_torch.serve import compiler as sc
+    text = _card_model(cuda_device, cat).model_to_string()
+    X, _ = _serve_data(n=5000, seed=9, cat=cat)
+    fb0 = sc.fallback_counts()
+    b = {m: lt.Booster(model_str=text, params={"tpu_predict_compiler": m},
+                       device=cuda_device) for m in ("auto", "walk")}
+    dense, walk = (b[m].predict(X, raw_score=True) for m in ("auto", "walk"))
+    np.testing.assert_allclose(dense, walk, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(b["auto"].predict(X, pred_leaf=True),
+                                  b["walk"].predict(X, pred_leaf=True))
+    pred = b["auto"].to_predictor()
+    assert pred.info()["compiler"] == "dense"
+    for n in (1, 8, 64, 512, 4096):
+        np.testing.assert_allclose(pred.predict_raw(X[:n]), walk[:n],
+                                   rtol=0, atol=1e-5)
+    assert sc.fallback_counts() == fb0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("linear", [False, True], ids=["plain", "linear"])
+def test_dense_predictions_ignore_tf32(cuda_device, linear):
+    """``allow_tf32`` and ``set_float32_matmul_precision`` set by a
+    caller cannot change a dense prediction: every product of real
+    values stays out of TF32."""
+    if linear:
+        X, _ = _serve_data()
+        z = 2 * np.nan_to_num(X[:, 0]) + np.nan_to_num(X[:, 1])
+        bst = lt.train(dict(objective="regression", num_leaves=15,
+                            verbosity=-1, linear_tree=True),
+                       lt.Dataset(X, z), 4, device=cuda_device)
+    else:
+        bst = _card_model(cuda_device)
+    bst = lt.Booster(model_str=bst.model_to_string(),
+                     params={"tpu_predict_compiler": "dense"},
+                     device=cuda_device)
+    X, _ = _serve_data(n=3000, seed=11)
+    keep = (torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+        want = bst.predict(X, raw_score=True)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("medium")
+        got = bst.predict(X, raw_score=True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = keep[0]
+        torch.set_float32_matmul_precision(keep[1])
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.gpu
+def test_pred_contrib_on_card(cuda_device):
+    """Dense TreeSHAP on the card is within rtol 1e-4 of the f64 host
+    walk, its additivity check holds, and no explain fallback is
+    counted."""
+    from lightgbm_tpu_torch.explain import compiler as ec
+    from lightgbm_tpu_torch.models.shap import predict_contrib
+    bst = _card_model(cuda_device, cat=True)
+    X, _ = _serve_data(n=700, seed=12, cat=True)
+    fb0 = ec.explain_fallback_counts()
+    got = bst.predict(X, pred_contrib=True)
+    want = predict_contrib(bst._gbdt, X.astype(np.float32))
+    assert ec.explain_fallback_counts() == fb0
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-4 * np.abs(want).max())
+    raw = bst.predict(X, raw_score=True)
+    np.testing.assert_allclose(got.sum(axis=1), raw, rtol=1e-4, atol=1e-4)

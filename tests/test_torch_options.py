@@ -193,7 +193,16 @@ def test_split_scan_options_bitwise(option):
 @pytest.mark.parametrize("extra", [
     dict(forcedsplits_filename=True),
     dict(monotone_constraints=MONO, tpu_wave_size=4, num_leaves=31),
-], ids=["forced", "monotone"])
+    pytest.param(
+        dict(monotone_constraints=MONO, tpu_wave_size=2, num_leaves=31),
+        marks=pytest.mark.xfail(
+            strict=True,
+            reason="ROADMAP queue 3 item 4: at W = 2 three split gains and "
+                   "one default direction stay an ulp-scale apart from the "
+                   "reference's; no fused-product choice of the children "
+                   "scans or of the chosen bin's NaN-left recompute (read "
+                   "in the dumped object code) closes them")),
+], ids=["forced", "monotone", "monotone_w2"])
 def test_smoothing_combined_within_fma_rounding(extra, tmp_path):
     """Path smoothing with forced splits or monotone bounds.
 
