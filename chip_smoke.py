@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of lightgbm_tpu_torch on one CUDA card.
 
-    python3 chip_smoke.py [--seed 0] [--rows 10500000] [--rounds 10]
+    python3 chip_smoke.py [--seed 0] [--rows 10500000] [--rounds 6]
                           [--pack-rounds 5] [--test-rows 500000]
                           [--profile] [--out-dir DIR]
 
@@ -97,7 +97,7 @@ Phases (any failure exits non-zero and prints no result line):
    three Zipf-skewed categorical columns of 3, 40 and 1,000 categories
    entering the logit (one-vs-rest, sorted subsets and the bin cap),
    255 leaves: the headline configuration for ``--rounds`` rounds, exact
-   mode for 3 and the partitioned grower for 2 (iterations/s, held-out
+   mode for 2 and the partitioned grower for 1 (iterations/s, held-out
    AUC, categorical nodes, launches; the q8 / exact leaf kernels, the
    row update's categorical form and ``hist_single`` must launch); (b) a
    ``scipy.sparse.csr_matrix`` of 2,097,152 rows (cut from 10.5M for
@@ -132,11 +132,11 @@ Phases (any failure exits non-zero and prints no result line):
    identical across two runs, the one launch timed against the 4 single
    launches beside the bound, the plain version and one ``index_add_``
    over lanes x channels; (b) ``train_many`` of the headline
-   configuration with ``lambda_l2`` 0, 1, 4, 16 for 3 rounds: models 0
+   configuration with ``lambda_l2`` 0, 1, 4, 16 for 2 rounds: models 0
    and 3 write the text of a standalone ``train()``, model-rounds/s
    against the standalone rate, model-axis launches per iteration
    against 4 x the standalone's single launches; (c) ``cv``, 4 folds of
-   1,048,576 rows, 3 rounds, of the headline configuration (stochastic
+   1,048,576 rows, 2 rounds, of the headline configuration (stochastic
    rounding and the speculative ramp on, drawing over each fold's rows)
    and of the exact wave with the ramp off, on rows binned beforehand:
    each time the batched fast path's metric history equals the per-fold
@@ -160,7 +160,7 @@ Phases (any failure exits non-zero and prints no result line):
    exact wave (5 rounds; the raw matrix's bytes on the card, the moment
    pass's ms per tree, linear leaves per tree); (e) a custom objective
    (binary logloss in numpy) and metric (AUC), quantized, 5 rounds, and
-   the same run (2 rounds) at 300,000 rows on the card and the CPU with identical
+   the same run (1 round) at 300,000 rows on the card and the CPU with identical
    text; (f) on (a)'s model: ``pred_leaf`` over the held-out rows (the
    leaf values at the indices sum to the raw score), ``pred_early_stop``,
    ``rollback_one_iter`` then one round, ``refit`` onto the held-out
@@ -172,18 +172,38 @@ Phases (any failure exits non-zero and prints no result line):
    with checkpointing (bundles under ``--out-dir``) and a resume to 6,
    against 6 uninterrupted rounds: model text identical, the resumed
    run's kernels launched, the bundle's bytes and its write, load and
-   restore seconds; (b) phase 9a's headline model (10 trees) and a
-   64-tree x 255-leaf model (64 quantized rounds on 262,144 of the
+   restore seconds; (b) phase 9a's headline model (``--rounds`` trees) and a
+   16-tree x 255-leaf model (16 quantized rounds on 262,144 of the
    rows): ``Booster.predict`` on the held-out rows through the dense
    program within 1e-5 of the walk, ``pred_leaf`` identical, ``auto``
    serving the dense program; the lowering and the program timed apart,
    the program's peak memory; ``CompiledPredictor`` at each bucket (1,
    8, 64, 512, 4096) within 1e-5 of the walk, both timed; no counted
-   ``serve_compiler_fallback``; (c) ``pred_contrib`` of the 64-tree model
+   ``serve_compiler_fallback``; (c) ``pred_contrib`` of the 16-tree model
    on 4,096 held-out rows, dense on the card, against the f64 host walk
    (``models/shap.py``) on the first 256 of them within rtol 1e-4 (atol
    1e-4 of the scale), the rows summing to the raw score, no counted
-   ``serve_explain_fallback``; both timed.
+   ``serve_explain_fallback``; both timed;
+15. uint16 bins, the binary dataset cache and the library surface, after
+   phase 14a: (e) ``save_binary`` / ``load_binary`` of the main path's
+   binned rows (bytes, write and load seconds), the loaded dataset
+   training phase 14a's text for 2 headline rounds; (a) the uint16 forms
+   (``hist_single``, both leaf histograms, the row update, its
+   categorical form and the trial form) bit for bit against their plain
+   versions and identical across two runs at F=28, N = the padded rows,
+   B=1024 and B=65,535 (every histogram on its bin-tile axis), timed at
+   both beside the bound (2 bytes a code), the plain version and the
+   int64 ``index_add_``; (b) the main path's rows binned at max_bin=1023:
+   ``auto`` (partitioned, exact, 2 rounds), the explicit wave grower
+   exact and quantized with the headline settings (3 rounds each):
+   iterations/s, held-out AUC, only uint16 leaf and row forms launched;
+   headline text identical card / CPU at 300,000 rows (1 round); one
+   quantized round on 524,288 rows with two categorical columns (the
+   categorical uint16 row update); (c) ``LGBMClassifier.fit`` /
+   ``predict_proba`` with the headline settings, 3 rounds at 131,072
+   rows: text equal to ``train()``'s; (d) ``python -m
+   lightgbm_tpu_torch`` on a 262,144-row CSV file in a subprocess: its
+   model file equal to ``train()``'s from the same conf and file.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -262,8 +282,8 @@ RENEW_ROUNDS = 2
 W_CHILDREN = 84                  # a quantized wave's 2 x 42 children
 MC_CLASSES = 3
 CAT_CARDS = (3, 40, 1000)        # phase 10a's categorical columns
-CAT_EXACT_ROUNDS = 3
-CAT_PARTITION_ROUNDS = 2
+CAT_EXACT_ROUNDS = 2             # 3 and 2 before phase 15
+CAT_PARTITION_ROUNDS = 1
 EFB_ROWS = 2_097_152             # phase 10b, cut from 10.5M for set-up time
 EFB_DENSE = (21, 22, 23, 25, 12, 27, 4, 0)   # higgs_like columns kept
 EFB_GROUPS, EFB_GROUP_SIZE = 24, 10
@@ -378,12 +398,14 @@ def _row_case(torch, gen, dev, w, n, num_bins, num_leaves, n_active):
     return bins, feats.contiguous(), rl, tab
 
 
-def _row_work(torch, cols, rl, tab, write_rl: bool, seen=None, feats=None):
+def _row_work(torch, cols, rl, tab, write_rl: bool, seen=None, feats=None,
+              code_bytes: int = 1):
     """(bytes, operations) a row update needs on these inputs: row->leaf in
     (and out), the channel out, the table and the split features, plus
-    one column byte and a few compares and selects for every (row, active
-    split) pair whose running leaf matches as the splits apply in order
-    (``cols``: the splits' gathered uint8 columns).  With ``seen``, an
+    one column code (``code_bytes``: 1, or 2 for uint16) and a few
+    compares and selects for every (row, active split) pair whose running
+    leaf matches as the splits apply in order (``cols``: the splits'
+    gathered columns).  With ``seen``, an
     (F, N) bool map of bin bytes, and the splits' ``feats``, the column
     bytes are marked there instead of counted, so that the lanes of one
     shared matrix count each byte once (the caller adds ``seen.sum()``)."""
@@ -400,7 +422,7 @@ def _row_work(torch, cols, rl, tab, write_rl: bool, seen=None, feats=None):
             go_left = torch.where(col == tab[1, j], tab[2, j],
                                   (col <= tab[0, j]).to(torch.int32))
             run = torch.where(hit & (go_left == 0), tab[5, j], run)
-    need = hits if seen is None else 0
+    need = code_bytes * hits if seen is None else 0
     nbytes = 4.0 * n + need + n + 36.0 * w + (4.0 * n if write_rl else 0.0)
     return nbytes, 6.0 * hits + n
 
@@ -2045,7 +2067,7 @@ LANE_KERNELS = {
                                   "lightgbm_tpu/ops/histogram_pallas.py:446"),
 }
 MANY_L2 = (0.0, 1.0, 4.0, 16.0)      # phase 12b's variants
-MANY_ROUNDS = 3
+MANY_ROUNDS = 2                      # 3 before phase 15
 CV_ROWS = 1_048_576                  # phase 12c's rows
 CV_FOLDS = 4
 SIDE_ROWS = 1_048_576                # phase 12e's packed / categorical rows
@@ -2535,7 +2557,7 @@ GOSS_RATES = (0.2, 0.1)              # (a): top_rate, other_rate
 LINEAR_ROUNDS = 5                    # (d)
 FOBJ_ROUNDS = 5                      # (e)
 FOBJ_CHECK_ROWS = 300_000            # (e): the card-against-CPU text check
-FOBJ_CHECK_ROUNDS = 2                # cut from 5 for the run's time
+FOBJ_CHECK_ROUNDS = 1                # cut from 5 for the run's time
 MANY_VARIANT_ROUNDS = 4              # (g); cut from 6 for phase 14's time
 MANY_GOSS = ((0.2, 0.1), (0.3, 0.1), (0.2, 0.2), (0.1, 0.1))
 MANY_DART = (0.05, 0.1, 0.2, 0.4)
@@ -2847,8 +2869,8 @@ def variants_phase(lt, torch, card, ds, Xtr, ytr, Xte, yte,
 # -- phase 14: checkpoint / resume, serving and explanation ------------------
 
 RESUME_ROUNDS, RESUME_CUT = 6, 3     # (a)
-SERVE_ROWS = 262_144                 # (b) the 64-tree model's rows
-SERVE_TREES = 64
+SERVE_ROWS = 262_144                 # (b) the 16-tree model's rows
+SERVE_TREES = 16                     # cut from 64 for phase 15's time
 EXPLAIN_ROWS = 4096                  # (c)
 # the f64 host walk checks the first 256 of them: it costs 15-37 ms a
 # row at 64 x 255 leaves on the host CPU of an H100 machine (60.7 s for
@@ -2924,8 +2946,8 @@ def resume_phase(lt, torch, card, ds, out_dir: str) -> dict:
 
 def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
     """Phase 14b-c: the dense serving program against the walk on the
-    card, for phase 9a's headline model and a 64-tree model, then
-    ``pred_contrib`` of the 64-tree model, dense against the host walk."""
+    card, for phase 9a's headline model and a 16-tree model, then
+    ``pred_contrib`` of the 16-tree model, dense against the host walk."""
     from lightgbm_tpu_torch.explain import compiler as ec
     from lightgbm_tpu_torch.models.shap import predict_contrib
     from lightgbm_tpu_torch.serve import compiler as sc
@@ -3013,7 +3035,7 @@ def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
         raise AssertionError(f"phase 14b: serve_compiler_fallback moved: "
                              f"{fb0} -> {sc.fallback_counts()}")
 
-    # (c) explanation of the 64-tree model
+    # (c) explanation of the 16-tree model
     Xq = Xte[:EXPLAIN_ROWS]
     bst = lt.Booster(model_str=models[f"{SERVE_TREES}x{NUM_LEAVES}"])
     torch.cuda.synchronize()
@@ -3053,13 +3075,489 @@ def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
         f"the raw score within {add:.3g}; explain fallbacks 0")
 
 
+# -- phase 15: uint16 bins, the binary dataset cache, the library surface ---
+
+U16_KERNELS = {
+    "hist_single_u16": ("lightgbm_tpu_torch/csrc/hist_single.cu",
+                        "lightgbm_tpu/ops/histogram_pallas.py:471"),
+    "hist_leaves_q8_u16": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                           "lightgbm_tpu/ops/histogram_pallas.py:1030"),
+    "hist_leaves_u16": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                        "lightgbm_tpu/ops/histogram_pallas.py:852"),
+    "wave_row_update_u16": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                            "lightgbm_tpu/ops/histogram_pallas.py:1280"),
+    "wave_row_update_ext_u16": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                                "lightgbm_tpu/ops/histogram_pallas.py:1280"),
+    "wave_trial_channels_u16": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                                "lightgbm_tpu/ops/histogram_pallas.py:1314"),
+}
+U16_MAX_BIN = 1023               # (b): finer thresholds, B = 1024
+U16_BINS = (1024, 65_535)        # (a): the main path's B, and past a tile
+U16_ROUNDS = 3                   # (b): rounds per run, cut from Higgs' 500
+U16_PARTITION_ROUNDS = 2
+U16_CHECK_ROWS = 300_000         # (b): the card-against-CPU text check
+U16_CHECK_ROUNDS = 1             # cut from 2 for the phase's time
+U16_CAT_ROWS = 524_288           # (b): the categorical run's rows
+SKLEARN_ROWS = 131_072           # (c): the estimator's rows
+CLI_ROWS = 262_144               # (d): the CLI's data file
+LIB_ROUNDS = 3
+CACHE_ROUNDS = 2                 # (e)
+
+
+def _u16_codes(torch, gen, dev, shape, num_bins):
+    """Random uint16 codes in [0, num_bins), made as int32 and stored
+    through an int16 view (the same bits)."""
+    v = torch.randint(0, num_bins, shape, generator=gen, device=dev,
+                      dtype=torch.int32)
+    return torch.where(v >= 32768, v - 65536, v).to(torch.int16).view(
+        torch.uint16)
+
+
+def _u16_row_case(torch, gen, dev, bins, nb, w, num_leaves):
+    """The row update's inputs over a (F, N) uint16 matrix of ``nb`` bins:
+    each split's feature (the first W-3 active, 3 inactive out of range),
+    the rows' leaves and an (8, W) table of thresholds and NaN bins up to
+    B - 1 with a chained split; split 2 categorical on the last feature
+    (its codes < 256), membership every third bin."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    f, n = bins.shape
+    i32 = torch.int32
+    feats = (torch.randperm(f * 4, generator=gen, device=dev)[:w] %
+             (f - 1)).to(i32)
+    feats[2] = f - 1
+    feats[w - 3:] = f + 7
+    rl = torch.randint(0, num_leaves, (n,), generator=gen, device=dev,
+                       dtype=i32)
+    leaves = torch.randperm(num_leaves, generator=gen, device=dev)[:w]
+    nan_bin = torch.where(torch.rand(w, generator=gen, device=dev) < 0.5,
+                          torch.full((w,), nb - 1, device=dev),
+                          torch.full((w,), -1, device=dev))
+    act = (torch.arange(w, device=dev) < w - 3).to(i32)
+    rows = [torch.randint(0, nb, (w,), generator=gen, device=dev), nan_bin,
+            torch.randint(0, 2, (w,), generator=gen, device=dev),
+            torch.randint(0, 2, (w,), generator=gen, device=dev), leaves,
+            num_leaves + torch.arange(w, device=dev), act,
+            torch.zeros(w, device=dev)]
+    tab = torch.stack([r.to(i32) for r in rows]).contiguous()
+    tab[4, 1] = tab[5, 0]
+    tab[0, 2] = tab[0, 2] % 256
+    is_cat = torch.zeros((w,), dtype=torch.bool, device=dev)
+    is_cat[2] = True
+    member = torch.zeros((w, 256), dtype=torch.bool, device=dev)
+    member[2, ::3] = True
+    z = torch.zeros_like(feats)
+    dec = hc.split_decode(is_cat, member, z, z + nb, z, torch.ones_like(feats))
+    return feats.contiguous(), rl, tab, dec
+
+
+def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
+    """Phase 15a: every uint16 form against its plain version, bit for bit
+    and identical across two runs, at F=28 and N = the padded training
+    rows, at B=1024 (a max_bin=1023 run's) and B=65,535 (every histogram
+    on its bin-tile axis); timed at both, beside the bound (each input
+    byte once: 2 bytes a code), the plain version and the int64
+    ``index_add_`` at B=1024."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.ops import quantize as tq
+    f = NUM_FEATURES
+    rec = {}
+    for nb in U16_BINS:
+        main = nb == U16_BINS[0]
+        # row-major rows (the partitioned grower's copy, read in place as
+        # P.t()) and their feature-major matrix; the last column's codes
+        # stay below 256 for the categorical split
+        P16 = torch.cat([_u16_codes(torch, gen, dev, (n, f - 1),
+                                    nb).view(torch.int16),
+                         _u16_codes(torch, gen, dev, (n, 1),
+                                    256).view(torch.int16)], dim=1)
+        P = P16.view(torch.uint16)
+        rows = P.t()
+        bins = P16.t().contiguous().view(torch.uint16)
+        wide = th.widen_bins(bins)
+        del P16
+        grad = torch.randn(n, generator=gen, device=dev) * 0.5
+        hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+        mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+        w = th.pack_weights(grad, hess, mask)
+        kq, kx = hc.Q_LEAF_CHANNELS, hc.LEAF_CHANNELS
+        chq = torch.randint(0, kq, (n,), generator=gen, device=dev,
+                            dtype=torch.int8)
+        keep = torch.rand(n, generator=gen, device=dev) < 0.5
+        chq = torch.where(keep, chq, torch.full_like(chq, -1)).contiguous()
+        che = torch.where(chq < kx, chq, torch.full_like(chq, -1))
+        che = che.contiguous()
+        wch = tq.quantize_wch(grad, hess, mask,
+                              (grad * mask).abs().max() / 127,
+                              (hess * mask).max() / 127, gq_max=127,
+                              hq_max=127)
+        feats, rl, tab, dec = _u16_row_case(torch, gen, dev, bins, nb, kx,
+                                            NUM_LEAVES)
+        targs = (tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0, tab[6] > 0)
+        forms = [
+            ("hist_single_u16",
+             lambda: hc.hist_single(rows, w, num_bins=nb),
+             lambda: hc.hist_single_plain(rows, w, num_bins=nb)),
+            ("hist_leaves_q8_u16",
+             lambda: hc.build_histogram_leaves_q8(bins, wch, chq,
+                                                  num_bins=nb),
+             lambda: hc.build_histogram_leaves_q8_plain(bins, wch, chq,
+                                                        num_bins=nb)),
+            ("hist_leaves_u16",
+             lambda: hc.build_histogram_leaves(bins, w, che, num_bins=nb),
+             lambda: hc.build_histogram_leaves_plain(bins, w, che,
+                                                     num_bins=nb)),
+            ("wave_row_update_u16",
+             lambda: hc.wave_row_update(bins, rl, tab, feats=feats),
+             lambda: hc.wave_row_update_plain(bins, rl, tab, feats=feats)),
+            ("wave_row_update_ext_u16",
+             lambda: hc.wave_row_update(bins, rl, tab, feats=feats,
+                                        decode=dec),
+             lambda: hc.wave_row_update_plain(bins, rl, tab, feats=feats,
+                                              decode=dec)),
+            ("wave_trial_channels_u16",
+             lambda: hc.wave_trial_channels(bins, rl, *targs, feats=feats),
+             lambda: hc.wave_trial_channels_plain(bins, rl, *targs,
+                                                  feats=feats))]
+        for name, run, plain in forms:
+            before = hc.LAUNCHES[name]
+            got, again = run(), run()
+            torch.cuda.synchronize()
+            if hc.LAUNCHES[name] != before + 2:
+                raise AssertionError(f"{name} [B={nb}] did not launch")
+            want = plain()
+            err = 0.0
+            for x, y, z in zip(_tuple(got), _tuple(again), _tuple(want)):
+                if not torch.equal(x, y):
+                    raise AssertionError(f"{name} [B={nb}] differs between "
+                                         "two runs")
+                err = max(err, float((x.double() - z.double()).abs().max()))
+                if not torch.equal(x, z):
+                    raise AssertionError(f"{name} [B={nb}] differs from its "
+                                         f"plain version (max abs err {err})")
+            del got, again, want
+            ms = time_ms(run, reps)
+            if main:
+                rec[name] = dict(max_abs_err=err, ms=ms,
+                                 plain_ms=time_ms(plain, 3),
+                                 library_ms=None)
+            else:
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+                rec[name]["tile_ms"] = ms
+            log(f"kernel {name} [F={f} N={n} B={nb}]: bitwise equal to "
+                f"plain, identical across two runs; {ms:.3f} ms")
+        geo_s = hc.single_geometry(132, f, n, nb, "rows")
+        geo_q = hc.leaf_geometry(132, f, n, nb, kq, True, False)
+        geo_x = hc.leaf_geometry(132, f, n, nb, kx, False, False)
+        log(f"  B={nb} bin tiles: hist_single {geo_s.tiles} x {geo_s.bt}, "
+            f"q8 {geo_q.tiles} x {geo_q.bt}, fx {geo_x.tiles} x {geo_x.bt}")
+        if main:
+            # bounds: each input byte once (a code is 2 bytes), each
+            # output byte once
+            act_s = (w.w != 0).any(dim=0)
+            n_s = int(act_s.sum())
+            rec["hist_single_u16"].update(zip(("bound_ms", "bound_by"),
+                                              bound_ms(24.0 * n + 2 * f * n_s
+                                                       + f * nb * 24,
+                                                       3.0 * f * n_s)))
+            aq = int((chq >= 0).sum())
+            rec["hist_leaves_q8_u16"].update(zip(
+                ("bound_ms", "bound_by"),
+                bound_ms(n + aq * (2 * f + 3) + kq * f * nb * 12,
+                         3.0 * f * aq)))
+            ax = int((che >= 0).sum())
+            rec["hist_leaves_u16"].update(zip(
+                ("bound_ms", "bound_by"),
+                bound_ms(n + ax * (2 * f + 24) + kx * f * nb * 12,
+                         3.0 * f * ax)))
+            cols = wide.index_select(0, feats.long().clamp(0, f - 1))
+            for name, write in (("wave_row_update_u16", True),
+                                ("wave_row_update_ext_u16", True),
+                                ("wave_trial_channels_u16", False)):
+                nbytes, ops = _row_work(torch, cols, rl, tab, write,
+                                        code_bytes=2)
+                if name == "wave_row_update_ext_u16":
+                    nbytes += tab.shape[1] * (20 + 32)
+                rec[name].update(zip(("bound_ms", "bound_by"),
+                                     bound_ms(nbytes, ops)))
+            del cols
+            # the int64 index_add_ yardsticks (the port never calls them)
+            ones = torch.zeros((n,), dtype=torch.int8, device=dev)
+            ch1 = torch.where(act_s, ones, ones - 1)
+            for name, call in (
+                    ("hist_single_u16", _library_hist(
+                        torch, wide, w.w, ch1, 1, nb, torch.int64)),
+                    ("hist_leaves_q8_u16", _library_hist(
+                        torch, wide, wch, chq, kq, nb, torch.int64)),
+                    ("hist_leaves_u16", _library_hist(
+                        torch, wide, w.w, che, kx, nb, torch.int64))):
+                rec[name]["library_ms"] = time_ms(call, reps)
+                del call
+                torch.cuda.empty_cache()
+        del P, rows, bins, wide, grad, hess, mask, w, chq, che, wch, feats
+        del rl, tab, dec, forms
+        torch.cuda.empty_cache()
+    for name, r in rec.items():
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
+        log(f"[{card}] {name} @ N={n} B={U16_BINS[0]}: kernel "
+            f"{r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, int64 "
+            f"index_add_ {lib}; B={U16_BINS[1]}: {r['tile_ms']:.3f} ms")
+    return rec
+
+
+def _timed_train(lt, torch, hc, params, ds, rounds, **kw):
+    """Train with the launch counts from 0; returns the booster, its
+    steady iterations/s and the launches."""
+    hc.reset_launches()
+    ticks = []
+
+    def tick(env):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(params, ds, rounds, callbacks=[tick], **kw)
+    rate = (len(ticks) - 1) / (ticks[-1] - ticks[0]) if len(ticks) > 1 \
+        else 1.0 / (ticks[-1] - t0)
+    return bst, rate, dict(hc.LAUNCHES)
+
+
+def u16_path_phase(lt, torch, card, Xtr, ytr, Xte, yte, X_cat, out_dir
+                   ) -> dict:
+    """Phase 15b: the main path's rows binned at max_bin=1023 (uint16
+    codes): ``auto`` (the partitioned grower, exact, as the reference
+    picks past 255 bins), the explicit wave grower exact, and quantized
+    with the headline settings; iterations/s, held-out AUC, launches
+    (uint16 forms only, no uint8 leaf or row kernel), the bin matrix's
+    bytes; the quantized text identical card / CPU at 300,000 rows; one
+    quantized round with two categorical columns (the row update's
+    categorical form)."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    t0 = time.perf_counter()
+    from lightgbm_tpu_torch.dataset import pad_rows
+    ds = lt.Dataset(Xtr, ytr, params={"max_bin": U16_MAX_BIN})
+    ds.construct()
+    if ds.X_binned.dtype != np.uint16:
+        raise AssertionError(f"phase 15b: the bin matrix is "
+                             f"{ds.X_binned.dtype}")
+    bins_max = int(max(ds.num_bins_per_feature))
+    log(f"[{card}] phase 15b data: {len(ytr)} rows binned at max_bin="
+        f"{U16_MAX_BIN} ({bins_max} bins at most) in "
+        f"{time.perf_counter() - t0:.1f} s; bin matrix "
+        f"{ds.X_binned.nbytes} bytes (2 x N x F), "
+        f"{2 * NUM_FEATURES * pad_rows(len(ytr))} on the card padded")
+    runs = [("auto", dict(mode_params("partition", U16_MAX_BIN),
+                          tree_grow_mode="auto"), U16_PARTITION_ROUNDS,
+             "partition", ("hist_single_u16",)),
+            ("wave exact", mode_params("exact", U16_MAX_BIN), U16_ROUNDS,
+             "wave", ("hist_leaves_u16", "wave_row_update_u16")),
+            ("wave quantized, headline", mode_params("headline",
+                                                     U16_MAX_BIN),
+             U16_ROUNDS, "wave", ("hist_leaves_q8_u16",
+                                  "wave_row_update_u16", "hist_single"))]
+    launches = collections.Counter()
+    for tag, params, rounds, grower, needs in runs:
+        bst, rate, got = _timed_train(lt, torch, hc, params, ds, rounds)
+        missing = [k for k in needs if got[k] <= 0]
+        u8 = [k for k in ("hist_leaves_q8", "hist_leaves", "wave_row_update")
+              if got[k]]
+        if missing or u8:
+            raise AssertionError(f"phase 15b {tag}: not launched {missing}, "
+                                 f"uint8 forms launched {u8}")
+        if bst._gbdt.learner.grow_mode != grower:
+            raise AssertionError(f"phase 15b {tag}: grew on "
+                                 f"{bst._gbdt.learner.grow_mode}")
+        p = bst.predict(Xte)
+        a = auc(yte, p)
+        log(f"[{card}] phase 15b {tag} (max_bin={U16_MAX_BIN}, "
+            f"{grower} grower): {rounds} rounds, {rate:.4f} iterations/s, "
+            f"held-out AUC {a:.6f}; launches "
+            f"{json.dumps({k: v for k, v in got.items() if v})}")
+        if not (np.all(np.isfinite(p)) and a > 0.6):
+            raise AssertionError(f"phase 15b {tag}: held-out AUC {a}")
+        launches.update(got)
+        del bst
+    # the quantized text on the card and on the CPU
+    rows = min(U16_CHECK_ROWS, len(ytr))
+    params = mode_params("headline", U16_MAX_BIN)
+    texts, secs = {}, {}
+    d = lt.Dataset(Xtr[:rows], ytr[:rows], params={"max_bin": U16_MAX_BIN})
+    d.construct()
+    for dev in ("cuda", "cpu"):
+        hc.reset_launches()
+        t0 = time.perf_counter()
+        texts[dev] = lt.train(params, d, U16_CHECK_ROUNDS, device=dev
+                              ).model_to_string()
+        secs[dev] = time.perf_counter() - t0
+        if dev == "cuda":
+            launches.update(hc.LAUNCHES)
+    if texts["cuda"] != texts["cpu"]:
+        raise AssertionError("phase 15b: quantized max_bin=1023 text differs "
+                             "between the card and the CPU")
+    log(f"[{card}] phase 15b card / CPU at {rows} rows, {U16_CHECK_ROUNDS} "
+        f"headline round(s), max_bin={U16_MAX_BIN}: text identical (card "
+        f"{secs['cuda']:.1f} s, CPU {secs['cpu']:.1f} s)")
+    # two categorical columns (3 and 40 categories) on the wave grower
+    n = min(U16_CAT_ROWS, len(ytr))
+    Xc = np.concatenate([Xtr[:n], X_cat[:n, :2]], axis=1)
+    cds = lt.Dataset(Xc, ytr[:n], params={"max_bin": U16_MAX_BIN},
+                     categorical_feature=[NUM_FEATURES, NUM_FEATURES + 1])
+    bst, rate, got = _timed_train(lt, torch, hc,
+                                  mode_params("quantized", U16_MAX_BIN),
+                                  cds, 1)
+    if got["wave_row_update_ext_u16"] <= 0:
+        raise AssertionError("phase 15b categorical: the row update's "
+                             "categorical uint16 form did not launch")
+    launches.update(got)
+    log(f"[{card}] phase 15b categorical ({n} rows, 2 categorical "
+        f"columns, 1 quantized round): launches "
+        f"{json.dumps({k: v for k, v in got.items() if v})}")
+    del ds, cds, bst
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
+def sklearn_phase(lt, torch, card, Xtr, ytr, Xte, yte) -> dict:
+    """Phase 15c: ``LGBMClassifier.fit`` / ``predict_proba`` on the card
+    at the main path's width (the headline settings, 255 leaves): its
+    text equals ``train()``'s with the estimator's params."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    n = min(SKLEARN_ROWS, len(ytr))
+    X, y = Xtr[:n], ytr[:n].astype(int)
+    head = mode_params("headline")
+    est = lt.LGBMClassifier(
+        n_estimators=LIB_ROUNDS, num_leaves=NUM_LEAVES, learning_rate=0.1,
+        min_child_samples=20, max_bin=MAX_BIN,
+        **{k: head[k] for k in ("use_quantized_grad", "num_grad_quant_bins",
+                                "quant_train_renew_leaf",
+                                "stochastic_rounding", "tree_grow_mode")})
+    hc.reset_launches()
+    t0 = time.perf_counter()
+    est.fit(X, y)
+    torch.cuda.synchronize()
+    t_fit = time.perf_counter() - t0
+    got = dict(hc.LAUNCHES)
+    if got["hist_leaves_q8"] <= 0 or got["wave_row_update"] <= 0:
+        raise AssertionError(f"phase 15c: the estimator's fit launched "
+                             f"{got}")
+    proba = est.predict_proba(Xte)
+    bst = lt.train(est._make_params(), lt.Dataset(X, y.astype(np.float32)),
+                   LIB_ROUNDS)
+    if est.booster_.model_to_string() != bst.model_to_string():
+        raise AssertionError("phase 15c: LGBMClassifier's text differs from "
+                             "train()'s")
+    a = auc(yte, proba[:, 1])
+    if proba.shape != (len(yte), 2) or not a > 0.6:
+        raise AssertionError(f"phase 15c: predict_proba {proba.shape}, AUC "
+                             f"{a}")
+    log(f"[{card}] phase 15c LGBMClassifier at {n} rows, {LIB_ROUNDS} "
+        f"rounds: fit {t_fit:.2f} s, text equals train()'s, held-out AUC "
+        f"{a:.6f}")
+    return got
+
+
+def cli_phase(lt, torch, card, Xtr, ytr, out_dir) -> dict:
+    """Phase 15d: ``python -m lightgbm_tpu_torch`` trains on a
+    262,144-row CSV file in a subprocess (on the card); its model file
+    equals ``train()``'s on the same params and file, run in this process
+    meanwhile."""
+    from lightgbm_tpu_torch.cli import parse_cli_args
+    from lightgbm_tpu_torch.io_utils import load_data_file
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    n = min(CLI_ROWS, len(ytr))
+    data = os.path.join(out_dir, "cli_train.csv")
+    conf = os.path.join(out_dir, "cli_train.conf")
+    model = os.path.join(out_dir, "cli_model.txt")
+    t0 = time.perf_counter()
+    np.savetxt(data, np.c_[ytr[:n], Xtr[:n]], delimiter=",", fmt="%.9g")
+    head = mode_params("headline")
+    with open(conf, "w") as fh:
+        fh.write("task = train\n# phase 15d\n")
+        for k, v in {**head, "data": data, "num_trees": LIB_ROUNDS,
+                     "output_model": model}.items():
+            v = str(v).lower() if isinstance(v, bool) else v
+            fh.write(f"{k} = {v}\n")
+    t_write = time.perf_counter() - t0
+    for path in (model,):
+        if os.path.exists(path):
+            os.unlink(path)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep +
+               os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "lightgbm_tpu_torch",
+                             f"config={conf}"], cwd=HERE, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    try:
+        params = parse_cli_args([f"config={conf}"])
+        X, _, y = load_data_file(data, params)
+        hc.reset_launches()
+        bst = lt.train(params, lt.Dataset(X, y, params=params), LIB_ROUNDS)
+        got = dict(hc.LAUNCHES)
+        out, _ = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    t_cli = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 15d: the CLI exited {proc.returncode}:"
+                             f"\n{out[-4000:]}")
+    with open(model) as fh:
+        text = fh.read()
+    if text != bst.model_to_string():
+        raise AssertionError("phase 15d: the CLI's model file differs from "
+                             "train()'s")
+    log(f"[{card}] phase 15d python -m lightgbm_tpu_torch at {n} rows: "
+        f"model file equals train()'s ({LIB_ROUNDS} headline rounds; csv "
+        f"written in {t_write:.1f} s, {os.path.getsize(data)} bytes; "
+        f"subprocess {t_cli:.1f} s)")
+    os.unlink(data)
+    return got
+
+
+def cache_phase(lt, torch, card, ds, out_dir) -> dict:
+    """Phase 15e: ``save_binary`` then ``load_binary`` of the main path's
+    binned rows (10.5M x 28, uint8): bytes, write and load seconds (the
+    load checks the stored fingerprint); the loaded dataset trains the
+    original's text."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    path = os.path.join(out_dir, "main_path.bin")
+    t0 = time.perf_counter()
+    ds.save_binary(path)
+    t_write = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    back = lt.Dataset.load_binary(path)
+    t_load = time.perf_counter() - t0
+    os.unlink(path)
+    params = mode_params("headline")
+    want = lt.train(params, ds, CACHE_ROUNDS).model_to_string()
+    hc.reset_launches()
+    got_text = lt.train(params, back, CACHE_ROUNDS).model_to_string()
+    got = dict(hc.LAUNCHES)
+    if got_text != want:
+        raise AssertionError("phase 15e: the loaded dataset trains other "
+                             "text")
+    log(f"[{card}] phase 15e binary cache of {ds.num_data()} rows: "
+        f"{nbytes} bytes, save_binary {t_write:.2f} s, load_binary "
+        f"{t_load:.2f} s (fingerprint checked); {CACHE_ROUNDS} headline "
+        f"rounds on it: text identical")
+    del back
+    torch.cuda.empty_cache()
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=10_500_000,
                     help="training rows of the main path (Higgs: 10.5M)")
     ap.add_argument("--test-rows", type=int, default=500_000)
-    ap.add_argument("--rounds", type=int, default=10,
+    ap.add_argument("--rounds", type=int, default=6,
                     help="boosting rounds per mode")
     ap.add_argument("--pack-rounds", type=int, default=5,
                     help="boosting rounds per mode on the packed path")
@@ -3157,7 +3655,11 @@ def main(argv=None) -> int:
              ("renew", ("renew",), RENEW_ROUNDS,
               ("hist_single", "hist_leaves_q8", "wave_row_update"))]
     if args.rounds < 10:
-        log(f"cut: wave path rounds only, 10 -> {args.rounds} per mode")
+        log(f"cut: wave path, headline and categorical rounds only, 10 -> "
+            f"{args.rounds} per mode (6 by default since phase 15)")
+    log(f"cut: phase 14b's serving model {SERVE_TREES} trees (64 before "
+        f"phase 15); phase 12b-c {MANY_ROUNDS} rounds (3 before); phase "
+        f"13e's card / CPU check {FOBJ_CHECK_ROUNDS} round (2 before)")
     log(f"cut: partition path rounds only, Higgs' 500 -> "
         f"{PARTITION_ROUNDS}; renew path {RENEW_ROUNDS} rounds")
     for name, modes, rounds, needs in paths:
@@ -3230,9 +3732,36 @@ def main(argv=None) -> int:
     # ---- phase 14: checkpoint / resume, serving and explanation ----
     for k, v in resume_phase(lt, torch, card, ds, out_dir).items():
         launches[k] += v
+    stamp("phase 14a, resume")
+
+    # ---- phase 15: uint16 bins, the binary dataset cache, the library
+    # surface; each training path with the counts from 0 ----
+    t15 = time.perf_counter()
+    for k, v in cache_phase(lt, torch, card, ds, out_dir).items():
+        launches[k] += v
     del ds
     torch.cuda.empty_cache()
-    stamp("phase 14a, resume")
+    stamp("phase 15e, binary dataset cache")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 15)
+    rec.update(u16_kernel_phase(torch, gen, torch.device("cuda"), card,
+                                n_pad, args.reps))
+    stamp("phase 15a, uint16 kernels")
+    n_cat = min(U16_CAT_ROWS, args.rows)
+    X_cat = cat_columns(n_cat, args.seed, logit[:n_cat])[0]
+    for k, v in u16_path_phase(lt, torch, card, Xtr, ytr, Xte, yte, X_cat,
+                               out_dir).items():
+        launches[k] += v
+    del X_cat
+    stamp("phase 15b, max_bin=1023")
+    for k, v in sklearn_phase(lt, torch, card, Xtr, ytr, Xte, yte).items():
+        launches[k] += v
+    stamp("phase 15c, LGBMClassifier")
+    for k, v in cli_phase(lt, torch, card, Xtr, ytr, out_dir).items():
+        launches[k] += v
+    stamp("phase 15d, the CLI")
+    log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+    torch.cuda.empty_cache()
     serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir)
     torch.cuda.empty_cache()
     stamp("phase 14b-c, serving and explanation")
@@ -3252,7 +3781,8 @@ def main(argv=None) -> int:
 
 
     kernels = []
-    for name, (source, replaces) in {**KERNELS, **LANE_KERNELS}.items():
+    for name, (source, replaces) in {**KERNELS, **LANE_KERNELS,
+                                     **U16_KERNELS}.items():
         r = rec[name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[name],

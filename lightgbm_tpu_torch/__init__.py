@@ -14,19 +14,25 @@ training), multi-model training (``train_many``) and cross-validation
 format, ``train(resume_from=...)``), model text save / load, and
 prediction through the serving compiler's dense program
 (``Booster.predict``, ``Booster.to_predictor``) with SHAP values
-(``pred_contrib``) through dense TreeSHAP.
+(``pred_contrib``) through dense TreeSHAP; ``max_bin`` up to 65,535
+(uint16 bin codes), forced bins and the binary dataset cache; the
+sklearn estimators (``LGBMRegressor``, ``LGBMClassifier``,
+``LGBMRanker``; ``multitrain.GridSearchCVMany``) and the CLI
+(``python -m lightgbm_tpu_torch``).
 """
 
 from .basic import Booster
 from .callback import early_stopping, print_evaluation, record_evaluation
-from .dataset import Dataset
+from .dataset import Dataset, DatasetCorruptError
 from .engine import CVBooster, cv, train
 from .multitrain import ManyBooster, MultiTrainError, train_many
 from .resilience.checkpoint import CheckpointError, TrainingPreempted
+from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
 from .utils.device import DeviceUnavailableError
 
 __all__ = ["train", "cv", "CVBooster", "train_many", "ManyBooster",
            "MultiTrainError", "Dataset", "Booster", "DeviceUnavailableError",
-           "CheckpointError", "TrainingPreempted",
+           "CheckpointError", "TrainingPreempted", "DatasetCorruptError",
+           "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
            "early_stopping", "print_evaluation", "record_evaluation"]
 __version__ = "0.1.0"

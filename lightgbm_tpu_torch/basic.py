@@ -246,6 +246,14 @@ class Booster:
             raise
         return self
 
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict[str, Any]:
+        """The model as a JSON-ready dict (reference basic.py:233,
+        LightGBM gbdt_model_text.cpp:24 DumpModel)."""
+        from .models.model_text import model_to_dict
+        return model_to_dict(self._gbdt, start_iteration,
+                             -1 if num_iteration is None else num_iteration)
+
     def feature_importance(self, importance_type: str = "split"
                            ) -> np.ndarray:
         return self._gbdt.feature_importance(importance_type)

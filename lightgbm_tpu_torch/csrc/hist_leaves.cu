@@ -82,6 +82,17 @@
 //   hist_leaves_q8_p4  B=16   0.658 ms  (1.098, int32 6.965)
 // 15-21x the byte bound; PERF.md section 6 has the sweeps behind the
 // geometry and what each part of the design bought.
+//
+// uint16 bin codes (max_bin > 255; the reference's wave grower then
+// histograms with XLA, lightgbm_tpu/learner/wave.py:287-294, no Pallas
+// form): the same kernel templated on the bin type (hist_leaves_fx_u16,
+// hist_leaves_q8_u16).  A (channel, feature) pair takes B x 20 (fx) or
+// B x 12 (q8) bytes, so past 10,598 (fx) or 17,664 (q8) bins no group
+// fits a block: the grid's block columns then also run over BIN TILES,
+// a block keeping bins [b0, b0 + Bt) of its group and dropping every
+// other add (leaf_geometry picks Bt; the uint8 forms run one tile of B).
+// Each extra tile re-reads the rows' channels, and the queued rows'
+// weights and bins.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -108,8 +119,8 @@ __device__ __forceinline__ unsigned int load_ch4(const int8_t* ch,
   return v;
 }
 
-template <bool PACKED>
-__device__ __forceinline__ int bin_of(const uint8_t* __restrict__ col,
+template <typename BT, bool PACKED>
+__device__ __forceinline__ int bin_of(const BT* __restrict__ col,
                                       long long row) {
   if constexpr (PACKED) {
     return (__ldg(col + (row >> 1)) >> ((row & 1) * 4)) & 15;
@@ -120,11 +131,14 @@ __device__ __forceinline__ int bin_of(const uint8_t* __restrict__ col,
 
 // One queued row: its weights once, then its bin and adds for every
 // feature of the block's group (four features' loads at a time).
-template <typename W, bool PACKED>
+// Bins [b0, b0 + nbt) of the block's tile are its histogram's; others
+// are dropped.
+template <typename W, typename BT, bool PACKED>
 __device__ __forceinline__ void add_row(
     unsigned long long* acc, unsigned int* cnt_acc, int E,
-    const uint8_t* __restrict__ bins, const W* __restrict__ w,
-    long long fstride, long long N, int B, int nf, long long row, int ci) {
+    const BT* __restrict__ bins, const W* __restrict__ w,
+    long long fstride, long long N, int b0, int nbt, int nf, long long row,
+    int ci) {
   constexpr bool Q8 = sizeof(W) == 1;
   long long g, h;
   unsigned int n;
@@ -140,16 +154,19 @@ __device__ __forceinline__ void add_row(
   if ((g | h) == 0 && n == 0u) return;
   unsigned long long gh = 0ULL;   // q8: (g << 32) + h
   if constexpr (Q8) gh = (unsigned long long)((g << 32) + h);
-  const int base = ci * nf * B;
+  const int base = ci * nf * nbt;
   for (int k = 0; k < nf; k += 4) {
-    int b[4];
+    unsigned int b[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      b[i] = k + i < nf ? bin_of<PACKED>(bins + (k + i) * fstride, row) : B;
+      b[i] = k + i < nf ? (unsigned int)(bin_of<BT, PACKED>(
+                              bins + (k + i) * fstride, row) - b0)
+                        : (unsigned int)nbt;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      if (b[i] >= B) continue;   // outside the histogram, as in plain
-      const int e = base + (k + i) * B + b[i];
+      // outside the histogram (or this tile), as in plain
+      if (b[i] >= (unsigned int)nbt) continue;
+      const int e = base + (k + i) * nbt + (int)b[i];
       if constexpr (Q8) {
         if (gh) atomicAdd(acc + e, gh);
       } else {
@@ -161,16 +178,18 @@ __device__ __forceinline__ void add_row(
   }
 }
 
-// bins: (F, N) uint8 feature-major, or (F, N/2) nibble-packed bytes when
-// PACKED.  w: (wrows, N) weights, rows 0..2 are (g, h, count).  ch: (N,)
-// int8 leaf channel.  out: (K, F, B, 3), int32 (q8) or int64 (fx).
-// Block (x, y): channels [c0, c0 + cg) and features [f0, f0 + fg) of
-// combination x (channel groups fastest), rows [y * chunk_rows, ...).
-template <typename W, bool PACKED>
+// bins: (F, N) uint8 or uint16 (BT) feature-major, or (F, N/2)
+// nibble-packed bytes when PACKED.  w: (wrows, N) weights, rows 0..2 are
+// (g, h, count).  ch: (N,) int8 leaf channel.  out: (K, F, B, 3), int32
+// (q8) or int64 (fx).  Block (x, y): channels [c0, c0 + cg), features
+// [f0, f0 + fg) and bins [b0, b0 + Bt) of combination x (channel groups
+// fastest, then feature groups, then bin tiles), rows [y * chunk_rows,
+// ...).
+template <typename W, typename BT, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
-hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
+hist_leaves_kernel(const BT* __restrict__ bins, const W* __restrict__ w,
                    const int8_t* __restrict__ ch, void* __restrict__ out,
-                   int F, long long N, int B, int K, int cg, int fg,
+                   int F, long long N, int B, int K, int cg, int fg, int Bt,
                    long long chunk_rows, int vec,
                    const long long* __restrict__ lanes, int L) {
   constexpr bool Q8 = sizeof(W) == 1;
@@ -184,17 +203,21 @@ hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
   }
 
   const int c_groups = (K + cg - 1) / cg;
+  const int f_groups = (F + fg - 1) / fg;
   const int c0 = (blockIdx.x % c_groups) * cg;
-  const int f0 = (blockIdx.x / c_groups) * fg;
+  const int fx = blockIdx.x / c_groups;
+  const int f0 = (fx % f_groups) * fg;
+  const int b0 = (fx / f_groups) * Bt;
   const int nc = min(cg, K - c0);
   const int nf = min(fg, F - f0);
+  const int nbt = min(Bt, B - b0);
   const long long r0 = (long long)blockIdx.y * chunk_rows;
   const long long r1 = min(N, r0 + chunk_rows);
-  const int E = nc * nf * B;
-  const int E_alloc = cg * fg * B;
+  const int E = nc * nf * nbt;
+  const int E_alloc = cg * fg * Bt;
   // fx: int64 g[E], int64 h[E]; q8: int64 (g << 32) + h [E]; then
   // uint32 count[E]; then the warps' queues.  Entry (ci, k, b) =
-  // (ci * nf + k) * B + b.
+  // (ci * nf + k) * nbt + b - b0.
   unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
   unsigned int* cnt_acc =
       reinterpret_cast<unsigned int*>(acc + (Q8 ? E_alloc : 2 * E_alloc));
@@ -209,7 +232,7 @@ hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
 
   const bool vv = vec != 0;
   const long long fstride = PACKED ? N / 2 : N;   // bin bytes per feature
-  const uint8_t* col0 = bins + (long long)f0 * fstride;
+  const BT* col0 = bins + (long long)f0 * fstride;
   const long long step = (long long)nwarps * kWarpRows;   // rows a block
   int qn = 0;   // rows queued by this warp (the same in every lane)
   for (long long t = r0 + (long long)warp * kWarpRows; t < r1;
@@ -252,26 +275,27 @@ hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
       while (qn >= 32) {   // full rounds, taken from the end of the queue
         qn -= 32;
         const unsigned int e = queue[qn + lane];
-        add_row<W, PACKED>(acc, cnt_acc, E, col0, w, fstride, N, B, nf,
-                           r0 + (e >> kChBits),
-                           (int)(e & ((1u << kChBits) - 1)));
+        add_row<W, BT, PACKED>(acc, cnt_acc, E, col0, w, fstride, N, b0,
+                               nbt, nf, r0 + (e >> kChBits),
+                               (int)(e & ((1u << kChBits) - 1)));
       }
       __syncwarp();
     }
   }
   if (lane < qn) {
     const unsigned int e = queue[lane];
-    add_row<W, PACKED>(acc, cnt_acc, E, col0, w, fstride, N, B, nf,
-                       r0 + (e >> kChBits), (int)(e & ((1u << kChBits) - 1)));
+    add_row<W, BT, PACKED>(acc, cnt_acc, E, col0, w, fstride, N, b0, nbt,
+                           nf, r0 + (e >> kChBits),
+                           (int)(e & ((1u << kChBits) - 1)));
   }
   __syncthreads();
 
-  // flush: entry (ci, k, b) -> out[((c0 + ci) * F + f0 + k) * B + b][0..2]
+  // flush: entry (ci, k, b) -> out[((c0 + ci) * F + f0 + k) * B + b0 + b]
   for (int i = threadIdx.x; i < E; i += blockDim.x) {
-    const int b = i % B;
-    const int q = i / B;
+    const int b = i % nbt;
+    const int q = i / nbt;
     const long long o =
-        (((long long)(c0 + q / nf) * F + (f0 + q % nf)) * B + b) * 3;
+        (((long long)(c0 + q / nf) * F + (f0 + q % nf)) * B + b0 + b) * 3;
     const unsigned int n = cnt_acc[i];
     if constexpr (Q8) {
       const unsigned long long a = acc[i];
@@ -293,27 +317,30 @@ hist_leaves_kernel(const uint8_t* __restrict__ bins, const W* __restrict__ w,
 
 // lanes: null for one lane, else the device table (2, L) of each lane's
 // weight and channel pointers, with out the lanes' (L, K, F, B, 3).
-template <typename W, bool PACKED>
+// Bt: bins per tile (B: one tile, the uint8 forms).
+template <typename W, bool PACKED, typename BT = uint8_t>
 int launch(const void* bins, const void* w, const void* ch, void* out, int F,
            long long N, int B, int K, int cg, int fg, int chunks,
            long long chunk_rows, int vec, void* stream,
-           const long long* lanes = nullptr, int L = 1) {
+           const long long* lanes = nullptr, int L = 1, int Bt = 0) {
   if (F <= 0 || N <= 0 || K <= 0 || L <= 0) return 0;
-  if (L > 65535) return (int)cudaErrorInvalidValue;
+  if (Bt == 0) Bt = B;
+  if (L > 65535 || Bt < 0 || Bt > B) return (int)cudaErrorInvalidValue;
   if (cg >= (1 << kChBits) || chunk_rows > (1LL << (32 - kChBits)))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)cg * fg * B * (sizeof(W) == 1 ? 12 : 20) +
+  const size_t smem = (size_t)cg * fg * Bt * (sizeof(W) == 1 ? 12 : 20) +
                       (size_t)(kThreads / 32) * kQueue * 4;
   cudaError_t err = cudaFuncSetAttribute(
-      hist_leaves_kernel<W, PACKED>,
+      hist_leaves_kernel<W, BT, PACKED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int combos = ((K + cg - 1) / cg) * ((F + fg - 1) / fg);
+  const int combos = ((K + cg - 1) / cg) * ((F + fg - 1) / fg) *
+                     ((B + Bt - 1) / Bt);
   dim3 grid(combos, chunks, L);
-  hist_leaves_kernel<W, PACKED>
+  hist_leaves_kernel<W, BT, PACKED>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const uint8_t*>(bins), static_cast<const W*>(w),
-          static_cast<const int8_t*>(ch), out, F, N, B, K, cg, fg,
+          static_cast<const BT*>(bins), static_cast<const W*>(w),
+          static_cast<const int8_t*>(ch), out, F, N, B, K, cg, fg, Bt,
           chunk_rows, vec, lanes, L);
   return (int)cudaGetLastError();
 }
@@ -345,6 +372,27 @@ int hist_leaves_fx(const void* bins, const void* w, const void* ch,
                    void* stream) {
   return launch<long long, false>(bins, w, ch, out, F, N, B, K, cg, fg,
                                   chunks, chunk_rows, vec, stream);
+}
+
+// The uint16 forms (max_bin > 255): bins (F, N) uint16 codes; Bt bins
+// per tile (block columns: channel groups x feature groups x
+// ceil(B / Bt) tiles).
+int hist_leaves_q8_u16(const void* bins, const void* wch, const void* ch,
+                       void* out, int F, long long N, int B, int K, int cg,
+                       int fg, int Bt, int chunks, long long chunk_rows,
+                       int vec, void* stream) {
+  return launch<int8_t, false, uint16_t>(bins, wch, ch, out, F, N, B, K, cg,
+                                         fg, chunks, chunk_rows, vec, stream,
+                                         nullptr, 1, Bt);
+}
+
+int hist_leaves_fx_u16(const void* bins, const void* w, const void* ch,
+                       void* out, int F, long long N, int B, int K, int cg,
+                       int fg, int Bt, int chunks, long long chunk_rows,
+                       int vec, void* stream) {
+  return launch<long long, false, uint16_t>(bins, w, ch, out, F, N, B, K, cg,
+                                            fg, chunks, chunk_rows, vec,
+                                            stream, nullptr, 1, Bt);
 }
 
 // The packed forms: bins (F, N/2) nibble-packed bytes, N even, B <= 16.

@@ -68,9 +68,22 @@
 // hist_single_p4 at B=16 1.848 ms (3.423); one partitioned iteration's
 // 255 launches 20.5 ms of kernel time (107.0, torch.profiler).
 // PERF.md section 6 has the readings behind each part of the design.
+//
+// uint16 bin codes (max_bin > 255; the reference serves them by its XLA
+// one-hot histogram, lightgbm_tpu/learner/serial.py:564-570, with no
+// Pallas form): the same kernels templated on the bin type.  ROWS reads a
+// row's run as words of 2 features, FEATS 4 rows per 64-bit load.  A
+// feature takes (B | 1) x 20 bytes: past ~11,600 bins one feature no
+// longer fits a block, so the grid has a BIN-TILE axis: the block of
+// tile t keeps bins [t * Bt, t * Bt + Bt) of its feature group and drops
+// every other row's add (single_geometry picks Bt; the uint8 forms run
+// one tile of B).  Each extra tile re-reads the chunk's rows: 2 bytes a
+// (row, feature) and the row's 24 weight bytes per tile.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -91,11 +104,11 @@ __device__ __forceinline__ void add(const Hist& H, int e, long long g,
   if (c) atomicAdd(H.c + e, c);
 }
 
-// Zero-fill the block's histogram of nf features.
+// Zero-fill the block's histogram of nf features, nbt bins each.
 __device__ __forceinline__ Hist zero_hist(unsigned char* smem, int nf,
-                                          int B) {
+                                          int nbt) {
   Hist H;
-  H.S = B | 1;
+  H.S = nbt | 1;
   const int E = nf * H.S;
   H.g = reinterpret_cast<unsigned long long*>(smem);
   H.h = H.g + E;
@@ -106,15 +119,17 @@ __device__ __forceinline__ Hist zero_hist(unsigned char* smem, int nf,
   return H;
 }
 
-// Flush: entry (k, b) -> out[((f0 + k) * B + b) * 3 + 0..2].
+// Flush: entry (k, b) of the tile [b0, b0 + nbt) ->
+// out[((f0 + k) * B + b0 + b) * 3 + 0..2].
 __device__ __forceinline__ void flush(const Hist& H, unsigned long long* out,
-                                     int f0, int nf, int B) {
+                                     int f0, int nf, int B, int b0,
+                                     int nbt) {
   __syncthreads();
-  unsigned long long* dst = out + (long long)f0 * B * 3;
-  for (int i = threadIdx.x; i < nf * B; i += blockDim.x) {
-    const int k = i / B;
-    const int e = k * H.S + (i - k * B);
-    unsigned long long* o = dst + (long long)i * 3;
+  for (int i = threadIdx.x; i < nf * nbt; i += blockDim.x) {
+    const int k = i / nbt;
+    const int b = i - k * nbt;
+    const int e = k * H.S + b;
+    unsigned long long* o = out + ((long long)(f0 + k) * B + b0 + b) * 3;
     if (H.g[e]) atomicAdd(o, H.g[e]);
     if (H.h[e]) atomicAdd(o + 1, H.h[e]);
     if (H.c[e]) atomicAdd(o + 2, (unsigned long long)H.c[e]);
@@ -128,41 +143,64 @@ __device__ __forceinline__ void flush(const Hist& H, unsigned long long* out,
 #define LANE_INPUTS()                                               \
   do {                                                              \
     const int z_ = blockIdx.z;                                      \
-    bins = reinterpret_cast<const uint8_t*>(lanes[z_]);             \
+    bins = reinterpret_cast<const BT*>(lanes[z_]);                  \
     w = reinterpret_cast<const long long*>(lanes[L + z_]);          \
     n = lanes[2 * L + z_];                                          \
     ws = lanes[3 * L + z_];                                         \
     out += (long long)z_ * F * B * 3;                               \
   } while (0)
 
+// Block row y of the grid: feature group y / tiles, bin tile y % tiles.
+struct Tile {
+  int f0, nf, b0, nbt;
+};
+
+__device__ __forceinline__ Tile tile_of(int F, int B, int fg, int Bt) {
+  const int tiles = (B + Bt - 1) / Bt;
+  const int fgi = blockIdx.y / tiles;
+  Tile t;
+  t.f0 = fgi * fg;
+  t.nf = min(fg, F - t.f0);
+  t.b0 = (blockIdx.y - fgi * tiles) * Bt;
+  t.nbt = min(Bt, B - t.b0);
+  return t;
+}
+
 // ROWS: block (x, y) takes rows [x * chunk_rows, ...) and features
 // [y * fg, ...).  words: sf == 1 and every row's run of the group's
 // features starts 4-byte aligned (fg a multiple of 4, or one group).
+// The bins are uint8 or uint16 codes (BT); a 32-bit word holds kPer
+// features of a row's run.  Bt: bins per tile (B for one tile).
+template <typename BT>
 __global__ void __launch_bounds__(1024)
-hist_single_rows(const uint8_t* __restrict__ bins, long long sf,
+hist_single_rows(const BT* __restrict__ bins, long long sf,
                  long long sn, const long long* __restrict__ w, long long ws,
                  unsigned long long* __restrict__ out, int F, long long n,
-                 int B, int fg, long long chunk_rows, int words,
+                 int B, int fg, int Bt, long long chunk_rows, int words,
                  const long long* __restrict__ lanes, int L) {
+  constexpr int kPer = 4 / (int)sizeof(BT);
+  constexpr int kBits = 8 * (int)sizeof(BT);
+  constexpr unsigned int kMask = (1u << kBits) - 1u;
   extern __shared__ __align__(16) unsigned char smem[];
   if (lanes) {
     LANE_INPUTS();
     words = words && (reinterpret_cast<uintptr_t>(bins) & 3) == 0;
   }
-  const int f0 = blockIdx.y * fg;
-  const int nf = min(fg, F - f0);
+  const Tile T = tile_of(F, B, fg, Bt);
+  const int f0 = T.f0, nf = T.nf, b0 = T.b0;
+  const unsigned int nbt = (unsigned int)T.nbt;
   const long long r0 = (long long)blockIdx.x * chunk_rows;
   const long long r1 = min(n, r0 + chunk_rows);
-  const Hist H = zero_hist(smem, nf, B);
+  const Hist H = zero_hist(smem, nf, T.nbt);
   const int lane = threadIdx.x & 31;
-  const int nw = words ? nf >> 2 : 0;   // whole words of a row's run
-  const int nb = nf - 4 * nw;           // features read byte by byte
+  const int nw = words ? nf / kPer : 0;   // whole words of a row's run
+  const int nb = nf - kPer * nw;          // features read one by one
   const long long step = (long long)blockDim.x * kRowsPerStep;
 
   for (long long t = r0 + threadIdx.x; t < r1; t += step) {
     long long g[kRowsPerStep], h[kRowsPerStep];
     unsigned int c[kRowsPerStep];
-    const uint8_t* p[kRowsPerStep];
+    const BT* p[kRowsPerStep];
     bool in[kRowsPerStep], live[kRowsPerStep];
 #pragma unroll
     for (int i = 0; i < kRowsPerStep; ++i) {
@@ -190,7 +228,7 @@ hist_single_rows(const uint8_t* __restrict__ bins, long long sf,
         for (int s = 0; s < kWordsAhead; ++s) {
           v[i][s] = (s < cnt && in[i])
                         ? __ldg(reinterpret_cast<const unsigned int*>(
-                              p[i] + 4 * (u + q)))
+                              p[i] + kPer * (u + q)))
                         : 0u;
           q = q + 1 == cnt ? 0 : q + 1;
         }
@@ -202,11 +240,12 @@ hist_single_rows(const uint8_t* __restrict__ bins, long long sf,
 #pragma unroll
         for (int s = 0; s < kWordsAhead; ++s) {
           if (s < cnt) {
-            const int k0 = 4 * (u + q);
+            const int k0 = kPer * (u + q);
 #pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              const int b = (v[i][s] >> (8 * j)) & 0xff;
-              if (b < B) add(H, (k0 + j) * H.S + b, g[i], h[i], c[i]);
+            for (int j = 0; j < kPer; ++j) {
+              const unsigned int b =
+                  ((v[i][s] >> (kBits * j)) & kMask) - (unsigned int)b0;
+              if (b < nbt) add(H, (k0 + j) * H.S + b, g[i], h[i], c[i]);
             }
           }
           q = q + 1 == cnt ? 0 : q + 1;
@@ -215,48 +254,58 @@ hist_single_rows(const uint8_t* __restrict__ bins, long long sf,
     }
     // the features left (all of them without words), lane-rotated
     if (nb > 0) {
-      const int kb = 4 * nw;
+      const int kb = kPer * nw;
       int q = lane % nb;
       for (int s = 0; s < nb; ++s) {
         const int k = kb + q;
-        int b[kRowsPerStep];
+        unsigned int b[kRowsPerStep];
 #pragma unroll
         for (int i = 0; i < kRowsPerStep; ++i)
-          b[i] = in[i] ? __ldg(p[i] + k * sf) : B;
+          b[i] = in[i] ? (unsigned int)__ldg(p[i] + k * sf) - (unsigned int)b0
+                       : nbt;
 #pragma unroll
         for (int i = 0; i < kRowsPerStep; ++i)
-          if (live[i] && b[i] < B) add(H, k * H.S + b[i], g[i], h[i], c[i]);
+          if (live[i] && b[i] < nbt)
+            add(H, k * H.S + b[i], g[i], h[i], c[i]);
         q = q + 1 == nb ? 0 : q + 1;
       }
     }
   }
-  flush(H, out, f0, nf, B);
+  flush(H, out, f0, nf, B, b0, T.nbt);
 }
 
 // FEATS: 4 consecutive rows per thread; block (x, y) takes rows
 // [x * chunk_rows, ...) (a multiple of 16) and features [y * fg, ...).
 // PACKED: bins are (F, n/2) nibble-packed bytes, sf bytes per feature.
-// vec: the 4 rows' bins of a feature are one aligned 32-bit (uint8) or
-// 16-bit (packed) word.
-template <bool PACKED>
+// vec: the 4 rows' bins of a feature are one aligned 32-bit (uint8),
+// 64-bit (uint16) or 16-bit (packed) word.  BT: uint8 or uint16 codes
+// (PACKED: uint8 bytes of two codes).
+template <typename BT, bool PACKED>
 __global__ void __launch_bounds__(1024)
-hist_single_feats(const uint8_t* __restrict__ bins, long long sf,
+hist_single_feats(const BT* __restrict__ bins, long long sf,
                   const long long* __restrict__ w, long long ws,
                   unsigned long long* __restrict__ out, int F, long long n,
-                  int B, int fg, long long chunk_rows, int vec,
+                  int B, int fg, int Bt, long long chunk_rows, int vec,
                   const long long* __restrict__ lanes, int L) {
+  constexpr bool kWide = sizeof(BT) == 2;
+  constexpr int kBits = 8 * (int)sizeof(BT);
+  constexpr unsigned int kMask = (1u << kBits) - 1u;
+  // the 4 rows' codes of one feature
+  using VT = typename std::conditional<kWide, unsigned long long,
+                                       unsigned int>::type;
   extern __shared__ __align__(16) unsigned char smem[];
   if (lanes) {
     LANE_INPUTS();
-    vec = vec && (reinterpret_cast<uintptr_t>(bins) & 3) == 0;
+    vec = vec && (reinterpret_cast<uintptr_t>(bins) & (kWide ? 7 : 3)) == 0;
   }
-  const int f0 = blockIdx.y * fg;
-  const int nf = min(fg, F - f0);
+  const Tile T = tile_of(F, B, fg, Bt);
+  const int f0 = T.f0, nf = T.nf, b0 = T.b0;
+  const unsigned int nbt = (unsigned int)T.nbt;
   const long long r0 = (long long)blockIdx.x * chunk_rows;
   const long long r1 = min(n, r0 + chunk_rows);
-  const Hist H = zero_hist(smem, nf, B);
+  const Hist H = zero_hist(smem, nf, T.nbt);
   const int lane = threadIdx.x & 31;
-  const uint8_t* col0 = bins + (long long)f0 * sf;
+  const BT* col0 = bins + (long long)f0 * sf;
 
   for (long long r = r0 + 4LL * threadIdx.x; r < r1;
        r += 4LL * blockDim.x) {
@@ -275,7 +324,7 @@ hist_single_feats(const uint8_t* __restrict__ bins, long long sf,
     const bool whole = vec && r + 4 <= r1;
     int q = lane % nf;
     for (int s = 0; s < nf; s += 4) {
-      unsigned int v[4];
+      VT v[4];
       int kk[4];
 #pragma unroll
       for (int a = 0; a < 4; ++a) {   // four features' loads together
@@ -283,7 +332,7 @@ hist_single_feats(const uint8_t* __restrict__ bins, long long sf,
         q = q + 1 == nf ? 0 : q + 1;
         v[a] = 0u;
         if (s + a >= nf) continue;
-        const uint8_t* col = col0 + kk[a] * sf;
+        const BT* col = col0 + kk[a] * sf;
         if constexpr (PACKED) {
           if (whole) {
             v[a] = __ldg(reinterpret_cast<const unsigned short*>(
@@ -291,6 +340,14 @@ hist_single_feats(const uint8_t* __restrict__ bins, long long sf,
           } else {
             for (int i = 0; i < 4 && r + i < r1; i += 2)
               v[a] |= (unsigned int)__ldg(col + ((r + i) >> 1)) << (4 * i);
+          }
+        } else if constexpr (kWide) {
+          if (whole) {
+            const uint2 x = __ldg(reinterpret_cast<const uint2*>(col + r));
+            v[a] = (VT)x.x | ((VT)x.y << 32);
+          } else {
+            for (int i = 0; i < 4 && r + i < r1; ++i)
+              v[a] |= (VT)__ldg(col + r + i) << (16 * i);
           }
         } else {
           if (whole) {
@@ -308,17 +365,19 @@ hist_single_feats(const uint8_t* __restrict__ bins, long long sf,
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           if (!((act >> i) & 1u)) continue;
-          const int b = PACKED ? (v[a] >> (4 * i)) & 15
-                               : (v[a] >> (8 * i)) & 0xff;
-          if (b < B) add(H, base + b, g[i], h[i], c[i]);
+          const unsigned int b =
+              (PACKED ? (unsigned int)(v[a] >> (4 * i)) & 15u
+                      : (unsigned int)(v[a] >> (kBits * i)) & kMask) -
+              (unsigned int)b0;
+          if (b < nbt) add(H, base + b, g[i], h[i], c[i]);
         }
       }
     }
   }
-  flush(H, out, f0, nf, B);
+  flush(H, out, f0, nf, B, b0, T.nbt);
 }
 
-size_t smem_bytes(int fg, int B) { return (size_t)fg * (B | 1) * 20; }
+size_t smem_bytes(int fg, int Bt) { return (size_t)fg * (Bt | 1) * 20; }
 
 // Dynamic shared memory above 48 KB, and the whole L1 carveout as shared
 // memory so that four small blocks fit an SM.
@@ -330,6 +389,38 @@ int prepare(K kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
+}
+
+// One launch of the uint8 or uint16 form: grid (chunks, f_groups x tiles),
+// Bt bins per tile; layout as in hist_single below.
+template <typename BT>
+int launch_single(const void* bins, long long sf, long long sn,
+                  const void* w, long long ws, void* out, int F, long long n,
+                  int B, int fg, int Bt, int chunks, long long chunk_rows,
+                  int threads, int layout, void* stream) {
+  if (F <= 0 || n <= 0) return 0;
+  if (Bt <= 0 || Bt > B) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)((F + fg - 1) / fg) * ((B + Bt - 1) / Bt);
+  if (rows > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(fg, Bt);
+  const dim3 grid(chunks, (unsigned int)rows);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const BT* b = static_cast<const BT*>(bins);
+  const long long* wp = static_cast<const long long*>(w);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  int err;
+  if (layout < 2) {
+    if ((err = prepare(hist_single_rows<BT>, smem)) != 0) return err;
+    hist_single_rows<BT><<<grid, threads, smem, st>>>(
+        b, sf, sn, wp, ws, o, F, n, B, fg, Bt, chunk_rows, layout == 1,
+        nullptr, 1);
+  } else {
+    if ((err = prepare(hist_single_feats<BT, false>, smem)) != 0) return err;
+    hist_single_feats<BT, false><<<grid, threads, smem, st>>>(
+        b, sf, wp, ws, o, F, n, B, fg, Bt, chunk_rows, layout == 3, nullptr,
+        1);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -345,25 +436,22 @@ int hist_single(const void* bins, long long sf, long long sn, const void* w,
                 long long ws, void* out, int F, long long n, int B, int fg,
                 int chunks, long long chunk_rows, int threads, int layout,
                 void* stream) {
-  if (F <= 0 || n <= 0) return 0;
-  const size_t smem = smem_bytes(fg, B);
-  const dim3 grid(chunks, (F + fg - 1) / fg);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const uint8_t* b = static_cast<const uint8_t*>(bins);
-  const long long* wp = static_cast<const long long*>(w);
-  unsigned long long* o = static_cast<unsigned long long*>(out);
-  int err;
-  if (layout < 2) {
-    if ((err = prepare(hist_single_rows, smem)) != 0) return err;
-    hist_single_rows<<<grid, threads, smem, st>>>(b, sf, sn, wp, ws, o, F, n,
-                                                  B, fg, chunk_rows,
-                                                  layout == 1, nullptr, 1);
-  } else {
-    if ((err = prepare(hist_single_feats<false>, smem)) != 0) return err;
-    hist_single_feats<false><<<grid, threads, smem, st>>>(
-        b, sf, wp, ws, o, F, n, B, fg, chunk_rows, layout == 3, nullptr, 1);
-  }
-  return (int)cudaGetLastError();
+  return launch_single<uint8_t>(bins, sf, sn, w, ws, out, F, n, B, fg, B,
+                                chunks, chunk_rows, threads, layout, stream);
+}
+
+// The uint16 form (max_bin > 255): bins are uint16 codes, strides in
+// elements; the grid's rows are ceil(F / fg) feature groups x
+// ceil(B / Bt) bin tiles (group-major); layout 1 reads words of 2
+// features (every run 4-byte aligned), layout 3 4 rows per 64-bit load
+// (the bins 8-byte aligned, sf a multiple of 4).
+int hist_single_u16(const void* bins, long long sf, long long sn,
+                    const void* w, long long ws, void* out, int F,
+                    long long n, int B, int fg, int Bt, int chunks,
+                    long long chunk_rows, int threads, int layout,
+                    void* stream) {
+  return launch_single<uint16_t>(bins, sf, sn, w, ws, out, F, n, B, fg, Bt,
+                                 chunks, chunk_rows, threads, layout, stream);
 }
 
 // The packed form: bins (F, nb) contiguous nibble-packed bytes (N = 2 * nb
@@ -375,12 +463,13 @@ int hist_single_p4(const void* bins, const void* w, void* out, int F,
   if (F <= 0 || nb <= 0) return 0;
   const size_t smem = smem_bytes(fg, B);
   int err;
-  if ((err = prepare(hist_single_feats<true>, smem)) != 0) return err;
+  if ((err = prepare(hist_single_feats<uint8_t, true>, smem)) != 0)
+    return err;
   const dim3 grid(chunks, (F + fg - 1) / fg);
-  hist_single_feats<true><<<grid, threads, smem,
-                            static_cast<cudaStream_t>(stream)>>>(
+  hist_single_feats<uint8_t, true><<<grid, threads, smem,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(bins), nb, static_cast<const long long*>(w),
-      2 * nb, static_cast<unsigned long long*>(out), F, 2 * nb, B, fg,
+      2 * nb, static_cast<unsigned long long*>(out), F, 2 * nb, B, fg, B,
       chunk_rows, vec, nullptr, 1);
   return (int)cudaGetLastError();
 }
@@ -413,20 +502,22 @@ int hist_single_lanes(const void* lanes, long long sf, long long sn,
   unsigned long long* o = static_cast<unsigned long long*>(out);
   int err;
   if (layout < 2) {
-    if ((err = prepare(hist_single_rows, smem)) != 0) return err;
-    hist_single_rows<<<grid, threads, smem, st>>>(nullptr, sf, sn, nullptr, 0,
-                                                  o, F, 0, B, fg, chunk_rows,
-                                                  layout == 1, t, L);
+    if ((err = prepare(hist_single_rows<uint8_t>, smem)) != 0) return err;
+    hist_single_rows<uint8_t><<<grid, threads, smem, st>>>(
+        nullptr, sf, sn, nullptr, 0, o, F, 0, B, fg, B, chunk_rows,
+        layout == 1, t, L);
   } else if (layout < 4) {
-    if ((err = prepare(hist_single_feats<false>, smem)) != 0) return err;
-    hist_single_feats<false><<<grid, threads, smem, st>>>(
-        nullptr, sf, nullptr, 0, o, F, 0, B, fg, chunk_rows, layout == 3, t,
-        L);
+    if ((err = prepare(hist_single_feats<uint8_t, false>, smem)) != 0)
+      return err;
+    hist_single_feats<uint8_t, false><<<grid, threads, smem, st>>>(
+        nullptr, sf, nullptr, 0, o, F, 0, B, fg, B, chunk_rows, layout == 3,
+        t, L);
   } else {
-    if ((err = prepare(hist_single_feats<true>, smem)) != 0) return err;
-    hist_single_feats<true><<<grid, threads, smem, st>>>(
-        nullptr, sf, nullptr, 0, o, F, 0, B, fg, chunk_rows, layout == 5, t,
-        L);
+    if ((err = prepare(hist_single_feats<uint8_t, true>, smem)) != 0)
+      return err;
+    hist_single_feats<uint8_t, true><<<grid, threads, smem, st>>>(
+        nullptr, sf, nullptr, 0, o, F, 0, B, fg, B, chunk_rows, layout == 5,
+        t, L);
   }
   return (int)cudaGetLastError();
 }

@@ -65,6 +65,14 @@
 // as the numeric form and adds a few integer operations a row; the
 // numeric form is compiled without them.
 //
+// uint16 bin codes (max_bin > 255; the reference's wave grower then runs
+// its XLA row update): every form is templated on the bin type
+// (wave_row_update_u16, wave_row_update_ext_u16, wave_trial_channels_u16);
+// a split's code is one 2-byte load where it was one byte, nothing else
+// changes.  The categorical / EFB form keeps its 256-bit membership: the
+// learner refuses a categorical feature of more than 256 bins on the wave
+// grower.
+//
 // Times (NVIDIA H100 80GB HBM3, 700.00 W): chip_smoke.py phase 2 (CUDA
 // events behind a spinning kernel, W=25, N=10,502,144, rows over 255
 // leaves) 0.098 ms, trial form 0.073 ms, where the first version took
@@ -86,7 +94,8 @@ constexpr int kQuads = 2;            // 4-row quads of a thread per step
 constexpr int kSlots = 256;          // leaf -> first split, 2 x kMaxW
 constexpr int kEmpty = INT_MIN;      // a free slot's key
 
-__device__ __forceinline__ int bin_at(const uint8_t* __restrict__ col,
+template <typename BT>
+__device__ __forceinline__ int bin_at(const BT* __restrict__ col,
                                       long long row, bool packed) {
   return packed ? (__ldg(col + (row >> 1)) >> ((row & 1) * 4)) & 15
                 : __ldg(col + row);
@@ -147,9 +156,11 @@ __device__ __forceinline__ int first_split(const Table& T, int leaf, int W) {
 
 // vec: rl, rl_out (16 B) and ch (4 B) aligned for vector access.
 // dec (5, W), member (W, kWords): the categorical / EFB form's inputs.
-template <bool kTrial, bool kPacked, bool kExt>
+// BT: uint8 or uint16 codes (kPacked: uint8 bytes of two codes); fstride
+// in elements.
+template <bool kTrial, bool kPacked, bool kExt, typename BT>
 __global__ void __launch_bounds__(kThreads)
-row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
+row_update_kernel(const BT* __restrict__ bins, long long fstride, int F,
                   const int* __restrict__ feats, const int* __restrict__ rl_in,
                   const int* __restrict__ tab, int* __restrict__ rl_out,
                   int8_t* __restrict__ ch_out, const int* __restrict__ dec,
@@ -292,19 +303,19 @@ row_update_kernel(const uint8_t* __restrict__ bins, long long fstride, int F,
 // lanes: null for one lane, else the device table (3, L), or (5, L) in
 // the categorical / EFB form, of each lane's feats, rl, tab[, dec,
 // member] pointers, with rl_out and ch_out the lanes' (L, N).
-template <bool kTrial, bool kExt>
+template <bool kTrial, bool kExt, typename BT = uint8_t>
 int launch(const void* bins, long long fstride, int F, const void* feats,
            const void* rl, const void* tab, void* rl_out, void* ch_out,
            const void* dec, const void* member, int W, long long N,
            int packed, int vec, void* stream,
            const long long* lanes = nullptr, int L = 1) {
   if (W > kMaxW || (F <= 0 && W > 0)) return (int)cudaErrorInvalidValue;
-  if (kExt && (packed || ((!dec || !member) && !lanes)))
-    return (int)cudaErrorInvalidValue;
+  if ((kExt || sizeof(BT) != 1) && packed) return (int)cudaErrorInvalidValue;
+  if (kExt && (!dec || !member) && !lanes) return (int)cudaErrorInvalidValue;
   if (L > 65535) return (int)cudaErrorInvalidValue;
   if (N <= 0 || L <= 0) return 0;
-  auto* kern = packed ? row_update_kernel<kTrial, true, false>
-                      : row_update_kernel<kTrial, false, kExt>;
+  auto* kern = packed ? row_update_kernel<kTrial, true, false, BT>
+                      : row_update_kernel<kTrial, false, kExt, BT>;
   // one resident round: as many blocks as the SMs hold, or fewer
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -321,7 +332,7 @@ int launch(const void* bins, long long fstride, int F, const void* feats,
   most = most / L > 0 ? most / L : 1;
   const int blocks = (int)(need < most ? need : most);
   kern<<<dim3(blocks, L), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(bins), fstride, F,
+      static_cast<const BT*>(bins), fstride, F,
       static_cast<const int*>(feats), static_cast<const int*>(rl),
       static_cast<const int*>(tab), static_cast<int*>(rl_out),
       static_cast<int8_t*>(ch_out), static_cast<const int*>(dec),
@@ -356,6 +367,36 @@ int wave_row_update_ext(const void* bins, long long fstride, int F,
                         int vec, void* stream) {
   return launch<false, true>(bins, fstride, F, feats, rl, tab, rl_out,
                              ch_out, dec, member, W, N, packed, vec, stream);
+}
+
+// The uint16 forms (max_bin > 255): bins the (F, fstride) uint16 codes,
+// fstride in elements; never packed.
+int wave_row_update_u16(const void* bins, long long fstride, int F,
+                        const void* feats, const void* rl, const void* tab,
+                        void* rl_out, void* ch_out, int W, long long N,
+                        int vec, void* stream) {
+  return launch<false, false, uint16_t>(bins, fstride, F, feats, rl, tab,
+                                        rl_out, ch_out, nullptr, nullptr, W,
+                                        N, 0, vec, stream);
+}
+
+int wave_row_update_ext_u16(const void* bins, long long fstride, int F,
+                            const void* feats, const void* rl,
+                            const void* tab, void* rl_out, void* ch_out,
+                            const void* dec, const void* member, int W,
+                            long long N, int vec, void* stream) {
+  return launch<false, true, uint16_t>(bins, fstride, F, feats, rl, tab,
+                                       rl_out, ch_out, dec, member, W, N, 0,
+                                       vec, stream);
+}
+
+int wave_trial_channels_u16(const void* bins, long long fstride, int F,
+                            const void* feats, const void* rl,
+                            const void* tab, void* ch_out, int W,
+                            long long N, int vec, void* stream) {
+  return launch<true, false, uint16_t>(bins, fstride, F, feats, rl, tab,
+                                       nullptr, ch_out, nullptr, nullptr, W,
+                                       N, 0, vec, stream);
 }
 
 // Trial form: rl is read, never written; ch_out (N,) int8.

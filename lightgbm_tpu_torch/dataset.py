@@ -12,18 +12,21 @@ What the port carries: dense numpy / pandas input, scipy sparse matrices
 Feature Bundling (``efb.py``; reference dataset.py:437-484): when
 bundling shrinks the matrix, the device copy holds one column per bundle.
 Under ``linear_tree`` the raw used columns stay too, in f32 (``raw_used``,
-dense input only).  Pre-partitioned multi-process ingest, forced bins, ``max_bin`` > 255 and
-the binary dataset cache are later slices (ROADMAP queue 1).  The device
-copy is the FEATURE-MAJOR ``(G, N_pad)`` uint8 tensor the histogram and
-row-update kernels stream (G = features, or bundles under EFB), rows
-padded with zeros to the kernels' 4096-row block, or, when every feature
-fits 16 bins, its nibble-packed ``(F, N_pad/2)`` form
-(:meth:`Dataset.device_bins_packed4`).
+dense input only), forced bin bounds (``forcedbins_filename``) and the
+binary dataset cache (:meth:`Dataset.save_binary` / ``load_binary``,
+the reference's file format).  Pre-partitioned multi-process ingest is a
+later slice (ROADMAP queue 1).  The device copy is the FEATURE-MAJOR
+``(G, N_pad)`` tensor the histogram and row-update kernels stream (G =
+features, or bundles under EFB), uint8 codes, or uint16 when some feature
+has more than 256 bins (``max_bin`` > 255), rows padded with zeros to the
+kernels' 4096-row block, or, when every feature fits 16 bins, its
+nibble-packed ``(F, N_pad/2)`` form (:meth:`Dataset.device_bins_packed4`).
 """
 
 from __future__ import annotations
 
 import copy
+import pickle
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -33,7 +36,25 @@ from .binning import BinMapper, bin_matrix, find_bin
 from .config import Config
 from .utils.log import log_info
 
-__all__ = ["Dataset", "Metadata", "ROW_BLOCK", "pad_rows"]
+__all__ = ["Dataset", "Metadata", "DatasetCorruptError", "ROW_BLOCK",
+           "pad_rows", "BINARY_FORMAT"]
+
+# the binary dataset file's format marker, the reference's
+# (lightgbm_tpu/dataset.py save_binary): a file either package writes
+# loads in the other
+BINARY_FORMAT = "lightgbm_tpu.dataset.v1"
+
+
+class DatasetCorruptError(ValueError):
+    """A binary dataset file could not be read or failed validation
+    (truncated or garbage payload, an unknown class in it, missing fields,
+    or a fingerprint that does not match the stored binned matrix).  Copy
+    of the reference's (lightgbm_tpu/dataset.py:36)."""
+
+    def __init__(self, source: str, detail: str) -> None:
+        super().__init__(f"{source}: {detail}")
+        self.source = source
+        self.detail = detail
 
 # the kernels' row block (lightgbm_tpu/ops/histogram_pallas.py
 # DEFAULT_ROW_BLOCK): the wave grower pads rows to a multiple of it, and
@@ -134,7 +155,7 @@ class Dataset:
         self._init_score_arg = init_score
         self.constructed = False
         self.bin_mappers: List[BinMapper] = []
-        self.X_binned: Optional[np.ndarray] = None   # (N, F or G) uint8
+        self.X_binned: Optional[np.ndarray] = None   # (N, F or G) uint8/16
         self.num_bins_per_feature: Optional[np.ndarray] = None
         self.used_feature_map: Optional[np.ndarray] = None  # inner -> real
         self.num_total_features = 0
@@ -178,10 +199,7 @@ class Dataset:
             self.num_bins_per_feature = ref.num_bins_per_feature
             self.efb = ref.efb
         else:
-            if getattr(cfg, "forcedbins_filename", ""):
-                raise NotImplementedError(
-                    "forcedbins_filename is not ported to lightgbm_tpu_torch "
-                    "yet (ROADMAP queue 1)")
+            forced_bins = self._load_forced_bins(cfg)
             self.bin_mappers = []
             for j in range(f):
                 if sparse:
@@ -214,17 +232,16 @@ class Dataset:
                     is_categorical=(j in cat_indices),
                     use_missing=cfg.use_missing,
                     zero_as_missing=cfg.zero_as_missing,
-                    forced_bounds=None,
+                    forced_bounds=forced_bins.get(j),
                     pre_filter_cnt=filt))
             self._finalize_used_features(f)
 
         used = self.used_feature_map
         mappers = [self.bin_mappers[j] for j in used]
-        if max(m.num_bin for m in mappers) > 256:
-            raise NotImplementedError(
-                "max_bin > 255 (uint16 bin codes) is not ported to "
-                "lightgbm_tpu_torch yet (ROADMAP queue 1); the kernels "
-                "take uint8 bins")
+        # uint16 codes when some feature has more than 256 bins (reference
+        # binning.py bin_matrix)
+        code_dtype = (np.uint8 if max(m.num_bin for m in mappers) <= 256
+                      else np.uint16)
         if self.efb is None and self.reference is None:
             self.efb = self._maybe_bundle(cfg, raw, sparse, used, mappers,
                                           sample_idx)
@@ -243,12 +260,13 @@ class Dataset:
             # no bundling: densify the BINNED codes (uint8), never the
             # raw float64 values (reference dataset.py:329-340)
             csc = raw[:, used].tocsc()
-            self.X_binned = np.empty((n, len(used)), np.uint8)
+            self.X_binned = np.empty((n, len(used)), code_dtype)
             for jj, m in enumerate(mappers):
-                col = np.full(n, m.default_bin, np.uint8)
+                col = np.full(n, m.default_bin, code_dtype)
                 lo, hi = csc.indptr[jj], csc.indptr[jj + 1]
                 col[csc.indices[lo:hi]] = m.value_to_bin(
-                    np.asarray(csc.data[lo:hi], np.float64)).astype(np.uint8)
+                    np.asarray(csc.data[lo:hi], np.float64)).astype(
+                        code_dtype)
                 self.X_binned[:, jj] = col
         else:
             self.X_binned = bin_matrix(raw[:, used], mappers)
@@ -262,6 +280,20 @@ class Dataset:
             self.data = None
         return self
 
+    @staticmethod
+    def _load_forced_bins(cfg) -> Dict[int, list]:
+        """forcedbins_filename JSON -> {feature: [upper bounds]} (copy of
+        the reference's ``Dataset._load_forced_bins``, dataset.py:361-372;
+        LightGBM dataset_loader.cpp:641 GetForcedBins)."""
+        forced_bins: Dict[int, list] = {}
+        if getattr(cfg, "forcedbins_filename", ""):
+            import json as _json
+            with open(cfg.forcedbins_filename) as fh:
+                for ent in _json.load(fh):
+                    forced_bins[int(ent["feature"])] = \
+                        list(ent["bin_upper_bound"])
+        return forced_bins
+
     def _maybe_bundle(self, cfg, raw, sparse, used, mappers, sample_idx):
         """Decide + build EFB bundles (reference dataset.py:437-484,
         dataset.cpp:239 FastFeatureBundling): serial-learner training
@@ -271,6 +303,13 @@ class Dataset:
         from .efb import MAX_BUNDLE_BINS, build_bundle_info, find_bundles
         if (not cfg.enable_bundle or cfg.tree_learner != "serial"
                 or cfg.linear_tree or len(used) < 3):
+            return None
+        if max(m.num_bin for m in mappers) > MAX_BUNDLE_BINS:
+            # bundle columns are uint8: the reference keeps a >256-bin
+            # feature as its own bundle and casts its codes to uint8
+            # (lightgbm_tpu/efb.py:149, dataset.py:455), which wraps
+            # them; the port does not bundle a uint16 matrix (ROADMAP
+            # queue 3 item 8)
             return None
         nondefault = []
         cand = []
@@ -380,14 +419,51 @@ class Dataset:
     # -- reference-API surface ----------------------------------------------
     def create_valid(self, data: Any, label: Optional[_ArrayLike] = None,
                      weight: Optional[_ArrayLike] = None,
+                     group: Optional[_ArrayLike] = None,
                      init_score: Optional[_ArrayLike] = None,
                      params: Optional[Dict[str, Any]] = None) -> "Dataset":
         return Dataset(data, label=label, reference=self, weight=weight,
-                       init_score=init_score, params=params or self.params)
+                       group=group, init_score=init_score,
+                       params=params or self.params)
+
+    # setters and getters (reference dataset.py:556-592): each setter
+    # records the value for construct() and, once constructed, sets it
+    def set_label(self, label: _ArrayLike) -> "Dataset":
+        self._label_arg = label
+        if self.constructed:
+            self.metadata.set_label(label)
+        return self
+
+    def set_weight(self, weight: Optional[_ArrayLike]) -> "Dataset":
+        self._weight_arg = weight
+        if self.constructed:
+            self.metadata.set_weight(weight)
+        return self
+
+    def set_group(self, group: Optional[_ArrayLike]) -> "Dataset":
+        self._group_arg = group
+        if self.constructed:
+            self.metadata.set_group(group)
+        return self
+
+    def set_init_score(self, init_score: Optional[_ArrayLike]) -> "Dataset":
+        self._init_score_arg = init_score
+        if self.constructed:
+            self.metadata.set_init_score(init_score)
+        return self
 
     def get_label(self) -> Optional[np.ndarray]:
         return self.metadata.label if self.constructed else (
             None if self._label_arg is None else np.asarray(self._label_arg))
+
+    def get_weight(self) -> Optional[np.ndarray]:
+        return self.metadata.weight
+
+    def get_group(self) -> Optional[np.ndarray]:
+        return self.metadata.group
+
+    def get_init_score(self) -> Optional[np.ndarray]:
+        return self.metadata.init_score
 
     def num_data(self) -> int:
         self._check_constructed()
@@ -457,6 +533,98 @@ class Dataset:
         self._device_cache["_fingerprint"] = fp
         return fp
 
+    # -- the binary dataset cache (reference Dataset::SaveBinaryFile /
+    #    DatasetLoader::LoadFromBinFile; lightgbm_tpu/dataset.py:690-776) --
+    def save_binary(self, filename: str) -> "Dataset":
+        """Crash-safe binary save in the reference's format: the payload
+        lands through ``io_utils.atomic_write_bytes`` (temp + fsync +
+        rename) and carries the :meth:`fingerprint`, which
+        :meth:`load_binary` checks against the stored matrix.  The bin
+        mappers and bundles are the port's classes; the reference loads
+        them as its own (:class:`_BinaryUnpickler` maps the other way)."""
+        self._check_constructed()
+        import pickle
+        from .io_utils import atomic_write_bytes
+        payload = {
+            "format": BINARY_FORMAT,
+            "X_binned": np.asarray(self.X_binned),
+            "bin_mappers": self.bin_mappers,
+            "used_feature_map": self.used_feature_map,
+            "num_bins_per_feature": self.num_bins_per_feature,
+            "feature_names": self.feature_names_,
+            "efb": self.efb,
+            "label": self.metadata.label,
+            "weight": self.metadata.weight,
+            "group": self.metadata.group,
+            "init_score": self.metadata.init_score,
+            "fingerprint": self.fingerprint(),
+        }
+        atomic_write_bytes(filename, pickle.dumps(payload, protocol=4))
+        return self
+
+    _BINARY_REQUIRED = ("X_binned", "bin_mappers", "used_feature_map",
+                        "num_bins_per_feature", "feature_names", "label",
+                        "weight", "group", "init_score")
+
+    @staticmethod
+    def load_binary(filename: str,
+                    params: Optional[Dict[str, Any]] = None) -> "Dataset":
+        """Load a binary dataset file written by either package's
+        ``save_binary``.  A truncated or garbage payload, a global outside
+        the format's classes, a missing field or a binned matrix that no
+        longer matches its stored fingerprint raises
+        :class:`DatasetCorruptError` (never a raw pickle exception)."""
+        try:
+            with open(filename, "rb") as fh:
+                payload = _BinaryUnpickler(fh).load()
+        except OSError:
+            raise
+        except Exception as exc:
+            raise DatasetCorruptError(
+                str(filename), f"not a readable binary dataset "
+                f"({type(exc).__name__}: {exc})") from exc
+        if not isinstance(payload, dict) or \
+                payload.get("format") != BINARY_FORMAT:
+            raise DatasetCorruptError(
+                str(filename), "not a lightgbm_tpu binary dataset "
+                "(missing/unknown format marker)")
+        missing = [k for k in Dataset._BINARY_REQUIRED if k not in payload]
+        if missing:
+            raise DatasetCorruptError(
+                str(filename),
+                f"binary dataset is missing fields: {', '.join(missing)}")
+        ds = Dataset(None, params=params)
+        ds.X_binned = payload["X_binned"]
+        ds.bin_mappers = payload["bin_mappers"]
+        ds.used_feature_map = payload["used_feature_map"]
+        ds.num_bins_per_feature = payload["num_bins_per_feature"]
+        ds.feature_names_ = payload["feature_names"]
+        ds.efb = payload.get("efb")
+        ds.num_total_features = len(ds.feature_names_)
+        if payload["label"] is not None:
+            ds.metadata.set_label(payload["label"])
+        ds.metadata.set_weight(payload["weight"])
+        ds.metadata.set_group(payload["group"])
+        ds.metadata.set_init_score(payload["init_score"])
+        ds.constructed = True
+        stored = payload.get("fingerprint")
+        if stored:  # absent in pre-fingerprint files: accept
+            try:
+                got = ds.fingerprint()
+            except Exception as exc:
+                raise DatasetCorruptError(
+                    str(filename), f"stored arrays are inconsistent "
+                    f"({type(exc).__name__}: {exc})") from exc
+            diffs = [k for k in stored if k in got and got[k] != stored[k]]
+            if diffs:
+                raise DatasetCorruptError(
+                    str(filename),
+                    "stored binned matrix does not match its recorded "
+                    "fingerprint (" + ", ".join(
+                        f"{k}: stored={stored[k]!r} got={got[k]!r}"
+                        for k in diffs) + ")")
+        return ds
+
     def _check_constructed(self) -> None:
         if not self.constructed:
             raise RuntimeError("Dataset not constructed yet; call construct() "
@@ -465,7 +633,8 @@ class Dataset:
     # -- device placement ----------------------------------------------------
     def device_bins(self, device: torch.device,
                     row_block: int = ROW_BLOCK) -> torch.Tensor:
-        """The FEATURE-MAJOR ``(F, N_pad)`` uint8 bin matrix on ``device``,
+        """The FEATURE-MAJOR ``(F, N_pad)`` uint8 (uint16 past 256 bins)
+        bin matrix on ``device``,
         rows zero-padded to a multiple of ``row_block`` (cached).  The
         reference keeps a row-major device copy and transposes/pads it in
         the learner (learner/serial.py:909-916); the port builds the
@@ -475,7 +644,7 @@ class Dataset:
         key = ("bins_fm", str(device), row_block)
         if key not in self._device_cache:
             n, f = self.X_binned.shape
-            xt = np.zeros((f, pad_rows(n, row_block)), np.uint8)
+            xt = np.zeros((f, pad_rows(n, row_block)), self.X_binned.dtype)
             xt[:, :n] = self.X_binned.T
             self._device_cache[key] = torch.from_numpy(xt).to(device)
         return self._device_cache[key]
@@ -505,3 +674,36 @@ class Dataset:
             self._device_cache[key] = pack_bins4(
                 torch.from_numpy(xt)).to(device)
         return self._device_cache[key]
+
+
+class _BinaryUnpickler(pickle.Unpickler):
+    """The binary dataset file's reader: the few classes its payload holds
+    (bin mappers, their missing type, EFB bundles, numpy arrays and
+    scalars), each mapped to the port's copy whichever package wrote the
+    file; any other global is refused.  The port never imports the
+    reference, so a file of ``lightgbm_tpu.binning.BinMapper`` objects
+    loads as :class:`binning.BinMapper`."""
+
+    _CLASSES = {"BinMapper": ("binning", "BinMapper"),
+                "MissingType": ("binning", "MissingType"),
+                "BundleInfo": ("efb", "BundleInfo")}
+    _PACKAGES = ("lightgbm_tpu", "lightgbm_tpu_torch")
+    _NUMPY = {("numpy", "ndarray"), ("numpy", "dtype"),
+              ("numpy.core.multiarray", "_reconstruct"),
+              ("numpy._core.multiarray", "_reconstruct"),
+              ("numpy.core.multiarray", "scalar"),
+              ("numpy._core.multiarray", "scalar")}
+
+    def find_class(self, module: str, name: str):
+        pkg, _, sub = module.partition(".")
+        if pkg in self._PACKAGES and name in self._CLASSES and \
+                sub == self._CLASSES[name][0]:
+            import importlib
+            mod = importlib.import_module(f"lightgbm_tpu_torch.{sub}")
+            return getattr(mod, self._CLASSES[name][1])
+        if (module, name) in self._NUMPY or (
+                module == "numpy" and name.endswith("DType")) or (
+                module.startswith("numpy.dtypes") and name.endswith("DType")):
+            return super().find_class(module, name)
+        raise pickle.UnpicklingError(
+            f"global {module}.{name} is not part of a binary dataset file")

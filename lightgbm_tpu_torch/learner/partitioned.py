@@ -58,7 +58,8 @@ import torch
 
 from ..efb import make_bundle_decode, make_expand_hist
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
-from ..ops.histogram import FxWeights, fx_to_f32, pack_weights
+from ..ops.histogram import (FxWeights, fx_to_f32, pack_weights, take_rows,
+                             widen_bins)
 from ..ops.split import (BIG, NEG_INF, SplitParams, cumsum_bins, leaf_gain,
                          leaf_output, leaf_output_smoothed, node_draws)
 from . import lanes as kc
@@ -83,7 +84,7 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
     Returns ``grow(X, grad, hess, bag_mask, num_bins, has_nan,
     feature_mask, node_key=None, is_cat=None, monotone=None,
     cegb_penalty=None) -> GrownTree`` with ``X`` the ROW-MAJOR (N, G)
-    uint8 bin matrix (G = F, or the bundles of ``efb``, an
+    uint8 or uint16 bin matrix (G = F, or the bundles of ``efb``, an
     ``efb.EfbArrays``; left untouched: the grower reorders a copy) and
     every tensor on one device; ``node_key`` holds the keys of the
     by-node and extra-trees streams, ``is_cat`` the (F,) categorical
@@ -95,11 +96,6 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
     CUDA kernel on a card and its plain version on the CPU.  ``grow.gen``
     is the same grower as a generator of kernel requests
     (learner/lanes.py)."""
-    if max_bins > 256:
-        raise NotImplementedError("uint16 bin codes are not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue 1): "
-                                  "the histogram kernel takes uint8 bins "
-                                  "(max_bin <= 255)")
     L = num_leaves
     F = num_features
     Bb = efb.bundle_bins if efb is not None else max_bins
@@ -144,6 +140,9 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
 
         # ---- pack rows: bins | fixed-point g*bag, h*bag, bag | orig idx ----
         P = X.clone()
+        # the partition moves uint16 rows through an int16 view (the same
+        # bits; PyTorch's index_copy_ does not take uint16)
+        Pm = P.view(torch.int16) if P.dtype == torch.uint16 else P
         wfx = pack_weights(grad, hess, bag_mask)   # reads two maxima
         syncs = 2
         Wt, inv = wfx.w, wfx.inv_scale
@@ -282,10 +281,11 @@ def make_partitioned_grow_fn(*, num_leaves: int, num_features: int,
             # ---- stable partition of the leaf's segment, lefts first ----
             start, cnt = leaf_start[best], leaf_seg[best]
             e = start + cnt
-            seg = P[start:e]
+            seg = Pm[start:e]
             g1 = f1 if efb is None else efb.f_bundle.index_select(
                 0, f1).long()
-            col = decode(seg.index_select(1, g1).squeeze(1).to(_I32), f1)
+            col = decode(widen_bins(take_rows(P[start:e], g1, 1).squeeze(1))
+                         .to(_I32), f1)
             go_left = torch.where(col == f_nan_bin, dleft, col <= thr)
             if any_cat:
                 go_left = torch.where(

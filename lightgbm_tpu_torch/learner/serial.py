@@ -22,8 +22,9 @@ import torch
 
 from ..config import Config
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
-from ..ops.histogram import PACK4_MAX_BINS, FxWeights, fx_to_f32, pack_weights
-from ..ops.histogram_cuda import hist_single
+from ..ops.histogram import (PACK4_MAX_BINS, FxWeights, fx_to_f32,
+                             pack_weights, take_rows, widen_bins)
+from ..ops.histogram_cuda import MEMBER_WORDS, hist_single
 from ..ops.split import (BIG, NEG_INF, SplitParams, leaf_output,
                          leaf_output_smoothed, local_best_candidates)
 from ..utils.log import log_info, log_warning
@@ -283,17 +284,12 @@ def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
     feature_mask, is_cat=None, monotone=None) -> GrownTree`` with ``X_T``
-    the FEATURE-MAJOR (F, N) uint8 bin matrix.  Carries what the
+    the FEATURE-MAJOR (F, N) uint8 or uint16 bin matrix.  Carries what the
     reference's masked grower carries: basic monotone bounds, path
     smoothing and the CEGB split penalty through the scan; the reference
     passes it no per-feature CEGB penalty, no ``feature_contri`` and no
     forced splits or interaction constraints, and warns that it does not
     apply extra-trees (:216-219)."""
-    if max_bins > 256:
-        raise NotImplementedError("uint16 bin codes are not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue 1): "
-                                  "the histogram kernel takes uint8 bins "
-                                  "(max_bin <= 255)")
     L = num_leaves
     sp = split_params
     any_cat = bool(sp.any_cat)
@@ -396,7 +392,7 @@ def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                     torch.full_like(feat, -1))
 
             # ---- partition update (DataPartition::Split analog) ----------
-            col = X_T.index_select(0, f1)[0].to(torch.int32)
+            col = widen_bins(take_rows(X_T, f1)[0]).to(torch.int32)
             go_left = torch.where(col == f_nan_bin, dleft, col <= thr)
             if any_cat:
                 go_left = torch.where(fcat, member[col.long()], go_left)
@@ -527,7 +523,12 @@ class SerialTreeLearner:
                         "falling back to the partitioned grower")
             mode = "partition"
         elif mode == "auto":
-            mode = "wave" if wave_ok else "partition"
+            # uint16 bins (max_bin > 255): the reference's Pallas kernels
+            # take uint8 bins, so it histograms with XLA and its 'auto'
+            # picks the partitioned grower (reference serial.py:564-570,
+            # :759); the port grows the trees it grows
+            mode = ("wave" if wave_ok and self.max_bins <= 256
+                    else "partition")
         self.grow_mode = mode if self.use_hist_pool else "masked"
         mode = self.grow_mode
         use_mc = self.split_params.use_monotone
@@ -537,6 +538,14 @@ class SerialTreeLearner:
         if cegb_lazy and mode != "wave":
             log_warning("cegb_penalty_feature_lazy is applied by the wave "
                         "grower only; this grower ignores it")
+        if mode == "wave" and self.max_bins > 256 and np.any(
+                np.asarray(is_cat, bool) &
+                (np.asarray(num_bins) > 32 * MEMBER_WORDS)):
+            raise NotImplementedError(
+                f"tree_grow_mode=wave with a categorical feature of more "
+                f"than {32 * MEMBER_WORDS} bins: the wave row update's "
+                "categorical membership holds 256 bins (ROADMAP queue 1); "
+                "use tree_grow_mode=auto (the partitioned grower)")
         self.quantized = bool(config.use_quantized_grad) and mode == "wave"
         if config.use_quantized_grad and not self.quantized:
             log_warning("use_quantized_grad requires the wave grower "
@@ -681,8 +690,13 @@ class SerialTreeLearner:
             node_key = ((0, 0), (0, 0))
         if self._x_src is not X_T:  # strong ref: ids can be recycled
             self._lazy_used = None  # fresh data -> fresh used bitmap
-            self._Xp = (X_T.t().contiguous()
-                        if self.grow_mode == "partition" else None)
+            self._Xp = None
+            if self.grow_mode == "partition":
+                # copied through an int16 view under uint16 bins: the same
+                # bits, a copy every device has
+                xv = (X_T.view(torch.int16) if X_T.dtype == torch.uint16
+                      else X_T)
+                self._Xp = xv.t().contiguous().view(X_T.dtype)
             self._x_src = X_T
         if self.grow_mode == "masked":
             if self.split_params.use_cegb or \

@@ -78,7 +78,8 @@ from ..efb import make_expand_hist
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
 from ..ops.histogram import (PACK4_MAX_BINS, fx_to_f32, histogram_subtract,
                              pack_bins4, pack_weights)
-from ..ops.histogram_cuda import LEAF_CHANNELS, Q_LEAF_CHANNELS, split_decode
+from ..ops.histogram_cuda import (LEAF_CHANNELS, MEMBER_WORDS, Q_LEAF_CHANNELS,
+                                 split_decode)
 from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
 from ..ops.fmath import _fma
 from ..ops.split import (BIG, FORCED_NAN_LEFT_REFUSED,
@@ -194,7 +195,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
     feature_mask, quant_key=None, node_key=None, is_cat=None,
     monotone=None, cegb_penalty=None, lazy_used=None) -> GrownTree`` with
-    ``X_T`` the FEATURE-MAJOR (G, N) uint8 bin matrix (G = F, or the
+    ``X_T`` the FEATURE-MAJOR (G, N) uint8 (or, past 256 bins, uint16) bin
+    matrix (G = F, or the
     bundles of ``efb``, an ``efb.EfbArrays``), N a multiple of the
     4096-row block, ``is_cat`` the (F,) categorical flags (read when
     ``split_params.any_cat``), ``monotone`` the (F,) constraint
@@ -232,11 +234,6 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     if pack4 and (max_bins > PACK4_MAX_BINS or any_cat or use_efb):
         raise ValueError(f"pack4 bins require numeric non-EFB data with "
                          f"max_bin <= {PACK4_MAX_BINS}")
-    if max_bins > 256:
-        raise NotImplementedError("uint16 bin codes are not ported to "
-                                  "lightgbm_tpu_torch yet (ROADMAP queue 1): "
-                                  "the wave kernels take uint8 bins "
-                                  "(max_bin <= 255)")
     L = num_leaves
     F = num_features
     G, Bb = (efb.n_bundles, efb.bundle_bins) if use_efb else (F, max_bins)
@@ -316,9 +313,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 col = feats
                 dec = (torch.zeros_like(feats), nb_full[fl],
                        torch.zeros_like(feats), torch.ones_like(feats))
+            # past 256 bins only numeric features do (the learner refuses
+            # a wider categorical one): the membership's first 256 bins
             return (yield kc.row_update(
                 bins, rl, tab, feats=col.to(_I32),
-                decode=split_decode(ic_full[fl], member, *dec)))
+                decode=split_decode(ic_full[fl], member[:, :32 * MEMBER_WORDS],
+                                    *dec)))
 
         gm = (grad * bag_mask).float()
         hm = (hess * bag_mask).float()

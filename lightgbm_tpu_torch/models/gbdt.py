@@ -46,6 +46,7 @@ from ..utils.log import log_info, log_warning
 from ..utils.random import fold_in, host_key, host_rng
 from ..utils.timer import FunctionTimer
 from ..efb import make_bundle_decode
+from ..ops.histogram import widen_bins
 from .tree import (CAT_MASK, DEFAULT_LEFT_MASK, Tree, TreeBatch, predict_leaf,
                    predict_raw, predict_raw_early_stop)
 
@@ -280,9 +281,12 @@ def _walk_binned(bins: torch.Tensor, tree: Tree, leaf_value: torch.Tensor,
     node = torch.zeros((n,), dtype=torch.long, device=dev)
     out = torch.zeros((n,), dtype=torch.float32, device=dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
+    # uint16 codes are gathered through an int16 view (the same bits)
+    src = bins.view(torch.int16) if bins.dtype == torch.uint16 else bins
     while bool(active.any()):
         nd = node.clamp(min=0)
-        b = decode(bins[rows, col_of[nd]].to(torch.int32), sf[nd])
+        b = decode(widen_bins(src[rows, col_of[nd]].view(bins.dtype))
+                   .to(torch.int32), sf[nd])
         go_left = torch.where(b == nb[nd], dl[nd], b <= tb[nd])
         go_left = torch.where(ic[nd], mem[nd, b.long().clamp(max=bm - 1)],
                               go_left)
@@ -300,9 +304,10 @@ def learner_config(cfg: Config, train_set: Dataset, max_bins: int,
     """The learner's config: on a ``cuda`` device with
     ``tpu_histogram_impl=auto`` and a small binned matrix, a COPY with the
     histogram autotuner's bin layout (so the user's 'auto' survives param
-    round-trips); else ``cfg``."""
+    round-trips); else ``cfg`` (uint16 bins keep the static choice, as
+    the reference's gate, models/gbdt.py:393-396)."""
     if (device.type == "cuda" and cfg.tpu_histogram_impl == "auto" and
-            train_set.efb is None and
+            train_set.efb is None and max_bins <= 256 and
             train_set.X_binned.size <= AUTOTUNE_MAX_CELLS):
         # small shapes: time the single-leaf kernel on uint8 and on
         # packed bins on the real data once (reference
@@ -1017,6 +1022,41 @@ class GBDT:
             if self.models:
                 self.models.pop()
         self.iter_ -= 1
+        self._rebuild_scores()
+
+    def merge_from(self, other: "GBDT") -> None:
+        """Append another booster's trees to this model (reference
+        models/gbdt.py:1499, LightGBM c_api.h:489 LGBM_BoosterMerge,
+        GBDT::MergeFrom).  Thresholds re-bin against THIS dataset's
+        mappers so the appended trees join the binned score walk."""
+        k = self.num_tree_per_iteration
+        ok = getattr(other, "num_tree_per_iteration", 1)
+        if ok != k:
+            raise ValueError(f"cannot merge: {ok} trees/iteration vs {k}")
+        self.models = self.models + [self._align_loaded_tree(t)
+                                     for t in other.models]
+        self.iter_ = len(self.models) // max(k, 1)
+        self._rebuild_scores()
+
+    def shuffle_models(self, start_iter: int = 0,
+                       end_iter: int = -1) -> None:
+        """Shuffle the order of the iterations in [start_iter, end_iter)
+        (reference models/gbdt.py:1514, c_api.h:497
+        LGBM_BoosterShuffleModels), with the reference's draw: numpy's
+        ``RandomState(seed + 1)``."""
+        k = max(self.num_tree_per_iteration, 1)
+        models = self.models
+        n_iter = len(models) // k
+        s = max(0, int(start_iter))
+        e = n_iter if end_iter <= 0 else min(int(end_iter), n_iter)
+        if e - s <= 1:
+            return
+        order = np.arange(n_iter)
+        rng = np.random.RandomState(int(self.config.seed) + 1)
+        mid = order[s:e].copy()
+        rng.shuffle(mid)
+        order[s:e] = mid
+        self.models = [models[i * k + j] for i in order for j in range(k)]
         self._rebuild_scores()
 
     def _rebuild_scores(self) -> None:

@@ -15,10 +15,14 @@ standalone ``train()`` with the same params writes.
 ``engine.cv`` routes its folds through the batch (multitrain/cv.py) when
 ``tpu_cv_many`` (default true) and the configuration allow it.
 
-Not ported yet (ROADMAP queue 1): ``GridSearchCVMany`` (it needs the
-sklearn layer), lane sharding across cards (``tpu_multitrain_shard``),
-and the ``multitrain_*`` telemetry counters; ``ManyBooster.
-fallback_indices`` and the logged warning carry a fallback meanwhile.
+``GridSearchCVMany`` (multitrain/sweep.py, imported on first use: it
+needs sklearn) runs an sklearn grid search as one batch.
+
+Not ported yet (ROADMAP queue 1): lane sharding across cards
+(``tpu_multitrain_shard``), the ``multitrain_*`` telemetry counters, and
+the model-axis kernels' uint16 forms (``max_bin`` > 255 raises);
+``ManyBooster.fallback_indices`` and the logged warning carry a fallback
+meanwhile.
 """
 
 from __future__ import annotations
@@ -181,8 +185,7 @@ def train_many(params: Dict[str, Any], train_set: Dataset,
 
 
 def __getattr__(name):
-    if name == "GridSearchCVMany":
-        raise NotImplementedError(
-            "GridSearchCVMany is not ported to lightgbm_tpu_torch yet: it "
-            "needs the sklearn layer (ROADMAP queue 1 item 11)")
+    if name == "GridSearchCVMany":   # sklearn is imported when it runs
+        from .sweep import GridSearchCVMany
+        return GridSearchCVMany
     raise AttributeError(name)

@@ -36,13 +36,36 @@ __all__ = ["FxWeights", "pack_weights", "fx_to_f32", "build_histogram",
            "scatter_histogram", "build_histogram_leaves",
            "build_histogram_leaves_lanes", "scatter_histogram_lanes",
            "histogram_subtract", "PACK4_MAX_BINS", "pack_bins4",
-           "unpack_bins4"]
+           "unpack_bins4", "MAX_BINS_U16", "widen_bins", "take_rows"]
 
 _FX_HEADROOM_BITS = 61
 
 # 4-bit bin packing (reference src/io/dense_bin.hpp 4-bit dense bins): two
 # bin codes per byte, applicable when every feature fits a nibble
 PACK4_MAX_BINS = 16
+
+# uint16 bin codes (max_bin > 255; reference binning.py bin_matrix): the
+# most bins a feature may have
+MAX_BINS_U16 = 1 << 16
+
+
+def widen_bins(bins: torch.Tensor) -> torch.Tensor:
+    """uint16 bin codes as int32 (PyTorch's CPU and CUDA comparison,
+    gather and scatter ops do not take uint16: the codes go through an
+    int16 view, whose copy every device has); any other dtype is returned
+    as it is."""
+    if bins.dtype == torch.uint16:
+        return bins.view(torch.int16).to(torch.int32) & 0xFFFF
+    return bins
+
+
+def take_rows(t: torch.Tensor, idx: torch.Tensor, dim: int = 0
+              ) -> torch.Tensor:
+    """``t.index_select(dim, idx)`` for any bin dtype (uint16 through an
+    int16 view: the same bits, an op every device has)."""
+    if t.dtype == torch.uint16:
+        return t.view(torch.int16).index_select(dim, idx).view(torch.uint16)
+    return t.index_select(dim, idx)
 
 
 def pack_bins4(bins_t: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,15 @@ the plain versions unpack and run the uint8 scatter.
 The exact-mode histograms sum the 64-bit fixed-point weights of
 ``ops/histogram.py`` ``pack_weights``; integer sums make each kernel
 equal its plain version bit for bit.
+
+uint16 bins (``max_bin`` > 255, up to 65,536 bins): every single-model
+entry point takes a ``torch.uint16`` bin matrix (never packed) and, on the
+card, launches the kernel's uint16 form (its own :data:`LAUNCHES` key,
+``*_u16``), chosen by the bins' dtype.  The histogram geometries then
+split the bins into tiles that fit a block's shared memory (``bt``,
+``tiles``; one tile of B below that).  The plain versions widen the codes
+to int32 (``ops/histogram.py`` ``widen_bins``) where they compare or
+index.  The model-axis (``*_lanes``) forms take uint8 bins only.
 """
 
 from __future__ import annotations
@@ -61,8 +70,9 @@ import torch
 
 from ..dataset import ROW_BLOCK, pad_rows
 from . import histogram as _plain
-from .histogram import (PACK4_MAX_BINS, FxWeights, fx_to_f32, pack_weights,
-                        scatter_histogram, unpack_bins4)
+from .histogram import (MAX_BINS_U16, PACK4_MAX_BINS, FxWeights,
+                        fx_to_f32, pack_weights, scatter_histogram,
+                        take_rows, unpack_bins4, widen_bins)
 from .histogram import build_histogram_leaves as _scatter_leaves
 
 __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
@@ -80,7 +90,8 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "build_histogram_leaves_lanes", "build_histogram_leaves_lanes_plain",
            "hist_single_lanes", "hist_single_lanes_plain",
            "wave_row_update_lanes", "wave_row_update_lanes_plain",
-           "wave_trial_channels_lanes", "wave_trial_channels_lanes_plain"]
+           "wave_trial_channels_lanes", "wave_trial_channels_lanes_plain",
+           "leaf_bin_tile", "single_bin_tile"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -98,7 +109,11 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_q8_lanes": 0,
             "hist_leaves_q8_lanes_packed4": 0, "hist_leaves_lanes": 0,
             "hist_leaves_lanes_packed4": 0, "wave_row_update_lanes": 0,
-            "wave_row_update_ext_lanes": 0, "wave_trial_channels_lanes": 0}
+            "wave_row_update_ext_lanes": 0, "wave_trial_channels_lanes": 0,
+            # the uint16 forms (max_bin > 255)
+            "hist_single_u16": 0, "hist_leaves_q8_u16": 0,
+            "hist_leaves_u16": 0, "wave_row_update_u16": 0,
+            "wave_row_update_ext_u16": 0, "wave_trial_channels_u16": 0}
 
 
 def reset_launches() -> None:
@@ -181,6 +196,34 @@ def _check_packed(kernel: str, n: int, num_bins: int) -> None:
             "weight 0 and contribute nothing)")
 
 
+def _bin_dtype(kernel, bins_t, packed=False) -> torch.dtype:
+    """The bins' code type: uint8, or uint16 (never packed)."""
+    if bins_t.dtype == torch.uint16 and not packed:
+        return torch.uint16
+    if bins_t.dtype != torch.uint8:
+        raise TypeError(f"{kernel}: bins must be torch.uint8" +
+                        ("" if packed else " or torch.uint16") +
+                        f", got {bins_t.dtype}")
+    return torch.uint8
+
+
+def _check_num_bins(kernel, num_bins, wide: bool) -> None:
+    top = MAX_BINS_U16 if wide else 256
+    if not 1 <= num_bins <= top:
+        raise ValueError(f"{kernel}: num_bins must be in [1, {top}] for "
+                         f"{'uint16' if wide else 'uint8'} bins, got "
+                         f"{num_bins}")
+
+
+def _refuse_u16_lanes(kernel, bins_t) -> None:
+    """The model-axis forms take uint8 bins (ROADMAP queue 1)."""
+    if bins_t.dtype == torch.uint16:
+        raise NotImplementedError(
+            f"{kernel}: the model-axis kernels take uint8 bins; uint16 bins "
+            "(max_bin > 255) under train_many / cv are not ported "
+            "(ROADMAP queue 1)")
+
+
 def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins,
                      packed=False):
     if bins_t.dim() != 2:
@@ -191,13 +234,12 @@ def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins,
     if packed:
         _check_packed(kernel, n, num_bins)
     dev = bins_t.device
-    _check("bins", bins_t, torch.uint8, (f, nb), dev)
+    dt = _bin_dtype(kernel, bins_t, packed)
+    _check("bins", bins_t, dt, (f, nb), dev)
     _check("weights", w, w_dtype, (w_rows, n), dev)
     _check("ch", ch, torch.int8, (n,), dev)
     _check_device(kernel, dev)
-    if not 1 <= num_bins <= 256:
-        raise ValueError(f"{kernel}: num_bins must be in [1, 256], got "
-                         f"{num_bins}")
+    _check_num_bins(kernel, num_bins, dt == torch.uint16)
     return f, n
 
 
@@ -216,9 +258,11 @@ Q8_MAX_BLOCK_ROWS = 1 << 24     # q8 sums (g << 32) + h in 64 bits
 
 class LeafGeometry(NamedTuple):
     """The launch of one leaf-channel histogram: ``cg`` channels x ``fg``
-    features per block, ``c_groups * f_groups`` block columns (channel
-    groups fastest) times ``chunks`` row chunks of ``chunk_rows`` rows,
-    ``smem`` shared bytes per block."""
+    features x ``bt`` bins per block, ``c_groups * f_groups * tiles``
+    block columns (channel groups fastest, then feature groups, then bin
+    tiles) times ``chunks`` row chunks of ``chunk_rows`` rows, ``smem``
+    shared bytes per block.  One tile (``bt`` = B) unless a
+    (channel, feature) pair of B bins overflows the block."""
     cg: int
     fg: int
     c_groups: int
@@ -226,6 +270,8 @@ class LeafGeometry(NamedTuple):
     chunks: int
     chunk_rows: int
     smem: int
+    bt: int
+    tiles: int
 
 
 def _pair_bytes(num_bins: int, q8: bool) -> int:
@@ -234,10 +280,21 @@ def _pair_bytes(num_bins: int, q8: bool) -> int:
     return num_bins * (12 if q8 else 20)
 
 
+def leaf_bin_tile(num_bins: int, q8: bool) -> tuple:
+    """(bins per tile, tiles): B in one tile when a (channel, feature)
+    pair of B bins fits a block beside the row queues, else the fewest
+    even tiles that do (uint16 bins past 10,598 fx / 17,664 q8 bins)."""
+    budget = BLOCK_SMEM - LEAF_THREADS * LEAF_QUEUE_BYTES
+    most = budget // _pair_bytes(1, q8)
+    tiles = -(-num_bins // most)
+    return -(-num_bins // tiles), tiles
+
+
 def leaf_groups(f: int, num_bins: int, k: int, q8: bool) -> list:
     """The (channels, features) groups one block can hold: for each count
     of channel groups, its channels and as many features as fit the
-    block's shared memory, spread evenly over the feature groups."""
+    block's shared memory, spread evenly over the feature groups
+    (``num_bins``: the bins of one tile)."""
     pair = _pair_bytes(num_bins, q8)
     budget = BLOCK_SMEM - LEAF_THREADS * LEAF_QUEUE_BYTES
     groups = []
@@ -258,18 +315,21 @@ def leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int, q8: bool,
     most channels per block (its rows lie densest, so their bin and
     weight gathers share the most sectors); row chunks sized so that the
     whole grid is one resident round of one block per SM, of at most
-    ``LEAF_MAX_BLOCK_ROWS`` rows (``Q8_MAX_BLOCK_ROWS`` for q8)."""
-    cg, fg = min(leaf_groups(f, num_bins, k, q8),
+    ``LEAF_MAX_BLOCK_ROWS`` rows (``Q8_MAX_BLOCK_ROWS`` for q8).  Bins
+    past one block's room split into :func:`leaf_bin_tile` tiles, each
+    its own block columns."""
+    bt, tiles = leaf_bin_tile(num_bins, q8)
+    cg, fg = min(leaf_groups(f, bt, k, q8),
                  key=lambda g: (-(-k // g[0]) * -(-f // g[1]), -g[0]))
-    combos = -(-k // cg) * -(-f // fg)
+    combos = -(-k // cg) * -(-f // fg) * tiles
     steps = max(1, -(-n // LEAF_ROW_STEP))
     chunks = max(1, min(steps, sms // combos),
                  -(-n // (Q8_MAX_BLOCK_ROWS if q8 else LEAF_MAX_BLOCK_ROWS)))
     chunk_rows = -(-steps // chunks) * LEAF_ROW_STEP
     return LeafGeometry(cg, fg, -(-k // cg), -(-f // fg),
                         max(1, -(-n // chunk_rows)), chunk_rows,
-                        cg * fg * _pair_bytes(num_bins, q8) +
-                        LEAF_THREADS * LEAF_QUEUE_BYTES)
+                        cg * fg * _pair_bytes(bt, q8) +
+                        LEAF_THREADS * LEAF_QUEUE_BYTES, bt, tiles)
 
 
 _SMS = {}
@@ -283,18 +343,28 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _launch_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, packed):
-    fn_name = fn_name + ("_p4" if packed else "")
+    wide = bins_t.dtype == torch.uint16
+    fn_name = fn_name + ("_p4" if packed else "_u16" if wide else "")
     geo = leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k,
                         fn_name.startswith("hist_leaves_q8"), packed)
+    vec = int(ch.data_ptr() % 4 == 0)
+    if wide:
+        fn = _fn("hist_leaves", fn_name,
+                 [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _CI, _LL,
+                              _CI, _VP])
+        _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
+                     geo.cg, geo.fg, geo.bt, geo.chunks, geo.chunk_rows, vec,
+                     _stream()), fn_name)
+        return
     fn = _fn("hist_leaves", fn_name,
              [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _LL, _CI, _VP])
     _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
-                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows,
-                 int(ch.data_ptr() % 4 == 0), _stream()), fn_name)
+                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows, vec, _stream()),
+              fn_name)
 
 
 def _unpacked(bins_t, bins_packed: bool):
-    return unpack_bins4(bins_t) if bins_packed else bins_t
+    return unpack_bins4(bins_t) if bins_packed else widen_bins(bins_t)
 
 
 def build_histogram_leaves_q8_plain(bins_t, wch, ch, *, num_bins: int,
@@ -326,7 +396,8 @@ def build_histogram_leaves_q8(bins_t: torch.Tensor, wch: torch.Tensor,
                       device=bins_t.device)
     _launch_hist("hist_leaves_q8", bins_t, wch, ch, out, f, n, num_bins,
                  Q_LEAF_CHANNELS, bins_packed)
-    LAUNCHES["hist_leaves_q8_packed4" if bins_packed
+    LAUNCHES["hist_leaves_q8_packed4" if bins_packed else
+             "hist_leaves_q8_u16" if bins_t.dtype == torch.uint16
              else "hist_leaves_q8"] += 1
     return out
 
@@ -360,7 +431,9 @@ def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
                       device=bins_t.device)
     _launch_hist("hist_leaves_fx", bins_t, w.w, ch, out, f, n, num_bins,
                  LEAF_CHANNELS, bins_packed)
-    LAUNCHES["hist_leaves_packed4" if bins_packed else "hist_leaves"] += 1
+    LAUNCHES["hist_leaves_packed4" if bins_packed else
+             "hist_leaves_u16" if bins_t.dtype == torch.uint16
+             else "hist_leaves"] += 1
     return fx_to_f32(out, w.inv_scale)
 
 
@@ -371,8 +444,7 @@ def _check_single_args(kernel, bins_t, w, num_bins):
         raise ValueError(f"{kernel}: bins must be (F, N)")
     f, n = bins_t.shape
     dev = bins_t.device
-    if bins_t.dtype != torch.uint8:
-        raise TypeError(f"bins must be torch.uint8, got {bins_t.dtype}")
+    dt = _bin_dtype(kernel, bins_t)
     if w.dtype != torch.int64:
         raise TypeError(f"weights must be torch.int64, got {w.dtype}")
     if tuple(w.shape) != (3, n):
@@ -385,9 +457,7 @@ def _check_single_args(kernel, bins_t, w, num_bins):
     if min(bins_t.stride()) < 0 or w.stride(0) < 0:
         raise ValueError(f"{kernel}: negative strides are not taken")
     _check_device(kernel, dev)
-    if not 1 <= num_bins <= 256:
-        raise ValueError(f"{kernel}: num_bins must be in [1, 256], got "
-                         f"{num_bins}")
+    _check_num_bins(kernel, num_bins, dt == torch.uint16)
     return f, n
 
 
@@ -428,14 +498,28 @@ SM_SMEM = 233_472             # an H100 SM's shared memory
 
 class SingleGeometry(NamedTuple):
     """The launch of one single-leaf histogram: ``fg`` features per block
-    in ``f_groups`` groups times ``chunks`` row chunks of ``chunk_rows``
-    rows, blocks of ``threads``, ``smem`` shared bytes per block."""
+    in ``f_groups`` groups, each group in ``tiles`` bin tiles of ``bt``
+    bins (one tile of B unless one feature's B bins overflow a block),
+    times ``chunks`` row chunks of ``chunk_rows`` rows, blocks of
+    ``threads``, ``smem`` shared bytes per block."""
     fg: int
     f_groups: int
     chunks: int
     chunk_rows: int
     threads: int
     smem: int
+    bt: int
+    tiles: int
+
+
+def single_bin_tile(num_bins: int) -> tuple:
+    """(bins per tile, tiles): B in one tile when one feature's (B | 1)
+    entries fit a block, else the fewest even tiles that do (uint16 bins
+    past 11,621 bins)."""
+    tiles = 1
+    while ((-(-num_bins // tiles)) | 1) * SINGLE_BIN_BYTES > BLOCK_SMEM:
+        tiles += 1
+    return -(-num_bins // tiles), tiles
 
 
 def single_geometry(sms: int, f: int, n: int, num_bins: int,
@@ -453,8 +537,11 @@ def single_geometry(sms: int, f: int, n: int, num_bins: int,
     one unit per (row, feature) for the adds and one per row for its
     weights, each block column re-reading them; ties go to fewer
     groups.  Long segments so take all features in one block per SM;
-    short ones split the features until the grid fills the SMs."""
-    per_feature = (num_bins | 1) * SINGLE_BIN_BYTES
+    short ones split the features until the grid fills the SMs.  Bins
+    past one block's room split into :func:`single_bin_tile` tiles, each
+    tile of a group its own block row."""
+    bt, tiles = single_bin_tile(num_bins)
+    per_feature = (bt | 1) * SINGLE_BIN_BYTES
     fg_max = max(1, min(f, BLOCK_SMEM // per_feature))
     steps = max(1, -(-n // SINGLE_ROW_STEP))
     most_chunks = max(1, -(-n // SINGLE_MIN_ROWS))
@@ -464,7 +551,7 @@ def single_geometry(sms: int, f: int, n: int, num_bins: int,
         if layout == "rows" and 4 < fg < f:
             fg = -(-fg // 4) * 4
         fg = min(fg, fg_max)
-        groups = -(-f // fg)
+        groups = -(-f // fg) * tiles
         per_sm = 4 if 4 * (fg * per_feature + 1024) <= SM_SMEM else 1
         slots = sms * per_sm
         chunks = max(1, min(most_chunks, slots // groups),
@@ -473,8 +560,9 @@ def single_geometry(sms: int, f: int, n: int, num_bins: int,
         chunks = max(1, -(-n // chunk_rows))
         rounds = -(-groups * chunks // slots)
         cost = (fg + 1) * chunk_rows * per_sm * rounds
-        geo = SingleGeometry(fg, groups, chunks, chunk_rows,
-                             LEAF_THREADS // per_sm, fg * per_feature)
+        geo = SingleGeometry(fg, groups // tiles, chunks, chunk_rows,
+                             LEAF_THREADS // per_sm, fg * per_feature, bt,
+                             tiles)
         if best is None or cost < best[0]:
             best = (cost, geo)
     return best[1]
@@ -516,6 +604,21 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
                      int(ptr % 2 == 0 and nb % 2 == 0), _stream()),
                   "hist_single_p4")
         LAUNCHES["hist_single_packed4"] += 1
+        return out
+    if bins_t.dtype == torch.uint16:
+        # 4 rows a 64-bit load (FEATS); words of 2 features (ROWS)
+        if layout == "features":
+            kind = 3 if ptr % 8 == 0 and sf % 4 == 0 else 2
+        else:
+            kind = int(sf == 1 and ptr % 4 == 0 and sn % 2 == 0 and
+                       (geo.fg % 2 == 0 or geo.f_groups == 1))
+        fn = _fn("hist_single", "hist_single_u16",
+                 [_VP, _LL, _LL, _VP, _LL, _VP, _CI, _LL, _CI, _CI, _CI, _CI,
+                  _LL, _CI, _CI, _VP])
+        _raise_on(fn(_p(bins_t), sf, sn, _p(w.w), w.w.stride(0), _p(out), f,
+                     n, num_bins, geo.fg, geo.bt, geo.chunks, geo.chunk_rows,
+                     geo.threads, kind, _stream()), "hist_single_u16")
+        LAUNCHES["hist_single_u16"] += 1
         return out
     if layout == "features":
         kind = 3 if ptr % 4 == 0 and sf % 4 == 0 else 2
@@ -568,7 +671,7 @@ def _check_row_args(kernel, cols_w, rl, tab, feats, bins_packed,
     if bins_packed and n % 2:
         raise ValueError(f"{kernel}: packed bins need an even row count, "
                          f"got {n}")
-    _check("cols_w", cols_w, torch.uint8,
+    _check("cols_w", cols_w, _bin_dtype(kernel, cols_w, bins_packed),
            (f, n // 2 if bins_packed else n), dev)
     _check("rl", rl, torch.int32, (n,), dev)
     _check("tab", tab, torch.int32, (8, wn), dev)
@@ -581,7 +684,7 @@ def _check_row_args(kernel, cols_w, rl, tab, feats, bins_packed,
     if decode is not None:
         if bins_packed:
             raise ValueError(f"{kernel}: the categorical / EFB form reads "
-                             "uint8 bins")
+                             "unpacked bins")
         _check("decode.dec", decode.dec, torch.int32, (5, wn), dev)
         _check("decode.member", decode.member, torch.int32,
                (wn, MEMBER_WORDS), dev)
@@ -641,7 +744,7 @@ def _split_columns(cols_w, feats, bins_packed):
     an inactive split's column is never used)."""
     if feats is not None:
         idx = feats.long().clamp(0, cols_w.shape[0] - 1)
-        cols_w = cols_w.index_select(0, idx)
+        cols_w = take_rows(cols_w, idx)
     return _unpacked(cols_w, bins_packed)
 
 
@@ -692,18 +795,25 @@ def wave_row_update_plain(cols_w, rl, tab, *, feats=None,
 
 def _launch_rows(kernel, cols_w, rl, tab, feats, bins_packed, rl_out, ch,
                  decode=None):
+    """Launch ``kernel`` (its ``_u16`` form for uint16 bins, which takes
+    no packed flag); returns the form's :data:`LAUNCHES` key."""
     wn, n = tab.shape[1], rl.shape[0]
     vec = int(rl.data_ptr() % 16 == 0 and ch.data_ptr() % 4 == 0 and
               (rl_out is None or rl_out.data_ptr() % 16 == 0))
     ext = [] if decode is None else [_p(decode.dec), _p(decode.member)]
+    wide = cols_w.dtype == torch.uint16
+    packed = [] if wide else [int(bins_packed)]
+    kernel = kernel + ("_u16" if wide else "")
     fn = _fn("row_update", kernel,
              [_VP, _LL, _CI] + [_VP] * (4 if rl_out is None else 5) +
-             [_VP] * len(ext) + [_CI, _LL, _CI, _CI, _VP])
+             [_VP] * len(ext) + [_CI, _LL] + [_CI] * len(packed) +
+             [_CI, _VP])
     outs = [_p(ch)] if rl_out is None else [_p(rl_out), _p(ch)]
     _raise_on(fn(_p(cols_w), cols_w.stride(0), cols_w.shape[0],
                  _p(feats) if feats is not None else None, _p(rl), _p(tab),
-                 *outs, *ext, wn, n, int(bins_packed), vec, _stream()),
+                 *outs, *ext, wn, n, *packed, vec, _stream()),
               kernel)
+    return kernel
 
 
 def wave_row_update(cols_w: torch.Tensor, rl: torch.Tensor,
@@ -732,9 +842,8 @@ def wave_row_update(cols_w: torch.Tensor, rl: torch.Tensor,
     rl_out = torch.empty_like(rl)
     ch = torch.empty((n,), dtype=torch.int8, device=rl.device)
     kernel = "wave_row_update" if decode is None else "wave_row_update_ext"
-    _launch_rows(kernel, cols_w, rl, tab, feats, bins_packed, rl_out, ch,
-                 decode)
-    LAUNCHES[kernel] += 1
+    LAUNCHES[_launch_rows(kernel, cols_w, rl, tab, feats, bins_packed,
+                          rl_out, ch, decode)] += 1
     return rl_out, ch
 
 
@@ -778,9 +887,8 @@ def wave_trial_channels(cols_w: torch.Tensor, rl: torch.Tensor,
         return wave_row_update_plain(cols_w, rl, tab, feats=feats,
                                      bins_packed=bins_packed)[1]
     ch = torch.empty((n,), dtype=torch.int8, device=rl.device)
-    _launch_rows("wave_trial_channels", cols_w, rl, tab, feats, bins_packed,
-                 None, ch)
-    LAUNCHES["wave_trial_channels"] += 1
+    LAUNCHES[_launch_rows("wave_trial_channels", cols_w, rl, tab, feats,
+                          bins_packed, None, ch)] += 1
     return ch
 
 
@@ -916,6 +1024,7 @@ def build_histogram_leaves_q8_lanes(bins_t: torch.Tensor, wch, ch, *,
     """(L, 42, F, B, 3) int32: :func:`build_histogram_leaves_q8` of L lanes
     in one launch.  ``bins_t`` is shared; ``wch`` and ``ch`` hold each
     lane's (8, N) int8 weights and (N,) int8 channels."""
+    _refuse_u16_lanes("build_histogram_leaves_q8_lanes", bins_t)
     wch, ch = _seq(wch), _seq(ch)
     lanes = _lane_count("build_histogram_leaves_q8_lanes", wch, ch)
     f = n = None
@@ -955,6 +1064,7 @@ def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
     """(L, 25, F, B, 3) f32: :func:`build_histogram_leaves` of L lanes in
     one launch.  ``ws`` holds each lane's :class:`FxWeights` (its tree's
     own scale), ``ch`` each lane's (N,) int8 channels."""
+    _refuse_u16_lanes("build_histogram_leaves_lanes", bins_t)
     ws, ch = list(ws), _seq(ch)
     lanes = _lane_count("build_histogram_leaves_lanes", ws, ch)
     f = n = None
@@ -1000,6 +1110,8 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
     contiguous (3, N) weights.  Scale back per lane with
     :func:`fx_to_f32`."""
     bins, ws = _seq(bins), [_weights_of(w) for w in ws]
+    for b in bins:
+        _refuse_u16_lanes("hist_single_lanes", b)
     lanes = _lane_count("hist_single_lanes", bins, ws)
     strides = {b.stride() for b in bins}
     if len(strides) != 1 or len({b.shape for b in bins} if bins_packed
@@ -1049,6 +1161,7 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
 
 
 def _check_row_lanes(kernel, cols_w, rl, tab, feats, bins_packed, decode):
+    _refuse_u16_lanes(kernel, cols_w)
     lanes = _lane_count(kernel, rl, tab, feats,
                         None if decode is None else decode)
     wn = n = None

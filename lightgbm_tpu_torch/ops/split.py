@@ -219,11 +219,12 @@ def cumsum_bins(x: torch.Tensor) -> torch.Tensor:
     """Inclusive f32 cumulative sum over the last axis, in XLA:CPU's order.
 
     ``jnp.cumsum`` lowers to a reduce-window that XLA rewrites into blocks
-    of 16: a sequential sum inside each block, plus the sequential
-    exclusive sum of the block totals.  Summing in exactly that order makes
-    the port's prefix sums, and so its gains and child sums, equal the
-    reference's bit for bit (``torch.cumsum`` accumulates in another order,
-    and on the CPU in float64)."""
+    of 16: a sequential sum inside each block, plus the exclusive sum of
+    the block totals, itself a cumsum rewritten the same way when there
+    are more than 16 blocks (B > 256: uint16 bins).  Summing in exactly
+    that order makes the port's prefix sums, and so its gains and child
+    sums, equal the reference's bit for bit (``torch.cumsum`` accumulates
+    in another order, and on the CPU in float64)."""
     *lead, b = x.shape
     nb = -(-b // _XLA_SCAN_BLOCK)
     pad = nb * _XLA_SCAN_BLOCK - b
@@ -236,11 +237,17 @@ def cumsum_bins(x: torch.Tensor) -> torch.Tensor:
     for i in range(1, _XLA_SCAN_BLOCK):
         acc = acc + xb[..., i]
         inner[..., i] = acc
-    carry = torch.empty_like(inner[..., -1])
-    run = torch.zeros_like(carry[..., 0])
-    for i in range(nb):
-        carry[..., i] = run
-        run = run + inner[..., i, -1]
+    totals = inner[..., -1]
+    if nb > _XLA_SCAN_BLOCK:
+        inc = cumsum_bins(totals)
+        carry = torch.cat([torch.zeros_like(inc[..., :1]), inc[..., :-1]],
+                          dim=-1)
+    else:
+        carry = torch.empty_like(totals)
+        run = torch.zeros_like(carry[..., 0])
+        for i in range(nb):
+            carry[..., i] = run
+            run = run + totals[..., i]
     out = (inner + carry.unsqueeze(-1)).reshape(*lead, nb * _XLA_SCAN_BLOCK)
     return out[..., :b]
 

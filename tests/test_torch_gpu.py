@@ -1042,3 +1042,131 @@ def test_pred_contrib_on_card(cuda_device):
                                atol=1e-4 * np.abs(want).max())
     raw = bst.predict(X, raw_score=True)
     np.testing.assert_allclose(got.sum(axis=1), raw, rtol=1e-4, atol=1e-4)
+
+
+# -- uint16 bins (max_bin > 255) ----------------------------------------------
+
+U16_KERNELS = ("hist_single_u16", "hist_leaves_q8_u16", "hist_leaves_u16",
+               "wave_row_update_u16", "wave_row_update_ext_u16",
+               "wave_trial_channels_u16")
+
+
+def _u16_case(device, n, num_bins, seed=3, w=25):
+    """uint16 bins (F, n) with every code of [0, num_bins) possible and the
+    top code set on a run of rows, a row-major (n, F + 3) copy read as its
+    segment view, weights, channels, and a row-update table whose
+    thresholds and NaN bins lie past 255."""
+    rng = np.random.RandomState(seed)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    b = rng.randint(0, num_bins, (F, n)).astype(np.uint16)
+    b[:, :97] = num_bins - 1
+    b[F - 1] %= 256     # the categorical split's feature: 256 bins
+    P = np.zeros((n + 5, F + 3), np.uint16)
+    P[3:3 + n, :F] = b.T
+    grad = t((rng.randn(n) * 0.5).astype(np.float32))
+    hess = t((rng.rand(n) * 0.25 + 0.01).astype(np.float32))
+    mask = t((rng.rand(n) < 0.8).astype(np.float32))
+    ch = t(rng.randint(-1, hc.LEAF_CHANNELS, n).astype(np.int8))
+    rl = t(rng.randint(0, 60, n).astype(np.int32))
+    tab = np.stack([
+        rng.randint(0, num_bins, w), np.where(rng.rand(w) < 0.5,
+                                              num_bins - 1, -1),
+        rng.randint(0, 2, w), rng.randint(0, 2, w),
+        rng.choice(60, w, replace=False), 60 + np.arange(w),
+        (np.arange(w) < w - 3).astype(int), np.zeros(w, int)])
+    tab[4, 1] = tab[5, 0]
+    feats = np.concatenate([rng.randint(0, F, w - 3), F + 1 + np.arange(3)])
+    feats[2] = F - 1
+    return (t(b), t(P)[3:3 + n, :F].t(), grad, hess, mask, ch, rl,
+            t(tab.astype(np.int32)), t(feats.astype(np.int32)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,num_bins", [(65536, 1024), (100_003, 1024),
+                                        (65536, 20_000), (100_003, 65_535)])
+def test_u16_kernels_match_plain_on_card(cuda_device, monkeypatch, n,
+                                         num_bins):
+    """Every uint16 form bit for bit its plain version and identical across
+    two launches; 20,000 and 65,535 bins run the bin-tile axis of all
+    three histograms."""
+    bins, rows, grad, hess, mask, ch, rl, tab, feats = _u16_case(
+        cuda_device, n, num_bins)
+    assert bins.dtype == torch.uint16
+    wch = tq.quantize_wch(grad, hess, mask,
+                          torch.tensor(0.01, device=cuda_device),
+                          torch.tensor(0.002, device=cuda_device),
+                          gq_max=127, hq_max=127)
+    w = th.pack_weights(grad, hess, mask)
+    is_cat = torch.zeros((tab.shape[1],), dtype=torch.bool,
+                         device=cuda_device)
+    is_cat[2] = True   # a categorical split over bins < 256
+    member = torch.zeros((tab.shape[1], 256), dtype=torch.bool,
+                         device=cuda_device)
+    member[2, ::3] = True
+    z = torch.zeros_like(feats)
+    dec = hc.split_decode(is_cat, member, z, z + num_bins, z,
+                          torch.ones_like(feats))
+    targs = (tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0, tab[6] > 0)
+
+    def run():
+        return (hc.hist_single(bins, w, num_bins=num_bins),
+                hc.hist_single(rows, w, num_bins=num_bins),
+                hc.build_histogram_leaves_q8(bins, wch, ch,
+                                             num_bins=num_bins),
+                hc.build_histogram_leaves(bins, w, ch, num_bins=num_bins),
+                hc.wave_row_update(bins, rl, tab, feats=feats),
+                hc.wave_row_update(bins, rl, tab, feats=feats, decode=dec),
+                hc.wave_trial_channels(bins, rl, *targs, feats=feats))
+
+    for name in ("hist_single_plain", "build_histogram_leaves_q8_plain",
+                 "build_histogram_leaves_plain", "wave_row_update_plain",
+                 "wave_trial_channels_plain"):
+        monkeypatch.setattr(hc, name, None)   # must launch
+    before = dict(hc.LAUNCHES)
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    assert all(hc.LAUNCHES[k] > before[k] for k in U16_KERNELS)
+    assert hc.LAUNCHES["hist_single"] == before["hist_single"]
+    monkeypatch.undo()
+    want = (hc.hist_single_plain(bins, w, num_bins=num_bins),
+            hc.hist_single_plain(rows, w, num_bins=num_bins),
+            hc.build_histogram_leaves_q8_plain(bins, wch, ch,
+                                               num_bins=num_bins),
+            hc.build_histogram_leaves_plain(bins, w, ch, num_bins=num_bins),
+            hc.wave_row_update_plain(bins, rl, tab, feats=feats),
+            hc.wave_row_update_plain(bins, rl, tab, feats=feats,
+                                     decode=dec),
+            hc.wave_trial_channels_plain(bins, rl, *targs, feats=feats))
+    names = ("single", "single rows", "q8", "fx", "row update rl",
+             "row update ch", "ext rl", "ext ch", "trial")
+    flat = lambda xs: [t_ for x in xs for t_ in
+                       (x if isinstance(x, tuple) else (x,))]
+    for name, a, b, c in zip(names, flat(got), flat(again), flat(want)):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    assert int(want[0][:F - 1, num_bins - 1, 2].min()) > 0   # the top code
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    dict(tree_grow_mode="wave", use_quantized_grad=True,
+         stochastic_rounding=False),
+    dict(tree_grow_mode="wave", use_quantized_grad=True),
+    dict(tree_grow_mode="auto")])
+def test_u16_training_on_card_matches_cpu(cuda_device, extra):
+    """max_bin=1023 on the card grows the CPU's model: the quantized wave
+    grower (uint16 leaf kernels and row update) and the partitioned one
+    (uint16 single-leaf kernel)."""
+    rng = np.random.RandomState(5)
+    X = rng.randn(20000, F)
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.8).astype(float)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  max_bin=1023, **extra)
+    on_cpu = lt.train(params, lt.Dataset(X, y), 4, device="cpu")
+    before = dict(hc.LAUNCHES)
+    on_card = lt.train(params, lt.Dataset(X, y), 4, device=cuda_device)
+    torch.cuda.synchronize()
+    used = (("hist_leaves_q8_u16", "wave_row_update_u16")
+            if extra["tree_grow_mode"] == "wave" else ("hist_single_u16",))
+    assert all(hc.LAUNCHES[k] > before[k] for k in used)
+    assert on_card.model_to_string() == on_cpu.model_to_string()

@@ -354,10 +354,7 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(tree_learner="data"),
     dict(tree_learner="voting"),
     dict(tree_learner="feature"),
-    dict(max_bin=511),
-    dict(max_bin=4095),
     dict(tree_learner="data", max_bin=511),
-    dict(forcedbins_filename="forced_bins.json"),
 ])
 def test_unported_options_raise(extra):
     X, y = _data("regression")
@@ -375,6 +372,11 @@ def test_port_imports_without_jax_or_the_reference():
             "import lightgbm_tpu_torch.learner.partitioned\n"
             "import lightgbm_tpu_torch.ops.fmath\n"
             "import lightgbm_tpu_torch.ops.cuda_lib\n"
+            "import lightgbm_tpu_torch.sklearn\n"
+            "import lightgbm_tpu_torch.cli\n"
+            "import lightgbm_tpu_torch.__main__\n"
+            "import lightgbm_tpu_torch.multitrain.sweep\n"
+            "from lightgbm_tpu_torch.multitrain import GridSearchCVMany\n"
             "print('ok')\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     out = subprocess.run([sys.executable, "-c", code], cwd=root,
