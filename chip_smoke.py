@@ -204,6 +204,26 @@ Phases (any failure exits non-zero and prints no result line):
    rows: text equal to ``train()``'s; (d) ``python -m
    lightgbm_tpu_torch`` on a 262,144-row CSV file in a subprocess: its
    model file equal to ``train()``'s from the same conf and file.
+16. out-of-core chunked ingest, after phase 15, on the main path's
+   training rows as float32 in a ``.npy`` under a temporary directory,
+   streamed by ``NumpyMmapSource`` in 1,048,576-row chunks (11 chunks,
+   the last short) into a ``StreamedDataset`` (sketch and bin + spill
+   pass seconds); the in-core runs bin the same float32 array.  (a)
+   quantized (round-half-up, speculative ramp and exact endgame off, wave
+   grower), 3 rounds chunked through the side-stream upload ring against
+   3 rounds in-core: text identical, ``hist_leaves_q8`` and
+   ``wave_row_update`` launched on chunk slices and no ``hist_single``,
+   held-out AUC; host-to-device bytes per round and GB/s, iterations/s
+   chunked against in-core, the share of the wave passes the compute
+   stream waited on uploads (CUDA events); (b) exact, 2 rounds chunked
+   against 2 in-core: text identical (else predictions within 1e-5),
+   ``hist_leaves`` launched; (c) the ``tpu_ingest_mode=hbm`` route, 1
+   round: text equal to the in-core run's; (d) the peak device memory of
+   (a)'s chunked run and of one chunked round at 2,097,152 rows: both
+   under the ``ingest/chunk_pipeline`` budget, equal within the budget's
+   histogram working set, and under half the in-core run's peak; the
+   three kernels timed on one chunk-sized slice beside the main path's
+   phase-2 times.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -3551,6 +3571,232 @@ def cache_phase(lt, torch, card, ds, out_dir) -> dict:
     return got
 
 
+# -- phase 16: out-of-core chunked ingest ------------------------------------
+
+INGEST_CHUNK = 1 << 20           # rows per streamed chunk
+INGEST_SMALL_ROWS = 2_097_152    # (d): the second run's rows
+INGEST_Q_ROUNDS = 3              # (a)
+INGEST_EXACT_ROUNDS = 2          # (b)
+# (d): how far the two chunked peaks may differ.  Readings on the H100
+# were 0 and 313,856 bytes (PERF.md); 2 MiB is a quarter of a byte a row
+# over the 8.4M-row gap, so a device array of one byte a row shows.
+INGEST_FLAT_BYTES = 2 << 20
+# with mode_params' round-half-up (stochastic_rounding=False)
+INGEST_PINS = dict(tpu_speculative_ramp=False, tpu_exact_endgame=False)
+
+
+def _peak_run(torch, fn):
+    """``fn()``'s result and the device bytes it allocated at its peak
+    above what was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def _launched(hc, before) -> dict:
+    return {k: v - before[k] for k, v in hc.LAUNCHES.items()
+            if v != before[k]}
+
+
+def ingest_phase(lt, torch, card, Xtr, ytr, Xte, yte, rec) -> dict:
+    """Phase 16 (see the module docstring).  Returns the launches of its
+    training paths, each counted from 0 just before it."""
+    import shutil
+    import tempfile
+    from lightgbm_tpu_torch.ingest import (NumpyMmapSource, StreamedDataset,
+                                           train_streamed)
+    from lightgbm_tpu_torch.ingest.stream import ingest_chunk_hbm_bytes
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.utils.timer import global_timer
+    launches = collections.Counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        n = Xtr.shape[0]
+        t0 = time.perf_counter()
+        X32 = np.ascontiguousarray(Xtr, np.float32)
+        xp, yp = os.path.join(tmp, "x.npy"), os.path.join(tmp, "y.npy")
+        np.save(xp, X32)
+        np.save(yp, ytr)
+        log(f"[{card}] phase 16 data: {n} x {X32.shape[1]} float32 rows "
+            f"written to a .npy ({os.path.getsize(xp)} bytes) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        p_q = mode_params("quantized", **INGEST_PINS)
+        p_e = mode_params("exact", **INGEST_PINS)
+
+        def streamed(x_path, y_path, rows):
+            src = NumpyMmapSource(x_path, y_path, chunk_rows=INGEST_CHUNK)
+            sd = StreamedDataset(src, params=p_q,
+                                 spill_dir=os.path.join(tmp, f"spill{rows}"))
+            global_timer._acc.clear()
+            global_timer.enable()
+            t1 = time.perf_counter()
+            try:
+                sd.construct()
+            finally:
+                global_timer.enabled = False
+            secs = {k: global_timer._acc.get(k, 0.0)
+                    for k in ("ingest/sketch_pass", "ingest/bin_spill")}
+            log(f"[{card}] phase 16 StreamedDataset of {rows} rows: "
+                f"{sd.num_chunks()} chunks of {INGEST_CHUNK}, sketch pass "
+                f"{secs['ingest/sketch_pass']:.2f} s, bin + spill pass "
+                f"{secs['ingest/bin_spill']:.2f} s, construct "
+                f"{time.perf_counter() - t1:.2f} s")
+            return sd
+
+        sd = streamed(xp, yp, n)
+
+        # ---- (a) quantized: chunked, then in-core ----
+        before = dict(hc.LAUNCHES)
+        bst_c, t_c, peak_c = _peak_run(torch, lambda: train_streamed(
+            p_q, sd, INGEST_Q_ROUNDS, ring_profile=True))
+        got = _launched(hc, before)
+        launches.update(got)
+        stall = bst_c._ingest_stats
+        t1 = time.perf_counter()
+        ds = lt.Dataset(X32, ytr, params=p_q).construct()
+        t_bin = time.perf_counter() - t1
+        bst_i, t_i, peak_i = _peak_run(
+            torch, lambda: lt.train(p_q, ds, INGEST_Q_ROUNDS))
+        a_c = auc(yte, bst_c.predict(Xte))
+        per_round = stall["h2d_bytes"] / INGEST_Q_ROUNDS
+        log(f"[{card}] phase 16a chunked quantized, {INGEST_Q_ROUNDS} "
+            f"rounds: {INGEST_Q_ROUNDS / t_c:.4f} iterations/s chunked "
+            f"({t_c:.2f} s) against {INGEST_Q_ROUNDS / t_i:.4f} in-core "
+            f"({t_i:.2f} s; binned in {t_bin:.1f} s); host-to-device "
+            f"{per_round:.0f} bytes per round, {stall['h2d_bytes'] / t_c / 1e9:.3f}"
+            f" GB/s over the chunked run; the compute stream waited on "
+            f"uploads {stall['wait_s']:.4f} s of {stall['pass_s']:.4f} s of "
+            f"passes ({100 * stall['wait_share']:.2f}%); launches "
+            f"{json.dumps(got)}; held-out AUC {a_c:.6f}")
+        if bst_c.model_to_string() != bst_i.model_to_string():
+            raise AssertionError("phase 16a: the chunked quantized text "
+                                 "differs from the in-core text")
+        missing = [k for k in ("hist_leaves_q8", "wave_row_update")
+                   if got.get(k, 0) <= 0]
+        if missing or got.get("hist_single", 0):
+            raise AssertionError(f"phase 16a: launches {got}: missing "
+                                 f"{missing} or hist_single launched")
+        if not a_c > 0.6:
+            raise AssertionError(f"phase 16a: held-out AUC {a_c}")
+        log(f"[{card}] phase 16a: chunked text identical to in-core")
+        del bst_c, bst_i
+
+        # ---- (b) exact ----
+        before = dict(hc.LAUNCHES)
+        bst_c, t_ce, _ = _peak_run(torch, lambda: train_streamed(
+            p_e, sd, INGEST_EXACT_ROUNDS))
+        got = _launched(hc, before)
+        launches.update(got)
+        bst_i, t_ie, _ = _peak_run(
+            torch, lambda: lt.train(p_e, ds, INGEST_EXACT_ROUNDS))
+        same = bst_c.model_to_string() == bst_i.model_to_string()
+        diff = float(np.max(np.abs(bst_c.predict(Xte) - bst_i.predict(Xte))))
+        log(f"[{card}] phase 16b chunked exact, {INGEST_EXACT_ROUNDS} "
+            f"rounds: {INGEST_EXACT_ROUNDS / t_ce:.4f} iterations/s chunked "
+            f"against {INGEST_EXACT_ROUNDS / t_ie:.4f} in-core; text "
+            f"{'identical' if same else 'differs'}, max |prediction "
+            f"difference| {diff:.3g} over {Xte.shape[0]} rows; launches "
+            f"{json.dumps(got)}")
+        if not same and not diff <= 1e-5:
+            raise AssertionError(f"phase 16b: exact chunked predictions "
+                                 f"differ from in-core by {diff}")
+        if got.get("hist_leaves", 0) <= 0 or \
+                got.get("wave_row_update", 0) <= 0:
+            raise AssertionError(f"phase 16b: launches {got}")
+        del bst_c, bst_i
+
+        # ---- (c) the hbm route: the binned cache uploads once ----
+        t1 = time.perf_counter()
+        text_h = lt.train(p_q, sd, 1).model_to_string()
+        t_h = time.perf_counter() - t1
+        if text_h != lt.train(p_q, ds, 1).model_to_string():
+            raise AssertionError("phase 16c: the hbm route's text differs "
+                                 "from the in-core text")
+        log(f"[{card}] phase 16c tpu_ingest_mode=hbm, 1 round from the "
+            f"binned cache ({t_h:.2f} s with the upload): text identical "
+            f"to in-core")
+        sd.close()
+        del ds
+
+        # ---- (d) device memory: flat in rows, under the budget ----
+        xs, ys = os.path.join(tmp, "xs.npy"), os.path.join(tmp, "ys.npy")
+        np.save(xs, X32[:INGEST_SMALL_ROWS])
+        np.save(ys, ytr[:INGEST_SMALL_ROWS])
+        del X32
+        sd2 = streamed(xs, ys, INGEST_SMALL_ROWS)
+        before = dict(hc.LAUNCHES)
+        _, _, peak_s = _peak_run(torch, lambda: train_streamed(p_q, sd2, 1))
+        launches.update(_launched(hc, before))
+        sd2.close()
+        ctx = {"features": NUM_FEATURES, "bins": int(max(
+            m.num_bin for m in sd2.bin_mappers)), "leaves": NUM_LEAVES,
+            "wave_size": 0, "chunk_rows": INGEST_CHUNK, "quantized": True,
+            "classes": 1}
+        budget = ingest_chunk_hbm_bytes(dict(ctx, rows=n))
+        hist_ws = ingest_chunk_hbm_bytes(dict(ctx, chunk_rows=0))
+        log(f"[{card}] phase 16d peak device memory: chunked {peak_c} bytes "
+            f"at {n} rows, {peak_s} at {INGEST_SMALL_ROWS} rows (difference "
+            f"{peak_c - peak_s}, allowed {INGEST_FLAT_BYTES}; histogram "
+            f"working set {hist_ws}); budget "
+            f"ingest/chunk_pipeline {budget}; in-core {peak_i} "
+            f"({peak_c / peak_i:.3f} of it)")
+        if max(peak_c, peak_s) > budget:
+            raise AssertionError("phase 16d: a chunked run's peak exceeds "
+                                 "the ingest/chunk_pipeline budget")
+        if abs(peak_c - peak_s) > INGEST_FLAT_BYTES:
+            raise AssertionError("phase 16d: the chunked peak is not flat "
+                                 "in rows")
+        if not max(peak_c, peak_s) < peak_i / 2:
+            raise AssertionError("phase 16d: the chunked peak is not well "
+                                 "under the in-core run's")
+
+        # ---- one chunk-sized launch of each kernel, and the upload ----
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(16)
+        dev = torch.device("cuda")
+        from lightgbm_tpu_torch.ops import histogram as th
+        from lightgbm_tpu_torch.ops import quantize as tq
+        rows = []
+        for name, k in (("hist_leaves_q8", hc.Q_LEAF_CHANNELS),
+                        ("hist_leaves", hc.LEAF_CHANNELS)):
+            bins, g, h, m, ch = _hist_case(torch, gen, dev, NUM_FEATURES,
+                                           INGEST_CHUNK, 256, k)
+            if name == "hist_leaves_q8":
+                w = tq.quantize_wch(g, h, m, torch.tensor(0.01, device=dev),
+                                    torch.tensor(0.002, device=dev),
+                                    gq_max=127, hq_max=127)
+                ms = time_ms(lambda: hc.build_histogram_leaves_q8(
+                    bins, w, ch, num_bins=256), 10)
+            else:
+                w = th.pack_weights(g, h, m)
+                ms = time_ms(lambda: hc.build_histogram_leaves(
+                    bins, w, ch, num_bins=256, raw=True), 10)
+            rows.append((name, ms))
+        bins, feats, rl, tab = _row_case(torch, gen, dev, hc.Q_LEAF_CHANNELS,
+                                         INGEST_CHUNK, 256, NUM_LEAVES, 42)
+        rows.append(("wave_row_update", time_ms(
+            lambda: hc.wave_row_update(bins, rl, tab, feats=feats), 10)))
+        log(f"[{card}] phase 16 per-chunk kernel ms at {INGEST_CHUNK} rows "
+            f"(beside phase 2's at the main path's rows): " + ", ".join(
+                f"{nm} {ms:.4f} ({rec[nm]['ms']:.4f})" for nm, ms in rows))
+        hb = torch.empty((INGEST_CHUNK, NUM_FEATURES), dtype=torch.uint8,
+                         pin_memory=True)
+        db = torch.empty_like(hb, device=dev)
+        ms = time_ms(lambda: db.copy_(hb, non_blocking=True), 10)
+        log(f"[{card}] phase 16 one chunk's bin codes host -> device "
+            f"(pinned): {hb.numel()} bytes in {ms:.4f} ms, "
+            f"{hb.numel() / ms / 1e6:.3f} GB/s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return dict(launches)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3761,6 +4007,14 @@ def main(argv=None) -> int:
         launches[k] += v
     stamp("phase 15d, the CLI")
     log(f"phase 15: {time.perf_counter() - t15:.1f} s")
+
+    # ---- phase 16: out-of-core chunked ingest ----
+    t16 = time.perf_counter()
+    for k, v in ingest_phase(lt, torch, card, Xtr, ytr, Xte, yte,
+                             rec).items():
+        launches[k] += v
+    log(f"phase 16: {time.perf_counter() - t16:.1f} s")
+    stamp("phase 16, chunked ingest")
     torch.cuda.empty_cache()
     serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir)
     torch.cuda.empty_cache()

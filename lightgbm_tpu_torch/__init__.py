@@ -18,21 +18,32 @@ prediction through the serving compiler's dense program
 (uint16 bin codes), forced bins and the binary dataset cache; the
 sklearn estimators (``LGBMRegressor``, ``LGBMClassifier``,
 ``LGBMRanker``; ``multitrain.GridSearchCVMany``) and the CLI
-(``python -m lightgbm_tpu_torch``).
+(``python -m lightgbm_tpu_torch``); out-of-core chunked ingest
+(``ingest``: ``StreamedDataset``, ``train_streamed`` and
+``tpu_ingest_mode=chunked``), the ``LGBM_*`` C API (``capi``, and its
+native shim through ``utils.native.build_capi_shim``) and the plotting
+helpers (``plot_*``; matplotlib and graphviz imported when they draw).
 """
 
+from . import capi, ingest, plotting
 from .basic import Booster
 from .callback import early_stopping, print_evaluation, record_evaluation
 from .dataset import Dataset, DatasetCorruptError
 from .engine import CVBooster, cv, train
+from .ingest import StreamedDataset, train_streamed
 from .multitrain import ManyBooster, MultiTrainError, train_many
 from .resilience.checkpoint import CheckpointError, TrainingPreempted
 from .sklearn import LGBMClassifier, LGBMModel, LGBMRanker, LGBMRegressor
+from .plotting import (create_tree_digraph, plot_importance, plot_metric,
+                       plot_split_value_histogram, plot_tree)
 from .utils.device import DeviceUnavailableError
 
 __all__ = ["train", "cv", "CVBooster", "train_many", "ManyBooster",
            "MultiTrainError", "Dataset", "Booster", "DeviceUnavailableError",
            "CheckpointError", "TrainingPreempted", "DatasetCorruptError",
            "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
-           "early_stopping", "print_evaluation", "record_evaluation"]
+           "early_stopping", "print_evaluation", "record_evaluation",
+           "capi", "ingest", "plotting", "StreamedDataset",
+           "train_streamed", "plot_importance", "plot_metric", "plot_tree",
+           "plot_split_value_histogram", "create_tree_digraph"]
 __version__ = "0.1.0"

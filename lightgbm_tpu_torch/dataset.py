@@ -75,7 +75,9 @@ def sample_row_indices(n: int, sample_cnt: int, seed: int,
                        rng: Optional[np.random.RandomState] = None
                        ) -> np.ndarray:
     """The deterministic bin-construct row sample (copy of
-    ``lightgbm_tpu/ingest/sketch.py`` ``sample_row_indices``)."""
+    ``lightgbm_tpu/ingest/sketch.py`` ``sample_row_indices``): the one
+    copy of the port, which ``ingest/sketch.py`` imports, so the streamed
+    sketch pass and the in-core construct draw the same rows."""
     if rng is None:
         rng = np.random.RandomState(seed)
     sample_cnt = min(n, int(sample_cnt))
@@ -510,8 +512,18 @@ class Dataset:
         fp = self._device_cache.get("_fingerprint")
         if fp is not None:
             return fp
-        import hashlib
         import zlib
+        fp = self._fingerprint_with_crc(int(zlib.crc32(
+            np.ascontiguousarray(self.X_binned).tobytes())))
+        self._device_cache["_fingerprint"] = fp
+        return fp
+
+    def _fingerprint_with_crc(self, crc: int) -> Dict[str, Any]:
+        """The fingerprint from a crc32 of the binned codes computed
+        elsewhere (ingest/stream.py streams it over chunks), so the
+        streamed and in-core fingerprints share every other field
+        (reference dataset.py:627-650)."""
+        import hashlib
         h = hashlib.sha256()
         for j in self.used_feature_map:
             m = self.bin_mappers[j]
@@ -522,16 +534,13 @@ class Dataset:
                     m.bin_upper_bound, np.float64).tobytes())
             if m.cat_to_bin:
                 h.update(repr(sorted(m.cat_to_bin.items())).encode())
-        fp = {
+        return {
             "num_data": int(self.num_data()),
             "binned_shape": [int(v) for v in self.X_binned.shape],
             "num_features": int(self.num_feature()),
             "binning_sha256": h.hexdigest(),
-            "data_crc32": int(zlib.crc32(
-                np.ascontiguousarray(self.X_binned).tobytes())),
+            "data_crc32": int(crc),
         }
-        self._device_cache["_fingerprint"] = fp
-        return fp
 
     # -- the binary dataset cache (reference Dataset::SaveBinaryFile /
     #    DatasetLoader::LoadFromBinFile; lightgbm_tpu/dataset.py:690-776) --

@@ -5,9 +5,11 @@ continued training from ``init_model``, custom objectives and metrics
 (``fobj``, ``feval``) and fault tolerance; and ``cv`` with ``CVBooster``,
 ``CVAggregator`` and ``_make_n_folds`` (reference engine.py:400-590),
 whose folds train as one batch (multitrain/cv.py) when ``tpu_cv_many``
-and the configuration allow it.  Training runs on ``device`` (default
-``cuda``); when no card is usable and the CPU was not asked for, it
-raises.
+and the configuration allow it.  A ``StreamedDataset`` under
+``tpu_ingest_mode=chunked`` trains out of core through
+``ingest.train_streamed`` (reference engine.py:174-197).  Training runs
+on ``device`` (default ``cuda``); when no card is usable and the CPU was
+not asked for, it raises.
 
 Fault tolerance (reference engine.py:40-145, :245-400): with
 ``snapshot_freq > 0`` (or ``checkpoint_dir`` set) the loop writes the
@@ -189,12 +191,38 @@ def train(params: Dict[str, Any], train_set: Dataset,
     params.update(kwargs)
     dev = device_from(params, device)
     cfg = Config(params)
-    reject_publishing(cfg, "train")
     if any(k in params for k in ("num_iterations", "num_iteration",
                                  "n_iter", "num_boost_round", "num_round",
                                  "num_rounds", "num_trees", "num_tree",
                                  "n_estimators")):
         num_boost_round = cfg.num_iterations
+    if getattr(train_set, "is_streamed", False) and \
+            str(cfg.tpu_ingest_mode) == "chunked":
+        # the out-of-core route (reference engine.py:174-197): a
+        # StreamedDataset under tpu_ingest_mode=chunked trains through
+        # chunk-accumulated wave histograms (ingest/train.py), device
+        # memory bounded by the chunk budget, not by rows; the default
+        # "hbm" mode falls through, the binned cache uploading once
+        from .ingest.train import train_streamed
+        unsupported = [nm for nm, v in (
+            ("fobj", fobj), ("feval", feval),
+            ("init_model", init_model), ("callbacks", callbacks)) if v]
+        if unsupported:
+            raise ValueError(
+                "tpu_ingest_mode=chunked training does not support "
+                + ", ".join(unsupported) +
+                " yet; drop them or use tpu_ingest_mode=hbm")
+        if isinstance(resume_from, Checkpoint):
+            raise ValueError("tpu_ingest_mode=chunked resume takes a "
+                             "bundle/directory path, not a loaded "
+                             "Checkpoint object")
+        return train_streamed(params, train_set, num_boost_round,
+                              valid_sets=valid_sets,
+                              valid_names=valid_names,
+                              resume_from=(str(resume_from)
+                                           if resume_from else None),
+                              device=dev)
+    reject_publishing(cfg, "train")
     if fobj is not None:
         params["objective"] = "none"
     booster = Booster(params=params, train_set=train_set, device=dev)

@@ -178,6 +178,121 @@ def _set_drop(arr: torch.Tensor, idx: torch.Tensor, val,
     arr[idx[valid]] = val[valid].to(arr.dtype)
 
 
+# ---- the wave body's pieces, shared with the chunked grower ----------------
+# (ingest/grower.py runs the same body over chunk-accumulated histograms)
+
+def wave_state(L: int, hist_shape: tuple, hist_dtype, member_bins: int,
+               dev) -> Dict[str, torch.Tensor]:
+    """A tree's wave state: each leaf's sums, depth, best candidate and
+    histogram (``hist_shape`` per leaf), and the node records."""
+    def z(shape, dtype, fill=0):
+        return torch.full(shape, fill, dtype=dtype, device=dev)
+    return {
+        "leaf_sum": z((L, 3), _F32),
+        "leaf_depth": z((L,), _I32),
+        "cand_gain": z((L,), _F32, NEG_INF),
+        "cand_feat": z((L,), _I32),
+        "cand_bin": z((L,), _I32),
+        "cand_dleft": z((L,), torch.bool),
+        "cand_lsum": z((L, 3), _F32),
+        "cand_rsum": z((L, 3), _F32),
+        "cand_member": z((L, member_bins), torch.bool),
+        "hists": z((L,) + tuple(hist_shape), hist_dtype),
+        "split_feature": z((L - 1,), _I32, -1),
+        "threshold_bin": z((L - 1,), _I32),
+        "nan_bin": z((L - 1,), _I32, -1),
+        "cat_member": z((L - 1, member_bins), torch.bool),
+        "decision_type": z((L - 1,), _I32),
+        "left_child": z((L - 1,), _I32),
+        "right_child": z((L - 1,), _I32),
+        "split_gain": z((L - 1,), _F32),
+        "internal_value": z((L - 1,), _F32),
+        "internal_weight": z((L - 1,), _F32),
+        "internal_count": z((L - 1,), _F32),
+        "leaf_value": z((L,), _F32),
+        "leaf_weight": z((L,), _F32),
+        "leaf_count": z((L,), _F32),
+    }
+
+
+def set_candidates(s, idx, cands, valid=None) -> None:
+    valid = torch.ones_like(idx, dtype=torch.bool) \
+        if valid is None else valid
+    for name, val in zip(CAND_NAMES, cands):
+        _set_drop(s[name], idx, val, valid)
+
+
+def seed_root(s, root_hist, root_sum, root_out, cand) -> None:
+    """Leaf 0 of a fresh state: the root's histogram, sums, output and
+    best candidate."""
+    s["leaf_sum"][0] = root_sum
+    set_candidates(s, torch.zeros((1,), dtype=torch.long,
+                                  device=root_sum.device), cand)
+    s["hists"][0] = root_hist
+    s["leaf_value"][0] = root_out
+    s["leaf_weight"][0] = root_sum[1]
+    s["leaf_count"][0] = root_sum[2]
+
+
+def wave_select(cand_gain, budget: int, W: int, jarange):
+    """The wave's split leaves: the top-W candidate gains, tapered to
+    the leaf budget left; (gains, leaves, selected)."""
+    k_eff = wave_taper_k(budget, W)
+    vals, sl = _topk(cand_gain, W)
+    return vals, sl, (vals > 0) & (jarange < k_eff)
+
+
+def split_hists(parent, hist_small, left_smaller):
+    """The children's histograms from the smaller children's pass and
+    the parents' (subtraction); (left, right)."""
+    hist_big = histogram_subtract(parent, hist_small)
+    ls4 = left_smaller.view(-1, 1, 1, 1)
+    return (torch.where(ls4, hist_small, hist_big),
+            torch.where(ls4, hist_big, hist_small))
+
+
+def scatter_children(s, sl, new_ids, idx2, v2, hist_l, hist_r, sums2,
+                     child_depth, cands, outs) -> None:
+    """Write a wave's children (left in the split leaf's slot, right in
+    its new one; ``idx2`` / ``v2`` both halves) into the state."""
+    sel = v2[:sl.shape[0]]
+    _set_drop(s["hists"], sl, hist_l, sel)
+    _set_drop(s["hists"], new_ids.long(), hist_r, sel)
+    _set_drop(s["leaf_sum"], idx2, sums2, v2)
+    _set_drop(s["leaf_depth"], idx2,
+              torch.cat([child_depth, child_depth]), v2)
+    set_candidates(s, idx2, cands, v2)
+    _set_drop(s["leaf_value"], idx2, outs, v2)
+    _set_drop(s["leaf_weight"], idx2, sums2[:, 1], v2)
+    _set_drop(s["leaf_count"], idx2, sums2[:, 2], v2)
+
+
+def write_wave_nodes(s, sl, new_ids, node_ids, sel, *, feat, thr,
+                     f_nan_bin, member, dt_bits, gain, psum, sp) -> None:
+    """The wave's tree node records, and the child pointers: parent slots
+    that pointed at a split leaf (encoded -(leaf+1)) now point at its
+    node, whose own slots point at the two children."""
+    nidx = node_ids.long()
+    for name, val in (("split_feature", feat), ("threshold_bin", thr),
+                      ("nan_bin", f_nan_bin), ("cat_member", member),
+                      ("decision_type", dt_bits), ("split_gain", gain),
+                      ("internal_value",
+                       leaf_output(psum[:, 0], psum[:, 1], sp)),
+                      ("internal_weight", psum[:, 1]),
+                      ("internal_count", psum[:, 2])):
+        _set_drop(s[name], nidx, val, sel)
+    enc = -(sl.to(_I32) + 1)
+    for name, own in (("left_child", enc),
+                      ("right_child", -(new_ids + 1))):
+        arr = s[name]
+        match = (arr.unsqueeze(1) == enc.unsqueeze(0)) & sel.unsqueeze(0)
+        has = match.any(dim=1)
+        pick = torch.argmax(match.to(torch.int8), dim=1)
+        arr = torch.where(has, node_ids[pick], arr)
+        _set_drop(arr, nidx, own, sel)
+        s[name] = arr
+
+
 def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                       max_depth: int, split_params: SplitParams,
                       wave_size: int = 0, quantized: bool = False,
@@ -384,45 +499,14 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         hdtype = torch.int32 if quantized else _F32
 
         def empty_state() -> Dict[str, torch.Tensor]:
-            def z(shape, dtype, fill=0):
-                return torch.full(shape, fill, dtype=dtype, device=dev)
-            return {
-                "row_leaf": z((n,), _I32),
-                "leaf_sum": z((L, 3), _F32),
-                "leaf_depth": z((L,), _I32),
-                "cand_gain": z((L,), _F32, NEG_INF),
-                "cand_feat": z((L,), _I32),
-                "cand_bin": z((L,), _I32),
-                "cand_dleft": z((L,), torch.bool),
-                "cand_lsum": z((L, 3), _F32),
-                "cand_rsum": z((L, 3), _F32),
-                "cand_member": z((L, max_bins), torch.bool),
-                "hists": z((L, G, Bb, 3), hdtype),
-                "split_feature": z((L - 1,), _I32, -1),
-                "threshold_bin": z((L - 1,), _I32),
-                "nan_bin": z((L - 1,), _I32, -1),
-                "cat_member": z((L - 1, max_bins), torch.bool),
-                "decision_type": z((L - 1,), _I32),
-                "left_child": z((L - 1,), _I32),
-                "right_child": z((L - 1,), _I32),
-                "split_gain": z((L - 1,), _F32),
-                "internal_value": z((L - 1,), _F32),
-                "internal_weight": z((L - 1,), _F32),
-                "internal_count": z((L - 1,), _F32),
-                "leaf_value": z((L,), _F32),
-                "leaf_weight": z((L,), _F32),
-                "leaf_count": z((L,), _F32),
-                # monotone bounds, the features on each leaf's path
-                "leaf_mn": z((L,), _F32, -BIG),
-                "leaf_mx": z((L,), _F32, BIG),
-                "leaf_path": z((L, F), torch.bool),
-            }
-
-        def set_candidates(s, idx, cands, valid=None):
-            valid = torch.ones_like(idx, dtype=torch.bool) \
-                if valid is None else valid
-            for name, val in zip(CAND_NAMES, cands):
-                _set_drop(s[name], idx, val, valid)
+            s = wave_state(L, (G, Bb, 3), hdtype, max_bins, dev)
+            s["row_leaf"] = torch.zeros((n,), dtype=_I32, device=dev)
+            # monotone bounds, the features on each leaf's path
+            s["leaf_mn"] = torch.full((L,), -BIG, dtype=_F32, device=dev)
+            s["leaf_mx"] = torch.full((L,), BIG, dtype=_F32, device=dev)
+            s["leaf_path"] = torch.zeros((L, F), dtype=torch.bool,
+                                         device=dev)
+            return s
 
         # ---- speculative ramp ------------------------------------------
         def spec_state():
@@ -693,13 +777,7 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 depths=torch.zeros((1,), dtype=_I32, device=dev),
                 pouts=root_out.view(1), cegb=cegb0)
             s = empty_state()
-            s["leaf_sum"][0] = root_sum
-            set_candidates(s, torch.zeros((1,), dtype=torch.long,
-                                          device=dev), cand)
-            s["hists"][0] = root_hist
-            s["leaf_value"][0] = root_out
-            s["leaf_weight"][0] = root_sum[1]
-            s["leaf_count"][0] = root_sum[2]
+            seed_root(s, root_hist, root_sum, root_out, cand)
             return s, 1, 1
 
         if use_lazy:
@@ -722,11 +800,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         # ---- one wave ----------------------------------------------------
         def body(s, nl0, forced=None):
             if forced is None:
-                budget = L - nl0
-                k_eff = wave_taper_k(budget, W)
-                vals, sel_leaves = _topk(s["cand_gain"], W)
-                sel = (vals > 0) & (jarange < k_eff)
-                sl = sel_leaves
+                vals, sl, sel = wave_select(s["cand_gain"], L - nl0, W,
+                                            jarange)
                 feat = s["cand_feat"][sl]
                 thr = s["cand_bin"][sl]
                 dleft = s["cand_dleft"][sl]
@@ -782,10 +857,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
             # ---- one kernel pass: all W smaller-child histograms ----
             hist_small = yield from hist_waves(ch)
-            hist_big = histogram_subtract(s["hists"][sl], hist_small)
-            ls4 = left_smaller.view(W, 1, 1, 1)
-            hist_l = torch.where(ls4, hist_small, hist_big)
-            hist_r = torch.where(ls4, hist_big, hist_small)
+            hist_l, hist_r = split_hists(s["hists"][sl], hist_small,
+                                         left_smaller)
 
             # ---- children's outputs (smoothed toward the split leaf's
             # own value) and monotone bounds ----
@@ -837,51 +910,23 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                              torch.cat([sel, sel]), cands[0], neg_inf)
 
             # ---- state updates (invalid lanes dropped) ----
-            _set_drop(s["hists"], sl, hist_l, sel)
-            _set_drop(s["hists"], new_ids.long(), hist_r, sel)
-            _set_drop(s["leaf_sum"], idx2, sums2, v2)
-            _set_drop(s["leaf_depth"], idx2,
-                      torch.cat([child_depth, child_depth]), v2)
-            set_candidates(s, idx2, (cg,) + tuple(cands[1:]), v2)
-            _set_drop(s["leaf_value"], idx2, torch.cat([out_l, out_r]), v2)
-            _set_drop(s["leaf_weight"], idx2, sums2[:, 1], v2)
-            _set_drop(s["leaf_count"], idx2, sums2[:, 2], v2)
+            scatter_children(s, sl, new_ids, idx2, v2, hist_l, hist_r, sums2,
+                             child_depth, (cg,) + tuple(cands[1:]),
+                             torch.cat([out_l, out_r]))
             if use_mc and not mc_inter:
                 _set_drop(s["leaf_mn"], idx2, bounds2[:, 0], v2)
                 _set_drop(s["leaf_mx"], idx2, bounds2[:, 1], v2)
 
             # ---- tree node records ----
-            nidx = node_ids.long()
             # a categorical node sends NaN (bin 0's side) as its member
             # bin 0 goes (reference wave.py:1652-1656)
             dleft_rec = torch.where(fcat, member[:, 0], dleft)
             dt_bits = (torch.where(fcat, CAT_MASK, 0) |
                        torch.where(dleft_rec, DEFAULT_LEFT_MASK, 0) |
                        torch.where(fnan & ~fcat, MISSING_NAN, 0)).to(_I32)
-            for name, val in (("split_feature", feat),
-                              ("threshold_bin", thr),
-                              ("nan_bin", f_nan_bin),
-                              ("cat_member", member),
-                              ("decision_type", dt_bits),
-                              ("split_gain", vals),
-                              ("internal_value",
-                               leaf_output(psum_[:, 0], psum_[:, 1], sp)),
-                              ("internal_weight", psum_[:, 1]),
-                              ("internal_count", psum_[:, 2])):
-                _set_drop(s[name], nidx, val, sel)
-            # patch parent slots pointing at the split leaves (encoded
-            # -(leaf+1)), then write the new nodes' own slots
-            enc = -(sl.to(_I32) + 1)
-            for name, own in (("left_child", enc),
-                              ("right_child", -(new_ids + 1))):
-                arr = s[name]
-                match = (arr.unsqueeze(1) == enc.unsqueeze(0)) & \
-                    sel.unsqueeze(0)
-                has = match.any(dim=1)
-                pick = torch.argmax(match.to(torch.int8), dim=1)
-                arr = torch.where(has, node_ids[pick], arr)
-                _set_drop(arr, nidx, own, sel)
-                s[name] = arr
+            write_wave_nodes(s, sl, new_ids, node_ids, sel, feat=feat,
+                             thr=thr, f_nan_bin=f_nan_bin, member=member,
+                             dt_bits=dt_bits, gain=vals, psum=psum_, sp=sp)
             return total_new
 
         def intermediate_bounds(s, sel_h, sl, feat, thr, fcat, new_ids,

@@ -182,6 +182,10 @@ def lower_ensemble(trees: List[Tree], num_class: int, num_features: int,
     nl = _host(b.num_leaves)
     real = np.arange(Nn)[None, :] < np.maximum(nl - 1, 0)[:, None]
     dt = np.where(real, dt, 0).astype(np.uint8)
+    # a padding slot of a tree that stopped short reads column 0: its
+    # split_feature is -1, which index_select refuses (no path reaches
+    # the slot, so its decision is never used)
+    sf = np.where(real, sf, 0)
     is_cat = (dt & CAT_MASK) != 0
     dleft = (dt & DEFAULT_LEFT_MASK) != 0
     miss_nan = (dt & (3 << 2)) == MISSING_NAN

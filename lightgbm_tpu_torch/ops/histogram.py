@@ -32,8 +32,8 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["FxWeights", "pack_weights", "fx_to_f32", "build_histogram",
-           "scatter_histogram", "build_histogram_leaves",
+__all__ = ["FxWeights", "pack_weights", "fx_exponents", "fx_to_f32",
+           "build_histogram", "scatter_histogram", "build_histogram_leaves",
            "build_histogram_leaves_lanes", "scatter_histogram_lanes",
            "histogram_subtract", "PACK4_MAX_BINS", "pack_bins4",
            "unpack_bins4", "MAX_BINS_U16", "widen_bins", "take_rows"]
@@ -105,18 +105,31 @@ def _fx_exponent(amax: float, n: int) -> int:
             math.ceil(math.log2(amax)))
 
 
+def fx_exponents(gmax: float, hmax: float, n: int) -> tuple:
+    """The fixed-point exponents of the g*mask and h*mask channels of a
+    tree whose max |g*mask| and max |h*mask| are ``gmax`` and ``hmax``
+    over ``n`` rows (:func:`pack_weights`'s own choice): a chunked pass
+    computes them once from streaming maxima and hands them to every
+    chunk's :func:`pack_weights`, so the chunks' integer sums add."""
+    return _fx_exponent(gmax, n), _fx_exponent(hmax, n)
+
+
 def pack_weights(grad: torch.Tensor, hess: torch.Tensor,
-                 mask: torch.Tensor) -> FxWeights:
+                 mask: torch.Tensor, exponents: tuple = None) -> FxWeights:
     """Exact-mode weights for one tree (the counterpart of
     ``pack_weights8``, histogram_pallas.py:539): g*mask and h*mask in
     64-bit fixed point, the count channel as strict 0/1 membership (the
-    reference counts rows, not weights)."""
+    reference counts rows, not weights).  ``exponents`` (from
+    :func:`fx_exponents`) fixes the two channels' exponents; by default
+    they come from these rows' maxima and count."""
     n = grad.shape[0]
     gm = (grad * mask).double()
     hm = (hess * mask).double()
+    if exponents is None:
+        exponents = tuple(_fx_exponent(float(v.abs().max()) if n else 0.0,
+                                       n) for v in (gm, hm))
     rows, inv = [], []
-    for v in (gm, hm):
-        e = _fx_exponent(float(v.abs().max()) if n else 0.0, n)
+    for v, e in zip((gm, hm), exponents):
         rows.append(torch.round(v * (2.0 ** e)).to(torch.int64))
         inv.append(2.0 ** -e)
     rows.append((mask > 0).to(torch.int64))

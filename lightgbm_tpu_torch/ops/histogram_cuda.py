@@ -403,30 +403,34 @@ def build_histogram_leaves_q8(bins_t: torch.Tensor, wch: torch.Tensor,
 
 
 def build_histogram_leaves_plain(bins_t, w: FxWeights, ch, *,
-                                 num_bins: int, bins_packed: bool = False):
+                                 num_bins: int, bins_packed: bool = False,
+                                 raw: bool = False):
     """Plain version: int64 ``index_add_`` of the fixed-point weights,
-    scaled back to f32 — the same integers as the kernel (packed bins are
-    unpacked first)."""
+    scaled back to f32 (``raw``: the int64 sums) — the same integers as
+    the kernel (packed bins are unpacked first)."""
     h = _scatter_leaves(_unpacked(bins_t, bins_packed), w.w, ch,
                         num_channels=LEAF_CHANNELS, num_bins=num_bins,
                         acc_dtype=torch.int64)
-    return fx_to_f32(h, w.inv_scale)
+    return h if raw else fx_to_f32(h, w.inv_scale)
 
 
 def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
                            ch: torch.Tensor, *, num_bins: int,
                            interpret=None, pipeline=None,
-                           bins_packed: bool = False) -> torch.Tensor:
+                           bins_packed: bool = False,
+                           raw: bool = False) -> torch.Tensor:
     """(25, F, B, 3) f32 histograms of 25 leaf channels in one pass.
 
     bins_t (F, N) uint8, or (F, N/2) packed with ``bins_packed``; ``w``
     from :func:`pack_weights`; ch (N,) int8 channel, -1 = row in no
-    batched leaf."""
+    batched leaf.  ``raw`` returns the kernel's int64 fixed-point sums
+    instead, which passes over row chunks weighted with one tree's
+    exponents add exactly (ingest/grower.py)."""
     f, n = _check_hist_args("build_histogram_leaves", bins_t, w.w,
                             torch.int64, 3, ch, num_bins, bins_packed)
     if bins_t.device.type == "cpu":
         return build_histogram_leaves_plain(bins_t, w, ch, num_bins=num_bins,
-                                            bins_packed=bins_packed)
+                                            bins_packed=bins_packed, raw=raw)
     out = torch.zeros((LEAF_CHANNELS, f, num_bins, 3), dtype=torch.int64,
                       device=bins_t.device)
     _launch_hist("hist_leaves_fx", bins_t, w.w, ch, out, f, n, num_bins,
@@ -434,7 +438,7 @@ def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
     LAUNCHES["hist_leaves_packed4" if bins_packed else
              "hist_leaves_u16" if bins_t.dtype == torch.uint16
              else "hist_leaves"] += 1
-    return fx_to_f32(out, w.inv_scale)
+    return out if raw else fx_to_f32(out, w.inv_scale)
 
 
 # -- single-leaf histogram -------------------------------------------------------

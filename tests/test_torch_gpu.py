@@ -1170,3 +1170,93 @@ def test_u16_training_on_card_matches_cpu(cuda_device, extra):
             if extra["tree_grow_mode"] == "wave" else ("hist_single_u16",))
     assert all(hc.LAUNCHES[k] > before[k] for k in used)
     assert on_card.model_to_string() == on_cpu.model_to_string()
+
+
+# -- chunked ingest and the C API -------------------------------------------
+
+_CHUNK_P = dict(objective="binary", num_leaves=15, verbosity=-1,
+                use_quantized_grad=True, stochastic_rounding=False,
+                tree_grow_mode="wave", tpu_speculative_ramp=False,
+                tpu_exact_endgame=False, max_bin=63)
+
+
+def _chunk_data():
+    rng = np.random.RandomState(9)
+    X = rng.randn(20000, F)
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.8).astype(float)
+    return X, y
+
+
+def _streamed(X, y, device, **kw):
+    from lightgbm_tpu_torch.ingest import (ArraySource, StreamedDataset,
+                                           train_streamed)
+    # 8192-row chunks: three of them, the last short
+    sd = StreamedDataset(ArraySource(X, y, chunk_rows=8192),
+                         params=_CHUNK_P)
+    return train_streamed(_CHUNK_P, sd, 4, device=device, **kw)
+
+
+@pytest.mark.gpu
+def test_streamed_on_card_matches_cpu(cuda_device):
+    """Chunked quantized training on the card (three chunks through the
+    side-stream ring) writes the CPU's text and the in-core run's; the
+    chunks went through the leaf-histogram and row-update kernels."""
+    X, y = _chunk_data()
+    on_cpu = _streamed(X, y, "cpu")
+    before = dict(hc.LAUNCHES)
+    on_card = _streamed(X, y, cuda_device)
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["hist_leaves_q8"] > before["hist_leaves_q8"]
+    assert hc.LAUNCHES["wave_row_update"] > before["wave_row_update"]
+    assert hc.LAUNCHES["hist_single"] == before["hist_single"]
+    assert on_card.model_to_string() == on_cpu.model_to_string()
+    incore = lt.train(_CHUNK_P, lt.Dataset(X, y), 4, device=cuda_device)
+    assert on_card.model_to_string() == incore.model_to_string()
+
+
+@pytest.mark.gpu
+def test_profiled_ring_matches_in_core_and_frees_its_buffers(cuda_device):
+    """The side-stream ring with CUDA events around every upload wait
+    grows the trees of the in-core run, whose binned matrix uploads once
+    and synchronously; the Booster keeps the ring's numbers and none of
+    its device buffers."""
+    X, y = _chunk_data()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    ring = _streamed(X, y, cuda_device, ring_profile=True)
+    torch.cuda.synchronize()
+    kept = torch.cuda.memory_allocated() - before
+    incore = lt.train(_CHUNK_P, lt.Dataset(X, y), 4, device=cuda_device)
+    assert ring.model_to_string() == incore.model_to_string()
+    stats = ring._ingest_stats
+    assert stats["pass_s"] > 0 and 0.0 <= stats["wait_share"] <= 1.0
+    assert stats["h2d_bytes"] >= 4 * len(X) * (F + 12)
+    # the ring's two device slots (bins, three f32 lanes, uint8 row_leaf)
+    ring_bytes = 2 * 8192 * (F + 12 + 1)
+    assert kept < ring_bytes, kept
+
+
+@pytest.mark.gpu
+def test_capi_training_round_trip_on_card(cuda_device, tmp_path):
+    """The C API trains on the card by default and writes the text
+    ``train`` writes on the card; a model loaded from its file predicts
+    on the card (no device named) what the trained booster predicts."""
+    from lightgbm_tpu_torch import capi
+    X, y = _chunk_data()
+    params = "objective=binary num_leaves=15 verbosity=-1"
+    _, dh = capi.LGBM_DatasetCreateFromMat(X, params, label=y)
+    _, bh = capi.LGBM_BoosterCreate(dh, params)
+    assert capi._get(bh).device.type == "cuda"
+    for _ in range(4):
+        capi.LGBM_BoosterUpdateOneIter(bh)
+    _, text = capi.LGBM_BoosterSaveModelToString(bh)
+    kv = dict(t.split("=") for t in params.split())
+    ref = lt.train(kv, lt.Dataset(X, y, params=kv), 4, device=cuda_device)
+    assert text == ref.model_to_string()
+    path = str(tmp_path / "m.txt")
+    capi.LGBM_BoosterSaveModel(bh, path)
+    _, lh = capi.LGBM_BoosterCreateFromModelfile(path)
+    _, got = capi.LGBM_BoosterPredictForMat(lh, X)
+    assert capi._get(lh).device.type == "cuda"
+    np.testing.assert_array_equal(got,
+                                  capi.LGBM_BoosterPredictForMat(bh, X)[1])
