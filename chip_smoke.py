@@ -188,15 +188,19 @@ Phases (any failure exits non-zero and prints no result line):
    phase 14a: (e) ``save_binary`` / ``load_binary`` of the main path's
    binned rows (bytes, write and load seconds), the loaded dataset
    training phase 14a's text for 2 headline rounds; (a) the uint16 forms
-   (``hist_single``, both leaf histograms, the row update, its
-   categorical form and the trial form) bit for bit against their plain
-   versions and identical across two runs at F=28, N = the padded rows,
-   B=1024 and B=65,535 (every histogram on its bin-tile axis), timed at
-   both beside the bound (2 bytes a code), the plain version and the
-   int64 ``index_add_``; (b) the main path's rows binned at max_bin=1023:
-   ``auto`` (partitioned, exact, 2 rounds), the explicit wave grower
-   exact and quantized with the headline settings (3 rounds each):
-   iterations/s, held-out AUC, only uint16 leaf and row forms launched;
+   (``hist_single``, both leaf histograms and their channel partition
+   ``leaf_partition``, the row update, its categorical form and the
+   trial form) bit for bit against their plain versions and identical
+   across two runs at F=28, N = the padded rows, B=1024 and B=65,535
+   (every histogram on its bin-tile axis), the leaf forms and the
+   partition also on a skewed mix (90% of the kept rows in one channel,
+   several channels empty) and one with no kept row; timed at both B
+   beside the bound (2 bytes a code), the plain version and the int64
+   ``index_add_`` (the partition: a stable ``torch.sort``); (b) the main
+   path's rows binned at max_bin=1023: ``auto`` (partitioned, exact, 2
+   rounds), the explicit wave grower exact and quantized with the
+   headline settings (3 rounds each): iterations/s, held-out AUC, only
+   uint16 leaf and row forms (and the partition) launched;
    headline text identical card / CPU at 300,000 rows (1 round); one
    quantized round on 524,288 rows with two categorical columns (the
    categorical uint16 row update); (c) ``LGBMClassifier.fit`` /
@@ -3100,9 +3104,9 @@ def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
 U16_KERNELS = {
     "hist_single_u16": ("lightgbm_tpu_torch/csrc/hist_single.cu",
                         "lightgbm_tpu/ops/histogram_pallas.py:471"),
-    "hist_leaves_q8_u16": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+    "hist_leaves_q8_u16": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
                            "lightgbm_tpu/ops/histogram_pallas.py:1030"),
-    "hist_leaves_u16": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+    "hist_leaves_u16": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
                         "lightgbm_tpu/ops/histogram_pallas.py:852"),
     "wave_row_update_u16": ("lightgbm_tpu_torch/csrc/row_update.cu",
                             "lightgbm_tpu/ops/histogram_pallas.py:1280"),
@@ -3110,6 +3114,10 @@ U16_KERNELS = {
                                 "lightgbm_tpu/ops/histogram_pallas.py:1280"),
     "wave_trial_channels_u16": ("lightgbm_tpu_torch/csrc/row_update.cu",
                                 "lightgbm_tpu/ops/histogram_pallas.py:1314"),
+    # no TPU counterpart: the row list of the two uint16 leaf forms, which
+    # answer these entry points at max_bin > 255
+    "leaf_partition": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
+                       "lightgbm_tpu/ops/histogram_pallas.py:852"),
 }
 U16_MAX_BIN = 1023               # (b): finer thresholds, B = 1024
 U16_BINS = (1024, 65_535)        # (a): the main path's B, and past a tile
@@ -3170,18 +3178,60 @@ def _u16_row_case(torch, gen, dev, bins, nb, w, num_leaves):
     return feats.contiguous(), rl, tab, dec
 
 
+def _u16_mixes(torch, gen, dev, n):
+    """Phase 15a's channel mixes over ``n`` rows, (q8 channels, exact
+    channels): today's (half the rows in one of 42 channels, the exact
+    form's the first 25 of them), a skewed one (of the kept half, 90% in
+    channel 3 and the rest in channels c % 4 != 1, so 6 or 11 channels
+    empty) and one with no kept row."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    kq, kx = hc.Q_LEAF_CHANNELS, hc.LEAF_CHANNELS
+    none = torch.full((n,), -1, dtype=torch.int8, device=dev)
+    keep = torch.rand(n, generator=gen, device=dev) < 0.5
+    chq = torch.randint(0, kq, (n,), generator=gen, device=dev,
+                        dtype=torch.int8)
+    chq = torch.where(keep, chq, none).contiguous()
+    che = torch.where(chq < kx, chq, none).contiguous()
+    heavy = torch.rand(n, generator=gen, device=dev) < 0.9
+    out = [("today", chq, che)]
+    mixes = []
+    for k in (kq, kx):
+        light = torch.tensor([c for c in range(k) if c % 4 != 1 and c != 3],
+                             dtype=torch.int8, device=dev)
+        pick = light[torch.randint(0, len(light), (n,), generator=gen,
+                                   device=dev)]
+        mixes.append(torch.where(keep, torch.where(heavy, 3, pick),
+                                 none).contiguous())
+    out.append(("skewed", *mixes))
+    out.append(("no kept row", none, none))
+    return out
+
+
 def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
     """Phase 15a: every uint16 form against its plain version, bit for bit
     and identical across two runs, at F=28 and N = the padded training
     rows, at B=1024 (a max_bin=1023 run's) and B=65,535 (every histogram
-    on its bin-tile axis); timed at both, beside the bound (each input
+    on its bin-tile axis); the two leaf forms and their channel partition
+    (``leaf_partition``) also on a skewed mix and one with no kept row
+    (:func:`_u16_mixes`).  Timed at both B beside the bound (each input
     byte once: 2 bytes a code), the plain version and the int64
-    ``index_add_`` at B=1024."""
+    ``index_add_`` (the partition: one stable ``torch.sort`` of the
+    channels); the B=65,535 numbers under ``tile_*``."""
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     from lightgbm_tpu_torch.ops import quantize as tq
     f = NUM_FEATURES
+    kq, kx = hc.Q_LEAF_CHANNELS, hc.LEAF_CHANNELS
     rec = {}
+    sms = hc._sm_count(dev)
+
+    def put(name, main, **kv):
+        if not main and "max_abs_err" in kv:
+            rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
+                                           kv.pop("max_abs_err"))
+        rec.setdefault(name, {}).update(
+            {("" if main else "tile_") + k: v for k, v in kv.items()})
+
     for nb in U16_BINS:
         main = nb == U16_BINS[0]
         # row-major rows (the partitioned grower's copy, read in place as
@@ -3200,13 +3250,8 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
         hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
         mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
         w = th.pack_weights(grad, hess, mask)
-        kq, kx = hc.Q_LEAF_CHANNELS, hc.LEAF_CHANNELS
-        chq = torch.randint(0, kq, (n,), generator=gen, device=dev,
-                            dtype=torch.int8)
-        keep = torch.rand(n, generator=gen, device=dev) < 0.5
-        chq = torch.where(keep, chq, torch.full_like(chq, -1)).contiguous()
-        che = torch.where(chq < kx, chq, torch.full_like(chq, -1))
-        che = che.contiguous()
+        mixes = _u16_mixes(torch, gen, dev, n)
+        _, chq, che = mixes[0]
         wch = tq.quantize_wch(grad, hess, mask,
                               (grad * mask).abs().max() / 127,
                               (hess * mask).max() / 127, gq_max=127,
@@ -3214,19 +3259,42 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
         feats, rl, tab, dec = _u16_row_case(torch, gen, dev, bins, nb, kx,
                                             NUM_LEAVES)
         targs = (tab[4], tab[0], tab[1], tab[2] > 0, tab[3] > 0, tab[6] > 0)
+        geo_q = hc.list_geometry(sms, f, n, nb, kq, True)
+        geo_x = hc.list_geometry(sms, f, n, nb, kx, False)
+
+        def leaf_forms(cq, cx):
+            return [
+                ("hist_leaves_q8_u16",
+                 lambda: hc.build_histogram_leaves_q8(bins, wch, cq,
+                                                      num_bins=nb),
+                 lambda: hc.build_histogram_leaves_q8_plain(bins, wch, cq,
+                                                            num_bins=nb)),
+                ("hist_leaves_u16",
+                 lambda: hc.build_histogram_leaves(bins, w, cx, num_bins=nb,
+                                                   raw=True),
+                 lambda: hc.build_histogram_leaves_plain(bins, w, cx,
+                                                         num_bins=nb,
+                                                         raw=True)),
+                # the partition as each form runs it; its records and
+                # plan against the plain argsort's
+                ("leaf_partition",
+                 lambda: hc.leaf_partition(
+                     cq, wch, num_channels=kq, slots=geo_q.slots,
+                     part_blocks=geo_q.part_blocks),
+                 lambda: hc.leaf_partition_plain(
+                     cq, wch, num_channels=kq, slots=geo_q.slots)),
+                ("leaf_partition",
+                 lambda: hc.leaf_partition(
+                     cx, w.w, num_channels=kx, slots=geo_x.slots,
+                     part_blocks=geo_x.part_blocks),
+                 lambda: hc.leaf_partition_plain(
+                     cx, w.w, num_channels=kx, slots=geo_x.slots))]
+
         forms = [
             ("hist_single_u16",
              lambda: hc.hist_single(rows, w, num_bins=nb),
              lambda: hc.hist_single_plain(rows, w, num_bins=nb)),
-            ("hist_leaves_q8_u16",
-             lambda: hc.build_histogram_leaves_q8(bins, wch, chq,
-                                                  num_bins=nb),
-             lambda: hc.build_histogram_leaves_q8_plain(bins, wch, chq,
-                                                        num_bins=nb)),
-            ("hist_leaves_u16",
-             lambda: hc.build_histogram_leaves(bins, w, che, num_bins=nb),
-             lambda: hc.build_histogram_leaves_plain(bins, w, che,
-                                                     num_bins=nb)),
+            *leaf_forms(chq, che),
             ("wave_row_update_u16",
              lambda: hc.wave_row_update(bins, rl, tab, feats=feats),
              lambda: hc.wave_row_update_plain(bins, rl, tab, feats=feats)),
@@ -3239,57 +3307,52 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
              lambda: hc.wave_trial_channels(bins, rl, *targs, feats=feats),
              lambda: hc.wave_trial_channels_plain(bins, rl, *targs,
                                                   feats=feats))]
+        seen = set()
         for name, run, plain in forms:
-            before = hc.LAUNCHES[name]
-            got, again = run(), run()
-            torch.cuda.synchronize()
-            if hc.LAUNCHES[name] != before + 2:
-                raise AssertionError(f"{name} [B={nb}] did not launch")
-            want = plain()
-            err = 0.0
-            for x, y, z in zip(_tuple(got), _tuple(again), _tuple(want)):
-                if not torch.equal(x, y):
-                    raise AssertionError(f"{name} [B={nb}] differs between "
-                                         "two runs")
-                err = max(err, float((x.double() - z.double()).abs().max()))
-                if not torch.equal(x, z):
-                    raise AssertionError(f"{name} [B={nb}] differs from its "
-                                         f"plain version (max abs err {err})")
-            del got, again, want
-            ms = time_ms(run, reps)
-            if main:
-                rec[name] = dict(max_abs_err=err, ms=ms,
-                                 plain_ms=time_ms(plain, 3),
-                                 library_ms=None)
-            else:
+            err = _u16_bitwise(torch, hc, name, nb, "today", run, plain)
+            if name in seen:   # the exact form's partition: checked only
                 rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-                rec[name]["tile_ms"] = ms
+                continue
+            seen.add(name)
+            put(name, main, max_abs_err=err, ms=time_ms(run, reps),
+                plain_ms=time_ms(plain, 3))
             log(f"kernel {name} [F={f} N={n} B={nb}]: bitwise equal to "
-                f"plain, identical across two runs; {ms:.3f} ms")
-        geo_s = hc.single_geometry(132, f, n, nb, "rows")
-        geo_q = hc.leaf_geometry(132, f, n, nb, kq, True, False)
-        geo_x = hc.leaf_geometry(132, f, n, nb, kx, False, False)
+                f"plain, identical across two runs; "
+                f"{rec[name]['ms' if main else 'tile_ms']:.3f} ms")
+        # the leaf forms and the partition on the other mixes
+        for tag, cq, cx in mixes[1:]:
+            for name, run, plain in leaf_forms(cq, cx):
+                err = _u16_bitwise(torch, hc, name, nb, tag, run, plain)
+                rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+                if name != "leaf_partition":
+                    log(f"kernel {name} [B={nb}, {tag} mix]: bitwise equal "
+                        f"to plain, identical across two runs; "
+                        f"{time_ms(run, reps):.3f} ms")
+        geo_s = hc.single_geometry(sms, f, n, nb, "rows")
         log(f"  B={nb} bin tiles: hist_single {geo_s.tiles} x {geo_s.bt}, "
-            f"q8 {geo_q.tiles} x {geo_q.bt}, fx {geo_x.tiles} x {geo_x.bt}")
+            f"q8 {geo_q.tiles} x {geo_q.bt}, fx {geo_x.tiles} x "
+            f"{geo_x.bt}; list geometry q8 {tuple(geo_q)}, fx "
+            f"{tuple(geo_x)}")
+        # bounds: each input byte once (a code is 2 bytes), each output
+        # byte once
+        act_s = (w.w != 0).any(dim=0)
+        n_s = int(act_s.sum())
+        aq = int((chq >= 0).sum())
+        ax = int((che >= 0).sum())
+        for name, nbytes, ops in (
+                ("hist_single_u16", 24.0 * n + 2 * f * n_s + f * nb * 24,
+                 3.0 * f * n_s),
+                ("hist_leaves_q8_u16", n + aq * (2 * f + 3) + kq * f * nb * 12,
+                 3.0 * f * aq),
+                ("hist_leaves_u16", n + ax * (2 * f + 24) + kx * f * nb * 24,
+                 3.0 * f * ax),
+                # the q8 form's: channels, the listed rows' three weight
+                # bytes, 8-byte records, the plan
+                ("leaf_partition", n + aq * (3 + 8) + 4 * (4 * kq + 1),
+                 0.0)):
+            b_ms, by = bound_ms(nbytes, ops)
+            put(name, main, bound_ms=b_ms, bound_by=by)
         if main:
-            # bounds: each input byte once (a code is 2 bytes), each
-            # output byte once
-            act_s = (w.w != 0).any(dim=0)
-            n_s = int(act_s.sum())
-            rec["hist_single_u16"].update(zip(("bound_ms", "bound_by"),
-                                              bound_ms(24.0 * n + 2 * f * n_s
-                                                       + f * nb * 24,
-                                                       3.0 * f * n_s)))
-            aq = int((chq >= 0).sum())
-            rec["hist_leaves_q8_u16"].update(zip(
-                ("bound_ms", "bound_by"),
-                bound_ms(n + aq * (2 * f + 3) + kq * f * nb * 12,
-                         3.0 * f * aq)))
-            ax = int((che >= 0).sum())
-            rec["hist_leaves_u16"].update(zip(
-                ("bound_ms", "bound_by"),
-                bound_ms(n + ax * (2 * f + 24) + kx * f * nb * 12,
-                         3.0 * f * ax)))
             cols = wide.index_select(0, feats.long().clamp(0, f - 1))
             for name, write in (("wave_row_update_u16", True),
                                 ("wave_row_update_ext_u16", True),
@@ -3300,31 +3363,76 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                     nbytes += tab.shape[1] * (20 + 32)
                 rec[name].update(zip(("bound_ms", "bound_by"),
                                      bound_ms(nbytes, ops)))
+                rec[name]["library_ms"] = None
             del cols
-            # the int64 index_add_ yardsticks (the port never calls them)
-            ones = torch.zeros((n,), dtype=torch.int8, device=dev)
-            ch1 = torch.where(act_s, ones, ones - 1)
-            for name, call in (
-                    ("hist_single_u16", _library_hist(
-                        torch, wide, w.w, ch1, 1, nb, torch.int64)),
-                    ("hist_leaves_q8_u16", _library_hist(
-                        torch, wide, wch, chq, kq, nb, torch.int64)),
-                    ("hist_leaves_u16", _library_hist(
-                        torch, wide, w.w, che, kx, nb, torch.int64))):
-                rec[name]["library_ms"] = time_ms(call, reps)
-                del call
-                torch.cuda.empty_cache()
+        # the library yardsticks (the port never calls them): one int64
+        # index_add_ of the same sums; one stable sort of the channels
+        ones = torch.zeros((n,), dtype=torch.int8, device=dev)
+        ch1 = torch.where(act_s, ones, ones - 1)
+        for name, make in (
+                ("hist_single_u16", lambda: _library_hist(
+                    torch, wide, w.w, ch1, 1, nb, torch.int64)),
+                ("hist_leaves_q8_u16", lambda: _library_hist(
+                    torch, wide, wch, chq, kq, nb, torch.int64)),
+                ("hist_leaves_u16", lambda: _library_hist(
+                    torch, wide, w.w, che, kx, nb, torch.int64)),
+                ("leaf_partition", lambda: (lambda: torch.sort(
+                    chq, stable=True)))):
+            call = make()
+            put(name, main, library_ms=time_ms(call, reps))
+            del call
+            torch.cuda.empty_cache()
         del P, rows, bins, wide, grad, hess, mask, w, chq, che, wch, feats
-        del rl, tab, dec, forms
+        del rl, tab, dec, forms, mixes, ones, ch1, act_s
         torch.cuda.empty_cache()
     for name, r in rec.items():
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
+        tile = (f"; B={U16_BINS[1]}: {r['tile_ms']:.3f} ms, bound "
+                f"{r['tile_bound_ms']:.4f} ms, plain {r['tile_plain_ms']:.3f}"
+                f" ms, library {r['tile_library_ms']:.3f} ms"
+                if "tile_library_ms" in r else
+                f"; B={U16_BINS[1]}: {r['tile_ms']:.3f} ms")
         log(f"[{card}] {name} @ N={n} B={U16_BINS[0]}: kernel "
-            f"{r['ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
-            f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, int64 "
-            f"index_add_ {lib}; B={U16_BINS[1]}: {r['tile_ms']:.3f} ms")
+            f"{r['ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), plain {r['plain_ms']:.3f} ms, "
+            f"library {lib}{tile}")
     return rec
+
+
+def _listed(rl):
+    """A row list's listed records and its plan (offsets, slots, table):
+    what the partition and its plain version must agree on."""
+    m = int(rl.offsets[-1])
+    return (rl.records[:m], rl.offsets, rl.slots, rl.table)
+
+
+def _u16_bitwise(torch, hc, name, nb, tag, run, plain) -> float:
+    """Run a uint16 form twice and its plain version once: identical
+    across the runs and bit for bit the plain version's; the largest
+    absolute difference (0.0)."""
+    before = hc.LAUNCHES[name]
+    got, again = run(), run()
+    torch.cuda.synchronize()
+    if hc.LAUNCHES[name] != before + 2:
+        raise AssertionError(f"{name} [B={nb}, {tag}] did not launch")
+    want = plain()
+    if isinstance(want, hc.RowList):
+        got, again, want = _listed(got), _listed(again), _listed(want)
+    err = 0.0
+    for x, y, z in zip(_tuple(got), _tuple(again), _tuple(want)):
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name} [B={nb}, {tag}] differs between "
+                                 "two runs")
+        if x.shape != z.shape:
+            raise AssertionError(f"{name} [B={nb}, {tag}] shape "
+                                 f"{tuple(x.shape)}, plain {tuple(z.shape)}")
+        err = max(err, float((x.double() - z.double()).abs().max())
+                  if x.numel() else 0.0)
+        if not torch.equal(x, z):
+            raise AssertionError(f"{name} [B={nb}, {tag}] differs from its "
+                                 f"plain version (max abs err {err})")
+    return err
 
 
 def _timed_train(lt, torch, hc, params, ds, rounds, **kw):
@@ -3350,9 +3458,9 @@ def u16_path_phase(lt, torch, card, Xtr, ytr, Xte, yte, X_cat, out_dir
     """Phase 15b: the main path's rows binned at max_bin=1023 (uint16
     codes): ``auto`` (the partitioned grower, exact, as the reference
     picks past 255 bins), the explicit wave grower exact, and quantized
-    with the headline settings; iterations/s, held-out AUC, launches
-    (uint16 forms only, no uint8 leaf or row kernel), the bin matrix's
-    bytes; the quantized text identical card / CPU at 300,000 rows; one
+    with the headline settings; iterations/s, held-out AUC, peak device
+    memory, launches (uint16 forms only, no uint8 leaf or row kernel),
+    the bin matrix's bytes; the quantized text identical card / CPU at 300,000 rows; one
     quantized round with two categorical columns (the row update's
     categorical form)."""
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
@@ -3373,14 +3481,17 @@ def u16_path_phase(lt, torch, card, Xtr, ytr, Xte, yte, X_cat, out_dir
                           tree_grow_mode="auto"), U16_PARTITION_ROUNDS,
              "partition", ("hist_single_u16",)),
             ("wave exact", mode_params("exact", U16_MAX_BIN), U16_ROUNDS,
-             "wave", ("hist_leaves_u16", "wave_row_update_u16")),
+             "wave", ("hist_leaves_u16", "leaf_partition",
+                      "wave_row_update_u16")),
             ("wave quantized, headline", mode_params("headline",
                                                      U16_MAX_BIN),
-             U16_ROUNDS, "wave", ("hist_leaves_q8_u16",
+             U16_ROUNDS, "wave", ("hist_leaves_q8_u16", "leaf_partition",
                                   "wave_row_update_u16", "hist_single"))]
     launches = collections.Counter()
     for tag, params, rounds, grower, needs in runs:
+        torch.cuda.reset_peak_memory_stats()
         bst, rate, got = _timed_train(lt, torch, hc, params, ds, rounds)
+        peak = torch.cuda.max_memory_allocated()
         missing = [k for k in needs if got[k] <= 0]
         u8 = [k for k in ("hist_leaves_q8", "hist_leaves", "wave_row_update")
               if got[k]]
@@ -3394,8 +3505,8 @@ def u16_path_phase(lt, torch, card, Xtr, ytr, Xte, yte, X_cat, out_dir
         a = auc(yte, p)
         log(f"[{card}] phase 15b {tag} (max_bin={U16_MAX_BIN}, "
             f"{grower} grower): {rounds} rounds, {rate:.4f} iterations/s, "
-            f"held-out AUC {a:.6f}; launches "
-            f"{json.dumps({k: v for k, v in got.items() if v})}")
+            f"held-out AUC {a:.6f}; peak device memory {peak} bytes; "
+            f"launches {json.dumps({k: v for k, v in got.items() if v})}")
         if not (np.all(np.isfinite(p)) and a > 0.6):
             raise AssertionError(f"phase 15b {tag}: held-out AUC {a}")
         launches.update(got)

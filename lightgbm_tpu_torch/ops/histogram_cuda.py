@@ -2,9 +2,10 @@
 plain PyTorch versions — the counterpart of
 ``lightgbm_tpu/ops/histogram_pallas.py``.
 
-Five entry points, four kernels (csrc/hist_single.cu, csrc/hist_leaves.cu,
-csrc/row_update.cu), the three histograms each in two forms (uint8 bins,
-and nibble-packed bins with ``bins_packed=True``):
+Five entry points, their kernels in four sources (csrc/hist_single.cu,
+csrc/hist_leaves.cu, csrc/hist_leaves_u16.cu, csrc/row_update.cu), the
+three histograms each in two forms (uint8 bins, and nibble-packed bins
+with ``bins_packed=True``):
 
 * :func:`build_histogram` — ``build_histogram_pallas``
   (histogram_pallas.py:471): one leaf's (F, B, 3) f32 histogram; the
@@ -56,9 +57,12 @@ entry point takes a ``torch.uint16`` bin matrix (never packed) and, on the
 card, launches the kernel's uint16 form (its own :data:`LAUNCHES` key,
 ``*_u16``), chosen by the bins' dtype.  The histogram geometries then
 split the bins into tiles that fit a block's shared memory (``bt``,
-``tiles``; one tile of B below that).  The plain versions widen the codes
-to int32 (``ops/histogram.py`` ``widen_bins``) where they compare or
-index.  The model-axis (``*_lanes``) forms take uint8 bins only.
+``tiles``; one tile of B below that).  The two leaf-channel forms run
+``csrc/hist_leaves_u16.cu``: the channel partition (:func:`leaf_partition`,
+its own :data:`LAUNCHES` key), then a histogram over its row list
+(:func:`list_geometry`).  The plain versions widen the codes to int32
+(``ops/histogram.py`` ``widen_bins``) where they compare or index.  The
+model-axis (``*_lanes``) forms take uint8 bins only.
 """
 
 from __future__ import annotations
@@ -91,7 +95,9 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "hist_single_lanes", "hist_single_lanes_plain",
            "wave_row_update_lanes", "wave_row_update_lanes_plain",
            "wave_trial_channels_lanes", "wave_trial_channels_lanes_plain",
-           "leaf_bin_tile", "single_bin_tile"]
+           "leaf_bin_tile", "single_bin_tile", "ListGeometry",
+           "list_geometry", "list_features", "list_slots", "RowList",
+           "leaf_partition", "leaf_partition_plain"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -113,7 +119,9 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             # the uint16 forms (max_bin > 255)
             "hist_single_u16": 0, "hist_leaves_q8_u16": 0,
             "hist_leaves_u16": 0, "wave_row_update_u16": 0,
-            "wave_row_update_ext_u16": 0, "wave_trial_channels_u16": 0}
+            "wave_row_update_ext_u16": 0, "wave_trial_channels_u16": 0,
+            # the channel partition of the uint16 leaf histograms
+            "leaf_partition": 0}
 
 
 def reset_launches() -> None:
@@ -258,11 +266,9 @@ Q8_MAX_BLOCK_ROWS = 1 << 24     # q8 sums (g << 32) + h in 64 bits
 
 class LeafGeometry(NamedTuple):
     """The launch of one leaf-channel histogram: ``cg`` channels x ``fg``
-    features x ``bt`` bins per block, ``c_groups * f_groups * tiles``
-    block columns (channel groups fastest, then feature groups, then bin
-    tiles) times ``chunks`` row chunks of ``chunk_rows`` rows, ``smem``
-    shared bytes per block.  One tile (``bt`` = B) unless a
-    (channel, feature) pair of B bins overflows the block."""
+    features per block, ``c_groups * f_groups`` block columns (channel
+    groups fastest) times ``chunks`` row chunks of ``chunk_rows`` rows,
+    ``smem`` shared bytes per block."""
     cg: int
     fg: int
     c_groups: int
@@ -270,8 +276,6 @@ class LeafGeometry(NamedTuple):
     chunks: int
     chunk_rows: int
     smem: int
-    bt: int
-    tiles: int
 
 
 def _pair_bytes(num_bins: int, q8: bool) -> int:
@@ -280,21 +284,10 @@ def _pair_bytes(num_bins: int, q8: bool) -> int:
     return num_bins * (12 if q8 else 20)
 
 
-def leaf_bin_tile(num_bins: int, q8: bool) -> tuple:
-    """(bins per tile, tiles): B in one tile when a (channel, feature)
-    pair of B bins fits a block beside the row queues, else the fewest
-    even tiles that do (uint16 bins past 10,598 fx / 17,664 q8 bins)."""
-    budget = BLOCK_SMEM - LEAF_THREADS * LEAF_QUEUE_BYTES
-    most = budget // _pair_bytes(1, q8)
-    tiles = -(-num_bins // most)
-    return -(-num_bins // tiles), tiles
-
-
 def leaf_groups(f: int, num_bins: int, k: int, q8: bool) -> list:
     """The (channels, features) groups one block can hold: for each count
     of channel groups, its channels and as many features as fit the
-    block's shared memory, spread evenly over the feature groups
-    (``num_bins``: the bins of one tile)."""
+    block's shared memory, spread evenly over the feature groups."""
     pair = _pair_bytes(num_bins, q8)
     budget = BLOCK_SMEM - LEAF_THREADS * LEAF_QUEUE_BYTES
     groups = []
@@ -309,27 +302,122 @@ def leaf_groups(f: int, num_bins: int, k: int, q8: bool) -> list:
 
 def leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int, q8: bool,
                   packed: bool) -> LeafGeometry:
-    """Geometry of ``hist_leaves_{q8,fx}[_p4]`` on a card with ``sms`` SMs:
-    of :func:`leaf_groups`, the one with the fewest block columns (each
-    reads every row's channel byte and queues its own rows), then the
-    most channels per block (its rows lie densest, so their bin and
-    weight gathers share the most sectors); row chunks sized so that the
-    whole grid is one resident round of one block per SM, of at most
-    ``LEAF_MAX_BLOCK_ROWS`` rows (``Q8_MAX_BLOCK_ROWS`` for q8).  Bins
-    past one block's room split into :func:`leaf_bin_tile` tiles, each
-    its own block columns."""
-    bt, tiles = leaf_bin_tile(num_bins, q8)
-    cg, fg = min(leaf_groups(f, bt, k, q8),
+    """Geometry of ``hist_leaves_{q8,fx}[_p4]`` (uint8 or packed bins) on a
+    card with ``sms`` SMs: of :func:`leaf_groups`, the one with the fewest
+    block columns (each reads every row's channel byte and queues its own
+    rows), then the most channels per block (its rows lie densest, so
+    their bin and weight gathers share the most sectors); row chunks
+    sized so that the whole grid is one resident round of one block per
+    SM, of at most ``LEAF_MAX_BLOCK_ROWS`` rows (``Q8_MAX_BLOCK_ROWS`` for
+    q8)."""
+    cg, fg = min(leaf_groups(f, num_bins, k, q8),
                  key=lambda g: (-(-k // g[0]) * -(-f // g[1]), -g[0]))
-    combos = -(-k // cg) * -(-f // fg) * tiles
+    combos = -(-k // cg) * -(-f // fg)
     steps = max(1, -(-n // LEAF_ROW_STEP))
     chunks = max(1, min(steps, sms // combos),
                  -(-n // (Q8_MAX_BLOCK_ROWS if q8 else LEAF_MAX_BLOCK_ROWS)))
     chunk_rows = -(-steps // chunks) * LEAF_ROW_STEP
     return LeafGeometry(cg, fg, -(-k // cg), -(-f // fg),
                         max(1, -(-n // chunk_rows)), chunk_rows,
-                        cg * fg * _pair_bytes(bt, q8) +
-                        LEAF_THREADS * LEAF_QUEUE_BYTES, bt, tiles)
+                        cg * fg * _pair_bytes(num_bins, q8) +
+                        LEAF_THREADS * LEAF_QUEUE_BYTES)
+
+
+# -- the uint16 leaf histograms' geometry (csrc/hist_leaves_u16.cu) ------------
+#
+# The channel partition lists the rows of each channel; a histogram block
+# then walks one channel's share of that list (one slot) for fg features
+# and one tile of bt bins, with no row queue beside its histogram.
+LIST_PART_MIN_ROWS = 16_384   # fewest rows a partition block takes
+LIST_PART_SM_BLOCKS = 2       # partition blocks per SM, at most
+LIST_FILL = 0.9               # least share of the last resident round filled
+LIST_MAX_CHANNELS = 64        # the partition's shared tables
+LIST_BIN_BATCH = 8            # bin loads of one listed row issued together
+
+
+class ListGeometry(NamedTuple):
+    """The launch of one uint16 leaf histogram: ``fg`` features of one
+    channel x ``bt`` bins per block; ``f_groups * tiles`` block columns
+    (tiles fastest; the ``tiles`` blocks of a feature group form one
+    thread-block cluster) for each of ``slots + k`` ranked slots (the
+    list's chunks, shared out over the channels by their rows; at most
+    ``slots + k`` taken), ``blocks`` in all, ``smem`` shared bytes per
+    block; the partition in ``part_blocks`` row blocks."""
+    fg: int
+    f_groups: int
+    bt: int
+    tiles: int
+    slots: int
+    blocks: int
+    smem: int
+    part_blocks: int
+
+
+def leaf_bin_tile(num_bins: int, q8: bool) -> tuple:
+    """(bins per tile, tiles): B in one tile when one (channel, feature)
+    pair of B bins fits a block, else the fewest even tiles that do
+    (past 11,622 fx / 19,370 q8 bins; at most 6 fx / 4 q8 tiles, within
+    a thread-block cluster's 8 blocks)."""
+    most = BLOCK_SMEM // _pair_bytes(1, q8)
+    tiles = -(-num_bins // most)
+    return -(-num_bins // tiles), tiles
+
+
+def list_features(f: int, bt: int, q8: bool) -> list:
+    """The features per block the uint16 leaf histograms can take at
+    ``bt`` bins a tile: for each count of feature groups, its features
+    spread evenly, from the most that fit a block down to one."""
+    most = max(1, min(f, BLOCK_SMEM // _pair_bytes(bt, q8)))
+    out = []
+    for groups in range(-(-f // most), f + 1):
+        fg = -(-f // groups)
+        if not out or out[-1] != fg:
+            out.append(fg)
+    return out
+
+
+def list_slots_least(n: int, q8: bool) -> int:
+    """Fewest slots that keep every q8 block under ``Q8_MAX_BLOCK_ROWS``
+    listed rows: a slot holds at most ceil(2 x total / slots) rows
+    (:func:`list_slots`)."""
+    return max(1, -(-2 * n // Q8_MAX_BLOCK_ROWS)) if q8 else 1
+
+
+def list_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
+                  q8: bool) -> ListGeometry:
+    """Geometry of ``hist_leaves_{fx,q8}_u16`` on a card with ``sms`` SMs
+    over ``n`` rows.  A block keeps one channel: the list puts a block's
+    rows in one channel, so a wider channel group would only flush more.
+    Of :func:`list_features`, it takes the split whose listed rows wait
+    the fewest times for their bins (each feature group reads a row's
+    record and loads its bins ``LIST_BIN_BATCH`` at a time, one wait a
+    batch), then the fewest feature groups (the fewest record reads).  The
+    slots are ``k`` x m for the least m whose grid of columns x slots
+    blocks fills at least ``sms`` blocks and ``LIST_FILL`` of its last
+    resident round (an even mix then gives every channel m slots), and
+    at least :func:`list_slots_least`.  PERF.md section 6 has the sweep
+    behind both rules (``scripts/torch_u16_leaf_sweep.py``)."""
+    bt, tiles = leaf_bin_tile(num_bins, q8)
+    fg = min(list_features(f, bt, q8),
+             key=lambda g: (-(-f // g) * -(-g // LIST_BIN_BATCH), -g))
+    f_groups = -(-f // fg)
+    columns = f_groups * tiles
+    least = list_slots_least(n, q8)
+    m = max(1, -(-least // k))
+    while True:
+        g = columns * k * m
+        if g >= sms and g >= LIST_FILL * sms * -(-g // sms):
+            break
+        m += 1
+    slots = k * m
+    return ListGeometry(fg, f_groups, bt, tiles, slots,
+                        columns * (slots + k), fg * _pair_bytes(bt, q8),
+                        _part_blocks(sms, n))
+
+
+def _part_blocks(sms: int, n: int) -> int:
+    """Row blocks of the channel partition over ``n`` rows."""
+    return max(1, min(LIST_PART_SM_BLOCKS * sms, -(-n // LIST_PART_MIN_ROWS)))
 
 
 _SMS = {}
@@ -343,24 +431,166 @@ def _sm_count(dev: torch.device) -> int:
 
 
 def _launch_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, packed):
-    wide = bins_t.dtype == torch.uint16
-    fn_name = fn_name + ("_p4" if packed else "_u16" if wide else "")
-    geo = leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k,
-                        fn_name.startswith("hist_leaves_q8"), packed)
-    vec = int(ch.data_ptr() % 4 == 0)
-    if wide:
-        fn = _fn("hist_leaves", fn_name,
-                 [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _CI, _LL,
-                              _CI, _VP])
-        _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
-                     geo.cg, geo.fg, geo.bt, geo.chunks, geo.chunk_rows, vec,
-                     _stream()), fn_name)
+    q8 = fn_name.startswith("hist_leaves_q8")
+    if bins_t.dtype == torch.uint16:
+        _launch_list_hist(fn_name + "_u16", bins_t, w, ch, out, f, n,
+                          num_bins, k, q8)
         return
+    fn_name = fn_name + ("_p4" if packed else "")
+    geo = leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k, q8,
+                        packed)
     fn = _fn("hist_leaves", fn_name,
              [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _LL, _CI, _VP])
     _raise_on(fn(_p(bins_t), _p(w), _p(ch), _p(out), f, n, num_bins, k,
-                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows, vec, _stream()),
-              fn_name)
+                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows,
+                 int(ch.data_ptr() % 4 == 0), _stream()), fn_name)
+
+
+# -- the channel partition (csrc/hist_leaves_u16.cu) ---------------------------
+
+class RowList(NamedTuple):
+    """The rows with 0 <= ch < K listed by channel, ascending within one,
+    as ``records`` (int64; the first ``offsets[K]`` are the list): the
+    exact form's (M, 4) [g, h, id | n << 32, 0], the quantized form's (M,)
+    id | g << 32 | h << 40 | n << 48 (the int8 weights' bytes), its
+    three weights beside each id; ``offsets`` (K + 1,) int32; and the
+    list's chunks: ``slots`` (K,) int32 chunks of each channel and
+    ``table`` (S + K,) int32, entry r = (j << 8) | c for the slot of rank
+    r (slot j of channel c), -1 past the last (:func:`list_slots`)."""
+    records: torch.Tensor
+    offsets: torch.Tensor
+    slots: torch.Tensor
+    table: torch.Tensor
+
+    def ids(self) -> torch.Tensor:
+        """The listed rows' ids, (offsets[K],) int64."""
+        m = int(self.offsets[-1])
+        r = self.records[:m]
+        return (r[:, 2] if r.dim() == 2 else r) & 0xFFFFFFFF
+
+    def weights(self) -> torch.Tensor:
+        """The listed rows' (g, h, count), (3, offsets[K]) int64."""
+        m = int(self.offsets[-1])
+        r = self.records[:m]
+        if r.dim() == 2:
+            return torch.stack([r[:, 0], r[:, 1], r[:, 2] >> 32])
+        return torch.stack([((r >> s) & 0xFF).to(torch.uint8).view(
+            torch.int8).long() for s in (32, 40, 48)])
+
+
+def _records(ids: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The partition's records of rows ``ids`` (int64) with weights ``w``
+    (>= 3, N), int64 (exact) or int8 (quantized)."""
+    w3 = w[:3, ids].long()
+    if w.dtype == torch.int8:
+        return (ids | ((w3[0] & 0xFF) << 32) | ((w3[1] & 0xFF) << 40) |
+                ((w3[2] & 0xFF) << 48))
+    return torch.stack([w3[0], w3[1], ids | (w3[2] << 32),
+                        torch.zeros_like(ids)], dim=1)
+
+
+def list_slots(counts: torch.Tensor, num_slots: int) -> tuple:
+    """(slots, table) of ``num_slots`` chunk slots shared out over channels
+    of ``counts`` listed rows: channel c takes s_c = max(1, round(n_c x S
+    / total)) (half up; 0 if empty), at most S + K in all; the slots are
+    ranked by the start of their share of the channel, (j / s_c, c), so
+    that blocks run together walk the same stretch of rows.  The plain
+    version of the partition's scan (csrc/hist_leaves_u16.cu
+    ``part_scan``)."""
+    n = counts.to(torch.int64).cpu()
+    k = n.numel()
+    total = int(n.sum())
+    s = (torch.clamp((2 * n * num_slots + total) // max(2 * total, 1),
+                     min=1) * (n > 0)).to(torch.int64)
+    table = torch.full((num_slots + k,), -1, dtype=torch.int32)
+    c = torch.repeat_interleave(torch.arange(k), s)
+    j = torch.arange(c.numel()) - torch.repeat_interleave(
+        torch.cumsum(s, 0) - s, s)
+    if c.numel():
+        sc, sd = s[c][:, None], s[None, :]
+        q = j[:, None] * sd
+        other = (torch.arange(k)[None, :] != c[:, None]) & (sd > 0)
+        tie = (torch.arange(k)[None, :] < c[:, None]) & (q % sc == 0)
+        rank = j + ((-(-q // sc) + tie) * other).sum(dim=1)
+        table[rank] = ((j << 8) | c).to(torch.int32)
+    return s.to(torch.int32), table
+
+
+def leaf_partition_plain(ch: torch.Tensor, w: torch.Tensor, *,
+                         num_channels: int, slots: int) -> RowList:
+    """Plain version of :func:`leaf_partition`: a stable argsort of the
+    kept rows' channels, offsets from their ``bincount``."""
+    k = num_channels
+    rows = torch.nonzero((ch >= 0) & (ch < k)).squeeze(1)
+    c = ch[rows].long()
+    ids = rows[torch.argsort(c, stable=True)]
+    counts = torch.bincount(c, minlength=k)
+    offsets = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    s, table = list_slots(counts, slots)
+    return RowList(_records(ids, w), offsets.to(torch.int32),
+                   s.to(ch.device), table.to(ch.device))
+
+
+def leaf_partition(ch: torch.Tensor, w: torch.Tensor, *, num_channels: int,
+                   slots: int, part_blocks: int = None) -> RowList:
+    """The rows of each leaf channel as one list of records
+    (:class:`RowList`): ch (N,) int8, rows outside [0, K) unlisted; w
+    (>= 3, N) int64 (exact) or int8 (quantized) weights, its first three
+    rows copied into the records.  On the card the records have room for
+    N rows, the first ``offsets[K]`` listed; ``part_blocks`` row blocks
+    (default :func:`list_geometry`'s count)."""
+    k = num_channels
+    if ch.dtype != torch.int8 or ch.dim() != 1:
+        raise TypeError("leaf_partition: ch must be (N,) int8")
+    n = ch.shape[0]
+    if (w.dtype not in (torch.int64, torch.int8) or w.dim() != 2 or
+            w.shape[0] < 3 or w.shape[1] != n):
+        raise ValueError(f"leaf_partition: weights must be (>= 3, {n}) "
+                         f"int64 or int8, got {tuple(w.shape)} {w.dtype}")
+    if not 1 <= k <= LIST_MAX_CHANNELS or slots < 1:
+        raise ValueError(f"leaf_partition: {k} channels (at most "
+                         f"{LIST_MAX_CHANNELS}) and {slots} slots")
+    if w.device != ch.device:
+        raise ValueError(f"weights are on {w.device}, expected {ch.device}")
+    if not (ch.is_contiguous() and w.is_contiguous()):
+        raise ValueError("leaf_partition: ch and weights must be contiguous")
+    _check_device("leaf_partition", ch.device)
+    if ch.device.type == "cpu":
+        return leaf_partition_plain(ch, w, num_channels=k, slots=slots)
+    if n >= 1 << 31:
+        raise ValueError(f"leaf_partition: {n} rows; a record's id is "
+                         "32 bits")
+    dev = ch.device
+    if part_blocks is None:
+        part_blocks = _part_blocks(_sm_count(dev), n)
+    rec = torch.empty((n, 4) if w.dtype == torch.int64 else (n,),
+                      dtype=torch.int64, device=dev)
+    plan = torch.empty((3 * k + 1 + slots + 33 * k * part_blocks,),
+                       dtype=torch.int32, device=dev)
+    if n:
+        fn = _fn("hist_leaves_u16", "leaf_partition",
+                 [_VP, _VP, _CI, _LL, _CI, _CI, _CI, _VP, _VP, _VP])
+        _raise_on(fn(_p(ch), _p(w), w.element_size(), n, k, part_blocks,
+                     slots, _p(rec), _p(plan), _stream()),
+                  "leaf_partition")
+        LAUNCHES["leaf_partition"] += 1
+    else:
+        plan.zero_()
+        plan[2 * k + 1:3 * k + 1 + slots] = -1
+    return RowList(rec, plan[:k + 1], plan[k + 1:2 * k + 1],
+                   plan[2 * k + 1:3 * k + 1 + slots])
+
+
+def _launch_list_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, q8):
+    """The channel partition, then the histogram over its records, both
+    on the current stream and from one :func:`list_geometry`."""
+    geo = list_geometry(_sm_count(bins_t.device), f, n, num_bins, k, q8)
+    rl = leaf_partition(ch, w, num_channels=k, slots=geo.slots,
+                        part_blocks=geo.part_blocks)
+    fn = _fn("hist_leaves_u16", fn_name,
+             [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _VP])
+    _raise_on(fn(_p(bins_t), _p(rl.records), _p(rl.offsets), _p(out), f, n,
+                 num_bins, k, geo.fg, geo.bt, geo.slots, _stream()), fn_name)
 
 
 def _unpacked(bins_t, bins_packed: bool):

@@ -17,6 +17,12 @@ JAX package (the strict ``xfail`` of tests/test_torch_options.py
    NaN-left direction ("own", the port's, and "parent").
 4. Trains the port again with the NaN-left blend switched to "parent"
    and prints the gains that differ then.
+5. Runs that copy vmapped over the 2W children in one jit, as the
+   grower's children scan is, and classifies each NaN-left gain where
+   the two blends differ by which blend the reference's value matches,
+   against its flat index (child, feature, bin) in the fused loop: the
+   vector body against the scalar remainder, and the lane, for vectors
+   of 4, 8 and 16 floats.
 
 Runs on the CPU in a minute or two; imports both packages, like the
 tests.
@@ -161,6 +167,7 @@ def main():
     print(f"reference planes at child {c}, feature {int(out[1][c])}, bin "
           f"{int(out[2][c])}: NaN-right {gr[out[1][c], out[2][c]]:.9g}, "
           f"NaN-left {gl[out[1][c], out[2][c]]:.9g}")
+    classify_left_blend(planes, hist, sums, nb, hn, sp, sp_t, k)
     for blend in ("own", "parent"):
         undo = with_left_blend(blend)
         try:
@@ -177,6 +184,58 @@ def main():
               f"{2 * hist.shape[0] * hist.shape[1] * hist.shape[2]} apart "
               f"from the reference's planes; split gains apart in the "
               f"grower: {diff(ref_text, text)}")
+
+
+def classify_left_blend(planes, hist, sums, nb, hn, sp, sp_t, k):
+    """Step 5: the reference's NaN-left planes from one vmapped jit over
+    the children, against the port's under each blend."""
+    J = lambda a: jnp.asarray(np.asarray(a))   # noqa: E731
+    ic = jnp.zeros((F,), bool)
+    spp = planes.SplitParams(**sp._asdict())
+
+    def one(h, s_, bnd, dep, po):
+        return planes._best_split_impl(h, s_, J(nb), ic, J(hn), spp,
+                                       J(k["monotone"]), bnd, dep, None,
+                                       None, po)
+    _, ref_l = jax.jit(jax.vmap(one))(J(hist), J(sums), J(k["bound"]),
+                                      J(k["depth"]), J(k["parent_out"]))
+    ref_l = np.asarray(ref_l)
+    port = {}
+    for blend in ("own", "parent"):
+        undo = with_left_blend(blend)
+        try:
+            port[blend] = np.stack([ts_planes(hist[ci], sums[ci], nb, hn,
+                                              sp_t, k, ci)[1]
+                                    for ci in range(hist.shape[0])])
+        finally:
+            undo()
+    differ = port["own"] != port["parent"]
+    own = differ & (ref_l == port["own"])
+    par = differ & (ref_l == port["parent"])
+    other = differ & ~own & ~par
+    same_apart = int(((ref_l != port["own"]) & ~differ).sum())
+    flat = np.arange(ref_l.size).reshape(ref_l.shape)
+    print(f"step 5, one vmapped jit over {hist.shape[0]} children "
+          f"({ref_l.size} NaN-left gains): the blends differ at "
+          f"{int(differ.sum())}; the reference matches own at "
+          f"{int(own.sum())}, parent at {int(par.sum())}, neither at "
+          f"{int(other.sum())}; {same_apart} apart where the blends agree")
+    for name, sel in (("own", own), ("parent", par)):
+        idx = flat[sel]
+        print(f"  {name}: (child, feature, bin) "
+              f"{[tuple(int(v) for v in np.unravel_index(i, ref_l.shape)) for i in idx[:24]]}")
+        for v in (4, 8, 16):
+            body = ref_l.size // v * v
+            for axis_len, axis_name in ((ref_l.size, "flat"),
+                                        (ref_l.shape[-1], "bin")):
+                pos = idx if axis_name == "flat" else idx % axis_len
+                tail = int((pos >= (axis_len // v * v)).sum())
+                lanes = np.bincount(pos % v, minlength=v)
+                print(f"    vectors of {v}, by {axis_name} index: "
+                      f"{tail} in the remainder past {axis_len // v * v} "
+                      f"(of {axis_len}); per lane {lanes.tolist()}")
+            del body
+    return own, par
 
 
 def ts_planes(h, s_, nb, hn, sp_t, k, ci):

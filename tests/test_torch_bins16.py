@@ -18,7 +18,9 @@ package.
   both held against the reference's masked grower, which reads uint16.
 * The launch geometry of the uint16 kernels: every B up to 65,536 fits a
   block's shared memory through the bin-tile axis, and the blocks cover
-  every (channel, feature, bin, row) cell once.
+  every (channel, feature, bin, row) cell once.  The leaf histograms' row
+  list: the plain channel partition's layout, its chunk slots, and a
+  plain walk of the blocks over it equal to the plain histograms.
 
 The CUDA kernels themselves run on the card only
 (``tests/test_torch_gpu.py``, ``chip_smoke.py`` phase 15).
@@ -314,25 +316,222 @@ BIG_BINS = [257, 1024, 4096, 10_598, 10_599, 11_621, 11_622, 17_664,
             17_665, 32_768, 65_535, 65_536]
 
 
+MAIN_ROWS = 10_502_144
+
+
+def _mix_counts(mix, n, k, seed=0):
+    """Rows per channel of a mix over ``n`` rows and ``k`` channels:
+    chip_smoke.py phase 15a's (half the rows kept, spread evenly over 42
+    channels, the exact form's first 25 of them), one channel holding 90%
+    of the kept rows with several empty, or no kept row at all."""
+    if mix == "none":
+        return torch.zeros(k, dtype=torch.int64)
+    if mix == "phase15a":
+        c = torch.full((k,), n // 2 // hc.Q_LEAF_CHANNELS, dtype=torch.int64)
+        c[:n // 2 % hc.Q_LEAF_CHANNELS] += 1 if k == hc.Q_LEAF_CHANNELS else 0
+        return c
+    rng = np.random.RandomState(seed)
+    kept = n // 2
+    c = np.zeros(k, np.int64)
+    c[3] = kept * 9 // 10
+    rest = rng.choice([i for i in range(k) if i % 4 != 1 and i != 3],
+                      kept - c[3])
+    np.add.at(c, rest, 1)
+    return torch.from_numpy(c)
+
+
+def _pieces(offsets, slots, table):
+    """(channel, first, end) of every slot's listed rows, by rank."""
+    out = []
+    for e in table.tolist():
+        if e < 0:
+            continue
+        c, j = e & 255, e >> 8
+        o, m, s = int(offsets[c]), int(offsets[c + 1] - offsets[c]), \
+            int(slots[c])
+        out.append((c, o + m * j // s, o + m * (j + 1) // s))
+    return out
+
+
 @pytest.mark.parametrize("num_bins", BIG_BINS)
 @pytest.mark.parametrize("q8", [True, False])
 def test_leaf_geometry_fits_every_bin_count(num_bins, q8):
+    """The uint16 leaf histograms' geometry (``list_geometry``): a block's
+    histogram fits ``BLOCK_SMEM``, the tiles cover B, a slot's block
+    columns cover every (feature, bin) once, its slots split each
+    channel's listed rows once, every q8 block takes at most 2^24 rows,
+    and phase 15a's mix fills at least 132 blocks at B=1024."""
     k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
-    for n in (4096, 10_502_144):
-        geo = hc.leaf_geometry(SMS, 28, n, num_bins, k, q8, False)
+    for n in (4096, MAIN_ROWS):
+        geo = hc.list_geometry(SMS, 28, n, num_bins, k, q8)
         assert geo.smem <= hc.BLOCK_SMEM
-        assert geo.smem + 1024 <= SM_SMEM
+        assert geo.smem == geo.fg * geo.bt * (12 if q8 else 20)
         assert geo.bt * geo.tiles >= num_bins > geo.bt * (geo.tiles - 1)
-        cover = np.zeros((k, 28, num_bins), np.int64)
-        for x in range(geo.c_groups * geo.f_groups * geo.tiles):
-            c0 = (x % geo.c_groups) * geo.cg
-            fx = x // geo.c_groups
-            f0 = (fx % geo.f_groups) * geo.fg
-            b0 = (fx // geo.f_groups) * geo.bt
-            assert b0 < num_bins and c0 < k and f0 < 28
-            cover[c0:c0 + geo.cg, f0:f0 + geo.fg, b0:b0 + geo.bt] += 1
+        assert geo.tiles <= 8          # a tile cluster's portable size
+        columns = geo.f_groups * geo.tiles
+        assert geo.blocks == columns * (geo.slots + k)
+        cover = np.zeros((28, num_bins), np.int64)
+        for col in range(columns):
+            b0 = (col % geo.tiles) * geo.bt
+            f0 = (col // geo.tiles) * geo.fg
+            assert b0 < num_bins and f0 < 28
+            cover[f0:f0 + geo.fg, b0:b0 + geo.bt] += 1
         assert (cover == 1).all()
-        assert geo.chunks * geo.chunk_rows >= n
+        for mix in ("phase15a", "skewed", "none"):
+            counts = _mix_counts(mix, n, k)
+            offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                                 torch.cumsum(counts, 0)])
+            slots, table = hc.list_slots(counts, geo.slots)
+            assert table.numel() == geo.slots + k
+            pieces = _pieces(offsets, slots, table)
+            rows = np.zeros(int(offsets[-1]), np.int64)
+            for c, a, b in pieces:
+                assert offsets[c] <= a <= b <= offsets[c + 1]
+                rows[a:b] += 1
+                if q8:
+                    assert b - a <= hc.Q8_MAX_BLOCK_ROWS
+            assert (rows == 1).all()
+            if mix == "phase15a" and num_bins == 1024 and n == MAIN_ROWS:
+                assert columns * len(pieces) >= SMS
+
+
+@pytest.mark.parametrize("mix", ["phase15a", "skewed", "none"])
+def test_list_slots_rank_by_share_start(mix):
+    """Each channel with rows takes max(1, round(n_c S / total)) slots, S
+    + K at most; the table ranks them by (j / s_c, c), -1 after; no slot
+    holds more than ceil(2 total / S) rows, so S >= 2N / 2^24 keeps q8
+    blocks under 2^24 rows even at 2^28 rows."""
+    for n, k, num_slots in ((MAIN_ROWS, 42, 126), (MAIN_ROWS, 25, 125),
+                            (1 << 28, 42, hc.list_slots_least(1 << 28, True)),
+                            (4096, 25, 250)):
+        counts = _mix_counts(mix, n, k)
+        total = int(counts.sum())
+        slots, table = hc.list_slots(counts, num_slots)
+        s = slots.long()
+        assert ((s == 0) == (counts == 0)).all()
+        assert int(s.sum()) <= num_slots + k
+        used = int(s.sum())
+        assert (table[used:] == -1).all()
+        keys = [((e >> 8) / int(s[e & 255]), e & 255)
+                for e in table[:used].tolist()]
+        assert keys == sorted(keys) and len(set(keys)) == used
+        if total:
+            most = max(-(-int(counts[c]) // int(s[c])) for c in range(k)
+                       if s[c] > 0)
+            assert most <= -(-2 * total // num_slots)
+            if n == 1 << 28:
+                assert most <= hc.Q8_MAX_BLOCK_ROWS
+
+
+def _channels(mix, n, k, rng):
+    """(N,) int8 channels of a mix, rows outside [0, K) unlisted."""
+    if mix == "none":
+        return torch.full((n,), -1, dtype=torch.int8)
+    if mix == "uniform":
+        return torch.from_numpy(rng.randint(-1, k + 3, n).astype(np.int8))
+    ch = np.full(n, -1, np.int8)
+    kept = rng.rand(n) < 0.6
+    heavy = rng.rand(n) < 0.9
+    ch[kept & heavy] = 3
+    light = kept & ~heavy
+    ch[light] = rng.choice([c for c in range(k) if c % 4 != 1 and c != 3],
+                           int(light.sum()))
+    return torch.from_numpy(ch)
+
+
+@pytest.mark.parametrize("mix", ["uniform", "skewed", "none"])
+@pytest.mark.parametrize("q8", [True, False])
+def test_plain_partition_lists_each_channel_in_row_order(mix, q8):
+    """The plain channel partition: the offsets are the cumulative
+    ``bincount`` of the listed channels, ids ascend within a channel,
+    rows outside [0, K) are absent, and every record carries its row's
+    three weights."""
+    rng = np.random.RandomState(5)
+    n = 6000
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    ch = _channels(mix, n, k, rng)
+    if q8:
+        w = torch.from_numpy(rng.randint(-128, 128, (8, n)).astype(np.int8))
+    else:
+        w = th.pack_weights(torch.randn(n), torch.rand(n),
+                            (torch.rand(n) < 0.8).float()).w
+    rl = hc.leaf_partition(ch, w, num_channels=k, slots=3 * k)
+    kept = (ch >= 0) & (ch < k)
+    counts = torch.bincount(ch[kept].long(), minlength=k)
+    np.testing.assert_array_equal(
+        rl.offsets.numpy(), np.concatenate([[0], np.cumsum(counts.numpy())]))
+    ids = rl.ids()
+    assert ids.numel() == int(kept.sum())
+    assert set(ids.tolist()) == set(torch.nonzero(kept).squeeze(1).tolist())
+    for c in range(k):
+        run = ids[rl.offsets[c]:rl.offsets[c + 1]]
+        assert (ch[run] == c).all()
+        assert (run[1:] > run[:-1]).all()
+    np.testing.assert_array_equal(rl.weights().numpy(),
+                                  w[:3, ids].long().numpy())
+
+
+def _walk(bins, w3, ch, k, num_bins, geo):
+    """The list histograms' decomposition in plain PyTorch: block b of
+    ``geo`` (tile t of its column's cluster) adds 1/tiles of its slot's
+    listed rows for its features, each bin into the tile that holds it,
+    and the tiles' histograms add into the (K, F, B, 3) int64 sums."""
+    f = bins.shape[0]
+    rl = hc.leaf_partition(ch, w3, num_channels=k, slots=geo.slots)
+    ids, wts = rl.ids(), rl.weights()
+    pieces = _pieces(rl.offsets, rl.slots, rl.table)
+    tiles = torch.zeros((geo.tiles, k, f, geo.bt, 3), dtype=torch.int64)
+    wide = bins.to(torch.int64)
+    columns = geo.f_groups * geo.tiles
+    for b in range(geo.blocks):
+        if b // columns >= len(pieces):
+            continue
+        c, s0, s1 = pieces[b // columns]
+        col = b % columns
+        t = col % geo.tiles
+        f0 = (col // geo.tiles) * geo.fg
+        p0 = s0 + (s1 - s0) * t // geo.tiles
+        p1 = s0 + (s1 - s0) * (t + 1) // geo.tiles
+        rows, w = ids[p0:p1], wts[:, p0:p1]
+        for x in range(f0, min(f0 + geo.fg, f)):
+            bb = wide[x, rows]
+            keep = bb < num_bins
+            bb, wk = bb[keep], w[:, keep]
+            for owner in range(geo.tiles):
+                mine = bb // geo.bt == owner
+                tiles[owner, c, x].index_add_(
+                    0, bb[mine] - owner * geo.bt, wk[:, mine].T)
+    return torch.cat(list(tiles), dim=2)[:, :, :num_bins]
+
+
+@pytest.mark.parametrize("num_bins", [257, 1024, 65_535])
+@pytest.mark.parametrize("mix", ["uniform", "skewed"])
+@pytest.mark.parametrize("q8", [True, False])
+def test_list_walk_matches_plain_histograms(num_bins, mix, q8):
+    """Walking ``list_geometry``'s blocks over the plain row list (per
+    slot, feature group and tile of a cluster, then summed) gives
+    ``build_histogram_leaves{,_q8}_plain`` bit for bit: the decomposition
+    drops and doubles no row."""
+    rng = np.random.RandomState(num_bins % 89)
+    n, f = 4096, 5
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    bins = torch.from_numpy(rng.randint(0, num_bins, (f, n)).astype(
+        np.uint16))
+    ch = _channels(mix, n, k, rng)
+    geo = hc.list_geometry(SMS, f, n, num_bins, k, q8)
+    if q8:
+        wch = torch.from_numpy(rng.randint(-128, 128, (8, n)).astype(np.int8))
+        want = hc.build_histogram_leaves_q8_plain(bins, wch, ch,
+                                                  num_bins=num_bins)
+        got = _walk(bins, wch, ch, k, num_bins, geo)
+        np.testing.assert_array_equal(got.numpy(), want.long().numpy())
+    else:
+        w = th.pack_weights(torch.randn(n), torch.rand(n),
+                            (torch.rand(n) < 0.8).float())
+        want = hc.build_histogram_leaves_plain(bins, w, ch, num_bins=num_bins,
+                                               raw=True)
+        got = _walk(bins, w.w, ch, k, num_bins, geo)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
 
 
 @pytest.mark.parametrize("num_bins", BIG_BINS)
@@ -358,9 +557,10 @@ def test_single_geometry_fits_every_bin_count(num_bins, layout):
 def test_bin_tiles_start_where_one_feature_overflows():
     assert hc.single_bin_tile(11_621) == (11_621, 1)
     assert hc.single_bin_tile(11_622)[1] == 2
-    assert hc.leaf_bin_tile(10_598, False) == (10_598, 1)
-    assert hc.leaf_bin_tile(10_599, False)[1] == 2
-    assert hc.leaf_bin_tile(17_664, True) == (17_664, 1)
+    assert hc.leaf_bin_tile(11_622, False) == (11_622, 1)
+    assert hc.leaf_bin_tile(11_623, False)[1] == 2
+    assert hc.leaf_bin_tile(19_370, True) == (19_370, 1)
+    assert hc.leaf_bin_tile(19_371, True)[1] == 2
     assert hc.leaf_bin_tile(65_536, True)[1] == 4
     # uint8 bins never tile
     for b in (1, 16, 255, 256):

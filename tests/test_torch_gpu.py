@@ -1047,8 +1047,8 @@ def test_pred_contrib_on_card(cuda_device):
 # -- uint16 bins (max_bin > 255) ----------------------------------------------
 
 U16_KERNELS = ("hist_single_u16", "hist_leaves_q8_u16", "hist_leaves_u16",
-               "wave_row_update_u16", "wave_row_update_ext_u16",
-               "wave_trial_channels_u16")
+               "leaf_partition", "wave_row_update_u16",
+               "wave_row_update_ext_u16", "wave_trial_channels_u16")
 
 
 def _u16_case(device, n, num_bins, seed=3, w=25):
@@ -1081,16 +1081,44 @@ def _u16_case(device, n, num_bins, seed=3, w=25):
             t(tab.astype(np.int32)), t(feats.astype(np.int32)))
 
 
+def _u16_channels(device, n, mix, seed=4):
+    """(n,) int8 leaf channels: ``uniform`` over [-1, 25), ``skewed`` (of
+    the 60% kept, 90% in channel 3, the rest in channels c % 4 != 1, so
+    several empty) or ``none`` (no kept row)."""
+    rng = np.random.RandomState(seed)
+    ch = np.full(n, -1, np.int8)
+    if mix == "uniform":
+        ch = rng.randint(-1, hc.LEAF_CHANNELS, n).astype(np.int8)
+    elif mix == "skewed":
+        kept = rng.rand(n) < 0.6
+        heavy = rng.rand(n) < 0.9
+        ch[kept & heavy] = 3
+        light = kept & ~heavy
+        ch[light] = rng.choice([c for c in range(hc.LEAF_CHANNELS)
+                                if c % 4 != 1 and c != 3], int(light.sum()))
+    return torch.from_numpy(ch).to(device)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,num_bins", [(65536, 1024), (100_003, 1024),
-                                        (65536, 20_000), (100_003, 65_535)])
+@pytest.mark.parametrize("n,num_bins,mix", [
+    pytest.param(65536, 1024, "uniform", id="65536-1024"),
+    pytest.param(100_003, 1024, "uniform", id="100003-1024"),
+    pytest.param(65536, 20_000, "uniform", id="65536-20000"),
+    pytest.param(100_003, 65_535, "uniform", id="100003-65535"),
+    pytest.param(65536, 257, "uniform", id="65536-257"),
+    pytest.param(100_003, 1024, "skewed", id="100003-1024-skewed"),
+    pytest.param(65536, 65_535, "skewed", id="65536-65535-skewed"),
+    pytest.param(65536, 1024, "none", id="65536-1024-no-kept-row")])
 def test_u16_kernels_match_plain_on_card(cuda_device, monkeypatch, n,
-                                         num_bins):
+                                         num_bins, mix):
     """Every uint16 form bit for bit its plain version and identical across
     two launches; 20,000 and 65,535 bins run the bin-tile axis of all
-    three histograms."""
+    three histograms; the leaf forms also on a skewed mix and one with no
+    kept row."""
     bins, rows, grad, hess, mask, ch, rl, tab, feats = _u16_case(
         cuda_device, n, num_bins)
+    if mix != "uniform":
+        ch = _u16_channels(cuda_device, n, mix)
     assert bins.dtype == torch.uint16
     wch = tq.quantize_wch(grad, hess, mask,
                           torch.tensor(0.01, device=cuda_device),
@@ -1148,6 +1176,40 @@ def test_u16_kernels_match_plain_on_card(cuda_device, monkeypatch, n,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("mix", ["uniform", "skewed", "none"])
+@pytest.mark.parametrize("q8", [True, False])
+def test_leaf_partition_matches_plain_on_card(cuda_device, mix, q8):
+    """The channel partition's records and plan (offsets, slots, slot
+    table) equal its plain version's (a stable argsort), identical across
+    two launches."""
+    n = 100_003
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    ch = _u16_channels(cuda_device, n, mix)
+    rng = np.random.RandomState(8)
+    if q8:
+        w = torch.from_numpy(rng.randint(-128, 128, (8, n)).astype(
+            np.int8)).to(cuda_device)
+    else:
+        w = th.pack_weights(torch.randn(n), torch.rand(n),
+                            (torch.rand(n) < 0.8).float()).w.to(cuda_device)
+    geo = hc.list_geometry(hc._sm_count(torch.device(cuda_device)), F, n,
+                           1024, k, q8)
+    before = hc.LAUNCHES["leaf_partition"]
+    runs = [hc.leaf_partition(ch, w, num_channels=k, slots=geo.slots,
+                              part_blocks=geo.part_blocks) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["leaf_partition"] == before + 2
+    want = hc.leaf_partition_plain(ch.cpu(), w.cpu(), num_channels=k,
+                                   slots=geo.slots)
+    m = int(want.offsets[-1])
+    for rl in runs:
+        torch.testing.assert_close(rl.records[:m].cpu(), want.records,
+                                   rtol=0, atol=0)
+        for got, exp in zip(rl[1:], want[1:]):
+            assert torch.equal(got.cpu(), exp)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("extra", [
     dict(tree_grow_mode="wave", use_quantized_grad=True,
          stochastic_rounding=False),
@@ -1166,7 +1228,7 @@ def test_u16_training_on_card_matches_cpu(cuda_device, extra):
     before = dict(hc.LAUNCHES)
     on_card = lt.train(params, lt.Dataset(X, y), 4, device=cuda_device)
     torch.cuda.synchronize()
-    used = (("hist_leaves_q8_u16", "wave_row_update_u16")
+    used = (("hist_leaves_q8_u16", "leaf_partition", "wave_row_update_u16")
             if extra["tree_grow_mode"] == "wave" else ("hist_single_u16",))
     assert all(hc.LAUNCHES[k] > before[k] for k in used)
     assert on_card.model_to_string() == on_cpu.model_to_string()
