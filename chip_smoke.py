@@ -3211,7 +3211,12 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
     """Phase 15a: every uint16 form against its plain version, bit for bit
     and identical across two runs, at F=28 and N = the padded training
     rows, at B=1024 (a max_bin=1023 run's) and B=65,535 (every histogram
-    on its bin-tile axis); the two leaf forms and their channel partition
+    on its bin-tile axis); ``hist_single_u16`` on the feature-major
+    matrix (the layout the partitioned and the masked grower pass past
+    255 bins: the kernels line's time) and on row-major rows read in
+    place (timed in the log), its geometry logged (tiles, cluster size,
+    chunks, clusters resident at once); the two leaf forms and their
+    channel partition
     (``leaf_partition``) also on a skewed mix and one with no kept row
     (:func:`_u16_mixes`).  Timed at both B beside the bound (each input
     byte once: 2 bytes a code), the plain version and the int64
@@ -3234,9 +3239,9 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
 
     for nb in U16_BINS:
         main = nb == U16_BINS[0]
-        # row-major rows (the partitioned grower's copy, read in place as
-        # P.t()) and their feature-major matrix; the last column's codes
-        # stay below 256 for the categorical split
+        # row-major rows (read in place as P.t()) and their feature-major
+        # matrix; the last column's codes stay below 256 for the
+        # categorical split
         P16 = torch.cat([_u16_codes(torch, gen, dev, (n, f - 1),
                                     nb).view(torch.int16),
                          _u16_codes(torch, gen, dev, (n, 1),
@@ -3291,6 +3296,12 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                      cx, w.w, num_channels=kx, slots=geo_x.slots))]
 
         forms = [
+            # the feature-major matrix, the layout the partitioned and the
+            # masked grower pass past 255 bins: timed
+            ("hist_single_u16",
+             lambda: hc.hist_single(bins, w, num_bins=nb),
+             lambda: hc.hist_single_plain(bins, w, num_bins=nb)),
+            # row-major rows read in place: checked and timed in the log
             ("hist_single_u16",
              lambda: hc.hist_single(rows, w, num_bins=nb),
              lambda: hc.hist_single_plain(rows, w, num_bins=nb)),
@@ -3312,6 +3323,10 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
             err = _u16_bitwise(torch, hc, name, nb, "today", run, plain)
             if name in seen:   # the exact form's partition: checked only
                 rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
+                if name == "hist_single_u16":
+                    log(f"kernel {name} [F={f} N={n} B={nb}, row-major "
+                        f"rows]: bitwise equal to plain, identical across "
+                        f"two runs; {time_ms(run, reps):.3f} ms")
                 continue
             seen.add(name)
             put(name, main, max_abs_err=err, ms=time_ms(run, reps),
@@ -3328,11 +3343,18 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                     log(f"kernel {name} [B={nb}, {tag} mix]: bitwise equal "
                         f"to plain, identical across two runs; "
                         f"{time_ms(run, reps):.3f} ms")
-        geo_s = hc.single_geometry(sms, f, n, nb, "rows")
-        log(f"  B={nb} bin tiles: hist_single {geo_s.tiles} x {geo_s.bt}, "
-            f"q8 {geo_q.tiles} x {geo_q.bt}, fx {geo_x.tiles} x "
-            f"{geo_x.bt}; list geometry q8 {tuple(geo_q)}, fx "
-            f"{tuple(geo_x)}")
+        for lay in ("rows", "features"):
+            g = hc.single_geometry(sms, f, n, nb, lay)
+            log(f"  B={nb} hist_single_u16 {lay}: {g.tiles} tile(s) x "
+                f"{g.bt} bins, clusters of {g.cluster} blocks "
+                f"({g.cluster // g.tiles * g.fg} features, {g.fg} a block) "
+                f"x {g.f_groups} groups x {g.chunks // g.cluster} along the "
+                f"rows ({g.chunk_rows} rows a block, {g.threads} threads), "
+                f"{hc.single_resident(sms, g.cluster, g.fg, g.bt, lay)} "
+                f"clusters resident at once")
+        log(f"  B={nb} bin tiles: q8 {geo_q.tiles} x {geo_q.bt}, fx "
+            f"{geo_x.tiles} x {geo_x.bt}; list geometry q8 {tuple(geo_q)}, "
+            f"fx {tuple(geo_x)}")
         # bounds: each input byte once (a code is 2 bytes), each output
         # byte once
         act_s = (w.w != 0).any(dim=0)

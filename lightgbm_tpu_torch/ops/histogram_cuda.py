@@ -68,6 +68,7 @@ model-axis (``*_lanes``) forms take uint8 bins only.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -95,7 +96,8 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "hist_single_lanes", "hist_single_lanes_plain",
            "wave_row_update_lanes", "wave_row_update_lanes_plain",
            "wave_trial_channels_lanes", "wave_trial_channels_lanes_plain",
-           "leaf_bin_tile", "single_bin_tile", "ListGeometry",
+           "leaf_bin_tile", "single_bin_tile", "single_shape", "single_peers",
+           "ListGeometry",
            "list_geometry", "list_features", "list_slots", "RowList",
            "leaf_partition", "leaf_partition_plain"]
 
@@ -728,14 +730,27 @@ SINGLE_ROW_STEP = 16          # chunks start 16-row aligned (4-row loads)
 SINGLE_MIN_ROWS = 512         # fewest rows a block takes before features split
 SINGLE_MAX_BLOCK_ROWS = 1 << 31   # the per-block uint32 count of 0/1 rows
 SM_SMEM = 233_472             # an H100 SM's shared memory
+SINGLE_MAX_CLUSTER = 16       # H100's largest (non-portable) cluster
+SINGLE_ROUNDS = 4             # resident rounds a uint16 launch may take
+# Clusters of 8 and 16 blocks (the uint16 form's past one bin tile)
+# resident at once on an H100 SXM (132 SMs), for blocks of one per SM
+# (1024 threads) and of four (256 threads): cudaOccupancyMaxActiveClusters
+# as scripts/torch_u16_leaf_sweep.py prints it, what single_resident
+# answers off the card (the CPU tests).
+H100_RESIDENT_CLUSTERS = {8: (15, 62), 16: (7, 28)}
 
 
 class SingleGeometry(NamedTuple):
-    """The launch of one single-leaf histogram: ``fg`` features per block
-    in ``f_groups`` groups, each group in ``tiles`` bin tiles of ``bt``
-    bins (one tile of B unless one feature's B bins overflow a block),
-    times ``chunks`` row chunks of ``chunk_rows`` rows, blocks of
-    ``threads``, ``smem`` shared bytes per block."""
+    """The launch of one single-leaf histogram: ``fg`` features per block;
+    ``cluster`` blocks a thread-block cluster (a multiple of ``tiles``, 1
+    for the uint8 forms), which holds ``cluster / tiles * fg`` features
+    of ``f_groups`` groups, each feature in ``tiles`` bin tiles of ``bt``
+    bins (one tile of B unless one feature's B bins overflow a block);
+    ``chunks`` row blocks (a multiple of ``cluster``; a cluster's blocks
+    take consecutive chunks) of ``chunk_rows`` rows each, blocks of
+    ``threads``, ``smem`` shared bytes per block; a block adds into the
+    histograms of the ``peers`` ranks after its own through DSM and
+    sends its other remote adds to the output through L2."""
     fg: int
     f_groups: int
     chunks: int
@@ -744,6 +759,8 @@ class SingleGeometry(NamedTuple):
     smem: int
     bt: int
     tiles: int
+    cluster: int = 1
+    peers: int = 0
 
 
 def single_bin_tile(num_bins: int) -> tuple:
@@ -756,37 +773,61 @@ def single_bin_tile(num_bins: int) -> tuple:
     return -(-num_bins // tiles), tiles
 
 
-def single_geometry(sms: int, f: int, n: int, num_bins: int,
-                    layout: str) -> SingleGeometry:
-    """Geometry of ``hist_single[_p4]`` on a card with ``sms`` SMs for a
-    segment of ``n`` rows; ``layout`` is ``rows`` (row-major runs, read
-    as words when a group's features come in fours), ``features`` or
-    ``packed``.
+def _single_per_sm(smem: int) -> int:
+    """Blocks of ``smem`` shared bytes an SM runs: 4 at 256 threads when
+    their histograms fit a quarter of its shared memory, else 1."""
+    return 4 if 4 * (smem + 1024) <= SM_SMEM else 1
 
-    For each count of feature groups (features spread evenly, in fours
-    for ``rows``; a block whose histogram fits a quarter of an SM runs at
-    256 threads, four to an SM): row chunks of at least
-    ``SINGLE_MIN_ROWS`` rows, as many as fit one resident round.  Of
-    those, the launch whose busiest SM has the least work, counted as
-    one unit per (row, feature) for the adds and one per row for its
-    weights, each block column re-reading them; ties go to fewer
-    groups.  Long segments so take all features in one block per SM;
-    short ones split the features until the grid fills the SMs.  Bins
-    past one block's room split into :func:`single_bin_tile` tiles, each
-    tile of a group its own block row."""
-    bt, tiles = single_bin_tile(num_bins)
-    per_feature = (bt | 1) * SINGLE_BIN_BYTES
+
+_RESIDENT = {}
+
+
+def single_resident(sms: int, cluster: int, fg: int, bt: int,
+                    layout: str) -> int:
+    """Clusters of ``cluster`` uint16-form blocks (fg features x bt bins)
+    resident at once on a card of ``sms`` SMs, 0 when none fits: every
+    SM's blocks for one block a cluster; else cudaOccupancyMaxActiveClusters
+    on the current card when it has ``sms`` SMs (queried once per shape),
+    and off the card :data:`H100_RESIDENT_CLUSTERS` (a cluster's blocks
+    share a GPC) scaled to ``sms``, 0 for the sizes it does not list."""
+    per_sm = _single_per_sm(fg * (bt | 1) * SINGLE_BIN_BYTES)
+    if cluster == 1:
+        return sms * per_sm
+    key = (sms, cluster, fg, bt, layout)
+    if key not in _RESIDENT:
+        if torch.cuda.is_available() and _sm_count(
+                torch.device("cuda")) == sms:
+            fn = _fn("hist_single", "hist_single_u16_clusters",
+                     [_CI] * 6)
+            got = fn(bt, fg, bt, cluster, LEAF_THREADS // per_sm,
+                     0 if layout == "rows" else 2)
+        else:
+            got = H100_RESIDENT_CLUSTERS.get(cluster, (0, 0))[
+                per_sm > 1] * sms // 132
+        _RESIDENT[key] = max(0, got)
+    return _RESIDENT[key]
+
+
+def _single_u8(sms: int, f: int, n: int, num_bins: int,
+               layout: str) -> list:
+    """The launches of one block a cluster and one tile (every B up to
+    256): for each count of feature groups (features spread evenly, in
+    fours for ``rows``), row chunks of at least ``SINGLE_MIN_ROWS`` rows,
+    as many as fit one resident round; the cost of the busiest SM, one
+    unit per (row, feature) for the adds and one per row for its
+    weights, each group re-reading them."""
+    per_feature = (num_bins | 1) * SINGLE_BIN_BYTES
     fg_max = max(1, min(f, BLOCK_SMEM // per_feature))
     steps = max(1, -(-n // SINGLE_ROW_STEP))
     most_chunks = max(1, -(-n // SINGLE_MIN_ROWS))
-    best = None
+    out = []
     for g in range(1, f + 1):
         fg = -(-f // g)
         if layout == "rows" and 4 < fg < f:
             fg = -(-fg // 4) * 4
         fg = min(fg, fg_max)
-        groups = -(-f // fg) * tiles
-        per_sm = 4 if 4 * (fg * per_feature + 1024) <= SM_SMEM else 1
+        groups = -(-f // fg)
+        per_sm = _single_per_sm(fg * per_feature)
         slots = sms * per_sm
         chunks = max(1, min(most_chunks, slots // groups),
                      -(-n // SINGLE_MAX_BLOCK_ROWS))
@@ -794,12 +835,117 @@ def single_geometry(sms: int, f: int, n: int, num_bins: int,
         chunks = max(1, -(-n // chunk_rows))
         rounds = -(-groups * chunks // slots)
         cost = (fg + 1) * chunk_rows * per_sm * rounds
-        geo = SingleGeometry(fg, groups // tiles, chunks, chunk_rows,
-                             LEAF_THREADS // per_sm, fg * per_feature, bt,
-                             tiles)
-        if best is None or cost < best[0]:
-            best = (cost, geo)
-    return best[1]
+        out.append((cost, SingleGeometry(
+            fg, groups, chunks, chunk_rows, LEAF_THREADS // per_sm,
+            fg * per_feature, num_bins, 1)))
+    return out
+
+
+@functools.lru_cache(maxsize=256)
+def single_shape(sms: int, f: int, num_bins: int,
+                 layout: str) -> SingleGeometry:
+    """The uint16 form's launch past 256 bins, the same for every
+    segment: its :func:`single_fill` chunks for a long one, no chunk
+    rows.  One tile (B <= 11,621): one block a cluster, the features
+    spread evenly over the groups with the least (features a block + 1)
+    x groups, a row's adds and weight reads (for ``rows`` one feature,
+    all of them or an even count a block: runs that read as 4-byte
+    words).  Past one tile: 8 tiles a feature (8 x 11,621 bins hold
+    every uint16 code), one feature a block, and clusters of 16 blocks
+    that hold two features, so a row's weights are read once per two
+    features; clusters of 8 (one feature) when the card holds no cluster
+    of 16; a block adds into the tiles of the :func:`single_peers` ranks
+    after its own through DSM.  The masked grower's launches over every
+    row, most of them weightless, read the weights more than they add,
+    and took 26-32% less kernel time a tree at 16,383 and 65,535 bins
+    with two features a cluster (PERF.md section 6).  Raises when no
+    cluster fits the card."""
+    least = single_bin_tile(num_bins)[1]
+    if least == 1:
+        per_feature = (num_bins | 1) * SINGLE_BIN_BYTES
+        fg_max = max(1, min(f, BLOCK_SMEM // per_feature))
+        best = None
+        for g in range(-(-f // fg_max), f + 1):
+            fg = -(-f // g)
+            if layout == "rows" and fg % 2 and 1 < fg < f:
+                fg += 1
+            if fg > fg_max:
+                continue
+            groups = -(-f // fg)
+            if best is None or (fg + 1) * groups < (best + 1) * -(-f // best):
+                best = fg
+        per_sm = _single_per_sm(best * per_feature)
+        return single_fill(sms, SingleGeometry(
+            best, -(-f // best), 0, 0, LEAF_THREADS // per_sm,
+            best * per_feature, num_bins, 1), layout)
+    tiles = max(least, SINGLE_MAX_CLUSTER // 2)
+    bt = -(-num_bins // tiles)
+    smem = (bt | 1) * SINGLE_BIN_BYTES
+    for fgc in (min(f, SINGLE_MAX_CLUSTER // tiles), 1):
+        cs = tiles * fgc
+        if single_resident(sms, cs, 1, bt, layout):
+            return single_fill(sms, SingleGeometry(
+                1, -(-f // fgc), 0, 0, LEAF_THREADS // _single_per_sm(smem),
+                smem, bt, tiles, cs, single_peers(cs)), layout)
+    raise RuntimeError(f"hist_single_u16: no cluster of {tiles} blocks of "
+                       f"{bt} bins fits the card")
+
+
+def single_peers(cluster: int) -> int:
+    """The peers a block of a ``cluster``-block cluster reaches through
+    DSM (the rest of its remote adds go through L2): half the blocks, the
+    share the sweep found best (PERF.md section 6)."""
+    return cluster // 2
+
+
+def single_fill(sms: int, geo: SingleGeometry,
+                layout: str) -> SingleGeometry:
+    """``geo`` with ``chunks`` set for a long segment: the clusters
+    along the rows (x the cluster's blocks) that keep the most of the
+    resident clusters busy over up to ``SINGLE_ROUNDS`` rounds, ties to
+    fewer rounds."""
+    resident = single_resident(sms, geo.cluster, geo.fg, geo.bt, layout)
+    best = None
+    for k in range(1, SINGLE_ROUNDS + 1):
+        c = max(1, k * resident // geo.f_groups)
+        clusters = c * geo.f_groups
+        busy = clusters / (-(-clusters // resident) * resident)
+        if best is None or busy > best[0]:
+            best = (busy, c)
+    return geo._replace(chunks=best[1] * geo.cluster)
+
+
+def single_chunks(geo: SingleGeometry, n: int) -> SingleGeometry:
+    """``geo`` (a :func:`single_fill` shape) with its row chunks for a
+    segment of ``n`` rows: its clusters along the rows, fewer when a
+    block would take under ``SINGLE_MIN_ROWS`` rows (one when the segment
+    is shorter than a cluster's share), more when a cluster would take
+    over ``SINGLE_MAX_BLOCK_ROWS``."""
+    cs = geo.cluster
+    c = max(1, min(geo.chunks // cs, n // (cs * SINGLE_MIN_ROWS)),
+            -(-n // (SINGLE_MAX_BLOCK_ROWS - cs * SINGLE_ROW_STEP)))
+    rows = -(-(-(-n // c)) // (cs * SINGLE_ROW_STEP)) * SINGLE_ROW_STEP
+    c = -(-n // (cs * rows))
+    return geo._replace(chunks=c * cs, chunk_rows=rows)
+
+
+@functools.lru_cache(maxsize=4096)
+def single_geometry(sms: int, f: int, n: int, num_bins: int,
+                    layout: str) -> SingleGeometry:
+    """Geometry of ``hist_single[_u16|_p4]`` on a card with ``sms`` SMs
+    for a segment of ``n`` rows; ``layout`` is ``rows`` (row-major runs,
+    read as words when a group's features come in fours, or in pairs for
+    uint16 codes), ``features`` or ``packed``.  Up to 256 bins, of
+    :func:`_single_u8`'s launches the cheapest, ties to the first
+    listed: long segments take all features in one block per SM and
+    short ones split the features until the grid fills the SMs.  Past
+    256 bins (the uint16 form) :func:`single_shape`, the same for every
+    segment, with :func:`single_chunks`' row chunks for this one (O(1)
+    a launch)."""
+    if num_bins <= 256 or layout == "packed":
+        return min(_single_u8(sms, f, n, num_bins, layout),
+                   key=lambda c: c[0])[1]
+    return single_chunks(single_shape(sms, f, num_bins, layout), n)
 
 
 def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
@@ -840,18 +986,21 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
         LAUNCHES["hist_single_packed4"] += 1
         return out
     if bins_t.dtype == torch.uint16:
-        # 4 rows a 64-bit load (FEATS); words of 2 features (ROWS)
+        # 4 rows a 64-bit load (FEATS); words of 2 features (ROWS), every
+        # run of a cluster's features 4-byte aligned
         if layout == "features":
             kind = 3 if ptr % 8 == 0 and sf % 4 == 0 else 2
         else:
+            fgc = geo.cluster // geo.tiles * geo.fg
             kind = int(sf == 1 and ptr % 4 == 0 and sn % 2 == 0 and
-                       (geo.fg % 2 == 0 or geo.f_groups == 1))
+                       (fgc % 2 == 0 or geo.f_groups == 1))
         fn = _fn("hist_single", "hist_single_u16",
                  [_VP, _LL, _LL, _VP, _LL, _VP, _CI, _LL, _CI, _CI, _CI, _CI,
-                  _LL, _CI, _CI, _VP])
+                  _CI, _CI, _LL, _CI, _CI, _VP])
         _raise_on(fn(_p(bins_t), sf, sn, _p(w.w), w.w.stride(0), _p(out), f,
-                     n, num_bins, geo.fg, geo.bt, geo.chunks, geo.chunk_rows,
-                     geo.threads, kind, _stream()), "hist_single_u16")
+                     n, num_bins, geo.fg, geo.bt, geo.cluster, geo.peers,
+                     geo.chunks, geo.chunk_rows, geo.threads, kind,
+                     _stream()), "hist_single_u16")
         LAUNCHES["hist_single_u16"] += 1
         return out
     if layout == "features":

@@ -544,12 +544,18 @@ def test_single_geometry_fits_every_bin_count(num_bins, layout):
         per_sm = hc.LEAF_THREADS // geo.threads
         assert per_sm * (geo.smem + 1024) <= SM_SMEM
         assert geo.bt * geo.tiles >= num_bins > geo.bt * (geo.tiles - 1)
-        assert geo.f_groups * geo.tiles <= 65_535          # grid rows
+        assert geo.f_groups <= 65_535                      # grid rows
+        # one cluster of each feature group: its blocks keep every
+        # (feature, bin) of the group once, block rank r the bins
+        # r % tiles, + tiles, + 2 tiles, ... (at most bt of them)
+        fgc = geo.cluster // geo.tiles * geo.fg
         cover = np.zeros((f, num_bins), np.int64)
-        for y in range(geo.f_groups * geo.tiles):
-            f0 = (y // geo.tiles) * geo.fg
-            b0 = (y % geo.tiles) * geo.bt
-            cover[f0:f0 + geo.fg, b0:b0 + geo.bt] += 1
+        for y in range(geo.f_groups):
+            for rank in range(geo.cluster):
+                f0 = y * fgc + rank // geo.tiles * geo.fg
+                t = rank % geo.tiles
+                assert len(range(t, num_bins, geo.tiles)) <= geo.bt
+                cover[f0:f0 + geo.fg, t::geo.tiles] += 1
         assert (cover == 1).all()
         assert geo.chunks * geo.chunk_rows >= n
 

@@ -1209,6 +1209,67 @@ def test_leaf_partition_matches_plain_on_card(cuda_device, mix, q8):
             assert torch.equal(got.cpu(), exp)
 
 
+def _u16_single_case(device, layout, n, num_bins, case):
+    """One leaf's uint16 bins for ``hist_single_u16`` and its weights: a
+    row-major segment ``P[3:3 + n, :F].T`` of rows F + 2 codes wide
+    (ROWS), or a feature-major (F, n) matrix, contiguous or at an odd
+    column offset (``odd start``: no aligned 64-bit loads) (FEATS).
+    ``one row``: a weighted one-row leaf; ``zero``: every weight zero;
+    ``skew``: every row in bin B - 1 (the
+    last tile's block, a peer of every other block of its cluster: the
+    DSM atomics' worst case) with equal weights."""
+    rng = np.random.RandomState(num_bins % 97 + n % 13)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    P = rng.randint(0, num_bins, (n + 8, F + 2)).astype(np.uint16)
+    grad = (rng.randn(n) * 0.5).astype(np.float32)
+    hess = (rng.rand(n) * 0.25 + 0.01).astype(np.float32)
+    mask = (rng.rand(n) < 0.8).astype(np.float32)
+    if case == "zero":
+        mask[:] = 0.0
+    elif case == "one row":
+        mask[:] = 1.0
+    elif case == "skew":
+        P[:] = num_bins - 1
+        grad[:], hess[:], mask[:] = -0.75, 0.25, 1.0
+    w = th.pack_weights(t(grad), t(hess), t(mask))
+    if layout == "rows":
+        return t(P)[3:3 + n, :F].t(), w
+    if case == "odd start":
+        return t(P[:, :F].T)[:, 3:3 + n], w
+    bins = torch.empty((F, n), dtype=torch.uint16, device=device)
+    return bins.copy_(t(P[3:3 + n, :F].T)), w   # strides (n, 1), n = 1 too
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["random", "odd start", "one row", "zero",
+                                  "skew"])
+@pytest.mark.parametrize("layout", ["rows", "features"])
+@pytest.mark.parametrize("num_bins", [1024, 11_622, 16_384, 65_535])
+def test_hist_single_u16_clusters_match_plain_on_card(
+        cuda_device, monkeypatch, num_bins, layout, case):
+    """The uint16 single-leaf form's thread-block clusters (one block a
+    cluster at 1024 bins, the bin tiles of a feature group past 11,621) bit
+    for bit the plain version and identical across two launches: row-major
+    segments at odd starts, the feature-major matrix the partitioned and
+    the masked grower pass (contiguous and at an odd column offset), a
+    one-row segment, all-zero weights and every row in one bin."""
+    n = 1 if case == "one row" else 100_003
+    bins, w = _u16_single_case(cuda_device, layout, n, num_bins, case)
+    assert bins.dtype == torch.uint16
+    monkeypatch.setattr(hc, "hist_single_plain", None)   # must launch
+    before = hc.LAUNCHES["hist_single_u16"]
+    got = hc.hist_single(bins, w, num_bins=num_bins)
+    again = hc.hist_single(bins, w, num_bins=num_bins)
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["hist_single_u16"] == before + 2
+    monkeypatch.undo()
+    assert torch.equal(got, again)
+    want = hc.hist_single_plain(bins, w, num_bins=num_bins)
+    assert torch.equal(got, want)
+    if case == "skew":
+        assert int(want[:, num_bins - 1, 2].min()) == n
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("extra", [
     dict(tree_grow_mode="wave", use_quantized_grad=True,

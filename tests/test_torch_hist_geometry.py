@@ -262,3 +262,199 @@ def test_single_counts_fit_32_bits():
     geo = hc.single_geometry(4, 1, n, 256, "features")
     assert geo.chunk_rows <= hc.SINGLE_MAX_BLOCK_ROWS
     assert geo.chunks * geo.chunk_rows >= n
+
+
+# -- the uint16 single-leaf form's thread-block clusters -----------------------
+
+CLUSTER_BINS = [256, 1024, 4096, 11_621, 11_622, 16_384, 65_535]
+CLUSTER_ROWS = [1, 17, 4096, 50_003, 1_000_003, 10_502_144]
+
+
+def _cluster_blocks(geo, f, n, num_bins):
+    """Every block of a ``hist_single_u16`` launch as the kernel places it
+    from its grid index (x, y) and its rank in its cluster (x % cluster):
+    (cluster, rows, features read, features kept, (t, bins kept)): its
+    tile keeps the bins t, t + tiles, t + 2 tiles, ... below B."""
+    fgc = geo.cluster // geo.tiles * geo.fg
+    for y in range(geo.f_groups):
+        g0 = y * fgc
+        for x in range(geo.chunks):
+            rank = x % geo.cluster
+            f0 = g0 + rank // geo.tiles * geo.fg
+            t = rank % geo.tiles
+            r0 = x * geo.chunk_rows
+            yield ((x // geo.cluster, y),
+                   (min(n, r0), min(n, r0 + geo.chunk_rows)),
+                   (g0, min(f, g0 + fgc)),
+                   (f0, max(f0, min(f, f0 + geo.fg))),
+                   (t, -(-(num_bins - t) // geo.tiles)))
+
+
+@pytest.mark.parametrize("n", CLUSTER_ROWS)
+@pytest.mark.parametrize("layout", ["rows", "features"])
+@pytest.mark.parametrize("num_bins", CLUSTER_BINS)
+def test_single_clusters_cover_every_cell_once(num_bins, layout, n):
+    """Each cluster keeps every (feature, bin) of its features in exactly
+    one block's shared memory, within a block's room; each feature group's
+    clusters walk every row exactly once; a cluster holds at most 16
+    blocks, its blocks consecutive chunks, and at most 2^31 rows (its
+    blocks' uint32 counts); blocks keep SINGLE_MIN_ROWS rows unless the
+    segment is shorter than the cluster's share; past 256 bins the shape
+    is the same for every segment."""
+    geo = hc.single_geometry(SMS, F, n, num_bins, layout)
+    if num_bins > 256:   # the shape is the segment's own only in its chunks
+        shape = hc.single_shape(SMS, F, num_bins, layout)
+        assert geo._replace(chunks=0, chunk_rows=0) == shape._replace(
+            chunks=0)
+        assert geo.chunks <= shape.chunks or n > hc.SINGLE_MAX_BLOCK_ROWS
+    bt, tiles = geo.bt, geo.tiles
+    least = hc.single_bin_tile(num_bins)[1]
+    assert tiles == least or least > 1 and tiles > least
+    assert bt == -(-num_bins // tiles)
+    assert 1 <= geo.cluster <= hc.SINGLE_MAX_CLUSTER
+    assert geo.cluster % geo.tiles == 0 and geo.chunks % geo.cluster == 0
+    assert geo.peers == (hc.single_peers(geo.cluster) if geo.cluster > 1
+                         else 0) and 0 <= geo.peers < geo.cluster
+    assert geo.smem == geo.fg * (geo.bt | 1) * hc.SINGLE_BIN_BYTES
+    per_sm = hc.LEAF_THREADS // geo.threads
+    assert geo.smem <= hc.BLOCK_SMEM
+    assert per_sm * (geo.smem + SMEM_RESERVED) <= SM_SMEM
+    assert geo.chunk_rows % hc.SINGLE_ROW_STEP == 0
+    assert geo.cluster * geo.chunk_rows <= hc.SINGLE_MAX_BLOCK_ROWS
+    assert geo.f_groups <= 65_535
+    if num_bins <= 256:
+        assert geo.cluster == 1      # the uint8 forms' geometry
+    if geo.chunks > geo.cluster:
+        assert geo.chunk_rows >= hc.SINGLE_MIN_ROWS
+    kept = {}
+    walked = {}
+    for cl, (r0, r1), (g0, g1), (f0, f1), (t, nbt) in _cluster_blocks(
+            geo, F, n, num_bins):
+        assert g0 < g1 and 0 < nbt <= geo.bt   # the tile fits the block
+        assert f0 == f1 or g0 <= f0 < f1 <= g1   # none past F
+        assert f1 - f0 <= geo.fg
+        cover = kept.setdefault(cl, np.zeros((F, tiles), np.int64))
+        cover[f0:f1, t] += 1
+        assert (cover[:g0] == 0).all() and (cover[g1:] == 0).all()
+        walked.setdefault(cl[1], []).append((r0, r1))
+    for (_, y), cover in kept.items():
+        g0 = y * (geo.cluster // geo.tiles * geo.fg)
+        g1 = min(F, g0 + geo.cluster // geo.tiles * geo.fg)
+        assert (cover[g0:g1] == 1).all()
+    assert len(walked) == geo.f_groups
+    for spans in walked.values():
+        spans.sort()
+        assert spans[0][0] == 0 and spans[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+def _cluster_walk(bins, w, num_bins, geo):
+    """``hist_single_u16``'s decomposition in plain PyTorch: every block
+    of ``geo`` walks its rows for its cluster's features; each code goes
+    to the block of its cluster that keeps the code's feature and bin
+    (rank (k / fg) x tiles + v % tiles, entry (k % fg, v / tiles)): into
+    that block's histogram when it is the walking block or one of the
+    ``peers`` ranks after it, else straight into the (F, B, 3) int64
+    sums; then each block flushes its tile (bins entry x tiles + t) into
+    the sums."""
+    f = bins.shape[0]
+    wide = bins.to(torch.int64)
+    hists = {}
+    out = torch.zeros((f, num_bins, 3), dtype=torch.int64)
+    blocks = list(_cluster_blocks(geo, f, bins.shape[1], num_bins))
+    for x, (cl, (r0, r1), (g0, g1), _, _) in enumerate(blocks):
+        me = x % geo.cluster
+        for k in range(g1 - g0):
+            v = wide[g0 + k, r0:r1]
+            keep = v < num_bins
+            v, wk = v[keep], w.w[:, r0:r1][:, keep].T
+            rank = k // geo.fg * geo.tiles + v % geo.tiles
+            for r in rank.unique().tolist():
+                mine = rank == r
+                if (r - me) % geo.cluster > geo.peers:   # through L2
+                    out[g0 + k].index_add_(0, v[mine], wk[mine])
+                    continue
+                h = hists.setdefault((cl, r), torch.zeros(
+                    (geo.fg, geo.bt, 3), dtype=torch.int64))
+                h[k % geo.fg].index_add_(0, v[mine] // geo.tiles, wk[mine])
+    for x, (cl, _, _, (f0, f1), (t, nbt)) in enumerate(blocks):
+        h = hists.get((cl, x % geo.cluster))
+        if h is not None:
+            out[f0:f1, t::geo.tiles] += h[:f1 - f0, :nbt]
+    return out
+
+
+@pytest.mark.parametrize("layout", ["rows", "features"])
+@pytest.mark.parametrize("num_bins", [1024, 4096, 11_622, 16_384, 65_535])
+def test_single_cluster_walk_matches_plain(num_bins, layout):
+    """Walking the blocks of ``single_geometry``'s pick over a segment,
+    and of the pick with its remote adds all through L2 and all through
+    DSM, with clusters of one feature and with the fewest bin tiles,
+    gives ``hist_single_plain`` bit for bit: the clusters drop and
+    double no add."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    rng = np.random.RandomState(num_bins % 101)
+    f, n = 9, 20_011
+    bins = torch.from_numpy(rng.randint(0, num_bins, (f, n)).astype(
+        np.uint16))
+    bins[:, :50] = num_bins - 1
+    w = th.pack_weights(torch.randn(n), torch.rand(n),
+                        (torch.rand(n) < 0.8).float())
+    want = hc.hist_single_plain(bins, w, num_bins=num_bins)
+    pick = hc.single_geometry(SMS, f, n, num_bins, layout)
+    t = pick.tiles
+    least = hc.single_bin_tile(num_bins)[1]
+    bt = -(-num_bins // least)
+    # one feature a cluster (the fallback past one tile), the fewest
+    # tiles, two clusters along the rows
+    shapes = [pick._replace(cluster=t, f_groups=f, peers=t // 2),
+              pick._replace(bt=bt, tiles=least, cluster=least,
+                            peers=least // 2, f_groups=f,
+                            smem=(bt | 1) * hc.SINGLE_BIN_BYTES)]
+    walks = [pick] + [pick._replace(peers=k) for k in
+                      (0, pick.cluster - 1)] + [
+        hc.single_chunks(g._replace(chunks=2 * g.cluster), n)
+        for g in shapes]
+    for g in walks:
+        assert torch.equal(_cluster_walk(bins, w, num_bins, g), want), g
+
+
+def test_single_resident_clusters_off_the_card():
+    """Off the card the clusters resident at once are the H100's measured
+    ones for the two sizes the geometry takes (a cluster's blocks share a
+    GPC): never more blocks than the SMs hold, fewer clusters of 16 than
+    of 8; one block a cluster fills every SM; other sizes none."""
+    for bt, per_sm in ((10_923, 1), (2048, 4)):
+        assert hc._single_per_sm((bt | 1) * hc.SINGLE_BIN_BYTES) == per_sm
+        assert hc.single_resident(SMS, 1, 1, bt, "rows") == per_sm * SMS
+        got = [hc.single_resident(SMS, cs, 1, bt, "rows") for cs in (8, 16)]
+        assert got == [hc.H100_RESIDENT_CLUSTERS[cs][per_sm > 1]
+                       for cs in (8, 16)]
+        assert 0 < got[1] < got[0] and got[0] * 8 <= per_sm * SMS
+        assert hc.single_resident(SMS, 6, 1, bt, "rows") == 0
+
+
+@pytest.mark.parametrize("layout", ["rows", "features"])
+def test_single_shape_skips_clusters_that_fit_no_card(layout, monkeypatch):
+    """Clusters of 16 blocks the card cannot hold (none resident) are
+    passed over for clusters of 8, not raised on; only when no cluster
+    fits does the geometry raise."""
+    nb = 65_535
+    pick = hc.single_shape(SMS, F, nb, layout)
+    assert (pick.tiles, pick.cluster, pick.f_groups) == (8, 16, F // 2)
+    for table in ({8: (15, 62), 16: (0, 0)}, {8: (0, 0), 16: (0, 0)}):
+        monkeypatch.setattr(hc, "H100_RESIDENT_CLUSTERS", table)
+        monkeypatch.setattr(hc, "_RESIDENT", {})
+        hc.single_shape.cache_clear()
+        hc.single_geometry.cache_clear()
+        try:
+            if table[8][0]:
+                got = hc.single_geometry(SMS, F, 1_000_003, nb, layout)
+                assert (got.tiles, got.cluster, got.f_groups) == (8, 8, F)
+                assert got.peers == hc.single_peers(8)
+            else:
+                with pytest.raises(RuntimeError, match="no cluster"):
+                    hc.single_geometry(SMS, F, 1_000_003, nb, layout)
+        finally:
+            hc.single_shape.cache_clear()
+            hc.single_geometry.cache_clear()
