@@ -146,7 +146,19 @@ Phases (any failure exits non-zero and prints no result line):
    and exact) and with a categorical column, text equal to ``train()``.
    Every batch runs with the counts set to 0 and must launch its
    model-axis forms and no single form; the histogram autotune probe's
-   single launches are counted apart;
+   single launches are counted apart; (f) the model-axis uint16 forms,
+   after phase 15b: every ``*_lanes_u16`` form and the lanes' channel
+   partition at L=4 and B=1024 and 65,535 (the leaf forms on the main
+   path's rows, the single-leaf form on (a)'s four segments of per-lane
+   row-major copies and of the shared feature-major matrix, the row
+   update forms at W=25), bitwise as in (a) and timed the same way; then
+   on 2,097,152 Higgs-shaped rows, 3 rounds, ``train_many`` of 4 lanes
+   (``lambda_l2`` 0, 1, 4, 16) at ``max_bin=1023`` headline wave and
+   ``auto`` (partitioned), and at ``max_bin=65535``, 31 leaves, ``auto``,
+   each lane's text that of a standalone card ``train()``, and ``cv`` of 4
+   folds at ``max_bin=1023`` (headline), its fast path's metric history
+   the per-fold loop's; each run with the counts from 0, launching the
+   uint16 model-axis forms and no single form;
 13. the boosting variants and the rest of the training surface, after
    phase 12 on the main path's binned rows, each part with the counts
    set to 0, its kernels' launches asserted, its iterations/s and a
@@ -2089,7 +2101,28 @@ LANE_KERNELS = {
     # the packed single form, and never under vmap: phase 12a holds it)
     "hist_single_lanes_packed4": ("lightgbm_tpu_torch/csrc/hist_single.cu",
                                   "lightgbm_tpu/ops/histogram_pallas.py:446"),
+    # the uint16 forms under vmap (phase 12f; the reference's XLA
+    # histograms and row update at max_bin > 255)
+    "hist_leaves_q8_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
+                                 "lightgbm_tpu/ops/histogram_pallas.py:1030"),
+    "hist_leaves_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
+                              "lightgbm_tpu/ops/histogram_pallas.py:852"),
+    # no TPU counterpart: the lanes' row lists of the two rows above
+    "leaf_partition_lanes": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
+                             "lightgbm_tpu/ops/histogram_pallas.py:852"),
+    "wave_row_update_lanes_u16": ("lightgbm_tpu_torch/csrc/row_update.cu",
+                                  "lightgbm_tpu/ops/histogram_pallas.py:1280"),
+    "wave_row_update_ext_lanes_u16": (
+        "lightgbm_tpu_torch/csrc/row_update.cu",
+        "lightgbm_tpu/ops/histogram_pallas.py:1280"),
+    "wave_trial_channels_lanes_u16": (
+        "lightgbm_tpu_torch/csrc/row_update.cu",
+        "lightgbm_tpu/ops/histogram_pallas.py:1314"),
+    "hist_single_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_single.cu",
+                              "lightgbm_tpu/ops/histogram_pallas.py:471"),
 }
+LANE_U16 = tuple(k for k in LANE_KERNELS
+                 if k.endswith("_u16") or k == "leaf_partition_lanes")
 MANY_L2 = (0.0, 1.0, 4.0, 16.0)      # phase 12b's variants
 MANY_ROUNDS = 2                      # 3 before phase 15
 CV_ROWS = 1_048_576                  # phase 12c's rows
@@ -2383,8 +2416,18 @@ def _single_launches(hc) -> dict:
 def many_phase(lt, torch, card, ds, Xtr, ytr, out_dir: str) -> dict:
     """Phase 12b-e: ``train_many``, ``cv`` and the partitioned lanes on the
     card.  Returns each model-axis form's launches over those runs."""
-    from lightgbm_tpu_torch.models import gbdt as tg
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    return _with_launch_checks(hc, lambda reset, count, launches: _many_runs(
+        lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count, launches))
+
+
+def _with_launch_checks(hc, body) -> dict:
+    """Run ``body(reset, count, launches)`` with the batches' launch
+    checks: ``reset()`` sets the counts to 0; ``count(tag, needs)`` logs
+    the model-axis launches since, fails if one of ``needs`` never
+    launched or a single form did, and adds them to ``launches`` (each
+    model-axis form's launches over the runs, returned)."""
+    from lightgbm_tpu_torch.models import gbdt as tg
     launches = {k: 0 for k in LANE_KERNELS}
     # the histogram autotuner's probe (small shapes, models/gbdt.py
     # learner_config) times single launches: they are recorded apart, and
@@ -2424,14 +2467,14 @@ def many_phase(lt, torch, card, ds, Xtr, ytr, out_dir: str) -> dict:
 
     tg.pick_hist_impl = pick
     try:
-        return _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir,
-                          reset, count, launches)
+        body(reset, count, launches)
+        return launches
     finally:
         tg.pick_hist_impl = real_pick
 
 
 def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
-               launches) -> dict:
+               launches) -> None:
 
     # (b) train_many: the headline configuration, 4 variants
     head = mode_params("headline")
@@ -2570,6 +2613,389 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
                                  "from train()")
         log(f"phase 12e {tag} train_many x2 at {rows} rows: text identical "
             "to train()")
+
+
+# -- phase 12f: the model-axis kernels' uint16 forms and their paths --------
+
+MANY_U16_ROWS = 2_097_152            # the uint16 tree sweep's rows
+MANY_U16_ROUNDS = 3
+MANY_U16_PART_ROUNDS = 2             # max_bin=1023 auto: cut from 3 for time
+MANY_U16_TOP_LEAVES = 31             # max_bin=65535: 31 x 28 x 65,535 x 12 B
+
+
+def _lane_put(rec, name, main, r):
+    """Store a ``_lane_case`` result: B=1024's under its keys, B=65,535's
+    under ``tile_`` keys (the larger error kept)."""
+    if main:
+        rec[name] = dict(r)
+        return
+    rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"],
+                                   r.pop("max_abs_err"))
+    rec[name].update({"tile_" + k: v for k, v in r.items()})
+
+
+def _partition_lanes_case(torch, hc, card, chs, ws, k, f, n, nb, active,
+                          reps) -> dict:
+    """The lanes' channel partition as the q8 lanes histogram runs it:
+    each lane's row list record for record its plain version's and its
+    single partition's, identical twice; timed as :func:`_lane_case`
+    times a form, the library call one stable ``torch.sort`` of the
+    lanes' channels."""
+    L = len(chs)
+    sms = hc._sm_count(chs[0].device)
+    geo = hc.list_geometry(sms, f, n, nb, k, True)
+    kw = dict(num_channels=k, slots=geo.slots)
+
+    def lanes_fn():
+        return hc.leaf_partition_lanes(
+            chs, ws, part_blocks=hc._part_blocks(sms, n, L), **kw)
+
+    def singles():
+        return [hc.leaf_partition(c, w, part_blocks=geo.part_blocks, **kw)
+                for c, w in zip(chs, ws)]
+    got, again, ones = lanes_fn(), lanes_fn(), singles()
+    torch.cuda.synchronize()
+    want = hc.leaf_partition_lanes_plain(chs, ws, **kw)
+    for lane in range(L):
+        for x, y, z, o in zip(_listed(got[lane]), _listed(again[lane]),
+                              _listed(want[lane]), _listed(ones[lane])):
+            if not (torch.equal(x, y) and torch.equal(x, z) and
+                    torch.equal(x, o)):
+                raise AssertionError(
+                    f"leaf_partition_lanes [B={nb}] lane {lane} differs from "
+                    "its plain version, its single partition or itself")
+    del got, again, ones, want
+    stack = torch.stack(chs)
+    b_ms, b_by = bound_ms(L * n + active * (3 + 8) + L * 4 * (4 * k + 1), 0.0)
+    out = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+               ms=time_ms(lanes_fn, reps), singles_ms=time_ms(singles, reps),
+               plain_ms=time_ms(lambda: hc.leaf_partition_lanes_plain(
+                   chs, ws, **kw), 1),
+               library_ms=time_ms(lambda: torch.sort(stack, dim=1,
+                                                     stable=True), reps))
+    log(f"[{card}] kernel leaf_partition_lanes [B={nb} N={n}, L={L}]: "
+        f"bitwise equal to plain and to {L} single partitions, identical "
+        f"across two runs; one launch {out['ms']:.3f} ms, {L} single "
+        f"{out['singles_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return out
+
+
+def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
+                          reps: int) -> dict:
+    """Phase 12f's kernels: every uint16 model-axis form at L = 4 lanes
+    (their own gradients, channels and tables) over one shared uint16 bin
+    matrix of the main path's rows, at B=1024 and 65,535, as phase 12a's
+    (:func:`_lane_case`: bitwise its plain version and 4 single launches,
+    identical twice, timed beside the 4 single launches, the bound, the
+    plain version and one int64 ``index_add_`` over lanes x channels);
+    the lanes' channel partition against 4 single partitions (library: a
+    stable ``torch.sort`` of the lanes' channels); ``hist_single_lanes``
+    over phase 12a's four segments of per-lane row-major copies (ROWS:
+    the partitioned grower's layout, the kernels line's time) and of the
+    shared feature-major matrix (FEATS, logged)."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.ops import quantize as tq
+    f, L = NUM_FEATURES, LANES
+    kq, kx = hc.Q_LEAF_CHANNELS, hc.LEAF_CHANNELS
+    sms = hc._sm_count(dev)
+    rec = {}
+    for nb in U16_BINS:
+        main = nb == U16_BINS[0]
+        # the last feature's codes stay below 256, for the categorical
+        # split of _u16_row_case (the membership's 256 bins)
+        bins = _u16_codes(torch, gen, dev, (f, n), nb)
+        bins.view(torch.int16)[f - 1].copy_(
+            _u16_codes(torch, gen, dev, (n,), 256).view(torch.int16))
+        lanes = []
+        for _ in range(L):
+            grad = torch.randn(n, generator=gen, device=dev) * 0.5
+            hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
+            mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
+            ch = torch.randint(0, kq, (n,), generator=gen, device=dev,
+                               dtype=torch.int8)
+            keep = torch.rand(n, generator=gen, device=dev) < 0.5
+            ch = torch.where(keep, ch, torch.full_like(ch, -1)).contiguous()
+            wch = tq.quantize_wch(grad, hess, mask,
+                                  (grad * mask).abs().max() / 127,
+                                  (hess * mask).max() / 127, gq_max=127,
+                                  hq_max=127)
+            lanes.append((wch, th.pack_weights(grad, hess, mask), ch))
+            del grad, hess, mask, keep
+        wide = th.widen_bins(bins)
+        # ---- the leaf histograms and their lanes' partition ----
+        for q8 in (True, False):
+            k = kq if q8 else kx
+            ws = [x[0] if q8 else x[1] for x in lanes]
+            w3 = [w if q8 else w.w for w in ws]
+            chs = [x[2] if q8 else torch.where(x[2] < k, x[2], -1)
+                   .contiguous() for x in lanes]
+            many = (hc.build_histogram_leaves_q8_lanes if q8
+                    else hc.build_histogram_leaves_lanes)
+            one = (hc.build_histogram_leaves_q8 if q8
+                   else hc.build_histogram_leaves)
+            plain = (hc.build_histogram_leaves_q8_lanes_plain if q8
+                     else hc.build_histogram_leaves_lanes_plain)
+            live = [(c >= 0) & (c < k) for c in chs]
+            active = sum(int(x.sum()) for x in live)
+            anyl = int(torch.stack(live).any(dim=0).sum())
+            del live
+            nbytes = (L * n + active * (3 if q8 else 24) + 2 * f * anyl +
+                      L * k * f * nb * 3 * (4 if q8 else 8))
+            lib = _lane_library(torch, wide, w3, chs, k, nb, torch.int64)
+            name = ("hist_leaves_q8_lanes_u16" if q8
+                    else "hist_leaves_lanes_u16")
+            _lane_put(rec, name, main, _lane_case(
+                torch, card, name, f"B={nb} F={f} N={n}",
+                lambda: many(bins, ws, chs, num_bins=nb),
+                [lambda i=i: one(bins, ws[i], chs[i], num_bins=nb)
+                 for i in range(L)],
+                lambda: plain(bins, ws, chs, num_bins=nb),
+                nbytes, 3.0 * f * active, lib, reps))
+            del lib
+            torch.cuda.empty_cache()
+            if q8:
+                # the q8 form's partition, as the histogram runs it
+                _lane_put(rec, "leaf_partition_lanes", main,
+                          _partition_lanes_case(torch, hc, card, chs, ws, k,
+                                                f, n, nb, active, reps))
+            del ws, w3, chs
+        # ---- the row update, its categorical form and its trial form ----
+        cases = [_u16_row_case(torch, gen, dev, bins, nb, kx, NUM_LEAVES)
+                 for _ in range(L)]
+        feats = [c[0] for c in cases]
+        rls = [c[1] for c in cases]
+        tabs = [c[2] for c in cases]
+        decs = [c[3] for c in cases]
+        trial = [(t[4], t[0], t[1], t[2] > 0, t[3] > 0, t[6] > 0)
+                 for t in tabs]
+        ttabs = [hc.trial_tab(*a) for a in trial]
+
+        def lane_work(write_rl: bool):
+            seen = torch.zeros(bins.shape, dtype=torch.bool, device=dev)
+            works = []
+            for fc, rl, tab in zip(feats, rls, tabs):
+                fc = fc.long().clamp(0, f - 1)
+                works.append(_row_work(torch, wide.index_select(0, fc), rl,
+                                       tab, write_rl, seen, fc))
+            return (sum(w_[0] for w_ in works) + 2.0 * float(seen.sum()),
+                    sum(w_[1] for w_ in works))
+        nbytes, ops = lane_work(True)
+        tag = f"W={kx} B={nb} N={n}"
+        for name, lanes_fn, single_fns, plain_fn, extra in (
+                ("wave_row_update_lanes_u16",
+                 lambda: hc.wave_row_update_lanes(bins, rls, tabs,
+                                                  feats=feats),
+                 [lambda i=i: hc.wave_row_update(bins, rls[i], tabs[i],
+                                                 feats=feats[i])
+                  for i in range(L)],
+                 lambda: hc.wave_row_update_lanes_plain(bins, rls, tabs,
+                                                        feats=feats), 0),
+                ("wave_row_update_ext_lanes_u16",
+                 lambda: hc.wave_row_update_lanes(bins, rls, tabs,
+                                                  feats=feats, decode=decs),
+                 [lambda i=i: hc.wave_row_update(bins, rls[i], tabs[i],
+                                                 feats=feats[i],
+                                                 decode=decs[i])
+                  for i in range(L)],
+                 lambda: hc.wave_row_update_lanes_plain(
+                     bins, rls, tabs, feats=feats, decode=decs),
+                 L * kx * (20 + 32))):
+            _lane_put(rec, name, main, _lane_case(
+                torch, card, name, tag, lanes_fn, single_fns, plain_fn,
+                nbytes + extra, ops, None, reps))
+        tbytes, tops = lane_work(False)
+        _lane_put(rec, "wave_trial_channels_lanes_u16", main, _lane_case(
+            torch, card, "wave_trial_channels_lanes_u16", tag,
+            lambda: hc.wave_trial_channels_lanes(bins, rls, ttabs,
+                                                 feats=feats),
+            [lambda i=i: hc.wave_trial_channels(bins, rls[i], *trial[i],
+                                                feats=feats[i])
+             for i in range(L)],
+            lambda: hc.wave_trial_channels_lanes_plain(bins, rls, ttabs,
+                                                       feats=feats),
+            tbytes, tops, None, reps))
+        del cases, feats, rls, tabs, decs, trial, ttabs
+        torch.cuda.empty_cache()
+        # ---- the single-leaf histogram on phase 12a's segments ----
+        segs = [(0, n), (n // 4, n // 2), (12_345, 50_003), (n // 3, n // 5)]
+        P16 = [bins.view(torch.int16).t().contiguous() for _ in range(L)]
+        sw = [th.FxWeights(x[1].w[:, s:s + c], x[1].inv_scale)
+              for x, (s, c) in zip(lanes, segs)]
+        act = [(w.w != 0).any(dim=0) for w in sw]
+        nact = sum(int(a.sum()) for a in act)
+        nbytes = (sum(24.0 * c for _, c in segs) + 2 * f * nact +
+                  L * f * nb * 24)
+        idx, upd = [], []
+        for lane, ((s, c), w_, a_) in enumerate(zip(segs, sw, act)):
+            r_ = torch.nonzero(a_).squeeze(1) + s
+            idx.append(((lane * f + torch.arange(f, device=dev)
+                         .unsqueeze(1)) * nb + wide[:, r_].long())
+                       .reshape(-1))
+            upd.append(w_.w[:, r_ - s].t().unsqueeze(0).expand(f, -1, -1)
+                       .reshape(-1, 3))
+        idx, upd = torch.cat(idx), torch.cat(upd).contiguous()
+
+        def lib():
+            o = torch.zeros((L * f * nb, 3), dtype=torch.int64, device=dev)
+            o.index_add_(0, idx, upd)
+            return o
+        for layout in ("rows", "features"):
+            sb = ([p[s:s + c].view(torch.uint16).t()
+                   for p, (s, c) in zip(P16, segs)] if layout == "rows"
+                  else [bins[:, s:s + c] for s, c in segs])
+            r = _lane_case(
+                torch, card, "hist_single_lanes_u16",
+                f"{layout} segments of {[c for _, c in segs]} rows, F={f} "
+                f"B={nb}",
+                lambda: hc.hist_single_lanes(sb, sw, num_bins=nb),
+                [lambda i=i: hc.hist_single(sb[i], sw[i], num_bins=nb)
+                 for i in range(L)],
+                lambda: hc.hist_single_lanes_plain(sb, sw, num_bins=nb),
+                nbytes, 3.0 * f * nact, lib, reps)
+            g, per = hc.lane_single_u16_geometry(
+                sms, f, [c for _, c in segs], nb, layout)
+            log(f"  B={nb} hist_single_lanes_u16 {layout}: {g.tiles} "
+                f"tile(s) x {g.bt} bins, clusters of {g.cluster} blocks x "
+                f"{g.f_groups} groups x {g.chunks // g.cluster} along the "
+                f"rows x {L} lanes (rows a block {list(per)})")
+            if layout == "rows":
+                _lane_put(rec, "hist_single_lanes_u16", main, r)
+        del P16, sw, act, idx, upd, lib, sb, lanes, bins, wide
+        torch.cuda.empty_cache()
+    for name in LANE_U16:
+        r = rec[name]
+        lib = ("n/a" if r["library_ms"] is None else
+               f"{r['library_ms']:.3f} ms / {r['tile_library_ms']:.3f} ms")
+        log(f"[{card}] {name} @ L={L} N={n}, B={U16_BINS[0]} / "
+            f"{U16_BINS[1]}: one launch {r['ms']:.3f} / {r['tile_ms']:.3f} "
+            f"ms, {L} single launches {r['singles_ms']:.3f} / "
+            f"{r['tile_singles_ms']:.3f} ms, bound {r['bound_ms']:.4f} / "
+            f"{r['tile_bound_ms']:.4f} ms ({r['bound_by']}), plain "
+            f"{r['plain_ms']:.3f} / {r['tile_plain_ms']:.3f} ms, library "
+            f"{lib}")
+    return rec
+
+
+def many_u16_phase(lt, torch, card, Xtr, ytr, out_dir: str) -> dict:
+    """Phase 12f's trees: ``train_many`` of 4 lanes over uint16 bins on
+    2,097,152 Higgs-shaped rows (:data:`MANY_U16_ROWS`), each lane's text
+    that of a standalone ``train()``, and ``cv`` of 4 folds of 1,048,576
+    rows on the exact wave with a 40-category column (the exact leaf form
+    and the row update's categorical form), each fold's trees and the
+    metric history those of the per-fold loop; each run with the launch
+    checks of phase 12b-e.  Returns each model-axis form's launches."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    rows = min(MANY_U16_ROWS, len(ytr))
+    cv_rows = min(CV_ROWS, rows)
+    t0 = time.perf_counter()
+    sets = {}
+    for mb_ in (U16_MAX_BIN, 65_535):
+        sets[mb_] = lt.Dataset(Xtr[:rows], ytr[:rows],
+                               params={"max_bin": mb_})
+    sets["cv"] = lt.Dataset(
+        np.c_[Xtr[:cv_rows],
+              np.abs(Xtr[:cv_rows, 0] * 7).astype(np.int64) % 40],
+        ytr[:cv_rows], params={"max_bin": U16_MAX_BIN},
+        categorical_feature=[NUM_FEATURES])
+    for key, d in sets.items():
+        d.construct()
+        if d.X_binned.dtype != np.uint16:
+            raise AssertionError(f"phase 12f: {key} binned to "
+                                 f"{d.X_binned.dtype}")
+    log(f"[{card}] phase 12f data: {rows} rows binned at max_bin="
+        f"{U16_MAX_BIN} and 65535, {cv_rows} with a categorical column at "
+        f"{U16_MAX_BIN}, in {time.perf_counter() - t0:.1f} s")
+    log(f"cut: phase 12f max_bin={U16_MAX_BIN} auto {MANY_U16_PART_ROUNDS} "
+        f"rounds (the others {MANY_U16_ROUNDS})")
+    variants = [{"lambda_l2": v} for v in MANY_L2]
+    runs = [("headline wave", mode_params("headline", U16_MAX_BIN),
+             U16_MAX_BIN, "wave", MANY_U16_ROUNDS,
+             ("hist_leaves_q8_lanes_u16", "leaf_partition_lanes",
+              "wave_row_update_lanes_u16")),
+            ("auto", dict(mode_params("partition", U16_MAX_BIN),
+                          tree_grow_mode="auto"), U16_MAX_BIN, "partition",
+             MANY_U16_PART_ROUNDS, ("hist_single_lanes_u16",)),
+            ("auto, 31 leaves", dict(mode_params("partition", 65_535),
+                                     tree_grow_mode="auto",
+                                     num_leaves=MANY_U16_TOP_LEAVES),
+             65_535, "partition", MANY_U16_ROUNDS,
+             ("hist_single_lanes_u16",))]
+
+    def body(reset, count, launches):
+        for tag, params, mb_, grower, rounds, needs in runs:
+            ds = sets[mb_]
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mb = lt.train_many(params, ds, rounds, variants=variants,
+                               device="cuda")
+            torch.cuda.synchronize()
+            t_many = time.perf_counter() - t0
+            got = count(f"f {tag}", needs)
+            if mb.batched_indices != list(range(LANES)):
+                raise AssertionError(f"phase 12f {tag}: batched "
+                                     f"{mb.batched_indices}")
+            t_one = []
+            for m, v in enumerate(variants):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                ref = lt.train({**params, **v}, ds, rounds, device="cuda")
+                torch.cuda.synchronize()
+                t_one.append(time.perf_counter() - t0)
+                if ref._gbdt.learner.grow_mode != grower:
+                    raise AssertionError(f"phase 12f {tag}: train() grew "
+                                         f"on {ref._gbdt.learner.grow_mode}")
+                if ref.model_to_string() != mb[m].model_to_string():
+                    raise AssertionError(f"phase 12f {tag}: lane {m} text "
+                                         "differs from train()")
+            mb[0].save_model(os.path.join(out_dir,
+                                          f"many_u16_{mb_}_{grower}.txt"))
+            per_round = {k: v / rounds for k, v in got.items() if v}
+            log(f"[{card}] phase 12f train_many {tag} x{LANES} (max_bin="
+                f"{mb_}, {params['num_leaves']} leaves, {grower}), "
+                f"{rounds} rounds at {rows} rows: "
+                f"{LANES * rounds / t_many:.4f} model-rounds/s in "
+                f"{t_many:.2f} s; standalone train() "
+                f"{rounds / float(np.mean(t_one)):.4f} rounds/s; "
+                f"every lane's text identical to train(); launches per "
+                f"round {json.dumps(per_round)}")
+            del mb, ref
+            torch.cuda.empty_cache()
+        # cv of 4 folds on the categorical rows: the fast path against the
+        # per-fold loop, trees and metric history
+        exact = mode_params("exact", U16_MAX_BIN, tpu_speculative_ramp=False)
+        kw = dict(num_boost_round=MANY_U16_ROUNDS, nfold=CV_FOLDS, seed=7,
+                  return_cvbooster=True, device="cuda")
+        secs, hist = {}, {}
+        for many in (True, False):
+            reset()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            hist[many] = lt.cv({**exact, "tpu_cv_many": many}, sets["cv"],
+                               **kw)
+            torch.cuda.synchronize()
+            secs[many] = time.perf_counter() - t0
+            if many:
+                count("f cv", ("hist_leaves_lanes_u16", "leaf_partition_lanes",
+                               "wave_row_update_ext_lanes_u16"))
+        trees = {many: [tree_blocks(b.model_to_string())
+                        for b in hist[many].pop("cvbooster").boosters]
+                 for many in (True, False)}
+        if trees[True] != trees[False] or hist[True] != hist[False]:
+            raise AssertionError("phase 12f: the cv fast path's trees or "
+                                 "metric history differ from the per-fold "
+                                 "loop's")
+        log(f"[{card}] phase 12f cv exact wave with a categorical column, "
+            f"max_bin={U16_MAX_BIN}, {CV_FOLDS} folds of {cv_rows} rows, "
+            f"{MANY_U16_ROUNDS} rounds: fast path {secs[True]:.2f} s, "
+            f"per-fold loop {secs[False]:.2f} s, every fold's trees and the "
+            f"metric history identical "
+            f"{json.dumps({k: v[-1] for k, v in hist[True].items()})}")
+
+    launches = _with_launch_checks(hc, body)
+    del sets
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4133,6 +4559,18 @@ def main(argv=None) -> int:
         launches[k] += v
     del X_cat
     stamp("phase 15b, max_bin=1023")
+
+    # ---- phase 12f: the model-axis uint16 forms and their paths ----
+    t12f = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(args.seed + 121)
+    rec.update(lane_u16_kernel_phase(torch, gen, torch.device("cuda"), card,
+                                     n_pad, args.reps))
+    stamp("phase 12f, model-axis uint16 kernels")
+    for k, v in many_u16_phase(lt, torch, card, Xtr, ytr, out_dir).items():
+        launches[k] += v
+    log(f"phase 12f: {time.perf_counter() - t12f:.1f} s")
+    stamp("phase 12f, train_many and cv over uint16 bins")
     for k, v in sklearn_phase(lt, torch, card, Xtr, ytr, Xte, yte).items():
         launches[k] += v
     stamp("phase 15c, LGBMClassifier")

@@ -57,6 +57,22 @@
 //     atomics.  A block holds per (feature, bin) 20 bytes fx (int64 g and
 //     h, uint32 count) or 12 q8 (int64 (g << 32) + h, uint32 count);
 //     ops/histogram_cuda.py list_geometry sizes fg, Bt and S.
+//  4. The model-axis forms (the reference's vmap of these entry points;
+//     multitrain's lanes, each with its own channels and weights over the
+//     shared bins): the lane is grid y of the partition's three kernels,
+//     each lane with its own plan (offsets, slots, table, counts) and its
+//     records at a per-lane base, so the partition's shared tables still
+//     hold K <= 64 channels (L lanes x 42 channels would not fit one
+//     channel space).  The histogram then runs one launch a lane over that
+//     lane's buffers.  One launch of all the lanes' blocks (the lane as
+//     grid y, or the lanes along x one after another or interleaved) was
+//     bitwise the same and took 1.25x (L=2) to 1.7x (L=4) the time of L
+//     launches at B=1024 on an H100 (equal at 65,535), with each lane's
+//     blocks in consecutive block indices too; most likely the lanes'
+//     blocks then run side by side, each walking its own stretch of rows,
+//     and lose the L2 sharing of bin sectors that the slot ranking (2.)
+//     gives blocks walking one stretch (PERF.md section 6,
+//     scripts/torch_u16_lanes_sweep.py).
 //
 // The sums are integers, so the result is bit-identical from run to run
 // and to the plain versions (ops/histogram_cuda.py *_plain).  q8 adds
@@ -72,6 +88,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -116,12 +134,19 @@ __device__ __forceinline__ void warp_run(long long N, long long block_rows,
 
 // wcounts[(b * 32 + v) * K + c]: the rows of channel c in warp v's run of
 // block b (shared atomics: a count needs no order); counts[c * P + b]:
-// those of the block.
+// those of the block.  The model-axis form (lanes, grid y = lane): lane
+// z's channels from lanes[z], its counts plan_ls ints further on.
 __global__ void __launch_bounds__(kThreads)
 part_count(const int8_t* __restrict__ ch, long long N, int K,
            long long block_rows, int* __restrict__ counts,
-           int* __restrict__ wcounts) {
+           int* __restrict__ wcounts, const long long* __restrict__ lanes,
+           long long plan_ls) {
   __shared__ int wc[32][kMaxK];
+  if (lanes) {
+    ch = reinterpret_cast<const int8_t*>(lanes[blockIdx.y]);
+    counts += blockIdx.y * plan_ls;
+    wcounts += blockIdx.y * plan_ls;
+  }
   const int P = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int i = threadIdx.x; i < 32 * kMaxK; i += blockDim.x)
@@ -185,15 +210,20 @@ __device__ int block_scan(int v, int* warp_sums, int* total) {
 // (j << 8) | c for slot j of channel c, ranked by (j / s_c, c), -1 past
 // the last slot (S + K entries).  One thread a slot: rank = j + the
 // slots of every other channel that start before j / s_c (and those that
-// start with it, of a lower channel).
+// start with it, of a lower channel).  Block z scans lane z's plan, plan_ls
+// ints after lane z - 1's.
 __global__ void __launch_bounds__(kThreads)
 part_scan(int* __restrict__ counts, int K, int P, int S,
           int* __restrict__ offsets, int* __restrict__ slots,
-          int* __restrict__ table) {
+          int* __restrict__ table, long long plan_ls) {
   extern __shared__ int cs[];   // counts, K * P
   __shared__ int warp_sums[32];
   __shared__ int s_sh[kMaxK + 1];
   __shared__ int pre[kMaxK + 1];
+  counts += blockIdx.x * plan_ls;
+  offsets += blockIdx.x * plan_ls;
+  slots += blockIdx.x * plan_ls;
+  table += blockIdx.x * plan_ls;
   const int n = K * P;
   for (int i = threadIdx.x; i < n; i += blockDim.x) cs[i] = counts[i];
   __syncthreads();
@@ -294,14 +324,27 @@ __device__ __forceinline__ void store_record(long long* rec, long long p,
 // each channel (part_scan), gives its first place in every channel; it
 // then takes its run in row order, 32 rows a step, placing each row at
 // its channel's next place plus its rank among the step's lanes of that
-// channel (ballots).  One block barrier.
+// channel (ballots).  One block barrier.  The model-axis form (lanes,
+// grid y = lane): lane z's channels and weights from lanes[z] and
+// lanes[L + z], its plan plan_ls ints and its records rec_ls int64 further
+// on.
 template <typename W>
 __global__ void __launch_bounds__(kThreads)
 part_scatter(const int8_t* __restrict__ ch, const W* __restrict__ w,
              long long N, int K, long long block_rows,
              const int* __restrict__ starts,
-             const int* __restrict__ wcounts, long long* __restrict__ rec) {
+             const int* __restrict__ wcounts, long long* __restrict__ rec,
+             const long long* __restrict__ lanes, int L, long long plan_ls,
+             long long rec_ls) {
   __shared__ int wpos[32][kMaxK];   // each warp's next place per channel
+  if (lanes) {
+    const int z = blockIdx.y;
+    ch = reinterpret_cast<const int8_t*>(lanes[z]);
+    w = reinterpret_cast<const W*>(lanes[L + z]);
+    starts += z * plan_ls;
+    wcounts += z * plan_ls;
+    rec += z * rec_ls;
+  }
   const int P = gridDim.x;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   for (int cc = warp; cc < K; cc += 32) {
@@ -463,16 +506,26 @@ hist_list_kernel(const uint16_t* __restrict__ bins,
   }
 }
 
+// The plan of one lane: offsets (K + 1) | slots (K) | table (S + K) |
+// counts (K x P) | the warps' runs' counts (P x 32 x K).
+long long plan_ints(int K, int P, int S) {
+  return 3LL * K + 1 + S + 33LL * K * P;
+}
+
+// lanes: null for one lane, else the device table (2, L) of each lane's
+// ch and w pointers; lane z's records and plan lie z x N records and z x
+// plan_ints(K, P, S) ints after the first.
 template <typename W>
 int partition(const void* ch, const void* w, long long N, int K, int P,
-              int S, void* rec, void* plan, void* stream) {
-  if (N <= 0 || K <= 0) return 0;
-  if (K > kMaxK || P <= 0 || S <= 0 || N > 0x7fffffffLL ||
+              int S, void* rec, void* plan, void* stream,
+              const long long* lanes = nullptr, int L = 1) {
+  if (N <= 0 || K <= 0 || L <= 0) return 0;
+  if (K > kMaxK || P <= 0 || S <= 0 || N > 0x7fffffffLL || L > 65535 ||
       (long long)K * P * sizeof(int) > 232448)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // plan: offsets (K + 1) | slots (K) | table (S + K) | counts (K x P) |
-  // the warps' runs' counts (P x 32 x K)
+  const long long plan_ls = lanes ? plan_ints(K, P, S) : 0;
+  const long long rec_ls = lanes ? N * (sizeof(W) == 1 ? 1 : 4) : 0;
   int* offsets = static_cast<int*>(plan);
   int* slots = offsets + K + 1;
   int* table = slots + K;
@@ -484,12 +537,14 @@ int partition(const void* ch, const void* w, long long N, int K, int P,
       part_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scan_smem);
   if (err != cudaSuccess) return (int)err;
   const int8_t* c8 = static_cast<const int8_t*>(ch);
-  part_count<<<P, kThreads, 0, s>>>(c8, N, K, block_rows, counts, wcounts);
-  part_scan<<<1, kThreads, scan_smem, s>>>(counts, K, P, S, offsets, slots,
-                                           table);
-  part_scatter<W><<<P, kThreads, 0, s>>>(
+  const dim3 grid(P, L);
+  part_count<<<grid, kThreads, 0, s>>>(c8, N, K, block_rows, counts, wcounts,
+                                       lanes, plan_ls);
+  part_scan<<<L, kThreads, scan_smem, s>>>(counts, K, P, S, offsets, slots,
+                                           table, plan_ls);
+  part_scatter<W><<<grid, kThreads, 0, s>>>(
       c8, static_cast<const W*>(w), N, K, block_rows, counts, wcounts,
-      static_cast<long long*>(rec));
+      static_cast<long long*>(rec), lanes, L, plan_ls, rec_ls);
   return (int)cudaGetLastError();
 }
 
@@ -532,6 +587,29 @@ int hist_list(const void* bins, const void* rec, const void* plan, void* out,
   return (int)cudaGetLastError();
 }
 
+// L lanes' histograms over leaf_partition_lanes' buffers: lane z's records
+// N records, its plan plan_ints(K, P, S) ints and its (K, F, B, 3) output
+// K x F x B x 3 entries after lane z - 1's, one launch a lane.
+template <typename W>
+int hist_lanes(const void* bins, const void* rec, const void* plan,
+               void* out, int L, int F, long long N, int B, int K, int fg,
+               int Bt, int S, int P, void* stream) {
+  if (L < 0) return (int)cudaErrorInvalidValue;
+  const long long rec_ls = N * (sizeof(W) == 1 ? 1 : 4);
+  const long long plan_ls = plan_ints(K, P, S);
+  const long long out_ls = (long long)K * F * B * 3;
+  using O = typename std::conditional<sizeof(W) == 1, int,
+                                      unsigned long long>::type;
+  for (int z = 0; z < L; ++z) {
+    const int err = hist_list<W>(
+        bins, static_cast<const long long*>(rec) + z * rec_ls,
+        static_cast<const int*>(plan) + z * plan_ls,
+        static_cast<O*>(out) + z * out_ls, F, N, B, K, fg, Bt, S, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -564,6 +642,43 @@ int hist_leaves_q8_u16(const void* bins, const void* rec, const void* plan,
                        int Bt, int S, void* stream) {
   return hist_list<int8_t>(bins, rec, plan, out, F, N, B, K, fg, Bt, S,
                            stream);
+}
+
+// The model-axis forms (the reference's vmap of its uint16 leaf
+// histograms): L lanes' channels and weights over the shared bins.  The
+// partition, lane z as grid y of its three kernels: lanes the device
+// table (2, L) [ch pointer, w pointer] of each lane (w as in
+// leaf_partition); rec (L, N, 4) or (L, N) int64; plan L x (3 K + 1 + S +
+// 33 K P) int32, each lane's laid out as leaf_partition's.  Lane z's list
+// is its single partition's, record for record.
+int leaf_partition_lanes(const void* lanes, int wbytes, long long N, int K,
+                         int P, int S, void* rec, void* plan, int L,
+                         void* stream) {
+  const long long* t = static_cast<const long long*>(lanes);
+  return wbytes == 1
+             ? partition<int8_t>(nullptr, nullptr, N, K, P, S, rec, plan,
+                                 stream, t, L)
+             : partition<long long>(nullptr, nullptr, N, K, P, S, rec, plan,
+                                    stream, t, L);
+}
+
+// The histograms over leaf_partition_lanes' records and plans: out (L, K,
+// F, B, 3) zero-filled by the caller; one launch a lane of the single
+// form's grid over that lane's buffers (see the head of this file).
+int hist_leaves_fx_lanes_u16(const void* bins, const void* rec,
+                             const void* plan, void* out, int L, int F,
+                             long long N, int B, int K, int fg, int Bt, int S,
+                             int P, void* stream) {
+  return hist_lanes<long long>(bins, rec, plan, out, L, F, N, B, K, fg, Bt,
+                               S, P, stream);
+}
+
+int hist_leaves_q8_lanes_u16(const void* bins, const void* rec,
+                             const void* plan, void* out, int L, int F,
+                             long long N, int B, int K, int fg, int Bt, int S,
+                             int P, void* stream) {
+  return hist_lanes<int8_t>(bins, rec, plan, out, L, F, N, B, K, fg, Bt, S,
+                            P, stream);
 }
 
 }  // extern "C"

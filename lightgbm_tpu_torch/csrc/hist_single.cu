@@ -102,7 +102,12 @@
 // single_resident).  A block's uint32 counts sum
 // the rows of its whole cluster: at most 2^31 (single_geometry).  The
 // uint8 forms never tile and run one block a cluster, with no cluster
-// code.  PERF.md section 6 has the sweep behind these choices.
+// code.  PERF.md section 6 has the sweep behind these choices.  The
+// model-axis uint16 form (hist_single_lanes_u16) runs the same clusters
+// with the lane as grid z, each lane's row chunks its single launch's
+// (ops/histogram_cuda.py lane_single_u16_geometry): a chunk length sized
+// for all lanes' rows as one segment left most blocks of a long lane's
+// cluster idle and the rest walking twice the rows.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -173,9 +178,9 @@ __device__ __forceinline__ void flush(const Hist& H, unsigned long long* out,
 }
 
 // The model-axis form: lane blockIdx.z's segment from the device table
-// (4, L) [bins pointer, weights pointer, rows, weight row stride] and its
-// (F, B, 3) slice of the (L, F, B, 3) result.  A block past its lane's
-// rows walks none and flushes nothing.
+// (5, L) [bins pointer, weights pointer, rows, weight row stride, rows a
+// block] and its (F, B, 3) slice of the (L, F, B, 3) result.  A block past
+// its lane's rows walks none and flushes nothing.
 #define LANE_INPUTS()                                               \
   do {                                                              \
     const int z_ = blockIdx.z;                                      \
@@ -183,6 +188,7 @@ __device__ __forceinline__ void flush(const Hist& H, unsigned long long* out,
     w = reinterpret_cast<const long long*>(lanes[L + z_]);          \
     n = lanes[2 * L + z_];                                          \
     ws = lanes[3 * L + z_];                                         \
+    chunk_rows = lanes[4 * L + z_];                                 \
     out += (long long)z_ * F * B * 3;                               \
   } while (0)
 
@@ -703,13 +709,13 @@ int hist_single_p4(const void* bins, const void* w, void* out, int F,
 // The model-axis form (the reference's vmap of build_histogram_pallas,
 // uint8 and packed):
 // L lanes' segments, each with its own bins view, weights and row count,
-// all with the strides (sf, sn) and F features.  lanes: device (4, L)
-// int64 table [bins pointer, weights pointer, rows, weight row stride];
-// out (L, F, B, 3) int64, zero-filled by the caller.  Grid (chunks,
-// ceil(F / fg), L), the chunks sized for the longest segment; layout as
-// in hist_single, word and 32-bit loads taken per lane where its bins
-// pointer is 4-byte aligned; layout 4 is the packed form (each lane's bins
-// (F, nb) contiguous nibble-packed bytes, sf = nb, its rows 2 * nb; the
+// all with the strides (sf, sn) and F features.  lanes: device (5, L)
+// int64 table [bins pointer, weights pointer, rows, weight row stride,
+// rows a block]; out (L, F, B, 3) int64, zero-filled by the caller.  Grid
+// (chunks, ceil(F / fg), L), the chunks sized for the longest segment;
+// layout as in hist_single, word and 32-bit loads taken per lane where its
+// bins pointer is 4-byte aligned; layout 4 is the packed form (each lane's
+// bins (F, nb) contiguous nibble-packed bytes, sf = nb, its rows 2 * nb; the
 // reference's vmap of build_histogram_pallas(bins_packed=True), :446),
 // layout 5 the same with 16-bit loads, taken per lane where its bins
 // pointer is 4-byte aligned.
@@ -717,8 +723,7 @@ int hist_single_p4(const void* bins, const void* w, void* out, int F,
 // sums are the single launch's, bit for bit.
 int hist_single_lanes(const void* lanes, long long sf, long long sn,
                       void* out, int L, int F, int B, int fg, int chunks,
-                      long long chunk_rows, int threads, int layout,
-                      void* stream) {
+                      int threads, int layout, void* stream) {
   if (F <= 0 || L <= 0) return 0;
   if (L > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(fg, B);
@@ -730,21 +735,66 @@ int hist_single_lanes(const void* lanes, long long sf, long long sn,
   if (layout < 2) {
     if ((err = prepare(hist_single_rows<uint8_t>, smem)) != 0) return err;
     hist_single_rows<uint8_t><<<grid, threads, smem, st>>>(
-        nullptr, sf, sn, nullptr, 0, o, F, 0, B, fg, B, 1, 0, chunk_rows,
+        nullptr, sf, sn, nullptr, 0, o, F, 0, B, fg, B, 1, 0, 0LL,
         layout == 1, t, L);
   } else if (layout < 4) {
     if ((err = prepare(hist_single_feats<uint8_t, false>, smem)) != 0)
       return err;
     hist_single_feats<uint8_t, false><<<grid, threads, smem, st>>>(
-        nullptr, sf, nullptr, 0, o, F, 0, B, fg, B, 1, 0, chunk_rows,
+        nullptr, sf, nullptr, 0, o, F, 0, B, fg, B, 1, 0, 0LL,
         layout == 3, t, L);
   } else {
     if ((err = prepare(hist_single_feats<uint8_t, true>, smem)) != 0)
       return err;
     hist_single_feats<uint8_t, true><<<grid, threads, smem, st>>>(
-        nullptr, sf, nullptr, 0, o, F, 0, B, fg, B, 1, 0, chunk_rows,
+        nullptr, sf, nullptr, 0, o, F, 0, B, fg, B, 1, 0, 0LL,
         layout == 5, t, L);
   }
+  return (int)cudaGetLastError();
+}
+
+// The model-axis form over uint16 codes (the reference's vmap of its XLA
+// one-hot histogram at max_bin > 255): hist_single_u16's clusters on each
+// of L lanes' segments, the lanes table and result as in
+// hist_single_lanes, each lane with its own rows a block (its single
+// launch's).  Grid (chunks, ceil(F / fgc), L) in clusters of (cs, 1, 1):
+// a cluster lies along the row chunks of one lane and one feature group,
+// so it never straddles two lanes; chunks (a multiple of cs) are the most
+// any lane takes, and a lane's surplus clusters walk no rows but still
+// reach both cluster barriers (no block returns early).  Layout as in
+// hist_single_u16, words and 64-bit loads taken per lane where its bins
+// pointer is aligned.  Lane l's blocks are the single form's blocks on its
+// segment, so its sums are the single launch's.
+int hist_single_lanes_u16(const void* lanes, long long sf, long long sn,
+                          void* out, int L, int F, int B, int fg, int Bt,
+                          int cs, int peers, int chunks, int threads,
+                          int layout, void* stream) {
+  if (F <= 0 || L <= 0) return 0;
+  if (L > 65535 || peers < 0 || peers >= cs)
+    return (int)cudaErrorInvalidValue;
+  U16Launch C;
+  int err = u16_config(&C, F, B, fg, Bt, cs, chunks, threads, stream);
+  if (err != 0) return err;
+  C.cfg.gridDim.z = (unsigned int)L;
+  const size_t smem = C.cfg.dynamicSmemBytes;
+  const long long* t = static_cast<const long long*>(lanes);
+  unsigned long long* o = static_cast<unsigned long long*>(out);
+  const uint16_t* none = nullptr;
+  const long long* nw = nullptr;
+  if (layout < 2) {
+    if ((err = prepare(hist_single_rows<uint16_t>, smem, cs)) != 0)
+      return err;
+    err = (int)cudaLaunchKernelEx(&C.cfg, hist_single_rows<uint16_t>, none,
+                                  sf, sn, nw, 0LL, o, F, 0LL, B, fg, Bt, cs,
+                                  peers, 0LL, (int)(layout == 1), t, L);
+  } else {
+    if ((err = prepare(hist_single_feats<uint16_t, false>, smem, cs)) != 0)
+      return err;
+    err = (int)cudaLaunchKernelEx(&C.cfg, hist_single_feats<uint16_t, false>,
+                                  none, sf, nw, 0LL, o, F, 0LL, B, fg, Bt,
+                                  cs, peers, 0LL, (int)(layout == 3), t, L);
+  }
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 

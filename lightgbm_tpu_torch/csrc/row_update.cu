@@ -67,11 +67,12 @@
 //
 // uint16 bin codes (max_bin > 255; the reference's wave grower then runs
 // its XLA row update): every form is templated on the bin type
-// (wave_row_update_u16, wave_row_update_ext_u16, wave_trial_channels_u16);
-// a split's code is one 2-byte load where it was one byte, nothing else
-// changes.  The categorical / EFB form keeps its 256-bit membership: the
-// learner refuses a categorical feature of more than 256 bins on the wave
-// grower.
+// (wave_row_update_u16, wave_row_update_ext_u16, wave_trial_channels_u16,
+// and the model-axis forms *_lanes_u16); a split's code is one 2-byte load
+// where it was one byte, nothing else changes.  The categorical / EFB
+// form keeps its 256-bit membership (a code past 255 wraps its word index
+// there): the learner refuses a categorical feature of more than 256 bins
+// on the wave grower.
 //
 // Times (NVIDIA H100 80GB HBM3, 700.00 W): chip_smoke.py phase 2 (CUDA
 // events behind a spinning kernel, W=25, N=10,502,144, rows over 255
@@ -445,6 +446,39 @@ int wave_trial_channels_lanes(const void* bins, long long fstride, int F,
                              nullptr, ch_out, nullptr, nullptr, W, N, packed,
                              vec, stream,
                              static_cast<const long long*>(lanes), L);
+}
+
+// The model-axis forms over uint16 codes (max_bin > 255; the reference's
+// vmap of its XLA row update): the lanes forms above with 2-byte codes,
+// fstride in elements; packed must be 0.
+int wave_row_update_lanes_u16(const void* bins, long long fstride, int F,
+                              const void* lanes, void* rl_out, void* ch_out,
+                              int L, int W, long long N, int packed, int vec,
+                              void* stream) {
+  return launch<false, false, uint16_t>(
+      bins, fstride, F, nullptr, nullptr, nullptr, rl_out, ch_out, nullptr,
+      nullptr, W, N, packed, vec, stream,
+      static_cast<const long long*>(lanes), L);
+}
+
+int wave_row_update_ext_lanes_u16(const void* bins, long long fstride, int F,
+                                  const void* lanes, void* rl_out,
+                                  void* ch_out, int L, int W, long long N,
+                                  int packed, int vec, void* stream) {
+  return launch<false, true, uint16_t>(
+      bins, fstride, F, nullptr, nullptr, nullptr, rl_out, ch_out, nullptr,
+      nullptr, W, N, packed, vec, stream,
+      static_cast<const long long*>(lanes), L);
+}
+
+int wave_trial_channels_lanes_u16(const void* bins, long long fstride,
+                                  int F, const void* lanes, void* ch_out,
+                                  int L, int W, long long N, int packed,
+                                  int vec, void* stream) {
+  return launch<true, false, uint16_t>(
+      bins, fstride, F, nullptr, nullptr, nullptr, nullptr, ch_out, nullptr,
+      nullptr, W, N, packed, vec, stream,
+      static_cast<const long long*>(lanes), L);
 }
 
 }  // extern "C"

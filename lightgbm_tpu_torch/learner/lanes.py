@@ -35,7 +35,9 @@ __all__ = ["KernelCall", "leaves_q8", "leaves_fx", "row_update", "trial",
 
 
 def _layout(t: torch.Tensor) -> tuple:
-    return (t.data_ptr(), tuple(t.shape), t.stride(), t.device)
+    """A bin matrix's place in a group key: requests over uint8 and
+    uint16 codes launch different forms, so the dtype keeps them apart."""
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype, t.device)
 
 
 class KernelCall:
@@ -95,7 +97,7 @@ def single(bins, w, *, num_bins: int) -> KernelCall:
     """:func:`ops.histogram_cuda.hist_single` of one leaf's rows (each
     lane's own bins view; views of equal strides share a launch)."""
     return KernelCall("single", ("single", bins.shape[0], bins.stride(),
-                                 bins.device, num_bins),
+                                 bins.dtype, bins.device, num_bins),
                       bins=bins, w=w, num_bins=num_bins)
 
 

@@ -18,11 +18,16 @@ standalone ``train()`` with the same params writes.
 ``GridSearchCVMany`` (multitrain/sweep.py, imported on first use: it
 needs sklearn) runs an sklearn grid search as one batch.
 
+uint16 bins (``max_bin`` > 255) batch as uint8 bins do, through the
+model-axis kernels' uint16 forms.  A batch the pool-less (masked) grower
+would grow raises :class:`MultiTrainError`, as the reference's does: its
+models then train one by one through ``train()``
+(``ManyBooster.fallback_indices``, with a logged warning) and ``cv``
+runs its per-fold loop.
+
 Not ported yet (ROADMAP queue 1): lane sharding across cards
-(``tpu_multitrain_shard``), the ``multitrain_*`` telemetry counters, and
-the model-axis kernels' uint16 forms (``max_bin`` > 255 raises);
-``ManyBooster.fallback_indices`` and the logged warning carry a fallback
-meanwhile.
+(``tpu_multitrain_shard`` is read and ignored) and the ``multitrain_*``
+telemetry counters.
 """
 
 from __future__ import annotations

@@ -216,11 +216,6 @@ class BatchTrainer:
         mappers = [train_set.bin_mappers[j]
                    for j in train_set.used_feature_map]
         shim.max_bins = int(max(m.num_bin for m in mappers))
-        if shim.max_bins > 256:
-            raise NotImplementedError(
-                f"train_many / cv over uint16 bins (max_bin > 255, here "
-                f"{shim.max_bins} bins): the model-axis kernels take uint8 "
-                "bins; their uint16 forms are not ported (ROADMAP queue 1)")
         num_bins = np.array([m.num_bin for m in mappers], np.int32)
         has_nan = np.array([m.missing_type == MissingType.NAN
                             for m in mappers], bool)

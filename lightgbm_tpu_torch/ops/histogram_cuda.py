@@ -62,7 +62,12 @@ split the bins into tiles that fit a block's shared memory (``bt``,
 its own :data:`LAUNCHES` key), then a histogram over its row list
 (:func:`list_geometry`).  The plain versions widen the codes to int32
 (``ops/histogram.py`` ``widen_bins``) where they compare or index.  The
-model-axis (``*_lanes``) forms take uint8 bins only.
+model-axis (``*_lanes``) forms take uint16 bins the same way (their
+``*_lanes_u16`` keys): the leaf forms run the lanes' channel partitions
+in one launch (:func:`leaf_partition_lanes`), then each lane's histogram
+over its row list,
+and ``hist_single_lanes`` runs each lane's single launch's clusters on
+its segment (:func:`lane_single_u16_geometry`).
 """
 
 from __future__ import annotations
@@ -90,6 +95,7 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "leaf_groups", "leaf_geometry", "SingleGeometry",
            "single_geometry", "trial_tab", "MAX_LANES",
            "lane_leaf_geometry", "lane_single_geometry",
+           "lane_single_u16_geometry",
            "build_histogram_leaves_q8_lanes",
            "build_histogram_leaves_q8_lanes_plain",
            "build_histogram_leaves_lanes", "build_histogram_leaves_lanes_plain",
@@ -99,7 +105,8 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "leaf_bin_tile", "single_bin_tile", "single_shape", "single_peers",
            "ListGeometry",
            "list_geometry", "list_features", "list_slots", "RowList",
-           "leaf_partition", "leaf_partition_plain"]
+           "leaf_partition", "leaf_partition_plain", "leaf_partition_lanes",
+           "leaf_partition_lanes_plain"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -123,7 +130,12 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_u16": 0, "wave_row_update_u16": 0,
             "wave_row_update_ext_u16": 0, "wave_trial_channels_u16": 0,
             # the channel partition of the uint16 leaf histograms
-            "leaf_partition": 0}
+            "leaf_partition": 0,
+            # the model-axis uint16 forms and their lanes' partition
+            "hist_single_lanes_u16": 0, "hist_leaves_q8_lanes_u16": 0,
+            "hist_leaves_lanes_u16": 0, "wave_row_update_lanes_u16": 0,
+            "wave_row_update_ext_lanes_u16": 0,
+            "wave_trial_channels_lanes_u16": 0, "leaf_partition_lanes": 0}
 
 
 def reset_launches() -> None:
@@ -223,15 +235,6 @@ def _check_num_bins(kernel, num_bins, wide: bool) -> None:
         raise ValueError(f"{kernel}: num_bins must be in [1, {top}] for "
                          f"{'uint16' if wide else 'uint8'} bins, got "
                          f"{num_bins}")
-
-
-def _refuse_u16_lanes(kernel, bins_t) -> None:
-    """The model-axis forms take uint8 bins (ROADMAP queue 1)."""
-    if bins_t.dtype == torch.uint16:
-        raise NotImplementedError(
-            f"{kernel}: the model-axis kernels take uint8 bins; uint16 bins "
-            "(max_bin > 255) under train_many / cv are not ported "
-            "(ROADMAP queue 1)")
 
 
 def _check_hist_args(kernel, bins_t, w, w_dtype, w_rows, ch, num_bins,
@@ -388,7 +391,8 @@ def list_slots_least(n: int, q8: bool) -> int:
 def list_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
                   q8: bool) -> ListGeometry:
     """Geometry of ``hist_leaves_{fx,q8}_u16`` on a card with ``sms`` SMs
-    over ``n`` rows.  A block keeps one channel: the list puts a block's
+    over ``n`` rows (and of each lane's histogram launch of their
+    model-axis forms).  A block keeps one channel: the list puts a block's
     rows in one channel, so a wider channel group would only flush more.
     Of :func:`list_features`, it takes the split whose listed rows wait
     the fewest times for their bins (each feature group reads a row's
@@ -417,9 +421,11 @@ def list_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
                         _part_blocks(sms, n))
 
 
-def _part_blocks(sms: int, n: int) -> int:
-    """Row blocks of the channel partition over ``n`` rows."""
-    return max(1, min(LIST_PART_SM_BLOCKS * sms, -(-n // LIST_PART_MIN_ROWS)))
+def _part_blocks(sms: int, n: int, lanes: int = 1) -> int:
+    """Row blocks of the channel partition over ``n`` rows, per lane: the
+    lanes share ``LIST_PART_SM_BLOCKS`` blocks an SM."""
+    return max(1, min(-(-LIST_PART_SM_BLOCKS * sms // lanes),
+                      -(-n // LIST_PART_MIN_ROWS)))
 
 
 _SMS = {}
@@ -541,58 +547,138 @@ def leaf_partition(ch: torch.Tensor, w: torch.Tensor, *, num_channels: int,
     rows copied into the records.  On the card the records have room for
     N rows, the first ``offsets[K]`` listed; ``part_blocks`` row blocks
     (default :func:`list_geometry`'s count)."""
-    k = num_channels
+    _check_partition("leaf_partition", ch, w, num_channels, slots)
+    if ch.device.type == "cpu":
+        return leaf_partition_plain(ch, w, num_channels=num_channels,
+                                    slots=slots)
+    rec, plan = _partition_buffers([ch], [w], num_channels, slots,
+                                   part_blocks, False)
+    return _row_lists(rec, plan, num_channels, slots)[0]
+
+
+def _check_partition(kernel, ch, w, k, slots) -> None:
     if ch.dtype != torch.int8 or ch.dim() != 1:
-        raise TypeError("leaf_partition: ch must be (N,) int8")
+        raise TypeError(f"{kernel}: ch must be (N,) int8")
     n = ch.shape[0]
     if (w.dtype not in (torch.int64, torch.int8) or w.dim() != 2 or
             w.shape[0] < 3 or w.shape[1] != n):
-        raise ValueError(f"leaf_partition: weights must be (>= 3, {n}) "
+        raise ValueError(f"{kernel}: weights must be (>= 3, {n}) "
                          f"int64 or int8, got {tuple(w.shape)} {w.dtype}")
     if not 1 <= k <= LIST_MAX_CHANNELS or slots < 1:
-        raise ValueError(f"leaf_partition: {k} channels (at most "
+        raise ValueError(f"{kernel}: {k} channels (at most "
                          f"{LIST_MAX_CHANNELS}) and {slots} slots")
     if w.device != ch.device:
         raise ValueError(f"weights are on {w.device}, expected {ch.device}")
     if not (ch.is_contiguous() and w.is_contiguous()):
-        raise ValueError("leaf_partition: ch and weights must be contiguous")
-    _check_device("leaf_partition", ch.device)
-    if ch.device.type == "cpu":
-        return leaf_partition_plain(ch, w, num_channels=k, slots=slots)
+        raise ValueError(f"{kernel}: ch and weights must be contiguous")
+    _check_device(kernel, ch.device)
     if n >= 1 << 31:
-        raise ValueError(f"leaf_partition: {n} rows; a record's id is "
-                         "32 bits")
-    dev = ch.device
+        raise ValueError(f"{kernel}: {n} rows; a record's id is 32 bits")
+
+
+def _partition_buffers(chs, ws, k, slots, part_blocks, lanes_form):
+    """Launch the channel partition of each lane's ``chs[l]``, ``ws[l]``:
+    one lane's ``leaf_partition``, or with ``lanes_form`` the lanes'
+    ``leaf_partition_lanes`` (the lane as grid y; ``part_blocks`` row
+    blocks a lane, by default :func:`_part_blocks`' share of the lanes).
+    Returns the (L, N, 4)
+    or (L, N) int64 records and the (L, plan) int32 plans, each lane's
+    laid out as :class:`RowList` reads it."""
+    lanes, n, w0 = len(chs), chs[0].shape[0], ws[0]
+    dev = chs[0].device
     if part_blocks is None:
-        part_blocks = _part_blocks(_sm_count(dev), n)
-    rec = torch.empty((n, 4) if w.dtype == torch.int64 else (n,),
-                      dtype=torch.int64, device=dev)
-    plan = torch.empty((3 * k + 1 + slots + 33 * k * part_blocks,),
+        part_blocks = _part_blocks(_sm_count(dev), n, lanes)
+    rec = torch.empty((lanes, n, 4) if w0.dtype == torch.int64
+                      else (lanes, n), dtype=torch.int64, device=dev)
+    plan = torch.empty((lanes, 3 * k + 1 + slots + 33 * k * part_blocks),
                        dtype=torch.int32, device=dev)
-    if n:
+    if not n:
+        plan.zero_()
+        plan[:, 2 * k + 1:3 * k + 1 + slots] = -1
+    elif lanes_form:
+        table = _lane_table([[c.data_ptr() for c in chs],
+                             [w.data_ptr() for w in ws]], dev)
+        fn = _fn("hist_leaves_u16", "leaf_partition_lanes",
+                 [_VP, _CI, _LL, _CI, _CI, _CI, _VP, _VP, _CI, _VP])
+        _raise_on(fn(_p(table), w0.element_size(), n, k, part_blocks, slots,
+                     _p(rec), _p(plan), lanes, _stream()),
+                  "leaf_partition_lanes")
+        LAUNCHES["leaf_partition_lanes"] += 1
+    else:
         fn = _fn("hist_leaves_u16", "leaf_partition",
                  [_VP, _VP, _CI, _LL, _CI, _CI, _CI, _VP, _VP, _VP])
-        _raise_on(fn(_p(ch), _p(w), w.element_size(), n, k, part_blocks,
-                     slots, _p(rec), _p(plan), _stream()),
+        _raise_on(fn(_p(chs[0]), _p(w0), w0.element_size(), n, k,
+                     part_blocks, slots, _p(rec), _p(plan), _stream()),
                   "leaf_partition")
         LAUNCHES["leaf_partition"] += 1
-    else:
-        plan.zero_()
-        plan[2 * k + 1:3 * k + 1 + slots] = -1
-    return RowList(rec, plan[:k + 1], plan[k + 1:2 * k + 1],
-                   plan[2 * k + 1:3 * k + 1 + slots])
+    return rec, plan
+
+
+def _row_lists(rec, plan, k, slots) -> list:
+    """Each lane's :class:`RowList`: views of the partition's buffers."""
+    return [RowList(r, p[:k + 1], p[k + 1:2 * k + 1],
+                    p[2 * k + 1:3 * k + 1 + slots])
+            for r, p in zip(rec, plan)]
+
+
+def leaf_partition_lanes_plain(ch, w, *, num_channels: int,
+                               slots: int) -> list:
+    """Plain version of :func:`leaf_partition_lanes`: each lane's
+    :func:`leaf_partition_plain`."""
+    return [leaf_partition_plain(c, w_, num_channels=num_channels,
+                                 slots=slots)
+            for c, w_ in zip(_seq(ch), _seq(w))]
+
+
+def leaf_partition_lanes(ch, w, *, num_channels: int, slots: int,
+                         part_blocks: int = None) -> list:
+    """:func:`leaf_partition` of L lanes in one launch of each of its
+    three kernels (the lane as grid y): ``ch`` and ``w`` hold each lane's
+    (N,) int8 channels and (>= 3, N) weights, of one dtype.  Returns each
+    lane's :class:`RowList`, record for record its single partition's;
+    ``part_blocks`` row blocks a lane."""
+    ch, w = _seq(ch), _seq(w)
+    _lane_count("leaf_partition_lanes", ch, w)
+    for c, w_ in zip(ch, w):
+        _check_partition("leaf_partition_lanes", c, w_, num_channels, slots)
+    if len({(c.shape[0], c.device, w_.dtype) for c, w_ in zip(ch, w)}) != 1:
+        raise ValueError("leaf_partition_lanes: every lane needs the same "
+                         "row count, device and weight dtype")
+    if ch[0].device.type == "cpu":
+        return leaf_partition_lanes_plain(ch, w, num_channels=num_channels,
+                                          slots=slots)
+    rec, plan = _partition_buffers(ch, w, num_channels, slots, part_blocks,
+                                   True)
+    return _row_lists(rec, plan, num_channels, slots)
 
 
 def _launch_list_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, q8):
     """The channel partition, then the histogram over its records, both
     on the current stream and from one :func:`list_geometry`."""
     geo = list_geometry(_sm_count(bins_t.device), f, n, num_bins, k, q8)
-    rl = leaf_partition(ch, w, num_channels=k, slots=geo.slots,
-                        part_blocks=geo.part_blocks)
+    rec, plan = _partition_buffers([ch], [w], k, geo.slots,
+                                   geo.part_blocks, False)
     fn = _fn("hist_leaves_u16", fn_name,
              [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _VP])
-    _raise_on(fn(_p(bins_t), _p(rl.records), _p(rl.offsets), _p(out), f, n,
+    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), f, n,
                  num_bins, k, geo.fg, geo.bt, geo.slots, _stream()), fn_name)
+
+
+def _launch_list_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins,
+                            k, q8):
+    """The lanes' channel partitions in one launch, then each lane's
+    histogram over its row list, the single form's launch
+    (:func:`list_geometry`); one C call for all of them."""
+    lanes = len(ws)
+    sms = _sm_count(bins_t.device)
+    geo = list_geometry(sms, f, n, num_bins, k, q8)
+    part_blocks = _part_blocks(sms, n, lanes)
+    rec, plan = _partition_buffers(chs, ws, k, geo.slots, part_blocks, True)
+    fn = _fn("hist_leaves_u16", fn_name,
+             [_VP] * 4 + [_CI, _CI, _LL] + [_CI] * 6 + [_VP])
+    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), lanes, f, n,
+                 num_bins, k, geo.fg, geo.bt, geo.slots, part_blocks,
+                 _stream()), fn_name)
 
 
 def _unpacked(bins_t, bins_packed: bool):
@@ -1383,12 +1469,35 @@ def lane_single_geometry(sms: int, f: int, rows, num_bins: int,
                         chunk_rows=chunk_rows)
 
 
+def lane_single_u16_geometry(sms: int, f: int, rows, num_bins: int,
+                            layout: str) -> tuple:
+    """Geometry of ``hist_single_lanes_u16`` past 256 bins over lanes of
+    ``rows`` rows each: :func:`single_shape`'s launch for every lane, and
+    each lane's row chunks its single launch's (:func:`single_chunks`), so
+    a lane's blocks are the blocks of its :func:`hist_single` launch; the
+    grid's ``chunks`` the most any lane takes (a multiple of the cluster,
+    so no cluster straddles two lanes; a lane's surplus clusters walk no
+    rows).  Returns (the geometry, each lane's rows a block).  One chunk
+    length for every lane, sized for all the lanes' rows as one segment,
+    left most blocks of a long lane's cluster idle (its rows in the first
+    few chunks) and cost 2.3x four single launches at B=65,535 (PERF.md
+    section 6)."""
+    shape = single_shape(sms, f, num_bins, layout)
+    per = [single_chunks(shape, max(1, r)) for r in rows]
+    return (shape._replace(chunks=max(g.chunks for g in per)),
+            tuple(g.chunk_rows for g in per))
+
+
 def _launch_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins, k,
                        packed):
+    q8 = fn_name.startswith("hist_leaves_q8")
+    if bins_t.dtype == torch.uint16:
+        _launch_list_hist_lanes(fn_name + "_u16", bins_t, ws, chs, out, f, n,
+                                num_bins, k, q8)
+        return
     lanes = len(ws)
     geo = lane_leaf_geometry(_sm_count(bins_t.device), f, n, num_bins, k,
-                             fn_name.startswith("hist_leaves_q8"), packed,
-                             lanes)
+                             q8, packed, lanes)
     table = _lane_table([[w.data_ptr() for w in ws],
                          [c.data_ptr() for c in chs]], bins_t.device)
     vec = int(all(c.data_ptr() % 4 == 0 for c in chs))
@@ -1405,9 +1514,10 @@ def build_histogram_leaves_q8_lanes(bins_t: torch.Tensor, wch, ch, *,
                                     bins_packed: bool = False
                                     ) -> torch.Tensor:
     """(L, 42, F, B, 3) int32: :func:`build_histogram_leaves_q8` of L lanes
-    in one launch.  ``bins_t`` is shared; ``wch`` and ``ch`` hold each
-    lane's (8, N) int8 weights and (N,) int8 channels."""
-    _refuse_u16_lanes("build_histogram_leaves_q8_lanes", bins_t)
+    in one launch (uint16 bins: the lanes' channel partition in one
+    launch, then a histogram launch a lane).  ``bins_t`` is shared;
+    ``wch`` and ``ch`` hold each lane's (8, N) int8 weights and (N,) int8
+    channels."""
     wch, ch = _seq(wch), _seq(ch)
     lanes = _lane_count("build_histogram_leaves_q8_lanes", wch, ch)
     f = n = None
@@ -1421,7 +1531,8 @@ def build_histogram_leaves_q8_lanes(bins_t: torch.Tensor, wch, ch, *,
                       dtype=torch.int32, device=bins_t.device)
     _launch_hist_lanes("hist_leaves_q8_lanes", bins_t, wch, ch, out, f, n,
                        num_bins, Q_LEAF_CHANNELS, bins_packed)
-    LAUNCHES["hist_leaves_q8_lanes_packed4" if bins_packed
+    LAUNCHES["hist_leaves_q8_lanes_packed4" if bins_packed else
+             "hist_leaves_q8_lanes_u16" if bins_t.dtype == torch.uint16
              else "hist_leaves_q8_lanes"] += 1
     return out
 
@@ -1445,9 +1556,10 @@ def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
                                  num_bins: int, bins_packed: bool = False
                                  ) -> torch.Tensor:
     """(L, 25, F, B, 3) f32: :func:`build_histogram_leaves` of L lanes in
-    one launch.  ``ws`` holds each lane's :class:`FxWeights` (its tree's
-    own scale), ``ch`` each lane's (N,) int8 channels."""
-    _refuse_u16_lanes("build_histogram_leaves_lanes", bins_t)
+    one launch (uint16 bins: the lanes' channel partition in one launch,
+    then a histogram launch a lane).  ``ws`` holds each lane's
+    :class:`FxWeights` (its tree's own scale), ``ch`` each lane's (N,) int8
+    channels."""
     ws, ch = list(ws), _seq(ch)
     lanes = _lane_count("build_histogram_leaves_lanes", ws, ch)
     f = n = None
@@ -1462,7 +1574,8 @@ def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
                       dtype=torch.int64, device=bins_t.device)
     _launch_hist_lanes("hist_leaves_fx_lanes", bins_t, [w.w for w in ws], ch,
                        out, f, n, num_bins, LEAF_CHANNELS, bins_packed)
-    LAUNCHES["hist_leaves_lanes_packed4" if bins_packed
+    LAUNCHES["hist_leaves_lanes_packed4" if bins_packed else
+             "hist_leaves_lanes_u16" if bins_t.dtype == torch.uint16
              else "hist_leaves_lanes"] += 1
     return fx_to_f32(out, _lane_scales(ws))
 
@@ -1484,23 +1597,21 @@ def hist_single_lanes_plain(bins, ws, *, num_bins: int,
 def hist_single_lanes(bins, ws, *, num_bins: int,
                       bins_packed: bool = False) -> torch.Tensor:
     """(L, F, B, 3) int64: :func:`hist_single` of L lanes in one launch.
-    ``bins[l]`` is lane l's (F, n_l) uint8 view (a segment of its own
-    row-major rows, or a feature-major matrix; every lane's view with the
-    same strides), ``ws[l]`` its :class:`FxWeights` or (3, n_l) int64
-    weights over the same rows.  With ``bins_packed`` (the reference's
-    ``vmap`` of ``build_histogram_pallas(bins_packed=True)``): each lane's
-    contiguous (F, N/2) nibble-packed bytes, all of one width, and its
-    contiguous (3, N) weights.  Scale back per lane with
+    ``bins[l]`` is lane l's (F, n_l) uint8 or uint16 view (a segment of
+    its own row-major rows, or a feature-major matrix; every lane's view
+    with the same dtype and strides), ``ws[l]`` its :class:`FxWeights` or
+    (3, n_l) int64 weights over the same rows.  With ``bins_packed`` (the
+    reference's ``vmap`` of ``build_histogram_pallas(bins_packed=True)``):
+    each lane's contiguous (F, N/2) nibble-packed bytes, all of one width,
+    and its contiguous (3, N) weights.  Scale back per lane with
     :func:`fx_to_f32`."""
     bins, ws = _seq(bins), [_weights_of(w) for w in ws]
-    for b in bins:
-        _refuse_u16_lanes("hist_single_lanes", b)
     lanes = _lane_count("hist_single_lanes", bins, ws)
-    strides = {b.stride() for b in bins}
+    strides = {(b.stride(), b.dtype) for b in bins}
     if len(strides) != 1 or len({b.shape for b in bins} if bins_packed
                                 else {b.shape[0] for b in bins}) != 1:
         raise ValueError("hist_single_lanes: every lane's bins need the same "
-                         "feature count and strides"
+                         "feature count, dtype and strides"
                          + (" and width" if bins_packed else ""))
     f = n = None
     rows = []
@@ -1521,7 +1632,31 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
     sf, sn = bins[0].stride()
     layout = ("packed" if bins_packed else
               "features" if sn == 1 else "rows")
-    geo = lane_single_geometry(_sm_count(dev), f, rows, num_bins, layout)
+    if bins[0].dtype == torch.uint16 and num_bins > 256:
+        geo, per_lane = lane_single_u16_geometry(_sm_count(dev), f, rows,
+                                                 num_bins, layout)
+    else:
+        geo = lane_single_geometry(_sm_count(dev), f, rows, num_bins, layout)
+        per_lane = [geo.chunk_rows] * lanes
+    table = _lane_table([[b.data_ptr() for b in bins],
+                         [w.data_ptr() for w in ws], rows,
+                         [w.stride(0) for w in ws], per_lane], dev)
+    if bins[0].dtype == torch.uint16:
+        # as hist_single's uint16 form, the alignment of each lane's bins
+        # pointer taken in the kernel
+        if layout == "features":
+            kind = 3 if sf % 4 == 0 else 2
+        else:
+            fgc = geo.cluster // geo.tiles * geo.fg
+            kind = int(sf == 1 and sn % 2 == 0 and
+                       (fgc % 2 == 0 or geo.f_groups == 1))
+        fn = _fn("hist_single", "hist_single_lanes_u16",
+                 [_VP, _LL, _LL, _VP] + [_CI] * 10 + [_VP])
+        _raise_on(fn(_p(table), sf, sn, _p(out), lanes, f, num_bins, geo.fg,
+                     geo.bt, geo.cluster, geo.peers, geo.chunks, geo.threads,
+                     kind, _stream()), "hist_single_lanes_u16")
+        LAUNCHES["hist_single_lanes_u16"] += 1
+        return out
     if layout == "packed":
         kind = 5 if sf % 4 == 0 else 4
     elif layout == "features":
@@ -1529,14 +1664,10 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
     else:
         kind = int(sf == 1 and sn % 4 == 0 and
                    (geo.fg % 4 == 0 or geo.f_groups == 1))
-    table = _lane_table([[b.data_ptr() for b in bins],
-                         [w.data_ptr() for w in ws], rows,
-                         [w.stride(0) for w in ws]], dev)
     fn = _fn("hist_single", "hist_single_lanes",
-             [_VP, _LL, _LL, _VP, _CI, _CI, _CI, _CI, _CI, _LL, _CI, _CI,
-              _VP])
+             [_VP, _LL, _LL, _VP] + [_CI] * 7 + [_VP])
     _raise_on(fn(_p(table), sf, sn, _p(out), lanes, f, num_bins, geo.fg,
-                 geo.chunks, geo.chunk_rows, geo.threads, kind, _stream()),
+                 geo.chunks, geo.threads, kind, _stream()),
               "hist_single_lanes")
     LAUNCHES["hist_single_lanes_packed4" if bins_packed
              else "hist_single_lanes"] += 1
@@ -1544,7 +1675,6 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
 
 
 def _check_row_lanes(kernel, cols_w, rl, tab, feats, bins_packed, decode):
-    _refuse_u16_lanes(kernel, cols_w)
     lanes = _lane_count(kernel, rl, tab, feats,
                         None if decode is None else decode)
     wn = n = None
@@ -1570,7 +1700,10 @@ def wave_row_update_lanes_plain(cols_w, rl, tab, *, feats,
 
 def _launch_rows_lanes(kernel, cols_w, rl, tab, feats, bins_packed, rl_out,
                        ch, decode=None):
+    """Launch ``kernel`` (its ``_u16`` form for uint16 bins); returns the
+    form's :data:`LAUNCHES` key."""
     lanes, wn, n = len(rl), tab[0].shape[1], rl[0].shape[0]
+    kernel = kernel + ("_u16" if cols_w.dtype == torch.uint16 else "")
     rows = [[f.data_ptr() for f in feats], [r.data_ptr() for r in rl],
             [t.data_ptr() for t in tab]]
     if decode is not None:
@@ -1587,16 +1720,18 @@ def _launch_rows_lanes(kernel, cols_w, rl, tab, feats, bins_packed, rl_out,
     _raise_on(fn(_p(cols_w), cols_w.stride(0), cols_w.shape[0], _p(table),
                  *outs, lanes, wn, n, int(bins_packed), vec, _stream()),
               kernel)
+    return kernel
 
 
 def wave_row_update_lanes(cols_w: torch.Tensor, rl, tab, *, feats,
                           bins_packed: bool = False, decode=None):
     """:func:`wave_row_update` of L lanes in one launch, over the shared
-    (F, N) bin matrix ``cols_w`` (nibble-packed with ``bins_packed``) read
-    in place.  ``rl``, ``tab`` and ``feats`` hold each lane's (N,) int32
-    row->leaf, (8, W) int32 table and (W,) int32 split columns; ``decode``
-    each lane's :class:`SplitDecode` (the categorical / EFB form).
-    Returns (rl_new (L, N) int32, ch (L, N) int8)."""
+    (F, N) bin matrix ``cols_w`` (uint8, nibble-packed with
+    ``bins_packed``, or uint16: the ``_u16`` forms) read in place.
+    ``rl``, ``tab`` and ``feats`` hold each lane's (N,) int32 row->leaf,
+    (8, W) int32 table and (W,) int32 split columns; ``decode`` each
+    lane's :class:`SplitDecode` (the categorical / EFB form).  Returns
+    (rl_new (L, N) int32, ch (L, N) int8)."""
     rl, tab, feats = _seq(rl), _seq(tab), _seq(feats)
     decode = None if decode is None else list(decode)
     lanes, wn, n = _check_row_lanes("wave_row_update_lanes", cols_w, rl,
@@ -1609,9 +1744,8 @@ def wave_row_update_lanes(cols_w: torch.Tensor, rl, tab, *, feats,
     ch = torch.empty((lanes, n), dtype=torch.int8, device=cols_w.device)
     kernel = ("wave_row_update_lanes" if decode is None
               else "wave_row_update_ext_lanes")
-    _launch_rows_lanes(kernel, cols_w, rl, tab, feats, bins_packed, rl_out,
-                       ch, decode)
-    LAUNCHES[kernel] += 1
+    LAUNCHES[_launch_rows_lanes(kernel, cols_w, rl, tab, feats, bins_packed,
+                                rl_out, ch, decode)] += 1
     return rl_out, ch
 
 
@@ -1634,7 +1768,6 @@ def wave_trial_channels_lanes(cols_w: torch.Tensor, rl, tab, *, feats,
         return wave_trial_channels_lanes_plain(cols_w, rl, tab, feats=feats,
                                                bins_packed=bins_packed)
     ch = torch.empty((lanes, n), dtype=torch.int8, device=cols_w.device)
-    _launch_rows_lanes("wave_trial_channels_lanes", cols_w, rl, tab, feats,
-                       bins_packed, None, ch)
-    LAUNCHES["wave_trial_channels_lanes"] += 1
+    LAUNCHES[_launch_rows_lanes("wave_trial_channels_lanes", cols_w, rl, tab,
+                                feats, bins_packed, None, ch)] += 1
     return ch

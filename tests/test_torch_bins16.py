@@ -153,8 +153,15 @@ def test_u16_wrappers_refuse_what_the_kernels_do_not_take():
         hc.hist_single(bins.to(torch.uint8), w, num_bins=300)
     with pytest.raises(TypeError, match="uint8"):
         hc.hist_single(bins, w, num_bins=16, bins_packed=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        hc.hist_single_lanes([bins], [w], num_bins=300)
+    # the model-axis forms take uint16 bins within the same limits, all
+    # lanes of one dtype
+    with pytest.raises(ValueError, match="65536"):
+        hc.hist_single_lanes([bins], [w], num_bins=70_000)
+    with pytest.raises(ValueError, match="dtype"):
+        hc.hist_single_lanes([bins, bins.to(torch.uint8)], [w, w],
+                             num_bins=16)
+    assert hc.hist_single_lanes([bins], [w], num_bins=300).shape == \
+        (1, 3, 300, 3)
 
 
 # -- training against the reference ------------------------------------------
@@ -287,13 +294,40 @@ def test_auto_partitions_and_trains_exact_as_the_reference(recwarn):
 
 
 def test_train_many_refuses_u16_bins():
+    """Since the model-axis kernels' uint16 forms, ``train_many`` and
+    ``cv`` at max_bin=511 train on the CPU through the batch (each model's
+    text its standalone ``train()``'s); the batch refuses only the
+    pool-less (masked) grower, as the reference's does, with
+    ``MultiTrainError``: ``train_many`` then trains its models one by one
+    (or raises with ``allow_fallback=False``) and ``cv`` runs its per-fold
+    loop, whose metrics it returns."""
+    from lightgbm_tpu_torch.multitrain import MultiTrainError
     X, y = _data("regression", n=2000)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train_many({"objective": "regression", "num_leaves": 7,
-                       "verbosity": -1, "max_bin": 511},
-                      lt.Dataset(X, y), 2,
-                      variants=[{"lambda_l2": 0.0}, {"lambda_l2": 1.0}],
-                      device="cpu")
+    params = {"objective": "regression", "num_leaves": 7, "verbosity": -1,
+              "max_bin": 511}
+    variants = [{"lambda_l2": 0.0}, {"lambda_l2": 1.0}]
+    mb = lt.train_many(params, lt.Dataset(X, y), 2, variants=variants,
+                       device="cpu")
+    assert mb.batched_indices == [0, 1] and mb.fallback_indices == []
+    for m, v in enumerate(variants):
+        ref = lt.train({**params, **v}, lt.Dataset(X, y), 2, device="cpu")
+        assert ref._gbdt.learner.grow_mode == "partition"
+        assert mb[m].model_to_string() == ref.model_to_string()
+    kw = dict(num_boost_round=2, nfold=3, seed=7, device="cpu")
+    fast = lt.cv(params, lt.Dataset(X, y), **kw)
+    assert fast == lt.cv({**params, "tpu_cv_many": False},
+                         lt.Dataset(X, y), **kw)
+    masked = {**params, "histogram_pool_size": 0.001}
+    with pytest.raises(MultiTrainError, match="masked"):
+        lt.train_many(masked, lt.Dataset(X, y), 2, variants=variants,
+                      allow_fallback=False, device="cpu")
+    mb = lt.train_many(masked, lt.Dataset(X, y), 2, variants=variants,
+                       device="cpu")
+    assert mb.fallback_indices == [0, 1]
+    loop = lt.cv(masked, lt.Dataset(X, y), **kw)
+    assert loop == lt.cv({**masked, "tpu_cv_many": False}, lt.Dataset(X, y),
+                         **kw)
+    assert len(loop["valid l2-mean"]) == 2
 
 
 def test_wave_refuses_a_categorical_feature_past_256_bins():

@@ -1295,6 +1295,182 @@ def test_u16_training_on_card_matches_cpu(cuda_device, extra):
     assert on_card.model_to_string() == on_cpu.model_to_string()
 
 
+# -- the model-axis uint16 forms ---------------------------------------------
+
+U16_LANE_PLAINS = LANE_PLAINS + ("leaf_partition_lanes_plain",)
+U16_LANE_KERNELS = ("hist_leaves_q8_lanes_u16", "hist_leaves_lanes_u16",
+                    "leaf_partition_lanes", "wave_row_update_lanes_u16",
+                    "wave_row_update_ext_lanes_u16",
+                    "wave_trial_channels_lanes_u16", "hist_single_lanes_u16")
+
+
+def _u16_lanes(device, lanes, n, num_bins, empty):
+    """``_lane_inputs`` over uint16 codes (thresholds and NaN bins past
+    255, the top code on a run of rows), each lane's categorical decode
+    (its splits of the last feature, whose codes stay below 256: the
+    membership's 256 bins), and each lane's segment of its own row-major
+    copy, lane ``empty``'s (if any) segment of no row."""
+    bins, wch, fx, ch, rl, feats, tab, _ = _lane_inputs(lanes, n, 256,
+                                                        device)
+    rng = np.random.RandomState(lanes + num_bins % 89)
+    b = rng.randint(0, num_bins, (F, n)).astype(np.uint16)
+    b[:, :97] = num_bins - 1
+    b[F - 1] %= 256
+    bins = torch.from_numpy(b).to(device)
+    feats = feats.clone()
+    feats[:, 2] = F - 1
+    tab = tab.clone()
+    tab[:, 0] = torch.from_numpy(rng.randint(
+        0, num_bins, tuple(tab[:, 0].shape)).astype(np.int32)).to(device)
+    tab[:, 1] = torch.where(tab[:, 1] >= 0, num_bins - 1, -1)
+    w = tab.shape[2]
+    decs = []
+    for _ in range(lanes):
+        z = torch.zeros(w, dtype=torch.int32, device=device)
+        decs.append(hc.split_decode(
+            feats[len(decs)] == F - 1,
+            torch.from_numpy(rng.rand(w, 256) < 0.4).to(device), z,
+            z + num_bins, z, z + 1))
+    P = [bins.t().contiguous() for _ in range(lanes)]
+    segs = [(i * 97 + 5, n - i * 1001) for i in range(lanes)]
+    if empty is not None:
+        segs[empty] = (50, 50)
+    single = ([p[s:e].t() for p, (s, e) in zip(P, segs)],
+              [th.FxWeights(f.w[:, s:e], f.inv_scale)
+               for f, (s, e) in zip(fx, segs)])
+    feats_major = ([bins] * lanes, fx)
+    return bins, wch, fx, ch, rl, feats, tab, decs, single, feats_major
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("num_bins", [1024, 65_535])
+@pytest.mark.parametrize("lanes", [1, 4])
+def test_u16_lane_kernels_match_plain_and_single_on_card(
+        cuda_device, monkeypatch, num_bins, lanes):
+    """Every uint16 model-axis form, one launch for all lanes (the leaf
+    forms: one partition launch and one histogram launch), bitwise its
+    plain version and L single launches, identical twice; the single-leaf
+    form over row-major segments with one empty lane (its clusters walk
+    no row but reach every cluster barrier) and over the shared
+    feature-major matrix; the lanes' partitions record for record each
+    lane's own."""
+    n = 100_003
+    (bins, wch, fx, ch, rl, feats, tab, decs, single,
+     fmaj) = _u16_lanes(cuda_device, lanes, n, num_bins,
+                        empty=lanes - 1 if lanes > 1 else None)
+    chx = torch.where(ch < hc.LEAF_CHANNELS, ch, -1)
+    tabs = [hc.trial_tab(t[4], t[0], t[1], t[2] > 0, t[3] > 0, t[6] > 0)
+            for t in tab]
+    sms = hc._sm_count(torch.device(cuda_device))
+    geo = hc.list_geometry(sms, F, n, num_bins, hc.Q_LEAF_CHANNELS, True)
+
+    def run():
+        return (hc.build_histogram_leaves_q8_lanes(bins, wch, ch,
+                                                   num_bins=num_bins),
+                hc.build_histogram_leaves_lanes(bins, fx, chx,
+                                                num_bins=num_bins),
+                *hc.wave_row_update_lanes(bins, rl, tab, feats=feats),
+                *hc.wave_row_update_lanes(bins, rl, tab, feats=feats,
+                                          decode=decs),
+                hc.wave_trial_channels_lanes(bins, rl, tabs, feats=feats),
+                hc.hist_single_lanes(*single, num_bins=num_bins),
+                hc.hist_single_lanes(*fmaj, num_bins=num_bins))
+
+    for name in U16_LANE_PLAINS:
+        monkeypatch.setattr(hc, name, None)      # must launch
+    before = dict(hc.LAUNCHES)
+    got, again = run(), run()
+    parts = hc.leaf_partition_lanes(ch, wch, num_channels=hc.Q_LEAF_CHANNELS,
+                                    slots=geo.slots,
+                                    part_blocks=hc._part_blocks(sms, n, lanes))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    launched = {k: hc.LAUNCHES[k] - before[k] for k in hc.LAUNCHES
+                if hc.LAUNCHES[k] != before[k]}
+    assert launched == {
+        "hist_leaves_q8_lanes_u16": 2, "hist_leaves_lanes_u16": 2,
+        "leaf_partition_lanes": 5, "wave_row_update_lanes_u16": 2,
+        "wave_row_update_ext_lanes_u16": 2,
+        "wave_trial_channels_lanes_u16": 2, "hist_single_lanes_u16": 4}
+    for x, y in zip(got, again):
+        assert torch.equal(x, y)
+    want = (hc.build_histogram_leaves_q8_lanes_plain(bins, wch, ch,
+                                                     num_bins=num_bins),
+            hc.build_histogram_leaves_lanes_plain(bins, fx, chx,
+                                                  num_bins=num_bins),
+            *hc.wave_row_update_lanes_plain(bins, rl, tab, feats=feats),
+            *hc.wave_row_update_lanes_plain(bins, rl, tab, feats=feats,
+                                            decode=decs),
+            hc.wave_trial_channels_lanes_plain(bins, rl, tabs, feats=feats),
+            hc.hist_single_lanes_plain(*single, num_bins=num_bins),
+            hc.hist_single_lanes_plain(*fmaj, num_bins=num_bins))
+    for i, (x, y) in enumerate(zip(got, want)):
+        assert torch.equal(x, y), i
+    if lanes > 1:
+        assert not got[7][lanes - 1].any()
+    for i in range(lanes):
+        assert torch.equal(got[0][i], hc.build_histogram_leaves_q8(
+            bins, wch[i], ch[i], num_bins=num_bins))
+        assert torch.equal(got[1][i], hc.build_histogram_leaves(
+            bins, fx[i], chx[i], num_bins=num_bins))
+        rl1, ch1 = hc.wave_row_update(bins, rl[i], tab[i], feats=feats[i])
+        assert torch.equal(got[2][i], rl1) and torch.equal(got[3][i], ch1)
+        rl1, ch1 = hc.wave_row_update(bins, rl[i], tab[i], feats=feats[i],
+                                      decode=decs[i])
+        assert torch.equal(got[4][i], rl1) and torch.equal(got[5][i], ch1)
+        t = tab[i]
+        assert torch.equal(got[6][i], hc.wave_trial_channels(
+            bins, rl[i], t[4], t[0], t[1], t[2] > 0, t[3] > 0, t[6] > 0,
+            feats=feats[i]))
+        assert torch.equal(got[7][i], hc.hist_single(
+            single[0][i], single[1][i], num_bins=num_bins))
+        assert torch.equal(got[8][i], hc.hist_single(
+            bins, fx[i], num_bins=num_bins))
+        one = hc.leaf_partition(ch[i], wch[i],
+                                num_channels=hc.Q_LEAF_CHANNELS,
+                                slots=geo.slots, part_blocks=geo.part_blocks)
+        m = int(one.offsets[-1])
+        assert torch.equal(parts[i].records[:m], one.records[:m])
+        for a, b in zip(parts[i][1:], one[1:]):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("extra", [
+    dict(tree_grow_mode="wave", use_quantized_grad=True),
+    dict(tree_grow_mode="wave"),
+    dict(tree_grow_mode="auto")], ids=["quantized_wave", "exact_wave",
+                                       "auto"])
+def test_u16_train_many_on_card_matches_train(cuda_device, extra):
+    """``train_many`` at max_bin=1023 on the card writes each model's
+    standalone card ``train()`` text, launching the uint16 model-axis
+    forms and no single form (but the autotune probe's)."""
+    rng = np.random.RandomState(6)
+    X = rng.randn(20000, F)
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.8).astype(float)
+    params = dict(objective="binary", num_leaves=15, verbosity=-1,
+                  max_bin=1023, **extra)
+    variants = [{"lambda_l2": 0.0}, {"lambda_l2": 4.0}, {"lambda_l1": 0.5}]
+    hc.reset_launches()
+    mb = lt.train_many(params, lt.Dataset(X, y), 3, variants=variants,
+                       device=cuda_device)
+    torch.cuda.synchronize()
+    lanes = {k for k, v in hc.LAUNCHES.items() if v and "_lanes" in k}
+    single = {k for k, v in hc.LAUNCHES.items()
+              if v and "_lanes" not in k}
+    assert mb.batched_indices == [0, 1, 2]
+    assert lanes >= ({"hist_single_lanes_u16"} if extra["tree_grow_mode"] ==
+                     "auto" else {"leaf_partition_lanes",
+                                  "wave_row_update_lanes_u16"})
+    assert all(k.endswith("_u16") or k == "leaf_partition_lanes"
+               for k in lanes)
+    assert single <= {"hist_single", "hist_single_packed4"}   # autotune
+    for m, v in enumerate(variants):
+        ref = lt.train({**params, **v}, lt.Dataset(X, y), 3,
+                       device=cuda_device)
+        assert mb[m].model_to_string() == ref.model_to_string()
+
+
 # -- chunked ingest and the C API -------------------------------------------
 
 _CHUNK_P = dict(objective="binary", num_leaves=15, verbosity=-1,

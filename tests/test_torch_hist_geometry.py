@@ -458,3 +458,111 @@ def test_single_shape_skips_clusters_that_fit_no_card(layout, monkeypatch):
         finally:
             hc.single_shape.cache_clear()
             hc.single_geometry.cache_clear()
+
+
+# -- the model-axis uint16 forms (hist_single_lanes_u16, the leaf lanes) ------
+
+LANE_SEGMENTS = [
+    # chip_smoke.py phase 12f's partitioned segments: N, N/2, 50,003, N/5
+    [10_502_144, 5_251_072, 50_003, 2_100_428],
+    [4096, 0, 17, 1_000_003, 7, 250_107, 34_330],
+    [3 << 30, 1 << 20]]
+
+
+@pytest.mark.parametrize("rows", LANE_SEGMENTS, ids=["phase12f", "seven",
+                                                     "past-2^31"])
+@pytest.mark.parametrize("layout", ["rows", "features"])
+@pytest.mark.parametrize("num_bins", [257, 1024, 16_384, 65_535])
+def test_lane_single_u16_geometry(num_bins, layout, rows):
+    """``lane_single_u16_geometry``: ``single_shape``'s launch for every
+    lane and each lane's rows a block its single launch's, so a lane's
+    blocks are its ``hist_single`` launch's; a grid of whole clusters
+    along the rows, the most any lane takes (the lane is grid z, so no
+    cluster holds two lanes' blocks); at most ``SINGLE_MAX_BLOCK_ROWS``
+    rows a cluster; every row of every lane in exactly one block."""
+    geo, per = hc.lane_single_u16_geometry(SMS, F, rows, num_bins, layout)
+    shape = hc.single_shape(SMS, F, num_bins, layout)
+    assert geo._replace(chunks=0) == shape._replace(chunks=0)
+    cs = geo.cluster
+    assert geo.chunks % cs == 0 and len(per) == len(rows)
+    most = 0
+    for r, cr in zip(rows, per):
+        one = hc.single_geometry(SMS, F, max(r, 1), num_bins, layout)
+        assert cr == one.chunk_rows and one.chunks <= geo.chunks
+        most = max(most, one.chunks)
+        assert cr % hc.SINGLE_ROW_STEP == 0
+        assert cs * cr <= hc.SINGLE_MAX_BLOCK_ROWS
+        spans = [(min(r, x * cr), min(r, (x + 1) * cr))
+                 for x in range(geo.chunks)]
+        assert spans[0][0] == 0 and spans[-1][1] == r
+        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+    assert geo.chunks == most
+
+
+@pytest.mark.parametrize("layout", ["rows", "features"])
+@pytest.mark.parametrize("num_bins", [1024, 65_535])
+def test_lane_single_u16_walk_matches_plain(num_bins, layout):
+    """Walking each lane's blocks of the lanes geometry (the grid's chunks
+    the most any lane takes, the lane's own rows a block) over that
+    lane's segment gives its ``hist_single_plain`` bit for bit, an empty
+    lane's zeros too."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    rng = np.random.RandomState(num_bins % 103)
+    f, rows = 9, [20_011, 6_007, 0]
+    geo, per = hc.lane_single_u16_geometry(SMS, f, rows, num_bins, layout)
+    for n, cr in zip(rows, per):
+        bins = torch.from_numpy(rng.randint(0, num_bins, (f, n)).astype(
+            np.uint16))
+        w = th.pack_weights(torch.randn(n), torch.rand(n),
+                            (torch.rand(n) < 0.8).float())
+        assert torch.equal(
+            _cluster_walk(bins, w, num_bins, geo._replace(chunk_rows=cr)),
+            hc.hist_single_plain(bins, w, num_bins=num_bins))
+
+
+def _lane_counts(mix, n, k, seed):
+    """Rows per channel: half the rows over every channel, 90% of them in
+    channel 3 with every fourth channel empty, or none at all."""
+    if mix == "none":
+        return torch.zeros(k, dtype=torch.int64)
+    if mix == "even":
+        return torch.full((k,), n // 2 // k, dtype=torch.int64)
+    rng = np.random.RandomState(seed)
+    c = np.zeros(k, np.int64)
+    c[3] = n // 2 * 9 // 10
+    np.add.at(c, rng.choice([i for i in range(k) if i % 4 != 1 and i != 3],
+                            n // 2 - c[3]), 1)
+    return torch.from_numpy(c)
+
+
+@pytest.mark.parametrize("lanes", [1, 4, 7])
+@pytest.mark.parametrize("q8", [True, False])
+def test_lane_list_plan_lists_every_slot_once(q8, lanes):
+    """The leaf lanes' plan: each lane's histogram launch takes the single
+    form's geometry over its own plan, and each lane's table lists each
+    of its (channel, slot) pairs once, so the lanes' launches walk every
+    (lane, channel) slot once; q8 slots stay under 2^24 rows; the lanes'
+    partition shares the single form's row blocks out over the lanes."""
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    n = 10_502_144
+    one = hc.list_geometry(SMS, F, n, 1024, k, q8)
+    part = hc._part_blocks(SMS, n, lanes)
+    assert part == -(-one.part_blocks // lanes)
+    assert lanes * part <= one.part_blocks + lanes
+    seen, want = {}, set()
+    for lane in range(lanes):
+        counts = _lane_counts(("even", "skewed", "none")[lane % 3], n, k,
+                              lane)
+        slots, table = hc.list_slots(counts, one.slots)
+        assert table.numel() == one.slots + k
+        want |= {(lane, c, j) for c in range(k)
+                 for j in range(int(slots[c]))}
+        for e in table.tolist():
+            if e >= 0:
+                key = (lane, e & 255, e >> 8)
+                seen[key] = seen.get(key, 0) + 1
+                c, j = e & 255, e >> 8
+                rows = (int(counts[c]) * (j + 1) // int(slots[c]) -
+                        int(counts[c]) * j // int(slots[c]))
+                assert not q8 or rows <= hc.Q8_MAX_BLOCK_ROWS
+    assert set(seen) == want and set(seen.values()) <= {1}

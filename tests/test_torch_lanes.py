@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from lightgbm_tpu.ops import histogram as rh
 from lightgbm_tpu.ops import histogram_pallas as hp
 from lightgbm_tpu_torch.learner import lanes as kc
 from lightgbm_tpu_torch.ops import histogram as th
@@ -327,3 +328,162 @@ def test_lane_geometry_covers_rows_within_caps(lanes):
             blocks = sum(-(-r // g.chunk_rows) for r in rows) * g.f_groups
             assert blocks <= 132 * (hc.LEAF_THREADS // g.threads) or \
                 g.chunk_rows == hc.SINGLE_MIN_ROWS
+
+
+# -- uint16 bins: the plain lanes versions of the four families ---------------
+
+U16_BINS = 1023
+
+
+@pytest.mark.parametrize("q8", [True, False])
+def test_hist_leaves_lanes_u16_bitwise(q8):
+    """The two leaf families over uint16 codes: L single plain calls and
+    the reference's XLA leaf histogram (integer-valued weights) under
+    ``jax.vmap``; the lanes' row lists are their single partitions'."""
+    rng = np.random.RandomState(70 + q8)
+    lanes = 3
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    bins = rng.randint(0, U16_BINS, (F, N)).astype(np.uint16)
+    bins[:, :40] = U16_BINS - 1
+    ch = rng.randint(-1, k, (lanes, N)).astype(np.int8)
+    gq = rng.randint(-127, 128, (lanes, N)).astype(np.int8)
+    hq = rng.randint(0, 128, (lanes, N)).astype(np.int8)
+    cnt = (ch >= 0).astype(np.int8)
+    if q8:
+        w = np.zeros((lanes, 8, N), np.int8)
+        w[:, 0], w[:, 1], w[:, 2] = gq, hq, cnt
+        got = hc.build_histogram_leaves_q8_lanes(_t(bins), _t(w), _t(ch),
+                                                 num_bins=U16_BINS)
+        ones = [hc.build_histogram_leaves_q8(_t(bins), _t(w[i]), _t(ch[i]),
+                                             num_bins=U16_BINS)
+                for i in range(lanes)]
+        w3 = [_t(w[i]) for i in range(lanes)]
+    else:
+        ws = [th.pack_weights(_t(gq[i].astype(np.float32)),
+                              _t(hq[i].astype(np.float32)),
+                              _t(cnt[i].astype(np.float32)))
+              for i in range(lanes)]
+        got = hc.build_histogram_leaves_lanes(_t(bins), ws, _t(ch),
+                                              num_bins=U16_BINS)
+        ones = [hc.build_histogram_leaves(_t(bins), ws[i], _t(ch[i]),
+                                          num_bins=U16_BINS)
+                for i in range(lanes)]
+        w3 = [w_.w for w_ in ws]
+    assert got.shape == (lanes, k, F, U16_BINS, 3)
+    for lane in range(lanes):
+        assert torch.equal(got[lane], ones[lane])
+    ref = jax.vmap(lambda g, h, m, c: rh.build_histogram_leaves(
+        jnp.asarray(bins.T), g, h, m, c, num_channels=k, num_bins=U16_BINS,
+        impl="segment"))(*map(jnp.asarray, (gq.astype(np.float32),
+                                            hq.astype(np.float32),
+                                            cnt.astype(np.float32), ch)))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    # the lanes' partition, record for record each lane's own
+    for one, rl in zip(
+            [hc.leaf_partition(_t(ch[i]), w3[i], num_channels=k, slots=2 * k)
+             for i in range(lanes)],
+            hc.leaf_partition_lanes(_t(ch), w3, num_channels=k,
+                                    slots=2 * k)):
+        for a, b in zip(one, rl):
+            assert torch.equal(a, b)
+
+
+def test_hist_single_lanes_u16_bitwise():
+    """Per-lane segments of per-lane row-major uint16 copies, one of them
+    empty: L single plain calls and the reference's XLA histogram under
+    ``jax.vmap`` on the zero-padded segments."""
+    rng = np.random.RandomState(72)
+    lanes = 4
+    P = [_t(rng.randint(0, U16_BINS, (N, F + 3)).astype(np.uint16))
+         for _ in range(lanes)]
+    g, h, m = _weights(rng, lanes)
+    segs = [(0, N), (512, 3000), (7, 7), (1000, 1000 + 2048)]
+    bins, ws, ref_bins, ref_w = [], [], [], []
+    for i, (s, e) in enumerate(segs):
+        w = th.pack_weights(_t(g[i]), _t(h[i]), _t(m[i]))
+        bins.append(P[i][s:e, :F].t())
+        ws.append(th.FxWeights(w.w[:, s:e], w.inv_scale))
+        pad = N - (e - s)
+        ref_bins.append(np.pad(P[i][s:e, :F].numpy(), ((0, pad), (0, 0))))
+        ref_w.append([np.pad(v[i, s:e], (0, pad)) for v in (g, h, m)])
+    got = hc.hist_single_lanes(bins, ws, num_bins=U16_BINS)
+    assert got.shape == (lanes, F, U16_BINS, 3)
+    for lane in range(lanes):
+        assert torch.equal(got[lane], hc.hist_single(bins[lane], ws[lane],
+                                                     num_bins=U16_BINS))
+    assert not got[2].any()
+    f32 = th.fx_to_f32(got, torch.stack([w.inv_scale for w in ws]))
+    rw = np.asarray(ref_w, np.float32)
+    ref = jax.vmap(lambda bb, gg, hh, mm: rh.build_histogram(
+        bb, gg, hh, mm, num_bins=U16_BINS, impl="segment"))(
+            jnp.asarray(np.stack(ref_bins)), *map(jnp.asarray, rw.swapaxes(
+                0, 1)))
+    np.testing.assert_array_equal(f32.numpy(), np.asarray(ref))
+
+
+def test_row_update_lanes_u16_bitwise():
+    """The row update, its trial form and its categorical form (its
+    categorical splits on the last feature, codes below 256) over uint16
+    codes, thresholds and NaN bins past 255: L single plain calls, and the
+    reference's ``wave_row_update_pallas`` under ``jax.vmap`` on the
+    gathered uint16 columns."""
+    rng = np.random.RandomState(73)
+    lanes, w = 3, 6
+    _, rl, feats, tab = _row_case(rng, lanes, w)
+    bins = rng.randint(0, U16_BINS, (F + 2, N)).astype(np.uint16)
+    bins[F + 1] %= 256
+    feats[:, 2] = F + 1
+    tab[:, 0] = rng.randint(200, U16_BINS, (lanes, w))
+    tab[:, 1] = np.where(tab[:, 1] >= 0, U16_BINS - 1, -1)
+    rl_g, ch_g = hc.wave_row_update_lanes(_t(bins), _t(rl), _t(tab),
+                                          feats=_t(feats))
+    trial = [hc.trial_tab(*map(_t, (t[4], t[0], t[1], t[2] > 0, t[3] > 0,
+                                    t[6] > 0))) for t in tab]
+    tr_g = hc.wave_trial_channels_lanes(_t(bins), _t(rl), trial,
+                                        feats=_t(feats))
+    decs = [hc.split_decode(
+        torch.from_numpy(feats[i] == F + 1),
+        torch.from_numpy(rng.rand(w, 256) < 0.4),
+        torch.zeros(w, dtype=torch.int32),
+        torch.full((w,), U16_BINS, dtype=torch.int32),
+        torch.zeros(w, dtype=torch.int32), torch.ones(w, dtype=torch.int32))
+        for i in range(lanes)]
+    ext_rl, ext_ch = hc.wave_row_update_lanes(_t(bins), _t(rl), _t(tab),
+                                              feats=_t(feats), decode=decs)
+    for lane in range(lanes):
+        rl1, ch1 = hc.wave_row_update(_t(bins), _t(rl[lane]), _t(tab[lane]),
+                                      feats=_t(feats[lane]))
+        assert torch.equal(rl_g[lane], rl1) and torch.equal(ch_g[lane], ch1)
+        t = tab[lane]
+        assert torch.equal(tr_g[lane], hc.wave_trial_channels(
+            _t(bins), _t(rl[lane]), *map(_t, (t[4], t[0], t[1], t[2] > 0,
+                                             t[3] > 0, t[6] > 0)),
+            feats=_t(feats[lane])))
+        rl1, ch1 = hc.wave_row_update(_t(bins), _t(rl[lane]), _t(tab[lane]),
+                                      feats=_t(feats[lane]),
+                                      decode=decs[lane])
+        assert torch.equal(ext_rl[lane], rl1) and \
+            torch.equal(ext_ch[lane], ch1)
+    cols = np.stack([bins[feats[i]] for i in range(lanes)])
+    rl_r, ch_r = jax.vmap(lambda c, r, t: hp.wave_row_update_pallas(
+        c, r, t, interpret=True))(*map(jnp.asarray, (cols, rl, tab)))
+    np.testing.assert_array_equal(rl_g.numpy(), np.asarray(rl_r))
+    np.testing.assert_array_equal(ch_g.numpy(), np.asarray(ch_r))
+    tab_t = tab.copy()
+    tab_t[:, 5] = tab_t[:, 4]
+    _, ch_t = jax.vmap(lambda c, r, t: hp.wave_row_update_pallas(
+        c, r, t, interpret=True))(*map(jnp.asarray, (cols, rl, tab_t)))
+    np.testing.assert_array_equal(tr_g.numpy(), np.asarray(ch_t))
+
+
+def test_lane_keys_keep_bin_dtypes_apart():
+    """Requests over uint8 and uint16 views of one shape and strides
+    launch different forms, so they never share a group."""
+    b8 = torch.zeros((F, 64), dtype=torch.uint8)
+    b16 = torch.zeros((F, 64), dtype=torch.uint16)
+    w = torch.zeros((3, 64), dtype=torch.int64)
+    assert b8.stride() == b16.stride()
+    assert kc.single(b8, w, num_bins=16).key != \
+        kc.single(b16, w, num_bins=16).key
+    assert kc._layout(b8)[3] == torch.uint8 and \
+        kc._layout(b16)[3] == torch.uint16

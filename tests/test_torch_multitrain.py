@@ -13,7 +13,12 @@ as ``test_bit_identity_pallas_wave`` runs them); the exact wave keeps the
 established rule (same structure, values within rtol 1e-4; the reference
 sums bf16 pairs, the port fixed point); the variant helpers, the
 rejection reasons and the strict error equal the reference's; and ``cv``'s
-metric means on the quantized wave equal the reference's ``cv``.
+metric means on the quantized wave equal the reference's ``cv``.  The
+same holds over uint16 bins (``max_bin`` 511 and 1023, 2,000 rows x 6
+features), where the lanes run the kernels' uint16 forms; there the
+partitioned batch is held to the port's own ``train()`` only (the
+reference's partitioned grower wraps uint16 codes to uint8, ROADMAP queue
+3 item 8).
 """
 
 import json
@@ -542,3 +547,86 @@ def test_cv_falls_back_to_fold_loop_on_reject():
     out = lt.cv({**BASE, "cegb_penalty_split": 0.1}, lt.Dataset(X, y),
                 num_boost_round=2, nfold=2, device="cpu")
     assert len(out["valid l2-mean"]) == 2
+
+
+# -- uint16 bins (max_bin > 255): the model-axis kernels' uint16 forms --------
+
+U16 = {**BASE, "num_leaves": 7, "tree_grow_mode": "wave", "tpu_wave_size": 2,
+       "tpu_histogram_impl": "pallas", "tpu_speculative_ramp": False}
+U16_VARIANTS = [{"lambda_l2": 0.0}, {"lambda_l2": 2.0}]
+
+
+def _u16_data():
+    return _data(n=2000, f=6)
+
+
+def _spy_groups(monkeypatch):
+    """The kinds of the model-axis launches a run makes."""
+    kinds = []
+    real = kc._run_group
+
+    def spy(calls):
+        kinds.append(calls[0].kind)
+        assert calls[0].args["bins"].dtype == torch.uint16
+        return real(calls)
+    monkeypatch.setattr(kc, "_run_group", spy)
+    return kinds
+
+
+@pytest.mark.parametrize("max_bin", [511, 1023])
+def test_u16_quantized_train_many_and_cv_match_reference(max_bin,
+                                                         monkeypatch):
+    """Quantized wave at uint16 bins: each model's text byte-identical to
+    ``lightgbm_tpu.train_many``'s and ``cv``'s fold means equal to
+    ``lightgbm_tpu.cv``'s, both through the model-axis launches."""
+    X, y = _u16_data()
+    params = {**U16, "max_bin": max_bin, "use_quantized_grad": True,
+              "stochastic_rounding": False}
+    ref = lgb.train_many(params, lgb.Dataset(X, y), num_boost_round=2,
+                         variants=U16_VARIANTS)
+    assert ref.fallback_indices == []
+    kinds = _spy_groups(monkeypatch)
+    mb = lt.train_many(params, lt.Dataset(X, y), 2, variants=U16_VARIANTS,
+                       device="cpu")
+    assert mb.batched_indices == [0, 1]
+    assert {"leaves_q8", "row_update"} <= set(kinds)
+    for m in range(len(U16_VARIANTS)):
+        assert mb[m].model_to_string() == ref[m].model_to_string()
+    kw = dict(num_boost_round=2, nfold=3, seed=7)
+    want = lgb.cv(params, lgb.Dataset(X, y), **kw)
+    kinds.clear()
+    got = lt.cv(params, lt.Dataset(X, y), device="cpu", **kw)
+    assert "leaves_q8" in kinds
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_u16_exact_train_many_same_structure_as_reference(monkeypatch):
+    """The exact wave at max_bin=511: the reference's trees, values within
+    rtol 1e-4 of each field's scale."""
+    X, y = _u16_data()
+    params = {**U16, "max_bin": 511}
+    ref = lgb.train_many(params, lgb.Dataset(X, y), 2, variants=U16_VARIANTS)
+    kinds = _spy_groups(monkeypatch)
+    mb = lt.train_many(params, lt.Dataset(X, y), 2, variants=U16_VARIANTS,
+                       device="cpu")
+    assert {"leaves_fx", "row_update"} <= set(kinds)
+    for m in range(len(U16_VARIANTS)):
+        _assert_same_structure(ref[m], mb[m])
+
+
+@pytest.mark.parametrize("max_bin", [511, 1023])
+def test_u16_partitioned_train_many_text_equals_train(max_bin, monkeypatch):
+    """``auto`` past 255 bins is the partitioned grower: each lane's text
+    equals the port's standalone ``train()``, its leaves' histograms from
+    the single-leaf lanes form."""
+    X, y = _u16_data()
+    params = {**BASE, "num_leaves": 7, "max_bin": max_bin}
+    variants_ = U16_VARIANTS + [{"min_data_in_leaf": 20}]
+    kinds = _spy_groups(monkeypatch)
+    mb = lt.train_many(params, lt.Dataset(X, y), 3, variants=variants_,
+                       device="cpu")
+    assert set(kinds) == {"single"}
+    ref = _assert_texts(mb, mb.variant_params, X, y, 3)
+    assert ref._gbdt.learner.grow_mode == "partition"

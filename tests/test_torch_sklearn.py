@@ -152,3 +152,35 @@ def test_grid_search_cv_many_equals_the_per_fold_loop(kind):
     assert gs.best_params_ == gs.cv_results_["params"][best]
     assert gs.cv_results_["rank_test_score"][best] == 1
     assert gs.predict(X[:8]).shape == (8,)
+
+
+def test_grid_search_cv_many_batches_u16_bins(monkeypatch):
+    """At max_bin=511 (uint16 bins) the sweep trains as one batch, with no
+    sequential fallback, and each split's score is the per-fold model's."""
+    pytest.importorskip("sklearn")
+    from sklearn.base import clone
+    from sklearn.metrics import check_scoring
+    from sklearn.model_selection import KFold
+    from lightgbm_tpu_torch.multitrain import GridSearchCVMany
+    from lightgbm_tpu_torch.multitrain import sweep
+
+    def refuse(msg):
+        raise AssertionError(f"fell back: {msg}")
+    monkeypatch.setattr(sweep, "log_warning", refuse)
+    X, rng = _data(n=900, seed=3)
+    y = X[:, 0] + 0.1 * rng.randn(len(X))
+    est = lt.LGBMRegressor(device="cpu", n_estimators=3, num_leaves=7,
+                           min_child_samples=5, max_bin=511)
+    gs = GridSearchCVMany(est, {"reg_lambda": [0.0, 3.0]}, cv=KFold(2))
+    gs.fit(X, y)
+    scorer = check_scoring(est, scoring="r2")
+    ds = lt.Dataset(X, y, params=clone(est)._make_params())
+    ds.construct()
+    assert ds.X_binned.dtype == np.uint16
+    for ci, combo in enumerate(gs.cv_results_["params"]):
+        for k, (tr, te) in enumerate(KFold(2).split(X, y)):
+            one = clone(est).set_params(**combo)
+            one._Booster = lt.train(one._make_params(), ds.subset(tr), 3,
+                                    device="cpu")
+            assert gs.cv_results_[f"split{k}_test_score"][ci] == \
+                scorer(one, X[te], y[te]), (combo, k)
