@@ -151,7 +151,8 @@ Phases (any failure exits non-zero and prints no result line):
    partition at L=4 and B=1024 and 65,535 (the leaf forms on the main
    path's rows, the single-leaf form on (a)'s four segments of per-lane
    row-major copies and of the shared feature-major matrix, the row
-   update forms at W=25), bitwise as in (a) and timed the same way; then
+   update forms at W=25), bitwise as in (a) and timed the same way (the
+   lanes' partition logged with its kernels' device time a call); then
    on 2,097,152 Higgs-shaped rows, 3 rounds, ``train_many`` of 4 lanes
    (``lambda_l2`` 0, 1, 4, 16) at ``max_bin=1023`` headline wave and
    ``auto`` (partitioned), and at ``max_bin=65535``, 31 leaves, ``auto``,
@@ -208,7 +209,9 @@ Phases (any failure exits non-zero and prints no result line):
    partition also on a skewed mix (90% of the kept rows in one channel,
    several channels empty) and one with no kept row; timed at both B
    beside the bound (2 bytes a code), the plain version and the int64
-   ``index_add_`` (the partition: a stable ``torch.sort``); (b) the main
+   ``index_add_`` (the partition: a stable ``torch.sort``), the
+   partition of each form on every mix logged with its two kernels'
+   device time a call (``torch.profiler``); (b) the main
    path's rows binned at max_bin=1023: ``auto`` (partitioned, exact, 2
    rounds), the explicit wave grower exact and quantized with the
    headline settings (3 rounds each): iterations/s, held-out AUC, only
@@ -361,6 +364,35 @@ def time_ms(fn, reps: int, spin: int = SPIN_CYCLES) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def device_split(fn, calls: int = 5) -> dict:
+    """{kernel: device ms a call} of ``fn`` over ``calls`` calls
+    (``torch.profiler`` ``key_averages()``; memory copies too), each
+    kernel by its bare name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name[5:] if name.startswith("void ") else name
+            out[name.split("(")[0].split("<")[0].strip()] = us / 1e3 / calls
+    return out
+
+
+def split_text(split: dict) -> str:
+    """A :func:`device_split` as "name ms, ..." for the log."""
+    return ", ".join(f"{k} {v:.4f}" for k, v in split.items())
 
 
 def bound_ms(nbytes: float, ops: float):
@@ -2676,7 +2708,8 @@ def _partition_lanes_case(torch, hc, card, chs, ws, k, f, n, nb, active,
     log(f"[{card}] kernel leaf_partition_lanes [B={nb} N={n}, L={L}]: "
         f"bitwise equal to plain and to {L} single partitions, identical "
         f"across two runs; one launch {out['ms']:.3f} ms, {L} single "
-        f"{out['singles_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+        f"{out['singles_ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}); "
+        f"device ms a call: {split_text(device_split(lanes_fn))}")
     return out
 
 
@@ -3769,6 +3802,14 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                     log(f"kernel {name} [B={nb}, {tag} mix]: bitwise equal "
                         f"to plain, identical across two runs; "
                         f"{time_ms(run, reps):.3f} ms")
+        # the partition of each form on every mix: its time and its
+        # kernels' device time a call
+        for tag, cq, cx in mixes:
+            for form, (_, run, _) in zip(("q8", "fx"),
+                                         leaf_forms(cq, cx)[2:]):
+                log(f"[{card}] leaf_partition {form} [B={nb}, {tag} mix]: "
+                    f"{time_ms(run, reps):.4f} ms; device ms a call: "
+                    f"{split_text(device_split(run))}")
         for lay in ("rows", "features"):
             g = hc.single_geometry(sms, f, n, nb, lay)
             log(f"  B={nb} hist_single_u16 {lay}: {g.tiles} tile(s) x "

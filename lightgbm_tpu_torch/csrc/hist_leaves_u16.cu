@@ -17,24 +17,32 @@
 // do.  Here the rows are sorted by channel ONCE, and each block walks only
 // its own channel's share of that list:
 //
-//  1. The channel partition (leaf_partition: count, scan, scatter).  It
-//     reads the (N,) int8 channel and writes the rows with 0 <= ch < K as
-//     one channel-major list of RECORDS, ascending by row within a channel
-//     (so a block's gathers walk memory forward and the result is
-//     deterministic), and the K + 1 offsets.  A record holds the row's id
-//     and its three weights, so that a histogram block reads them in
-//     order instead of gathering them once per feature group and tile:
-//     fx 32 bytes [g, h, id | n << 32, 0], one whole sector a row (the
-//     scattered writes of 24-byte records straddle sectors and took the
-//     partition twice as long); q8 8 bytes, id | g << 32 | h << 40 |
-//     n << 48 (the weights' bytes).  Each of P blocks owns a run of rows
-//     and each of its warps 1/32 of that run; the count pass
-//     counts every warp's run per channel, the scan turns the blocks'
-//     counts into each block's start in every channel, and each warp
-//     places its run's rows in row order (ranks among a step's lanes by
-//     ballots).  PERF.md section 6 has the measurements behind the
-//     records.
-//  2. The list chunks.  The scan also shares S chunk slots out over the
+//  1. The channel partition (leaf_partition: count, then scatter).  It reads
+//     the (N,) int8 channel and writes the rows with 0 <= ch < K as one
+//     channel-major list of RECORDS, ascending by row within a channel (so a
+//     block's gathers walk memory forward and the result is deterministic),
+//     and the K + 1 offsets.  A record holds the row's id and its three
+//     weights, so that a histogram block reads them in order instead of
+//     gathering them once per feature group and tile: fx 32 bytes [g, h, id |
+//     n << 32, 0], one whole sector a row; q8 8 bytes, id | g << 32 | h << 40
+//     | n << 48 (the weights' bytes).  Each of P blocks owns a run of rows (a
+//     multiple of 16).  The count pass reads 16 rows a load and counts each
+//     block's rows per channel in counters of its own thread (no add waits on
+//     another lane's).  The scatter's blocks each sum those counts into their
+//     own start in every channel (block 0 also writes offsets, slots and
+//     table, 2. below: no one-block kernel between the two launches), then
+//     walk their run in tiles (q8 4,096 rows, fx 2,048): the tile's channels
+//     (and q8 weights) arrive in shared memory by 16-byte loads issued a tile
+//     ahead; each warp ranks its rows within their channel (__match_any_sync,
+//     one shared add per channel a step, never one a row); the tile's records
+//     are staged in shared memory, channel-sorted; and consecutive threads
+//     write consecutive records of each channel's run, so a run leaves in
+//     whole lines.  The design it replaced (count, a one-block scan, scatter)
+//     stored each row's record at its channel's next place, a warp's 32
+//     stores in ~32 runs (a quarter sector each at q8), and lost to one
+//     stable torch.sort of the channels.  PERF.md section 6 has the
+//     measurements (scripts/torch_partition_sweep.py).
+//  2. The list chunks.  The plan also shares S chunk slots out over the
 //     channels by their listed rows (s_c = max(1, round(n_c S / total))
 //     for a channel with rows), so one channel holding 90% of the rows
 //     takes 90% of the slots and every block walks at most about
@@ -59,7 +67,7 @@
 //     ops/histogram_cuda.py list_geometry sizes fg, Bt and S.
 //  4. The model-axis forms (the reference's vmap of these entry points;
 //     multitrain's lanes, each with its own channels and weights over the
-//     shared bins): the lane is grid y of the partition's three kernels,
+//     shared bins): the lane is grid y of the partition's two kernels,
 //     each lane with its own plan (offsets, slots, table, counts) and its
 //     records at a per-lane base, so the partition's shared tables still
 //     hold K <= 64 channels (L lanes x 42 channels would not fit one
@@ -97,9 +105,27 @@ namespace {
 
 constexpr int kThreads = 1024;   // 64 registers a thread: one block per SM
 constexpr int kMaxK = 64;        // channels the partition takes
-constexpr int kKeyBits = 6;      // bits of a channel below kMaxK
-constexpr int kAhead = 4;        // partition steps whose loads go together
 constexpr int kBatch = 8;        // bin loads of one listed row issued together
+constexpr int kPartThreads = 512;                 // a partition block
+constexpr int kPartWarps = kPartThreads / 32;
+constexpr int kCountThreads = 256;                // a count block
+constexpr int kCountAhead = 4;   // 16-row groups a count thread loads at once
+constexpr int kSmallInts = 7 * (kMaxK + 8);       // the scatter's tables
+constexpr unsigned int kFull = 0xffffffffu;
+
+// A tile of the scatter: kSlots rows a thread, kRows in all, each staged
+// as a kRecBytes record (q8 8 bytes, fx 32) and its 4-byte place.
+template <typename W>
+struct PartTile {
+  static constexpr int kSlots = sizeof(W) == 1 ? 8 : 4;
+  static constexpr int kRows = kPartThreads * kSlots;
+  static constexpr int kRecBytes = sizeof(W) == 1 ? 8 : 32;
+  // records, places, the warps' counters, the small tables, the tile's
+  // channels, and (q8) its three weight bytes a row
+  static constexpr int kSmem = kRows * (kRecBytes + 4) +
+                               kPartWarps * kMaxK * 4 + kSmallInts * 4 +
+                               kRows * (sizeof(W) == 1 ? 4 : 1);
+};
 
 __device__ __forceinline__ unsigned int lanes_below() {
   unsigned int m;
@@ -107,172 +133,205 @@ __device__ __forceinline__ unsigned int lanes_below() {
   return m;
 }
 
-// The lanes of the warp whose key equals this lane's (a key in
-// [0, kMaxK), or -1 for none: then 0): one ballot per key bit, cheaper
-// than __match_any_sync over many distinct keys.
-__device__ __forceinline__ unsigned int same_key(int key) {
-  unsigned int peers = __ballot_sync(0xffffffffu, key >= 0);
+__device__ __forceinline__ int warp_sum(int v) {
 #pragma unroll
-  for (int b = 0; b < kKeyBits; ++b) {
-    const bool bit = (key >> b) & 1;
-    const unsigned int v = __ballot_sync(0xffffffffu, bit);
-    peers &= bit ? v : ~v;
-  }
-  return key >= 0 ? peers : 0u;
+  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(kFull, v, d);
+  return v;
 }
 
-// Warp v's run of block b's rows: the v-th of 32 equal runs of the
-// block's [r0, r1).
-__device__ __forceinline__ void warp_run(long long N, long long block_rows,
-                                         long long* w0, long long* w1) {
-  const long long r0 = (long long)blockIdx.x * block_rows;
-  const long long r1 = min(N, r0 + block_rows);
-  const long long run = (block_rows + 31) / 32;
-  *w0 = min(r1, r0 + (threadIdx.x >> 5) * run);
-  *w1 = min(r1, *w0 + run);
-}
-
-// wcounts[(b * 32 + v) * K + c]: the rows of channel c in warp v's run of
-// block b (shared atomics: a count needs no order); counts[c * P + b]:
-// those of the block.  The model-axis form (lanes, grid y = lane): lane
-// z's channels from lanes[z], its counts plan_ls ints further on.
-__global__ void __launch_bounds__(kThreads)
-part_count(const int8_t* __restrict__ ch, long long N, int K,
-           long long block_rows, int* __restrict__ counts,
-           int* __restrict__ wcounts, const long long* __restrict__ lanes,
-           long long plan_ls) {
-  __shared__ int wc[32][kMaxK];
-  if (lanes) {
-    ch = reinterpret_cast<const int8_t*>(lanes[blockIdx.y]);
-    counts += blockIdx.y * plan_ls;
-    wcounts += blockIdx.y * plan_ls;
-  }
-  const int P = gridDim.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < 32 * kMaxK; i += blockDim.x)
-    (&wc[0][0])[i] = 0;
-  __syncthreads();
-  long long w0, w1;
-  warp_run(N, block_rows, &w0, &w1);
-  for (long long t = w0; t < w1; t += kAhead * 32) {
-    int key[kAhead];
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const long long r = t + i * 32 + lane;
-      const int c = r < w1 ? (int)__ldg(ch + r) : -1;
-      key[i] = (c >= 0 && c < K) ? c : -1;
-    }
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i)
-      if (key[i] >= 0) atomicAdd(&wc[warp][key[i]], 1);
-  }
-  __syncwarp();
-  for (int c = lane; c < K; c += 32)
-    wcounts[((long long)blockIdx.x * 32 + warp) * K + c] = wc[warp][c];
-  __syncthreads();
-  for (int c = threadIdx.x; c < K; c += blockDim.x) {
-    int sum = 0;
-    for (int v = 0; v < 32; ++v) sum += wc[v][c];
-    counts[c * P + blockIdx.x] = sum;
-  }
-}
-
-// Inclusive scan of one int per thread over the block; returns the
-// block's total in *total.
-__device__ int block_scan(int v, int* warp_sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+__device__ __forceinline__ int warp_incl(int v) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    const int u = __shfl_up_sync(kFull, v, d);
     if (lane >= d) v += u;
   }
-  if (lane == 31) warp_sums[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, s, d);
-      if (lane >= d) s += u;
-    }
-    warp_sums[lane] = s;
-  }
-  __syncthreads();
-  const int out = v + (warp > 0 ? warp_sums[warp - 1] : 0);
-  *total = warp_sums[(blockDim.x >> 5) - 1];
-  __syncthreads();
-  return out;
+  return v;
 }
 
-// One block.  counts (K, P) -> each (channel, block)'s start in the list
-// (exclusive scan, channel-major, through shared memory); offsets
-// (K + 1); the slots s_c of each channel out of S; table[rank] =
-// (j << 8) | c for slot j of channel c, ranked by (j / s_c, c), -1 past
-// the last slot (S + K entries).  One thread a slot: rank = j + the
-// slots of every other channel that start before j / s_c (and those that
-// start with it, of a lower channel).  Block z scans lane z's plan, plan_ls
-// ints after lane z - 1's.
-__global__ void __launch_bounds__(kThreads)
-part_scan(int* __restrict__ counts, int K, int P, int S,
-          int* __restrict__ offsets, int* __restrict__ slots,
-          int* __restrict__ table, long long plan_ls) {
-  extern __shared__ int cs[];   // counts, K * P
-  __shared__ int warp_sums[32];
-  __shared__ int s_sh[kMaxK + 1];
-  __shared__ int pre[kMaxK + 1];
-  counts += blockIdx.x * plan_ls;
-  offsets += blockIdx.x * plan_ls;
-  slots += blockIdx.x * plan_ls;
-  table += blockIdx.x * plan_ls;
-  const int n = K * P;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) cs[i] = counts[i];
+// Bytes [r, r + 16) of p as one int4, those at or past r1 = fill: one
+// 16-byte load where p + r is 16-byte aligned and the group whole.
+__device__ __forceinline__ int4 load16(const int8_t* p, long long r,
+                                       long long r1, bool aligned,
+                                       int8_t fill) {
+  if (aligned && r + 16 <= r1)
+    return __ldg(reinterpret_cast<const int4*>(p + r));
+  union {
+    int4 v;
+    int8_t b[16];
+  } u;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) u.b[j] = r + j < r1 ? __ldg(p + r + j) : fill;
+  return u.v;
+}
+
+// Block b's rows [b * block_rows, (b + 1) * block_rows), cut at N;
+// block_rows is a multiple of 16, so every 16-row group of an aligned
+// pointer starts 16-byte aligned.
+__device__ __forceinline__ void block_span(long long N, long long block_rows,
+                                           long long* r0, long long* r1) {
+  *r0 = (long long)blockIdx.x * block_rows;
+  *r1 = min(N, *r0 + block_rows);
+}
+
+// The plan of one lane: offsets (K + 1) | slots (K) | table (S + K) |
+// counts (K x P).
+__host__ __device__ __forceinline__ long long plan_ints(int K, int P, int S) {
+  return 3LL * K + 1 + S + (long long)K * P;
+}
+
+// counts[c * P + b]: the rows of channel c in block b.  Each thread reads
+// 16 rows a load and counts them in counters of its own (shared memory,
+// cnt[c][thread]: a lane's bank is its own whatever the channel, and no
+// add waits on another lane's, however many rows one channel holds); a
+// warp a channel then sums them.  The model-axis form (lanes, grid y =
+// lane): lane z's channels from lanes[z], its plan plan_ls ints further
+// on.
+__global__ void __launch_bounds__(kCountThreads)
+part_count(const int8_t* __restrict__ ch, long long N, int K, int S,
+           long long block_rows, int* __restrict__ plan,
+           const long long* __restrict__ lanes, long long plan_ls) {
+  extern __shared__ int cnt[];   // K x kCountThreads
+  if (lanes) {
+    ch = reinterpret_cast<const int8_t*>(lanes[blockIdx.y]);
+    plan += blockIdx.y * plan_ls;
+  }
+  int* counts = plan + 3 * K + 1 + S;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x; i < K * kCountThreads; i += kCountThreads)
+    cnt[i] = 0;
   __syncthreads();
-  const int seg = (n + blockDim.x - 1) / blockDim.x;
-  const int i0 = min(n, (int)threadIdx.x * seg), i1 = min(n, i0 + seg);
-  int local = 0;
-  for (int i = i0; i < i1; ++i) local += cs[i];
-  int total;
-  int run = block_scan(local, warp_sums, &total) - local;
-  for (int i = i0; i < i1; ++i) {
-    const int v = cs[i];
-    cs[i] = run;
-    run += v;
+  long long r0, r1;
+  block_span(N, block_rows, &r0, &r1);
+  const bool aligned = (reinterpret_cast<uintptr_t>(ch) & 15) == 0;
+  int* mine = cnt + threadIdx.x;   // channel c at mine[c * kCountThreads]
+  constexpr long long kStep = 16LL * kCountThreads;
+  for (long long g = r0 + 16LL * threadIdx.x; g < r1;
+       g += kStep * kCountAhead) {
+    int4 v[kCountAhead];
+#pragma unroll
+    for (int a = 0; a < kCountAhead; ++a)
+      v[a] = load16(ch, g + kStep * a, r1, aligned, -1);
+#pragma unroll
+    for (int a = 0; a < kCountAhead; ++a) {
+      const int word[4] = {v[a].x, v[a].y, v[a].z, v[a].w};
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int c = (signed char)(word[j >> 2] >> (8 * (j & 3)));
+        if ((unsigned int)c < (unsigned int)K) mine[c * kCountThreads] += 1;
+      }
+    }
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < n; i += blockDim.x) counts[i] = cs[i];
-  for (int c = threadIdx.x; c <= K; c += blockDim.x)
-    offsets[c] = c < K ? cs[c * P] : total;
+  for (int c = warp; c < K; c += kCountThreads / 32) {
+    int sum = 0;
+#pragma unroll
+    for (int v = lane; v < kCountThreads; v += 32)
+      sum += cnt[c * kCountThreads + v];
+    sum = warp_sum(sum);
+    if (lane == 0) counts[(long long)c * gridDim.x + blockIdx.x] = sum;
+  }
+}
+
+// The scatter's small tables in shared memory.
+struct PartTables {
+  int* tot;      // rows of each channel (all blocks)
+  int* place;    // this block's next place in each channel
+  int* shift;    // a tile's place in the list minus its place in the stage
+  int* slot_n;   // slots of each channel
+  int* offs;     // each channel's offset, offs[K] the total
+  int* tstart;   // each channel's start in the tile's stage, [K] its rows
+  int* slot_pre; // the slots of the channels before each, [K] all
+};
+
+// tot, offs and this block's place in each channel, from every block's
+// counts: offs[c] + the rows of channel c in blocks before this one.
+__device__ void block_places(const int* __restrict__ counts, int K, int P,
+                             const PartTables& t) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x;
+  for (int c = warp; c < K; c += kPartWarps) {
+    int all = 0, before = 0;
+#pragma unroll 4
+    for (int q = lane; q < P; q += 32) {
+      const int v = counts[(long long)c * P + q];
+      all += v;
+      before += q < b ? v : 0;
+    }
+    all = warp_sum(all);
+    before = warp_sum(before);
+    if (lane == 0) {
+      t.tot[c] = all;
+      t.place[c] = before;
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int a = lane < K ? t.tot[lane] : 0;
+    const int z = lane + 32 < K ? t.tot[lane + 32] : 0;
+    const int ia = warp_incl(a), iz = warp_incl(z);
+    const int half = __shfl_sync(kFull, ia, 31);
+    if (lane < K) {
+      t.offs[lane] = ia - a;
+      t.place[lane] += ia - a;
+    }
+    if (lane + 32 < K) {
+      t.offs[lane + 32] = half + iz - z;
+      t.place[lane + 32] += half + iz - z;
+    }
+    if (lane == 31) t.offs[K] = half + iz;
+  }
+  __syncthreads();
+}
+
+// Block 0 of each lane: offsets (K + 1); the slots s_c of each channel
+// out of S; table[rank] = (j << 8) | c for slot j of channel c, ranked by
+// (j / s_c, c), -1 past the last slot (S + K entries).  One warp a slot:
+// its channel is the count of channels whose slots end at or before it,
+// and its rank j + the slots of every other channel that start before
+// j / s_c (and those that start with it, of a lower channel), a lane
+// counting two channels.  The arithmetic of ops/histogram_cuda.py
+// list_slots.
+__device__ void write_plan(int K, int S, const PartTables& t,
+                           int* __restrict__ offsets, int* __restrict__ slots,
+                           int* __restrict__ table) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int total = t.offs[K];
+  for (int c = threadIdx.x; c <= K; c += blockDim.x) offsets[c] = t.offs[c];
   for (int c = threadIdx.x; c < K; c += blockDim.x) {
-    const long long nc = (long long)(c + 1 < K ? cs[(c + 1) * P] : total) -
-                         cs[c * P];
+    const long long nc = t.tot[c];
     int s = 0;
     if (nc > 0) s = (int)max(1LL, (2 * nc * S + total) / (2LL * total));
-    s_sh[c] = s;
+    t.slot_n[c] = s;
     slots[c] = s;
   }
   for (int i = threadIdx.x; i < S + K; i += blockDim.x) table[i] = -1;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int a = 0;
-    for (int c = 0; c < K; ++c) {
-      pre[c] = a;
-      a += s_sh[c];
-    }
-    pre[K] = a;
+  if (warp == 0) {
+    const int a = lane < K ? t.slot_n[lane] : 0;
+    const int z = lane + 32 < K ? t.slot_n[lane + 32] : 0;
+    const int ia = warp_incl(a), iz = warp_incl(z);
+    const int half = __shfl_sync(kFull, ia, 31);
+    if (lane < K) t.slot_pre[lane] = ia - a;
+    if (lane + 32 < K) t.slot_pre[lane + 32] = half + iz - z;
+    if (lane == 31) t.slot_pre[K] = half + iz;
   }
   __syncthreads();
-  for (int u = threadIdx.x; u < pre[K]; u += blockDim.x) {
-    int c = 0;
-    while (pre[c + 1] <= u) ++c;
-    const unsigned int j = u - pre[c], sc = s_sh[c];
-    unsigned int rank = j;
-    for (int d = 0; d < K; ++d) {
-      const unsigned int sd = s_sh[d];
+  const int used = t.slot_pre[K];
+  for (int u = warp; u < used; u += kPartWarps) {
+    int ended = 0;
+    for (int c = lane; c < K; c += 32) ended += t.slot_pre[c + 1] <= u;
+    const int c = warp_sum(ended);
+    const unsigned int j = u - t.slot_pre[c], sc = t.slot_n[c];
+    unsigned int part = 0;
+    for (int d = lane; d < K; d += 32) {
+      const unsigned int sd = t.slot_n[d];
       if (d == c || sd == 0) continue;
       const unsigned int q = j * sd;
-      rank += (q + sc - 1) / sc + (d < c && q % sc == 0);
+      part += (q + sc - 1) / sc + (d < c && q % sc == 0);
     }
-    table[rank] = (int)((j << 8) | c);
+    const unsigned int rank = j + (unsigned int)warp_sum((int)part);
+    if (lane == 0) table[rank] = (int)((j << 8) | c);
   }
 }
 
@@ -304,90 +363,189 @@ __device__ __forceinline__ Entry load_record(const long long* rec,
   return e;
 }
 
-template <typename W>
-__device__ __forceinline__ void store_record(long long* rec, long long p,
-                                             long long row, const W* wv) {
-  if constexpr (sizeof(W) == 1) {
-    rec[p] = row | ((long long)(unsigned char)wv[0] << 32) |
-             ((long long)(unsigned char)wv[1] << 40) |
-             ((long long)(unsigned char)wv[2] << 48);
-  } else {
-    longlong2* q = reinterpret_cast<longlong2*>(rec + 4 * p);
-    q[0] = make_longlong2(wv[0], wv[1]);
-    q[1] = make_longlong2(row | (wv[2] << 32), 0LL);
-  }
-}
-
-// Block b's rows in row order to their records, with the weights of w
-// (3, N).  Warp v of the block walks the v-th of its 32 runs: a prefix of
-// the runs' counts (part_count) over the warps, from the block's start in
-// each channel (part_scan), gives its first place in every channel; it
-// then takes its run in row order, 32 rows a step, placing each row at
-// its channel's next place plus its rank among the step's lanes of that
-// channel (ballots).  One block barrier.  The model-axis form (lanes,
+// Block b's rows in row order to their records, tile by tile.  The block
+// first finds its place in every channel from the counts (block_places;
+// block 0 also writes the plan).  Then, per tile of kRows rows (a warp
+// owns kSlots x 32 consecutive rows of it, slot i its rows i x 32 +
+// lane): the tile's channels (and q8 weights) arrive in shared memory in
+// 16-byte loads issued one tile ahead; each warp ranks its rows within
+// their channel (__match_any_sync over a step's lanes, one shared atomic
+// per channel a step for the warp's running count); warp 0 turns the warps'
+// counts into each warp's start in each channel of the tile and the
+// tile's channel starts; every kept row's record goes to the stage,
+// channel-sorted, beside its place in the list; and the block writes the
+// stage out in order, consecutive threads on consecutive records, so a
+// channel's run leaves in whole lines.  The model-axis form (lanes,
 // grid y = lane): lane z's channels and weights from lanes[z] and
-// lanes[L + z], its plan plan_ls ints and its records rec_ls int64 further
-// on.
+// lanes[L + z], its plan plan_ls ints and its records rec_ls int64
+// further on.
 template <typename W>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kPartThreads, 2)
 part_scatter(const int8_t* __restrict__ ch, const W* __restrict__ w,
-             long long N, int K, long long block_rows,
-             const int* __restrict__ starts,
-             const int* __restrict__ wcounts, long long* __restrict__ rec,
+             long long N, int K, int S, long long block_rows,
+             int* __restrict__ plan, long long* __restrict__ rec,
              const long long* __restrict__ lanes, int L, long long plan_ls,
              long long rec_ls) {
-  __shared__ int wpos[32][kMaxK];   // each warp's next place per channel
+  constexpr bool Q8 = sizeof(W) == 1;
+  constexpr int R = PartTile<W>::kSlots, TR = PartTile<W>::kRows;
+  extern __shared__ __align__(16) unsigned char smem[];
   if (lanes) {
     const int z = blockIdx.y;
     ch = reinterpret_cast<const int8_t*>(lanes[z]);
     w = reinterpret_cast<const W*>(lanes[L + z]);
-    starts += z * plan_ls;
-    wcounts += z * plan_ls;
+    plan += z * plan_ls;
     rec += z * rec_ls;
   }
-  const int P = gridDim.x;
+  long long* stage = reinterpret_cast<long long*>(smem);
+  int* sdst = reinterpret_cast<int*>(smem + TR * PartTile<W>::kRecBytes);
+  int* wcnt = sdst + TR;                    // [warp][channel]
+  int* small = wcnt + kPartWarps * kMaxK;
+  const PartTables t{small, small + (kMaxK + 8), small + 2 * (kMaxK + 8),
+                     small + 3 * (kMaxK + 8), small + 4 * (kMaxK + 8),
+                     small + 5 * (kMaxK + 8), small + 6 * (kMaxK + 8)};
+  int8_t* ch_s = reinterpret_cast<int8_t*>(small + kSmallInts);
+  int8_t* w_s = ch_s + TR;                  // q8: 3 rows of TR bytes
+  int* offsets = plan;
+  int* slots = offsets + K + 1;
+  int* table = slots + K;
+  const int* counts = table + S + K;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int cc = warp; cc < K; cc += 32) {
-    const int v = wcounts[((long long)blockIdx.x * 32 + lane) * K + cc];
-    int incl = v;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int u = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += u;
-    }
-    wpos[lane][cc] = starts[cc * P + blockIdx.x] + incl - v;
-  }
-  __syncthreads();
-  long long w0, w1;
-  warp_run(N, block_rows, &w0, &w1);
-  const unsigned int below = lanes_below();
-  int* next = wpos[warp];
-  for (long long t = w0; t < w1; t += kAhead * 32) {
-    int key[kAhead];
-    W wv[kAhead][3];   // the listed rows' weights, loaded ahead
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const long long r = t + i * 32 + lane;
-      const int c = r < w1 ? (int)__ldg(ch + r) : -1;
-      key[i] = (c >= 0 && c < K) ? c : -1;
-    }
-#pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const long long r = t + i * 32 + lane;
+
+  block_places(counts, K, gridDim.x, t);
+  if (blockIdx.x == 0) write_plan(K, S, t, offsets, slots, table);
+
+  long long r0, r1;
+  block_span(N, block_rows, &r0, &r1);
+  const int8_t* w8 = reinterpret_cast<const int8_t*>(w);
+  const bool loader = threadIdx.x < TR / 16;
+  const bool ch_aligned = (reinterpret_cast<uintptr_t>(ch) & 15) == 0;
+  const bool w_aligned =
+      ((reinterpret_cast<uintptr_t>(w) | (uintptr_t)N) & 15) == 0;
+  int4 nch = {0, 0, 0, 0}, nw[3] = {nch, nch, nch};   // the next tile's
+  auto fetch = [&](long long t0) {
+    const long long r = t0 + 16LL * threadIdx.x;
+    nch = load16(ch, r, r1, ch_aligned, -1);
+    if constexpr (Q8) {
 #pragma unroll
       for (int q = 0; q < 3; ++q)
-        wv[i][q] = key[i] >= 0 ? __ldg(w + q * N + r) : W(0);
+        nw[q] = load16(w8 + q * N, r, r1, w_aligned, 0);
+    }
+  };
+  if (loader && r0 < r1) fetch(r0);
+  const unsigned int below = lanes_below();
+  const int xb = warp * 32 * R + lane;      // this lane's row of slot 0
+
+  for (long long t0 = r0; t0 < r1; t0 += TR) {
+    if (loader) {
+      reinterpret_cast<int4*>(ch_s)[threadIdx.x] = nch;
+      if constexpr (Q8) {
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          reinterpret_cast<int4*>(w_s + q * TR)[threadIdx.x] = nw[q];
+      }
+    }
+    for (int c = lane; c < kMaxK; c += 32) wcnt[warp * kMaxK + c] = 0;
+    __syncthreads();   // the tile's channels are in; the counters zeroed
+    if (loader && t0 + TR < r1) fetch(t0 + TR);
+
+    int key[R], rank[R];
+    W wv[R][3];        // fx: the kept rows' weights, loaded while ranking
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int c = ch_s[xb + i * 32];
+      key[i] = (c >= 0 && c < K) ? c : -1;
+    }
+    if constexpr (!Q8) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long r = t0 + xb + i * 32;
+#pragma unroll
+        for (int q = 0; q < 3; ++q)
+          wv[i][q] = key[i] >= 0 ? __ldg(w + q * N + r) : W(0);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < kAhead; ++i) {
-      const unsigned int peers = same_key(key[i]);
-      long long pos = 0;
-      if (key[i] >= 0) pos = next[key[i]] + __popc(peers & below);
-      __syncwarp();
-      if (key[i] >= 0 && (peers & below) == 0) next[key[i]] += __popc(peers);
-      __syncwarp();
-      if (key[i] >= 0)
-        store_record<W>(rec, pos, t + i * 32 + lane, wv[i]);
+    for (int i = 0; i < R; ++i) {
+      // rank among the warp's rows of the channel so far: the lowest lane
+      // of the step's peers (the kept lanes of its channel) adds them all
+      // to the warp's count and hands the count before them to its peers
+      // (nothing when no lane keeps a row).  __match_any_sync took 3-27%
+      // less scatter time than one ballot per key bit (PERF.md)
+      const unsigned int kept = __ballot_sync(kFull, key[i] >= 0);
+      rank[i] = 0;
+      if (kept == 0) continue;
+      const unsigned int peers = __match_any_sync(kFull, key[i]) & kept;
+      const int lead = peers ? __ffs(peers) - 1 : lane;
+      int old = 0;
+      if (key[i] >= 0 && lane == lead)
+        old = atomicAdd(&wcnt[warp * kMaxK + key[i]], __popc(peers));
+      rank[i] = __shfl_sync(kFull, old, lead) + __popc(peers & below);
+    }
+    __syncthreads();   // every warp's count of every channel
+
+    if (warp == 0) {
+      // each warp's start in each channel of the tile, the tile's
+      // channel starts in the stage, and the block's places after it
+      int n2[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h;
+        int run = 0;
+        if (c < K) {
+          for (int v = 0; v < kPartWarps; ++v) {
+            const int x = wcnt[v * kMaxK + c];
+            wcnt[v * kMaxK + c] = run;
+            run += x;
+          }
+        }
+        n2[h] = run;
+      }
+      const int ia = warp_incl(n2[0]), iz = warp_incl(n2[1]);
+      const int half = __shfl_sync(kFull, ia, 31);
+      const int st[2] = {ia - n2[0], half + iz - n2[1]};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h;
+        if (c < K) {
+          t.tstart[c] = st[h];
+          t.shift[c] = t.place[c] - st[h];
+          t.place[c] += n2[h];
+        }
+      }
+      if (lane == 31) t.tstart[K] = half + iz;
+    }
+    __syncthreads();   // the tile's starts
+
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int c = key[i];
+      if (c < 0) continue;
+      const int x = xb + i * 32;
+      const int pos = t.tstart[c] + wcnt[warp * kMaxK + c] + rank[i];
+      const long long row = t0 + x;
+      if constexpr (Q8) {
+        stage[pos] = row | ((long long)(unsigned char)w_s[x] << 32) |
+                     ((long long)(unsigned char)w_s[TR + x] << 40) |
+                     ((long long)(unsigned char)w_s[2 * TR + x] << 48);
+      } else {
+        longlong2* q = reinterpret_cast<longlong2*>(stage) + 2 * pos;
+        q[0] = make_longlong2(wv[i][0], wv[i][1]);
+        q[1] = make_longlong2(row | (wv[i][2] << 32), 0LL);
+      }
+      sdst[pos] = pos + t.shift[c];
+    }
+    __syncthreads();   // the stage is whole
+
+    const int kept = t.tstart[K];
+    if constexpr (Q8) {
+      for (int i = threadIdx.x; i < kept; i += kPartThreads)
+        rec[sdst[i]] = stage[i];
+    } else {
+      // a 16-byte half of a record a thread
+      const longlong2* s2 = reinterpret_cast<const longlong2*>(stage);
+      longlong2* r2 = reinterpret_cast<longlong2*>(rec);
+      for (int i = threadIdx.x; i < 2 * kept; i += kPartThreads)
+        r2[2LL * sdst[i >> 1] + (i & 1)] = s2[i];
     }
   }
 }
@@ -506,15 +664,28 @@ hist_list_kernel(const uint16_t* __restrict__ bins,
   }
 }
 
-// The plan of one lane: offsets (K + 1) | slots (K) | table (S + K) |
-// counts (K x P) | the warps' runs' counts (P x 32 x K).
-long long plan_ints(int K, int P, int S) {
-  return 3LL * K + 1 + S + 33LL * K * P;
+// Dynamic shared memory past 48 KB, and the whole L1 carveout as shared
+// memory, so that LIST_PART_SM_BLOCKS scatter blocks fit an SM.
+template <typename Kern>
+int prepare(Kern kernel, int smem) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  return (int)err;
+}
+
+// Rows of each partition block: ceil(N / P), rounded up to 16 rows.
+long long part_block_rows(long long N, int P) {
+  return ((N + P - 1) / P + 15) / 16 * 16;
 }
 
 // lanes: null for one lane, else the device table (2, L) of each lane's
 // ch and w pointers; lane z's records and plan lie z x N records and z x
-// plan_ints(K, P, S) ints after the first.
+// plan_ints(K, P, S) ints after the first.  Two launches: the count, then
+// the scatter (whose block 0 writes the plan).
 template <typename W>
 int partition(const void* ch, const void* w, long long N, int K, int P,
               int S, void* rec, void* plan, void* stream,
@@ -526,24 +697,19 @@ int partition(const void* ch, const void* w, long long N, int K, int P,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long plan_ls = lanes ? plan_ints(K, P, S) : 0;
   const long long rec_ls = lanes ? N * (sizeof(W) == 1 ? 1 : 4) : 0;
-  int* offsets = static_cast<int*>(plan);
-  int* slots = offsets + K + 1;
-  int* table = slots + K;
-  int* counts = table + S + K;
-  int* wcounts = counts + K * P;
-  const long long block_rows = (N + P - 1) / P;
-  const size_t scan_smem = (size_t)K * P * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(
-      part_scan, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)scan_smem);
-  if (err != cudaSuccess) return (int)err;
+  const long long block_rows = part_block_rows(N, P);
+  const int smem = PartTile<W>::kSmem;
+  const int count_smem = K * kCountThreads * (int)sizeof(int);
+  int err = prepare(part_scatter<W>, smem);
+  if (err == 0) err = prepare(part_count, count_smem);
+  if (err != 0) return err;
   const int8_t* c8 = static_cast<const int8_t*>(ch);
+  int* p = static_cast<int*>(plan);
   const dim3 grid(P, L);
-  part_count<<<grid, kThreads, 0, s>>>(c8, N, K, block_rows, counts, wcounts,
-                                       lanes, plan_ls);
-  part_scan<<<L, kThreads, scan_smem, s>>>(counts, K, P, S, offsets, slots,
-                                           table, plan_ls);
-  part_scatter<W><<<grid, kThreads, 0, s>>>(
-      c8, static_cast<const W*>(w), N, K, block_rows, counts, wcounts,
+  part_count<<<grid, kCountThreads, count_smem, s>>>(c8, N, K, S, block_rows,
+                                                     p, lanes, plan_ls);
+  part_scatter<W><<<grid, kPartThreads, smem, s>>>(
+      c8, static_cast<const W*>(w), N, K, S, block_rows, p,
       static_cast<long long*>(rec), lanes, L, plan_ls, rec_ls);
   return (int)cudaGetLastError();
 }
@@ -617,7 +783,7 @@ extern "C" {
 // The channel partition: ch (N,) int8; w (3, N) weight rows (wbytes 8:
 // int64 fx, 1: int8 q8, the first three rows of the (8, N) wch); rec the
 // records, (N, 4) int64 (fx) or (N,) int64 (q8), the first offsets[K]
-// written; plan int32 (K + 1) + K + (S + K) + 33 K P, written whole.  P
+// written; plan int32 (K + 1) + K + (S + K) + K P, written whole.  P
 // row blocks, S chunk slots.  N < 2^31, K <= 64.
 int leaf_partition(const void* ch, const void* w, int wbytes, long long N,
                    int K, int P, int S, void* rec, void* plan, void* stream) {
@@ -646,10 +812,10 @@ int hist_leaves_q8_u16(const void* bins, const void* rec, const void* plan,
 
 // The model-axis forms (the reference's vmap of its uint16 leaf
 // histograms): L lanes' channels and weights over the shared bins.  The
-// partition, lane z as grid y of its three kernels: lanes the device
+// partition, lane z as grid y of its two kernels: lanes the device
 // table (2, L) [ch pointer, w pointer] of each lane (w as in
 // leaf_partition); rec (L, N, 4) or (L, N) int64; plan L x (3 K + 1 + S +
-// 33 K P) int32, each lane's laid out as leaf_partition's.  Lane z's list
+// K P) int32, each lane's laid out as leaf_partition's.  Lane z's list
 // is its single partition's, record for record.
 int leaf_partition_lanes(const void* lanes, int wbytes, long long N, int K,
                          int P, int S, void* rec, void* plan, int L,

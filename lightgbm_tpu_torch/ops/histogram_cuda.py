@@ -335,6 +335,8 @@ def leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int, q8: bool,
 # and one tile of bt bins, with no row queue beside its histogram.
 LIST_PART_MIN_ROWS = 16_384   # fewest rows a partition block takes
 LIST_PART_SM_BLOCKS = 2       # partition blocks per SM, at most
+PART_THREADS = 512            # a partition block's threads (16 warps)
+PART_ROW_STEP = 16            # its blocks' runs: 16-row (16-byte) groups
 LIST_FILL = 0.9               # least share of the last resident round filled
 LIST_MAX_CHANNELS = 64        # the partition's shared tables
 LIST_BIN_BATCH = 8            # bin loads of one listed row issued together
@@ -428,6 +430,37 @@ def _part_blocks(sms: int, n: int, lanes: int = 1) -> int:
                       -(-n // LIST_PART_MIN_ROWS)))
 
 
+def part_block_rows(n: int, part_blocks: int) -> int:
+    """Rows of each partition block: ceil(n / part_blocks), rounded up to
+    ``PART_ROW_STEP`` (csrc/hist_leaves_u16.cu ``part_block_rows``)."""
+    per_block = -(-n // part_blocks)
+    return -(-per_block // PART_ROW_STEP) * PART_ROW_STEP
+
+
+def part_tile_rows(q8: bool) -> int:
+    """Rows of one tile of the partition's scatter: 8 a thread for q8
+    records (8 bytes), 4 for fx (32 bytes)."""
+    return PART_THREADS * (8 if q8 else 4)
+
+
+def part_smem(q8: bool) -> int:
+    """Shared bytes of one scatter block (``PartTile::kSmem``): a tile's
+    staged records and their places, the warps' channel counters, seven
+    small tables of ``LIST_MAX_CHANNELS`` + 8 ints, the tile's channels
+    and (q8) its three weight bytes a row."""
+    rows = part_tile_rows(q8)
+    return (rows * ((8 if q8 else 32) + 4) +
+            PART_THREADS // 32 * LIST_MAX_CHANNELS * 4 +
+            7 * (LIST_MAX_CHANNELS + 8) * 4 + rows * (4 if q8 else 1))
+
+
+def plan_ints(k: int, slots: int, part_blocks: int) -> int:
+    """int32 entries of one lane's partition plan (csrc/hist_leaves_u16.cu
+    ``plan_ints``): offsets (k + 1), slots (k), the slot table (slots +
+    k), then each row block's count of each channel (k x part_blocks)."""
+    return 3 * k + 1 + slots + k * part_blocks
+
+
 _SMS = {}
 
 
@@ -503,8 +536,8 @@ def list_slots(counts: torch.Tensor, num_slots: int) -> tuple:
     / total)) (half up; 0 if empty), at most S + K in all; the slots are
     ranked by the start of their share of the channel, (j / s_c, c), so
     that blocks run together walk the same stretch of rows.  The plain
-    version of the partition's scan (csrc/hist_leaves_u16.cu
-    ``part_scan``)."""
+    version of the plan the partition's scatter writes
+    (csrc/hist_leaves_u16.cu ``write_plan``)."""
     n = counts.to(torch.int64).cpu()
     k = n.numel()
     total = int(n.sum())
@@ -590,7 +623,7 @@ def _partition_buffers(chs, ws, k, slots, part_blocks, lanes_form):
         part_blocks = _part_blocks(_sm_count(dev), n, lanes)
     rec = torch.empty((lanes, n, 4) if w0.dtype == torch.int64
                       else (lanes, n), dtype=torch.int64, device=dev)
-    plan = torch.empty((lanes, 3 * k + 1 + slots + 33 * k * part_blocks),
+    plan = torch.empty((lanes, plan_ints(k, slots, part_blocks)),
                        dtype=torch.int32, device=dev)
     if not n:
         plan.zero_()
@@ -633,7 +666,7 @@ def leaf_partition_lanes_plain(ch, w, *, num_channels: int,
 def leaf_partition_lanes(ch, w, *, num_channels: int, slots: int,
                          part_blocks: int = None) -> list:
     """:func:`leaf_partition` of L lanes in one launch of each of its
-    three kernels (the lane as grid y): ``ch`` and ``w`` hold each lane's
+    two kernels (the lane as grid y): ``ch`` and ``w`` hold each lane's
     (N,) int8 channels and (>= 3, N) weights, of one dtype.  Returns each
     lane's :class:`RowList`, record for record its single partition's;
     ``part_blocks`` row blocks a lane."""

@@ -538,6 +538,160 @@ def _walk(bins, w3, ch, k, num_bins, geo):
     return torch.cat(list(tiles), dim=2)[:, :, :num_bins]
 
 
+def _plan_model(counts, num_slots):
+    """The plan's slots and table as the scatter's block 0 computes them
+    (csrc/hist_leaves_u16.cu ``write_plan``): a slot's channel is the
+    count of channels whose slots end at or before it; its rank j + the
+    slots of every other channel starting before j / s_c (and those
+    starting with it, of a lower channel), in 32-bit unsigned arithmetic."""
+    k = counts.numel()
+    total = int(counts.sum())
+    s = [max(1, (2 * int(nc) * num_slots + total) // (2 * total))
+         if nc > 0 else 0 for nc in counts.tolist()]
+    pre = np.concatenate([[0], np.cumsum(s)]).astype(np.int64)
+    table = [-1] * (num_slots + k)
+    m32 = 0xFFFFFFFF
+    for u in range(int(pre[k])):
+        c = int((pre[1:] <= u).sum())
+        j, sc = u - int(pre[c]), s[c]
+        part = 0
+        for d in range(k):
+            if d == c or s[d] == 0:
+                continue
+            q = (j * s[d]) & m32
+            part += ((q + sc - 1) & m32) // sc + (d < c and q % sc == 0)
+        table[(j + part) & m32] = (j << 8) | c
+    return (torch.tensor(s, dtype=torch.int32),
+            torch.tensor(table, dtype=torch.int32))
+
+
+def _partition_model(ch, w, k, num_slots, part_blocks, q8):
+    """The channel partition's placement in plain PyTorch
+    (csrc/hist_leaves_u16.cu ``part_count``, ``part_scatter``): P blocks
+    of ``part_block_rows`` rows count their rows per channel; each block
+    starts in channel c at its offset plus the earlier blocks' rows of c
+    and walks its rows in tiles of ``part_tile_rows``; warp v of the
+    block owns the tile's rows [v x 32 R, (v + 1) x 32 R) and ranks each
+    row within its channel among the warp's rows; the tile's stage place
+    is the channel's start in the tile + the earlier warps' rows of it +
+    that rank; the list place the block's running place in the channel +
+    the same; and the block's place advances by the tile's rows of each
+    channel.  Returns the RowList the kernels write, asserting that each
+    tile's stage places and the list places are each taken once."""
+    n = ch.shape[0]
+    tile = hc.part_tile_rows(q8)
+    warps = hc.PART_THREADS // 32
+    br = hc.part_block_rows(n, part_blocks)
+    assert br % hc.PART_ROW_STEP == 0 and br * part_blocks >= n
+    key = torch.where((ch >= 0) & (ch < k), ch.long(), -1)
+    counts = torch.zeros((k, part_blocks), dtype=torch.int64)
+    for b in range(part_blocks):
+        kb = key[b * br:(b + 1) * br]
+        counts[:, b] = torch.bincount(kb[kb >= 0], minlength=k)
+    tot = counts.sum(1)
+    offsets = torch.cat([torch.zeros(1, dtype=torch.int64),
+                         torch.cumsum(tot, 0)])
+    every = hc._records(torch.arange(n), w)
+    records = torch.zeros_like(every)
+    taken = torch.zeros(n, dtype=torch.int64)
+    for b in range(part_blocks):
+        place = offsets[:-1] + counts[:, :b].sum(1)
+        r0, r1 = b * br, min(n, (b + 1) * br)
+        for t0 in range(r0, r1, tile):
+            kt = torch.full((tile,), -1, dtype=torch.int64)
+            kt[:min(tile, r1 - t0)] = key[t0:min(t0 + tile, r1)]
+            kw = kt.view(warps, -1)
+            hot = kw[..., None] == torch.arange(k)
+            local = torch.cumsum(hot.long(), 1) - hot.long()
+            wcnt = hot.sum(1)
+            wpre = torch.cumsum(wcnt, 0) - wcnt
+            ttot = wcnt.sum(0)
+            tstart = torch.cumsum(ttot, 0) - ttot
+            kept = kw >= 0
+            c = kw.clamp(min=0)
+            rank = local.gather(2, c[..., None]).squeeze(2)
+            pos = (tstart[c] + wpre.gather(1, c) + rank)[kept]
+            rows = (t0 + torch.arange(tile)).view(warps, -1)[kept]
+            stage_c = c[kept]
+            assert sorted(pos.tolist()) == list(range(int(ttot.sum())))
+            dst = pos + (place - tstart)[stage_c]
+            records[dst] = every[rows]
+            taken[dst] += 1
+            place += ttot
+    m = int(offsets[-1])
+    assert (taken[:m] == 1).all() and not taken[m:].any()
+    slots, table = _plan_model(tot, num_slots)
+    return hc.RowList(records, offsets.to(torch.int32), slots, table)
+
+
+def _part_weights(n, q8, rng):
+    if q8:
+        return torch.from_numpy(rng.randint(-128, 128, (8, n)).astype(
+            np.int8))
+    return th.pack_weights(torch.randn(n), torch.rand(n),
+                           (torch.rand(n) < 0.8).float()).w
+
+
+def _same_list(got, want):
+    m = int(want.offsets[-1])
+    assert int(got.offsets[-1]) == m
+    assert torch.equal(got.records[:m], want.records[:m])
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a, b)
+
+
+# (rows, row blocks) in tiles T of the scatter: below one tile, a tile's
+# multiple and one off either side of it over 2 blocks (channels spanning
+# tiles and blocks), one block of 5 tiles and a bit
+PART_SIZES = {"small": lambda t: (1000, 1),
+              "tile-1": lambda t: (t - 1, 1),
+              "3 tiles-1": lambda t: (3 * t - 1, 2),
+              "3 tiles": lambda t: (3 * t, 2),
+              "3 tiles+1": lambda t: (3 * t + 1, 2),
+              "one block": lambda t: (5 * t + 7, 1)}
+
+
+@pytest.mark.parametrize("k", [1, None, 64])
+@pytest.mark.parametrize("size", list(PART_SIZES))
+@pytest.mark.parametrize("mix", ["uniform", "skewed", "none"])
+@pytest.mark.parametrize("q8", [True, False])
+def test_partition_model_matches_plain(q8, mix, size, k):
+    """The partition kernels' index arithmetic (:func:`_partition_model`:
+    blocks, tiles, per-warp and per-tile channel prefixes, run writes
+    from the block's running place; the plan's warp-parallel slot table)
+    lists every kept row once, record for record and plan for plan
+    ``leaf_partition_plain``'s, at every edge size and K = 1, the form's K
+    and 64."""
+    rng = np.random.RandomState(11)
+    k = k or (hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS)
+    n, blocks = PART_SIZES[size](hc.part_tile_rows(q8))
+    ch = _channels(mix, n, k, rng)
+    w = _part_weights(n, q8, rng)
+    num_slots = 3 * k
+    want = hc.leaf_partition_plain(ch, w, num_channels=k, slots=num_slots)
+    _same_list(_partition_model(ch, w, k, num_slots, blocks, q8), want)
+
+
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("q8", [True, False])
+def test_partition_model_in_the_lanes_share(q8, lanes):
+    """Each lane of ``leaf_partition_lanes`` walks its rows in the lanes'
+    share of row blocks (``_part_blocks(sms, n, lanes)``), over lanes of
+    different mixes: the model's list is that lane's plain list."""
+    rng = np.random.RandomState(lanes)
+    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    n = 3 * hc.LIST_PART_MIN_ROWS + 5
+    blocks = hc._part_blocks(132, n, lanes)
+    assert blocks == 4
+    chs = [_channels(("uniform", "skewed", "none")[i % 3], n, k, rng)
+           for i in range(lanes)]
+    ws = [_part_weights(n, q8, rng) for _ in range(lanes)]
+    wants = hc.leaf_partition_lanes_plain(chs, ws, num_channels=k,
+                                          slots=4 * k)
+    for c, w, want in zip(chs, ws, wants):
+        _same_list(_partition_model(c, w, k, 4 * k, blocks, q8), want)
+
+
 @pytest.mark.parametrize("num_bins", [257, 1024, 65_535])
 @pytest.mark.parametrize("mix", ["uniform", "skewed"])
 @pytest.mark.parametrize("q8", [True, False])

@@ -1081,20 +1081,20 @@ def _u16_case(device, n, num_bins, seed=3, w=25):
             t(tab.astype(np.int32)), t(feats.astype(np.int32)))
 
 
-def _u16_channels(device, n, mix, seed=4):
-    """(n,) int8 leaf channels: ``uniform`` over [-1, 25), ``skewed`` (of
-    the 60% kept, 90% in channel 3, the rest in channels c % 4 != 1, so
-    several empty) or ``none`` (no kept row)."""
+def _u16_channels(device, n, mix, seed=4, k=hc.LEAF_CHANNELS):
+    """(n,) int8 leaf channels: ``uniform`` over [-1, k), ``skewed`` (of
+    the 60% kept, 90% in channel 3, the rest in channels c % 4 != 1 below
+    k, so several empty) or ``none`` (no kept row)."""
     rng = np.random.RandomState(seed)
     ch = np.full(n, -1, np.int8)
     if mix == "uniform":
-        ch = rng.randint(-1, hc.LEAF_CHANNELS, n).astype(np.int8)
+        ch = rng.randint(-1, k, n).astype(np.int8)
     elif mix == "skewed":
         kept = rng.rand(n) < 0.6
         heavy = rng.rand(n) < 0.9
         ch[kept & heavy] = 3
         light = kept & ~heavy
-        ch[light] = rng.choice([c for c in range(hc.LEAF_CHANNELS)
+        ch[light] = rng.choice([c for c in range(k)
                                 if c % 4 != 1 and c != 3], int(light.sum()))
     return torch.from_numpy(ch).to(device)
 
@@ -1175,38 +1175,97 @@ def test_u16_kernels_match_plain_on_card(cuda_device, monkeypatch, n,
     assert int(want[0][:F - 1, num_bins - 1, 2].min()) > 0   # the top code
 
 
+# the partition's edge sizes, (rows, row blocks) with T the scatter's tile
+# rows (hc.part_tile_rows): odd, below one tile, a tile's multiple and
+# one off either side of it over 2 blocks (channels spanning tiles and
+# blocks), one block; None takes the default blocks
+PART_SIZES = {"odd": lambda t: (100_003, None),
+              "small": lambda t: (1000, None),
+              "tile-1": lambda t: (t - 1, None),
+              "3 tiles-1": lambda t: (3 * t - 1, 2),
+              "3 tiles": lambda t: (3 * t, 2),
+              "3 tiles+1": lambda t: (3 * t + 1, 2),
+              "one block": lambda t: (5 * t + 7, 1)}
+
+
+def _part_weights(device, n, q8, seed=8):
+    rng = np.random.RandomState(seed)
+    if q8:
+        return torch.from_numpy(rng.randint(-128, 128, (8, n)).astype(
+            np.int8)).to(device)
+    return th.pack_weights(torch.randn(n), torch.rand(n),
+                           (torch.rand(n) < 0.8).float()).w.to(device)
+
+
+def _assert_same_list(got, want):
+    """Records and plan (offsets, slots, slot table) equal."""
+    m = int(want.offsets[-1])
+    assert int(got.offsets[-1]) == m
+    assert torch.equal(got.records[:m].cpu(), want.records[:m].cpu())
+    for a, b in zip(got[1:], want[1:]):
+        assert torch.equal(a.cpu(), b.cpu())
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [None, 1, 64])
+@pytest.mark.parametrize("size", list(PART_SIZES))
 @pytest.mark.parametrize("mix", ["uniform", "skewed", "none"])
 @pytest.mark.parametrize("q8", [True, False])
-def test_leaf_partition_matches_plain_on_card(cuda_device, mix, q8):
+def test_leaf_partition_matches_plain_on_card(cuda_device, mix, q8, size, k):
     """The channel partition's records and plan (offsets, slots, slot
     table) equal its plain version's (a stable argsort), identical across
-    two launches."""
-    n = 100_003
-    k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
-    ch = _u16_channels(cuda_device, n, mix)
-    rng = np.random.RandomState(8)
-    if q8:
-        w = torch.from_numpy(rng.randint(-128, 128, (8, n)).astype(
-            np.int8)).to(cuda_device)
-    else:
-        w = th.pack_weights(torch.randn(n), torch.rand(n),
-                            (torch.rand(n) < 0.8).float()).w.to(cuda_device)
-    geo = hc.list_geometry(hc._sm_count(torch.device(cuda_device)), F, n,
-                           1024, k, q8)
+    two launches: at N odd, below one tile, a tile multiple and one off
+    it, in one block, and at K = 1, the form's K and 64."""
+    k = k or (hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS)
+    n, blocks = PART_SIZES[size](hc.part_tile_rows(q8))
+    ch = _u16_channels(cuda_device, n, mix, k=k)
+    w = _part_weights(cuda_device, n, q8)
+    sms = hc._sm_count(torch.device(cuda_device))
+    geo = hc.list_geometry(sms, F, n, 1024, k, q8)
+    blocks = blocks or geo.part_blocks
     before = hc.LAUNCHES["leaf_partition"]
     runs = [hc.leaf_partition(ch, w, num_channels=k, slots=geo.slots,
-                              part_blocks=geo.part_blocks) for _ in range(2)]
+                              part_blocks=blocks) for _ in range(2)]
     torch.cuda.synchronize()
     assert hc.LAUNCHES["leaf_partition"] == before + 2
     want = hc.leaf_partition_plain(ch.cpu(), w.cpu(), num_channels=k,
                                    slots=geo.slots)
-    m = int(want.offsets[-1])
     for rl in runs:
-        torch.testing.assert_close(rl.records[:m].cpu(), want.records,
-                                   rtol=0, atol=0)
-        for got, exp in zip(rl[1:], want[1:]):
-            assert torch.equal(got.cpu(), exp)
+        _assert_same_list(rl, want)
+    if mix == "none":
+        assert not int(runs[0].offsets[-1])
+        assert (runs[0].table == -1).all()
+
+
+def _check_lane_partitions(device, lanes):
+    """``leaf_partition_lanes`` over lanes of different mixes in one
+    launch at the partition's edge sizes and K = 1, 42 and 64: each lane
+    its plain version's and its single partition's list, identical across
+    two launches."""
+    mixes = ("uniform", "skewed", "none", "uniform")
+    for q8 in (True, False):
+        for size in ("odd", "small", "3 tiles+1", "one block"):
+            n, blocks = PART_SIZES[size](hc.part_tile_rows(q8))
+            for k in (1, hc.Q_LEAF_CHANNELS, 64):
+                chs = [_u16_channels(device, n, mixes[i % 4], seed=i, k=k)
+                       for i in range(lanes)]
+                ws = [_part_weights(device, n, q8, seed=i)
+                      for i in range(lanes)]
+                slots = 3 * k
+                part = blocks or hc._part_blocks(
+                    hc._sm_count(torch.device(device)), n, lanes)
+                runs = [hc.leaf_partition_lanes(
+                    chs, ws, num_channels=k, slots=slots, part_blocks=part)
+                    for _ in range(2)]
+                torch.cuda.synchronize()
+                for i in range(lanes):
+                    want = hc.leaf_partition_plain(
+                        chs[i].cpu(), ws[i].cpu(), num_channels=k,
+                        slots=slots)
+                    one = hc.leaf_partition(chs[i], ws[i], num_channels=k,
+                                            slots=slots)
+                    for rl in (runs[0][i], runs[1][i], one):
+                        _assert_same_list(rl, want)
 
 
 def _u16_single_case(device, layout, n, num_bins, case):
@@ -1353,7 +1412,8 @@ def test_u16_lane_kernels_match_plain_and_single_on_card(
     form over row-major segments with one empty lane (its clusters walk
     no row but reach every cluster barrier) and over the shared
     feature-major matrix; the lanes' partitions record for record each
-    lane's own."""
+    lane's own, and at the partition's edge sizes and channel counts over
+    lanes of different mixes (:func:`_check_lane_partitions`)."""
     n = 100_003
     (bins, wch, fx, ch, rl, feats, tab, decs, single,
      fmaj) = _u16_lanes(cuda_device, lanes, n, num_bins,
@@ -1433,6 +1493,7 @@ def test_u16_lane_kernels_match_plain_and_single_on_card(
         assert torch.equal(parts[i].records[:m], one.records[:m])
         for a, b in zip(parts[i][1:], one[1:]):
             assert torch.equal(a, b)
+    _check_lane_partitions(cuda_device, lanes)
 
 
 @pytest.mark.gpu

@@ -566,3 +566,57 @@ def test_lane_list_plan_lists_every_slot_once(q8, lanes):
                         int(counts[c]) * j // int(slots[c]))
                 assert not q8 or rows <= hc.Q8_MAX_BLOCK_ROWS
     assert set(seen) == want and set(seen.values()) <= {1}
+
+
+@pytest.mark.parametrize("q8", [True, False])
+def test_partition_tile_fits_shared_memory(q8):
+    """A scatter block of the channel partition: its tile's staged records
+    and places, the warps' channel counters, the small tables and the
+    tile's channels (and q8 weight bytes) fit one block's 232,448 bytes,
+    and ``LIST_PART_SM_BLOCKS`` such blocks fit an SM; each loader thread
+    takes one 16-row group of the tile."""
+    smem = hc.part_smem(q8)
+    tile = hc.part_tile_rows(q8)
+    assert smem == tile * ((8 if q8 else 32) + 4 + (4 if q8 else 1)) + \
+        hc.PART_THREADS // 32 * hc.LIST_MAX_CHANNELS * 4 + \
+        7 * (hc.LIST_MAX_CHANNELS + 8) * 4
+    assert smem <= hc.BLOCK_SMEM == 232_448
+    assert hc.LIST_PART_SM_BLOCKS * (smem + SMEM_RESERVED) <= SM_SMEM
+    assert hc.LIST_PART_SM_BLOCKS * hc.PART_THREADS <= SM_THREADS
+    assert tile % (32 * hc.PART_THREADS // 32) == 0
+    assert tile // hc.PART_ROW_STEP <= hc.PART_THREADS
+
+
+@pytest.mark.parametrize("lanes", [1, 3])
+@pytest.mark.parametrize("k,slots,blocks", [(42, 126, 264), (25, 25, 66),
+                                            (1, 3, 1), (64, 192, 7)])
+def test_partition_plan_layout(k, slots, blocks, lanes):
+    """One lane's plan is ``plan_ints`` int32 entries: offsets (k + 1),
+    slots (k), the slot table (slots + k), then the row blocks' counts (k
+    x blocks); ``_row_lists`` views each lane's first three parts of a
+    (lanes, plan_ints) buffer, and nothing of the counts."""
+    size = hc.plan_ints(k, slots, blocks)
+    assert size == 3 * k + 1 + slots + k * blocks
+    assert blocks * k * 4 <= hc.BLOCK_SMEM     # the kernel's P limit
+    plan = torch.arange(lanes * size, dtype=torch.int32).view(lanes, size)
+    rec = torch.zeros((lanes, 5), dtype=torch.int64)
+    for z, rl in enumerate(hc._row_lists(rec, plan, k, slots)):
+        base = z * size
+        assert torch.equal(rl.offsets, base + torch.arange(k + 1,
+                                                           dtype=torch.int32))
+        assert torch.equal(rl.slots, base + k + 1 + torch.arange(
+            k, dtype=torch.int32))
+        assert torch.equal(rl.table, base + 2 * k + 1 + torch.arange(
+            slots + k, dtype=torch.int32))
+        assert int(rl.table[-1]) + k * blocks == base + size - 1
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 1000, 10_502_144])
+@pytest.mark.parametrize("blocks", [1, 7, 264])
+def test_partition_block_rows_cover_the_rows(n, blocks):
+    """The partition's row blocks: runs of ``part_block_rows`` rows, a
+    multiple of 16 (each 16-row group one aligned 16-byte load), cover
+    the n rows, the last nonempty block ending at n."""
+    br = hc.part_block_rows(n, blocks)
+    assert br % hc.PART_ROW_STEP == 0 and br >= -(-n // blocks)
+    assert br * blocks >= n and br - hc.PART_ROW_STEP < -(-n // blocks)
