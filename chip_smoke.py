@@ -243,6 +243,30 @@ Phases (any failure exits non-zero and prints no result line):
    histogram working set, and under half the in-core run's peak; the
    three kernels timed on one chunk-sized slice beside the main path's
    phase-2 times.
+17. the serving tier and continuous learning, after phase 14b-c: (a)
+   the headline configuration on 2,097,152 of the main rows for 8
+   rounds, four runs without / with / with / without ``publish_dir``
+   (every 2 rounds) and ``flight_dir``: model texts identical, the
+   journal's head folding to the final text, ``flight.jsonl`` holding
+   the 8 iterations, iterations/s both ways (1 / the median round, per
+   run and pooled), ``hist_leaves_q8`` and the row update
+   launched (the counts from 0); (b) ``python -m lightgbm_tpu_torch
+   serve`` on the journal's first BASE in a subprocess found through
+   ``port_file`` (120 s timeout), reloaded through ``POST /models``
+   with ``shard=4`` (the tree padding delta appends fill):
+   ``/predict`` of 1, 64 and 4,096 rows bitwise an in-process
+   ``Booster.predict``, each DELTA replayed through ``POST
+   /models/<name>/delta`` (the 4,096-row answer a cold load's of the
+   folded text, no compile key added inside the envelope), a 5 s
+   closed-loop ``loadgen`` of 8 workers (rows 1 / 64 / 4,096 at 0.5 /
+   0.4 / 0.1: requests/s, client p50 / p99, rows per device batch, the
+   server's queue / device split), ``/metrics`` parsed, ``/slo``,
+   ``/healthz`` ok naming the card, SIGTERM exit 143 within 30 s; (c)
+   4 tenants, each 8 trees of phase 14b's 16-tree model from trees 0,
+   2, 4 and 6, in a ``ModelZoo``: one stack,
+   stacked answers bitwise each tenant's ``CompiledPredictor``, one
+   compile key for the stack's 4,096 bucket, one stacked 4 x 4,096-row
+   call timed against 4 single calls.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -273,6 +297,7 @@ import argparse
 import collections
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -3427,10 +3452,12 @@ def resume_phase(lt, torch, card, ds, out_dir: str) -> dict:
     return got
 
 
-def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
+def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> str:
     """Phase 14b-c: the dense serving program against the walk on the
     card, for phase 9a's headline model and a 16-tree model, then
-    ``pred_contrib`` of the 16-tree model, dense against the host walk."""
+    ``pred_contrib`` of the 16-tree model, dense against the host walk.
+    Returns the 16-tree model's text: phase 17c's tenants are windows of
+    it."""
     from lightgbm_tpu_torch.explain import compiler as ec
     from lightgbm_tpu_torch.models.shap import predict_contrib
     from lightgbm_tpu_torch.serve import compiler as sc
@@ -3556,6 +3583,7 @@ def serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir: str) -> None:
         f"there max |dense - walk| {np.abs(dense - walk).max():.3g} "
         f"({err:.3g} of rtol 1e-4, atol 1e-4 x {scale:.4g}); rows sum to "
         f"the raw score within {add:.3g}; explain fallbacks 0")
+    return models[f"{SERVE_TREES}x{NUM_LEAVES}"]
 
 
 # -- phase 15: uint16 bins, the binary dataset cache, the library surface ---
@@ -4397,6 +4425,356 @@ def ingest_phase(lt, torch, card, Xtr, ytr, Xte, yte, rec) -> dict:
     return dict(launches)
 
 
+
+# -- phase 17: the serving tier and continuous learning ----------------------
+
+PUBLISH_ROWS = 2_097_152         # (a) rows of the publishing run
+PUBLISH_ROUNDS = 8
+PUBLISH_EVERY = 2
+SERVE_SHARD = 4                  # (b) tree-axis padding: the delta envelope
+SERVE_CHECK_ROWS = (1, 64, 4096)
+LOADGEN_SECONDS = 5.0
+LOADGEN_WORKERS = 8
+LOADGEN_MIX = {1: 0.5, 64: 0.4, 4096: 0.1}
+ZOO_TENANTS = 4                  # (c) windows of phase 14b's model:
+ZOO_TREES = 8                    # tenant k its trees [k * ZOO_STRIDE,
+ZOO_STRIDE = 2                   # k * ZOO_STRIDE + ZOO_TREES)
+
+
+def _http(port: int, method: str, path: str, payload=None,
+          timeout: float = 120.0):
+    """(status, body text) of one request to the phase's server."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        body = None if payload is None else json.dumps(payload).encode()
+        conn.request(method, path, body,
+                     {"Content-Type": "application/json"} if body else {})
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def _http_json(port: int, method: str, path: str, payload=None) -> dict:
+    status, text = _http(port, method, path, payload)
+    if status != 200:
+        raise AssertionError(f"phase 17b: {method} {path} answered "
+                             f"{status}: {text[:400]}")
+    return json.loads(text)
+
+
+def _intervals(torch, run) -> tuple:
+    """``run(callbacks)`` trains; returns (booster, the seconds of each
+    round after the first, first-round seconds)."""
+    ticks = []
+
+    def tick(env):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = run([tick])
+    return bst, list(np.diff(ticks)), ticks[0] - t0
+
+
+
+
+def serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model: str,
+                  out_dir: str) -> dict:
+    """Phase 17: (a) the headline configuration on ``PUBLISH_ROWS`` of
+    the main rows for ``PUBLISH_ROUNDS`` rounds, without, with, with and
+    without ``publish_dir`` (every ``PUBLISH_EVERY`` rounds) and
+    ``flight_dir``: the texts identical, the journal folding to the
+    final text, the flight tape holding every iteration; (b) ``python -m
+    lightgbm_tpu_torch serve`` on the journal's first BASE in a
+    subprocess: /predict bitwise an in-process ``Booster.predict``,
+    each DELTA replayed over HTTP (the answer a cold load's, no new
+    compile key inside the envelope), a closed-loop load, /metrics,
+    /slo, /healthz, SIGTERM exit 143; (c) ``ZOO_TENANTS`` tenants in a
+    ``ModelZoo``, each ``ZOO_TREES`` trees of ``serve_model`` (phase
+    14b's model, the text ``serve_phase`` returns) from its own start:
+    stacked answers bitwise each tenant's own predictor, one compile key
+    per stack bucket, one stacked batch timed against single calls.
+    Returns (a)'s launches."""
+    import shutil
+    import threading
+    from lightgbm_tpu_torch.models.model_text import model_to_string
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.publish import DeltaJournal, fold_chain
+    from lightgbm_tpu_torch.serve import CompiledPredictor, ModelZoo
+    from lightgbm_tpu_torch.serve.loadgen import (LoadGenerator, LoadSpec,
+                                                  metric_sum,
+                                                  parse_prometheus)
+    from lightgbm_tpu_torch.serve.predictor import compile_key_count
+    t17 = time.perf_counter()
+
+    # ---- (a) continuous learning ----
+    jdir = os.path.join(out_dir, "publish")
+    fdir = os.path.join(out_dir, "flight")
+    for d in (jdir, fdir):
+        shutil.rmtree(d, ignore_errors=True)
+    n = min(PUBLISH_ROWS, len(ytr))
+    ds = lt.Dataset(Xtr[:n], ytr[:n], params={"max_bin": MAX_BIN})
+    ds.construct()
+    head = mode_params("headline")
+    # without, with, with, without the lanes: a drift over the four runs
+    # falls on both sides alike; each rate is 1 / the median round
+    runs = {"plain": [], "publishing": []}
+    for lane in ("plain", "publishing", "publishing", "plain"):
+        if lane == "plain":
+            bst, ivs, first = _intervals(torch, lambda cbs: lt.train(
+                head, ds, PUBLISH_ROUNDS, callbacks=cbs))
+        else:
+            tag = "" if not runs["publishing"] else ".2"
+            if tag:
+                jd, fd = jdir + tag, fdir + tag
+                for d in (jd, fd):
+                    shutil.rmtree(d, ignore_errors=True)
+            else:
+                jd, fd = jdir, fdir
+                hc.reset_launches()
+            bst, ivs, first = _intervals(torch, lambda cbs: lt.train(
+                {**head, "publish_dir": jd, "publish_every": PUBLISH_EVERY,
+                 "flight_dir": fd}, ds, PUBLISH_ROUNDS, callbacks=cbs))
+            if not tag:
+                got = dict(hc.LAUNCHES)
+        runs[lane].append((bst.model_to_string(), ivs, first))
+        del bst
+    missing = [k for k in ("hist_leaves_q8", "wave_row_update")
+               if got[k] <= 0]
+    if missing:
+        raise AssertionError(f"phase 17a: the publishing run did not "
+                             f"launch {missing}")
+    text = runs["publishing"][0][0]
+    if any(t != text for lane in runs.values() for t, _i, _f in lane):
+        raise AssertionError("phase 17a: publish_dir / flight_dir changed "
+                             "the model text")
+
+    def rate(ivs):
+        return 1.0 / float(np.median(ivs))
+    rates = {lane: {"runs": [round(rate(i), 4) for _t, i, _f in v],
+                    "pooled": round(rate([x for _t, i, _f in v
+                                          for x in i]), 4),
+                    "first_s": [round(f, 3) for _t, _i, f in v]}
+             for lane, v in runs.items()}
+    journal = DeltaJournal(jdir)
+    base_text, base_round, records = journal.chain()
+    cold = lt.Booster(model_str=text).model_to_string()
+    folded = model_to_string(fold_chain(base_text, records))
+    if folded != cold or journal.head().round != PUBLISH_ROUNDS:
+        raise AssertionError("phase 17a: the journal's head does not fold "
+                             "to the final text")
+    with open(os.path.join(fdir, "flight.jsonl")) as fh:
+        tape = [json.loads(line) for line in fh]
+    iters = [ev["iteration"] for ev in tape[1:]]
+    if iters != list(range(1, PUBLISH_ROUNDS + 1)) or \
+            tape[0]["reason"] != "completed":
+        raise AssertionError(f"phase 17a: flight.jsonl holds iterations "
+                             f"{iters} ({tape[0].get('reason')})")
+    del ds, runs
+    torch.cuda.empty_cache()
+    log(f"[{card}] phase 17a (at "
+        f"{time.perf_counter() - t17:.1f} s) headline x {PUBLISH_ROUNDS} "
+        f"rounds at {n} rows, runs without / with / with / without "
+        f"publish_dir + flight_dir, iterations/s as 1 / the median "
+        f"round: without {json.dumps(rates['plain'])}, with "
+        f"{json.dumps(rates['publishing'])}; texts identical, journal "
+        f"{sorted(os.listdir(jdir))} folds to the final text, flight tape "
+        f"{len(iters)} iterations (best gain of the last "
+        f"{tape[-1]['best_gain']:.6g}); launches {json.dumps(got)}")
+
+    # ---- (b) one server in a subprocess ----
+    base_path, _ = journal.base_entry()
+    port_file = os.path.join(out_dir, "serve.port")
+    serve_log = os.path.join(out_dir, "serve.log")
+    if os.path.exists(port_file):
+        os.unlink(port_file)
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), PYTHONUNBUFFERED="1")
+    t0 = time.perf_counter()
+    with open(serve_log, "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch", "serve", base_path,
+             "name=headline", "port=0", f"port_file={port_file}"],
+            cwd=HERE, env=env, stdout=logf, stderr=subprocess.STDOUT)
+    try:
+        port = None
+        while port is None and time.perf_counter() - t0 < 120:
+            if proc.poll() is not None:
+                break
+            try:
+                with open(port_file) as fh:
+                    port = int(fh.read().strip())
+            except (OSError, ValueError):
+                time.sleep(0.05)
+        if port is None:
+            with open(serve_log) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"phase 17b: the server wrote no port "
+                                 f"file within 120 s:\n{tail}")
+        t_up = time.perf_counter() - t0
+        # the envelope: a reload through the load body's shard
+        info = _http_json(port, "POST", "/models",
+                          {"name": "headline", "file": base_path,
+                           "shard": SERVE_SHARD})
+        if info["dense"]["capacity"] % SERVE_SHARD:
+            raise AssertionError(f"phase 17b: the reload with shard="
+                                 f"{SERVE_SHARD} lowered {info['dense']}")
+        rows = Xte[:max(SERVE_CHECK_ROWS)].astype(np.float32)
+        ref = lt.Booster(model_str=base_text)
+        for k in SERVE_CHECK_ROWS:
+            out = _http_json(port, "POST", "/predict",
+                             {"rows": rows[:k].tolist()})
+            if not np.array_equal(np.asarray(out["predictions"],
+                                             np.float32),
+                                  ref.predict(rows[:k]).astype(np.float32)):
+                raise AssertionError(f"phase 17b: /predict of {k} rows "
+                                     f"differs from Booster.predict")
+        replays = []
+        import base64
+        for i, r in enumerate(records):
+            before = _http_json(port, "GET", "/stats")["headline"]
+            res = _http_json(port, "POST", "/models/headline/delta",
+                             {"record_b64": base64.b64encode(
+                                 r.to_bytes()).decode("ascii")})
+            out = _http_json(port, "POST", "/predict",
+                             {"rows": rows.tolist()})
+            want = lt.Booster(model_str=model_to_string(
+                fold_chain(base_text, records[:i + 1]))).predict(rows)
+            if not np.array_equal(np.asarray(out["predictions"],
+                                             np.float32),
+                                  want.astype(np.float32)):
+                raise AssertionError(f"phase 17b: after the round "
+                                     f"{r.round} delta /predict differs "
+                                     f"from a cold load")
+            after = _http_json(port, "GET", "/stats")["headline"]
+            grew = after["recompiles"] - before["recompiles"]
+            if res["mode"] == "extend" and grew:
+                raise AssertionError(f"phase 17b: the round {r.round} "
+                                     f"delta inside the envelope added "
+                                     f"{grew} compile keys")
+            replays.append(f"round {r.round} {res['mode']} "
+                           f"({res['num_trees']} trees, +{grew} keys)")
+        before = _http_json(port, "GET", "/stats")["headline"]
+        spec = LoadSpec(duration_s=LOADGEN_SECONDS,
+                        workers=LOADGEN_WORKERS, features=NUM_FEATURES,
+                        bucket_mix=dict(LOADGEN_MIX), seed=17,
+                        timeout_s=60.0)
+        res = LoadGenerator("127.0.0.1", port, spec).run()
+        summ = res.summary()
+        after = _http_json(port, "GET", "/stats")["headline"]
+        if summ["by_code"] != {"200": res.requests_sent}:
+            raise AssertionError(f"phase 17b: the load answered "
+                                 f"{summ['by_code']}")
+        batches = after["batches"] - before["batches"]
+        per_batch = (after["rows"] - before["rows"]) / max(batches, 1)
+        # the server's own split of the window's requests (its
+        # windowed histograms; the load dominates them)
+        split = {k: after[k] for k in ("queue_wait_ms", "device_ms",
+                                       "request_latency_ms")}
+        status, metrics = _http(port, "GET", "/metrics")
+        parsed = parse_prometheus(metrics)
+        served = metric_sum(parsed, "lgbm_tpu_serve_requests_total",
+                            model="headline")
+        if status != 200 or served < res.requests_sent:
+            raise AssertionError(f"phase 17b: /metrics ({status}) counts "
+                                 f"{served} requests")
+        slo = _http_json(port, "GET", "/slo")
+        health = _http_json(port, "GET", "/healthz")
+        if slo.get("schema") != "slo-report-v1" or \
+                health["status"] != "ok" or \
+                health["device_name"] != torch.cuda.get_device_name(0):
+            raise AssertionError(f"phase 17b: /slo {slo.get('schema')}, "
+                                 f"/healthz {health}")
+        proc.send_signal(signal.SIGTERM)
+        t_term = time.perf_counter()
+        rc = proc.wait(timeout=30)
+        t_term = time.perf_counter() - t_term
+        if rc != 143:
+            raise AssertionError(f"phase 17b: SIGTERM exit code {rc}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    log(f"[{card}] phase 17b (at "
+        f"{time.perf_counter() - t17:.1f} s) serve subprocess up in "
+        f"{t_up:.1f} s; "
+        f"/predict {list(SERVE_CHECK_ROWS)} rows bitwise Booster.predict; "
+        f"deltas: {'; '.join(replays)}, each answer a cold load's; "
+        f"closed loop {LOADGEN_SECONDS:.0f} s x {LOADGEN_WORKERS} workers "
+        f"mix {json.dumps(LOADGEN_MIX)}: {res.requests_sent} requests in "
+        f"{summ['elapsed_s']} s, {summ['achieved_qps']} requests/s, "
+        f"{summ['achieved_rows_per_s']} rows/s, client p50 "
+        f"{summ['client_p50_ms']} ms, p99 {summ['client_p99_ms']} ms, "
+        f"{per_batch:.1f} rows per device batch ({batches} batches); "
+        f"server split {json.dumps(split)}; "
+        f"/metrics {len(parsed)} series, /slo "
+        f"{len(slo['slos'])} objectives, /healthz ok on "
+        f"{health['device_name']}; SIGTERM exit 143 in {t_term:.2f} s")
+
+    # ---- (c) the zoo ----
+    t_c = time.perf_counter()
+    # four distinct ensembles of one shape without training three more
+    # models (3 x 8 trees took 38.9 s of the phase's 90)
+    src = lt.Booster(model_str=serve_model)
+    texts = [src.model_to_string(start_iteration=k * ZOO_STRIDE,
+                                 num_iteration=ZOO_TREES)
+             for k in range(ZOO_TENANTS)]
+    t_cut = time.perf_counter() - t_c
+    zoo = ModelZoo(batching=True, max_wait_ms=50.0)
+    try:
+        names = [f"tenant{s}" for s in range(ZOO_TENANTS)]
+        for name, t in zip(names, texts):
+            zoo.load(name, t)
+        groups = zoo.stack_membership()
+        if sorted(sum(groups.values(), [])) != names or len(groups) != 1:
+            raise AssertionError(f"phase 17c: stack membership {groups}")
+        Xq = Xte[:4096].astype(np.float32)
+        keys0 = compile_key_count()
+        outs = {}
+
+        def hit(name):
+            outs[name] = zoo.predict(name, Xq, timeout_s=120)
+        threads = [threading.Thread(target=hit, args=(nm,))
+                   for nm in names]
+        for th_ in threads:
+            th_.start()
+        for th_ in threads:
+            th_.join(180)
+        new_keys = compile_key_count() - keys0
+        t_load = time.perf_counter() - t_c - t_cut
+        solo = {nm: CompiledPredictor(t) for nm, t in zip(names, texts)}
+        for nm in names:
+            if not np.array_equal(outs.get(nm), solo[nm].predict(Xq)):
+                raise AssertionError(f"phase 17c: {nm}'s stacked answer "
+                                     f"differs from its own predictor")
+        if new_keys != 1:
+            raise AssertionError(f"phase 17c: {new_keys} compile keys for "
+                                 f"one stack bucket")
+        stack = zoo.current_stack(solo[names[0]].signature)
+        Xs = torch.as_tensor(np.stack([Xq] * ZOO_TENANTS),
+                             device=stack.device)
+        Xd = torch.as_tensor(Xq, device=stack.device)
+        t_stack = _ms(torch, lambda: stack.predict_raw(Xs).cpu())
+        t_single = _ms(torch, lambda: [solo[nm]._dense.predict_raw(Xd).cpu()
+                                       for nm in names])
+    finally:
+        zoo.close()
+    log(f"[{card}] phase 17c (at "
+        f"{time.perf_counter() - t17:.1f} s) zoo of {ZOO_TENANTS} "
+        f"tenants ({ZOO_TREES} trees each of phase 14b's model, from trees "
+        f"{[k * ZOO_STRIDE for k in range(ZOO_TENANTS)]}): one stack, "
+        f"answers bitwise each tenant's predictor, "
+        f"{new_keys} compile key for the 4096 bucket; one stacked "
+        f"{ZOO_TENANTS} x 4096-row batch {t_stack:.3f} ms against "
+        f"{ZOO_TENANTS} single calls {t_single:.3f} ms; tenants cut in "
+        f"{t_cut:.1f} s, loaded and served in {t_load:.1f} s, checked and "
+        f"timed in {time.perf_counter() - t_c - t_cut - t_load:.1f} s")
+    log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    return got
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4628,9 +5006,16 @@ def main(argv=None) -> int:
     log(f"phase 16: {time.perf_counter() - t16:.1f} s")
     stamp("phase 16, chunked ingest")
     torch.cuda.empty_cache()
-    serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir)
+    serve_model = serve_phase(lt, torch, card, Xtr, ytr, Xte, out_dir)
     torch.cuda.empty_cache()
     stamp("phase 14b-c, serving and explanation")
+
+    # ---- phase 17: the serving tier and continuous learning ----
+    for k, v in serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model,
+                              out_dir).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    stamp("phase 17, serving tier and continuous learning")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,

@@ -22,10 +22,16 @@ sklearn estimators (``LGBMRegressor``, ``LGBMClassifier``,
 (``ingest``: ``StreamedDataset``, ``train_streamed`` and
 ``tpu_ingest_mode=chunked``), the ``LGBM_*`` C API (``capi``, and its
 native shim through ``utils.native.build_capi_shim``) and the plotting
-helpers (``plot_*``; matplotlib and graphviz imported when they draw).
+helpers (``plot_*``; matplotlib and graphviz imported when they draw);
+the serving tier (``serve``: the HTTP server, the micro-batcher, the
+model registry and zoo; ``python -m lightgbm_tpu_torch serve``), the
+continuous-learning lane (``publish``, ``train(publish_dir=...)``),
+admission control and fault points (``resilience``) and telemetry
+(``telemetry``: metrics, the train record, the flight recorder, the SLO
+engine, Prometheus export).
 """
 
-from . import capi, ingest, plotting
+from . import capi, ingest, plotting, resilience, telemetry
 from .basic import Booster
 from .callback import early_stopping, print_evaluation, record_evaluation
 from .dataset import Dataset, DatasetCorruptError
@@ -43,7 +49,8 @@ __all__ = ["train", "cv", "CVBooster", "train_many", "ManyBooster",
            "CheckpointError", "TrainingPreempted", "DatasetCorruptError",
            "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
            "early_stopping", "print_evaluation", "record_evaluation",
-           "capi", "ingest", "plotting", "StreamedDataset",
+           "capi", "ingest", "plotting", "resilience", "telemetry",
+           "StreamedDataset",
            "train_streamed", "plot_importance", "plot_metric", "plot_tree",
            "plot_split_value_histogram", "create_tree_digraph"]
 __version__ = "0.1.0"

@@ -136,6 +136,16 @@ class Booster:
         return self
 
     @property
+    def train_record(self):
+        """Telemetry record of this booster's training run
+        (:class:`~lightgbm_tpu_torch.telemetry.TrainRecord`): per-tree
+        histogram passes and leaves, per-phase wall time, the device
+        memory watermark.  ``.snapshot()`` gives a JSON-ready dict; the
+        serve ``/metrics`` endpoint exports the same record as the
+        process's last training run."""
+        return self._gbdt.train_record
+
+    @property
     def current_iteration(self) -> int:
         return self._gbdt.current_iteration
 

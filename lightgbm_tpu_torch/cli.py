@@ -11,12 +11,14 @@ format with ``#`` comments, so the same train.conf gives both packages'
 CLIs the same model file.
 
 The run takes the card unless the params name the CPU
-(``device_type=cpu``, as ``train`` reads them).  The ``profile`` verb
-wraps a run in ``torch.profiler`` where the reference takes
-``jax.profiler``.  The reference's ``serve``, ``serve-fleet`` and
-``lint-trace`` / ``lint-mem`` verbs (and ``task=serve``) raise
-``NotImplementedError`` naming ROADMAP queue 1: the serving tier is item
-11b, the program-contract lints item 12.
+(``device_type=cpu``, as ``train`` reads them).  ``serve model.txt
+[key=value ...]`` (and ``task=serve input_model=...``) starts the HTTP
+server (``serve/server.py``).  The ``profile`` verb wraps a run in
+``torch.profiler`` where the reference takes ``jax.profiler``, with the
+telemetry snapshot and the host span trace beside it.  The reference's
+``serve-fleet`` and ``lint-trace`` / ``lint-mem`` verbs raise
+``NotImplementedError`` naming ROADMAP queue 1: the serving fleet is
+item 11c, the program-contract lints item 12.
 """
 
 from __future__ import annotations
@@ -228,31 +230,38 @@ def run_profile(argv: List[str]) -> int:
     [key=value ...]``
 
     Wraps a train, predict or refit run (``config.task``, default train)
-    in a ``torch.profiler`` capture (the CPU's activity, and the card's
-    when the run has one) and writes into ``<profile_dir>/``:
+    with telemetry on and the span tracer armed (reference
+    cli.py:213-277), inside a ``torch.profiler`` capture (the CPU's
+    activity, and the card's when the run has one), and writes:
 
-      * ``trace.json``   — the capture as a chrome trace, unless
-        ``torch_trace=0`` (the reference's ``jax_trace`` key is read the
-        same);
-      * ``profile.txt``  — ``key_averages()`` as a table, by total time.
-
-    Keys consumed here: ``profile_dir`` (default ``lgbm_tpu_profile``),
-    ``torch_trace`` / ``jax_trace`` (1).  The reference's
-    ``telemetry_out`` and ``host_trace_out`` (its span tracer and
-    TrainRecord, ROADMAP queue 1 item 11b) are refused.
+      * ``<profile_dir>/trace.json`` — the capture as a chrome trace,
+        and ``<profile_dir>/profile.txt``, ``key_averages()`` as a table,
+        unless ``torch_trace=0`` (the reference's ``jax_trace`` key is
+        read the same);
+      * ``host_trace_out`` (default ``<profile_dir>/host_spans.json``) —
+        the host span chrome trace;
+      * ``telemetry_out`` (default ``<profile_dir>/telemetry.json``) —
+        the metrics registry and the run's TrainRecord (per-phase
+        seconds, histogram passes, the memory watermark).
     """
     import contextlib
     import os
     params = parse_cli_args(argv)
-    for key in ("telemetry_out", "host_trace_out"):
-        if params.get(key):
-            raise NotImplementedError(
-                f"profile {key}=: the telemetry span tracer and train "
-                "record are not ported (ROADMAP queue 1 item 11b)")
     prof_dir = str(params.pop("profile_dir", "lgbm_tpu_profile"))
     flag = params.pop("torch_trace", params.pop("jax_trace", "1"))
     trace = str(flag).strip().lower() not in ("0", "false", "no", "off")
+    telemetry_out = str(params.pop("telemetry_out", "") or
+                        os.path.join(prof_dir, "telemetry.json"))
+    host_out = str(params.pop("host_trace_out", "") or
+                   os.path.join(prof_dir, "host_spans.json"))
     os.makedirs(prof_dir, exist_ok=True)
+    from .telemetry import enable as telemetry_enable
+    from .telemetry import global_tracer, write_snapshot
+    from .utils.timer import global_timer
+    telemetry_enable()
+    global_tracer.enable()
+    global_tracer.clear()
+    global_timer.enable()
     cfg = Config(params)
     task = cfg.task or "train"
     if task not in ("train", "predict", "refit"):
@@ -277,7 +286,10 @@ def run_profile(argv: List[str]) -> int:
         with open(os.path.join(prof_dir, "profile.txt"), "w") as fh:
             fh.write(capture.key_averages().table(
                 sort_by="self_cpu_time_total", row_limit=60) + "\n")
-    log_info(f"profile: {task} done" +
+    n_spans = global_tracer.export_chrome_trace(host_out)
+    write_snapshot(telemetry_out)
+    log_info(f"profile: {task} done; telemetry in {telemetry_out}, "
+             f"{n_spans} host spans in {host_out}" +
              (f", capture in {prof_dir}" if trace else ""))
     return 0
 
@@ -288,10 +300,21 @@ def _unported(verb: str, item: str) -> None:
         f"queue 1 item {item})")
 
 
+def _serve(argv: List[str]) -> int:
+    """The serving verb, its import deferred to the call: the other
+    verbs never load the server."""
+    from .serve.server import main as serve_main
+    return serve_main(argv)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if argv and argv[0] in ("serve", "serve-fleet", "serve_fleet"):
-        _unported(argv[0], "11b: the serving tier")
+    if argv and argv[0] == "serve":
+        # serving verb: python -m lightgbm_tpu_torch serve model.txt
+        # [key=value ...]
+        return _serve(argv[1:])
+    if argv and argv[0] in ("serve-fleet", "serve_fleet"):
+        _unported(argv[0], "11c: the serving fleet")
     if argv and argv[0] == "profile":
         # profiling verb: python -m lightgbm_tpu_torch profile config=...
         return run_profile(argv[1:])
@@ -310,7 +333,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     elif task == "convert_model":
         run_convert_model(params, cfg)
     elif task == "serve":
-        _unported("task=serve", "11b: the serving tier")
+        # config-file form: task=serve input_model=model.txt [port=...]
+        extra = [f"{k}={v}" for k, v in params.items()
+                 if k not in ("task", "config", "config_file", "input_model")]
+        if not cfg.input_model:
+            log_fatal("task=serve needs input_model=<model file>")
+        return _serve([cfg.input_model] + extra)
     else:
         log_fatal(f"unknown task: {task}")
     return 0

@@ -335,9 +335,9 @@ _PARAMS: List[ParamSpec] = [
     # any lowering fallback (depth/table budget) RECORDED in the
     # serve_explain_fallback counter, never silent
     _p("tpu_explain_compiler", str, "auto"),
-    # --- continuous-learning lane (lightgbm_tpu/publish/; the port's
-    # train, cv and train_many raise on these until ROADMAP queue 1 item
-    # 11b, as on flight_dir) ---
+    # --- continuous-learning lane (publish/; cv, train_many and the
+    # chunked train_streamed raise on these: the reference's have no
+    # publish lane) ---
     # publish_dir: when set, the trainer appends a per-round model delta
     # journal there (publish/delta.py) every publish_every rounds (0 =
     # every round) plus a forced publish on the preemption drain path

@@ -20,10 +20,17 @@ through :mod:`.resilience.checkpoint` (atomic, a bounded ring with a
 resume_from=...)`` or ``resume=latest`` continues a preempted run
 bit-identically.  While checkpointing is on, a SIGTERM or SIGINT drains
 the iteration in flight, flushes one final bundle and raises
-:class:`TrainingPreempted`.  The continuous-learning lane
-(``publish_dir``), the flight recorder (``flight_dir``) and the chaos
-layer come with the serving tier (ROADMAP queue 1 item 11b):
-``publish_dir``, ``publish_every`` and ``flight_dir`` raise until then.
+:class:`TrainingPreempted`.
+
+The continuous-learning lane (reference engine.py:258-263, :372-393):
+with ``publish_dir`` set, every ``publish_every`` rounds (and on the
+drain path and at completion) the new trees go into a delta journal
+(:mod:`.publish`) whose head is always what ``save_model`` would write.
+The flight recorder's tape (``telemetry/flight.py``) is dumped as
+``flight.jsonl`` into ``flight_dir`` (else next to the checkpoints) on a
+crash or a preemption, and into an explicit ``flight_dir`` on success
+too.  The chaos layer's training fault points
+(``resilience/faults.py``) fire entering each iteration.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from .resilience.checkpoint import (CKPT_SOFT_KEYS, CKPT_STRUCTURAL_KEYS,
                                     CheckpointManager, PreemptionGuard,
                                     TrainingPreempted, load_checkpoint,
                                     resolve_checkpoint)
+from .resilience.faults import faults
 from .telemetry.metrics import default_registry
 from .utils.log import log_info, log_warning
 from .utils.random import rng_checkpoint_state
@@ -55,20 +63,24 @@ __all__ = ["train", "cv", "CVBooster", "CVAggregator"]
 _CKPT_PARAM_KEYS = CKPT_STRUCTURAL_KEYS + CKPT_SOFT_KEYS
 
 
-def reject_publishing(cfg: Config, context: str) -> None:
-    """Refuse the continuous-learning and flight-recorder parameters,
-    which the port does not carry yet: never train silently without
-    what the parameters asked for."""
+def reject_publishing(cfg: Config, context: str,
+                      flight_lane: bool = False) -> None:
+    """Refuse the continuous-learning parameters in an entry point that,
+    as the reference's, has no publish lane (``cv``, ``train_many``,
+    ``train_streamed``), and ``flight_dir`` where it has no flight
+    recorder either (``flight_lane=False``): never train silently
+    without what the parameters asked for."""
     offending = [k for k, v in (
         ("publish_dir", str(cfg.publish_dir or "")),
         ("publish_every", int(cfg.publish_every) != 0),
-        ("flight_dir", str(cfg.flight_dir or "")),
+        ("flight_dir", not flight_lane and str(cfg.flight_dir or "")),
     ) if v]
     if offending:
         raise NotImplementedError(
-            f"{', '.join(offending)} in {context}: the delta publisher "
-            f"and the flight recorder are not ported to "
-            f"lightgbm_tpu_torch yet (ROADMAP queue 1 item 11b)")
+            f"{', '.join(offending)} in {context}: the reference's "
+            f"{context} has no publish lane"
+            + ("" if flight_lane else " or flight recorder")
+            + "; set them on train()")
 
 
 def _resolve_resume(cfg: Config, ckpt_dir: str):
@@ -222,7 +234,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
                               resume_from=(str(resume_from)
                                            if resume_from else None),
                               device=dev)
-    reject_publishing(cfg, "train")
     if fobj is not None:
         params["objective"] = "none"
     booster = Booster(params=params, train_set=train_set, device=dev)
@@ -275,6 +286,13 @@ def train(params: Dict[str, Any], train_set: Dataset,
     manager = CheckpointManager(ckpt_dir, keep=int(cfg2.checkpoint_keep)) \
         if ckpt_dir else None
 
+    # -- the continuous-learning lane (reference engine.py:258-263) ----------
+    publisher = None
+    if str(cfg2.publish_dir):
+        from .publish.publisher import DeltaPublisher
+        publisher = DeltaPublisher(str(cfg2.publish_dir),
+                                   every=int(cfg2.publish_every) or 1)
+
     if resume_from is None and cfg2.resume:
         resume_from = _resolve_resume(cfg2, ckpt_dir)
     ckpt: Optional[Checkpoint] = None
@@ -305,50 +323,105 @@ def train(params: Dict[str, Any], train_set: Dataset,
             log_info(f"final checkpoint flushed to {path}")
         return path
 
+    def _flight_dump(reason: str) -> Optional[str]:
+        """The flight tape next to the checkpoints, or into an explicit
+        ``flight_dir`` (reference engine.py:298-317); called after the
+        final checkpoint flush, so the tape's last event and the bundle
+        land on the same iteration boundary."""
+        return dump_flight(booster._gbdt.flight,
+                           str(cfg2.flight_dir) or ckpt_dir, reason)
+
     # the guard turns a SIGTERM/SIGINT into a drain-and-flush exit; it is
     # installed only while checkpointing is on, so a plain Ctrl-C on an
     # uncheckpointed run stays KeyboardInterrupt
-    with PreemptionGuard(enabled=manager is not None) as guard:
-        for it in range(start_iter, num_boost_round):
-            for cb in before:
-                cb(CallbackEnv(booster, params, it, 0, num_boost_round,
-                               None))
-            if booster.update(fobj=fobj):
-                break
-            if cfg2.snapshot_freq > 0 and (it + 1) % cfg2.snapshot_freq == 0:
-                # the reference's model-text snapshot (gbdt.cpp:277-281),
-                # written atomically
-                booster.save_model(
-                    f"{cfg2.output_model}.snapshot_iter_{it + 1}")
-            results = []
-            if booster._gbdt.train_metrics or booster._gbdt.valid_sets or \
-                    feval:
-                results = booster.eval_train(feval) + \
-                    booster.eval_valid(feval)
-            if manager is not None:
-                for data_name, eval_name, value, _ in results:
-                    run_history.setdefault(data_name, {}).setdefault(
-                        eval_name, []).append(value)
-            try:
-                for cb in after:
+    try:
+        with PreemptionGuard(enabled=manager is not None) as guard:
+            for it in range(start_iter, num_boost_round):
+                faults.check_train_iter(it)   # the chaos layer
+                for cb in before:
                     cb(CallbackEnv(booster, params, it, 0, num_boost_round,
-                                   results))
-            except EarlyStopException as e:
-                booster.best_iteration = e.best_iteration + 1
-                for ds_name, eval_name, score, _ in e.best_score:
-                    booster.best_score.setdefault(ds_name, {})[eval_name] = \
-                        score
-                _flush()
-                break
-            # the bundle flushes AFTER the iteration's eval callbacks, so
-            # eval history and early-stop bookkeeping restore to the same
-            # boundary
-            if manager is not None and (it + 1) % snap_freq == 0:
-                _flush()
-            if guard.fired is not None:
-                raise TrainingPreempted(guard.fired, booster=booster,
-                                        checkpoint=_flush(final=True))
+                                   None))
+                if booster.update(fobj=fobj):
+                    break
+                if cfg2.snapshot_freq > 0 and \
+                        (it + 1) % cfg2.snapshot_freq == 0:
+                    # the reference's model-text snapshot
+                    # (gbdt.cpp:277-281), written atomically
+                    booster.save_model(
+                        f"{cfg2.output_model}.snapshot_iter_{it + 1}")
+                results = []
+                if booster._gbdt.train_metrics or \
+                        booster._gbdt.valid_sets or feval:
+                    results = booster.eval_train(feval) + \
+                        booster.eval_valid(feval)
+                booster._gbdt.flight.note_eval(it + 1, results)
+                if manager is not None:
+                    for data_name, eval_name, value, _ in results:
+                        run_history.setdefault(data_name, {}).setdefault(
+                            eval_name, []).append(value)
+                try:
+                    for cb in after:
+                        cb(CallbackEnv(booster, params, it, 0,
+                                       num_boost_round, results))
+                except EarlyStopException as e:
+                    booster.best_iteration = e.best_iteration + 1
+                    for ds_name, eval_name, score, _ in e.best_score:
+                        booster.best_score.setdefault(
+                            ds_name, {})[eval_name] = score
+                    _flush()
+                    break
+                # the bundle flushes AFTER the iteration's eval callbacks,
+                # so eval history and early-stop bookkeeping restore to
+                # the same boundary
+                if manager is not None and (it + 1) % snap_freq == 0:
+                    _flush()
+                if publisher is not None:
+                    publisher.maybe_publish(booster._gbdt, it + 1)
+                if guard.fired is not None:
+                    final_path = _flush(final=True)
+                    if publisher is not None:
+                        # the journal head lands on the final bundle's
+                        # iteration boundary
+                        publisher.publish(booster._gbdt)
+                    _flight_dump("preempted")
+                    raise TrainingPreempted(guard.fired, booster=booster,
+                                            checkpoint=final_path)
+    except TrainingPreempted:
+        raise                      # the tape was dumped above
+    except (Exception, KeyboardInterrupt):
+        # an uncaught training error (injected faults too): leave the
+        # post-mortem tape next to the checkpoints
+        _flight_dump("crash")
+        raise
+    if publisher is not None:
+        # completion flush: an early stop or a no-split break leaves
+        # off-cadence rounds unpublished; the journal head must equal the
+        # final model
+        publisher.publish(booster._gbdt)
+    if str(cfg2.flight_dir):
+        # an explicit flight_dir asks for the tape on success too
+        _flight_dump("completed")
     return booster
+
+
+def dump_flight(flight, out_dir: str, reason: str) -> Optional[str]:
+    """Write ``flight`` as ``<out_dir>/flight.jsonl``; None when the
+    recorder is off or empty or there is no directory, or the write
+    failed (logged: a post-mortem must not mask the error it records)."""
+    import os
+    if flight is None or not flight.enabled or len(flight) == 0 or \
+            not out_dir:
+        return None
+    try:
+        os.makedirs(out_dir, exist_ok=True)
+        path = flight.dump(os.path.join(out_dir, "flight.jsonl"),
+                           reason=reason)
+    except OSError as exc:
+        log_warning(f"flight recorder dump failed: {exc}")
+        return None
+    log_info(f"flight recorder: {len(flight)} events dumped to {path} "
+             f"({reason})")
+    return path
 
 
 class CVBooster:

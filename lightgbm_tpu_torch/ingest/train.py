@@ -39,9 +39,12 @@ mappers through ``reference``) or in-core Datasets; each grown tree is
 walked over the valid set's binned chunks (``models/gbdt._walk_binned``)
 into a host f32 score, so metrics and early stopping see the in-core
 run's values.  Checkpoint / resume rides ``resilience/checkpoint.py``
-with the streamed crc as the dataset fingerprint.  The flight recorder is
-ROADMAP queue 1 item 11b: with the default ``flight_recorder=true`` it
-records nothing here, as in the in-core port, and ``flight_dir`` raises.
+with the streamed crc as the dataset fingerprint.  The flight recorder
+keeps one event an iteration (``telemetry/flight.py``), dumped into
+``flight_dir`` (else next to the checkpoints) on a crash and into an
+explicit ``flight_dir`` on success, as the reference's
+(ingest/train.py:445-463).  ``publish_dir`` raises: the reference's
+chunked path has no publish lane.
 """
 
 from __future__ import annotations
@@ -191,7 +194,7 @@ def train_streamed(params: Dict[str, Any], train_set: StreamedDataset,
     dev = device_from(params, device)
     cfg = Config(params)
     set_verbosity(int(cfg.verbosity))
-    reject_publishing(cfg, "train_streamed")
+    reject_publishing(cfg, "train_streamed", flight_lane=True)
     _check_envelope(cfg)
     if cfg.tree_learner not in ("serial", "auto"):
         raise NotImplementedError(
@@ -395,6 +398,18 @@ def train_streamed(params: Dict[str, Any], train_set: StreamedDataset,
     completed = start_iter
     label_np = np.asarray(md.label)
 
+    # ---- the flight recorder (reference ingest/train.py:445-463): the
+    # chunked path is where its host-to-device byte counter moves
+    from ..engine import dump_flight
+    from ..telemetry.flight import FlightRecorder
+    flight = FlightRecorder(
+        capacity=int(cfg.flight_events), enabled=bool(cfg.flight_recorder),
+        meta={"boosting": str(cfg.boosting), "objective": str(cfg.objective),
+              "num_data": int(n), "ingest_mode": "chunked"}, device=dev)
+
+    def _flight_dump(reason: str) -> None:
+        dump_flight(flight, str(cfg.flight_dir) or ckpt_dir, reason)
+
     # DART host state (models/boosting.py DART, host-resident): the raw
     # per-iteration base predictions and per-valid raw deltas back the
     # O(N) drop / Normalize axpys
@@ -517,6 +532,8 @@ def train_streamed(params: Dict[str, Any], train_set: StreamedDataset,
             dart_vb.append(vb_this or [])
             _dart_normalize(drop)
         completed = it + 1
+        flight.note_iter(completed,
+                         num_leaves=int(grown_cls[-1][0].num_leaves))
         if all_stump:
             # the first gbdt/goss iteration, or any dart iteration (dart
             # records at once: stump trees stay; stop after Normalize)
@@ -535,32 +552,41 @@ def train_streamed(params: Dict[str, Any], train_set: StreamedDataset,
                                  verbose=cfg.verbosity >= 1)
     best_iteration = -1
     best_score: Dict[str, Dict[str, float]] = {}
-    for it in range(start_iter, num_boost_round):
-        with span("ingest/train/iteration"):
-            if _one_iter(it):
-                break
-        if valids or train_metrics:
-            # eval AFTER the iteration, in engine.train's order (training
-            # metrics first), on the in-core run's f32 score values
-            results = []
-            for m in train_metrics:
-                for mname, val, hib in m.eval(score):
-                    results.append(("training", mname, val, hib))
-            for vst in valids:
-                for m in vst.metrics:
-                    for mname, val, hib in m.eval(vst.vscore):
-                        results.append((vst.name, mname, val, hib))
-            if stopper is not None:
-                try:
-                    stopper(CallbackEnv(None, dict(params), it, 0,
-                                        num_boost_round, results))
-                except EarlyStopException as e:
-                    best_iteration = e.best_iteration + 1
-                    for ds_name, eval_name, sc, _ in e.best_score:
-                        best_score.setdefault(ds_name, {})[eval_name] = sc
+    try:
+        for it in range(start_iter, num_boost_round):
+            with span("ingest/train/iteration"):
+                if _one_iter(it):
                     break
+            if valids or train_metrics:
+                # eval AFTER the iteration, in engine.train's order
+                # (training metrics first), on the in-core run's f32
+                # score values
+                results = []
+                for m in train_metrics:
+                    for mname, val, hib in m.eval(score):
+                        results.append(("training", mname, val, hib))
+                for vst in valids:
+                    for m in vst.metrics:
+                        for mname, val, hib in m.eval(vst.vscore):
+                            results.append((vst.name, mname, val, hib))
+                flight.note_eval(it + 1, results)
+                if stopper is not None:
+                    try:
+                        stopper(CallbackEnv(None, dict(params), it, 0,
+                                            num_boost_round, results))
+                    except EarlyStopException as e:
+                        best_iteration = e.best_iteration + 1
+                        for ds_name, eval_name, sc, _ in e.best_score:
+                            best_score.setdefault(
+                                ds_name, {})[eval_name] = sc
+                        break
+    except (Exception, KeyboardInterrupt):
+        _flight_dump("crash")
+        raise
     if manager is not None:
         _save_ckpt(completed)
+    if str(cfg.flight_dir):
+        _flight_dump("completed")
 
     bst = Booster.__new__(Booster)
     bst.params = dict(params)

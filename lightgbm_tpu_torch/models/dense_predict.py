@@ -38,9 +38,12 @@ Row blocks.  The program's temporaries grow with rows x trees x nodes
 runs it over row blocks that fit :data:`DENSE_WORKSET_BUDGET`.  Results
 are per row, so blocking changes nothing.
 
-The reference's mesh-sharded forms (``make_sharded_predict``,
-``make_stacked_sharded_predict``) need more than one card and come with
-distributed training (ROADMAP queue 1 item 10).
+``shard`` pads the tree axis as the reference's does, and the program
+runs on the one device, as the reference's does when it sees one.  The
+reference's mesh-sharded forms (``make_sharded_predict``,
+``make_stacked_sharded_predict``), which split the tree axis over
+several devices, come with distributed training (ROADMAP queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -151,15 +154,18 @@ def dense_row_bytes(arrays: DenseArrays, meta: DenseMeta) -> int:
 def lower_ensemble(trees: List[Tree], num_class: int, num_features: int,
                    class_ids: Optional[List[int]] = None, *,
                    leaf_bits: int = 0, half: bool = False,
+                   shard: int = 1,
                    batch: Optional[TreeBatch] = None,
                    cat_budget: int = CAT_TABLE_BUDGET,
                    linear_budget: int = LINEAR_TABLE_BUDGET,
                    device=None) -> Tuple[DenseArrays, DenseMeta]:
     """Lower ``trees`` (classes interleaved ``t % num_class`` unless
     ``class_ids`` is given) into the dense program's tables on
-    ``device`` (reference dense_predict.py:112-290; host numpy, the
-    reference's arithmetic).  Raises :class:`DenseLoweringError` when a
-    table would blow its budget."""
+    ``device`` (reference dense_predict.py:134-290; host numpy, the
+    reference's arithmetic).  ``shard > 1`` pads the tree axis to a
+    multiple of ``shard`` with inert trees (no reachable leaf, a zero
+    class row), as the reference's does.  Raises
+    :class:`DenseLoweringError` when a table would blow its budget."""
     if not trees:
         raise DenseLoweringError("no_trees")
     if leaf_bits not in (0, 8, 16):
@@ -268,6 +274,27 @@ def lower_ensemble(trees: List[Tree], num_class: int, num_features: int,
                 for f, c in zip(fs, cs):
                     lin_w[ti, leaf_i, f] += np.float32(c)
                     lin_mask[ti, leaf_i, f] = 1.0
+
+    # --- shard padding (reference :257-277): inert trees -----------------
+    if shard > 1 and T % shard:
+        pad = shard - T % shard
+        sf = np.pad(sf, ((0, pad), (0, 0)))
+        thr = np.pad(thr, ((0, pad), (0, 0)))
+        dleft = np.pad(dleft, ((0, pad), (0, 0)))
+        miss_nan = np.pad(miss_nan, ((0, pad), (0, 0)))
+        is_cat = np.pad(is_cat, ((0, pad), (0, 0)))
+        pd = np.pad(pd, ((0, pad), (0, 0), (0, 0)))
+        qt = np.pad(qt, ((0, pad), (0, 0)), constant_values=np.float32(1e9))
+        codes = np.pad(codes, ((0, pad), (0, 0)))
+        scale = np.pad(scale, (0, pad), constant_values=np.float32(1.0))
+        cls = np.pad(cls, ((0, pad), (0, 0)))
+        if node_slot is not None:
+            node_slot = np.pad(node_slot, ((0, pad), (0, 0)))
+        if lin_w is not None:
+            lin_w = np.pad(lin_w, ((0, pad), (0, 0), (0, 0)))
+            lin_mask = np.pad(lin_mask, ((0, pad), (0, 0), (0, 0)))
+            lin_const = np.pad(lin_const, ((0, pad), (0, 0)))
+            lin_flag = np.pad(lin_flag, ((0, pad), (0, 0)))
 
     dev = torch.device(device) if device is not None else \
         torch.device("cpu")

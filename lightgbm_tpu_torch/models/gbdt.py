@@ -24,6 +24,11 @@ path does (gbdt.cpp:430-450), so both packages keep the same trees;
 objectives that renew leaves, and coupled CEGB, record each tree at
 once and stop in the iteration whose trees are all stumps, as the
 reference's undeferred path does.
+
+Each run keeps a ``TrainRecord`` (``telemetry/train_record.py``: phase
+times, histogram passes and leaves per tree) and a flight recorder
+(``telemetry/flight.py``) whose per-iteration best gain stays on the
+device until the tape is read, as the reference's do.
 """
 
 from __future__ import annotations
@@ -42,6 +47,8 @@ from ..learner.serial import GrownTree, SerialTreeLearner
 from ..metric import Metric, create_metrics
 from ..objective import ObjectiveFunction, create_objective
 from ..objective.base import weighted_percentile
+from ..telemetry.flight import FlightRecorder
+from ..telemetry.train_record import TrainRecord, set_last_train_record
 from ..utils.log import log_info, log_warning
 from ..utils.random import fold_in, host_key, host_rng
 from ..utils.timer import FunctionTimer
@@ -349,6 +356,11 @@ class GBDT:
         self._prev_iter_leaves: Optional[List[int]] = None
         self._linear = False
         self.X_raw_dev: Optional[torch.Tensor] = None
+        # loaded (train-set-less) models keep an inert record and a
+        # disabled flight recorder; _init_train replaces both with the
+        # run's (reference models/gbdt.py:339-345)
+        self.train_record = TrainRecord(meta={"boosting": self.name})
+        self.flight = FlightRecorder(capacity=1, enabled=False)
         if train_set is not None:
             self._init_train(train_set)
 
@@ -453,6 +465,25 @@ class GBDT:
             self.train_metrics = create_metrics(cfg)
             for m in self.train_metrics:
                 m.init(md, self.num_data)
+
+        # telemetry (reference models/gbdt.py:560-580): one TrainRecord per
+        # run, published as the process's freshest for /metrics, and the
+        # flight recorder's per-iteration ring.  Both only observe.
+        self.train_record = TrainRecord(meta={
+            "boosting": self.name,
+            "objective": str(cfg.objective),
+            "tree_learner": str(cfg.tree_learner) or "serial",
+            "num_leaves": int(cfg.num_leaves),
+            "num_data": int(self.num_data),
+            "num_features": int(self.num_features),
+        }, device=self.device)
+        set_last_train_record(self.train_record)
+        self.flight = FlightRecorder(
+            capacity=int(cfg.flight_events),
+            enabled=bool(cfg.flight_recorder),
+            meta={"boosting": self.name, "objective": str(cfg.objective),
+                  "num_data": int(self.num_data)},
+            device=self.device)
 
     # -- the split options in inner-feature space (copies of the
     # reference's host parsers, models/gbdt.py:584-670) ----------------------
@@ -774,13 +805,15 @@ class GBDT:
         objective's gradients (boosting.h:85), else the objective's."""
         cfg = self.config
         k = self.num_tree_per_iteration
+        rec = self.train_record
         with FunctionTimer("GBDT::train_one_iter"):
             if grad is None or hess is None:
                 if self.objective is None:
                     raise ValueError("no objective: pass gradients "
                                      "explicitly (custom objective path, "
                                      "boosting.h:85)")
-                grad, hess = self.objective.get_gradients(self.score)
+                with rec.phase("gradients"):
+                    grad, hess = self.objective.get_gradients(self.score)
             else:
                 grad = self._coerce_gradients(grad)
                 hess = self._coerce_gradients(hess)
@@ -804,6 +837,7 @@ class GBDT:
             grad, hess, mask = self._prepare_iter_sampling(grad, hess)
             self._last_sample_mask = mask
             leaves = []
+            fl_gain = None   # the flight event's best gain (last class)
             for cid in range(k):
                 g = grad if k == 1 else grad[:, cid].contiguous()
                 h = hess if k == 1 else hess[:, cid].contiguous()
@@ -813,16 +847,31 @@ class GBDT:
                     extra["cegb_penalty"] = torch.as_tensor(
                         np.where(self._cegb_used, 0.0, self._cegb_coupled),
                         dtype=torch.float32, device=self.device)
-                grown = self.learner.train(self.X_T, g, h, mask,
-                                           feature_mask=fmask, **extra)
+                with rec.phase("grow"):
+                    grown = self.learner.train(self.X_T, g, h, mask,
+                                               feature_mask=fmask, **extra)
                 self.last_hist_passes = grown.hist_passes
                 self.last_host_syncs = grown.host_syncs
-                tree = self._record_tree(grown, cid)
+                rec.add_tree(self.iter_, cid, grown.hist_passes,
+                             grown.num_leaves)
+                if self.flight.enabled:
+                    # a device scalar, read with the tape (one stacked
+                    # copy), never here
+                    fl_gain = torch.max(grown.split_gain)
+                with rec.phase("record"):
+                    tree = self._record_tree(grown, cid)
                 if self._cegb_coupled is not None:
                     sf = tree.split_feature[:tree.num_leaves - 1]
                     self._cegb_used[sf[sf >= 0]] = True
                 leaves.append(tree.num_leaves)
             self.iter_ += 1
+            if self.flight.enabled:
+                self.flight.note_iter(
+                    self.iter_, hist_passes=self.last_hist_passes,
+                    num_leaves=leaves[-1], best_gain=fl_gain)
+            if self.iter_ % 16 == 1:
+                # periodic watermark sample (an allocator counter read)
+                rec.note_memory()
             if self._undeferred:
                 # recorded at once, as the reference's undeferred path: no
                 # lagged pop, the stump iteration stays and training stops
@@ -1184,19 +1233,23 @@ class GBDT:
     def eval_train(self) -> List[Tuple[str, str, float, bool]]:
         out = []
         if self.train_metrics:
-            score = self.score.cpu().numpy()
-            for m in self.train_metrics:
-                for name, val, hib in m.eval(score):
-                    out.append(("training", name, val, hib))
+            with self.train_record.phase("eval"):
+                score = self.score.cpu().numpy()
+                for m in self.train_metrics:
+                    for name, val, hib in m.eval(score):
+                        out.append(("training", name, val, hib))
         return out
 
     def eval_valid(self) -> List[Tuple[str, str, float, bool]]:
         out = []
-        for vi, (vname, _) in enumerate(self.valid_sets):
-            score = self.valid_scores[vi].cpu().numpy()
-            for m in self.valid_metrics[vi]:
-                for name, val, hib in m.eval(score):
-                    out.append((vname, name, val, hib))
+        if not self.valid_sets:
+            return out
+        with self.train_record.phase("eval"):
+            for vi, (vname, _) in enumerate(self.valid_sets):
+                score = self.valid_scores[vi].cpu().numpy()
+                for m in self.valid_metrics[vi]:
+                    for name, val, hib in m.eval(score):
+                        out.append((vname, name, val, hib))
         return out
 
     # -- prediction ------------------------------------------------------------

@@ -25,9 +25,13 @@ models then train one by one through ``train()``
 (``ManyBooster.fallback_indices``, with a logged warning) and ``cv``
 runs its per-fold loop.
 
-Not ported yet (ROADMAP queue 1): lane sharding across cards
-(``tpu_multitrain_shard`` is read and ignored) and the ``multitrain_*``
-telemetry counters.
+Every model that falls back to ``train()`` bumps
+``multitrain_fallback_total{reason}`` against
+``multitrain_models_requested_total`` (the ``multitrain/fallback_rate``
+objective), and each batch ``multitrain_batches_total`` and
+``multitrain_models_total``, as the reference's.  Not ported yet
+(ROADMAP queue 1 item 10): lane sharding across cards
+(``tpu_multitrain_shard`` is read and ignored).
 """
 
 from __future__ import annotations
@@ -38,13 +42,48 @@ import numpy as np
 
 from ..config import Config
 from ..dataset import Dataset
+from ..telemetry.metrics import default_registry
+from ..telemetry.slo import register_metric_ensurer, slo as _slo
 from ..utils.log import log_info, log_warning
 from .batched import BatchTrainer, MultiTrainError
 from .variants import (HOST_SWEEP, SWEEPABLE, TRACED_SWEEP, group_variants,
                        normalize_variants)
 
 __all__ = ["train_many", "ManyBooster", "MultiTrainError", "TRACED_SWEEP",
-           "HOST_SWEEP", "SWEEPABLE"]
+           "HOST_SWEEP", "SWEEPABLE", "FALLBACK_COUNTER",
+           "REQUESTED_COUNTER"]
+
+
+# the fallback telemetry (reference multitrain/__init__.py:47-87): one
+# count per model that dropped off the batch, labeled with the reason's
+# structural prefix (the free text after " (" is cut to keep the series
+# few), read against every model requested through train_many
+
+FALLBACK_COUNTER = "multitrain_fallback_total"
+REQUESTED_COUNTER = "multitrain_models_requested_total"
+
+_slo("multitrain/fallback_rate", metric=FALLBACK_COUNTER,
+     total_metric=REQUESTED_COUNTER, kind="ratio", target=0.95,
+     bad_labels={"reason": "*"}, min_events=20,
+     note="share of train_many models that fell back to sequential "
+          "train()")
+
+
+@register_metric_ensurer
+def _ensure_multitrain_metrics(reg) -> None:
+    reg.counter(FALLBACK_COUNTER,
+                "train_many models that fell back to sequential train(), "
+                "by structural reason", labels=("reason",))
+    reg.counter(REQUESTED_COUNTER,
+                "models requested through train_many (batched or not)")
+
+
+def _note_fallback(reason: str, count: int) -> None:
+    short = reason.split(" (")[0].strip() or "unknown"
+    default_registry().counter(
+        FALLBACK_COUNTER,
+        "train_many models that fell back to sequential train(), "
+        "by structural reason", labels=("reason",)).inc(count, reason=short)
 
 
 class ManyBooster:
@@ -142,8 +181,12 @@ def train_many(params: Dict[str, Any], train_set: Dataset,
     groups = group_variants(vparams)
     result.num_groups = len(groups)
     cap = max(1, int(Config(params).tpu_multitrain_batch))
+    default_registry().counter(
+        REQUESTED_COUNTER,
+        "models requested through train_many (batched or not)").inc(M)
 
     def _fallback(indices: List[int], reason: str) -> None:
+        _note_fallback(reason, len(indices))
         if not allow_fallback:
             raise MultiTrainError(reason)
         log_warning(f"train_many: {len(indices)} variant(s) fall back to "

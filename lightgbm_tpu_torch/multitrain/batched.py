@@ -59,6 +59,7 @@ from ..models.gbdt import (EPSILON, GBDT, _grown_to_tree, _update_score,
                            goss_sample_np, learner_config, true_divide)
 from ..objective import create_objective
 from ..resilience.checkpoint import reject_checkpointing
+from ..telemetry.metrics import default_registry
 from ..utils.random import fold_in, host_key
 
 __all__ = ["MultiTrainError", "BatchTrainer", "batch_reject_reason"]
@@ -276,6 +277,12 @@ class BatchTrainer:
         self.heldout: Optional[List[torch.Tensor]] = None
         self._steps = 0
         self._masks: Optional[List[torch.Tensor]] = None
+        # the reference's batch counters (multitrain/batched.py:370-374)
+        reg = default_registry()
+        reg.counter("multitrain_batches_total",
+                    "batched train_many runs started").inc()
+        reg.counter("multitrain_models_total",
+                    "models trained in a batch").inc(self.M)
 
     def track_heldout(self, rows: List[np.ndarray]) -> None:
         """DART: score model m's held-out ``rows[m]`` as the per-fold

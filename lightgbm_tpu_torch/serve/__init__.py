@@ -1,23 +1,44 @@
-"""lightgbm_tpu_torch.serve: the compiled inference path.
+"""lightgbm_tpu_torch.serve: the serving tier.
 
-Ports the prediction core of ``lightgbm_tpu/serve``:
+Port of ``lightgbm_tpu/serve``:
 
 - :class:`CompiledPredictor`: the model's lowered dense program (or the
   walk, with a counted reason) on its device, requests padded up the
-  ``SHAPE_BUCKETS`` ladder, with ``warmup()`` and the explain lane;
-- :func:`compile_ensemble` / :class:`DenseExecutable`: the serving
-  compiler behind ``tpu_predict_compiler``;
-- :class:`ModelStats`: per-model serving counters.
+  ``SHAPE_BUCKETS`` ladder, with ``warmup()``, the explain lane and delta
+  appends (``extended``);
+- :func:`compile_ensemble` / :class:`DenseExecutable` /
+  :class:`StackedExecutable`: the serving compiler behind
+  ``tpu_predict_compiler``;
+- :class:`MicroBatcher`: coalesces concurrent small requests into one
+  bucketed device call under a max-wait / max-rows policy, with
+  admission control (load shed, deadlines) in front;
+- :class:`ModelRegistry`: named models with atomic hot swap, eviction
+  and the delta lane (``apply_delta``);
+- :class:`PredictionServer`: the ``http.server`` JSON endpoint
+  (``/predict``, ``/explain``, ``/models``, ``/healthz``, ``/stats``,
+  ``/metrics``, ``/slo``, ``/models/<name>/delta``), the
+  ``python -m lightgbm_tpu_torch serve`` CLI verb;
+- :class:`ModelZoo`: the bounded multi-tenant tier over the registry
+  (traffic-weighted LRU eviction, cold load-on-miss, per-tenant quotas,
+  stacked cross-model dispatch);
+- :class:`ModelStats`: per-model serving counters;
+- :mod:`.loadgen`: the load generator and the ``/metrics`` scrape
+  helpers.
 
-The micro-batcher, model registry, HTTP server, fleet supervisor and
-model zoo come with the serving tier (ROADMAP queue 1 item 11b).
+Everything runs on ``cuda`` unless the caller asks for the CPU.  The
+fleet supervisor (``serve-fleet``) is ROADMAP queue 1 item 11c.
 """
 
+from .batcher import MicroBatcher
 from .compiler import (DenseExecutable, DenseLoweringError,
                        StackedExecutable, compile_ensemble, fallback_counts)
 from .predictor import SHAPE_BUCKETS, CompiledPredictor
+from .registry import ModelRegistry
+from .server import PredictionServer
 from .stats import ModelStats
+from .zoo import ModelZoo
 
-__all__ = ["CompiledPredictor", "ModelStats", "SHAPE_BUCKETS",
+__all__ = ["CompiledPredictor", "MicroBatcher", "ModelRegistry",
+           "PredictionServer", "ModelStats", "SHAPE_BUCKETS",
            "DenseExecutable", "DenseLoweringError", "StackedExecutable",
-           "compile_ensemble", "fallback_counts"]
+           "compile_ensemble", "fallback_counts", "ModelZoo"]

@@ -23,12 +23,17 @@ A route away from dense is always one of the counted reasons
 the lowering budgets; ``forced_walk`` is returned, not counted, as in
 the reference), never a silent change of device.
 
+``tpu_predict_shard=W`` > 1 pads the tree axis to a multiple of W with
+inert trees and runs the program on the predictor's one device: what
+the reference does when it sees one device (reference :213-222, ``k =
+min(shard, devices)``).  The padding is the envelope that
+:meth:`DenseExecutable.extended` splices delta trees into without a new
+program shape.  Splitting the tree axis over several cards is ROADMAP
+queue 1 item 10.
+
 Left out: the reference's program contracts (``analysis.contracts``
 ``memory_budget`` and ``collective_contract``), which come with the
-contract checks (ROADMAP queue 1 item 12), and the tree-axis sharded
-program: ``tpu_predict_shard`` > 1 needs more than one card and raises
-until distributed serving lands (ROADMAP queue 1 item 10); at
-``shard`` <= 1 the reference runs unsharded, and so does the port.
+contract checks (ROADMAP queue 1 item 12).
 """
 
 from __future__ import annotations
@@ -51,7 +56,7 @@ from ..telemetry.slo import register_metric_ensurer, slo as _slo
 
 __all__ = ["DenseExecutable", "StackedExecutable", "compile_ensemble",
            "DenseLoweringError", "dense_cost_model", "fallback_counts",
-           "FALLBACK_COUNTER", "check_shard"]
+           "FALLBACK_COUNTER"]
 
 # ---------------------------------------------------------------------------
 # fallback telemetry: never a silent slow path
@@ -109,17 +114,6 @@ def fallback_counts() -> Dict[str, int]:
         return dict(_fb_counts)
 
 
-def check_shard(shard: int) -> None:
-    """``tpu_predict_shard`` > 1 splits the tree axis over cards, which
-    the port does not do yet."""
-    if int(shard or 0) > 1:
-        raise NotImplementedError(
-            f"tpu_predict_shard={shard}: the tree-sharded dense program "
-            f"needs more than one card and is not ported to "
-            f"lightgbm_tpu_torch yet (ROADMAP queue 1 item 10); use "
-            f"tpu_predict_shard<=1")
-
-
 # ---------------------------------------------------------------------------
 # the device's cost model for auto mode
 # ---------------------------------------------------------------------------
@@ -159,8 +153,9 @@ class DenseExecutable:
 
     Immutable once built.  ``real_trees`` tracks the live tree count
     apart from ``meta.num_trees`` so :meth:`extended` can splice appended
-    trees into spare tree rows; unsharded tables have none, so an
-    extension asks for a rebuild, as the reference's unsharded ones do."""
+    trees into the shard padding's spare tree rows; tables lowered
+    without padding have none, so an extension asks for a rebuild, as
+    the reference's do."""
 
     def __init__(self, arrays: DenseArrays, meta: DenseMeta,
                  workset_budget: int = DENSE_WORKSET_BUDGET) -> None:
@@ -303,8 +298,7 @@ class StackedExecutable:
     """M same-signature :class:`DenseExecutable`\\ s on a leading model
     axis (reference :375-459): ``predict_raw`` takes an (M, N, F) block
     and returns (M, N, K), each lane its member's solo result.  The zoo
-    that groups tenants into stacks comes with the serving tier (ROADMAP
-    queue 1 item 11b)."""
+    (``serve/zoo.py``) groups same-signature tenants into stacks."""
 
     def __init__(self, names: List[str],
                  exes: List["DenseExecutable"]) -> None:
@@ -318,6 +312,10 @@ class StackedExecutable:
         self.meta = exes[0].meta
         self.member_sig = sig
         self.stacked = stack_dense_arrays([e.arrays for e in exes])
+
+    @property
+    def device(self) -> torch.device:
+        return self.stacked.path_dir.device
 
     @property
     def width(self) -> int:
@@ -381,7 +379,6 @@ def compile_ensemble(trees: List[Any], num_class: int, num_features: int,
     if mode not in ("auto", "dense", "walk"):
         raise ValueError(f"tpu_predict_compiler must be auto|dense|walk, "
                          f"got '{mode}'")
-    check_shard(shard)
     if mode == "walk":
         return None, "forced_walk"
     if not trees:
@@ -399,8 +396,8 @@ def compile_ensemble(trees: List[Any], num_class: int, num_features: int,
     try:
         arrays, meta = lower_ensemble(
             trees, num_class, num_features, class_ids,
-            leaf_bits=leaf_bits, half=(dev.type == "cuda"), batch=b,
-            device=dev)
+            leaf_bits=leaf_bits, half=(dev.type == "cuda"),
+            shard=max(1, int(shard or 0)), batch=b, device=dev)
     except DenseLoweringError as exc:
         if mode == "dense":
             raise

@@ -13,12 +13,22 @@ The process-wide ``_COMPILE_KEYS`` set counts each (shape signature,
 bucket) pair the first time any predictor dispatches it (the ``/stats``
 recompile counter of the reference, which mirrors XLA's jit cache; the
 port has no jit cache, so here it counts the distinct program shapes
-served).  The reference's tracing spans come with the serving tier
-(ROADMAP queue 1 item 11b).
+served).  ``release_compile_keys`` drops a signature's entries when the
+last model of that shape leaves a registry.  Each device call runs under
+a ``serve/predict/b<bucket>`` span.
+
+Threads: the HTTP handlers and the micro-batchers' dispatch threads all
+call one predictor.  Every call runs under ``torch.cuda.device`` of the
+predictor's card, on the default stream, and ends in a copy to the
+host; a hot swap or an eviction that drops the last reference to a
+table therefore never frees memory that a queued launch still reads
+(the caching allocator hands a freed block only to later work on the
+same stream).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import threading
 import time
@@ -27,13 +37,34 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.contracts import memory_budget
 from ..models.tree import (SHAPE_BUCKETS, TreeBatch, bucket_rows,
                            ensemble_serve_fields, pad_rows,
                            predict_raw_ensemble)
+from ..telemetry.trace import span
 from .compiler import DenseExecutable, compile_ensemble
 from .stats import ModelStats
 
-__all__ = ["CompiledPredictor", "SHAPE_BUCKETS", "compile_key_count"]
+__all__ = ["CompiledPredictor", "SHAPE_BUCKETS", "compile_key_count",
+           "release_compile_keys", "serve_ladder_hbm_bytes"]
+
+
+def serve_ladder_hbm_bytes(ctx):
+    """Per-device memory curve of one serve-bucket program (reference
+    :38-52): the padded request block with ~3 block-sized temporaries
+    beside it, plus the resident ensemble tables (~16 B per tree-leaf)."""
+    bucket = int(ctx.get("bucket", max(SHAPE_BUCKETS)))
+    f = int(ctx["features"])
+    it = int(ctx.get("itemsize", 4))
+    trees = int(ctx.get("trees", 1000))
+    leaves = int(ctx.get("leaves", 255))
+    request = 4 * bucket * f * it
+    model = 16 * trees * leaves
+    return request + model + (1 << 20)
+
+
+memory_budget("serve/bucket_ladder", ("serve",), serve_ladder_hbm_bytes,
+              note="4 request-block temporaries + resident ensemble")
 
 # (shape-signature, bucket) pairs already dispatched in this process
 _COMPILE_KEYS: set = set()
@@ -49,14 +80,29 @@ def _note_dispatch(key) -> bool:
         return True
 
 
+def release_compile_keys(sig) -> int:
+    """Drop every ``(sig, bucket)`` entry of one shape signature from the
+    dispatch mirror (reference :74-85).  The registry calls this when the
+    LAST model of a shape leaves it, so zoo churn cannot grow the mirror
+    without bound.  Returns the entries removed."""
+    with _COMPILE_LOCK:
+        doomed = [k for k in _COMPILE_KEYS
+                  if isinstance(k, tuple) and len(k) == 2 and k[0] == sig]
+        for k in doomed:
+            _COMPILE_KEYS.discard(k)
+    return len(doomed)
+
+
 def compile_key_count() -> int:
     """Current size of the process-wide dispatch mirror."""
     with _COMPILE_LOCK:
         return len(_COMPILE_KEYS)
 
 
-def _resolve_gbdt(source):
-    """Accept a Booster, a GBDT, a model file path, or a model string."""
+def _resolve_gbdt(source, device=None):
+    """Accept a Booster, a GBDT, a model file path, or a model string; a
+    path or a string loads on ``device`` (``cuda`` unless the CPU is
+    asked for), a Booster or GBDT keeps its own device."""
     from ..basic import Booster
     from ..models.gbdt import GBDT
     if isinstance(source, Booster):
@@ -65,11 +111,19 @@ def _resolve_gbdt(source):
         return source
     if isinstance(source, str):
         if "\n" in source:  # model TEXT always spans lines
-            return Booster(model_str=source)._gbdt
+            return Booster(model_str=source, device=device)._gbdt
         if not os.path.exists(source):
             raise FileNotFoundError(f"no such model file: {source}")
-        return Booster(model_file=source)._gbdt
+        return Booster(model_file=source, device=device)._gbdt
     raise TypeError(f"cannot build a predictor from {type(source).__name__}")
+
+
+def _on_device(device):
+    """``torch.cuda.device(device)`` for a card (a handler or dispatch
+    thread starts on card 0), else a no-op context."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
 
 
 class CompiledPredictor:
@@ -84,8 +138,9 @@ class CompiledPredictor:
                  compiler: Optional[str] = None,
                  leaf_bits: Optional[int] = None,
                  shard: Optional[int] = None,
-                 explain_compiler: Optional[str] = None) -> None:
-        gbdt = _resolve_gbdt(source)
+                 explain_compiler: Optional[str] = None,
+                 device=None) -> None:
+        gbdt = _resolve_gbdt(source, device)
         self._gbdt = gbdt          # kept for delta appends (extended)
         self.device = gbdt.device
         self.buckets = tuple(sorted(buckets))
@@ -187,15 +242,17 @@ class CompiledPredictor:
         Xi = self._rows(X)
         n = Xi.shape[0]
         nb = bucket_rows(n, self.buckets)
-        Xp = torch.as_tensor(np.ascontiguousarray(pad_rows(Xi, self.buckets)),
-                             device=self.device)
         new = _note_dispatch((self._sig, nb))
         t0 = time.perf_counter()
-        if self._dense is not None:
-            out = self._dense.predict_raw(Xp)[:n].cpu().numpy()
-        else:
-            out = predict_raw_ensemble(Xp, self._per_class,
-                                       self._kinds)[:n].cpu().numpy()
+        with _on_device(self.device), span(f"serve/predict/b{nb}"):
+            Xp = torch.as_tensor(
+                np.ascontiguousarray(pad_rows(Xi, self.buckets)),
+                device=self.device)
+            if self._dense is not None:
+                out = self._dense.predict_raw(Xp)[:n].cpu().numpy()
+            else:
+                out = predict_raw_ensemble(Xp, self._per_class,
+                                           self._kinds)[:n].cpu().numpy()
         self.stats.record_batch(n, nb, (time.perf_counter() - t0) * 1e3,
                                 recompiled=new, request_ids=request_ids)
         if self._dense is None and self._fallback_reason:
@@ -232,25 +289,26 @@ class CompiledPredictor:
                 request_ids: tuple = ()) -> np.ndarray:
         """Bucketed SHAP contributions ``(N, (num_features + 1) *
         num_class)``, the layout of ``Booster.predict(pred_contrib=True)``.
-        The dense TreeSHAP program serves when it lowers; otherwise the
-        host walk serves and the reason lands in
-        ``serve_explain_fallback_batches_total``.  Dense results are
-        additivity-checked; a failed check falls back with reason
-        ``additivity``."""
+        The dense TreeSHAP program serves when it lowers. A model it does
+        not lower (past its depth or table budget, or
+        ``tpu_explain_compiler=walk``) is served by the float64 host walk,
+        with the reason in ``serve_explain_fallback_batches_total``, as
+        the reference does. A dense result that fails its additivity
+        check raises :class:`ExplainAdditivityError`: the request fails,
+        it is not answered by the walk (the reference falls back here)."""
         Xi = self._rows(X)
+        nb = bucket_rows(Xi.shape[0], self.buckets)
         exe, reason = self._explain_program()
         if exe is not None:
-            from ..explain.compiler import ExplainAdditivityError
-            try:
+            with _on_device(self.device), span(f"serve/explain/b{nb}"):
                 return exe.explain(Xi, buckets=self.buckets)
-            except ExplainAdditivityError:
-                reason = "additivity"
         from ..explain.compiler import note_explain_fallback_batch
         note_explain_fallback_batch(reason or "unknown",
                                     getattr(self.stats, "model", "") or "")
         from ..models.shap import predict_contrib
-        return predict_contrib(self._gbdt, Xi, 0,
-                               self.num_trees // max(1, self.num_class))
+        with span(f"serve/explain_walk/b{nb}"):
+            return predict_contrib(self._gbdt, Xi, 0,
+                                   self.num_trees // max(1, self.num_class))
 
     def predict(self, X: np.ndarray, raw_score: bool = False,
                 request_ids: tuple = ()) -> np.ndarray:
@@ -259,8 +317,14 @@ class CompiledPredictor:
         raw = self.predict_raw(X, request_ids=request_ids)
         if raw_score or self.objective is None:
             return raw
-        return self.objective.convert_output(
-            torch.as_tensor(raw, device=self.device)).cpu().numpy()
+        return self.convert_output(raw)
+
+    def convert_output(self, raw: np.ndarray) -> np.ndarray:
+        """The objective's output transform of host raw scores, on the
+        predictor's device (the zoo applies it to a stacked lane)."""
+        with _on_device(self.device):
+            return self.objective.convert_output(
+                torch.as_tensor(raw, device=self.device)).cpu().numpy()
 
     # -- delta append -------------------------------------------------------
     def extended(self, new_trees) -> Tuple["CompiledPredictor", str]:

@@ -1,7 +1,6 @@
 """Hierarchical host-side span tracing with chrome-trace export.
 
-Copy of ``lightgbm_tpu/telemetry/trace.py`` (its exporters of the
-serving tier stay with ROADMAP queue 1 item 11b).  ``span("tree/wave")``
+Copy of ``lightgbm_tpu/telemetry/trace.py``.  ``span("tree/wave")``
 contexts nest through a thread-local stack, producing events whose names
 are full slash paths; each host span also opens a
 ``torch.profiler.record_function`` range so the same names line up with

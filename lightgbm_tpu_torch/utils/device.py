@@ -6,6 +6,8 @@ the CPU.  There is no silent fallback: asking for ``cuda`` on a machine
 without a usable card raises :class:`DeviceUnavailableError`.  The CPU is
 the plain-PyTorch path the tests use; every kernel wrapper dispatches on
 the device of the tensor it is handed, never on what the machine has.
+An armed ``device_loss`` fault (``resilience/faults.py``) makes a
+``cuda`` resolution raise as a missing card does.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ def resolve_device(device: Union[str, torch.device, None] = None
         if base not in _ALIASES:
             raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
         dev = torch.device(_ALIASES[base] + (f":{index}" if index else ""))
+    if dev.type == "cuda":
+        # the chaos layer's device_loss point (resilience/faults.py)
+        from ..resilience.faults import faults
+        faults.check_device_probe()
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise DeviceUnavailableError(
             "lightgbm_tpu_torch runs on a CUDA device by default, but "

@@ -132,11 +132,14 @@ def test_subprocess_entry_point_writes_train_s_model(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve", "model.txt"], ["serve-fleet", "model.txt"],
-    ["lint-trace"], ["lint-mem"], ["task=serve", "input_model=m.txt"],
-    ["profile", "telemetry_out=t.json"]])
+    ["serve-fleet", "model.txt"], ["serve_fleet", "model.txt"],
+    ["lint-trace"], ["lint-mem"], ["lint_trace"], ["lint_mem"]])
 def test_unported_verbs_raise_naming_roadmap(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The verbs still to port raise naming their ROADMAP item (``serve``,
+    ``task=serve`` and ``profile telemetry_out=`` act now:
+    tests/test_torch_serve.py, tests/test_torch_flight.py)."""
+    item = "11c" if argv[0].startswith("serve") else "12"
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.*item {item}"):
         port_main(argv)
 
 

@@ -208,24 +208,36 @@ def test_lowering_budgets_and_empty_ensembles(texts):
 
 
 def test_predict_shard_raises_above_one(texts):
-    """``tpu_predict_shard`` > 1 needs several cards: NotImplementedError
-    naming ROADMAP queue 1 item 10; at 0 or 1 the program runs
-    unsharded, as the reference's does on one device."""
+    """``tpu_predict_shard=W`` > 1 no longer raises: it pads the tree axis
+    to a multiple of W with inert trees and runs on the one device, as
+    the reference's does when it sees one device.  Predictions equal the
+    reference's at every W, the padded capacity is the reference's, and
+    the padding takes appended trees in place (splitting the tree axis
+    over several cards stays ROADMAP queue 1 item 10)."""
     X = _queries("nan")
-    for shard in (0, 1):
+    want = lgb.Booster(model_str=texts["nan"]).predict(X, raw_score=True)
+    for shard in (0, 1, 2, 3):
         got = lt.Booster(model_str=texts["nan"],
                          params={"tpu_predict_shard": shard,
                                  "tpu_predict_compiler": "dense"},
                          device="cpu").predict(X, raw_score=True)
-        want = lgb.Booster(model_str=texts["nan"]).predict(X,
-                                                           raw_score=True)
         np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
-    bst = lt.Booster(model_str=texts["nan"], params={"tpu_predict_shard": 2},
-                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bst.predict(X)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        bst.to_predictor(compiler="dense")
+    pb, rb = _both(texts["nan"])
+    g, rg = pb._gbdt, rb._gbdt
+    exe, _ = tcomp.compile_ensemble(g.models[:2], 1, F, mode="dense",
+                                    shard=3)
+    jexe, _ = jcomp.compile_ensemble(rg.models[:2], 1, F, mode="dense",
+                                     shard=3)
+    assert exe.capacity == jexe.capacity == 3
+    assert exe.info()["num_trees"] == 2 and exe.shard == 0
+    ex = exe.extended(g.models[2:3], F)
+    assert ex is not None and ex.signature == exe.signature
+    assert exe.extended(g.models[2:4], F) is None
+    full, _ = tcomp.compile_ensemble(g.models[:3], 1, F, mode="dense")
+    Xt = torch.as_tensor(X.astype(np.float32))
+    np.testing.assert_allclose(ex.predict_raw(Xt).numpy(),
+                               full.predict_raw(Xt).numpy(),
+                               rtol=1e-6, atol=1e-6)
 
 
 def test_row_blocks_equal_one_block(texts):

@@ -1620,3 +1620,104 @@ def test_capi_training_round_trip_on_card(cuda_device, tmp_path):
     assert capi._get(lh).device.type == "cuda"
     np.testing.assert_array_equal(got,
                                   capi.LGBM_BoosterPredictForMat(bh, X)[1])
+
+
+# -- the serving tier on the card ---------------------------------------------
+
+def _serve_model(tmp_path, rounds, publish=False):
+    rng = np.random.RandomState(5)
+    X = rng.randn(20_000, F).astype(np.float32)
+    y = (X[:, 0] + X[:, 1] ** 2 > 0.8).astype(np.float64)
+    p = {"objective": "binary", "num_leaves": 31, "verbosity": -1,
+         "use_quantized_grad": True}
+    if publish:
+        p.update(publish_dir=str(tmp_path / "journal"), publish_every=1)
+    bst = lt.train(p, lt.Dataset(X, y), rounds)
+    path = str(tmp_path / "model.txt")
+    bst.save_model(path)
+    return X, bst, path
+
+
+@pytest.mark.gpu
+def test_prediction_server_on_card_matches_booster(cuda_device, tmp_path):
+    """``PredictionServer`` on the card answers /predict bitwise as an
+    in-process ``Booster.predict`` on the card; /healthz names the
+    card."""
+    import http.client
+    import json
+    from lightgbm_tpu_torch.serve import ModelRegistry, PredictionServer
+    X, _, path = _serve_model(tmp_path, 4)
+    ref = lt.Booster(model_file=path)
+    reg = ModelRegistry()
+    reg.load("m", path)
+    srv = PredictionServer(reg, port=0).start()
+    try:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port, timeout=60)
+        for n in (1, 64, 4096):
+            conn.request("POST", "/predict",
+                         json.dumps({"rows": X[:n].tolist()}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            assert resp.status == 200, body
+            np.testing.assert_array_equal(
+                np.asarray(body["predictions"], np.float32),
+                ref.predict(X[:n]).astype(np.float32))
+        conn.request("GET", "/healthz")
+        health = json.loads(conn.getresponse().read())
+        assert health["status"] == "ok"
+        assert health["device_name"] == torch.cuda.get_device_name(0)
+    finally:
+        srv.shutdown()
+
+
+@pytest.mark.gpu
+def test_delta_replay_on_card_keeps_compile_keys(cuda_device, tmp_path):
+    """A journal replayed through ``apply_delta`` inside the shard
+    padding's envelope adds no compile key, and each round answers
+    bitwise as a cold load of the same round."""
+    from lightgbm_tpu_torch.publish import DeltaJournal
+    from lightgbm_tpu_torch.serve import ModelRegistry
+    from lightgbm_tpu_torch.serve.predictor import compile_key_count
+    X, _, path = _serve_model(tmp_path, 4, publish=True)
+    j = DeltaJournal(str(tmp_path / "journal"))
+    base, r0 = j.base_entry()
+    reg = ModelRegistry()
+    reg.load("m", base, shard=4)
+    for rec in j.records_after(r0):
+        keys = compile_key_count()
+        assert reg.apply_delta("m", rec)["mode"] == "extend"
+        got = reg.get("m").predict(X[:4096])
+        assert compile_key_count() == keys
+        cold = ModelRegistry()
+        cold.load("c", path, warmup=False, num_iteration=rec.round,
+                  shard=4)
+        np.testing.assert_array_equal(got, cold.get("c").predict(X[:4096]))
+
+
+@pytest.mark.gpu
+def test_stacked_zoo_batch_on_card_matches_tenants(cuda_device, tmp_path):
+    """Four same-shape tenants in a ``ModelZoo`` on the card: each lane
+    of a stacked batch is bitwise its tenant's own predictor."""
+    from lightgbm_tpu_torch.serve import CompiledPredictor, ModelZoo
+    rng = np.random.RandomState(6)
+    X = rng.randn(20_000, F).astype(np.float32)
+    paths = []
+    for s in range(4):
+        y = (X[:, s % F] + 0.3 * rng.randn(len(X)) > 0).astype(np.float64)
+        p = {"objective": "binary", "num_leaves": 31, "verbosity": -1}
+        path = str(tmp_path / f"t{s}.txt")
+        lt.train(p, lt.Dataset(X, y), 3).save_model(path)
+        paths.append(path)
+    zoo = ModelZoo(batching=True, max_wait_ms=1.0)
+    try:
+        for s, path in enumerate(paths):
+            zoo.load(f"t{s}", path)
+        assert sorted(sum(zoo.stack_membership().values(), [])) == \
+            [f"t{s}" for s in range(4)]
+        for s, path in enumerate(paths):
+            np.testing.assert_array_equal(
+                zoo.predict(f"t{s}", X[:4096]),
+                CompiledPredictor(path).predict(X[:4096]))
+    finally:
+        zoo.close()

@@ -24,6 +24,8 @@ is in both packages' params dump.
   routing and its refusals, resume mid-stream and the fingerprint check.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -268,12 +270,19 @@ def test_max_bin_past_255_refused():
         ref_train_streamed(p, rsd, 2)
 
 
-def test_flight_dir_raises():
+def test_flight_dir_raises(tmp_path):
+    """``flight_dir`` acts on the chunked path now (the reference's
+    ingest/train.py:445-463): the tape lands there; ``publish_dir`` still
+    raises, as the reference's chunked path has no publish lane."""
     X, y = _data(2048, 3, seed=4)
-    p = dict(_PIN, objective="binary", flight_dir="fl")
+    p = dict(_PIN, objective="binary", flight_dir=str(tmp_path / "fl"))
     sd = StreamedDataset(ArraySource(X, y, chunk_rows=512), params=p)
-    with pytest.raises(NotImplementedError, match="flight_dir"):
-        train_streamed(p, sd, 2, device="cpu")
+    train_streamed(p, sd, 2, device="cpu")
+    assert os.listdir(tmp_path / "fl") == ["flight.jsonl"]
+    q = dict(_PIN, objective="binary", publish_dir=str(tmp_path / "pub"))
+    with pytest.raises(NotImplementedError, match="publish_dir"):
+        train_streamed(q, sd, 2, device="cpu")
+    assert not os.path.exists(tmp_path / "pub")
 
 
 # ---------------------------------------------------------------------------

@@ -313,9 +313,11 @@ def test_train_many_refuses_and_cv_falls_back(tmp_path, caplog):
                                          ("flight_dir", "fl")])
 @pytest.mark.parametrize("entry", ["train", "cv", "train_many"])
 def test_unported_run_parameters_raise(entry, param, value, tmp_path):
-    """The delta publisher and the flight recorder are not ported:
-    their parameters raise NotImplementedError naming ROADMAP queue 1
-    item 11b in every training entry point, and nothing is written."""
+    """``train`` carries the publish lane and the flight recorder now:
+    ``publish_dir`` writes the delta journal, ``flight_dir`` the tape,
+    and ``publish_every`` alone writes nothing.  ``cv`` and
+    ``train_many`` have neither lane, as the reference's do not: their
+    parameters raise NotImplementedError and nothing is written."""
     X, y = _data(n=400)
     if isinstance(value, str):
         value = str(tmp_path / value)
@@ -327,9 +329,20 @@ def test_unported_run_parameters_raise(entry, param, value, tmp_path):
           "train_many": lambda: lt.train_many(
               params, lt.Dataset(X, y), 2,
               variants=[{"lambda_l2": 0.0}], device="cpu")}[entry]
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        fn()
-    assert os.listdir(tmp_path) == []
+    if entry != "train":
+        with pytest.raises(NotImplementedError, match="no publish lane"):
+            fn()
+        assert os.listdir(tmp_path) == []
+        return
+    fn()
+    written = {"publish_dir": ["pub"], "publish_every": [],
+               "flight_dir": ["fl"]}[param]
+    assert sorted(os.listdir(tmp_path)) == written
+    if param == "publish_dir":
+        assert sorted(os.listdir(tmp_path / "pub")) == [
+            "BASE.00001.txt", "DELTA.00002", "HEAD"]
+    if param == "flight_dir":
+        assert os.listdir(tmp_path / "fl") == ["flight.jsonl"]
 
 
 def test_multiclass_resume(tmp_path):
