@@ -267,6 +267,30 @@ Phases (any failure exits non-zero and prints no result line):
    stacked answers bitwise each tenant's ``CompiledPredictor``, one
    compile key for the stack's 4,096 bucket, one stacked 4 x 4,096-row
    call timed against 4 single calls.
+18. the serving fleet, after phase 17: ``python -m lightgbm_tpu_torch
+   serve-fleet`` subprocesses on free ports, every worker on the card.
+   (a) 4 workers over phase 14b's 16-tree model: ``/predict`` of 1, 64
+   and 4,096 rows, each 4 times, bitwise an in-process
+   ``Booster.predict``; each worker holds the card's device nodes open
+   (``/proc/<pid>/fd``) and the dispatcher none; the contexts' memory
+   from ``nvidia-smi --query-compute-apps``; (b) phase 17b's 5 s
+   closed-loop mix through the fleet, every answer 200, beside 17b's
+   single server; (c) the same load with one worker SIGKILLed 1.5 s in:
+   every request answered, at most 5% of the fleet's ``/predict``
+   answers 5xx, the worker alive again within 60 s and counted in
+   ``fleet_restarts_total{reason="exit"}``, ``/slo`` ok; (d) a rolling
+   deploy of the model's trees 8-16 under load: no 5xx, then the new
+   model's answers bitwise; (e) a second fleet of 2 workers follows a
+   fresh ``publish_dir`` while this process trains the headline
+   configuration on phase 17a's 2,097,152 rows for 8 rounds, publishing
+   every 2 (``hist_leaves_q8`` and the row update launched, the counts
+   from 0; iterations/s beside 17a's): each worker at round 8 with
+   ``fleet_model_rounds_behind`` 0, every answer of a light load one
+   published round's, the last the final text's; (f) SIGTERM drains
+   each fleet to exit 143 within 60 s; (g) ``placement=hash`` over 2
+   workers with phase 17c's 4 tenants: each answer bitwise the tenant's
+   ``CompiledPredictor``, served by its owner in ``/workers``' placement
+   table alone, and by the other worker once its owner is SIGKILLed.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -4456,10 +4480,11 @@ def _http(port: int, method: str, path: str, payload=None,
         conn.close()
 
 
-def _http_json(port: int, method: str, path: str, payload=None) -> dict:
+def _http_json(port: int, method: str, path: str, payload=None,
+               tag: str = "phase 17b") -> dict:
     status, text = _http(port, method, path, payload)
     if status != 200:
-        raise AssertionError(f"phase 17b: {method} {path} answered "
+        raise AssertionError(f"{tag}: {method} {path} answered "
                              f"{status}: {text[:400]}")
     return json.loads(text)
 
@@ -4496,7 +4521,9 @@ def serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model: str,
     14b's model, the text ``serve_phase`` returns) from its own start:
     stacked answers bitwise each tenant's own predictor, one compile key
     per stack bucket, one stacked batch timed against single calls.
-    Returns (a)'s launches."""
+    Returns (a)'s launches (``launches``), its rates (``rates``), (b)'s
+    load summary (``load``) and (a)'s dataset (``ds``), which phase 18
+    trains again."""
     import shutil
     import threading
     from lightgbm_tpu_torch.models.model_text import model_to_string
@@ -4572,7 +4599,7 @@ def serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model: str,
             tape[0]["reason"] != "completed":
         raise AssertionError(f"phase 17a: flight.jsonl holds iterations "
                              f"{iters} ({tape[0].get('reason')})")
-    del ds, runs
+    del runs
     torch.cuda.empty_cache()
     log(f"[{card}] phase 17a (at "
         f"{time.perf_counter() - t17:.1f} s) headline x {PUBLISH_ROUNDS} "
@@ -4772,6 +4799,568 @@ def serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model: str,
         f"{t_cut:.1f} s, loaded and served in {t_load:.1f} s, checked and "
         f"timed in {time.perf_counter() - t_c - t_cut - t_load:.1f} s")
     log(f"phase 17: {time.perf_counter() - t17:.1f} s")
+    return {"launches": got, "rates": rates, "load": summ, "ds": ds}
+
+
+# -- phase 18: the serving fleet on the card ---------------------------------
+
+FLEET_WORKERS = 4                # (a)-(d): one fleet of 4 workers
+FOLLOW_WORKERS = 2               # (e): the journal follow's fleet
+PLACED_WORKERS = 2               # (g): hash placement over 17c's tenants
+FLEET_KILL_AFTER_S = 1.5         # (c): SIGKILL this far into the load
+FLEET_RECOVERY_S = 60.0          # (c): the killed worker alive again
+FLEET_5XX_SHARE = 0.05           # (c): of the fleet's /predict answers
+FLEET_DRAIN_S = 60.0             # (f): SIGTERM to exit 143
+DEPLOY_START, DEPLOY_TREES = 8, 8    # (d): trees [8, 16) of the model
+FOLLOW_ROWS = 64                 # (e): rows of the light load's requests
+PLACED_ROWS = 256                # (g): rows of each tenant's request
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _fleet_start(files, args, run_dir):
+    """``python -m lightgbm_tpu_torch serve-fleet`` in a subprocess on a
+    free port, its log and its workers' logs under ``run_dir``; returns
+    (process, port, log path)."""
+    os.makedirs(run_dir, exist_ok=True)
+    port = _free_port()
+    log_path = os.path.join(run_dir, "fleet.log")
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep +
+               os.environ.get("PYTHONPATH", ""), PYTHONUNBUFFERED="1")
+    with open(log_path, "w") as fh:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "lightgbm_tpu_torch", "serve-fleet",
+             *files, *args, f"port={port}", f"run_dir={run_dir}"],
+            cwd=HERE, env=env, stdout=fh, stderr=subprocess.STDOUT)
+    return proc, port, log_path
+
+
+def _fleet_wait(proc, port, log_path, tag, timeout=120.0) -> dict:
+    """The fleet's /healthz once it answers: the dispatcher listens only
+    after every worker is alive (``FleetSupervisor.start``)."""
+    import http.client
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < timeout and proc.poll() is None:
+        try:
+            status, text = _http(port, "GET", "/healthz", timeout=5.0)
+            if status == 200:
+                return json.loads(text)
+        except (OSError, http.client.HTTPException):
+            pass
+        time.sleep(0.1)
+    with open(log_path) as fh:
+        tail = fh.read()[-3000:]
+    raise AssertionError(f"{tag}: the fleet did not answer within "
+                         f"{timeout:.0f} s (exit {proc.poll()}):\n{tail}")
+
+
+def _fleet_stop(proc, tag) -> float:
+    """SIGTERM: the fleet's rolling drain; its seconds to exit 143."""
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=FLEET_DRAIN_S)
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"{tag}: the fleet did not drain within "
+                             f"{FLEET_DRAIN_S:.0f} s")
+    if rc != 128 + signal.SIGTERM:
+        raise AssertionError(f"{tag}: SIGTERM exit code {rc}")
+    return time.perf_counter() - t0
+
+
+def _compute_apps() -> dict:
+    """pid -> used memory (MiB) of each CUDA context nvidia-smi lists
+    (in a container every context may be listed under one pid)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout
+    apps = {}
+    for line in out.splitlines():
+        pid, _, mem = (x.strip() for x in line.partition(","))
+        if pid.isdigit():
+            apps[int(pid)] = float(mem) if mem.isdigit() else mem
+    return apps
+
+
+def _card_files(pid: int) -> int:
+    """How many of the process's open files are the card's device nodes
+    (``/dev/nvidia*``): a process with a CUDA context holds some, one
+    that never touched the card none."""
+    fd_dir = f"/proc/{pid}/fd"
+    n = 0
+    for fd in os.listdir(fd_dir):
+        try:
+            n += os.readlink(os.path.join(fd_dir, fd)).startswith(
+                "/dev/nvidia")
+        except OSError:
+            pass
+    return n
+
+
+def _predict_codes(parsed) -> collections.Counter:
+    """The fleet's /predict answers by status code, from its /metrics."""
+    out = collections.Counter()
+    for lbl, v in parsed.get("lgbm_tpu_serve_predict_responses_total", []):
+        out[lbl.get("code", "?")] += v
+    return out
+
+
+def fleet_phase(lt, torch, card, Xte, serve_model: str, p17: dict,
+                out_dir: str) -> dict:
+    """Phase 18: ``python -m lightgbm_tpu_torch serve-fleet`` on the card.
+    (a)-(d) one fleet of ``FLEET_WORKERS`` workers over ``serve_model``
+    (phase 14b's 16-tree model): (a) /predict bitwise an in-process
+    ``Booster.predict``, one CUDA context a worker and none for the
+    dispatcher (each process's open ``/dev/nvidia*`` files; the
+    contexts' memory from ``nvidia-smi``); (b) phase 17b's closed-loop
+    load; (c)
+    the same load with one worker SIGKILLed: every request answered, at
+    most ``FLEET_5XX_SHARE`` of the answers 5xx, the worker alive again
+    within ``FLEET_RECOVERY_S`` and counted in ``fleet_restarts_total``,
+    /slo ok; (d) a rolling deploy of an 8-tree window under load: no
+    5xx, then the window's answers bitwise.  (e) a second fleet follows
+    a fresh ``publish_dir`` under a light load while this process trains
+    the headline configuration on phase 17a's rows, publishing every
+    ``PUBLISH_EVERY`` rounds: each worker at the head, every answer one
+    published round's, the last the final text's.  (f) SIGTERM drains
+    each fleet to exit 143.  (g) ``placement=hash`` over phase 17c's
+    tenants: each answer its own ``CompiledPredictor``'s, served by its
+    owner in the placement table, and by the next ring node once its
+    owner is killed.  Returns (e)'s launches."""
+    import http.client
+    import shutil
+    import threading
+    from lightgbm_tpu_torch.models.model_text import model_to_string
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    from lightgbm_tpu_torch.publish import DeltaJournal, fold_chain
+    from lightgbm_tpu_torch.serve import CompiledPredictor
+    from lightgbm_tpu_torch.serve.loadgen import (LoadGenerator, LoadSpec,
+                                                  metric_sum,
+                                                  parse_prometheus)
+    t18 = time.perf_counter()
+    fdir = os.path.join(out_dir, "fleet")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(fdir)
+    rows = Xte[:max(SERVE_CHECK_ROWS)].astype(np.float32)
+    src = lt.Booster(model_str=serve_model)
+    procs, worker_pids = [], set()
+
+    def put(name, text):
+        path = os.path.join(fdir, name)
+        with open(path, "w") as fh:
+            fh.write(text)
+        return path
+
+    def predict(port, X, tag, model=None):
+        req = {"rows": X.tolist()}
+        if model is not None:
+            req["model"] = model
+        out = _http_json(port, "POST", "/predict", req, tag=tag)
+        return np.asarray(out["predictions"], np.float32)
+
+    def scrape(port, tag):
+        status, text = _http(port, "GET", "/metrics")
+        if status != 200:
+            raise AssertionError(f"{tag}: /metrics answered {status}")
+        return parse_prometheus(text)
+
+    def workers(port, tag):
+        table = _http_json(port, "GET", "/workers", tag=tag)
+        worker_pids.update(w["pid"] for w in table["workers"].values()
+                           if w["pid"])
+        return table
+
+    def load(port, seconds, seed):
+        return LoadGenerator("127.0.0.1", port, LoadSpec(
+            duration_s=seconds, workers=LOADGEN_WORKERS,
+            features=NUM_FEATURES, bucket_mix=dict(LOADGEN_MIX), seed=seed,
+            timeout_s=60.0)).run()
+
+    def fives(codes):
+        return sum(v for c, v in codes.items() if str(c).startswith("5"))
+
+    try:
+        # ---- (a) bitwise through the dispatcher, one context a worker --
+        model_path = put("headline.txt", serve_model)
+        apps0 = _compute_apps()
+        t0 = time.perf_counter()
+        proc_a, port_a, log_a = _fleet_start(
+            [model_path], [f"workers={FLEET_WORKERS}", "name=headline"],
+            os.path.join(fdir, "a"))
+        procs.append(proc_a)
+        _fleet_wait(proc_a, port_a, log_a, "phase 18a")
+        t_up = time.perf_counter() - t0
+        for k in SERVE_CHECK_ROWS:
+            want = src.predict(rows[:k]).astype(np.float32)
+            for _ in range(FLEET_WORKERS):   # once through the rotation
+                if not np.array_equal(predict(port_a, rows[:k],
+                                              "phase 18a"), want):
+                    raise AssertionError(f"phase 18a: /predict of {k} rows "
+                                         f"differs from Booster.predict")
+        pids = {n: w["pid"] for n, w in
+                workers(port_a, "phase 18a")["workers"].items()}
+        # one CUDA context a worker, none for the dispatcher: each
+        # process's handles on the card's device nodes, and nvidia-smi's
+        # memory with the fleet up against before it
+        files = {n: _card_files(p) for n, p in pids.items()}
+        files["dispatcher"] = _card_files(proc_a.pid)
+        files["this process"] = _card_files(os.getpid())
+        if files["dispatcher"] or not all(files[n] for n in pids) or \
+                not files["this process"]:
+            raise AssertionError(f"phase 18a: open /dev/nvidia* files "
+                                 f"{files}")
+        apps = _compute_apps()
+        if all(p in apps for p in pids.values()):
+            if proc_a.pid in apps:
+                raise AssertionError(f"phase 18a: CUDA contexts {apps}: "
+                                     f"the dispatcher {proc_a.pid} holds one")
+            mem = {n: apps[p] for n, p in pids.items()}
+        else:
+            # the pids are another namespace's: each worker's share of
+            # what the fleet added
+            grown = sum(v for v in apps.values() if isinstance(v, float)) \
+                - sum(v for v in apps0.values() if isinstance(v, float))
+            mem = {"listed": apps, "before the fleet": apps0,
+                   "per worker": round(grown / FLEET_WORKERS, 1)}
+        log(f"[{card}] phase 18a (at {time.perf_counter() - t18:.1f} s) "
+            f"serve-fleet of {FLEET_WORKERS} workers up in {t_up:.1f} s; "
+            f"/predict {list(SERVE_CHECK_ROWS)} rows bitwise "
+            f"Booster.predict, each size {FLEET_WORKERS} times; open "
+            f"/dev/nvidia* files {json.dumps(files)}; CUDA contexts' "
+            f"memory (nvidia-smi, MiB): {json.dumps(mem)}")
+
+        # ---- (b) load ----
+        codes0 = _predict_codes(scrape(port_a, "phase 18b"))
+        res_b = load(port_a, LOADGEN_SECONDS, 18)
+        sb = res_b.summary()
+        if sb["by_code"] != {"200": res_b.requests_sent}:
+            raise AssertionError(f"phase 18b: the load answered "
+                                 f"{sb['by_code']}")
+        one = p17["load"]
+        log(f"[{card}] phase 18b (at {time.perf_counter() - t18:.1f} s) "
+            f"closed loop {LOADGEN_SECONDS:.0f} s x {LOADGEN_WORKERS} "
+            f"clients mix {json.dumps(LOADGEN_MIX)} through "
+            f"{FLEET_WORKERS} workers: {sb['achieved_qps']} requests/s, "
+            f"{sb['achieved_rows_per_s']} rows/s, client p50 "
+            f"{sb['client_p50_ms']} ms, p99 {sb['client_p99_ms']} ms; one "
+            f"server (17b, this run): {one['achieved_qps']} requests/s, "
+            f"{one['achieved_rows_per_s']} rows/s, p50 "
+            f"{one['client_p50_ms']} ms, p99 {one['client_p99_ms']} ms")
+
+        # ---- (c) a kill under load ----
+        codes0 = _predict_codes(scrape(port_a, "phase 18c"))
+        victim = "w1"
+        killed = {}
+
+        def killer():
+            time.sleep(FLEET_KILL_AFTER_S)
+            os.kill(pids[victim], signal.SIGKILL)
+            killed["t"] = time.perf_counter()
+        th = threading.Thread(target=killer, daemon=True)
+        th.start()
+        res_c = load(port_a, LOADGEN_SECONDS, 181)
+        th.join(30)
+        summ_c = res_c.summary()
+        answered = sum(res_c.by_code.values()) + res_c.connect_errors
+        if "t" not in killed or answered != res_c.requests_sent:
+            raise AssertionError(f"phase 18c: {answered} terminal answers "
+                                 f"of {res_c.requests_sent} ({summ_c})")
+        while True:
+            w = workers(port_a, "phase 18c")["workers"][victim]
+            if w["state"] == "alive" and w["pid"] != pids[victim]:
+                break
+            if time.perf_counter() - killed["t"] > FLEET_RECOVERY_S:
+                raise AssertionError(f"phase 18c: {victim} not alive again "
+                                     f"within {FLEET_RECOVERY_S:.0f} s: {w}")
+            time.sleep(0.1)
+        t_rec = time.perf_counter() - killed["t"]
+        parsed = scrape(port_a, "phase 18c")
+        codes = _predict_codes(parsed) - codes0
+        total = sum(codes.values())
+        restarts = metric_sum(parsed, "lgbm_tpu_fleet_restarts_total",
+                              reason="exit")
+        retries = metric_sum(parsed, "lgbm_tpu_fleet_retries_total")
+        if fives(codes) > FLEET_5XX_SHARE * total or restarts < 1:
+            raise AssertionError(f"phase 18c: answers {dict(codes)}, "
+                                 f"restarts {restarts}")
+        slo_c = _http_json(port_a, "GET", "/slo", tag="phase 18c")
+        if slo_c.get("ok") is not True:
+            raise AssertionError(f"phase 18c: /slo after recovery: "
+                                 f"{json.dumps(slo_c['fleet'])[:1500]}")
+        log(f"[{card}] phase 18c (at {time.perf_counter() - t18:.1f} s) "
+            f"{victim} SIGKILLed {FLEET_KILL_AFTER_S} s into a "
+            f"{LOADGEN_SECONDS:.0f} s load: {res_c.requests_sent} requests "
+            f"all answered (client {summ_c['by_code']}, "
+            f"{summ_c['connect_errors']} connection errors), fleet answers "
+            f"{json.dumps({k: int(v) for k, v in codes.items()})}, "
+            f"{int(retries)} retries, {summ_c['achieved_qps']} requests/s, "
+            f"p99 {summ_c['client_p99_ms']} ms; alive again "
+            f"{t_rec:.2f} s after the kill; fleet_restarts_total"
+            f"{{reason=exit}} {int(restarts)}; /slo ok")
+
+        # ---- (d) a rolling deploy under load ----
+        v2_text = src.model_to_string(start_iteration=DEPLOY_START,
+                                      num_iteration=DEPLOY_TREES)
+        v2_path = put("headline_v2.txt", v2_text)
+        v2 = lt.Booster(model_str=v2_text)
+        codes0 = _predict_codes(scrape(port_a, "phase 18d"))
+        deploy = {}
+
+        def deployer():
+            time.sleep(1.0)
+            t = time.perf_counter()
+            status, text = _http(port_a, "POST", "/models",
+                                 {"name": "headline", "file": v2_path},
+                                 timeout=300.0)
+            deploy.update(status=status, report=json.loads(text),
+                          s=time.perf_counter() - t)
+        th = threading.Thread(target=deployer, daemon=True)
+        th.start()
+        loads, t0 = [], time.perf_counter()
+        while (th.is_alive() or time.perf_counter() - t0 < LOADGEN_SECONDS) \
+                and time.perf_counter() - t0 < 300.0:
+            loads.append(load(port_a, 2.5, 182 + len(loads)))
+        th.join(1.0)
+        sent = sum(r.requests_sent for r in loads)
+        bad_client = sum(v for r in loads for c, v in r.by_code.items()
+                         if c >= 500) + sum(r.connect_errors for r in loads)
+        codes = _predict_codes(scrape(port_a, "phase 18d")) - codes0
+        report = deploy.get("report", {})
+        if deploy.get("status") != 200 or \
+                report.get("verdict") != "deployed" or \
+                report.get("deployed") != [f"w{i}" for i in
+                                           range(FLEET_WORKERS)]:
+            raise AssertionError(f"phase 18d: the deploy answered "
+                                 f"{deploy.get('status')}: {report}")
+        if bad_client or fives(codes):
+            raise AssertionError(f"phase 18d: 5xx through the roll: client "
+                                 f"{bad_client}, fleet {dict(codes)}")
+        for k in SERVE_CHECK_ROWS:
+            want = v2.predict(rows[:k]).astype(np.float32)
+            for _ in range(FLEET_WORKERS):
+                if not np.array_equal(predict(port_a, rows[:k],
+                                              "phase 18d"), want):
+                    raise AssertionError(f"phase 18d: /predict of {k} rows "
+                                         f"differs from the new model's")
+        log(f"[{card}] phase 18d (at {time.perf_counter() - t18:.1f} s) "
+            f"rolling deploy of trees [{DEPLOY_START}, "
+            f"{DEPLOY_START + DEPLOY_TREES}) over {report['deployed']} in "
+            f"{deploy['s']:.2f} s under load ({sent} requests in "
+            f"{len(loads)} windows, fleet answers "
+            f"{json.dumps({k: int(v) for k, v in codes.items()})}): no "
+            f"5xx; then the new model's answers bitwise")
+        t_drain = {"a": _fleet_stop(proc_a, "phase 18f")}
+
+        # ---- (e) and (g): two fleets boot together ----
+        jdir = os.path.join(fdir, "publish")
+        names = [f"tenant-{k}" for k in range(ZOO_TENANTS)]
+        tenants = {nm: src.model_to_string(start_iteration=k * ZOO_STRIDE,
+                                           num_iteration=ZOO_TREES)
+                   for k, nm in enumerate(names)}
+        t0 = time.perf_counter()
+        proc_b, port_b, log_b = _fleet_start(
+            [model_path], [f"workers={FOLLOW_WORKERS}", "name=headline",
+                           f"publish_dir={jdir}"], os.path.join(fdir, "e"))
+        procs.append(proc_b)
+        proc_c, port_c, log_c = _fleet_start(
+            [put(f"{nm}.txt", t) for nm, t in tenants.items()],
+            [f"workers={PLACED_WORKERS}", "placement=hash"],
+            os.path.join(fdir, "g"))
+        procs.append(proc_c)
+        _fleet_wait(proc_b, port_b, log_b, "phase 18e")
+        _fleet_wait(proc_c, port_c, log_c, "phase 18g")
+        t_up2 = time.perf_counter() - t0
+
+        # ---- (e) the journal follow beside a trainer ----
+        Xq = rows[:FOLLOW_ROWS]
+        answers, stop = [], threading.Event()
+
+        def poller():
+            # from the moment every worker is anchored on the journal
+            while not stop.is_set():
+                try:
+                    table = workers(port_b, "phase 18e")["workers"]
+                    if all(w["acked_round"] is not None
+                           for w in table.values()):
+                        break
+                except (OSError, http.client.HTTPException,
+                        AssertionError):
+                    pass
+                time.sleep(0.05)
+            while not stop.is_set():
+                try:
+                    status, text = _http(port_b, "POST", "/predict",
+                                         {"rows": Xq.tolist()}, timeout=60)
+                except (OSError, http.client.HTTPException) as exc:
+                    answers.append((None, repr(exc)))
+                    continue
+                answers.append((status, np.asarray(
+                    json.loads(text)["predictions"], np.float32)
+                    if status == 200 else text[:300]))
+                time.sleep(0.02)
+        th = threading.Thread(target=poller, daemon=True)
+        th.start()
+        head = mode_params("headline")
+        hc.reset_launches()
+        bst, ivs, first = _intervals(torch, lambda cbs: lt.train(
+            {**head, "publish_dir": jdir, "publish_every": PUBLISH_EVERY},
+            p17["ds"], PUBLISH_ROUNDS, callbacks=cbs))
+        got = dict(hc.LAUNCHES)
+        missing = [k for k in ("hist_leaves_q8", "wave_row_update")
+                   if got[k] <= 0]
+        if missing:
+            raise AssertionError(f"phase 18e: the trainer did not launch "
+                                 f"{missing}")
+        final_text = bst.model_to_string()
+        del bst
+        t_train = time.perf_counter()
+        while True:
+            table = workers(port_b, "phase 18e")["workers"]
+            if all(w["acked_round"] == PUBLISH_ROUNDS
+                   for w in table.values()):
+                break
+            if time.perf_counter() - t_train > 60.0:
+                raise AssertionError(f"phase 18e: workers not at round "
+                                     f"{PUBLISH_ROUNDS}: {table}")
+            time.sleep(0.05)
+        t_head = time.perf_counter() - t_train
+        time.sleep(0.3)     # a few answers from the head
+        stop.set()
+        th.join(60)
+        parsed = scrape(port_b, "phase 18e")
+        behind = parsed.get("lgbm_tpu_fleet_model_rounds_behind", [])
+        if len(behind) != FOLLOW_WORKERS or any(v for _l, v in behind):
+            raise AssertionError(f"phase 18e: fleet_model_rounds_behind "
+                                 f"{behind}")
+        journal = DeltaJournal(jdir)
+        base_text, base_round, records = journal.chain()
+        refs = {base_round: lt.Booster(model_str=base_text).predict(Xq)}
+        for i, r in enumerate(records):
+            refs[r.round] = lt.Booster(model_str=model_to_string(
+                fold_chain(base_text, records[:i + 1]))).predict(Xq)
+        refs = {r: v.astype(np.float32) for r, v in refs.items()}
+        seen = collections.Counter()
+        for status, body in answers:
+            match = [r for r, v in refs.items()
+                     if status == 200 and np.array_equal(body, v)]
+            if not match:
+                raise AssertionError(f"phase 18e: an answer of no "
+                                     f"published round: {status} {body}")
+            seen[match[0]] += 1
+        want = lt.Booster(model_str=final_text).predict(Xq).astype(
+            np.float32)
+        for _ in range(FOLLOW_WORKERS):
+            if not np.array_equal(predict(port_b, Xq, "phase 18e"), want):
+                raise AssertionError("phase 18e: the head's answer is not "
+                                     "the final text's")
+        if not answers or not np.array_equal(answers[-1][1], want):
+            raise AssertionError(f"phase 18e: {len(answers)} answers, the "
+                                 f"last not the final text's")
+        pushes = {o: int(metric_sum(parsed,
+                                    "lgbm_tpu_fleet_delta_pushes_total",
+                                    outcome=o))
+                  for o in ("ok", "reanchor", "rejected", "error")}
+        rate = 1.0 / float(np.median(ivs))
+        log(f"[{card}] phase 18e (at {time.perf_counter() - t18:.1f} s) "
+            f"two fleets up together in {t_up2:.1f} s; headline x "
+            f"{PUBLISH_ROUNDS} rounds at {p17['ds'].num_data()} rows "
+            f"publishing every {PUBLISH_EVERY} beside {FOLLOW_WORKERS} "
+            f"serving workers (and {PLACED_WORKERS} idle): {rate:.4f} "
+            f"iterations/s (1 / the median round; 17a this run: without "
+            f"{p17['rates']['plain']['pooled']}, with "
+            f"{p17['rates']['publishing']['pooled']}), first round "
+            f"{first:.2f} s; launches {json.dumps(got)}; every worker at "
+            f"round {PUBLISH_ROUNDS} {t_head:.2f} s after the last round, "
+            f"rounds behind 0; {len(answers)} answers, by round "
+            f"{json.dumps(dict(sorted(seen.items())))}, each one published "
+            f"round's, the last the final text's; delta pushes "
+            f"{json.dumps(pushes)}")
+        t_drain["e"] = _fleet_stop(proc_b, "phase 18f")
+
+        # ---- (g) hash placement ----
+        table = workers(port_c, "phase 18g")
+        placed = table["placement"]["workers"]
+        owner = {nm: w for w, nms in placed.items() for nm in nms}
+        if sorted(owner) != names:
+            raise AssertionError(f"phase 18g: placement {placed}")
+        Xg = rows[:PLACED_ROWS]
+        solo = {nm: np.asarray(CompiledPredictor(t).predict(Xg), np.float32)
+                for nm, t in tenants.items()}
+        for nm in names:
+            if not np.array_equal(predict(port_c, Xg, "phase 18g", nm),
+                                  solo[nm]):
+                raise AssertionError(f"phase 18g: {nm}'s answer differs "
+                                     f"from its own predictor")
+        parsed = scrape(port_c, "phase 18g")
+        served = {nm: {w: metric_sum(parsed,
+                                     "lgbm_tpu_worker_serve_requests_total",
+                                     model=nm, worker=w) for w in placed}
+                  for nm in names}
+        for nm in names:
+            if served[nm][owner[nm]] < 1 or \
+                    sum(served[nm].values()) != served[nm][owner[nm]]:
+                raise AssertionError(f"phase 18g: {nm} owned by "
+                                     f"{owner[nm]} served {served[nm]}")
+        moved = names[0]
+        dead = owner[moved]
+        heir = next(w for w in placed if w != dead)
+        os.kill(table["workers"][dead]["pid"], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        interim = collections.Counter()
+        while True:
+            status, text = _http(port_c, "POST", "/predict",
+                                 {"model": moved, "rows": Xg.tolist()})
+            if status == 200:
+                break
+            interim[status] += 1
+            if time.perf_counter() - t_kill > FLEET_RECOVERY_S:
+                raise AssertionError(f"phase 18g: {moved} unanswered "
+                                     f"{FLEET_RECOVERY_S:.0f} s after its "
+                                     f"owner's kill: {interim}")
+            time.sleep(0.05)
+        t_moved = time.perf_counter() - t_kill
+        if not np.array_equal(np.asarray(json.loads(text)["predictions"],
+                                         np.float32), solo[moved]):
+            raise AssertionError(f"phase 18g: {moved}'s answer from "
+                                 f"{heir} differs from its own predictor")
+        parsed = scrape(port_c, "phase 18g")
+        by_heir = metric_sum(parsed, "lgbm_tpu_worker_serve_requests_total",
+                             model=moved, worker=heir)
+        if by_heir < 1:
+            raise AssertionError(f"phase 18g: {heir} did not serve "
+                                 f"{moved} after {dead}'s kill")
+        log(f"[{card}] phase 18g (at {time.perf_counter() - t18:.1f} s) "
+            f"placement=hash over {PLACED_WORKERS} workers: "
+            f"{json.dumps(placed)}; each tenant's {PLACED_ROWS}-row answer "
+            f"bitwise its CompiledPredictor's, served by its owner alone; "
+            f"{dead} SIGKILLed: {moved} answered by {heir} after "
+            f"{t_moved:.2f} s (interim answers {dict(interim)})")
+        t_drain["g"] = _fleet_stop(proc_c, "phase 18f")
+        log(f"[{card}] phase 18f SIGTERM rolling drains, exit 143 in "
+            f"{json.dumps({k: round(v, 2) for k, v in t_drain.items()})} s")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=FLEET_DRAIN_S)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+        for pid in worker_pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+    log(f"phase 18: {time.perf_counter() - t18:.1f} s")
     return got
 
 
@@ -5011,11 +5600,20 @@ def main(argv=None) -> int:
     stamp("phase 14b-c, serving and explanation")
 
     # ---- phase 17: the serving tier and continuous learning ----
-    for k, v in serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model,
-                              out_dir).items():
+    p17 = serving_phase(lt, torch, card, Xtr, ytr, Xte, serve_model,
+                        out_dir)
+    for k, v in p17["launches"].items():
         launches[k] += v
     torch.cuda.empty_cache()
     stamp("phase 17, serving tier and continuous learning")
+
+    # ---- phase 18: the serving fleet on the card ----
+    for k, v in fleet_phase(lt, torch, card, Xte, serve_model, p17,
+                            out_dir).items():
+        launches[k] += v
+    del p17
+    torch.cuda.empty_cache()
+    stamp("phase 18, the serving fleet")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,

@@ -2,8 +2,9 @@
 ``lightgbm_tpu/__main__.py``; LightGBM src/main.cpp:11).  Tasks: train /
 predict / refit / convert_model via ``key=value`` args, and the
 profiling verb ``python -m lightgbm_tpu_torch profile config=train.conf``
-(a ``torch.profiler`` capture).  The reference's serving, fleet and lint
-verbs raise ``NotImplementedError`` naming ROADMAP queue 1."""
+(a ``torch.profiler`` capture), the serving verb ``serve model.txt`` and
+the fleet verb ``serve-fleet model.txt workers=N``.  The reference's lint
+verbs raise ``NotImplementedError`` naming ROADMAP queue 1 item 12."""
 
 import sys
 

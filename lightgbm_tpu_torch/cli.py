@@ -15,10 +15,12 @@ The run takes the card unless the params name the CPU
 [key=value ...]`` (and ``task=serve input_model=...``) starts the HTTP
 server (``serve/server.py``).  The ``profile`` verb wraps a run in
 ``torch.profiler`` where the reference takes ``jax.profiler``, with the
-telemetry snapshot and the host span trace beside it.  The reference's
-``serve-fleet`` and ``lint-trace`` / ``lint-mem`` verbs raise
-``NotImplementedError`` naming ROADMAP queue 1: the serving fleet is
-item 11c, the program-contract lints item 12.
+telemetry snapshot and the host span trace beside it.  ``serve-fleet
+model.txt [workers=N key=value ...]`` starts the supervised serving
+fleet (``serve/fleet.py``): N ``serve`` workers behind one dispatcher.
+The reference's ``lint-trace`` / ``lint-mem`` verbs raise
+``NotImplementedError`` naming ROADMAP queue 1 item 12, the
+program-contract lints.
 """
 
 from __future__ import annotations
@@ -314,7 +316,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         # [key=value ...]
         return _serve(argv[1:])
     if argv and argv[0] in ("serve-fleet", "serve_fleet"):
-        _unported(argv[0], "11c: the serving fleet")
+        # supervised multi-worker fleet: python -m lightgbm_tpu_torch
+        # serve-fleet model.txt [workers=4 port=8080 ...]; the import is
+        # deferred as _serve's
+        from .serve.fleet import main as fleet_main
+        return fleet_main(argv[1:])
     if argv and argv[0] == "profile":
         # profiling verb: python -m lightgbm_tpu_torch profile config=...
         return run_profile(argv[1:])

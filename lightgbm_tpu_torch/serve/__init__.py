@@ -22,16 +22,21 @@ Port of ``lightgbm_tpu/serve``:
   (traffic-weighted LRU eviction, cold load-on-miss, per-tenant quotas,
   stacked cross-model dispatch);
 - :class:`ModelStats`: per-model serving counters;
+- :class:`FleetSupervisor`: N server processes behind one dispatcher
+  with crash-restart, a crash-loop circuit breaker, rolling drain and
+  rolling deploys, hash placement and the delta journal follow
+  (``python -m lightgbm_tpu_torch serve-fleet``); the workers share the
+  card, one CUDA context each, and the supervisor never touches it;
 - :mod:`.loadgen`: the load generator and the ``/metrics`` scrape
   helpers.
 
-Everything runs on ``cuda`` unless the caller asks for the CPU.  The
-fleet supervisor (``serve-fleet``) is ROADMAP queue 1 item 11c.
+Everything runs on ``cuda`` unless the caller asks for the CPU.
 """
 
 from .batcher import MicroBatcher
 from .compiler import (DenseExecutable, DenseLoweringError,
                        StackedExecutable, compile_ensemble, fallback_counts)
+from .fleet import FleetSupervisor
 from .predictor import SHAPE_BUCKETS, CompiledPredictor
 from .registry import ModelRegistry
 from .server import PredictionServer
@@ -41,4 +46,5 @@ from .zoo import ModelZoo
 __all__ = ["CompiledPredictor", "MicroBatcher", "ModelRegistry",
            "PredictionServer", "ModelStats", "SHAPE_BUCKETS",
            "DenseExecutable", "DenseLoweringError", "StackedExecutable",
-           "compile_ensemble", "fallback_counts", "ModelZoo"]
+           "compile_ensemble", "fallback_counts", "FleetSupervisor",
+           "ModelZoo"]

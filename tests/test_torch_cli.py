@@ -132,14 +132,27 @@ def test_subprocess_entry_point_writes_train_s_model(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [
-    ["serve-fleet", "model.txt"], ["serve_fleet", "model.txt"],
+    ["serve-fleet", "workers=2"], ["serve_fleet", "port=0"],
     ["lint-trace"], ["lint-mem"], ["lint_trace"], ["lint_mem"]])
 def test_unported_verbs_raise_naming_roadmap(argv):
-    """The verbs still to port raise naming their ROADMAP item (``serve``,
-    ``task=serve`` and ``profile telemetry_out=`` act now:
-    tests/test_torch_serve.py, tests/test_torch_flight.py)."""
-    item = "11c" if argv[0].startswith("serve") else "12"
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*item {item}"):
+    """The verbs still to port raise naming their ROADMAP item; the
+    fleet verb runs (``serve``, ``task=serve``, ``serve-fleet`` and
+    ``profile telemetry_out=`` act: tests/test_torch_serve.py,
+    tests/test_torch_fleet.py, tests/test_torch_flight.py), so given no
+    model file it fails as the reference's verb does, through
+    ``log_fatal`` with the reference's message but for the module."""
+    if argv[0].startswith("serve"):
+        from lightgbm_tpu.utils.log import LightGBMError as RefError
+        from lightgbm_tpu_torch.utils.log import LightGBMError
+        with pytest.raises(RefError) as ref_exc:
+            ref_main(argv)
+        with pytest.raises(LightGBMError) as port_exc:
+            port_main(argv)
+        assert "needs at least one model file" in str(port_exc.value)
+        assert str(port_exc.value) == str(ref_exc.value).replace(
+            "-m lightgbm_tpu ", "-m lightgbm_tpu_torch ")
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 12"):
         port_main(argv)
 
 

@@ -1721,3 +1721,45 @@ def test_stacked_zoo_batch_on_card_matches_tenants(cuda_device, tmp_path):
                 CompiledPredictor(path).predict(X[:4096]))
     finally:
         zoo.close()
+
+
+@pytest.mark.gpu
+def test_fleet_of_two_workers_on_card_matches_booster(cuda_device, tmp_path):
+    """A 2-worker ``FleetSupervisor`` on the card (each worker its own
+    CUDA context, the dispatcher none): /predict through the dispatcher
+    answers bitwise as an in-process ``Booster.predict`` on the card,
+    and both workers serve."""
+    import http.client
+    import json
+    import os
+    from lightgbm_tpu_torch.serve import FleetSupervisor
+    X, _, path = _serve_model(tmp_path, 4)
+    ref = lt.Booster(model_file=path)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    fleet = FleetSupervisor(
+        [path], workers=2, worker_env={"PYTHONPATH": repo},
+        probe_interval_s=0.25, startup_timeout_s=180.0,
+        run_dir=str(tmp_path / "fleet-run")).start()
+    try:
+        conn = http.client.HTTPConnection(fleet.host, fleet.port,
+                                          timeout=120)
+        for n in (1, 64, 4096, 1, 64, 4096):
+            conn.request("POST", "/predict",
+                         json.dumps({"rows": X[:n].tolist()}),
+                         {"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            assert resp.status == 200, body
+            np.testing.assert_array_equal(
+                np.asarray(body["predictions"], np.float32),
+                ref.predict(X[:n]).astype(np.float32))
+        conn.request("GET", "/models")
+        models = json.loads(conn.getresponse().read())
+        assert all(models[w]["model"]["device"].startswith("cuda")
+                   for w in ("w0", "w1")), models
+        conn.request("GET", "/stats")
+        stats = json.loads(conn.getresponse().read())
+        assert all(stats[w]["model"]["requests"] > 0
+                   for w in ("w0", "w1")), stats
+    finally:
+        fleet.shutdown()
