@@ -291,6 +291,28 @@ Phases (any failure exits non-zero and prints no result line):
    workers with phase 17c's 4 tenants: each answer bitwise the tenant's
    ``CompiledPredictor``, served by its owner in ``/workers``' placement
    table alone, and by the other worker once its owner is SIGKILLed.
+19. distributed training, after phase 18: 2 ranks of the port share the
+   card over gloo (``distributed.init(..., backend="gloo")``, each rank a
+   subprocess of this script with its own CUDA context and a timeout; a
+   hang kills the world and fails), on the main path's binned rows
+   (``save_binary`` once, loaded by each rank), phase 9's headline
+   configuration with round-half-up (the rank count then does not enter
+   the draws): (a) the data-parallel learner, 5.25M rows a rank,
+   ``--rounds`` rounds: the text the same on both ranks and byte for
+   byte a single-process card run of the same job, ``hist_leaves_q8``,
+   ``hist_single`` and ``wave_row_update`` launched on each rank,
+   iterations/s beside the single process's, each collective site's
+   calls and bytes a tree; (b) the same job exact for 2 rounds: the
+   single process's text (integer merge), ``hist_leaves`` launched; (c)
+   voting for 3 rounds, at top_k=14 (2k = F): (a)'s first trees; at
+   top_k=5: held-out AUC within 0.01 of (a)'s at 3 rounds; (d) the feature-parallel learner, exact, 1,048,576
+   rows, 63 leaves, 2 rounds: the text the same on both ranks,
+   predictions within 1e-5 of the single-process masked grower's; (e)
+   ``pre_partition``: each rank constructs its own half of the raw rows
+   and trains (a)'s job for 2 rounds: the text the same on both ranks,
+   held-out AUC logged.  The production layout (NCCL, one card per rank)
+   needs a card per rank: ``scripts/torch_dp_world.py --world 4`` runs
+   this phase so on four cards.
 
 Each training path runs with the launch counts set to 0 just before it
 and read just after; a kernel of the path that did not launch fails the
@@ -308,7 +330,8 @@ picks (written to ``leaf_traffic_<mode>.json`` under ``--out-dir``), and
 the share of each row update's rows whose leaf an active split takes;
 for the partitioned grower, one more iteration's single-leaf launches
 recorded (rows, start row, strides), replayed at the geometry's rule and
-timed one launch at a time (``single_traffic_partition.json``).
+timed one launch at a time (``single_traffic_partition.json``); for
+phase 19a, one iteration of rank 0 of the 2-rank world.
 
 The last two lines of standard output are the per-kernel JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or run from a
@@ -5364,6 +5387,339 @@ def fleet_phase(lt, torch, card, Xte, serve_model: str, p17: dict,
     return got
 
 
+# -- phase 19: distributed training, 2 ranks on the card ---------------------
+
+P19_FP_ROWS = 1_048_576
+P19_FP_LEAVES = 63
+P19_EXACT_ROUNDS = 2
+P19_VOTE_ROUNDS = 3
+P19_FP_ROUNDS = 2
+P19_PP_ROUNDS = 2
+P19_TIMEOUT = 420.0              # seconds a rank may take
+
+
+def p19_params(tag: str) -> dict:
+    """The job of phase 19's part ``tag``: phase 9's headline
+    configuration with round-half-up, under its learner."""
+    head = dict(mode_params("headline"), stochastic_rounding=False,
+                tree_learner="data")
+    return {"dp_q": head,
+            "dp_exact": dict(mode_params("exact"), tree_learner="data"),
+            "vote14": dict(head, tree_learner="voting", top_k=14),
+            "vote5": dict(head, tree_learner="voting", top_k=5),
+            "fp": dict(mode_params("exact"), tree_learner="feature",
+                       num_leaves=P19_FP_LEAVES),
+            "pp": dict(head, pre_partition=True)}[tag]
+
+
+def _p19_train(lt, torch, params, ds, rounds):
+    """Train and time: (booster, launches, total s, steady iterations/s)."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    ticks = []
+
+    def tick(env):
+        torch.cuda.synchronize()
+        ticks.append(time.perf_counter())
+
+    hc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bst = lt.train(dict(params), ds, rounds, callbacks=[tick])
+    steady = ((len(ticks) - 1) / (ticks[-1] - ticks[0])
+              if len(ticks) > 1 else float("nan"))
+    return bst, dict(hc.LAUNCHES), ticks[-1] - t0, steady
+
+
+def p19_profile(lt, torch, ds, rank: int) -> dict:
+    """``--profile``: one iteration of (a)'s job after a warm one; rank 0
+    under ``torch.profiler`` (its own device time: the other rank's
+    kernels share the card), rank 1 plain.  Returns rank 0's wall, device
+    busy seconds, device operations and top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    bst = lt.Booster(params=p19_params("dp_q"), train_set=ds)
+    bst.update()
+    torch.cuda.synchronize()
+    if rank:
+        bst.update()
+        torch.cuda.synchronize()
+        return {}
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        bst.update()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0))
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    top = sorted(kern, key=lambda e: -dev_us(e))[:8]
+    return {"wall": wall, "busy": sum(dev_us(e) for e in kern) / 1e6,
+            "ops": sum(e.count for e in kern),
+            "top": [(e.key[:60], dev_us(e) / 1e3, e.count) for e in top]}
+
+
+def p19_rank(rank: int, port: str, d: str, rounds: int,
+             profiled: bool = False, world: int = 2,
+             nccl: bool = False) -> int:
+    """One rank of phase 19's world (this script re-run with
+    ``--p19-rank``): every part's text, launches, rate and collective
+    tallies under ``d``.  The ranks share card 0 over gloo, or (``nccl``)
+    rank r takes card r."""
+    import torch
+    sys.path.insert(0, HERE)
+    import lightgbm_tpu_torch as lt
+    lt.distributed.init(coordinator_address="127.0.0.1:" + port,
+                        num_processes=world, process_id=rank,
+                        local_device_ids=[rank if nccl else 0],
+                        backend=None if nccl else "gloo")
+    rec = {}
+
+    def run(tag, ds, n_rounds):
+        bst, got, secs, steady = _p19_train(lt, torch, p19_params(tag), ds,
+                                            n_rounds)
+        with open(os.path.join(d, f"{tag}_{rank}.txt"), "w") as fh:
+            fh.write(bst.model_to_string())
+        rec[tag] = {"launches": got, "seconds": secs, "steady": steady,
+                    "rounds": n_rounds, "collectives":
+                    bst.train_record.snapshot()["collectives_traced"]}
+        print(f"rank {rank} {tag}: {n_rounds} rounds in {secs:.3f} s",
+              flush=True)
+
+    t0 = time.perf_counter()
+    ds = lt.Dataset.load_binary(os.path.join(d, "main.bin"))
+    rec["load_seconds"] = time.perf_counter() - t0
+    run("dp_q", ds, rounds)
+    if profiled:
+        rec["profile"] = p19_profile(lt, torch, ds, rank)
+    run("dp_exact", ds, P19_EXACT_ROUNDS)
+    run("vote14", ds, P19_VOTE_ROUNDS)
+    run("vote5", ds, P19_VOTE_ROUNDS)
+    del ds
+    X = np.load(os.path.join(d, "X.npy"), mmap_mode="r")
+    y = np.load(os.path.join(d, "y.npy"))
+    run("fp", lt.Dataset(np.asarray(X[:P19_FP_ROWS]), y[:P19_FP_ROWS],
+                         params={"max_bin": MAX_BIN}), P19_FP_ROUNDS)
+    lo, hi = (rank * X.shape[0] // world,
+              (rank + 1) * X.shape[0] // world)
+    t0 = time.perf_counter()
+    ds_pp = lt.Dataset(np.asarray(X[lo:hi]), y[lo:hi],
+                       params={"max_bin": MAX_BIN, "pre_partition": True})
+    ds_pp.construct()
+    rec["pp_construct_seconds"] = time.perf_counter() - t0
+    run("pp", ds_pp, P19_PP_ROUNDS)
+    with open(os.path.join(d, f"rank_{rank}.json"), "w") as fh:
+        json.dump(rec, fh)
+    lt.distributed.shutdown()
+    return 0
+
+
+def _tree_blocks(text: str) -> list:
+    """A model text's tree blocks, in order."""
+    return text[text.index("Tree="):text.index("end of trees")].split(
+        "Tree=")[1:]
+
+
+def distributed_phase(lt, torch, card, Xtr, ytr, Xte, yte, rounds: int,
+                      out_dir: str, profiled: bool = False, world: int = 2,
+                      nccl: bool = False) -> dict:
+    """Phase 19 (module docstring): the single-process runs of each
+    part's job first, then the world of ``world`` ranks (sharing card 0
+    over gloo, or one card each over NCCL:
+    ``scripts/torch_dp_world.py``); returns the launches of both."""
+    from lightgbm_tpu_torch.ops import histogram_cuda as hc
+    launches = {k: 0 for k in hc.LAUNCHES}
+    d = os.path.join(out_dir, "p19")
+    os.makedirs(d, exist_ok=True)
+    t0 = time.perf_counter()
+    ds = lt.Dataset(Xtr, ytr, params={"max_bin": MAX_BIN})
+    ds.construct()
+    ds.save_binary(os.path.join(d, "main.bin"))
+    np.save(os.path.join(d, "X.npy"), Xtr)
+    np.save(os.path.join(d, "y.npy"), ytr)
+    log(f"phase 19 set-up: main path binned and saved, raw rows saved, "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+    single = {}
+    for tag, dset, n_rounds in (("dp_q", ds, rounds),
+                                ("dp_exact", ds, P19_EXACT_ROUNDS)):
+        bst, got, secs, steady = _p19_train(lt, torch, p19_params(tag),
+                                            dset, n_rounds)
+        single[tag] = (bst.model_to_string(), steady,
+                       auc(yte, bst.predict(Xte)))
+        for k, v in got.items():
+            launches[k] += v
+        log(f"[{card}] phase 19 single process {tag}: {n_rounds} rounds in "
+            f"{secs:.3f} s, steady {steady:.4f} iterations/s")
+    ds_fp = lt.Dataset(Xtr[:P19_FP_ROWS], ytr[:P19_FP_ROWS],
+                       params={"max_bin": MAX_BIN})
+    masked = dict(p19_params("fp"), tree_learner="serial",
+                  histogram_pool_size=1e-6)
+    bst, got, secs, steady = _p19_train(lt, torch, masked, ds_fp,
+                                        P19_FP_ROUNDS)
+    if bst._gbdt.learner.grow_mode != "masked":
+        raise AssertionError("phase 19d: the single-process run did not "
+                             "take the masked grower")
+    single["fp"] = (bst.model_to_string(), steady, None)
+    fp_pred = bst.predict(Xte)
+    for k, v in got.items():
+        launches[k] += v
+    del ds, ds_fp, bst
+    torch.cuda.empty_cache()
+
+    port = str(_free_port())
+    ranks = range(world)
+    how = ("NCCL, a card each" if nccl else "gloo on the card")
+    logs = [open(os.path.join(d, f"rank_{r}.log"), "w") for r in ranks]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--p19-rank", str(r), "--p19-port", port, "--p19-dir", d,
+         "--rounds", str(rounds), "--p19-world", str(world)] +
+        (["--profile"] if profiled else []) + (["--p19-nccl"] if nccl
+                                               else []),
+        cwd=HERE, stdout=logs[r], stderr=subprocess.STDOUT) for r in ranks]
+    try:
+        for p in procs:
+            left = P19_TIMEOUT - (time.perf_counter() - t0)
+            p.wait(timeout=max(left, 1.0))
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.wait()
+        raise AssertionError(f"phase 19: a rank hung past {P19_TIMEOUT} s; "
+                             f"the world was killed")
+    finally:
+        for fh in logs:
+            fh.close()
+    t_world = time.perf_counter() - t0
+    for r, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(d, f"rank_{r}.log")) as fh:
+                tail = fh.read()[-3000:]
+            raise AssertionError(f"phase 19: rank {r} exited "
+                                 f"{p.returncode}:\n{tail}")
+    recs = []
+    for r in ranks:
+        with open(os.path.join(d, f"rank_{r}.json")) as fh:
+            recs.append(json.load(fh))
+    texts = {}
+    for tag in ("dp_q", "dp_exact", "vote14", "vote5", "fp", "pp"):
+        t = []
+        for r in ranks:
+            with open(os.path.join(d, f"{tag}_{r}.txt")) as fh:
+                t.append(fh.read())
+        if any(x != t[0] for x in t):
+            raise AssertionError(f"phase 19 {tag}: the ranks wrote "
+                                 "different text")
+        texts[tag] = t[0]
+        for r in ranks:
+            for k, v in recs[r][tag]["launches"].items():
+                launches[k] += v
+    log(f"phase 19 world: {world} ranks over {how}, every part in "
+        f"{t_world:.1f} s (load_binary {recs[0]['load_seconds']:.1f} s, "
+        f"pre_partition construct {recs[0]['pp_construct_seconds']:.1f} s)")
+
+    def need(tag, names):
+        for r in ranks:
+            got = recs[r][tag]["launches"]
+            missing = [k for k in names if got[k] <= 0]
+            if missing:
+                raise AssertionError(f"phase 19 {tag}: {missing} not "
+                                     f"launched on rank {r}")
+
+    def rate(tag):
+        return min(recs[r][tag]["steady"] for r in ranks)
+
+    def per_tree(tag):
+        """Each collective site's calls and bytes a tree, rank 0."""
+        rr = recs[0][tag]
+        return {site: [round(v["count"] / rr["rounds"], 1),
+                       round(v["bytes"] / rr["rounds"])]
+                for site, v in sorted(rr["collectives"].items())}
+
+    # (a) data-parallel, quantized headline
+    need("dp_q", ("hist_leaves_q8", "hist_single", "wave_row_update"))
+    if texts["dp_q"] != single["dp_q"][0]:
+        raise AssertionError("phase 19a: the ranks' text is not the single "
+                             "process's")
+    auc_q = auc(yte, lt.Booster(model_str=texts["dp_q"]).predict(Xte))
+    log(f"[{card}] phase 19a data-parallel quantized headline, {world} "
+        f"ranks x {len(Xtr) // world} rows, {rounds} rounds: text "
+        f"byte-identical on every rank and to the single process; steady "
+        f"{rate('dp_q'):.4f} iterations/s ({world} ranks, {how}) beside "
+        f"{single['dp_q'][1]:.4f} (one process); held-out AUC "
+        f"{auc_q:.6f}; launches rank 0 "
+        f"{json.dumps({k: v for k, v in recs[0]['dp_q']['launches'].items() if v})}"
+        f"; collective [calls, bytes] a tree "
+        f"{json.dumps(per_tree('dp_q'))}")
+    prof = recs[0].get("profile")
+    if prof:
+        log(f"[{card}] profile phase 19a, rank 0 of {world}: one "
+            f"iteration {prof['wall']:.4f} s wall, its device busy "
+            f"{prof['busy']:.4f} s ({100 * prof['busy'] / prof['wall']:.1f}"
+            f"%), {prof['ops']} device operations")
+        for key, ms, count in prof["top"]:
+            log(f"    {key:60s} {ms:9.3f} ms  x{count}")
+    # (b) exact
+    need("dp_exact", ("hist_leaves", "wave_row_update"))
+    if texts["dp_exact"] != single["dp_exact"][0]:
+        raise AssertionError("phase 19b: the exact ranks' text is not the "
+                             "single process's")
+    log(f"[{card}] phase 19b data-parallel exact, {P19_EXACT_ROUNDS} "
+        f"rounds: text byte-identical to the single process (int64 "
+        f"merge); steady {rate('dp_exact'):.4f} iterations/s beside "
+        f"{single['dp_exact'][1]:.4f}; collective [calls, bytes] a tree "
+        f"{json.dumps(per_tree('dp_exact'))}")
+    # (c) voting
+    need("vote14", ("hist_leaves_q8", "wave_row_update"))
+    if _tree_blocks(texts["vote14"]) != \
+            _tree_blocks(texts["dp_q"])[:P19_VOTE_ROUNDS]:
+        raise AssertionError("phase 19c: voting at 2k = F grew other trees "
+                             "than the data-parallel learner")
+    auc_v = auc(yte, lt.Booster(model_str=texts["vote5"]).predict(Xte))
+    auc_q3 = auc(yte, lt.Booster(model_str=texts["dp_q"]).predict(
+        Xte, num_iteration=P19_VOTE_ROUNDS))
+    log(f"[{card}] phase 19c voting, {P19_VOTE_ROUNDS} rounds: top_k=14 "
+        f"grew (a)'s first trees, steady {rate('vote14'):.4f} "
+        f"iterations/s; top_k=5: held-out AUC {auc_v:.6f} against (a)'s "
+        f"{auc_q3:.6f} at {P19_VOTE_ROUNDS} rounds, steady "
+        f"{rate('vote5'):.4f} iterations/s; collective [calls, bytes] a "
+        f"tree {json.dumps(per_tree('vote5'))}")
+    if not abs(auc_v - auc_q3) <= 0.01:
+        raise AssertionError(f"phase 19c: voting at top_k=5 AUC {auc_v} is "
+                             f"not within 0.01 of {auc_q3}")
+    # (d) feature-parallel
+    need("fp", ("hist_single",))
+    diff = float(np.max(np.abs(
+        lt.Booster(model_str=texts["fp"]).predict(Xte) - fp_pred)))
+    log(f"[{card}] phase 19d feature-parallel exact, {P19_FP_ROWS} rows, "
+        f"{P19_FP_LEAVES} leaves, {P19_FP_ROUNDS} rounds: text identical on "
+        f"every rank; predictions within {diff:.3g} of the single-process "
+        f"masked grower's; steady {rate('fp'):.4f} iterations/s beside "
+        f"{single['fp'][1]:.4f}; collective [calls, bytes] a tree "
+        f"{json.dumps(per_tree('fp'))}")
+    if not diff <= 1e-5:
+        raise AssertionError(f"phase 19d: predictions {diff} from the "
+                             "single process's")
+    # (e) pre_partition
+    need("pp", ("hist_leaves_q8", "wave_row_update"))
+    auc_p = auc(yte, lt.Booster(model_str=texts["pp"]).predict(Xte))
+    log(f"[{card}] phase 19e pre_partition, each rank constructs its "
+        f"{len(Xtr) // world} rows, {P19_PP_ROUNDS} rounds: text identical "
+        f"on every rank; held-out AUC {auc_p:.6f}; steady {rate('pp'):.4f} "
+        f"iterations/s")
+    if not auc_p > 0.6:
+        raise AssertionError(f"phase 19e: held-out AUC {auc_p} is no better "
+                             "than chance")
+    for name in ("X.npy", "main.bin"):
+        os.unlink(os.path.join(d, name))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5383,7 +5739,20 @@ def main(argv=None) -> int:
     ap.add_argument("--out-dir", default=os.path.join("build", "smoke"),
                     help="where models, the build log and profiles go "
                          "(relative to the checkout)")
+    # phase 19's rank processes (this script re-run by phase 19)
+    ap.add_argument("--p19-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--p19-port", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--p19-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--p19-world", type=int, default=2,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--p19-nccl", action="store_true",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    if args.p19_rank is not None:
+        return p19_rank(args.p19_rank, args.p19_port, args.p19_dir,
+                        args.rounds, args.profile, args.p19_world,
+                        args.p19_nccl)
 
     import torch
     if not torch.cuda.is_available():
@@ -5614,6 +5983,16 @@ def main(argv=None) -> int:
     del p17
     torch.cuda.empty_cache()
     stamp("phase 18, the serving fleet")
+
+    # ---- phase 19: distributed training, 2 ranks on the card ----
+    t19 = time.perf_counter()
+    for k, v in distributed_phase(lt, torch, card, Xtr, ytr, Xte, yte,
+                                  args.rounds, out_dir,
+                                  args.profile).items():
+        launches[k] += v
+    torch.cuda.empty_cache()
+    log(f"phase 19: {time.perf_counter() - t19:.1f} s")
+    stamp("phase 19, distributed training")
 
     # ---- phase 10: categorical features, EFB and CSR input ----
     for k, v in categorical_phase(lt, torch, card, X, logit, args.rows,

@@ -28,10 +28,12 @@ model registry and zoo; ``python -m lightgbm_tpu_torch serve``), the
 continuous-learning lane (``publish``, ``train(publish_dir=...)``),
 admission control and fault points (``resilience``) and telemetry
 (``telemetry``: metrics, the train record, the flight recorder, the SLO
-engine, Prometheus export).
+engine, Prometheus export), and distributed training over
+``torch.distributed`` (``distributed.init``; the data-, voting- and
+feature-parallel learners of ``parallel``, ``pre_partition`` ingest).
 """
 
-from . import capi, ingest, plotting, resilience, telemetry
+from . import capi, distributed, ingest, plotting, resilience, telemetry
 from .basic import Booster
 from .callback import early_stopping, print_evaluation, record_evaluation
 from .dataset import Dataset, DatasetCorruptError
@@ -49,7 +51,8 @@ __all__ = ["train", "cv", "CVBooster", "train_many", "ManyBooster",
            "CheckpointError", "TrainingPreempted", "DatasetCorruptError",
            "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
            "early_stopping", "print_evaluation", "record_evaluation",
-           "capi", "ingest", "plotting", "resilience", "telemetry",
+           "capi", "distributed", "ingest", "plotting", "resilience",
+           "telemetry",
            "StreamedDataset",
            "train_streamed", "plot_importance", "plot_metric", "plot_tree",
            "plot_split_value_histogram", "create_tree_digraph"]

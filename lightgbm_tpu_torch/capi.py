@@ -1028,8 +1028,8 @@ def LGBM_NetworkInit(machines: str, local_listen_port: int,
                      listen_time_out: int, num_machines: int):
     if num_machines > 1:
         raise NotImplementedError(
-            "multi-machine training is not ported to lightgbm_tpu_torch "
-            "yet (ROADMAP queue 1 item 10)")
+            "socket meshes are replaced by torch.distributed: call "
+            "lightgbm_tpu_torch.distributed.init(...) per process instead")
     log_warning("LGBM_NetworkInit with one machine is a no-op")
     return 0, None
 
@@ -1043,13 +1043,17 @@ def LGBM_NetworkFree():
 def LGBM_NetworkInitWithFunctions(num_machines: int, rank: int,
                                   reduce_scatter_ext_fun=None,
                                   allgather_ext_fun=None):
-    """External-collective bootstrap (c_api.h:1293).  The reference lets
+    """External-collective bootstrap (c_api.h:1293).  LightGBM lets
     MPI-like runtimes inject reduce-scatter/allgather function pointers;
-    multi-machine training is ROADMAP queue 1 item 10 of the port."""
+    the port's collectives are torch.distributed's, and multi-process
+    setups use ``lightgbm_tpu_torch.distributed.init``, which takes the
+    same degrees of freedom (rank, world size), as the reference refuses
+    these (lightgbm_tpu/capi.py:1000-1016)."""
     if num_machines > 1:
         raise NotImplementedError(
-            "multi-machine training is not ported to lightgbm_tpu_torch "
-            "yet (ROADMAP queue 1 item 10)")
+            "external collective functions are replaced by "
+            "torch.distributed collectives: call "
+            "lightgbm_tpu_torch.distributed.init(...) per process instead")
     return 0, None
 
 

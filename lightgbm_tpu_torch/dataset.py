@@ -14,8 +14,12 @@ bundling shrinks the matrix, the device copy holds one column per bundle.
 Under ``linear_tree`` the raw used columns stay too, in f32 (``raw_used``,
 dense input only), forced bin bounds (``forcedbins_filename``) and the
 binary dataset cache (:meth:`Dataset.save_binary` / ``load_binary``,
-the reference's file format).  Pre-partitioned multi-process ingest is a
-later slice (ROADMAP queue 1).  The device copy is the FEATURE-MAJOR
+the reference's file format).  Pre-partitioned multi-process ingest
+(``pre_partition`` after ``distributed.init``; reference dataset.py
+:156-230, :391-435): each process constructs only its own rows, the bin
+finding summaries (or a sparse input's sampled nonzeros) are gathered so
+every rank derives the same mappers, and the labels, weights and init
+scores are gathered across ranks.  The device copy is the FEATURE-MAJOR
 ``(G, N_pad)`` tensor the histogram and row-update kernels stream (G =
 features, or bundles under EFB), uint8 codes, or uint16 when some feature
 has more than 256 bins (``max_bin`` > 255), rows padded with zeros to the
@@ -32,7 +36,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .binning import BinMapper, bin_matrix, find_bin
+from .binning import BinMapper, bin_matrix, find_bin, find_bin_from_summary
 from .config import Config
 from .utils.log import log_info
 
@@ -156,6 +160,7 @@ class Dataset:
         self._group_arg = group
         self._init_score_arg = init_score
         self.constructed = False
+        self.distributed_rows = False  # a pre_partition shard (construct)
         self.bin_mappers: List[BinMapper] = []
         self.X_binned: Optional[np.ndarray] = None   # (N, F or G) uint8/16
         self.num_bins_per_feature: Optional[np.ndarray] = None
@@ -186,10 +191,43 @@ class Dataset:
                              "per-leaf linear fits read raw feature "
                              "values); densify or disable linear_tree")
 
+        # pre-partitioned multi-process ingest (reference dataset.py
+        # :156-230; LightGBM dataset_loader.cpp:1040-1130): this process
+        # holds only ITS rows; the bin-finding summaries are gathered so
+        # every rank derives identical mappers
+        from . import distributed as _dist
+        dist_rows = (bool(cfg.pre_partition) and _dist.is_initialized()
+                     and _dist.process_count() > 1
+                     and self.reference is None)
+        self.distributed_rows = dist_rows
+        if dist_rows and self._group_arg is not None:
+            raise ValueError(
+                "pre_partition cannot shard query/group data (queries "
+                "must not straddle partitions); drop pre_partition or "
+                "the group argument")
         rng = np.random.RandomState(cfg.data_random_seed)
-        sample_idx = sample_row_indices(n, int(cfg.bin_construct_sample_cnt),
-                                        cfg.data_random_seed, rng=rng)
+        sample_cnt = int(cfg.bin_construct_sample_cnt)
+        if dist_rows:
+            sample_cnt = max(1, sample_cnt // _dist.process_count())
+        sample_idx = sample_row_indices(n, sample_cnt, cfg.data_random_seed,
+                                        rng=rng)
         sample_cnt = len(sample_idx)
+        n_total = n
+        dist_sketch = dist_sparse_cols = None
+        if dist_rows:
+            n_total = int(_dist.allgather_host(
+                np.asarray([n], np.int64)).sum())
+            if sparse:
+                dist_sparse_cols = self._gather_sparse_samples(
+                    raw, f, sample_cnt, n_total, rng)
+            else:
+                # per-rank per-feature SUMMARIES gathered and merged in
+                # rank order (ingest/sketch.py's wire form), finalized
+                # through the same find_bin_from_summary
+                from .ingest.sketch import BinningSketch
+                dist_sketch = BinningSketch(f, cat_indices)
+                dist_sketch.update(np.asarray(raw[sample_idx], np.float64))
+                dist_sketch.allgather_merge()
         if self.reference is not None:
             ref = self.reference
             if not ref.constructed:
@@ -204,7 +242,23 @@ class Dataset:
             forced_bins = self._load_forced_bins(cfg)
             self.bin_mappers = []
             for j in range(f):
-                if sparse:
+                if dist_sketch is not None:
+                    summary = dist_sketch.summary(j)
+                    filt = max(1, int(cfg.min_data_in_leaf *
+                                      summary.total_cnt /
+                                      max(1, n_total))) \
+                        if cfg.feature_pre_filter else 0
+                    self.bin_mappers.append(find_bin_from_summary(
+                        summary, cfg.max_bin,
+                        min_data_in_bin=cfg.min_data_in_bin,
+                        use_missing=cfg.use_missing,
+                        zero_as_missing=cfg.zero_as_missing,
+                        forced_bounds=forced_bins.get(j),
+                        pre_filter_cnt=filt))
+                    continue
+                if dist_sparse_cols is not None:
+                    col_sample = dist_sparse_cols[j]
+                elif sparse:
                     # sampled nonzeros + proportional implied zeros (the
                     # reference's sparse sample, dataset.py:278-290; the
                     # shared generator keeps its draws in step)
@@ -225,7 +279,7 @@ class Dataset:
                 # min_data_in_leaf by the sample fraction
                 # (dataset_loader.cpp filter_cnt); 0 disables it
                 filt = max(1, int(cfg.min_data_in_leaf * len(col_sample) /
-                                  max(1, n))) \
+                                  max(1, n_total))) \
                     if cfg.feature_pre_filter else 0
                 self.bin_mappers.append(find_bin(
                     col_sample, max_bin=cfg.max_bin,
@@ -276,11 +330,98 @@ class Dataset:
         # (reference dataset.py:343-351)
         self.raw_used = (np.ascontiguousarray(raw[:, used], np.float32)
                          if cfg.linear_tree else None)
+        if dist_rows:
+            n = self._finalize_distributed_rows(n)
         self._set_metadata(n)
         self.constructed = True
         if self.free_raw_data:
             self.data = None
         return self
+
+    @staticmethod
+    def _gather_sparse_samples(raw, f: int, sample_cnt: int, n_total: int,
+                               rng) -> list:
+        """A pre_partition shard's sparse bin-finding samples (reference
+        dataset.py:190-230): each column's sampled NONZEROS gathered flat
+        in rank order, plus the global nonzero counts, so every rank
+        derives the same implied zero fraction; the raw shard never leaves
+        its process."""
+        from . import distributed as _dist
+        vals_list, lens_loc, nnz_loc = [], [], []
+        for j in range(f):
+            lo, hi = raw.indptr[j], raw.indptr[j + 1]
+            vals = np.asarray(raw.data[lo:hi], np.float64)
+            if len(vals) > sample_cnt:
+                vals = vals[np.sort(rng.choice(len(vals), sample_cnt,
+                                               False))]
+            vals_list.append(vals)
+            lens_loc.append(len(vals))
+            nnz_loc.append(hi - lo)
+        flat_all = _dist.allgather_host(
+            np.concatenate(vals_list) if vals_list
+            else np.zeros(0, np.float64))
+        lens_all = _dist.allgather_host(
+            np.asarray(lens_loc, np.int64)).reshape(-1, f)
+        nnz_glob = _dist.allgather_host(
+            np.asarray(nnz_loc, np.int64)).reshape(-1, f).sum(axis=0)
+        rank_off = np.concatenate([[0], np.cumsum(lens_all.sum(axis=1))])
+        col_off = np.cumsum(np.concatenate(
+            [np.zeros((len(lens_all), 1), np.int64), lens_all], axis=1),
+            axis=1)
+        cols = []
+        for j in range(f):
+            vals = np.concatenate(
+                [flat_all[rank_off[r] + col_off[r, j]:
+                          rank_off[r] + col_off[r, j + 1]]
+                 for r in range(len(lens_all))])
+            zfrac = 1.0 - nnz_glob[j] / max(n_total, 1)
+            nz = int(round(len(vals) * zfrac / max(1e-9, 1 - zfrac))) \
+                if zfrac < 1.0 else sample_cnt
+            nz = min(nz, sample_cnt * max(len(lens_all), 1))
+            cols.append(np.concatenate([vals, np.zeros(nz)]))
+        return cols
+
+    def _finalize_distributed_rows(self, n_local: int) -> int:
+        """Pad the LOCAL binned shard to the ranks' longest and gather the
+        (small) metadata across processes (reference dataset.py:391-435);
+        the feature matrix never leaves this process.  Padding rows carry
+        zero weight, and the learners mask them out of every tree.
+        Returns the global row count (the padded shard length times the
+        world size)."""
+        from . import distributed as _dist
+        lens = _dist.allgather_host(np.asarray([n_local], np.int64)).ravel()
+        pad_to = int(lens.max())
+        pad = pad_to - n_local
+        if pad:
+            self.X_binned = np.pad(self.X_binned, ((0, pad), (0, 0)))
+            if self.raw_used is not None:
+                self.raw_used = np.pad(self.raw_used, ((0, pad), (0, 0)))
+
+        def padded(a, fill=0.0):
+            a = np.asarray(a, np.float64).ravel()
+            if len(a) != n_local:
+                raise ValueError(f"metadata length {len(a)} != local rows "
+                                 f"{n_local} under pre_partition")
+            return np.concatenate([a, np.full(pad, fill, np.float64)])
+
+        lab = np.zeros(n_local) if self._label_arg is None \
+            else np.asarray(self._label_arg, np.float64).ravel()
+        w = np.ones(n_local) if self._weight_arg is None \
+            else np.asarray(self._weight_arg, np.float64).ravel()
+        self._label_arg = _dist.allgather_host(padded(lab))
+        self._weight_arg = _dist.allgather_host(padded(w))
+        if self._init_score_arg is not None:
+            self._init_score_arg = _dist.allgather_host(
+                padded(self._init_score_arg))
+        self._dist_valid_local = np.concatenate(
+            [np.ones(n_local, np.float32), np.zeros(pad, np.float32)])
+        self._dist_pad_to = pad_to
+        self._dist_global_rows = pad_to * _dist.process_count()
+        log_info(f"pre_partition: rank {_dist.process_index()} holds "
+                 f"{n_local} rows (padded {pad_to}); global "
+                 f"{self._dist_global_rows} across "
+                 f"{_dist.process_count()} processes")
+        return self._dist_global_rows
 
     @staticmethod
     def _load_forced_bins(cfg) -> Dict[int, list]:
@@ -469,6 +610,8 @@ class Dataset:
 
     def num_data(self) -> int:
         self._check_constructed()
+        if getattr(self, "distributed_rows", False):
+            return int(self._dist_global_rows)
         return int(self.X_binned.shape[0])
 
     def num_feature(self) -> int:

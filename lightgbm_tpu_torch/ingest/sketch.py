@@ -1,8 +1,7 @@
 """Streaming sketch binning: one-pass mergeable per-feature summaries.
 
-Copy of ``lightgbm_tpu/ingest/sketch.py``; the one-process form of its
-distributed merge (ROADMAP queue 1 item 10 brings the multi-process
-one).  The analog of LightGBM's sampled bin finding over streamed
+Copy of ``lightgbm_tpu/ingest/sketch.py``, its distributed merge over
+``distributed.allgather_host``.  The analog of LightGBM's sampled bin finding over streamed
 input (reference: src/io/dataset_loader.cpp:902 ``SampleTextDataFromFile``
 feeding ``ConstructBinMappersFromTextData`` while ``pipeline_reader.h``
 streams the file, PAPER.md layers 0/3): a :class:`BinningSketch` ingests
@@ -130,17 +129,30 @@ class BinningSketch:
         return sk
 
     def allgather_merge(self) -> "BinningSketch":
-        """Merge this rank's sketch with every other process's (the
-        reference's host allgather of the serialized summaries, merged in
-        rank order).  A no-op in one process, as in the reference; the
-        multi-process merge comes with distributed training."""
-        import torch.distributed as tdist
-        if not (tdist.is_available() and tdist.is_initialized()) or \
-                tdist.get_world_size() == 1:
+        """Merge this rank's sketch with every other process's (host
+        allgather of the serialized summaries, merged in rank order) —
+        the distributed-binning collective.  No-op single-process."""
+        from .. import distributed as _dist
+        if not _dist.is_initialized() or _dist.process_count() == 1:
             return self
-        raise NotImplementedError(
-            "the multi-process sketch merge is not ported: it rides the "
-            "distributed host allgather of ROADMAP queue 1 item 10")
+        flat, layout = self.serialize()
+        # the host allgather carries every dtype bit for bit
+        sizes = _dist.allgather_host(np.asarray([len(flat)], np.int64))
+        flats = _dist.allgather_host(flat)
+        layouts = _dist.allgather_host(layout.reshape(-1)).reshape(
+            -1, self.num_features, 3)
+        merged: Optional[BinningSketch] = None
+        off = 0
+        for r in range(len(sizes)):
+            part = BinningSketch.deserialize(
+                flats[off:off + int(sizes[r])], layouts[r],
+                [j for j, c in enumerate(self._is_cat) if c])
+            off += int(sizes[r])
+            merged = part if merged is None else merged.merge(part)
+        assert merged is not None
+        self._summaries = merged._summaries
+        self.rows_seen = merged.rows_seen
+        return self
 
     # -- finalize ------------------------------------------------------------
     def finalize(self, *, max_bin: int, min_data_in_bin: int = 3,

@@ -25,9 +25,13 @@ unchanged; with ``tpu_ingest_mode=chunked`` ``engine.train`` hands the
 dataset to ``ingest/train.py``, whose grower accumulates histograms chunk
 by chunk within the ``ingest/chunk_pipeline`` budget declared below.
 
-Pre-partitioned multi-process streaming (the reference's
-``pre_partition`` route) comes with distributed training (ROADMAP queue 1
-item 10).
+Pre-partitioned multi-process streaming (``pre_partition`` after
+``distributed.init``; reference stream.py:137-160, :189-195, :262-270):
+each process streams only ITS shard's source, the per-rank sketches are
+merged over the host allgather (``BinningSketch.allgather_merge``) so
+every rank derives the same mappers, and the constructed shard feeds the
+in-core data- or voting-parallel learner like a pre-partitioned
+``Dataset``.
 """
 
 from __future__ import annotations
@@ -150,12 +154,27 @@ class StreamedDataset(Dataset):
             [f"Column_{i}" for i in range(f)]
         self.efb = None
         self.raw_used = None
+        # pre-partitioned multi-process streaming: each process streams
+        # only ITS shard; the per-rank sketches merge over the host
+        # allgather, so every rank derives identical mappers while no
+        # process streams another's rows
+        from .. import distributed as _dist
+        dist_rows = (bool(cfg.pre_partition) and _dist.is_initialized()
+                     and _dist.process_count() > 1 and ref is None)
+        self.distributed_rows = dist_rows
+        if dist_rows and self._group_arg is not None:
+            raise ValueError(
+                "pre_partition cannot shard query/group data (queries "
+                "must not straddle partitions); drop pre_partition or "
+                "the group argument")
         cat_indices = self._resolve_categoricals(self.feature_names_)
         forced_bins = self._load_forced_bins(cfg)
 
         # ---- pass 1: sketch + metadata ------------------------------------
-        sample_idx = sample_row_indices(n, int(cfg.bin_construct_sample_cnt),
-                                        cfg.data_random_seed)
+        sample_cnt = int(cfg.bin_construct_sample_cnt)
+        if dist_rows:
+            sample_cnt = max(1, sample_cnt // _dist.process_count())
+        sample_idx = sample_row_indices(n, sample_cnt, cfg.data_random_seed)
         sketch = BinningSketch(f, cat_indices)
         label = None
         weight = None
@@ -177,14 +196,19 @@ class StreamedDataset(Dataset):
                     weight[chunk.offset:chunk.offset + m] = chunk.weight
                 rows_ctr.inc(m)
                 chunks_ctr.inc()
-        # one process: the merge is a no-op (sketch.py)
-        sketch.allgather_merge()
+        n_total = n
+        if dist_rows:
+            # every rank's summaries merged in rank order (a no-op in one
+            # process)
+            n_total = int(_dist.allgather_host(
+                np.asarray([n], np.int64)).sum())
+            sketch.allgather_merge()
 
         def _filt(sample_total: int) -> int:
             if not cfg.feature_pre_filter:
                 return 0
             return max(1, int(cfg.min_data_in_leaf * sample_total /
-                              max(1, n)))
+                              max(1, n_total)))
 
         if ref is not None:
             # align bins with the reference dataset (dataset.h:304, the
@@ -243,7 +267,11 @@ class StreamedDataset(Dataset):
             self._label_arg
         self._weight_arg = weight if self._weight_arg is None else \
             self._weight_arg
-        self._set_metadata(n)
+        # a pre_partition shard: padded to the ranks' longest, metadata
+        # gathered (the shared Dataset machinery); the binned shard never
+        # leaves this process
+        self._set_metadata(self._finalize_distributed_rows(n) if dist_rows
+                           else n)
         self.constructed = True
         log_info(f"StreamedDataset: {n} rows x {len(used)} features binned "
                  f"in {src.num_chunks()} chunks of {self.chunk_rows} "

@@ -196,10 +196,6 @@ def train_streamed(params: Dict[str, Any], train_set: StreamedDataset,
     set_verbosity(int(cfg.verbosity))
     reject_publishing(cfg, "train_streamed", flight_lane=True)
     _check_envelope(cfg)
-    if cfg.tree_learner not in ("serial", "auto"):
-        raise NotImplementedError(
-            f"tree_learner={cfg.tree_learner!r}: the parallel learners are "
-            "not ported to lightgbm_tpu_torch yet (ROADMAP queue 1)")
     resolve_hist_impl(cfg, dev)
     if cfg.use_quantized_grad and cfg.stochastic_rounding:
         log_warning("chunked streamed training forces "

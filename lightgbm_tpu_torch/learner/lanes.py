@@ -62,13 +62,14 @@ def leaves_q8(bins, wch, ch, *, num_bins: int,
                       bins_packed=bins_packed)
 
 
-def leaves_fx(bins, w, ch, *, num_bins: int,
-              bins_packed: bool) -> KernelCall:
-    """:func:`ops.histogram_cuda.build_histogram_leaves`."""
+def leaves_fx(bins, w, ch, *, num_bins: int, bins_packed: bool,
+              raw: bool = False) -> KernelCall:
+    """:func:`ops.histogram_cuda.build_histogram_leaves` (``raw``: its
+    int64 sums, which a parallel strategy merges across ranks)."""
     return KernelCall("leaves_fx", ("leaves_fx", _layout(bins), num_bins,
-                                    bins_packed),
+                                    bins_packed, raw),
                       bins=bins, w=w, ch=ch, num_bins=num_bins,
-                      bins_packed=bins_packed)
+                      bins_packed=bins_packed, raw=raw)
 
 
 def row_update(bins, rl, tab, *, feats, bins_packed: bool = False,
@@ -103,11 +104,14 @@ def single(bins, w, *, num_bins: int) -> KernelCall:
 
 def _run_one(c: KernelCall):
     a = c.args
-    if c.kind in ("leaves_q8", "leaves_fx"):
-        fn = (hc.build_histogram_leaves_q8 if c.kind == "leaves_q8"
-              else hc.build_histogram_leaves)
-        return fn(a["bins"], a["w"], a["ch"], num_bins=a["num_bins"],
-                  bins_packed=a["bins_packed"])
+    if c.kind == "leaves_q8":
+        return hc.build_histogram_leaves_q8(
+            a["bins"], a["w"], a["ch"], num_bins=a["num_bins"],
+            bins_packed=a["bins_packed"])
+    if c.kind == "leaves_fx":
+        return hc.build_histogram_leaves(
+            a["bins"], a["w"], a["ch"], num_bins=a["num_bins"],
+            bins_packed=a["bins_packed"], raw=a["raw"])
     if c.kind == "row_update":
         return hc.wave_row_update(
             a["bins"], a["rl"], a["tab"], feats=a["feats"],

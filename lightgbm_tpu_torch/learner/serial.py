@@ -9,8 +9,9 @@ grower (``make_grow_fn``, :199-538), ``resolve_hist_impl``,
 ``SerialTreeLearner`` (:723-776), its 4-bit packing decision (:777-794),
 its EFB descriptors (:688-703), the lazy-CEGB bitmap that lasts across
 trees (:908, :950-960) and its wave, partition and masked branches
-(:784-850, :901-967).  The parallel strategies are a later slice
-(ROADMAP queue 1); the histogram autotuner is ``learner/autotune.py``.
+(:784-850, :901-967).  The parallel learners (``parallel/``) build on
+this learner with their strategies; the histogram autotuner is
+``learner/autotune.py``.
 """
 
 from __future__ import annotations
@@ -22,8 +23,8 @@ import torch
 
 from ..config import Config
 from ..models.tree import CAT_MASK, DEFAULT_LEFT_MASK, MISSING_NAN
-from ..ops.histogram import (PACK4_MAX_BINS, FxWeights, fx_to_f32,
-                             pack_weights, take_rows, widen_bins)
+from ..ops.histogram import (PACK4_MAX_BINS, FxWeights, fx_exponents,
+                             fx_to_f32, pack_weights, take_rows, widen_bins)
 from ..ops.histogram_cuda import MEMBER_WORDS, hist_single
 from ..ops.split import (BIG, NEG_INF, SplitParams, leaf_output,
                          leaf_output_smoothed, local_best_candidates)
@@ -70,9 +71,35 @@ class CommStrategy:
     split candidates of one leaf, or of a split's two children in one
     batched scan (the reference's vmap).  ``monotone``, ``cegb`` and
     ``contri`` are the (F,) constraint directions, CEGB penalties and
-    ``feature_contri`` gain scales the scans read (None: off).  Parallel
-    strategies, which insert collectives at these points, are not ported
-    yet (ROADMAP queue 1)."""
+    ``feature_contri`` gain scales the scans read (None: off).
+
+    The parallel strategies (``parallel/``) override the hooks where the
+    reference's insert collectives (reference serial.py:96-200):
+
+    * ``reduce_sum(v)`` / ``reduce_max(v)``: per-rank sums and maxima
+      over row shards (leaf totals; quantization scales and fixed-point
+      exponents);
+    * ``shard_key(key)``: the rank's stochastic-rounding stream;
+    * ``reduce_hist(h)``: a freshly built histogram batch merged across
+      row shards;
+    * ``local_meta(fm)``: the per-feature descriptors of this rank's
+      histogram width;
+    * ``get_column(X_T, feat)``: the winning feature's bin column for the
+      partition update (feature-parallel: its owner's broadcast);
+    * ``fx_rows(n)``: the row count the fixed-point exponents are taken
+      for (the global one under row shards, so every rank packs its
+      weights on the same scale and the integer sums add).
+
+    ``scan_merges`` marks a strategy whose ``leaf_candidates`` take the
+    masked grower's RAW int64 shard-local histograms and merge them in
+    the scan (data- and voting-parallel)."""
+
+    rows_sharded = False
+    scan_merges = False
+    nshards = 1
+    hist_scatter = False
+    hist_voting = False
+    spec_ok = True
 
     def __init__(self, num_bins: torch.Tensor, has_nan: torch.Tensor,
                  is_cat: Optional[torch.Tensor] = None, monotone=None,
@@ -83,6 +110,55 @@ class CommStrategy:
         self.monotone_full = monotone
         self.cegb_full = cegb
         self.contri_full = contri
+
+    def bind(self, num_bins, has_nan, is_cat=None, monotone=None,
+             cegb=None, contri=None) -> "CommStrategy":
+        """A per-tree copy carrying this tree's descriptors (the
+        reference's shallow per-trace copy, wave.py:476-484)."""
+        import copy
+        s = copy.copy(self)
+        CommStrategy.__init__(s, num_bins, has_nan, is_cat, monotone, cegb,
+                              contri)
+        return s
+
+    def reduce_sum(self, v):
+        return v
+
+    def reduce_max(self, v):
+        return v
+
+    def shard_key(self, key):
+        return key
+
+    def reduce_hist(self, hist):
+        return hist
+
+    def fx_rows(self, n: int) -> int:
+        return n
+
+    def local_meta(self, feature_mask):
+        return (self.num_bins_full, self.has_nan_full, self.is_cat_full,
+                feature_mask)
+
+    def get_column(self, X_T: torch.Tensor, feat: torch.Tensor
+                   ) -> torch.Tensor:
+        """(N,) int32 bin codes of the GLOBAL feature ``feat`` (0-d)."""
+        return widen_bins(take_rows(X_T, feat.long().view(1))[0]).to(
+            torch.int32)
+
+    def fx_exponents(self, gm: torch.Tensor, hm: torch.Tensor, n: int):
+        """The fixed-point exponents of a tree's masked gradients and
+        hessians: this rank's maxima reduced over the row shards, and the
+        global row count (ops/histogram.py ``fx_exponents``; the chunked
+        path shares exponents across chunks the same way).  None in a
+        serial run: :func:`pack_weights` picks its own."""
+        if not self.rows_sharded:
+            return None
+        m = torch.stack([gm.abs().max() if gm.numel() else gm.new_zeros(()),
+                         hm.abs().max() if hm.numel() else hm.new_zeros(())
+                         ]).double()
+        gmax, hmax = self.reduce_max(m).tolist()
+        return fx_exponents(gmax, hmax, self.fx_rows(n))
 
     def _options(self, bound, depth, parent_out, cegb=None) -> dict:
         return dict(monotone=self.monotone_full, bound=bound, depth=depth,
@@ -275,7 +351,8 @@ def pool_bytes(config: Config, num_features: int, max_bins: int,
 
 
 def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
-                 max_depth: int, split_params: SplitParams):
+                 max_depth: int, split_params: SplitParams,
+                 strategy: Optional[CommStrategy] = None):
     """Build the pool-less masked grower (reference serial.py:199-538
     with ``use_hist_pool=False``): the exact sequential leaf-wise order
     with no histogram pool and no subtraction; each split builds both
@@ -289,7 +366,14 @@ def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     smoothing and the CEGB split penalty through the scan; the reference
     passes it no per-feature CEGB penalty, no ``feature_contri`` and no
     forced splits or interaction constraints, and warns that it does not
-    apply extra-trees (:216-219)."""
+    apply extra-trees (:216-219).
+
+    ``strategy`` (a parallel learner's, reference :199-212) inserts the
+    collectives: row-sharded strategies reduce the root totals and take
+    each leaf's RAW int64 shard-local histogram into their scan
+    (``scan_merges``), packed on the global fixed-point scale; the
+    feature-parallel one histograms its own features and broadcasts the
+    winning column.  ``X_T`` is then this rank's rows or features."""
     L = num_leaves
     sp = split_params
     any_cat = bool(sp.any_cat)
@@ -311,17 +395,21 @@ def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
               else torch.zeros_like(hn))
         mono = (monotone.to(torch.int32) if use_mc
                 else torch.zeros_like(nb))
-        strat = CommStrategy(nb, hn, ic if any_cat else None,
-                             monotone=mono if use_mc else None)
-        wfx = pack_weights(grad, hess, bag_mask)
+        strat = (strategy.bind if strategy is not None else CommStrategy)(
+            nb, hn, ic if any_cat else None,
+            monotone=mono if use_mc else None)
+        wfx = pack_weights(grad, hess, bag_mask, strat.fx_exponents(
+            grad * bag_mask, hess * bag_mask, n))
         Wt, inv = wfx.w, wfx.inv_scale
+        strat.fx_inv = inv
 
         def masked_hist(rows: torch.Tensor) -> torch.Tensor:
-            """(F, B, 3) f32 histogram of the rows ``rows`` (N,) bool: one
-            full pass, every other row's weights zero."""
-            return fx_to_f32(hist_single(
-                X_T, FxWeights(Wt * rows.to(torch.int64), inv),
-                num_bins=max_bins), inv)
+            """(F, B, 3) histogram of the rows ``rows`` (N,) bool: one
+            full pass, every other row's weights zero; f32, or the raw
+            int64 sums a merging strategy reduces in its scan."""
+            h = hist_single(X_T, FxWeights(Wt * rows.to(torch.int64), inv),
+                            num_bins=max_bins)
+            return h if strat.scan_merges else fx_to_f32(h, inv)
 
         def z(shape, dtype, fill=0):
             return torch.full(shape, fill, dtype=dtype, device=dev)
@@ -354,7 +442,7 @@ def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
 
         # ---- root ----------------------------------------------------------
         root_hist = masked_hist(bag_mask > 0)
-        root_sum = fx_to_f32(Wt.sum(dim=1), inv)
+        root_sum = fx_to_f32(strat.reduce_sum(Wt.sum(dim=1)), inv)
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         root_out = leaf_output_smoothed(root_sum[0], root_sum[1],
                                         root_sum[2], zero, sp)
@@ -392,7 +480,7 @@ def make_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                                     torch.full_like(feat, -1))
 
             # ---- partition update (DataPartition::Split analog) ----------
-            col = widen_bins(take_rows(X_T, f1)[0]).to(torch.int32)
+            col = strat.get_column(X_T, feat)
             go_left = torch.where(col == f_nan_bin, dleft, col <= thr)
             if any_cat:
                 go_left = torch.where(fcat, member[col.long()], go_left)
@@ -482,8 +570,13 @@ class SerialTreeLearner:
                  device: torch.device, is_cat: Optional[np.ndarray] = None,
                  efb=None, monotone: Optional[np.ndarray] = None,
                  forced_splits: tuple = (), interaction_groups: tuple = (),
-                 feature_contri: tuple = (), cegb_lazy: tuple = ()):
+                 feature_contri: tuple = (), cegb_lazy: tuple = (),
+                 strategy: Optional[CommStrategy] = None,
+                 grow_mode: Optional[str] = None):
         self.config = config
+        # a parallel learner's strategy and its grower choice
+        # (parallel/data_parallel.py, parallel/voting_parallel.py)
+        self._strategy = strategy
         self.device = torch.device(device)
         self.max_bins = int(max_bins)
         self.num_features = num_features
@@ -530,6 +623,8 @@ class SerialTreeLearner:
             mode = ("wave" if wave_ok and self.max_bins <= 256
                     else "partition")
         self.grow_mode = mode if self.use_hist_pool else "masked"
+        if grow_mode is not None:
+            self.grow_mode = grow_mode
         mode = self.grow_mode
         use_mc = self.split_params.use_monotone
         mc_inter = resolve_monotone_method(config, use_mc, wave=mode == "wave")
@@ -561,7 +656,7 @@ class SerialTreeLearner:
         # blockspec request turns it off.
         self.pack4 = bool(mode == "wave" and config.tpu_hist_pack4 and
                           self.max_bins <= PACK4_MAX_BINS and not any_cat and
-                          efb is None and
+                          efb is None and strategy is None and
                           config.tpu_pallas_pipeline != "blockspec")
         self._x_src = self._Xp = None
         self._quant_calls = 0
@@ -584,7 +679,8 @@ class SerialTreeLearner:
         """This learner's grower with the scan parameters ``sp``."""
         config, mode = self.config, self.grow_mode
         if mode == "masked":
-            return make_grow_fn(split_params=sp, **self._grower)
+            return make_grow_fn(split_params=sp, strategy=self._strategy,
+                                **self._grower)
         if mode == "partition":
             from .partitioned import make_partitioned_grow_fn
             return make_partitioned_grow_fn(efb=self._efb, split_params=sp,
@@ -602,7 +698,8 @@ class SerialTreeLearner:
             renew_leaf=bool(config.quant_train_renew_leaf), pack4=self.pack4,
             efb=self._efb, mc_inter=self._mc_inter,
             cegb_lazy=self._cegb_lazy, subsample_cache=self._subsample,
-            split_params=sp, **self._grower, **self._options)
+            split_params=sp, strategy=self._strategy, **self._grower,
+            **self._options)
 
     def lane_grower(self, sp: SplitParams):
         """The grower of a lane whose swept scan parameters are ``sp``

@@ -61,8 +61,33 @@ The reference runs the whole tree inside one jitted ``lax.while_loop``;
 here PyTorch runs eagerly and the host drives the loops, reading the leaf
 count once per wave and the best candidate once per endgame commit.
 
-Not ported (ROADMAP queue 1): the voting and scatter merges of the
-data-parallel strategies.
+Under a row-sharded ``strategy`` (parallel/data_parallel.py,
+parallel/voting_parallel.py; reference wave.py:245-1200) each rank grows
+the tree over its own block of rows and merges every histogram batch it
+builds (the waves, the root, the ramp's passes, the endgame's trial
+pass) with one collective, in one of three modes:
+
+* the full-batch ``psum`` (``reduce_hist``): every rank holds and scans
+  the whole merged batch;
+* the feature-sliced ``psum_scatter`` (``hist_scatter``): each rank keeps
+  its block of the padded feature axis, pools and scans that slice, and
+  an O(W·k) winner exchange (pmax of the gain, pmin of the global
+  feature among the ties, then the winner's payload gathered from its
+  owner) yields the serial scan's candidate, first-tied feature
+  included;
+* the PV-Tree voted merge (``hist_voting``): the pool stays rank-local,
+  each scan votes its top-k features per leaf, the votes ride one small
+  all_gather, and only the global top-2k features' slices are summed.
+
+Exact-mode batches merge as the kernels' int64 fixed-point sums, packed
+on one global scale (``CommStrategy.fx_exponents``), and become f32 only
+after the merge; quantized batches merge as int32 under global scales
+(``reduce_max``), each rank rounding from its own stream
+(``shard_key``).  Every host branch reads values that are identical on
+every rank (merged sums, or candidates computed from them), so the
+ranks issue the same collectives in the same order.  Categorical
+features, EFB, lazy CEGB and forced splits keep the full-batch psum, as
+the reference gates them.
 """
 
 from __future__ import annotations
@@ -84,7 +109,7 @@ from ..ops.quantize import dequant_scales, quant_scales, quantize_wch
 from ..ops.fmath import _fma
 from ..ops.split import (BIG, FORCED_NAN_LEFT_REFUSED,
                          MONOTONE_SMOOTH_NAN_LEFT_SQUARE, NEG_INF, SplitParams,
-                         cumsum_bins, leaf_gain,
+                         best_split_per_feature, cumsum_bins, leaf_gain,
                          leaf_output, leaf_output_smoothed,
                          local_best_candidates, node_draws)
 from . import lanes as kc
@@ -113,10 +138,10 @@ def wave_taper_k(budget: int, W: int) -> int:
 
 
 def _topk(vals: torch.Tensor, k: int):
-    """``jax.lax.top_k``: the k largest, ties broken toward the lower
-    index."""
+    """``jax.lax.top_k`` along the last axis: the k largest, ties broken
+    toward the lower index."""
     v, i = torch.sort(vals, descending=True, stable=True)
-    return v[:k], i[:k]
+    return v[..., :k], i[..., :k]
 
 
 def forced_wave_groups(forced_splits: tuple, L: int, W: int) -> list:
@@ -304,7 +329,8 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                       forced_splits: tuple = (),
                       interaction_groups: tuple = (),
                       feature_contri: tuple = (), cegb_lazy: tuple = (),
-                      subsample_cache: Optional[dict] = None):
+                      subsample_cache: Optional[dict] = None,
+                      strategy=None):
     """Build the wave single-tree grower.
 
     Returns ``grow(X_T, grad, hess, bag_mask, num_bins, has_nan,
@@ -343,7 +369,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
     the batch trainer drives in lockstep with other lanes.
     ``subsample_cache`` (a dict shared by the lanes' growers) keeps the
     speculative ramp's row subsample of the bin matrix, so the lanes'
-    ramp passes read one matrix and share launches."""
+    ramp passes read one matrix and share launches.
+
+    ``strategy`` (a row-sharded ``CommStrategy`` of parallel/) makes the
+    grower one rank's of a data- or voting-parallel tree: ``X_T`` and the
+    per-row vectors are this rank's block of rows, and the merges of the
+    module docstring join the ranks' histograms."""
     any_cat = bool(split_params.any_cat)
     use_efb = efb is not None
     if pack4 and (max_bins > PACK4_MAX_BINS or any_cat or use_efb):
@@ -375,11 +406,30 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                   max_bins > 255 or use_mc or use_ic or use_lazy)
     use_spec = (spec_ramp and max_depth <= 0 and W >= 2 and L >= 3 * W and
                 not (no_endgame or use_sm or sp.use_cegb or feature_contri
-                     or forced_splits))
+                     or forced_splits) and
+                (strategy is None or strategy.spec_ok))
     use_endgame = exact_endgame and L > 2 and not no_endgame
     EG = 2 * W   # pending-commit capacity (budget < 2W at endgame entry)
     forced_waves = forced_wave_groups(forced_splits, L, W)
     mc_inter = mc_inter and use_mc
+    # the strategy's merge mode (reference wave.py:391-433): scatter and
+    # voting need feature-space batches that merge slice by slice
+    k_sc = strategy.nshards if strategy is not None else 1
+    full_merge_only = any_cat or use_efb or use_lazy or bool(forced_waves)
+    use_scatter = (strategy is not None and strategy.hist_scatter and
+                   k_sc > 1 and not full_merge_only)
+    use_voting = (strategy is not None and strategy.hist_voting and
+                  k_sc > 1 and not use_scatter and not full_merge_only)
+    G_loc = G
+    if use_scatter:
+        FB_SC = -(-G // k_sc)            # features owned per rank
+        F_PAD_SC = FB_SC * k_sc - G      # padded features (1 bin, inert)
+        G_loc = FB_SC
+    if use_voting:
+        TOPK_V = max(1, min(int(strategy.top_k), F))
+        SEL_V = min(2 * TOPK_V, F)       # voted features merged per leaf
+    # exact kernels hand a merging strategy their raw int64 sums
+    raw_fx = strategy is not None and not quantized
 
     def grow_gen(X_T: torch.Tensor, grad: torch.Tensor, hess: torch.Tensor,
                  bag_mask: torch.Tensor, num_bins: torch.Tensor,
@@ -439,36 +489,88 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
         hm = (hess * bag_mask).float()
         if quantized:
             # per-tree linear quantization scales
-            # (gradient_discretizer.cpp DiscretizeGradients)
-            g_scale, h_scale = quant_scales(gm.abs().max(), hm.max(),
-                                            gq_max, hq_max)
+            # (gradient_discretizer.cpp DiscretizeGradients); under row
+            # shards from the global maxima, so every rank quantizes on
+            # the same scales and the int32 sums add
+            gmx, hmx = gm.abs().max(), hm.max()
+            if strategy is not None:
+                gmx, hmx = strategy.reduce_max(torch.stack([gmx, hmx]))
+            g_scale, h_scale = quant_scales(gmx, hmx, gq_max, hq_max)
             qscales = dequant_scales(g_scale, h_scale)
             w_all = quantize_wch(grad, hess, bag_mask, g_scale, h_scale,
-                                 quant_key, gq_max=gq_max, hq_max=hq_max,
+                                 quant_key if strategy is None
+                                 else strategy.shard_key(quant_key),
+                                 gq_max=gq_max, hq_max=hq_max,
                                  stochastic=stochastic,
                                  own=(None if own_rows is None
                                       else (own_rows, n_own)))
         else:
-            w_all = pack_weights(grad, hess, bag_mask)
+            w_all = pack_weights(grad, hess, bag_mask,
+                                 None if strategy is None else
+                                 strategy.fx_exponents(gm, hm, n))
 
         def dq(h):
-            """int32 channel sums -> f32 (sum_grad, sum_hess, count)."""
-            return h.float() * qscales if quantized else h
+            """Integer channel sums -> f32 (sum_grad, sum_hess, count):
+            int32 quantized sums times the scales, int64 fixed-point sums
+            (a voting rank's exact pool) through their scale; f32 sums
+            are returned as they are."""
+            if h.is_floating_point():
+                return h
+            if quantized:
+                return h.float() * qscales
+            return fx_to_f32(h, w_all.inv_scale)
 
         def hist_kernel(bins, w, ch):
             if quantized:
                 return (yield kc.leaves_q8(bins, w, ch, num_bins=Bb,
                                            bins_packed=pack4))
             return (yield kc.leaves_fx(bins, w, ch, num_bins=Bb,
-                                       bins_packed=pack4))
+                                       bins_packed=pack4, raw=raw_fx))
+
+        def merge_waves(hk, with_totals=False):
+            """Merge a freshly built (k, G, Bb, 3) batch across the row
+            shards (reference wave.py ``_reduce_waves``): the psum, this
+            rank's reduce-scattered block of the padded feature axis, or
+            (voting) the batch left rank-local.  Exact sums merge as int64
+            and turn f32 after; a voting rank's exact pool stays int64.
+            ``with_totals`` adds the (k, 3) channel totals, from the
+            merged batch or, where this rank holds no whole merged
+            feature, from a small merge of the local feature-0 sums
+            (``"raw"``: the quantized totals as integers)."""
+            if use_voting:
+                out = hk
+            elif use_scatter:
+                hp = (torch.nn.functional.pad(hk, (0, 0, 0, 0, 0, F_PAD_SC))
+                      if F_PAD_SC else hk)
+                out = strategy.reduce_hist_scatter(hp)
+            else:
+                out = strategy.reduce_hist(hk)
+            if raw_fx and not use_voting:
+                out = fx_to_f32(out, w_all.inv_scale)
+            if not with_totals:
+                return out
+            sliced = use_voting or use_scatter
+            if quantized:
+                tot = (strategy.reduce_sum(hk[:, 0].sum(dim=1)) if sliced
+                       else out[:, 0].sum(dim=1))
+                return out, (tot if with_totals == "raw" else dq(tot))
+            f0 = (fx_to_f32(strategy.reduce_sum(hk[:, 0]), w_all.inv_scale)
+                  if sliced else out[:, 0])
+            return out, f0.sum(dim=1)
 
         def hist_waves(ch, k=W, with_totals=False):
-            """(k, F, Bb, 3) histograms of the wave's leaf channels
-            (quantized: exact int32 channel sums) and, optionally, the
-            (k, 3) f32 channel totals from feature 0's bins."""
+            """(k, G_loc, Bb, 3) histograms of the wave's leaf channels
+            (quantized: exact int32 channel sums), merged across the row
+            shards under a strategy, and, optionally, the (k, 3) f32
+            channel totals from feature 0's bins (``"raw"``: quantized
+            totals as integers)."""
             hk = (yield from hist_kernel(X_T, w_all, ch))[:k]
+            if strategy is not None:
+                return merge_waves(hk, with_totals)
             if not with_totals:
                 return hk
+            if with_totals == "raw":
+                return hk, hk[:, 0].sum(dim=1)
             return hk, dq(hk[:, 0].sum(dim=1).to(hk.dtype))
 
         def many_candidates(hists, sums, fms, sums_exact=None,
@@ -480,15 +582,114 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             EFB (the reference's ``_scan_hists``, wave.py:591-599), with
             the leaves' monotone ``bounds`` (k, 2), ``depths`` (k,), own
             outputs ``pouts`` (k,) and CEGB penalties ``cegb`` ((k, F),
-            the lazy costs; else the coupled ones)."""
+            the lazy costs; else the coupled ones).  Under the scatter
+            merge the batch is this rank's feature block and the winner
+            exchange joins the blocks; under voting it is rank-local and
+            the voted merge runs first."""
+            opts = dict(monotone=mono, bound=bounds, depth=depths,
+                        cegb_penalty=cegb_full if cegb is None else cegb,
+                        gain_scale=contri, parent_out=pouts,
+                        nan_left_refused=nan_left_refused,
+                        nan_left_square=nan_left_square)
+            if use_voting:
+                return voting_candidates(hists, sums, fms, sums_exact,
+                                         rand_bins, opts)
+            if use_scatter:
+                for name, fill in (("monotone", 0), ("cegb_penalty", 0.0),
+                                   ("gain_scale", 1.0)):
+                    if opts[name] is not None:
+                        opts[name] = block(opts[name], fill)
+                return exchange(local_best_candidates(
+                    dq(hists), sums, nb_sc, hn_sc, block(fms, False), sp,
+                    sums_exact, None if rand_bins is None
+                    else block(rand_bins, 0), None, **opts))
             return local_best_candidates(
                 expand(dq(hists), sums), sums, nb_full, hn_full,
                 fms, sp, sums_exact, rand_bins,
-                ic_full if any_cat else None, monotone=mono, bound=bounds,
-                depth=depths, cegb_penalty=cegb_full if cegb is None
-                else cegb, gain_scale=contri, parent_out=pouts,
-                nan_left_refused=nan_left_refused,
-                nan_left_square=nan_left_square)
+                ic_full if any_cat else None, **opts)
+
+        if use_scatter:
+            # this rank's block [f_start, f_start + FB_SC) of the padded
+            # feature axis (reference wave.py:492-552)
+            f_start = strategy.rank * FB_SC
+
+            def block(a, fill):
+                """(..., F) per-feature values -> this rank's (..., FB_SC)
+                block; padded features get the inert ``fill``."""
+                if F_PAD_SC:
+                    a = torch.cat([a, torch.full(
+                        a.shape[:-1] + (F_PAD_SC,), fill, dtype=a.dtype,
+                        device=a.device)], dim=-1)
+                return a[..., f_start:f_start + FB_SC]
+
+            nb_sc = block(nb_full, 1)           # 1-bin pads never split
+            hn_sc = block(hn_full, False)
+
+            def exchange(cands):
+                """The block-local bests of k leaves -> the global
+                winners, from ONE all_gather of every rank's (k, 10)
+                rows (gain, global feature, bin, default_left, left and
+                right sums; f32 holds features and bins exactly): the max
+                gain (the reference's pmax), the lowest global feature
+                among the blocks reaching it (its pmin: the full scan's
+                first-tied rule), and that block's payload bit for bit
+                (the reference psums it with zeros elsewhere).
+                ``member`` stays block-local: no categorical shape
+                scatters."""
+                g, f_loc, b, dl, ls, rs, member = cands
+                k = g.shape[0]
+                rows = torch.cat([g.unsqueeze(-1),
+                                  (f_start + f_loc).to(_F32).unsqueeze(-1),
+                                  b.to(_F32).unsqueeze(-1),
+                                  dl.to(_F32).unsqueeze(-1), ls, rs], -1)
+                allr = strategy.exchange_gather(rows)       # (k_sc, k, 10)
+                gmax = allr[..., 0].max(dim=0).values
+                f_win = torch.where(allr[..., 0] >= gmax, allr[..., 1],
+                                    torch.full_like(allr[..., 1], 2.0 ** 30)
+                                    ).min(dim=0).values.to(_I32)
+                win = allr[(f_win // FB_SC).long(),
+                           torch.arange(k, device=dev)]
+                return (gmax, f_win, win[:, 2].to(_I32), win[:, 3] > 0,
+                        win[:, 4:7], win[:, 7:10], member)
+
+        def voting_candidates(hists, sums, fms, sums_exact, rand_bins,
+                              opts):
+            """PV-Tree voted merge and scan for k leaves (reference
+            wave.py ``_voting_candidates``, :682-760; LightGBM
+            voting_parallel_tree_learner.cpp): each rank scores its
+            rank-local batch with the 1/num_machines-relaxed constraints,
+            votes its top-k features per leaf, one all_gather carries the
+            votes, and only the global top-2k features' slices are summed
+            (integer sums; f32 after).  The final scan runs on the merged
+            slices with the full parameters and the global leaf sums; at
+            2k >= F every feature is selected and the scan is the
+            full-batch merge's."""
+            kl = hists.shape[0]
+            lp = strategy.local_params or sp
+            lsum_loc = dq(hists[:, 0].sum(dim=1))
+            loc = best_split_per_feature(
+                dq(hists), lsum_loc, nb_full, hn_full, lp,
+                is_cat=ic_full if any_cat else None, monotone=mono,
+                bound=opts["bound"] if use_mc else None,
+                depth=opts["depth"], parent_out=opts["parent_out"])
+            gains = torch.where(fms, loc.gain, neg_inf)
+            top_ids = _topk(gains, TOPK_V)[1]                # (kl, k)
+            all_ids = strategy.vote_allgather(top_ids.to(_I32))
+            votes = torch.zeros((kl, F), dtype=_F32, device=dev)
+            votes.scatter_add_(1, all_ids.permute(1, 0, 2).reshape(
+                kl, -1).long(), torch.ones((kl, k_sc * TOPK_V),
+                                           dtype=_F32, device=dev))
+            anti = -torch.arange(F, dtype=_F32, device=dev) * 1e-6
+            sel = torch.sort(_topk(votes + anti, SEL_V)[1], dim=1).values
+            sel4 = sel.view(kl, SEL_V, 1, 1).expand(-1, -1, Bb, 3)
+            merged = dq(strategy.reduce_hist_voted(hists.gather(1, sel4)))
+            full = torch.zeros((kl, F, Bb, 3), dtype=_F32, device=dev)
+            full.scatter_(1, sel4, merged)
+            chosen = torch.zeros((kl, F), dtype=torch.bool, device=dev)
+            chosen.scatter_(1, sel, True)
+            return local_best_candidates(
+                full, sums, nb_full, hn_full, fms & chosen, sp, sums_exact,
+                rand_bins, ic_full if any_cat else None, **opts)
 
         fm_row = feature_mask.to(torch.bool)
 
@@ -496,10 +697,14 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             """The scan's feature masks and extra-trees bins of the nodes
             ``ids``: one batched draw for all of them."""
             return node_draws(node_key, ids, fm_row, nb_full, sp)
-        hdtype = torch.int32 if quantized else _F32
+        # the pool: int32 quantized sums; f32 exact ones, or a voting
+        # rank's unmerged int64 fixed-point sums; this rank's feature
+        # block under the scatter merge
+        hdtype = (torch.int32 if quantized else
+                  torch.int64 if raw_fx and use_voting else _F32)
 
         def empty_state() -> Dict[str, torch.Tensor]:
-            s = wave_state(L, (G, Bb, 3), hdtype, max_bins, dev)
+            s = wave_state(L, (G_loc, Bb, 3), hdtype, max_bins, dev)
             s["row_leaf"] = torch.zeros((n,), dtype=_I32, device=dev)
             # monotone bounds, the features on each leaf's path
             s["leaf_mn"] = torch.full((L,), -BIG, dtype=_F32, device=dev)
@@ -529,7 +734,32 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                     return a[:, :n_ss // 2].reshape(a.shape[0], n_ss)
                 return a[:, ::stride][:, :n_ss].contiguous()
 
-            if own_rows is not None:
+            if strategy is not None:
+                # a rank's share of the ONE-process subsample: the rows of
+                # the serial learner's stride pattern (over the global
+                # padded rows) that fall in this rank's block, zero-padded
+                # to the row block.  The merged provisional histograms are
+                # then a run's on one process, so the provisional tree,
+                # and the trees, do not depend on the world size.  (The
+                # reference's ranks stride their own rows for 1/k of the
+                # budget, wave.py:866-870, which moves the subsample
+                # with the world.)
+                n_glob = pad_rows(strategy.rows)
+                stride = max(1, n_glob // max(int(spec_subsample), 4096))
+                n_glob_ss = max((n_glob // stride) // 4096 * 4096, 4096)
+                lo = strategy.row_offset
+                first = -(-lo // stride)
+                last = min(n_glob_ss, -(-(lo + strategy.row_block) //
+                                        stride))
+                q = (torch.arange(first, max(first, last), device=dev) *
+                     stride - lo)
+                n_ss = pad_rows(max(int(q.shape[0]), 1))
+                m = q.shape[0]
+
+                def subsample(a):
+                    return torch.nn.functional.pad(a[:, q], (0, n_ss - m))
+                X_ss = subsample(X_T)
+            elif own_rows is not None:
                 # the subsample's positions among the lane's own rows
                 # (positions past them are the compacted run's zero
                 # padding), gathered from the shared matrix: per lane
@@ -582,7 +812,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             for _t in range(max(1, int(math.ceil(math.log2(Kc))))):
                 h_ss = (yield from hist_kernel(X_ss, w_ss,
                                                rl_ss.to(torch.int8)))[:Kc]
-                sums_pl = dq(h_ss[:, 0].sum(dim=1).to(h_ss.dtype))
+                if strategy is not None:
+                    # one merge per provisional pass, so every rank grows
+                    # the same provisional tree
+                    h_ss, sums_pl = merge_waves(h_ss, True)
+                else:
+                    sums_pl = dq(h_ss[:, 0].sum(dim=1).to(h_ss.dtype))
                 cnds = many_candidates(h_ss, sums_pl, fm_k)
                 g = torch.where(jar < nlp, cnds[0], neg_inf)
                 vals, sel_l = _topk(g, Kc)
@@ -628,23 +863,29 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             # ONE full-data pass: exact per-prov-leaf channel sums
             h_ch, leaf_tot = yield from hist_waves(rl_full.to(torch.int8),
                                                    k=Kc, with_totals=True)
-            hf_ch = dq(h_ch)
+            # voting keeps the batch rank-local and integer: its scan
+            # merges only the voted slices of the node sums
+            hf_ch = h_ch if use_voting else dq(h_ch)
+            zh = torch.zeros((), dtype=hf_ch.dtype, device=dev)
 
             # exact node aggregates: sums over descendant leaves in leaf
             # order (the reference's 0/1 dot products)
             Dn = Lm | Rm
             lt3 = torch.zeros((K1, 3), dtype=_F32, device=dev)
             rt3 = torch.zeros_like(lt3)
-            H_node = torch.zeros((K1,) + hf_ch.shape[1:], dtype=_F32,
+            H_node = torch.zeros((K1,) + hf_ch.shape[1:], dtype=hf_ch.dtype,
                                  device=dev)
             for l in range(Kc):
                 lt3 = lt3 + torch.where(Lm[:, l:l + 1], leaf_tot[l], zf)
                 rt3 = rt3 + torch.where(Rm[:, l:l + 1], leaf_tot[l], zf)
                 H_node = H_node + torch.where(
-                    Dn[:, l].view(K1, 1, 1, 1), hf_ch[l], zf)
+                    Dn[:, l].view(K1, 1, 1, 1), hf_ch[l], zh)
             pt3 = lt3 + rt3
-            bg = local_best_candidates(H_node, pt3, nb_full, hn_full,
-                                       fm_row.expand(K1, F), sp)[0]
+            if strategy is None:
+                bg = local_best_candidates(H_node, pt3, nb_full, hn_full,
+                                           fm_row.expand(K1, F), sp)[0]
+            else:
+                bg = many_candidates(H_node, pt3, fm_row.expand(K1, F))[0]
 
             def lg3(s3):
                 return leaf_gain(s3[:, 0], s3[:, 1], sp.lambda_l1,
@@ -737,19 +978,21 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             zch = torch.zeros((n,), dtype=torch.int8, device=dev)
             root_exact = None
             if quantized:
-                rh, rtot = yield from hist_waves(zch, k=1, with_totals=True)
-                root_hist, root_sum = rh[0], rtot[0]
+                rh, rtot = yield from hist_waves(zch, k=1, with_totals="raw")
+                root_hist, root_sum = rh[0], dq(rtot[0])
                 # the dequantized totals unrounded (f32(int) x f32 scale
                 # is exact in float64): the reference's jitted root scan
                 # fuses this multiply into its right-side subtractions
-                root_exact = (root_hist[0].sum(dim=0).float().double() *
-                              qscales.double())
+                root_exact = rtot[0].float().double() * qscales.double()
             else:
                 root_hist = (yield from hist_waves(zch, k=1))[0]
                 # the fixed-point totals: order-free, so a tree does not
                 # depend on the rows' order or on zero-weight rows (a
                 # masked fold grows the tree of its row subset)
-                root_sum = fx_to_f32(w_all.w.sum(dim=1), w_all.inv_scale)
+                tot = w_all.w.sum(dim=1)
+                root_sum = fx_to_f32(tot if strategy is None
+                                     else strategy.reduce_sum(tot),
+                                     w_all.inv_scale)
             root_out = leaf_output_smoothed(root_sum[0], root_sum[1],
                                             root_sum[2], zf, sp)
             fm0, rb0 = node_inputs(torch.full((1,), 2 * L,
@@ -765,7 +1008,10 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
                 in_bag = bag_mask > 0
                 used_root = torch.stack([
                     (_unpack_bits(used[f]) & in_bag).sum()
-                    for f in range(F)]).to(_F32)
+                    for f in range(F)])
+                if strategy is not None:
+                    used_root = strategy.reduce_sum(used_root)
+                used_root = used_root.to(_F32)
                 unused = torch.clamp(root_sum[2] - used_root, min=0.0)
                 cegb0 = _fma(lazy_pen, unused,
                              cegb_full).unsqueeze(0)
@@ -1011,7 +1257,10 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             used_cnt = torch.stack([
                 torch.bincount(rl[_unpack_bits(used_b[f]) & in_bag],
                                minlength=L + 1)[cid]
-                for f in range(F)]).to(_F32)                  # (F, 2W)
+                for f in range(F)])                           # (F, 2W)
+            if strategy is not None:
+                used_cnt = strategy.reduce_sum(used_cnt)
+            used_cnt = used_cnt.to(_F32)
             unused = torch.clamp(sums2[:, 2].unsqueeze(0) - used_cnt,
                                  min=0.0)
             return _fma(lazy_pen.unsqueeze(1), unused,
@@ -1049,8 +1298,12 @@ def make_wave_grow_fn(*, num_leaves: int, num_features: int, max_bins: int,
             parts = []
             for c in range((L + 255) // 256):
                 m = bag_mask * (rl // 256 == c).to(bag_mask.dtype)
-                wfx = pack_weights(grad, hess, m)
+                wfx = pack_weights(grad, hess, m, None if strategy is None
+                                   else strategy.fx_exponents(
+                                       grad * m, hess * m, n))
                 h1 = yield kc.single(bins1, wfx, num_bins=256)
+                if strategy is not None:
+                    h1 = strategy.reduce_sum(h1)
                 parts.append(fx_to_f32(h1, wfx.inv_scale)[0])
             gh = torch.cat(parts)[:L, :2]
             # under smoothing the recorded (pre-renewal) value stands in

@@ -1,7 +1,6 @@
 """GBDT boosting driver.
 
-Port of ``lightgbm_tpu/models/gbdt.py`` ``GBDT`` for the serial learner
-(reference: src/boosting/gbdt.cpp — ``TrainOneIter`` at :369, bagging at
+Port of ``lightgbm_tpu/models/gbdt.py`` ``GBDT`` (reference: src/boosting/gbdt.cpp — ``TrainOneIter`` at :369, bagging at
 :228, ``BoostFromAverage`` at :344 with the init score folded into the
 first tree via AddBias at :414-427, score updates at :491): every
 objective, K trees per iteration for multiclass ((N, K) scores, class
@@ -24,6 +23,14 @@ path does (gbdt.cpp:430-450), so both packages keep the same trees;
 objectives that renew leaves, and coupled CEGB, record each tree at
 once and stop in the iteration whose trees are all stumps, as the
 reference's undeferred path does.
+
+``tree_learner=data / voting / feature`` take the parallel learners of
+``parallel/`` over the process group of ``distributed.init`` (``auto``
+picks by world size, reference :369-388).  Every rank holds the (N,)
+scores and gradients of every row, so the boosting loop is the same on
+every rank; under ``pre_partition`` the labels, weights and init scores
+are gathered at construct and the padding rows are masked out of every
+tree (reference :452-470, :850-853).
 
 Each run keeps a ``TrainRecord`` (``telemetry/train_record.py``: phase
 times, histogram passes and leaves per tree) and a flight recorder
@@ -311,9 +318,11 @@ def learner_config(cfg: Config, train_set: Dataset, max_bins: int,
     """The learner's config: on a ``cuda`` device with
     ``tpu_histogram_impl=auto`` and a small binned matrix, a COPY with the
     histogram autotuner's bin layout (so the user's 'auto' survives param
-    round-trips); else ``cfg`` (uint16 bins keep the static choice, as
-    the reference's gate, models/gbdt.py:393-396)."""
+    round-trips); else ``cfg`` (uint16 bins and the parallel learners
+    keep the static choice, as the reference's gate,
+    models/gbdt.py:393-400)."""
     if (device.type == "cuda" and cfg.tpu_histogram_impl == "auto" and
+            cfg.tree_learner in ("serial", "") and
             train_set.efb is None and max_bins <= 256 and
             train_set.X_binned.size <= AUTOTUNE_MAX_CELLS):
         # small shapes: time the single-leaf kernel on uint8 and on
@@ -356,6 +365,7 @@ class GBDT:
         self._prev_iter_leaves: Optional[List[int]] = None
         self._linear = False
         self.X_raw_dev: Optional[torch.Tensor] = None
+        self._row_valid: Optional[torch.Tensor] = None
         # loaded (train-set-less) models keep an inert record and a
         # disabled flight recorder; _init_train replaces both with the
         # run's (reference models/gbdt.py:339-345)
@@ -369,10 +379,6 @@ class GBDT:
         cfg = self.config
         from ..utils.log import set_verbosity
         set_verbosity(int(cfg.verbosity))
-        if cfg.tree_learner not in ("serial", "auto"):
-            raise NotImplementedError(
-                f"tree_learner={cfg.tree_learner!r}: the parallel learners "
-                "are not ported to lightgbm_tpu_torch yet (ROADMAP queue 1)")
         train_set.construct(cfg)
         self.train_set = train_set
         self.num_data = train_set.num_data()
@@ -384,20 +390,70 @@ class GBDT:
         has_nan = np.array([m.missing_type == MissingType.NAN
                             for m in mappers], bool)
         is_cat = np.array([m.is_categorical for m in mappers], bool)
-        if self.num_data > (1 << 24) and not cfg.use_quantized_grad:
+        from .. import distributed as _dist
+        if cfg.tree_learner == "auto":
+            # world-size + modeled-bytes learner choice (reference
+            # models/gbdt.py:369-388; PV-Tree, arXiv:1611.01276): voting
+            # when its modeled cross-node histogram bytes per pass
+            # undercut the reduce-scatter path's, data-parallel otherwise;
+            # a world of one process is the serial learner.  Resolved in
+            # place so every later gate sees the concrete learner.
+            from ..parallel.voting_parallel import voting_favored
+            _world = _dist.process_count()
+            if _world <= 1:
+                cfg.tree_learner = "serial"
+            elif voting_favored(self.num_features, self.max_bins,
+                                int(cfg.top_k), _world):
+                cfg.tree_learner = "voting"
+            else:
+                cfg.tree_learner = "data"
+            log_info(f"tree_learner=auto resolved to "
+                     f"'{cfg.tree_learner}' (world={_world}, "
+                     f"features={self.num_features}, "
+                     f"top_k={int(cfg.top_k)})")
+        # count-channel exactness per row shard (reference
+        # models/gbdt.py:425-450): f32 counts to 2^24 rows, quantized
+        # int32 channel sums to 2^31 / gq_max rows
+        _shards = _dist.process_count() \
+            if cfg.tree_learner in ("data", "voting") else 1
+        if self.num_data > (1 << 24) * _shards and \
+                not cfg.use_quantized_grad:
             log_warning(f"num_data={self.num_data} exceeds the f32 "
-                        "histogram count channel's 2^24-row exactness "
-                        "range; set use_quantized_grad=true for exact "
-                        "int32 counts at this scale")
-        self.learner = SerialTreeLearner(
-            learner_config(cfg, train_set, self.max_bins, self.device),
-            self.num_features, self.max_bins, num_bins,
-            has_nan, self.device, is_cat=is_cat, efb=train_set.efb,
-            monotone=self._inner_monotone(),
+                        "histogram count channel's 2^24-rows-per-shard "
+                        "exactness range; set use_quantized_grad=true for "
+                        "exact int32 counts at this scale")
+        if cfg.use_quantized_grad:
+            from ..ops.quantize import quant_levels
+            _gq = max(quant_levels(int(cfg.num_grad_quant_bins)))
+            if self.num_data > (1 << 31) // _gq * _shards:
+                log_warning(
+                    f"num_data={self.num_data} exceeds the quantized "
+                    f"histogram's int32 channel-sum exactness bound "
+                    f"(2^31/{_gq} rows per shard at num_grad_quant_bins="
+                    f"{cfg.num_grad_quant_bins}); lower num_grad_quant_bins "
+                    "or shard rows across more devices")
+        dist_rows = bool(getattr(train_set, "distributed_rows", False))
+        if dist_rows and cfg.tree_learner not in ("data", "voting"):
+            raise ValueError("pre_partition-ed training requires "
+                             "tree_learner=data or voting")
+        lcfg = learner_config(cfg, train_set, self.max_bins, self.device)
+        options = dict(
+            is_cat=is_cat, monotone=self._inner_monotone(),
             forced_splits=self._parse_forced_splits(),
             interaction_groups=self._parse_interaction_constraints(),
             feature_contri=self._inner_contri(),
             cegb_lazy=self._inner_cegb_lazy())
+        if cfg.tree_learner in ("data", "voting", "feature"):
+            from ..parallel import create_parallel_learner
+            self.learner = create_parallel_learner(
+                lcfg, self.num_features, self.max_bins, num_bins, has_nan,
+                self.device, efb=train_set.efb, num_data=self.num_data,
+                block=train_set._dist_pad_to if dist_rows else None,
+                **options)
+        else:
+            self.learner = SerialTreeLearner(
+                lcfg, self.num_features, self.max_bins, num_bins, has_nan,
+                self.device, efb=train_set.efb, **options)
         # coupled CEGB penalties charge a feature until its first use,
         # tracked on the host across trees (reference models/gbdt.py
         # :482-497); the used set is updated per tree, so every tree is
@@ -411,10 +467,19 @@ class GBDT:
                                   float(cfg.cegb_tradeoff))
             self._cegb_used = np.zeros(self.num_features, bool)
         # under pack4 only the nibble-packed half-width matrix lives on
-        # the device (reference learner/serial.py:911-920)
-        self.X_T = (train_set.device_bins_packed4(self.device)
-                    if self.learner.pack4
-                    else train_set.device_bins(self.device))
+        # the device (reference learner/serial.py:911-920); a parallel
+        # learner keeps only its rank's block of rows or features there
+        if hasattr(self.learner, "local_bins"):
+            self.X_T = self.learner.local_bins(train_set, self.device)
+        else:
+            self.X_T = (train_set.device_bins_packed4(self.device)
+                        if self.learner.pack4
+                        else train_set.device_bins(self.device))
+        # pre_partition's padding rows never enter a tree (reference
+        # models/gbdt.py:452-470, :850-853)
+        self._row_valid = (torch.as_tensor(_dist.allgather_host(
+            train_set._dist_valid_local), device=self.device)
+            if dist_rows else None)
         self._is_cat_np = is_cat
         # linear leaves fit on the raw values of the used columns, kept on
         # the device (reference models/gbdt.py:503-523)
@@ -426,8 +491,11 @@ class GBDT:
         self.X_raw_dev = None
         if self._linear:
             self._defer_trees = False
-            self.X_raw_dev = torch.as_tensor(train_set.raw_used,
-                                             device=self.device)
+            # a pre_partition shard's raw rows are gathered: every rank
+            # fits the leaves' linear models on all rows
+            raw = (_dist.allgather_host(train_set.raw_used) if dist_rows
+                   else train_set.raw_used)
+            self.X_raw_dev = torch.as_tensor(raw, device=self.device)
 
         if self.objective is None and cfg.objective != "none":
             self.objective = create_objective(cfg.objective, cfg,
@@ -588,6 +656,23 @@ class GBDT:
                 not valid_set.constructed:
             valid_set.reference = self.train_set
         valid_set.construct(self.config)
+        if self._row_valid is not None and valid_set is not self.train_set:
+            # pre_partition evaluates valid metrics per process with no
+            # cross-process reduction (reference models/gbdt.py:715-731):
+            # every rank must hold the SAME validation data, or
+            # metric-driven decisions (early stopping) would diverge and
+            # desync the collectives.  Checked by label checksum.
+            from .. import distributed as _dist
+            lab = valid_set.metadata.label
+            sig = np.asarray([0.0 if lab is None else float(lab.sum()),
+                              0.0 if lab is None else float(len(lab))],
+                             np.float64)
+            sigs = _dist.allgather_host(sig).reshape(-1, 2)
+            if not np.allclose(sigs, sigs[0]):
+                raise ValueError(
+                    "under pre_partition every process must pass the SAME "
+                    "validation data (metrics are evaluated per process); "
+                    "got differing label checksums across ranks")
         if valid_set.bin_mappers is not self.train_set.bin_mappers:
             raise ValueError(
                 "cannot add validation data: it was constructed without "
@@ -835,6 +920,8 @@ class GBDT:
             fmask = None if fm is None else torch.as_tensor(
                 fm, device=self.device)
             grad, hess, mask = self._prepare_iter_sampling(grad, hess)
+            if self._row_valid is not None:
+                mask = mask * self._row_valid
             self._last_sample_mask = mask
             leaves = []
             fl_gain = None   # the flight event's best gain (last class)

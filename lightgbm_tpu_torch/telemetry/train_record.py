@@ -9,11 +9,12 @@ accumulates one run's numbers as the boosting loop runs:
     read (or every ``_FLUSH_EVERY`` trees), so the loop never waits on
     the card for them;
   * collective count and reduced bytes per call site
-    (:func:`note_collective`), which the reference tallies where its jit
-    programs are traced.  The port runs no collective yet (ROADMAP queue
-    1 item 10), so ``collectives_traced`` reads empty; so does
-    ``hist_kernel``, the reference's per-site histogram builds: the
-    port's kernel launches are counted in ``ops/histogram_cuda.LAUNCHES``;
+    (:func:`note_collective`), under the reference's site names: the
+    reference tallies where its jit programs are traced, the port where
+    each collective runs (``parallel/mesh.py``), so its counts are calls.
+    ``hist_kernel``, the reference's per-site histogram builds, reads
+    empty: the port's kernel launches are counted in
+    ``ops/histogram_cuda.LAUNCHES``;
   * XLA compile and retrace events, which the reference takes from
     ``jax.monitoring`` listeners.  The port compiles no XLA program, so
     it registers no listener: ``compile_events`` and ``compile_seconds``
@@ -43,7 +44,7 @@ __all__ = ["TrainRecord", "note_collective", "collectives_snapshot",
 
 
 # ---------------------------------------------------------------------------
-# Collective tally (reference :56-90): no port call site yet
+# Collective tally (reference :56-90), fed by parallel/mesh.py
 # ---------------------------------------------------------------------------
 
 _coll_lock = threading.Lock()

@@ -729,10 +729,14 @@ def test_log_callback_and_set_error():
 
 
 def test_network_with_functions_single():
-    for m in (capi, ref_capi):
+    for m, pkg in ((capi, "lightgbm_tpu_torch"), (ref_capi, "lightgbm_tpu")):
         assert m.LGBM_NetworkInitWithFunctions(1, 0)[0] == 0
-        with pytest.raises(NotImplementedError):
+        with pytest.raises(NotImplementedError,
+                           match=rf"{pkg}\.distributed\.init"):
             m.LGBM_NetworkInitWithFunctions(2, 0)
+        with pytest.raises(NotImplementedError,
+                           match=rf"{pkg}\.distributed\.init"):
+            m.LGBM_NetworkInit("127.0.0.1 12400", 12400, 1, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -1763,3 +1763,78 @@ def test_fleet_of_two_workers_on_card_matches_booster(cuda_device, tmp_path):
                    for w in ("w0", "w1")), stats
     finally:
         fleet.shutdown()
+
+
+_DP_WORKER = """
+import sys
+import numpy as np
+import torch
+rank, port, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+import lightgbm_tpu_torch as lt
+from lightgbm_tpu_torch.ops import histogram_cuda as hc
+lt.distributed.init(coordinator_address="127.0.0.1:" + port,
+                    num_processes=2, process_id=rank, local_device_ids=[0],
+                    backend="gloo")
+X, y, params = {data}()
+hc.reset_launches()
+bst = lt.train(params, lt.Dataset(X, y), 3)
+with open(f"{{out}}/dp_{{rank}}.txt", "w") as fh:
+    fh.write(bst.model_to_string())
+assert hc.LAUNCHES["hist_leaves_q8"] > 0 and hc.LAUNCHES["wave_row_update"] > 0
+lt.distributed.shutdown()
+"""
+
+
+def _dp_headline_job():
+    """The quantized headline job (255 leaves, 255 bins, round-half-up)
+    on 200,000 rows: (X, y, params)."""
+    rng = np.random.RandomState(7)
+    X = rng.randn(200_000, 28).astype(np.float32)
+    z = X[:, 0] * X[:, 3] + np.sin(2 * X[:, 5]) - 0.5 * X[:, 9]
+    y = (z + 0.5 * rng.randn(200_000) > 0).astype(np.float32)
+    params = dict(objective="binary", num_leaves=255, max_bin=255,
+                  verbosity=-1, tree_learner="data", tree_grow_mode="wave",
+                  use_quantized_grad=True, stochastic_rounding=False,
+                  num_grad_quant_bins=254, quant_train_renew_leaf=True)
+    return X, y, params
+
+
+@pytest.mark.gpu
+def test_two_ranks_on_card_match_single_process(cuda_device, tmp_path):
+    """Two ranks share the card over gloo (NCCL refuses two ranks on one
+    device) and train the quantized headline job data-parallel: their
+    text is the single-process card run's (the kernels are built first,
+    so the ranks do not race on nvcc)."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    cuda_lib.build_all()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(_DP_WORKER.format(
+        data="__import__('test_torch_gpu')._dp_headline_job"))
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = str(s.getsockname()[1])
+    s.close()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo, os.path.join(repo, "tests")]))
+    procs = [subprocess.Popen([sys.executable, str(script), str(r), port,
+                               str(tmp_path)], env=env,
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    outs = []
+    for p in procs:
+        try:
+            outs.append(p.communicate(timeout=300)[0].decode())
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            pytest.fail("a rank on the card hung")
+    for p, out in zip(procs, outs):
+        assert p.returncode == 0, out[-3000:]
+    X, y, params = _dp_headline_job()
+    single = lt.train(params, lt.Dataset(X, y), 3, device=cuda_device)
+    texts = [(tmp_path / f"dp_{r}.txt").read_text() for r in range(2)]
+    assert texts[0] == texts[1] == single.model_to_string()

@@ -357,10 +357,20 @@ def test_default_device_without_cuda_raises(monkeypatch):
     dict(tree_learner="data", max_bin=511),
 ])
 def test_unported_options_raise(extra):
+    """The parallel learners in a world of one process (no
+    ``distributed.init``): the serial learner grows the trees, as the
+    reference's does on a one-device mesh (lightgbm_tpu/parallel/
+    __init__.py:33-46), so the model is ``tree_learner=serial``'s; at
+    ``max_bin=511`` too, where both serial learners take uint16 bins."""
+    from lightgbm_tpu_torch.learner.serial import SerialTreeLearner
     X, y = _data("regression")
     params = dict(_params("regression", False), **extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train(params, lt.Dataset(X, y), 1, device="cpu")
+    bst = lt.train(params, lt.Dataset(X, y), 2, device="cpu")
+    assert type(bst._gbdt.learner) is SerialTreeLearner
+    serial = lt.train(dict(params, tree_learner="serial"), lt.Dataset(X, y),
+                      2, device="cpu")
+    assert _trees(bst.model_to_string()) == _trees(serial.model_to_string())
+    assert len(_trees(bst.model_to_string())) == 2
 
 
 def test_port_imports_without_jax_or_the_reference():
@@ -369,6 +379,11 @@ def test_port_imports_without_jax_or_the_reference():
             "sys.modules['lightgbm_tpu'] = None\n"
             "import lightgbm_tpu_torch\n"
             "import lightgbm_tpu_torch.convert\n"
+            "import lightgbm_tpu_torch.distributed\n"
+            "import lightgbm_tpu_torch.parallel.mesh\n"
+            "import lightgbm_tpu_torch.parallel.data_parallel\n"
+            "import lightgbm_tpu_torch.parallel.voting_parallel\n"
+            "import lightgbm_tpu_torch.parallel.feature_parallel\n"
             "import lightgbm_tpu_torch.learner.partitioned\n"
             "import lightgbm_tpu_torch.ops.fmath\n"
             "import lightgbm_tpu_torch.ops.cuda_lib\n"
