@@ -40,9 +40,10 @@ Phases (any failure exits non-zero and prints no result line):
    and the numeric form on the same rows; and the threefry stream
    (``utils/random.py``, plain integer ops, not a kernel) bit for bit
    against the CPU's at the main path's N and at a (W, F) node draw;
-3. small models trained on the card against the same models trained on
-   the CPU (plain versions): quantized L2 model text identical at
-   max_bin=255 and at max_bin=15 (packed bins), partitioned binary model
+3. small models (2 rounds each) trained on the card against the same
+   models trained on the CPU (plain versions): quantized L2 model text
+   identical at max_bin=255 and at max_bin=15 (packed bins), partitioned
+   binary model
    text identical (failing that, partitioned predictions within 1e-5 and
    the first differing field named), exact binary wave predictions within
    1e-5; on 10,000 of those rows, with stochastic rounding on,
@@ -104,7 +105,7 @@ Phases (any failure exits non-zero and prints no result line):
    host set-up time): 8 ``higgs_like`` columns and 240 indicator columns
    in 24 mutually exclusive groups of 10 (values 1-3, each group set in
    30% of the rows), bundled into at most half as many device columns
-   (G printed), quantized and exact wave training for 5 rounds each;
+   (G printed), quantized and exact wave training for 3 rounds each;
 11. the split and grower options on the main path's binned rows (run
    after phase 9, while they are on the card): (a) the headline
    configuration with monotone +1, -1, +1, -1 constraints on four
@@ -113,8 +114,8 @@ Phases (any failure exits non-zero and prints no result line):
    and coupled penalties, ``feature_contri`` and a 3-level forced-split
    JSON, 5 rounds; (c) exact wave with lazy CEGB, 3 rounds; (d) the
    partitioned grower with monotone basic bounds and the forced splits,
-   2 rounds; (e) the masked grower (``histogram_pool_size=16``), 2
-   rounds.  Each checks held-out AUC and its kernels' launches; (a) and
+   1 round; (e) the masked grower (``histogram_pool_size=16``), 1
+   round.  Each checks held-out AUC and its kernels' launches; (a) and
    (d) predictions monotone along each constrained column over 1,000
    held-out rows x 32 grid points, (a) no root-to-leaf path mixing two
    interaction groups, (b) and (d) every tree opening with the forced
@@ -141,7 +142,7 @@ Phases (any failure exits non-zero and prints no result line):
    and of the exact wave with the ramp off, on rows binned beforehand:
    each time the batched fast path's metric history equals the per-fold
    loop's, both timed; (d)
-   partitioned lanes, 2 variants, 2 rounds, text equal to ``train()``;
+   partitioned lanes, 2 variants, 1 round, text equal to ``train()``;
    (e) 2 variants for 1 round at 1,048,576 rows on packed bins (quantized
    and exact) and with a categorical column, text equal to ``train()``.
    Every batch runs with the counts set to 0 and must launch its
@@ -152,14 +153,20 @@ Phases (any failure exits non-zero and prints no result line):
    path's rows, the single-leaf form on (a)'s four segments of per-lane
    row-major copies and of the shared feature-major matrix, the row
    update forms at W=25), bitwise as in (a) and timed the same way (the
-   lanes' partition logged with its kernels' device time a call); then
-   on 2,097,152 Higgs-shaped rows, 3 rounds, ``train_many`` of 4 lanes
+   lanes' partition logged with its kernels' device time a call; the
+   exact leaf form's bound at its f32 output's 12 B a bin, the int64
+   sums' 24 B logged beside it, its device split and one call's peak
+   device memory logged, and it also on a skewed mix and with one
+   channel empty, bitwise its plain version and its single launches; at
+   B=1024 its scale-back kernel ``fx_scale_lanes`` against
+   ``fx_to_f32`` and ``torch.mul``); then
+   on 1,048,576 Higgs-shaped rows, 2 rounds, ``train_many`` of 4 lanes
    (``lambda_l2`` 0, 1, 4, 16) at ``max_bin=1023`` headline wave and
-   ``auto`` (partitioned), and at ``max_bin=65535``, 31 leaves, ``auto``,
-   each lane's text that of a standalone card ``train()``, and ``cv`` of 4
-   folds at ``max_bin=1023`` (headline), its fast path's metric history
-   the per-fold loop's; each run with the counts from 0, launching the
-   uint16 model-axis forms and no single form;
+   ``auto`` (partitioned, 1 round), and at ``max_bin=65535``, 31 leaves,
+   ``auto``, each lane's text that of a standalone card ``train()``, and
+   ``cv`` of 4 folds at ``max_bin=1023`` (headline), its fast path's metric
+   history the per-fold loop's; each run with the counts from 0, launching
+   the uint16 model-axis forms and no single form;
 13. the boosting variants and the rest of the training surface, after
    phase 12 on the main path's binned rows, each part with the counts
    set to 0, its kernels' launches asserted, its iterations/s and a
@@ -170,16 +177,17 @@ Phases (any failure exits non-zero and prints no result line):
    rounds; drops per iteration, the bytes of the prediction cache); (c)
    RF on the exact wave (bag 0.632 every round, feature_fraction 0.8, 8
    rounds; save, reload, predict identically); (d) linear trees on the
-   exact wave (5 rounds; the raw matrix's bytes on the card, the moment
+   exact wave (3 rounds; the raw matrix's bytes on the card, the moment
    pass's ms per tree, linear leaves per tree); (e) a custom objective
-   (binary logloss in numpy) and metric (AUC), quantized, 5 rounds, and
-   the same run (1 round) at 300,000 rows on the card and the CPU with identical
-   text; (f) on (a)'s model: ``pred_leaf`` over the held-out rows (the
-   leaf values at the indices sum to the raw score), ``pred_early_stop``,
-   ``rollback_one_iter`` then one round, ``refit`` onto the held-out
-   rows; (g) ``train_many`` of GOSS x 4 (rate sweep, learning_rate 0.5)
-   and DART x 4 (drop-rate sweep), 4 rounds: one group each, models 0
-   and 3 write the text of ``train()``, only model-axis forms launch;
+   (binary logloss in numpy) and metric (AUC), quantized, 3 rounds, and the
+   same run (1 round) at 150,000 rows on the card and the CPU with
+   identical text; (f) on (a)'s model: ``pred_leaf`` over the held-out rows
+   (the leaf values at the indices sum to the raw score),
+   ``pred_early_stop``, ``rollback_one_iter`` then one round, ``refit``
+   onto the held-out rows; (g) ``train_many`` of GOSS x 4 (rate sweep,
+   learning_rate 0.5) and DART x 4 (drop-rate sweep), 3 rounds: one group
+   each, models 0 and 3 write the text of ``train()``, only model-axis
+   forms launch;
 14. checkpoint / resume, serving and explanation, after phase 13: (a)
    the headline configuration on the main path's binned rows, 3 rounds
    with checkpointing (bundles under ``--out-dir``) and a resume to 6,
@@ -207,19 +215,20 @@ Phases (any failure exits non-zero and prints no result line):
    across two runs at F=28, N = the padded rows, B=1024 and B=65,535
    (every histogram on its bin-tile axis), the leaf forms and the
    partition also on a skewed mix (90% of the kept rows in one channel,
-   several channels empty) and one with no kept row; timed at both B
+   several channels empty) and one with no kept row, the exact leaf form
+   as its int64 sums and as its f32 values; timed at both B
    beside the bound (2 bytes a code), the plain version and the int64
    ``index_add_`` (the partition: a stable ``torch.sort``), the
    partition of each form on every mix logged with its two kernels'
    device time a call (``torch.profiler``); (b) the main
-   path's rows binned at max_bin=1023: ``auto`` (partitioned, exact, 2
-   rounds), the explicit wave grower exact and quantized with the
+   path's rows binned at max_bin=1023: ``auto`` (partitioned, exact, 1
+   round), the explicit wave grower exact and quantized with the
    headline settings (3 rounds each): iterations/s, held-out AUC, only
    uint16 leaf and row forms (and the partition) launched;
    headline text identical card / CPU at 300,000 rows (1 round); one
    quantized round on 524,288 rows with two categorical columns (the
    categorical uint16 row update); (c) ``LGBMClassifier.fit`` /
-   ``predict_proba`` with the headline settings, 3 rounds at 131,072
+   ``predict_proba`` with the headline settings, 2 rounds at 131,072
    rows: text equal to ``train()``'s; (d) ``python -m
    lightgbm_tpu_torch`` on a 262,144-row CSV file in a subprocess: its
    model file equal to ``train()``'s from the same conf and file.
@@ -229,8 +238,8 @@ Phases (any failure exits non-zero and prints no result line):
    the last short) into a ``StreamedDataset`` (sketch and bin + spill
    pass seconds); the in-core runs bin the same float32 array.  (a)
    quantized (round-half-up, speculative ramp and exact endgame off, wave
-   grower), 3 rounds chunked through the side-stream upload ring against
-   3 rounds in-core: text identical, ``hist_leaves_q8`` and
+   grower), 2 rounds chunked through the side-stream upload ring against
+   2 rounds in-core: text identical, ``hist_leaves_q8`` and
    ``wave_row_update`` launched on chunk slices and no ``hist_single``,
    held-out AUC; host-to-device bytes per round and GB/s, iterations/s
    chunked against in-core, the share of the wave passes the compute
@@ -298,7 +307,7 @@ Phases (any failure exits non-zero and prints no result line):
    (``save_binary`` once, loaded by each rank), phase 9's headline
    configuration with round-half-up (the rank count then does not enter
    the draws): (a) the data-parallel learner, 5.25M rows a rank,
-   ``--rounds`` rounds: the text the same on both ranks and byte for
+   ``--rounds`` rounds, at most 3: the text the same on both ranks and byte for
    byte a single-process card run of the same job, ``hist_leaves_q8``,
    ``hist_single`` and ``wave_row_update`` launched on each rank,
    iterations/s beside the single process's, each collective site's
@@ -398,7 +407,8 @@ CAT_PARTITION_ROUNDS = 1
 EFB_ROWS = 2_097_152             # phase 10b, cut from 10.5M for set-up time
 EFB_DENSE = (21, 22, 23, 25, 12, 27, 4, 0)   # higgs_like columns kept
 EFB_GROUPS, EFB_GROUP_SIZE = 24, 10
-EFB_ROUNDS = 5
+EFB_ROUNDS = 3                   # cut from 5 for the script's time
+SMALL_ROUNDS = 2                 # phase 3's models; cut from 3 likewise
 
 
 def log(msg: str) -> None:
@@ -1251,7 +1261,7 @@ FORCED = {"feature": 21, "threshold": 1.0,
                     "left": {"feature": 27, "threshold": 0.0},
                     "right": {"feature": 26, "threshold": 0.0}}}
 FORCED_FEATURES = [21, 23, 22, 25, 22, 27, 26]      # the nodes in BFS order
-OPTION_ROUNDS = {"11a": 5, "11b": 5, "11c": 3, "11d": 2, "11e": 2}
+OPTION_ROUNDS = {"11a": 5, "11b": 5, "11c": 3, "11d": 1, "11e": 1}
 MASKED_POOL_MB = 16     # the 255 x 28 x 256 f32 pool takes 22 MB
 
 
@@ -1290,14 +1300,14 @@ def small_check(lt, seed: int, out_dir: str) -> None:
     base = dict(num_leaves=31, max_bin=MAX_BIN, verbosity=-1,
                 stochastic_rounding=False)
     pq = dict(base, objective="regression", use_quantized_grad=True)
-    a = lt.train(pq, lt.Dataset(X, logit), 3, device="cuda")
-    b = lt.train(pq, lt.Dataset(X, logit), 3, device="cpu")
+    a = lt.train(pq, lt.Dataset(X, logit), SMALL_ROUNDS, device="cuda")
+    b = lt.train(pq, lt.Dataset(X, logit), SMALL_ROUNDS, device="cpu")
     if a.model_to_string() != b.model_to_string():
         raise AssertionError("quantized L2 model trained on the card differs "
                              "from the one trained on the CPU")
     p4 = dict(pq, max_bin=PACK_MAX_BIN, tpu_histogram_impl="pallas")
-    a = lt.train(p4, lt.Dataset(X, logit), 3, device="cuda")
-    b = lt.train(p4, lt.Dataset(X, logit), 3, device="cpu")
+    a = lt.train(p4, lt.Dataset(X, logit), SMALL_ROUNDS, device="cuda")
+    b = lt.train(p4, lt.Dataset(X, logit), SMALL_ROUNDS, device="cpu")
     if not (a._gbdt.learner.pack4 and b._gbdt.learner.pack4):
         raise AssertionError(f"max_bin={PACK_MAX_BIN} did not pack the bins")
     if a.model_to_string() != b.model_to_string():
@@ -1305,16 +1315,16 @@ def small_check(lt, seed: int, out_dir: str) -> None:
                              "(packed bins) trained on the card differs "
                              "from the one trained on the CPU")
     pe = dict(base, objective="binary", use_quantized_grad=False)
-    a = lt.train(pe, lt.Dataset(X, y), 3, device="cuda")
-    b = lt.train(pe, lt.Dataset(X, y), 3, device="cpu")
+    a = lt.train(pe, lt.Dataset(X, y), SMALL_ROUNDS, device="cuda")
+    b = lt.train(pe, lt.Dataset(X, y), SMALL_ROUNDS, device="cpu")
     pa, pb = a.predict(X), b.predict(X)
     err = float(np.abs(pa - pb).max())
     if not (np.all(np.isfinite(pa)) and err <= 1e-5):
         raise AssertionError(f"exact binary model on the card predicts "
                              f"{err} away from the CPU's")
     pp = dict(pe, tree_grow_mode="partition")
-    a = lt.train(pp, lt.Dataset(X, y), 3, device="cuda")
-    b = lt.train(pp, lt.Dataset(X, y), 3, device="cpu")
+    a = lt.train(pp, lt.Dataset(X, y), SMALL_ROUNDS, device="cuda")
+    b = lt.train(pp, lt.Dataset(X, y), SMALL_ROUNDS, device="cpu")
     sa, sb = a.model_to_string(), b.model_to_string()
     if sa == sb:
         part = "partitioned binary model text identical"
@@ -1328,7 +1338,8 @@ def small_check(lt, seed: int, out_dir: str) -> None:
             raise AssertionError(f"partitioned binary model on the card "
                                  f"predicts {perr} away from the CPU's")
         part = f"partitioned binary predictions within {perr:.3g}"
-    log(f"small models (20000x{NUM_FEATURES}, 31 leaves, 3 rounds): "
+    log(f"small models (20000x{NUM_FEATURES}, 31 leaves, "
+        f"{SMALL_ROUNDS} rounds): "
         f"quantized L2 model text identical on card and CPU, at "
         f"max_bin={MAX_BIN} and at max_bin={PACK_MAX_BIN} with packed bins; "
         f"{part}; exact binary wave predictions within {err:.3g}")
@@ -1345,14 +1356,14 @@ def small_check(lt, seed: int, out_dir: str) -> None:
             ("stochastic quantized binary, bynode 0.5 + extra-trees",
              dict(ps, objective="binary", feature_fraction_bynode=0.5,
                   extra_trees=True), y)):
-        a = lt.train(params, lt.Dataset(X, label), 3, device="cuda")
-        b = lt.train(params, lt.Dataset(X, label), 3, device="cpu")
+        a = lt.train(params, lt.Dataset(X, label), SMALL_ROUNDS, device="cuda")
+        b = lt.train(params, lt.Dataset(X, label), SMALL_ROUNDS, device="cpu")
         if a.model_to_string() != b.model_to_string():
             raise AssertionError(f"{what} model trained on the card differs "
                                  "from the one trained on the CPU")
     p1 = dict(base, objective="regression_l1")
-    a = lt.train(p1, lt.Dataset(X, logit), 3, device="cuda")
-    b = lt.train(p1, lt.Dataset(X, logit), 3, device="cpu")
+    a = lt.train(p1, lt.Dataset(X, logit), SMALL_ROUNDS, device="cuda")
+    b = lt.train(p1, lt.Dataset(X, logit), SMALL_ROUNDS, device="cpu")
     sa, sb = a.model_to_string(), b.model_to_string()
     if sa == sb:
         l1 = "L1 with leaf renewal model text identical"
@@ -1366,7 +1377,8 @@ def small_check(lt, seed: int, out_dir: str) -> None:
             raise AssertionError(f"L1 model on the card predicts {l1err} "
                                  "away from the CPU's")
         l1 = f"L1 with leaf renewal predictions within {l1err:.3g}"
-    log(f"small models (10000x{NUM_FEATURES}, 31 leaves, 3 rounds), "
+    log(f"small models (10000x{NUM_FEATURES}, 31 leaves, "
+        f"{SMALL_ROUNDS} rounds), "
         f"stochastic rounding on: quantized binary, 3-class multiclass and "
         f"binary with bynode sampling and extra-trees model text identical "
         f"on card and CPU; {l1}")
@@ -1389,9 +1401,9 @@ def small_check(lt, seed: int, out_dir: str) -> None:
              dict(base, objective="binary", tree_grow_mode="partition"),
              both, yb, both_idx)):
         a = lt.train(params, lt.Dataset(data, label, categorical_feature=cidx),
-                     3, device="cuda")
+                     SMALL_ROUNDS, device="cuda")
         b = lt.train(params, lt.Dataset(data, label, categorical_feature=cidx),
-                     3, device="cpu")
+                     SMALL_ROUNDS, device="cpu")
         sa, sb = a.model_to_string(), b.model_to_string()
         if cidx != "auto" and "num_cat=0\n" in sa and \
                 sa.count("num_cat=0\n") == sa.count("num_cat="):
@@ -1404,7 +1416,8 @@ def small_check(lt, seed: int, out_dir: str) -> None:
             raise AssertionError(f"{what} model trained on the card differs "
                                  f"from the one trained on the CPU, first "
                                  f"in field {first!r}")
-    log(f"small models (10000 rows, 31 leaves, 3 rounds): categorical "
+    log(f"small models (10000 rows, 31 leaves, "
+        f"{SMALL_ROUNDS} rounds): categorical "
         f"quantized with stochastic rounding ({NUM_FEATURES} numeric + "
         f"{len(CAT_CARDS)} categorical columns), EFB quantized from CSR "
         f"({mat.shape[1]} columns) and categorical + EFB partitioned model "
@@ -1425,8 +1438,8 @@ def small_check(lt, seed: int, out_dir: str) -> None:
                   **option_params(out_dir, "d")), "partition"),
             ("masked exact", dict(base, objective="binary",
                                   histogram_pool_size=1), "masked")):
-        a = lt.train(params, lt.Dataset(X, y), 3, device="cuda")
-        b = lt.train(params, lt.Dataset(X, y), 3, device="cpu")
+        a = lt.train(params, lt.Dataset(X, y), SMALL_ROUNDS, device="cuda")
+        b = lt.train(params, lt.Dataset(X, y), SMALL_ROUNDS, device="cpu")
         if a._gbdt.learner.grow_mode != mode:
             raise AssertionError(f"{what}: trained on the "
                                  f"{a._gbdt.learner.grow_mode} grower")
@@ -1437,7 +1450,8 @@ def small_check(lt, seed: int, out_dir: str) -> None:
             raise AssertionError(f"{what} model trained on the card differs "
                                  f"from the one trained on the CPU, first "
                                  f"in field {first!r}")
-    log("small models (10000 rows, 15 leaves, 3 rounds): wave quantized "
+    log(f"small models (10000 rows, 15 leaves, {SMALL_ROUNDS} rounds): "
+        "wave quantized "
         "with monotone intermediate + interaction constraints, wave "
         "quantized with smoothing + CEGB + feature_contri + forced splits "
         "(endgame on), partitioned exact with monotone basic + forced "
@@ -2224,11 +2238,16 @@ LANE_KERNELS = {
         "lightgbm_tpu/ops/histogram_pallas.py:1314"),
     "hist_single_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_single.cu",
                               "lightgbm_tpu/ops/histogram_pallas.py:471"),
+    # the exact lanes form's f32 scale-back at one bin tile (slot mode):
+    # the f32 output of the leaf histogram under vmap
+    "fx_scale_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
+                           "lightgbm_tpu/ops/histogram_pallas.py:852"),
 }
 LANE_U16 = tuple(k for k in LANE_KERNELS
                  if k.endswith("_u16") or k == "leaf_partition_lanes")
 MANY_L2 = (0.0, 1.0, 4.0, 16.0)      # phase 12b's variants
 MANY_ROUNDS = 2                      # 3 before phase 15
+PART_LANE_ROUNDS = 1                 # (d): cut from 2 for the run's time
 CV_ROWS = 1_048_576                  # phase 12c's rows
 CV_FOLDS = 4
 SIDE_ROWS = 1_048_576                # phase 12e's packed / categorical rows
@@ -2680,17 +2699,19 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
     reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mb = lt.train_many(part, ds, 2, variants=pv, device="cuda")
+    mb = lt.train_many(part, ds, PART_LANE_ROUNDS, variants=pv,
+                       device="cuda")
     torch.cuda.synchronize()
     t_part = time.perf_counter() - t0
     count("d", ("hist_single_lanes",))
     for m, v in enumerate(pv):
-        ref = lt.train({**part, **v}, ds, 2, device="cuda")
+        ref = lt.train({**part, **v}, ds, PART_LANE_ROUNDS, device="cuda")
         if ref.model_to_string() != mb[m].model_to_string():
             raise AssertionError(f"phase 12d: partitioned lane {m} text "
                                  "differs from train()")
-    log(f"[{card}] phase 12d partitioned train_many x2, 2 rounds: "
-        f"{2 * 2 / t_part:.4f} model-rounds/s, text identical to train()")
+    log(f"[{card}] phase 12d partitioned train_many x2, {PART_LANE_ROUNDS} "
+        f"round(s): {2 * PART_LANE_ROUNDS / t_part:.4f} model-rounds/s, "
+        "text identical to train()")
     del mb, ref
     torch.cuda.empty_cache()
 
@@ -2721,9 +2742,9 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
 
 # -- phase 12f: the model-axis kernels' uint16 forms and their paths --------
 
-MANY_U16_ROWS = 2_097_152            # the uint16 tree sweep's rows
-MANY_U16_ROUNDS = 3
-MANY_U16_PART_ROUNDS = 2             # max_bin=1023 auto: cut from 3 for time
+MANY_U16_ROWS = 1_048_576            # the uint16 tree sweep's rows (2x before)
+MANY_U16_ROUNDS = 2                  # 3 before
+MANY_U16_PART_ROUNDS = 1             # max_bin=1023 auto: cut from 3 for time
 MANY_U16_TOP_LEAVES = 31             # max_bin=65535: 31 x 28 x 65,535 x 12 B
 
 
@@ -2785,6 +2806,104 @@ def _partition_lanes_case(torch, hc, card, chs, ws, k, f, n, nb, active,
     return out
 
 
+def _fx_lane_extras(torch, hc, th, card, gen, bins, wide, ws, chs, q8chs,
+                    nb, reps):
+    """The exact lanes form's extras at B=``nb`` (phase 12f): the device
+    split of one call (partition, histogram, scale-back) and its peak
+    device memory above its inputs; the form on a skewed mix (of each
+    lane's kept rows, 90% in channel 3 and the rest in channels c % 4 !=
+    1, six channels empty) and with channel 7 empty, bitwise its plain
+    version and its single launches and identical twice, timed; at one
+    bin tile (slot mode) the scale-back kernel ``fx_scale_lanes`` on
+    the even mix's int64 sums, bitwise ``fx_to_f32`` (its plain version)
+    and ``torch.mul`` into an f32 output (one PyTorch call of the same
+    function, the library yardstick), timed beside its bound.  Returns
+    the scale-back's record at one tile, else None."""
+    L, k = len(ws), hc.LEAF_CHANNELS
+    f, n = bins.shape
+    dev = bins.device
+    owner = hc.list_owner(nb, False, True)
+
+    def call(c):
+        return lambda: hc.build_histogram_leaves_lanes(bins, ws, c,
+                                                       num_bins=nb)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m0 = torch.cuda.memory_allocated()
+    out = call(chs)()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - m0
+    log(f"[{card}] hist_leaves_lanes_u16 [B={nb}, L={L}, "
+        f"{'owner' if owner else 'slot'} mode]: one call's peak device "
+        f"memory above its inputs {peak / 2**30:.3f} GiB (output "
+        f"{out.numel() * 4 / 2**30:.3f} GiB f32); device ms a call: "
+        f"{split_text(device_split(call(chs)))}")
+    del out
+    light = torch.tensor([c for c in range(k) if c % 4 != 1 and c != 3],
+                         dtype=torch.int8, device=dev)
+    skewed = []
+    for c in q8chs:
+        heavy = torch.rand(n, generator=gen, device=dev) < 0.9
+        pick = light[torch.randint(0, len(light), (n,), generator=gen,
+                                   device=dev)]
+        skewed.append(torch.where(c >= 0, torch.where(heavy, 3, pick),
+                                  -1).to(torch.int8).contiguous())
+    empty = [torch.where(c == 7, -1, c).to(torch.int8).contiguous()
+             for c in chs]
+    for tag, mix in (("skewed", skewed), ("channel 7 empty", empty)):
+        got, again = call(mix)(), call(mix)()
+        torch.cuda.synchronize()
+        want = hc.build_histogram_leaves_lanes_plain(bins, ws, mix,
+                                                     num_bins=nb)
+        if not (torch.equal(got, again) and torch.equal(got, want)):
+            raise AssertionError(f"hist_leaves_lanes_u16 [B={nb}, {tag} "
+                                 "mix] differs from its plain version or "
+                                 "itself")
+        for i in range(L):
+            if not torch.equal(got[i], hc.build_histogram_leaves(
+                    bins, ws[i], mix[i], num_bins=nb)):
+                raise AssertionError(f"hist_leaves_lanes_u16 [B={nb}, {tag} "
+                                     f"mix] lane {i} differs from its single "
+                                     "launch")
+        del got, again, want
+        log(f"[{card}] kernel hist_leaves_lanes_u16 [B={nb}, {tag} mix, "
+            f"L={L}]: bitwise equal to plain and to {L} single launches, "
+            f"identical across two runs; one call "
+            f"{time_ms(call(mix), reps):.3f} ms")
+    del skewed, empty
+    torch.cuda.empty_cache()
+    if owner:
+        return None
+    sums = th.build_histogram_leaves_lanes(wide, [w.w for w in ws], chs,
+                                           num_channels=k, num_bins=nb,
+                                           acc_dtype=torch.int64)
+    scales = torch.stack([w.inv_scale for w in ws])
+    got = hc.fx_scale_lanes(sums, scales)
+    want = th.fx_to_f32(sums, scales)
+    lib = torch.empty_like(want)
+    bcast = scales.reshape(L, *([1] * (sums.dim() - 2)), 3)
+    torch.mul(sums, bcast, out=lib)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and torch.equal(lib, want)):
+        raise AssertionError("fx_scale_lanes differs from fx_to_f32 or "
+                             "torch.mul")
+    b_ms, b_by = bound_ms(sums.numel() * 12.0 + scales.numel() * 8.0,
+                          float(sums.numel()))
+    r = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+             ms=time_ms(lambda: hc.fx_scale_lanes(sums, scales), reps),
+             plain_ms=time_ms(lambda: th.fx_to_f32(sums, scales), reps),
+             library_ms=time_ms(lambda: torch.mul(sums, bcast, out=lib),
+                                reps))
+    log(f"[{card}] kernel fx_scale_lanes_u16 [(L={L}, {k}, {f}, {nb}, 3) "
+        f"int64 sums]: bitwise equal to fx_to_f32 (plain) and to torch.mul "
+        f"into f32 (library); {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+        f"ms, library {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by})")
+    del sums, got, want, lib
+    torch.cuda.empty_cache()
+    return r
+
+
 def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
                           reps: int) -> dict:
     """Phase 12f's kernels: every uint16 model-axis form at L = 4 lanes
@@ -2797,7 +2916,8 @@ def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
     stable ``torch.sort`` of the lanes' channels); ``hist_single_lanes``
     over phase 12a's four segments of per-lane row-major copies (ROWS:
     the partitioned grower's layout, the kernels line's time) and of the
-    shared feature-major matrix (FEATS, logged)."""
+    shared feature-major matrix (FEATS, logged); the exact leaf form's
+    extras (:func:`_fx_lane_extras`)."""
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     from lightgbm_tpu_torch.ops import quantize as tq
@@ -2845,8 +2965,10 @@ def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
             active = sum(int(x.sum()) for x in live)
             anyl = int(torch.stack(live).any(dim=0).sum())
             del live
+            # each output byte once: q8 int32, fx f32 (12 B a bin; the
+            # int64 sums' 24 B a bin logged beside it)
             nbytes = (L * n + active * (3 if q8 else 24) + 2 * f * anyl +
-                      L * k * f * nb * 3 * (4 if q8 else 8))
+                      L * k * f * nb * 3 * 4)
             lib = _lane_library(torch, wide, w3, chs, k, nb, torch.int64)
             name = ("hist_leaves_q8_lanes_u16" if q8
                     else "hist_leaves_lanes_u16")
@@ -2859,6 +2981,17 @@ def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
                 nbytes, 3.0 * f * active, lib, reps))
             del lib
             torch.cuda.empty_cache()
+            if not q8:
+                b24 = bound_ms(nbytes + L * k * f * nb * 12, 3.0 * f * active)
+                b12 = bound_ms(nbytes, 3.0 * f * active)
+                log(f"  {name} [B={nb}] bound at the int64 sums' 24 B a "
+                    f"bin: {b24[0]:.4f} ms ({b24[1]}); at the f32 output's "
+                    f"12 B: {b12[0]:.4f} ms ({b12[1]})")
+                scale = _fx_lane_extras(torch, hc, th, card, gen, bins, wide,
+                                        ws, chs, [x[2] for x in lanes], nb,
+                                        reps)
+                if scale is not None:
+                    rec["fx_scale_lanes_u16"] = scale
             if q8:
                 # the q8 form's partition, as the histogram runs it
                 _lane_put(rec, "leaf_partition_lanes", main,
@@ -2970,6 +3103,8 @@ def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
         torch.cuda.empty_cache()
     for name in LANE_U16:
         r = rec[name]
+        if "tile_ms" not in r:
+            continue   # the scale-back: slot mode's, logged at B=1024
         lib = ("n/a" if r["library_ms"] is None else
                f"{r['library_ms']:.3f} ms / {r['tile_library_ms']:.3f} ms")
         log(f"[{card}] {name} @ L={L} N={n}, B={U16_BINS[0]} / "
@@ -2984,7 +3119,7 @@ def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
 
 def many_u16_phase(lt, torch, card, Xtr, ytr, out_dir: str) -> dict:
     """Phase 12f's trees: ``train_many`` of 4 lanes over uint16 bins on
-    2,097,152 Higgs-shaped rows (:data:`MANY_U16_ROWS`), each lane's text
+    1,048,576 Higgs-shaped rows (:data:`MANY_U16_ROWS`), each lane's text
     that of a standalone ``train()``, and ``cv`` of 4 folds of 1,048,576
     rows on the exact wave with a 40-category column (the exact leaf form
     and the row update's categorical form), each fold's trees and the
@@ -3083,7 +3218,8 @@ def many_u16_phase(lt, torch, card, Xtr, ytr, out_dir: str) -> dict:
             secs[many] = time.perf_counter() - t0
             if many:
                 count("f cv", ("hist_leaves_lanes_u16", "leaf_partition_lanes",
-                               "wave_row_update_ext_lanes_u16"))
+                               "wave_row_update_ext_lanes_u16",
+                               "fx_scale_lanes_u16"))
         trees = {many: [tree_blocks(b.model_to_string())
                         for b in hist[many].pop("cvbooster").boosters]
                  for many in (True, False)}
@@ -3109,11 +3245,11 @@ def many_u16_phase(lt, torch, card, Xtr, ytr, out_dir: str) -> dict:
 VARIANT_ROUNDS = 8                   # (a)-(c)
 VARIANT_LR = 0.25                    # GOSS warms up int(1 / lr) = 4 rounds
 GOSS_RATES = (0.2, 0.1)              # (a): top_rate, other_rate
-LINEAR_ROUNDS = 5                    # (d)
-FOBJ_ROUNDS = 5                      # (e)
-FOBJ_CHECK_ROWS = 300_000            # (e): the card-against-CPU text check
+LINEAR_ROUNDS = 3                    # (d); 5 before
+FOBJ_ROUNDS = 3                      # (e); 5 before
+FOBJ_CHECK_ROWS = 150_000            # (e): the card-against-CPU text check
 FOBJ_CHECK_ROUNDS = 1                # cut from 5 for the run's time
-MANY_VARIANT_ROUNDS = 4              # (g); cut from 6 for phase 14's time
+MANY_VARIANT_ROUNDS = 3              # (g); cut from 6 for the run's time
 MANY_GOSS = ((0.2, 0.1), (0.3, 0.1), (0.2, 0.2), (0.1, 0.1))
 MANY_DART = (0.05, 0.1, 0.2, 0.4)
 HEAD_KERNELS = ("hist_leaves_q8", "wave_row_update", "hist_single")
@@ -3656,13 +3792,13 @@ U16_KERNELS = {
 U16_MAX_BIN = 1023               # (b): finer thresholds, B = 1024
 U16_BINS = (1024, 65_535)        # (a): the main path's B, and past a tile
 U16_ROUNDS = 3                   # (b): rounds per run, cut from Higgs' 500
-U16_PARTITION_ROUNDS = 2
+U16_PARTITION_ROUNDS = 1
 U16_CHECK_ROWS = 300_000         # (b): the card-against-CPU text check
 U16_CHECK_ROUNDS = 1             # cut from 2 for the phase's time
 U16_CAT_ROWS = 524_288           # (b): the categorical run's rows
 SKLEARN_ROWS = 131_072           # (c): the estimator's rows
 CLI_ROWS = 262_144               # (d): the CLI's data file
-LIB_ROUNDS = 3
+LIB_ROUNDS = 2                   # 3 before
 CACHE_ROUNDS = 2                 # (e)
 
 
@@ -3752,8 +3888,10 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
     chunks, clusters resident at once); the two leaf forms and their
     channel partition
     (``leaf_partition``) also on a skewed mix and one with no kept row
-    (:func:`_u16_mixes`).  Timed at both B beside the bound (each input
-    byte once: 2 bytes a code), the plain version and the int64
+    (:func:`_u16_mixes`); the exact form as its int64 sums (``raw``: the
+    kernels line's time) and as its f32 values (owner mode past one bin
+    tile; checked, timed in the log).  Timed at both B beside the bound
+    (each input byte once: 2 bytes a code), the plain version and the int64
     ``index_add_`` (the partition: one stable ``torch.sort`` of the
     channels); the B=65,535 numbers under ``tile_*``."""
     from lightgbm_tpu_torch.ops import histogram as th
@@ -3827,7 +3965,12 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                      cx, w.w, num_channels=kx, slots=geo_x.slots,
                      part_blocks=geo_x.part_blocks),
                  lambda: hc.leaf_partition_plain(
-                     cx, w.w, num_channels=kx, slots=geo_x.slots))]
+                     cx, w.w, num_channels=kx, slots=geo_x.slots)),
+                # the exact form's f32 values (owner mode past one tile)
+                ("hist_leaves_u16",
+                 lambda: hc.build_histogram_leaves(bins, w, cx, num_bins=nb),
+                 lambda: hc.build_histogram_leaves_plain(bins, w, cx,
+                                                         num_bins=nb))]
 
         forms = [
             # the feature-major matrix, the layout the partitioned and the
@@ -3857,10 +4000,13 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
             err = _u16_bitwise(torch, hc, name, nb, "today", run, plain)
             if name in seen:   # the exact form's partition: checked only
                 rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
-                if name == "hist_single_u16":
-                    log(f"kernel {name} [F={f} N={n} B={nb}, row-major "
-                        f"rows]: bitwise equal to plain, identical across "
-                        f"two runs; {time_ms(run, reps):.3f} ms")
+                if name in ("hist_single_u16", "hist_leaves_u16"):
+                    what = ("row-major rows" if name == "hist_single_u16"
+                            else "f32 values, " + ("owner" if hc.list_owner(
+                                nb, False, True) else "slot") + " mode")
+                    log(f"kernel {name} [F={f} N={n} B={nb}, {what}]: "
+                        f"bitwise equal to plain, identical across two "
+                        f"runs; {time_ms(run, reps):.3f} ms")
                 continue
             seen.add(name)
             put(name, main, max_abs_err=err, ms=time_ms(run, reps),
@@ -3870,12 +4016,13 @@ def u16_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                 f"{rec[name]['ms' if main else 'tile_ms']:.3f} ms")
         # the leaf forms and the partition on the other mixes
         for tag, cq, cx in mixes[1:]:
-            for name, run, plain in leaf_forms(cq, cx):
+            for i, (name, run, plain) in enumerate(leaf_forms(cq, cx)):
                 err = _u16_bitwise(torch, hc, name, nb, tag, run, plain)
                 rec[name]["max_abs_err"] = max(rec[name]["max_abs_err"], err)
                 if name != "leaf_partition":
-                    log(f"kernel {name} [B={nb}, {tag} mix]: bitwise equal "
-                        f"to plain, identical across two runs; "
+                    log(f"kernel {name} [B={nb}, {tag} mix"
+                        f"{', f32 values' if i == 4 else ''}]: bitwise "
+                        f"equal to plain, identical across two runs; "
                         f"{time_ms(run, reps):.3f} ms")
         # the partition of each form on every mix: its time and its
         # kernels' device time a call
@@ -4250,7 +4397,7 @@ def cache_phase(lt, torch, card, ds, out_dir) -> dict:
 
 INGEST_CHUNK = 1 << 20           # rows per streamed chunk
 INGEST_SMALL_ROWS = 2_097_152    # (d): the second run's rows
-INGEST_Q_ROUNDS = 3              # (a)
+INGEST_Q_ROUNDS = 2              # (a); 3 before
 INGEST_EXACT_ROUNDS = 2          # (b)
 # (d): how far the two chunked peaks may differ.  Readings on the H100
 # were 0 and 313,856 bytes (PERF.md); 2 MiB is a quarter of a byte a row
@@ -5391,6 +5538,7 @@ def fleet_phase(lt, torch, card, Xte, serve_model: str, p17: dict,
 
 P19_FP_ROWS = 1_048_576
 P19_FP_LEAVES = 63
+P19_Q_ROUNDS = 3                 # (a): at most this many of --rounds
 P19_EXACT_ROUNDS = 2
 P19_VOTE_ROUNDS = 3
 P19_FP_ROUNDS = 2
@@ -5841,7 +5989,20 @@ def main(argv=None) -> int:
             f"{args.rounds} per mode (6 by default since phase 15)")
     log(f"cut: phase 14b's serving model {SERVE_TREES} trees (64 before "
         f"phase 15); phase 12b-c {MANY_ROUNDS} rounds (3 before); phase "
-        f"13e's card / CPU check {FOBJ_CHECK_ROUNDS} round (2 before)")
+        f"13e's card / CPU check {FOBJ_CHECK_ROUNDS} round (2 before) at "
+        f"{FOBJ_CHECK_ROWS} rows (300000 before); for the script's time "
+        f"(1200 s limit): phase 12d {PART_LANE_ROUNDS} round (2 before), "
+        f"phase 11d and 11e 1 round each (2 before), phase 13g "
+        f"{MANY_VARIANT_ROUNDS} rounds (4 before), phase 15b auto "
+        f"{U16_PARTITION_ROUNDS} round (2 before), phase 12f max_bin="
+        f"{U16_MAX_BIN} auto {MANY_U16_PART_ROUNDS} round (2 before) and "
+        f"its trees at {MANY_U16_ROWS} rows, {MANY_U16_ROUNDS} rounds "
+        f"(2097152, 3 before), phase 3 {SMALL_ROUNDS} rounds (3 before), "
+        f"phase 10b {EFB_ROUNDS} (5 before), phase 13d and 13e "
+        f"{LINEAR_ROUNDS} and {FOBJ_ROUNDS} (5 before), phase 15c-d "
+        f"{LIB_ROUNDS} (3 before), phase 16a {INGEST_Q_ROUNDS} (3 before), "
+        f"phase 19a {min(args.rounds, P19_Q_ROUNDS)} ({args.rounds} "
+        f"before)")
     log(f"cut: partition path rounds only, Higgs' 500 -> "
         f"{PARTITION_ROUNDS}; renew path {RENEW_ROUNDS} rounds")
     for name, modes, rounds, needs in paths:
@@ -5987,7 +6148,7 @@ def main(argv=None) -> int:
     # ---- phase 19: distributed training, 2 ranks on the card ----
     t19 = time.perf_counter()
     for k, v in distributed_phase(lt, torch, card, Xtr, ytr, Xte, yte,
-                                  args.rounds, out_dir,
+                                  min(args.rounds, P19_Q_ROUNDS), out_dir,
                                   args.profile).items():
         launches[k] += v
     torch.cuda.empty_cache()

@@ -322,8 +322,9 @@ _PARAMS: List[ParamSpec] = [
     # in the final contraction (abs error <= sum of per-tree scales / 2)
     _p("tpu_predict_leaf_bits", int, 0),
     # shard the dense program's tree axis over this many devices (0/1 =
-    # single device); > 1 raises until the port serves across cards
-    # (ROADMAP queue 1 item 10)
+    # single device); > 1 pads the tree axis to a multiple of it and runs
+    # on the one device, as the reference does with one device
+    # (serve/compiler.py; across cards: ROADMAP queue 1 item 10)
     _p("tpu_predict_shard", int, 0, check=">=0"),
     # --- explanation compiler (explain/) ---
     # dense = force the loop-free dense TreeSHAP program (per-leaf

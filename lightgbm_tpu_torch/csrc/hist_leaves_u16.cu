@@ -50,37 +50,53 @@
 //     of their share of the channel, (j / s_c, c): blocks that run
 //     together then walk the same stretch of rows in every channel, and
 //     the bin sectors one channel's block reads are in L2 for the others'.
-//  3. The histogram blocks.  Block b takes column b % columns (bin tiles
-//     fastest, then feature groups) of the slot ranked b / columns: one
-//     channel, fg features, listed rows [off_c + n_c j / s_c,
-//     off_c + n_c (j + 1) / s_c).  Past one block's room for B bins, the
-//     tiles of a column form a thread-block cluster: each block keeps
-//     bins [b0, b0 + Bt) in shared memory, walks 1/tiles of the slot's
-//     records and adds each bin into the tile that holds it, a peer's
-//     through distributed shared memory, so each record and bin is read
-//     once per feature group, not once per tile.  Its threads take
-//     consecutive records (no channel scan, no queue), the next record
-//     loading while they gather fg bins (eight loads at a time) and add
-//     into shared memory; each block flushes its tile once with global
-//     atomics.  A block holds per (feature, bin) 20 bytes fx (int64 g and
-//     h, uint32 count) or 12 q8 (int64 (g << 32) + h, uint32 count);
-//     ops/histogram_cuda.py list_geometry sizes fg, Bt and S.
+//  3. The histogram clusters.  A cluster is the `tiles` blocks (one a bin
+//     tile, at most 6 fx / 4 q8) of one (lane, rank, group of fg
+//     features); each block keeps bins [b0, b0 + Bt) of its fg features in
+//     shared memory, walks 1/tiles of the rank's records and adds each bin
+//     into the tile that holds it, a peer's through distributed shared
+//     memory, so each record and bin is read once per feature group, not
+//     once per tile.  Its threads take consecutive records (no channel
+//     scan, no queue), the next record loading while they gather fg bins
+//     (eight loads at a time) and add into shared memory.  A block holds
+//     per (feature, bin) 20 bytes fx (int64 g and h, uint32 count) or 12
+//     q8 (int64 (g << 32) + h, uint32 count); ops/histogram_cuda.py
+//     list_geometry sizes fg, Bt and S.  Two flushes:
+//     * slot mode (q8; fx at one tile, or its raw int64 sums): rank r is
+//       the slot table[r] of 2., listed rows [off_c + n_c j / s_c, off_c +
+//       n_c (j + 1) / s_c) of channel c; the slots of one channel share
+//       its entries, so each block adds its tile into the caller's
+//       zero-filled int32 / int64 output with global atomics (the exact
+//       lanes form then scales the int64 sums to f32 in one pass,
+//       fx_scale_lanes);
+//     * owner mode (fx's f32 values past one tile, the plan of S = 0
+//       slots: one slot a channel with rows, whatever its share): rank r
+//       is channel r and its cluster walks all of the channel's records,
+//       so its shared memory ends with the final sums of those fg
+//       features; each block writes its tile as f32, (float)((double)sum
+//       x scale[k]), bitwise ops/histogram.py fx_to_f32, with plain
+//       stores, an empty channel's zeros too.  No int64 histogram, zero
+//       fill, global atomic or float64 pass reaches device memory (at
+//       B=65,535 and L=4 they came to ~37 GB of traffic and 13.2 GB held
+//       a call, by the sizes).  A channel holding most rows makes its
+//       clusters the launch's tail, yet on a 90%-skewed mix owner mode
+//       still beat slot mode's atomics and scale-back; slot mode stays
+//       at one tile, where its int64 output is small.
 //  4. The model-axis forms (the reference's vmap of these entry points;
 //     multitrain's lanes, each with its own channels and weights over the
 //     shared bins): the lane is grid y of the partition's two kernels,
 //     each lane with its own plan (offsets, slots, table, counts) and its
 //     records at a per-lane base, so the partition's shared tables still
 //     hold K <= 64 channels (L lanes x 42 channels would not fit one
-//     channel space).  The histogram then runs one launch a lane over that
-//     lane's buffers.  One launch of all the lanes' blocks (the lane as
-//     grid y, or the lanes along x one after another or interleaved) was
-//     bitwise the same and took 1.25x (L=2) to 1.7x (L=4) the time of L
-//     launches at B=1024 on an H100 (equal at 65,535), with each lane's
-//     blocks in consecutive block indices too; most likely the lanes'
-//     blocks then run side by side, each walking its own stretch of rows,
-//     and lose the L2 sharing of bin sectors that the slot ranking (2.)
-//     gives blocks walking one stretch (PERF.md section 6,
-//     scripts/torch_u16_lanes_sweep.py).
+//     channel space).  The histograms then run a launch a lane, or one
+//     launch of every lane's clusters, lane-major (a channel's feature
+//     groups together: its records stay in L2) or feature-major (a
+//     feature group's clusters of every lane and channel together: its
+//     bin rows stay in L2 across the lanes).  The fx form takes one
+//     feature-major launch (ops/histogram_cuda.py list_lane_order: the
+//     fastest of the three but on one skewed mix; lane-major was the
+//     slowest at one tile); the q8 form launches a lane.  PERF.md
+//     section 6 has the sweeps (scripts/torch_u16_lanes_sweep.py).
 //
 // The sums are integers, so the result is bit-identical from run to run
 // and to the plain versions (ops/histogram_cuda.py *_plain).  q8 adds
@@ -90,8 +106,9 @@
 // 32-bit value and the high word sum g, with no carry lost.
 //
 // Times, beside the queue-scan design they replace and one int64
-// index_add_ of the same sums: PERF.md section 6 (chip_smoke.py phase
-// 15a; the geometry sweep, scripts/torch_u16_leaf_sweep.py).
+// index_add_ of the same sums: PERF.md section 6 (chip_smoke.py phases
+// 15a and 12f; the sweeps, scripts/torch_u16_leaf_sweep.py and
+// scripts/torch_u16_lanes_sweep.py).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -550,39 +567,90 @@ part_scatter(const int8_t* __restrict__ ch, const W* __restrict__ w,
   }
 }
 
-// Block b: the slot ranked b / columns and column b % columns (tile
-// fastest).  The `tiles` blocks of one (slot, feature group), one a bin
-// tile, form a thread-block cluster: each keeps its tile's histogram in
-// shared memory, walks 1/tiles of the slot's records, and adds each bin
-// into the tile that holds it, its own or a peer's through distributed
-// shared memory.  So every record and bin is read once per feature group,
-// whatever the tiles.  bins: (F, N) uint16 feature-major; rec: the
-// partition's records.  out: (K, F, B, 3), int32 (q8) or int64 (fx).
-template <typename W>
+// A cluster of the histogram: `tiles` consecutive blocks, one a bin tile,
+// for one (lane, rank, feature group).  Lane-major (a launch a lane, or
+// one launch with the lane outermost): cluster ((lane x ranks + rank) x
+// f_groups + g), so the feature groups of one rank (one channel's slot)
+// run together.  Feature-major: cluster ((g x L + lane) x ranks + rank),
+// so every lane's and channel's clusters of one feature group run
+// together.
+struct ClusterOf {
+  int lane, rank, g, tile;
+};
+
+__device__ __forceinline__ ClusterOf cluster_of(int tiles, int f_groups,
+                                               int ranks, int L,
+                                               bool feature_major) {
+  ClusterOf o;
+  unsigned int u = blockIdx.x / tiles;
+  o.tile = blockIdx.x % tiles;   // == cluster.block_rank()
+  if (feature_major) {
+    o.rank = u % ranks;
+    u /= ranks;
+    o.lane = u % L;
+    o.g = u / L;
+  } else {
+    o.g = u % f_groups;
+    u /= f_groups;
+    o.rank = u % ranks;
+    o.lane = u / ranks;
+  }
+  return o;
+}
+
+// One cluster (ClusterOf) of `tiles` blocks: each keeps its bin tile's
+// histogram in shared memory, walks 1/tiles of the rank's records, and
+// adds each bin into the tile that holds it, its own or a peer's through
+// distributed shared memory.  So every record and bin is read once per
+// feature group, whatever the tiles.  bins: (F, N) uint16 feature-major;
+// rec, plan: lane z's at z x rec_ls records and z x plan_ls ints; out:
+// lane z's (K, F, B, 3) at z x out_ls entries.
+//   Slot mode (Owner false): rank r is the plan's slot table[r] (-1: no
+// slot), its share of the channel's records; the flush adds the tile into
+// out, int32 (q8) or int64 (fx) zero-filled by the caller, with global
+// atomics, as the slots of one channel share its entries.
+//   Owner mode (fx, Owner true; the plan of S = 0 slots): rank r is
+// channel r, and the cluster walks all of its records, so its shared
+// memory ends with the channel's final sums; the flush writes them as f32,
+// (float)((double)sum x scale[k]) for lane z's (3,) float64 scale (bitwise
+// ops/histogram.py fx_to_f32), with plain stores.  Every entry is written
+// once, an empty channel's zeros too: no zero fill, no atomics.
+template <typename W, bool Owner>
 __global__ void __launch_bounds__(kThreads)
 hist_list_kernel(const uint16_t* __restrict__ bins,
                  const long long* __restrict__ rec,
-                 const int* __restrict__ offsets,
-                 const int* __restrict__ slots,
-                 const int* __restrict__ table, void* __restrict__ out,
-                 int F, long long N, int B, int fg, int Bt, int tiles,
-                 int f_groups) {
+                 const int* __restrict__ plan, void* __restrict__ out,
+                 const double* __restrict__ scale, int F, long long N, int B,
+                 int K, int S, int fg, int Bt, int tiles, int f_groups,
+                 int L, bool feature_major, long long rec_ls,
+                 long long plan_ls, long long out_ls) {
   constexpr bool Q8 = sizeof(W) == 1;
+  static_assert(!(Q8 && Owner), "owner mode writes the fx form's f32");
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
-  const int columns = f_groups * tiles;
-  // the same slot for the whole cluster: it returns or syncs together
-  const int slot = table[blockIdx.x / columns];
-  if (slot < 0) return;   // a rank no channel took
-  const int c = slot & 255, j = slot >> 8;
-  const int col = blockIdx.x % columns;
-  const int tile = col % tiles;   // == cluster.block_rank()
+  // the same (lane, rank, group) for the whole cluster: it returns or
+  // syncs together
+  const ClusterOf at = cluster_of(tiles, f_groups, S + K, L, feature_major);
+  rec += at.lane * rec_ls;
+  plan += at.lane * plan_ls;
+  const int* offsets = plan;
+  const int* slots = offsets + K + 1;
+  const int* table = slots + K;
+  int c = at.rank, j = 0;
+  long long sc = 1;
+  if constexpr (!Owner) {
+    const int slot = table[at.rank];
+    if (slot < 0) return;   // a rank no channel took
+    c = slot & 255;
+    j = slot >> 8;
+    sc = slots[c];
+  }
+  const int tile = at.tile;
   const int b0 = tile * Bt;
-  const int f0 = (col / tiles) * fg;
+  const int f0 = at.g * fg;
   const int nf = min(fg, F - f0);
   const int nbt = min(Bt, B - b0);
   const long long oc = offsets[c], nc = offsets[c + 1] - oc;
-  const long long sc = slots[c];
   const long long s0 = oc + nc * j / sc, s1 = oc + nc * (j + 1) / sc;
   const long long p0 = s0 + (s1 - s0) * tile / tiles;
   const long long p1 = s0 + (s1 - s0) * (tile + 1) / tiles;
@@ -639,14 +707,28 @@ hist_list_kernel(const uint16_t* __restrict__ bins,
   if (tiles > 1) cluster.sync();   // every peer's adds landed
   else __syncthreads();
 
-  // flush: entry (k, b) -> out[(c * F + f0 + k) * B + b0 + b]
+  // flush: entry (k, b) -> out[(c * F + f0 + k) * B + b0 + b], consecutive
+  // threads on consecutive bins
+  const long long base = at.lane * out_ls;
+  double s[3] = {0.0, 0.0, 0.0};
+  if constexpr (Owner) {
+    const double* sl = scale + 3 * at.lane;
+    s[0] = sl[0];
+    s[1] = sl[1];
+    s[2] = sl[2];
+  }
   for (int i = threadIdx.x; i < nf * nbt; i += blockDim.x) {
     const int b = i % nbt;
     const int k = i / nbt;
     const int x = k * Bt + b;
-    const long long o = (((long long)c * F + f0 + k) * B + b0 + b) * 3;
+    const long long o = base + (((long long)c * F + f0 + k) * B + b0 + b) * 3;
     const unsigned int n = cnt_acc[x];
-    if constexpr (Q8) {
+    if constexpr (Owner) {
+      float* o32 = static_cast<float*>(out) + o;
+      o32[0] = (float)((double)(long long)acc[x] * s[0]);
+      o32[1] = (float)((double)(long long)acc[E + x] * s[1]);
+      o32[2] = (float)((double)n * s[2]);
+    } else if constexpr (Q8) {
       const unsigned long long a = acc[x];
       const int hs = (int)(unsigned int)(a & 0xffffffffULL);
       const int gs = (int)((long long)(a - (unsigned long long)(long long)hs)
@@ -661,6 +743,29 @@ hist_list_kernel(const uint16_t* __restrict__ bins,
       if (acc[E + x]) atomicAdd(o64 + 1, acc[E + x]);
       if (n) atomicAdd(o64 + 2, (unsigned long long)n);
     }
+  }
+}
+
+// The slot mode's scale-back (the fx lanes form at one bin tile): lane
+// z = grid y's int64 sums h[z x triples ...] of (g, h, count) triples to
+// f32, (float)((double)sum x scale[z][k]), bitwise ops/histogram.py
+// fx_to_f32 in one pass (8 bytes read, 4 written an entry) where torch
+// takes three (to float64, multiply, to float32).
+__global__ void __launch_bounds__(256)
+fx_scale_kernel(const long long* __restrict__ h,
+                const double* __restrict__ scale, float* __restrict__ out,
+                long long triples) {
+  const double* sl = scale + 3 * blockIdx.y;
+  const double s0 = sl[0], s1 = sl[1], s2 = sl[2];
+  const long long base = 3LL * triples * blockIdx.y;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < triples; t += (long long)gridDim.x * blockDim.x) {
+    const long long i = base + 3 * t;
+    const long long a = __ldg(h + i), b = __ldg(h + i + 1),
+                    n = __ldg(h + i + 2);
+    out[i] = (float)((double)a * s0);
+    out[i + 1] = (float)((double)b * s1);
+    out[i + 2] = (float)((double)n * s2);
   }
 }
 
@@ -691,7 +796,7 @@ int partition(const void* ch, const void* w, long long N, int K, int P,
               int S, void* rec, void* plan, void* stream,
               const long long* lanes = nullptr, int L = 1) {
   if (N <= 0 || K <= 0 || L <= 0) return 0;
-  if (K > kMaxK || P <= 0 || S <= 0 || N > 0x7fffffffLL || L > 65535 ||
+  if (K > kMaxK || P <= 0 || S < 0 || N > 0x7fffffffLL || L > 65535 ||
       (long long)K * P * sizeof(int) > 232448)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -714,30 +819,34 @@ int partition(const void* ch, const void* w, long long N, int K, int P,
   return (int)cudaGetLastError();
 }
 
-template <typename W>
-int hist_list(const void* bins, const void* rec, const void* plan, void* out,
-              int F, long long N, int B, int K, int fg, int Bt, int S,
-              void* stream) {
-  if (F <= 0 || N <= 0 || K <= 0) return 0;
-  if (fg <= 0 || Bt <= 0 || Bt > B || S <= 0)
-    return (int)cudaErrorInvalidValue;
-  const int tiles = (B + Bt - 1) / Bt;
-  const int f_groups = (F + fg - 1) / fg;
+// The histogram launches over L lanes' partitions (lane z's records,
+// plan and (K, F, B, 3) output rec_ls, plan_ls and out_ls after lane z -
+// 1's): order kLaunchPerLane one launch a lane, kLaneMajor and
+// kFeatureMajor one launch of every lane's clusters (ClusterOf).  scale:
+// null for slot mode, else owner mode's (L, 3) float64 scales (S must be
+// 0).
+constexpr int kLaunchPerLane = 0;
+constexpr int kLaneMajor = 1;
+constexpr int kFeatureMajor = 2;
+
+template <typename W, bool Owner>
+int hist_launch(const uint16_t* bins, const long long* rec, const int* plan,
+                void* out, const double* scale, int L, int F, long long N,
+                int B, int K, int S, int fg, int Bt, int tiles, int f_groups,
+                bool feature_major, long long rec_ls, long long plan_ls,
+                long long out_ls, cudaStream_t stream) {
   const size_t smem = (size_t)fg * Bt * (sizeof(W) == 1 ? 12 : 20);
   cudaError_t err = cudaFuncSetAttribute(
-      hist_list_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      hist_list_kernel<W, Owner>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int* offsets = static_cast<const int*>(plan);
-  const int* slots = offsets + K + 1;
-  const int* table = slots + K;
-  const long long blocks = (long long)f_groups * tiles * (S + K);
-  if (blocks > 0x7fffffffLL || tiles > 8) return (int)cudaErrorInvalidValue;
+  const long long blocks = (long long)L * f_groups * tiles * (S + K);
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)blocks);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = tiles;   // a cluster: the tiles of a column
@@ -745,32 +854,48 @@ int hist_list(const void* bins, const void* rec, const void* plan, void* out,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(
-      &cfg, hist_list_kernel<W>, static_cast<const uint16_t*>(bins),
-      static_cast<const long long*>(rec), offsets, slots, table, out, F, N,
-      B, fg, Bt, tiles, f_groups);
+  err = cudaLaunchKernelEx(&cfg, hist_list_kernel<W, Owner>, bins, rec, plan,
+                           out, scale, F, N, B, K, S, fg, Bt, tiles,
+                           f_groups, L, feature_major, rec_ls, plan_ls,
+                           out_ls);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// L lanes' histograms over leaf_partition_lanes' buffers: lane z's records
-// N records, its plan plan_ints(K, P, S) ints and its (K, F, B, 3) output
-// K x F x B x 3 entries after lane z - 1's, one launch a lane.
-template <typename W>
+template <typename W, bool Owner>
 int hist_lanes(const void* bins, const void* rec, const void* plan,
-               void* out, int L, int F, long long N, int B, int K, int fg,
-               int Bt, int S, int P, void* stream) {
-  if (L < 0) return (int)cudaErrorInvalidValue;
+               void* out, const void* scale, int L, int F, long long N,
+               int B, int K, int fg, int Bt, int S, int P, int order,
+               void* stream) {
+  if (L <= 0 || F <= 0 || K <= 0) return 0;
+  if (N <= 0 && !Owner) return 0;   // owner mode still writes the zeros
+  if (fg <= 0 || Bt <= 0 || Bt > B || S < 0 || (S == 0) != Owner ||
+      order < kLaunchPerLane || order > kFeatureMajor)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = (B + Bt - 1) / Bt;
+  if (tiles > 8) return (int)cudaErrorInvalidValue;
+  const int f_groups = (F + fg - 1) / fg;
   const long long rec_ls = N * (sizeof(W) == 1 ? 1 : 4);
   const long long plan_ls = plan_ints(K, P, S);
   const long long out_ls = (long long)K * F * B * 3;
-  using O = typename std::conditional<sizeof(W) == 1, int,
-                                      unsigned long long>::type;
+  const uint16_t* b16 = static_cast<const uint16_t*>(bins);
+  const long long* r = static_cast<const long long*>(rec);
+  const int* p = static_cast<const int*>(plan);
+  const double* sc = static_cast<const double*>(scale);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (order != kLaunchPerLane)
+    return hist_launch<W, Owner>(b16, r, p, out, sc, L, F, N, B, K, S, fg,
+                                 Bt, tiles, f_groups, order == kFeatureMajor,
+                                 rec_ls, plan_ls, out_ls, s);
+  using O = typename std::conditional<
+      Owner, float,
+      typename std::conditional<sizeof(W) == 1, int,
+                                unsigned long long>::type>::type;
   for (int z = 0; z < L; ++z) {
-    const int err = hist_list<W>(
-        bins, static_cast<const long long*>(rec) + z * rec_ls,
-        static_cast<const int*>(plan) + z * plan_ls,
-        static_cast<O*>(out) + z * out_ls, F, N, B, K, fg, Bt, S, stream);
+    O* o = static_cast<O*>(out) + z * out_ls;
+    const int err = hist_launch<W, Owner>(
+        b16, r + z * rec_ls, p + z * plan_ls, o, Owner ? sc + 3 * z : nullptr,
+        1, F, N, B, K, S, fg, Bt, tiles, f_groups, false, 0, 0, 0, s);
     if (err != 0) return err;
   }
   return 0;
@@ -793,21 +918,27 @@ int leaf_partition(const void* ch, const void* w, int wbytes, long long N,
 }
 
 // The histograms over the partition's records: bins (F, N) uint16; rec
-// and plan from leaf_partition; out (K, F, B, 3) zero-filled by the
-// caller, int64 (fx) or int32 (q8); fg features and Bt bins per block; S
-// the partition's slots.
+// and plan from leaf_partition; fg features and Bt bins per block; S the
+// partition's slots.  q8: out (K, F, B, 3) int32, zero-filled by the
+// caller.  fx: scale null, out (K, F, B, 3) int64 zero-filled by the
+// caller (slot mode); else scale the (3,) float64 scale of the f32 values
+// and out (K, F, B, 3) float32, written whole (owner mode: S = 0).
 int hist_leaves_fx_u16(const void* bins, const void* rec, const void* plan,
-                       void* out, int F, long long N, int B, int K, int fg,
-                       int Bt, int S, void* stream) {
-  return hist_list<long long>(bins, rec, plan, out, F, N, B, K, fg, Bt, S,
-                              stream);
+                       void* out, const void* scale, int F, long long N,
+                       int B, int K, int fg, int Bt, int S, void* stream) {
+  return scale ? hist_lanes<long long, true>(bins, rec, plan, out, scale, 1,
+                                             F, N, B, K, fg, Bt, S, 0,
+                                             kLaneMajor, stream)
+               : hist_lanes<long long, false>(bins, rec, plan, out, nullptr,
+                                              1, F, N, B, K, fg, Bt, S, 0,
+                                              kLaneMajor, stream);
 }
 
 int hist_leaves_q8_u16(const void* bins, const void* rec, const void* plan,
                        void* out, int F, long long N, int B, int K, int fg,
                        int Bt, int S, void* stream) {
-  return hist_list<int8_t>(bins, rec, plan, out, F, N, B, K, fg, Bt, S,
-                           stream);
+  return hist_lanes<int8_t, false>(bins, rec, plan, out, nullptr, 1, F, N, B,
+                                   K, fg, Bt, S, 0, kLaneMajor, stream);
 }
 
 // The model-axis forms (the reference's vmap of its uint16 leaf
@@ -828,23 +959,45 @@ int leaf_partition_lanes(const void* lanes, int wbytes, long long N, int K,
                                     stream, t, L);
 }
 
-// The histograms over leaf_partition_lanes' records and plans: out (L, K,
-// F, B, 3) zero-filled by the caller; one launch a lane of the single
-// form's grid over that lane's buffers (see the head of this file).
+// The histograms over leaf_partition_lanes' records and plans, lane z's
+// (K, F, B, 3) output K x F x B x 3 entries after lane z - 1's.  fx:
+// scale null, out int64 zero-filled by the caller (slot mode); else scale
+// each lane's (3,) float64 scale, (L, 3), and out float32 written whole
+// (owner mode: S = 0).  order: 0 a launch a lane, 1 one launch lane-major,
+// 2 one launch feature-major (see the head of this file).  q8: out int32
+// zero-filled by the caller, a launch a lane.
 int hist_leaves_fx_lanes_u16(const void* bins, const void* rec,
-                             const void* plan, void* out, int L, int F,
-                             long long N, int B, int K, int fg, int Bt, int S,
-                             int P, void* stream) {
-  return hist_lanes<long long>(bins, rec, plan, out, L, F, N, B, K, fg, Bt,
-                               S, P, stream);
+                             const void* plan, void* out, const void* scale,
+                             int L, int F, long long N, int B, int K, int fg,
+                             int Bt, int S, int P, int order, void* stream) {
+  return scale ? hist_lanes<long long, true>(bins, rec, plan, out, scale, L,
+                                             F, N, B, K, fg, Bt, S, P, order,
+                                             stream)
+               : hist_lanes<long long, false>(bins, rec, plan, out, nullptr,
+                                              L, F, N, B, K, fg, Bt, S, P,
+                                              order, stream);
 }
 
 int hist_leaves_q8_lanes_u16(const void* bins, const void* rec,
                              const void* plan, void* out, int L, int F,
                              long long N, int B, int K, int fg, int Bt, int S,
                              int P, void* stream) {
-  return hist_lanes<int8_t>(bins, rec, plan, out, L, F, N, B, K, fg, Bt, S,
-                            P, stream);
+  return hist_lanes<int8_t, false>(bins, rec, plan, out, nullptr, L, F, N, B,
+                                   K, fg, Bt, S, P, kLaunchPerLane, stream);
+}
+
+// The slot mode's scale-back: h (L, triples, 3) int64 sums, scale (L, 3)
+// float64, out (L, triples, 3) float32.
+int fx_scale_lanes(const void* h, const void* scale, void* out,
+                   long long triples, int L, void* stream) {
+  if (triples <= 0 || L <= 0) return 0;
+  if (L > 65535) return (int)cudaErrorInvalidValue;
+  const long long want = (triples + 255) / 256;
+  const dim3 grid((unsigned int)(want < 4096 ? want : 4096), L);
+  fx_scale_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(h), static_cast<const double*>(scale),
+      static_cast<float*>(out), triples);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -64,10 +64,17 @@ its own :data:`LAUNCHES` key), then a histogram over its row list
 (``ops/histogram.py`` ``widen_bins``) where they compare or index.  The
 model-axis (``*_lanes``) forms take uint16 bins the same way (their
 ``*_lanes_u16`` keys): the leaf forms run the lanes' channel partitions
-in one launch (:func:`leaf_partition_lanes`), then each lane's histogram
-over its row list,
-and ``hist_single_lanes`` runs each lane's single launch's clusters on
-its segment (:func:`lane_single_u16_geometry`).
+in one launch (:func:`leaf_partition_lanes`), then the histograms over
+their row lists (q8 a launch a lane, the exact form one launch of every
+lane's clusters, :func:`list_lane_order`), and ``hist_single_lanes``
+runs each lane's single launch's clusters on its segment
+(:func:`lane_single_u16_geometry`).
+
+The exact leaf form's f32 values past one bin tile leave the kernel
+whole (owner mode, :class:`ListGeometry`): each (channel, feature group)
+is one cluster's, which writes its final sums scaled, so no int64
+histogram reaches device memory.  At one tile its int64 sums are scaled
+back in one pass (:func:`fx_scale_lanes` for the lanes form).
 """
 
 from __future__ import annotations
@@ -106,7 +113,8 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "ListGeometry",
            "list_geometry", "list_features", "list_slots", "RowList",
            "leaf_partition", "leaf_partition_plain", "leaf_partition_lanes",
-           "leaf_partition_lanes_plain"]
+           "leaf_partition_lanes_plain", "list_owner", "list_lane_order",
+           "fx_scale_lanes"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -135,7 +143,9 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_single_lanes_u16": 0, "hist_leaves_q8_lanes_u16": 0,
             "hist_leaves_lanes_u16": 0, "wave_row_update_lanes_u16": 0,
             "wave_row_update_ext_lanes_u16": 0,
-            "wave_trial_channels_lanes_u16": 0, "leaf_partition_lanes": 0}
+            "wave_trial_channels_lanes_u16": 0, "leaf_partition_lanes": 0,
+            # the exact uint16 lanes form's f32 scale-back at one bin tile
+            "fx_scale_lanes_u16": 0}
 
 
 def reset_launches() -> None:
@@ -349,7 +359,11 @@ class ListGeometry(NamedTuple):
     thread-block cluster) for each of ``slots + k`` ranked slots (the
     list's chunks, shared out over the channels by their rows; at most
     ``slots + k`` taken), ``blocks`` in all, ``smem`` shared bytes per
-    block; the partition in ``part_blocks`` row blocks."""
+    block; the partition in ``part_blocks`` row blocks.  ``slots`` 0 is
+    owner mode: each channel with rows takes one slot (:func:`list_slots`
+    at S = 0), and the clusters of rank c walk all of channel c's rows,
+    so each (channel, feature group) has one cluster, which writes its
+    final f32 sums."""
     fg: int
     f_groups: int
     bt: int
@@ -358,6 +372,10 @@ class ListGeometry(NamedTuple):
     blocks: int
     smem: int
     part_blocks: int
+
+    @property
+    def owner(self) -> bool:
+        return self.slots == 0
 
 
 def leaf_bin_tile(num_bins: int, q8: bool) -> tuple:
@@ -390,12 +408,18 @@ def list_slots_least(n: int, q8: bool) -> int:
     return max(1, -(-2 * n // Q8_MAX_BLOCK_ROWS)) if q8 else 1
 
 
+def list_owner(num_bins: int, q8: bool, f32_out: bool) -> bool:
+    """Whether :func:`list_geometry` takes owner mode: the fx form's f32
+    values past one bin tile."""
+    return f32_out and not q8 and leaf_bin_tile(num_bins, q8)[1] > 1
+
+
 def list_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
-                  q8: bool) -> ListGeometry:
+                  q8: bool, f32_out: bool = False) -> ListGeometry:
     """Geometry of ``hist_leaves_{fx,q8}_u16`` on a card with ``sms`` SMs
-    over ``n`` rows (and of each lane's histogram launch of their
-    model-axis forms).  A block keeps one channel: the list puts a block's
-    rows in one channel, so a wider channel group would only flush more.
+    over ``n`` rows (and of their model-axis forms' histogram launches).
+    A block keeps one channel: the list puts a block's rows in one
+    channel, so a wider channel group would only flush more.
     Of :func:`list_features`, it takes the split whose listed rows wait
     the fewest times for their bins (each feature group reads a row's
     record and loads its bins ``LIST_BIN_BATCH`` at a time, one wait a
@@ -404,20 +428,27 @@ def list_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
     blocks fills at least ``sms`` blocks and ``LIST_FILL`` of its last
     resident round (an even mix then gives every channel m slots), and
     at least :func:`list_slots_least`.  PERF.md section 6 has the sweep
-    behind both rules (``scripts/torch_u16_leaf_sweep.py``)."""
+    behind both rules (``scripts/torch_u16_leaf_sweep.py``).
+
+    ``f32_out`` (the fx form's f32 values, not its raw int64 sums): past
+    one bin tile, owner mode (``slots`` 0), so that no int64 histogram
+    reaches device memory; at one tile the slots balance the rows and the
+    int64 output is small."""
     bt, tiles = leaf_bin_tile(num_bins, q8)
     fg = min(list_features(f, bt, q8),
              key=lambda g: (-(-f // g) * -(-g // LIST_BIN_BATCH), -g))
     f_groups = -(-f // fg)
     columns = f_groups * tiles
-    least = list_slots_least(n, q8)
-    m = max(1, -(-least // k))
-    while True:
-        g = columns * k * m
-        if g >= sms and g >= LIST_FILL * sms * -(-g // sms):
-            break
-        m += 1
-    slots = k * m
+    slots = 0
+    if not list_owner(num_bins, q8, f32_out):
+        least = list_slots_least(n, q8)
+        m = max(1, -(-least // k))
+        while True:
+            g = columns * k * m
+            if g >= sms and g >= LIST_FILL * sms * -(-g // sms):
+                break
+            m += 1
+        slots = k * m
     return ListGeometry(fg, f_groups, bt, tiles, slots,
                         columns * (slots + k), fg * _pair_bytes(bt, q8),
                         _part_blocks(sms, n))
@@ -597,7 +628,7 @@ def _check_partition(kernel, ch, w, k, slots) -> None:
             w.shape[0] < 3 or w.shape[1] != n):
         raise ValueError(f"{kernel}: weights must be (>= 3, {n}) "
                          f"int64 or int8, got {tuple(w.shape)} {w.dtype}")
-    if not 1 <= k <= LIST_MAX_CHANNELS or slots < 1:
+    if not 1 <= k <= LIST_MAX_CHANNELS or slots < 0:
         raise ValueError(f"{kernel}: {k} channels (at most "
                          f"{LIST_MAX_CHANNELS}) and {slots} slots")
     if w.device != ch.device:
@@ -685,33 +716,71 @@ def leaf_partition_lanes(ch, w, *, num_channels: int, slots: int,
     return _row_lists(rec, plan, num_channels, slots)
 
 
-def _launch_list_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, q8):
+def _launch_list_hist(fn_name, bins_t, w, ch, out, f, n, num_bins, k, q8,
+                      scale=None):
     """The channel partition, then the histogram over its records, both
-    on the current stream and from one :func:`list_geometry`."""
-    geo = list_geometry(_sm_count(bins_t.device), f, n, num_bins, k, q8)
+    on the current stream and from one :func:`list_geometry`; ``scale``
+    (the fx form's (3,) float64 scale) writes ``out`` as f32 in owner
+    mode."""
+    geo = list_geometry(_sm_count(bins_t.device), f, n, num_bins, k, q8,
+                        f32_out=scale is not None)
     rec, plan = _partition_buffers([ch], [w], k, geo.slots,
                                    geo.part_blocks, False)
+    if q8:
+        fn = _fn("hist_leaves_u16", fn_name,
+                 [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _VP])
+        _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), f, n, num_bins,
+                     k, geo.fg, geo.bt, geo.slots, _stream()), fn_name)
+        return
     fn = _fn("hist_leaves_u16", fn_name,
-             [_VP] * 4 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _VP])
-    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), f, n,
-                 num_bins, k, geo.fg, geo.bt, geo.slots, _stream()), fn_name)
+             [_VP] * 5 + [_CI, _LL, _CI, _CI, _CI, _CI, _CI, _VP])
+    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out),
+                 _VP(None) if scale is None else _p(scale), f, n, num_bins,
+                 k, geo.fg, geo.bt, geo.slots, _stream()), fn_name)
+
+
+# the lanes' histogram launches (csrc/hist_leaves_u16.cu hist_lanes): a
+# launch a lane, or one launch of every lane's clusters, lane-major (a
+# channel's feature groups together) or feature-major (a feature group's
+# lanes and channels together)
+LIST_LAUNCH_PER_LANE, LIST_LANE_MAJOR, LIST_FEATURE_MAJOR = 0, 1, 2
+
+
+def list_lane_order(geo: ListGeometry) -> int:
+    """How the exact lanes form launches its histograms: one launch,
+    feature-major, in both modes.  On an H100 at L=4 over 10.5M rows it
+    was the fastest of the three on every mix measured but one (a 90%
+    skew over uniform codes, 2% behind a launch a lane), and lane-major
+    the slowest at B=1024 (PERF.md section 6, the sweep
+    ``scripts/torch_u16_lanes_sweep.py``)."""
+    return LIST_FEATURE_MAJOR
 
 
 def _launch_list_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins,
-                            k, q8):
-    """The lanes' channel partitions in one launch, then each lane's
-    histogram over its row list, the single form's launch
-    (:func:`list_geometry`); one C call for all of them."""
+                            k, q8, scales=None):
+    """The lanes' channel partitions in one launch, then the lanes'
+    histograms over their row lists (:func:`list_geometry`; q8 a launch a
+    lane, fx as :func:`list_lane_order` says); ``scales`` (the fx form's
+    (L, 3) float64 scales) writes ``out`` as f32 in owner mode."""
     lanes = len(ws)
     sms = _sm_count(bins_t.device)
-    geo = list_geometry(sms, f, n, num_bins, k, q8)
+    geo = list_geometry(sms, f, n, num_bins, k, q8,
+                        f32_out=scales is not None)
     part_blocks = _part_blocks(sms, n, lanes)
     rec, plan = _partition_buffers(chs, ws, k, geo.slots, part_blocks, True)
+    if q8:
+        fn = _fn("hist_leaves_u16", fn_name,
+                 [_VP] * 4 + [_CI, _CI, _LL] + [_CI] * 6 + [_VP])
+        _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), lanes, f, n,
+                     num_bins, k, geo.fg, geo.bt, geo.slots, part_blocks,
+                     _stream()), fn_name)
+        return
     fn = _fn("hist_leaves_u16", fn_name,
-             [_VP] * 4 + [_CI, _CI, _LL] + [_CI] * 6 + [_VP])
-    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), lanes, f, n,
+             [_VP] * 5 + [_CI, _CI, _LL] + [_CI] * 7 + [_VP])
+    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out),
+                 _VP(None) if scales is None else _p(scales), lanes, f, n,
                  num_bins, k, geo.fg, geo.bt, geo.slots, part_blocks,
-                 _stream()), fn_name)
+                 list_lane_order(geo), _stream()), fn_name)
 
 
 def _unpacked(bins_t, bins_packed: bool):
@@ -776,12 +845,24 @@ def build_histogram_leaves(bins_t: torch.Tensor, w: FxWeights,
     from :func:`pack_weights`; ch (N,) int8 channel, -1 = row in no
     batched leaf.  ``raw`` returns the kernel's int64 fixed-point sums
     instead, which passes over row chunks weighted with one tree's
-    exponents add exactly (ingest/grower.py)."""
+    exponents add exactly (ingest/grower.py).  Over uint16 bins past one
+    bin tile the f32 values come straight from the kernel (owner mode,
+    :class:`ListGeometry`)."""
     f, n = _check_hist_args("build_histogram_leaves", bins_t, w.w,
                             torch.int64, 3, ch, num_bins, bins_packed)
     if bins_t.device.type == "cpu":
         return build_histogram_leaves_plain(bins_t, w, ch, num_bins=num_bins,
                                             bins_packed=bins_packed, raw=raw)
+    if bins_t.dtype == torch.uint16 and list_owner(num_bins, False, not raw):
+        # owner mode: the kernel writes the f32 values whole
+        scale = _scales("build_histogram_leaves", w.inv_scale, (3,),
+                        bins_t.device)
+        out = torch.empty((LEAF_CHANNELS, f, num_bins, 3),
+                          dtype=torch.float32, device=bins_t.device)
+        _launch_list_hist("hist_leaves_fx_u16", bins_t, w.w, ch, out, f, n,
+                          num_bins, LEAF_CHANNELS, False, scale)
+        LAUNCHES["hist_leaves_u16"] += 1
+        return out
     out = torch.zeros((LEAF_CHANNELS, f, num_bins, 3), dtype=torch.int64,
                       device=bins_t.device)
     _launch_hist("hist_leaves_fx", bins_t, w.w, ch, out, f, n, num_bins,
@@ -1590,9 +1671,9 @@ def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
                                  ) -> torch.Tensor:
     """(L, 25, F, B, 3) f32: :func:`build_histogram_leaves` of L lanes in
     one launch (uint16 bins: the lanes' channel partition in one launch,
-    then a histogram launch a lane).  ``ws`` holds each lane's
-    :class:`FxWeights` (its tree's own scale), ``ch`` each lane's (N,) int8
-    channels."""
+    then the lanes' histograms, :func:`_fx_lanes_u16`).  ``ws`` holds each
+    lane's :class:`FxWeights` (its tree's own scale), ``ch`` each lane's
+    (N,) int8 channels."""
     ws, ch = list(ws), _seq(ch)
     lanes = _lane_count("build_histogram_leaves_lanes", ws, ch)
     f = n = None
@@ -1603,14 +1684,76 @@ def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
     if bins_t.device.type == "cpu":
         return build_histogram_leaves_lanes_plain(
             bins_t, ws, ch, num_bins=num_bins, bins_packed=bins_packed)
+    if bins_t.dtype == torch.uint16:
+        out = _fx_lanes_u16(bins_t, ws, ch, f, n, num_bins)
+        LAUNCHES["hist_leaves_lanes_u16"] += 1
+        return out
     out = torch.zeros((lanes, LEAF_CHANNELS, f, num_bins, 3),
                       dtype=torch.int64, device=bins_t.device)
     _launch_hist_lanes("hist_leaves_fx_lanes", bins_t, [w.w for w in ws], ch,
                        out, f, n, num_bins, LEAF_CHANNELS, bins_packed)
     LAUNCHES["hist_leaves_lanes_packed4" if bins_packed else
-             "hist_leaves_lanes_u16" if bins_t.dtype == torch.uint16
-             else "hist_leaves_lanes"] += 1
+             "hist_leaves_lanes"] += 1
     return fx_to_f32(out, _lane_scales(ws))
+
+
+def _fx_lanes_u16(bins_t, ws, chs, f, n, num_bins) -> torch.Tensor:
+    """The exact lanes form over uint16 bins: past one bin tile in owner
+    mode (each lane's f32 values written whole by its clusters, with no
+    int64 histogram); at one tile in slot mode, the lanes' int64 sums
+    then :func:`fx_scale_lanes`."""
+    dev = bins_t.device
+    scales = _scales("build_histogram_leaves_lanes", _lane_scales(ws),
+                     (len(ws), 3), dev)
+    shape = (len(ws), LEAF_CHANNELS, f, num_bins, 3)
+    w3 = [w.w for w in ws]
+    if list_owner(num_bins, False, True):
+        out = torch.empty(shape, dtype=torch.float32, device=dev)
+        _launch_list_hist_lanes("hist_leaves_fx_lanes_u16", bins_t, w3, chs,
+                                out, f, n, num_bins, LEAF_CHANNELS, False,
+                                scales)
+        return out
+    sums = torch.zeros(shape, dtype=torch.int64, device=dev)
+    _launch_list_hist_lanes("hist_leaves_fx_lanes_u16", bins_t, w3, chs,
+                            sums, f, n, num_bins, LEAF_CHANNELS, False)
+    return fx_scale_lanes(sums, scales)
+
+
+def _scales(kernel, scale, shape, dev) -> torch.Tensor:
+    """A kernel's float64 fixed-point scales, checked."""
+    if scale.dtype != torch.float64 or tuple(scale.shape) != shape:
+        raise ValueError(f"{kernel}: scales must be {shape} float64, got "
+                         f"{tuple(scale.shape)} {scale.dtype}")
+    if scale.device != dev:
+        raise ValueError(f"{kernel}: scales are on {scale.device}, "
+                         f"expected {dev}")
+    return scale.contiguous()
+
+
+def fx_scale_lanes(h: torch.Tensor, inv_scale: torch.Tensor
+                   ) -> torch.Tensor:
+    """(L, ..., 3) f32 values of L lanes' int64 fixed-point sums ``h``
+    (contiguous), lane l scaled by ``inv_scale[l]`` ((L, 3) float64): one
+    pass, (float)((double)sum x scale), bitwise :func:`fx_to_f32` (its
+    plain version, which takes three: to float64, the multiply, to
+    float32)."""
+    if (h.dtype != torch.int64 or h.dim() < 2 or h.shape[-1] != 3 or
+            not h.is_contiguous()):
+        raise ValueError(f"fx_scale_lanes: sums must be contiguous (L, ..., "
+                         f"3) int64, got {tuple(h.shape)} {h.dtype}")
+    _check_device("fx_scale_lanes", h.device)
+    scale = _scales("fx_scale_lanes", inv_scale, (h.shape[0], 3), h.device)
+    if h.device.type == "cpu":
+        return fx_to_f32(h, scale)
+    out = torch.empty(h.shape, dtype=torch.float32, device=h.device)
+    triples = h[0].numel() // 3
+    if triples:
+        fn = _fn("hist_leaves_u16", "fx_scale_lanes",
+                 [_VP, _VP, _VP, _LL, _CI, _VP])
+        _raise_on(fn(_p(h), _p(scale), _p(out), triples, h.shape[0],
+                     _stream()), "fx_scale_lanes")
+        LAUNCHES["fx_scale_lanes_u16"] += 1
+    return out
 
 
 def _weights_of(w) -> torch.Tensor:

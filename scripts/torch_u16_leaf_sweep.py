@@ -434,7 +434,7 @@ def main() -> int:
                     g = geo._replace(fg=fg, f_groups=f_groups, slots=slots,
                                      blocks=f_groups * geo.tiles * (slots + k),
                                      smem=fg * hc._pair_bytes(geo.bt, q8))
-                    hc.list_geometry = lambda *a, g=g: g
+                    hc.list_geometry = lambda *a, g=g, **k: g
                     try:
                         exact = torch.equal(run(), plain)
                         t = cs.time_ms(run, args.reps)

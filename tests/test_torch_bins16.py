@@ -723,6 +723,162 @@ def test_list_walk_matches_plain_histograms(num_bins, mix, q8):
 
 
 @pytest.mark.parametrize("num_bins", BIG_BINS)
+def test_list_geometry_owner_mode_past_one_tile(num_bins):
+    """The exact form's f32 values past one bin tile take owner mode (no
+    slot shares a channel, so each (channel, feature group) has one
+    cluster: ``slots`` 0, ``k`` ranks); at one tile, its raw sums and the
+    q8 form keep slot mode, their geometry unchanged by ``f32_out``."""
+    kx, kq = hc.LEAF_CHANNELS, hc.Q_LEAF_CHANNELS
+    slot = hc.list_geometry(SMS, 28, MAIN_ROWS, num_bins, kx, False)
+    geo = hc.list_geometry(SMS, 28, MAIN_ROWS, num_bins, kx, False,
+                           f32_out=True)
+    assert geo.owner == (geo.tiles > 1) == hc.list_owner(num_bins, False,
+                                                         True)
+    assert not slot.owner and slot.slots >= kx
+    assert geo._replace(slots=slot.slots, blocks=slot.blocks) == slot
+    if geo.owner:
+        assert geo.blocks == geo.f_groups * geo.tiles * kx
+    else:
+        assert geo == slot
+    q8 = hc.list_geometry(SMS, 28, MAIN_ROWS, num_bins, kq, True)
+    assert hc.list_geometry(SMS, 28, MAIN_ROWS, num_bins, kq, True,
+                            f32_out=True) == q8 and not q8.owner
+    if num_bins == 65_535:
+        assert (geo.tiles, geo.fg, geo.f_groups) == (6, 1, 28)
+    if num_bins == 1024:
+        assert not geo.owner
+
+
+@pytest.mark.parametrize("mix", ["phase15a", "skewed", "none"])
+def test_owner_plan_gives_each_channel_one_slot(mix):
+    """At S = 0 slots, ``list_slots`` and the scatter's plan arithmetic
+    (:func:`_plan_model`) give every channel with rows exactly one slot,
+    however many rows it holds (the skewed mix's channel 3 holds 90%),
+    ranked by channel, and the plain partition's plan says the same."""
+    k = hc.LEAF_CHANNELS
+    counts = _mix_counts(mix, MAIN_ROWS, k)
+    slots, table = hc.list_slots(counts, 0)
+    assert torch.equal(slots.long(), (counts > 0).long())
+    used = [c for c in range(k) if counts[c] > 0]
+    assert table.tolist() == used + [-1] * (k - len(used))
+    mslots, mtable = _plan_model(counts, 0)
+    assert torch.equal(mslots, slots) and torch.equal(mtable, table)
+    rng = np.random.RandomState(8)
+    ch = _channels("uniform" if mix == "phase15a" else mix, 6000, k, rng)
+    w = _part_weights(6000, False, rng)
+    rl = hc.leaf_partition(ch, w, num_channels=k, slots=0)
+    kept = torch.bincount(ch[(ch >= 0) & (ch < k)].long(), minlength=k)
+    assert torch.equal(rl.slots.long(), (kept > 0).long())
+    assert rl.table.numel() == k
+
+
+def _owner_walk(bins, w, ch, k, num_bins, geo):
+    """The owner mode's decomposition in plain PyTorch: cluster (channel
+    c, feature group g) walks all of c's listed rows, tile t of it
+    1/tiles of them, each bin added into the tile that holds it; after the
+    cluster's barrier each block writes its tile of the (K, F, B, 3)
+    output once as (float)((double)sum x scale), an empty channel's zeros
+    too.  Returns the output and each entry's write count."""
+    f = bins.shape[0]
+    rl = hc.leaf_partition(ch, w.w, num_channels=k, slots=geo.slots)
+    ids, wts = rl.ids(), rl.weights()
+    wide = bins.to(torch.int64)
+    out = torch.full((k, f, num_bins, 3), float("nan"))
+    writes = torch.zeros((k, f, num_bins), dtype=torch.int64)
+    for c in range(k):
+        s0, s1 = int(rl.offsets[c]), int(rl.offsets[c + 1])
+        for g in range(geo.f_groups):
+            f0 = g * geo.fg
+            tiles = torch.zeros((geo.tiles, geo.fg, geo.bt, 3),
+                                dtype=torch.int64)
+            for t in range(geo.tiles):
+                p0 = s0 + (s1 - s0) * t // geo.tiles
+                p1 = s0 + (s1 - s0) * (t + 1) // geo.tiles
+                rows, wk = ids[p0:p1], wts[:, p0:p1]
+                for x in range(f0, min(f0 + geo.fg, f)):
+                    bb = wide[x, rows]
+                    keep = bb < num_bins
+                    for owner in range(geo.tiles):
+                        mine = keep & (bb // geo.bt == owner)
+                        tiles[owner, x - f0].index_add_(
+                            0, bb[mine] - owner * geo.bt, wk[:, mine].T)
+            for t in range(geo.tiles):
+                b0 = t * geo.bt
+                nb = min(geo.bt, num_bins - b0)
+                nf = min(geo.fg, f - f0)
+                vals = tiles[t, :nf, :nb].double() * w.inv_scale
+                out[c, f0:f0 + nf, b0:b0 + nb] = vals.float()
+                writes[c, f0:f0 + nf, b0:b0 + nb] += 1
+    return out, writes
+
+
+@pytest.mark.parametrize("num_bins", [11_623, 65_535])
+@pytest.mark.parametrize("mix", ["uniform", "skewed", "none"])
+def test_owner_walk_matches_plain_f32(num_bins, mix):
+    """Walking the owner mode's clusters over the plain row list writes
+    every (channel, feature, bin) once and gives
+    ``build_histogram_leaves_plain`` (f32, raw=False) bit for bit: the
+    clusters' final sums scaled once are ``fx_to_f32`` of the int64
+    sums."""
+    rng = np.random.RandomState(num_bins % 97)
+    n, f, k = 4096, 3, hc.LEAF_CHANNELS
+    bins = torch.from_numpy(rng.randint(0, num_bins, (f, n)).astype(
+        np.uint16))
+    bins[:, :50] = num_bins - 1
+    ch = _channels(mix, n, k, rng)
+    geo = hc.list_geometry(SMS, f, n, num_bins, k, False, f32_out=True)
+    assert geo.owner
+    w = th.pack_weights(torch.randn(n), torch.rand(n),
+                        (torch.rand(n) < 0.8).float())
+    got, writes = _owner_walk(bins, w, ch, k, num_bins, geo)
+    assert (writes == 1).all()
+    want = hc.build_histogram_leaves_plain(bins, w, ch, num_bins=num_bins)
+    assert want.dtype == torch.float32
+    assert torch.equal(got, want)
+
+
+def _cluster_of(b, tiles, f_groups, ranks, lanes, feature_major):
+    """csrc/hist_leaves_u16.cu ``cluster_of``: block b's (lane, rank,
+    group, tile)."""
+    u, tile = divmod(b, tiles)
+    if feature_major:
+        u, rank = divmod(u, ranks)
+        g, lane = divmod(u, lanes)
+    else:
+        u, g = divmod(u, f_groups)
+        lane, rank = divmod(u, ranks)
+    return lane, rank, g, tile
+
+
+@pytest.mark.parametrize("shape", [(1, 25, 28, 6), (4, 25, 28, 6),
+                                   (3, 50, 4, 1), (4, 42, 28, 4)])
+@pytest.mark.parametrize("feature_major", [False, True])
+def test_lane_cluster_orders_cover_each_cluster_once(shape, feature_major):
+    """One launch of L lanes' clusters, lane-major or feature-major: its
+    blocks cover every (lane, rank, feature group, tile) once, a
+    cluster's tiles in consecutive blocks (tile fastest, the cluster's
+    rank); lane-major runs one rank's feature groups together,
+    feature-major one feature group's lanes and ranks together."""
+    lanes, ranks, f_groups, tiles = shape
+    blocks = lanes * ranks * f_groups * tiles
+    seen = [_cluster_of(b, tiles, f_groups, ranks, lanes, feature_major)
+            for b in range(blocks)]
+    assert len(set(seen)) == blocks
+    assert all(0 <= la < lanes and 0 <= r < ranks and 0 <= g < f_groups
+               for la, r, g, _ in seen)
+    for b0 in range(0, blocks, tiles):
+        cl = seen[b0:b0 + tiles]
+        assert [t for *_, t in cl] == list(range(tiles))
+        assert len({x[:3] for x in cl}) == 1
+    step = tiles * (ranks * lanes if feature_major else f_groups)
+    for b0 in range(0, blocks, step):
+        run = seen[b0:b0 + step]
+        key = {x[2] for x in run} if feature_major else \
+            {x[:2] for x in run}
+        assert len(key) == 1
+
+
+@pytest.mark.parametrize("num_bins", BIG_BINS)
 @pytest.mark.parametrize("layout", ["rows", "features"])
 def test_single_geometry_fits_every_bin_count(num_bins, layout):
     for f, n in ((28, 10_502_144), (28, 34_330), (1, 10_502_144)):

@@ -1447,11 +1447,14 @@ def test_u16_lane_kernels_match_plain_and_single_on_card(
     monkeypatch.undo()
     launched = {k: hc.LAUNCHES[k] - before[k] for k in hc.LAUNCHES
                 if hc.LAUNCHES[k] != before[k]}
-    assert launched == {
+    want_launches = {
         "hist_leaves_q8_lanes_u16": 2, "hist_leaves_lanes_u16": 2,
         "leaf_partition_lanes": 5, "wave_row_update_lanes_u16": 2,
         "wave_row_update_ext_lanes_u16": 2,
         "wave_trial_channels_lanes_u16": 2, "hist_single_lanes_u16": 4}
+    if not hc.list_owner(num_bins, False, True):
+        want_launches["fx_scale_lanes_u16"] = 2   # slot mode's scale-back
+    assert launched == want_launches
     for x, y in zip(got, again):
         assert torch.equal(x, y)
     want = (hc.build_histogram_leaves_q8_lanes_plain(bins, wch, ch,
@@ -1494,6 +1497,117 @@ def test_u16_lane_kernels_match_plain_and_single_on_card(
         for a, b in zip(parts[i][1:], one[1:]):
             assert torch.equal(a, b)
     _check_lane_partitions(cuda_device, lanes)
+
+
+def _fx_lane_mix(device, lanes, n, mix):
+    """Each lane's exact-form channels: ``even`` (``_u16_channels``'
+    uniform, a seed a lane), ``skewed`` (90% of the kept rows in channel
+    3, several channels empty) or ``one empty`` (uniform, channel 7 of
+    every lane empty)."""
+    chs = []
+    for i in range(lanes):
+        c = _u16_channels(device, n, "skewed" if mix == "skewed"
+                          else "uniform", seed=40 + i)
+        if mix == "one empty":
+            c = torch.where(c == 7, torch.full_like(c, -1), c)
+        chs.append(c.contiguous())
+    return chs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", ["even", "skewed", "one empty"])
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("num_bins", [1024, 11_623, 65_535])
+def test_fx_leaf_owner_mode_on_card(cuda_device, monkeypatch, num_bins,
+                                    lanes, mix):
+    """The exact uint16 leaf forms in both modes: slot mode at 1024 bins
+    (int64 sums, then ``fx_scale_lanes``), owner mode past one tile (each
+    channel's clusters write its f32 values whole, no scale-back launch),
+    on an even, a skewed and a one-empty-channel mix.  The lanes form in
+    each launch order (a launch a lane, one launch lane-major or
+    feature-major) is bitwise its plain version and each lane's single
+    form, identical twice; the single form's ``raw=True`` still returns
+    the int64 sums."""
+    n = 100_003
+    bins = _u16_case(cuda_device, n, num_bins)[0]
+    fx = []
+    for i in range(lanes):
+        rng = np.random.RandomState(60 + i)
+        t = lambda a: torch.from_numpy(a).to(cuda_device)
+        fx.append(th.pack_weights(
+            t((rng.randn(n) * (i + 1)).astype(np.float32)),
+            t((rng.rand(n) * 0.25 + 0.01).astype(np.float32)),
+            t((rng.rand(n) < 0.8).astype(np.float32))))
+    chs = _fx_lane_mix(cuda_device, lanes, n, mix)
+    owner = hc.list_owner(num_bins, False, True)
+    assert owner == (num_bins > 11_622)
+    want = hc.build_histogram_leaves_lanes_plain(bins, fx, chs,
+                                                 num_bins=num_bins)
+    real = hc.list_lane_order
+    monkeypatch.setattr(hc, "build_histogram_leaves_lanes_plain", None)
+    monkeypatch.setattr(hc, "build_histogram_leaves_plain", None)
+    for order in (hc.LIST_LAUNCH_PER_LANE, hc.LIST_LANE_MAJOR,
+                  hc.LIST_FEATURE_MAJOR, None):
+        if order is not None:
+            monkeypatch.setattr(hc, "list_lane_order", lambda geo: order)
+        else:
+            monkeypatch.setattr(hc, "list_lane_order", real)
+        before = dict(hc.LAUNCHES)
+        got = hc.build_histogram_leaves_lanes(bins, fx, chs,
+                                              num_bins=num_bins)
+        again = hc.build_histogram_leaves_lanes(bins, fx, chs,
+                                                num_bins=num_bins)
+        torch.cuda.synchronize()
+        assert hc.LAUNCHES["hist_leaves_lanes_u16"] - \
+            before["hist_leaves_lanes_u16"] == 2
+        assert hc.LAUNCHES["fx_scale_lanes_u16"] - \
+            before["fx_scale_lanes_u16"] == (0 if owner else 2)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, again), order
+        assert torch.equal(got, want), order
+    for i in range(lanes):
+        one = hc.build_histogram_leaves(bins, fx[i], chs[i],
+                                        num_bins=num_bins)
+        assert one.dtype == torch.float32
+        assert torch.equal(one, want[i])
+        raw = hc.build_histogram_leaves(bins, fx[i], chs[i],
+                                        num_bins=num_bins, raw=True)
+        assert raw.dtype == torch.int64
+        assert torch.equal(th.fx_to_f32(raw, fx[i].inv_scale), want[i])
+    monkeypatch.undo()
+    assert torch.equal(raw, hc.build_histogram_leaves_plain(
+        bins, fx[-1], chs[-1], num_bins=num_bins, raw=True))
+    if mix == "one empty":
+        assert not want[:, 7].any()
+
+
+@pytest.mark.gpu
+def test_fx_scale_lanes_on_card(cuda_device):
+    """The slot mode's scale-back kernel: bitwise ``fx_to_f32`` on the
+    card's sums next to f32's rounding ties and large ones, each lane its
+    own scales, and ``torch.mul`` into an f32 output (one PyTorch call of
+    the same function, ``chip_smoke.py``'s yardstick)."""
+    rng = np.random.RandomState(75)
+    lanes, m = 3, 3 * 40_001
+    h = rng.randint(-(1 << 62), 1 << 62, (lanes, m), dtype=np.int64)
+    h[:, :9] = [(1 << 25) + 2, (1 << 25) + 6, -(1 << 25) - 2,
+                (1 << 53) + 1, (1 << 60) + (1 << 36), 0, 1, -1,
+                (1 << 40) + (1 << 16)]
+    h = torch.from_numpy(h.reshape(lanes, -1, 3)).to(cuda_device)
+    scale = torch.tensor([[2.0 ** -40, 2.0 ** -37, 1.0],
+                          [2.0 ** -61, 2.0 ** -3, 1.0],
+                          [2.0 ** 5, 2.0 ** -55, 1.0]], dtype=torch.float64,
+                         device=cuda_device)
+    before = hc.LAUNCHES["fx_scale_lanes_u16"]
+    got = hc.fx_scale_lanes(h, scale)
+    torch.cuda.synchronize()
+    assert hc.LAUNCHES["fx_scale_lanes_u16"] == before + 1
+    want = th.fx_to_f32(h, scale)
+    assert torch.equal(got, want)
+    lib = torch.empty_like(want)
+    torch.mul(h, scale[:, None, :], out=lib)
+    assert torch.equal(lib, want)
+    assert torch.equal(hc.fx_scale_lanes(h.cpu(), scale.cpu()), want.cpu())
 
 
 @pytest.mark.gpu

@@ -335,16 +335,22 @@ def test_lane_geometry_covers_rows_within_caps(lanes):
 U16_BINS = 1023
 
 
-@pytest.mark.parametrize("q8", [True, False])
-def test_hist_leaves_lanes_u16_bitwise(q8):
+@pytest.mark.parametrize("q8,num_bins", [
+    (True, U16_BINS), (False, U16_BINS), (True, 12_000), (False, 12_000)],
+    ids=["True", "False", "True-12000", "False-12000"])
+def test_hist_leaves_lanes_u16_bitwise(q8, num_bins):
     """The two leaf families over uint16 codes: L single plain calls and
     the reference's XLA leaf histogram (integer-valued weights) under
-    ``jax.vmap``; the lanes' row lists are their single partitions'."""
-    rng = np.random.RandomState(70 + q8)
+    ``jax.vmap``; the lanes' row lists are their single partitions'.  At
+    12,000 bins past one bin tile, where the exact form's card kernel
+    takes owner mode (``list_geometry``)."""
+    rng = np.random.RandomState(70 + q8 + 7 * (num_bins != U16_BINS))
     lanes = 3
     k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
-    bins = rng.randint(0, U16_BINS, (F, N)).astype(np.uint16)
-    bins[:, :40] = U16_BINS - 1
+    assert hc.list_owner(num_bins, q8, True) == (num_bins > U16_BINS
+                                                 and not q8)
+    bins = rng.randint(0, num_bins, (F, N)).astype(np.uint16)
+    bins[:, :40] = num_bins - 1
     ch = rng.randint(-1, k, (lanes, N)).astype(np.int8)
     gq = rng.randint(-127, 128, (lanes, N)).astype(np.int8)
     hq = rng.randint(0, 128, (lanes, N)).astype(np.int8)
@@ -353,9 +359,9 @@ def test_hist_leaves_lanes_u16_bitwise(q8):
         w = np.zeros((lanes, 8, N), np.int8)
         w[:, 0], w[:, 1], w[:, 2] = gq, hq, cnt
         got = hc.build_histogram_leaves_q8_lanes(_t(bins), _t(w), _t(ch),
-                                                 num_bins=U16_BINS)
+                                                 num_bins=num_bins)
         ones = [hc.build_histogram_leaves_q8(_t(bins), _t(w[i]), _t(ch[i]),
-                                             num_bins=U16_BINS)
+                                             num_bins=num_bins)
                 for i in range(lanes)]
         w3 = [_t(w[i]) for i in range(lanes)]
     else:
@@ -364,28 +370,75 @@ def test_hist_leaves_lanes_u16_bitwise(q8):
                               _t(cnt[i].astype(np.float32)))
               for i in range(lanes)]
         got = hc.build_histogram_leaves_lanes(_t(bins), ws, _t(ch),
-                                              num_bins=U16_BINS)
+                                              num_bins=num_bins)
         ones = [hc.build_histogram_leaves(_t(bins), ws[i], _t(ch[i]),
-                                          num_bins=U16_BINS)
+                                          num_bins=num_bins)
                 for i in range(lanes)]
         w3 = [w_.w for w_ in ws]
-    assert got.shape == (lanes, k, F, U16_BINS, 3)
+    assert got.shape == (lanes, k, F, num_bins, 3)
     for lane in range(lanes):
         assert torch.equal(got[lane], ones[lane])
     ref = jax.vmap(lambda g, h, m, c: rh.build_histogram_leaves(
-        jnp.asarray(bins.T), g, h, m, c, num_channels=k, num_bins=U16_BINS,
+        jnp.asarray(bins.T), g, h, m, c, num_channels=k, num_bins=num_bins,
         impl="segment"))(*map(jnp.asarray, (gq.astype(np.float32),
                                             hq.astype(np.float32),
                                             cnt.astype(np.float32), ch)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
-    # the lanes' partition, record for record each lane's own
-    for one, rl in zip(
-            [hc.leaf_partition(_t(ch[i]), w3[i], num_channels=k, slots=2 * k)
-             for i in range(lanes)],
-            hc.leaf_partition_lanes(_t(ch), w3, num_channels=k,
-                                    slots=2 * k)):
-        for a, b in zip(one, rl):
-            assert torch.equal(a, b)
+    # the lanes' partition, record for record each lane's own (past one
+    # tile also the owner mode's plan of 0 slots)
+    for slots in (2 * k, 0) if num_bins > U16_BINS else (2 * k,):
+        for one, rl in zip(
+                [hc.leaf_partition(_t(ch[i]), w3[i], num_channels=k,
+                                   slots=slots) for i in range(lanes)],
+                hc.leaf_partition_lanes(_t(ch), w3, num_channels=k,
+                                        slots=slots)):
+            for a, b in zip(one, rl):
+                assert torch.equal(a, b)
+
+
+def _near_ties(rng, n):
+    """int64 sums around f32's rounding ties at several magnitudes (the
+    24-bit mantissa's half step, below, on and above it; past 2^53 the
+    int64 to float64 conversion rounds first) and large random ones, of
+    both signs."""
+    out = [0, 1, -1, (1 << 62) - 1, -(1 << 62)]
+    for e in (25, 31, 40, 52, 53, 55, 61):
+        half = 1 << (e - 24)
+        base = (1 << e) + rng.randint(0, 1 << 20) * 2 * half
+        for d in (-1, 0, 1):
+            out += [base + half + d, -(base + half + d),
+                    base + 3 * half + d]
+    out += rng.randint(-(1 << 62), 1 << 62, n, dtype=np.int64).tolist()
+    return np.array(out, np.int64)
+
+
+def test_fx_scale_lanes_plain_bitwise_fx_to_f32():
+    """The exact lanes form's scale-back (``fx_scale_lanes``): on the CPU
+    its plain version, and the kernel's arithmetic per entry,
+    (float)((double)sum x scale[lane][k]) in numpy, are ``fx_to_f32``
+    bit for bit on large sums and on sums next to f32's rounding ties,
+    each lane with its own power-of-two scales."""
+    rng = np.random.RandomState(74)
+    lanes = 3
+    sums = _near_ties(rng, 3 * 97)
+    sums = sums[:len(sums) // 3 * 3]
+    h = np.stack([rng.permutation(sums) for _ in range(lanes)])
+    h = h.reshape(lanes, 1, -1, 3)
+    scale = np.array([[2.0 ** -40, 2.0 ** -37, 1.0],
+                      [2.0 ** -61, 2.0 ** -3, 1.0],
+                      [2.0 ** 5, 2.0 ** -55, 1.0]])
+    want = th.fx_to_f32(_t(h), _t(scale))
+    got = hc.fx_scale_lanes(_t(h), _t(scale))
+    assert got.dtype == torch.float32 and got.shape == h.shape
+    assert torch.equal(got, want)
+    kernel = (h.astype(np.float64) *
+              scale[:, None, None, :]).astype(np.float32)
+    np.testing.assert_array_equal(kernel.view(np.int32),
+                                  want.numpy().view(np.int32))
+    with pytest.raises(ValueError, match="scales"):
+        hc.fx_scale_lanes(_t(h), _t(scale[:2]))
+    with pytest.raises(ValueError, match="int64"):
+        hc.fx_scale_lanes(_t(h.astype(np.int32)), _t(scale))
 
 
 def test_hist_single_lanes_u16_bitwise():
