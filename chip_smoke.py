@@ -3091,12 +3091,13 @@ def lane_u16_kernel_phase(torch, gen, dev, card: str, n: int,
                  for i in range(L)],
                 lambda: hc.hist_single_lanes_plain(sb, sw, num_bins=nb),
                 nbytes, 3.0 * f * nact, lib, reps)
-            g, per = hc.lane_single_u16_geometry(
-                sms, f, [c for _, c in segs], nb, layout)
+            g, items = hc.lane_single_items(
+                sms, f, [c for _, c in segs], nb, layout, True)
             log(f"  B={nb} hist_single_lanes_u16 {layout}: {g.tiles} "
                 f"tile(s) x {g.bt} bins, clusters of {g.cluster} blocks x "
-                f"{g.f_groups} groups x {g.chunks // g.cluster} along the "
-                f"rows x {L} lanes (rows a block {list(per)})")
+                f"{g.f_groups} groups, {len(items)} work items of up to "
+                f"{g.chunk_rows} rows over the {L} lanes"
+                + (f", {g.peers} DSM peers" if g.tiles > 1 else ""))
             if layout == "rows":
                 _lane_put(rec, "hist_single_lanes_u16", main, r)
         del P16, sw, act, idx, upd, lib, sb, lanes, bins, wide

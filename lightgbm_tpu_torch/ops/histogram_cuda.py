@@ -67,8 +67,8 @@ model-axis (``*_lanes``) forms take uint16 bins the same way (their
 in one launch (:func:`leaf_partition_lanes`), then the histograms over
 their row lists (q8 a launch a lane, the exact form one launch of every
 lane's clusters, :func:`list_lane_order`), and ``hist_single_lanes``
-runs each lane's single launch's clusters on its segment
-(:func:`lane_single_u16_geometry`).
+runs the single form's clusters over work items that cut every lane's
+segment into rows of one length (:func:`lane_single_items`).
 
 The exact leaf form's f32 values past one bin tile leave the kernel
 whole (owner mode, :class:`ListGeometry`): each (channel, feature group)
@@ -101,8 +101,7 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "SplitDecode", "split_decode", "MEMBER_WORDS",
            "leaf_groups", "leaf_geometry", "SingleGeometry",
            "single_geometry", "trial_tab", "MAX_LANES",
-           "lane_leaf_geometry", "lane_single_geometry",
-           "lane_single_u16_geometry",
+           "lane_leaf_geometry", "lane_single_items",
            "build_histogram_leaves_q8_lanes",
            "build_histogram_leaves_q8_lanes_plain",
            "build_histogram_leaves_lanes", "build_histogram_leaves_lanes_plain",
@@ -932,6 +931,11 @@ SINGLE_MAX_BLOCK_ROWS = 1 << 31   # the per-block uint32 count of 0/1 rows
 SM_SMEM = 233_472             # an H100 SM's shared memory
 SINGLE_MAX_CLUSTER = 16       # H100's largest (non-portable) cluster
 SINGLE_ROUNDS = 4             # resident rounds a uint16 launch may take
+# rounds of lanes' items that leave the resident blocks room, uint8 and
+# uint16 codes (one tile): the fewest of 1, 2 and 4 that ran fastest on
+# the card (scripts/torch_single_lanes_sweep.py, PERF.md section 6)
+SINGLE_LANE_ROUNDS = {False: 1, True: 4}
+SINGLE_ITEM_ROUNDS = 8        # rounds of lanes' items when they crowd slots
 # Clusters of 8 and 16 blocks (the uint16 form's past one bin tile)
 # resident at once on an H100 SXM (132 SMs), for blocks of one per SM
 # (1024 threads) and of four (256 threads): cudaOccupancyMaxActiveClusters
@@ -1186,10 +1190,11 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
         LAUNCHES["hist_single_packed4"] += 1
         return out
     if bins_t.dtype == torch.uint16:
-        # 4 rows a 64-bit load (FEATS); words of 2 features (ROWS), every
-        # run of a cluster's features 4-byte aligned
+        # 4 rows a 64-bit load (FEATS, from the first aligned row); words
+        # of 2 features (ROWS), every run of a cluster's features 4-byte
+        # aligned
         if layout == "features":
-            kind = 3 if ptr % 8 == 0 and sf % 4 == 0 else 2
+            kind = 3 if sf % 4 == 0 else 2
         else:
             fgc = geo.cluster // geo.tiles * geo.fg
             kind = int(sf == 1 and ptr % 4 == 0 and sn % 2 == 0 and
@@ -1203,8 +1208,8 @@ def hist_single(bins_t: torch.Tensor, w: FxWeights, *, num_bins: int,
                      _stream()), "hist_single_u16")
         LAUNCHES["hist_single_u16"] += 1
         return out
-    if layout == "features":
-        kind = 3 if ptr % 4 == 0 and sf % 4 == 0 else 2
+    if layout == "features":   # 4 rows a 32-bit load, from an aligned row
+        kind = 3 if sf % 4 == 0 else 2
     else:
         kind = int(sf == 1 and ptr % 4 == 0 and sn % 4 == 0 and
                    (geo.fg % 4 == 0 or geo.f_groups == 1))
@@ -1563,43 +1568,67 @@ def lane_leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
                         chunk_rows=chunk_rows)
 
 
-def lane_single_geometry(sms: int, f: int, rows, num_bins: int,
-                         layout: str) -> SingleGeometry:
+def lane_single_items(sms: int, f: int, rows, num_bins: int, layout: str,
+                      wide: bool = False) -> tuple:
     """Geometry of ``hist_single_lanes`` over lanes of ``rows`` rows each:
-    :func:`single_geometry`'s feature groups and block size for all the
-    lanes' rows as one segment, and one chunk length for every lane,
-    short enough that the lanes' blocks (each lane's rows rounded up to
-    whole chunks) fit one resident round.  The grid's chunk count is the
-    longest lane's; a shorter lane's surplus blocks walk no rows."""
-    total = max(1, sum(rows))
-    geo = single_geometry(sms, f, total, num_bins, layout)
-    per_sm = LEAF_THREADS // geo.threads
-    fit = max(1, sms * per_sm // geo.f_groups - len(rows))
-    chunk_rows = -(-total // fit)
-    chunk_rows = max(SINGLE_MIN_ROWS,
-                     -(-chunk_rows // SINGLE_ROW_STEP) * SINGLE_ROW_STEP)
-    chunk_rows = min(chunk_rows, SINGLE_MAX_BLOCK_ROWS)
-    return geo._replace(chunks=max(1, -(-max(rows) // chunk_rows)),
-                        chunk_rows=chunk_rows)
-
-
-def lane_single_u16_geometry(sms: int, f: int, rows, num_bins: int,
-                            layout: str) -> tuple:
-    """Geometry of ``hist_single_lanes_u16`` past 256 bins over lanes of
-    ``rows`` rows each: :func:`single_shape`'s launch for every lane, and
-    each lane's row chunks its single launch's (:func:`single_chunks`), so
-    a lane's blocks are the blocks of its :func:`hist_single` launch; the
-    grid's ``chunks`` the most any lane takes (a multiple of the cluster,
-    so no cluster straddles two lanes; a lane's surplus clusters walk no
-    rows).  Returns (the geometry, each lane's rows a block).  One chunk
-    length for every lane, sized for all the lanes' rows as one segment,
-    left most blocks of a long lane's cluster idle (its rows in the first
-    few chunks) and cost 2.3x four single launches at B=65,535 (PERF.md
-    section 6)."""
-    shape = single_shape(sms, f, num_bins, layout)
-    per = [single_chunks(shape, max(1, r)) for r in rows]
-    return (shape._replace(chunks=max(g.chunks for g in per)),
-            tuple(g.chunk_rows for g in per))
+    the single form's launch shape (uint16 codes past 256 bins
+    :func:`single_shape`'s, else :func:`single_geometry`'s feature groups
+    and block size for all the lanes' rows as one segment) and the work
+    items, (lane, feature group, first row, end row), one block a cluster
+    each.  At one tile the lanes' rows are cut into items of one length q,
+    a lane's last one shorter, so that they fill the resident blocks
+    (``slots``) together: when every lane's groups take at most half of
+    ``SINGLE_LANE_ROUNDS`` rounds of the slots, the q that fits every item
+    in those rounds; else the q of ``SINGLE_ITEM_ROUNDS`` rounds of the
+    lanes' rows, so that the longest item is a small share of a slot's
+    work however the block scheduler packs the shorter ones; at least
+    ``SINGLE_MIN_ROWS`` rows a block, starts 16-row aligned.  The items
+    run lane by lane, piece by piece, the feature groups of one piece
+    together (their rows shared in L2).  Past one tile each lane's
+    clusters are its single launch's (:func:`single_chunks`, at most
+    ``SINGLE_MAX_BLOCK_ROWS`` rows a cluster, its blocks' uint32 counts):
+    more, shorter items cost more flushes of the feature's tiles than
+    their balance gained on the card.  A short lane takes a slot only for
+    the rows it has and an empty one none.  Returns (the geometry, its
+    ``chunks`` the items' blocks and ``chunk_rows`` the longest item; the
+    items)."""
+    total = sum(rows)
+    if wide and num_bins > 256:
+        geo = single_shape(sms, f, num_bins, layout)
+    else:
+        geo = single_geometry(sms, f, max(1, total), num_bins, layout)
+    cs, groups = geo.cluster, geo.f_groups
+    if cs > 1:
+        # past one tile: each lane's clusters its single launch's
+        # (single_chunks), with no surplus cluster
+        items = []
+        for lane, r in enumerate(rows):
+            if r > 0:
+                step = single_chunks(geo, r).chunk_rows * cs
+                items.extend((lane, y, a, min(r, a + step))
+                             for y in range(groups)
+                             for a in range(0, r, step))
+        return (geo._replace(chunks=len(items) * cs,
+                             chunk_rows=max(b - a for _, _, a, b in items)
+                             if items else 0), tuple(items))
+    slots = max(1, single_resident(sms, cs, geo.fg, geo.bt, layout))
+    unit = cs * SINGLE_ROW_STEP
+    live = sum(1 for r in rows if r > 0)
+    k = SINGLE_LANE_ROUNDS[wide]
+    if 2 * live * groups <= k * slots:
+        q = -(-total * groups // (k * slots - live * groups))
+    else:
+        q = -(-total * groups // (SINGLE_ITEM_ROUNDS * slots))
+    q = min((SINGLE_MAX_BLOCK_ROWS - unit) // unit * unit,
+            max(cs * SINGLE_MIN_ROWS, -(-q // unit) * unit))
+    items = []
+    for lane, r in enumerate(rows):
+        if r > 0:   # the lane's rows in equal pieces of at most q
+            pieces = -(-r // q)
+            step = -(-(-(-r // pieces)) // unit) * unit
+            items.extend((lane, y, a, min(r, a + step))
+                         for a in range(0, r, step) for y in range(groups))
+    return geo._replace(chunks=len(items) * cs, chunk_rows=q), tuple(items)
 
 
 def _launch_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins, k,
@@ -1808,18 +1837,17 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
     sf, sn = bins[0].stride()
     layout = ("packed" if bins_packed else
               "features" if sn == 1 else "rows")
-    if bins[0].dtype == torch.uint16 and num_bins > 256:
-        geo, per_lane = lane_single_u16_geometry(_sm_count(dev), f, rows,
-                                                 num_bins, layout)
-    else:
-        geo = lane_single_geometry(_sm_count(dev), f, rows, num_bins, layout)
-        per_lane = [geo.chunk_rows] * lanes
-    table = _lane_table([[b.data_ptr() for b in bins],
-                         [w.data_ptr() for w in ws], rows,
-                         [w.stride(0) for w in ws], per_lane], dev)
-    if bins[0].dtype == torch.uint16:
+    wide = bins[0].dtype == torch.uint16
+    geo, items = lane_single_items(_sm_count(dev), f, rows, num_bins,
+                                   layout, wide)
+    table = _lane_table([b.data_ptr() for b in bins] +
+                        [w.data_ptr() for w in ws] + rows +
+                        [w.stride(0) for w in ws] +
+                        [x for it in items for x in it], dev)
+    if wide:
         # as hist_single's uint16 form, the alignment of each lane's bins
-        # pointer taken in the kernel
+        # pointer taken in the kernel (FEATS: from each span's first
+        # aligned row)
         if layout == "features":
             kind = 3 if sf % 4 == 0 else 2
         else:
@@ -1827,10 +1855,10 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
             kind = int(sf == 1 and sn % 2 == 0 and
                        (fgc % 2 == 0 or geo.f_groups == 1))
         fn = _fn("hist_single", "hist_single_lanes_u16",
-                 [_VP, _LL, _LL, _VP] + [_CI] * 10 + [_VP])
-        _raise_on(fn(_p(table), sf, sn, _p(out), lanes, f, num_bins, geo.fg,
-                     geo.bt, geo.cluster, geo.peers, geo.chunks, geo.threads,
-                     kind, _stream()), "hist_single_lanes_u16")
+                 [_VP, _CI, _LL, _LL, _VP] + [_CI] * 9 + [_VP])
+        _raise_on(fn(_p(table), len(items), sf, sn, _p(out), lanes, f,
+                     num_bins, geo.fg, geo.bt, geo.cluster, geo.peers,
+                     geo.threads, kind, _stream()), "hist_single_lanes_u16")
         LAUNCHES["hist_single_lanes_u16"] += 1
         return out
     if layout == "packed":
@@ -1841,10 +1869,9 @@ def hist_single_lanes(bins, ws, *, num_bins: int,
         kind = int(sf == 1 and sn % 4 == 0 and
                    (geo.fg % 4 == 0 or geo.f_groups == 1))
     fn = _fn("hist_single", "hist_single_lanes",
-             [_VP, _LL, _LL, _VP] + [_CI] * 7 + [_VP])
-    _raise_on(fn(_p(table), sf, sn, _p(out), lanes, f, num_bins, geo.fg,
-                 geo.chunks, geo.threads, kind, _stream()),
-              "hist_single_lanes")
+             [_VP, _CI, _LL, _LL, _VP] + [_CI] * 6 + [_VP])
+    _raise_on(fn(_p(table), len(items), sf, sn, _p(out), lanes, f, num_bins,
+                 geo.fg, geo.threads, kind, _stream()), "hist_single_lanes")
     LAUNCHES["hist_single_lanes_packed4" if bins_packed
              else "hist_single_lanes"] += 1
     return out

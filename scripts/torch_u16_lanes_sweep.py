@@ -3,7 +3,7 @@
 
     python3 scripts/torch_u16_lanes_sweep.py [--rows 10502144] [--lanes 4]
                                              [--reps 9] [--out FILE]
-                                             [--parts leaf,fx,single]
+                                             [--parts leaf,fx]
 
 The data are ``chip_smoke.py`` phase 12f's: F=28, L lanes with their own
 gradients and channels (half the rows in one of 42 channels, the exact
@@ -34,13 +34,8 @@ the L single wrappers and one int64 ``index_add_`` over lanes x channels
 (the library yardstick). Each variant's device split (``torch.profiler``,
 ms a call by kernel) and peak device memory above the inputs are logged.
 
-The single-leaf form (``csrc/hist_single.cu`` ``hist_single_lanes_u16``)
-on phase 12a's segments (N, N/2, 50,003, N/5) of per-lane row-major
-copies (ROWS) and of the shared feature-major matrix (FEATS): L single
-launches against the lanes form at ``lane_single_u16_geometry`` (each
-lane's rows a block its single launch's) and at one chunk length for
-every lane sized for all the lanes' rows as one segment, each equal to
-the plain version's bit for bit.
+The single-leaf lanes form (``hist_single_lanes_u16``) has its own sweep,
+``scripts/torch_single_lanes_sweep.py``.
 
 Prints one line per timing with the card's name and power limit, and
 writes them all as JSON to ``--out`` (default
@@ -239,71 +234,6 @@ def _fx_sweep(torch, gen, dev, n, lanes, reps, card, rows_out):
         torch.cuda.empty_cache()
 
 
-def _single_sweep(torch, gen, dev, n, lanes, reps, card, rows_out):
-    from lightgbm_tpu_torch.ops import histogram as th
-    from lightgbm_tpu_torch.ops import histogram_cuda as hc
-    f = cs.NUM_FEATURES
-    sms = hc._sm_count(dev)
-    segs = [(0, n), (n // 4, n // 2), (12_345, 50_003),
-            (n // 3, n // 5)][:lanes]
-    real = hc.lane_single_u16_geometry
-
-    def one_length(sms_, f_, rows, nb, layout):
-        """One chunk length for every lane, sized for all the lanes' rows
-        as one segment."""
-        geo = hc.single_chunks(hc.single_shape(sms_, f_, nb, layout),
-                               max(1, sum(rows)))
-        cs_ = geo.cluster
-        return (geo._replace(chunks=cs_ * max(1, -(-max(rows) //
-                                                   (cs_ * geo.chunk_rows)))),
-                tuple(geo.chunk_rows for _ in rows))
-    for nb in cs.U16_BINS:
-        bins = cs._u16_codes(torch, gen, dev, (f, n), nb)
-        P16 = [bins.view(torch.int16).t().contiguous() for _ in segs]
-        ws = []
-        for s, c in segs:
-            grad = torch.randn(n, generator=gen, device=dev) * 0.5
-            hess = torch.rand(n, generator=gen, device=dev) * 0.25 + 0.01
-            mask = (torch.rand(n, generator=gen, device=dev) < 0.8).float()
-            w = th.pack_weights(grad, hess, mask)
-            ws.append(th.FxWeights(w.w[:, s:s + c], w.inv_scale))
-        for layout in ("rows", "features"):
-            sb = ([p[s:s + c].view(torch.uint16).t()
-                   for p, (s, c) in zip(P16, segs)] if layout == "rows"
-                  else [bins[:, s:s + c] for s, c in segs])
-            want = torch.stack([hc.hist_single(b, w, num_bins=nb)
-                                for b, w in zip(sb, ws)])
-            tag = f"hist_single_lanes_u16 {layout} B={nb}"
-
-            def put(what, ms):
-                rows_out.append(dict(form=tag, what=what, ms=ms))
-                print(f"[{card}] {tag} L={len(segs)} {what}: {ms:.3f} ms",
-                      flush=True)
-            put("single launches", cs.time_ms(
-                lambda: [hc.hist_single(b, w, num_bins=nb)
-                         for b, w in zip(sb, ws)], reps))
-            for what, geo_fn in (("lanes form, each lane's rows a block",
-                                  real),
-                                 ("lanes form, one rows a block", one_length)):
-                hc.lane_single_u16_geometry = geo_fn
-                try:
-                    got = hc.hist_single_lanes(sb, ws, num_bins=nb)
-                    if not torch.equal(got, want):
-                        raise AssertionError(f"{tag} {what} differs")
-                    put(what, cs.time_ms(
-                        lambda: hc.hist_single_lanes(sb, ws, num_bins=nb),
-                        reps))
-                finally:
-                    hc.lane_single_u16_geometry = real
-            g, per = real(sms, f, [c for _, c in segs], nb, layout)
-            print(f"  {tag}: clusters of {g.cluster}, {g.f_groups} groups, "
-                  f"{g.chunks // g.cluster} along the rows at most, rows a "
-                  f"block {list(per)}", flush=True)
-            del sb, want
-        del bins, P16, ws
-        torch.cuda.empty_cache()
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=10_502_144)
@@ -311,8 +241,8 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=9)
     ap.add_argument("--out", default=os.path.join(
         ROOT, "build", "u16_lanes_sweep.json"))
-    ap.add_argument("--parts", default="leaf,fx,single",
-                    help="comma-separated sweeps to run: leaf, fx, single")
+    ap.add_argument("--parts", default="leaf,fx",
+                    help="comma-separated sweeps to run: leaf, fx")
     args = ap.parse_args()
     parts = set(args.parts.split(","))
     import torch
@@ -326,8 +256,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(16)
     rows = []
-    for name, fn in (("leaf", _leaf_sweep), ("fx", _fx_sweep),
-                     ("single", _single_sweep)):
+    for name, fn in (("leaf", _leaf_sweep), ("fx", _fx_sweep)):
         if name in parts:
             fn(torch, gen, dev, args.rows, args.lanes, args.reps, card, rows)
     os.makedirs(os.path.dirname(args.out), exist_ok=True)

@@ -1356,6 +1356,75 @@ def test_u16_training_on_card_matches_cpu(cuda_device, extra):
 
 # -- the model-axis uint16 forms ---------------------------------------------
 
+def _hard_single_lanes(device, num_bins, layout):
+    """Four lanes of the single-leaf form's hard cases: a long segment, an
+    empty one, one of 17 rows (shorter than one block's share) and one
+    whose codes crowd 90% onto one bin per feature; codes at or past B
+    (the top uint8 code at B=200, 65,535 at B=1024 and 65,535); int64
+    weights whose sums carry across the 32-bit boundary (low words of all
+    ones), negative ones, and ones near the 61-bit fixed-point headroom
+    (``ops/histogram.py`` ``_FX_HEADROOM_BITS``) whose sums wrap mod
+    2^64, as the plain version's do; the count row 0/1."""
+    rng = np.random.RandomState(num_bins % 211)
+    n, f = 200_003, 5
+    dt = np.uint8 if num_bins <= 256 else np.uint16
+    top = 255 if dt == np.uint8 else 65_535
+    codes = rng.randint(0, top + 1, (f, n))
+    codes[:, rng.rand(n) < 0.5] %= num_bins
+    skew = np.where(rng.rand(f, n) < 0.9,
+                    (np.arange(f) * 7919 % num_bins)[:, None], codes)
+    segs = [(3, n - 3), (50, 50), (1_001, 1_018), (7, 120_007)]
+    mats = [codes, codes, codes, skew]
+    c = (rng.rand(n) < 0.8).astype(np.int64)
+    head = 1 << (61 - 18)
+    kinds = [rng.randint(1, 1 << 20, n) * (1 << 32) - 1,
+             -rng.randint(1, 9, n),
+             rng.randint(-head, head, n),
+             rng.randint(-(1 << 62), 1 << 62, n)]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    bins, ws = [], []
+    for lane, ((s, e), m) in enumerate(zip(segs, mats)):
+        g = kinds[lane] * c
+        h = rng.randint(0, head, n) * c
+        w = th.FxWeights(t(np.stack([g, h, c])[:, s:e]),
+                         torch.ones(3, dtype=torch.float64, device=device))
+        mat = t(m.astype(dt))
+        bins.append(mat.t().contiguous()[s:e].t() if layout == "rows"
+                    else mat[:, s:e])
+        ws.append(w)
+    return bins, ws
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["rows", "features"])
+@pytest.mark.parametrize("num_bins", [200, 1024, 16_383, 65_535])
+def test_single_lanes_hard_mixes_on_card(cuda_device, monkeypatch, num_bins,
+                                        layout):
+    """``hist_single_lanes`` (uint8 at B=200, its uint16 form at one tile
+    and past it, where remote adds go through DSM and L2) on
+    :func:`_hard_single_lanes`' lanes: one launch, bitwise its plain
+    version and each lane's single launch, identical twice; the empty
+    lane's histogram zero."""
+    bins, ws = _hard_single_lanes(cuda_device, num_bins, layout)
+    key = "hist_single_lanes" + ("_u16" if num_bins > 256 else "")
+    monkeypatch.setattr(hc, "hist_single_lanes_plain", None)   # must launch
+    monkeypatch.setattr(hc, "hist_single_plain", None)
+    before = hc.LAUNCHES[key]
+    got = hc.hist_single_lanes(bins, ws, num_bins=num_bins)
+    again = hc.hist_single_lanes(bins, ws, num_bins=num_bins)
+    singles = [hc.hist_single(b, w, num_bins=num_bins)
+               for b, w in zip(bins, ws)]
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert hc.LAUNCHES[key] == before + 2
+    assert torch.equal(got, again)
+    assert torch.equal(got, hc.hist_single_lanes_plain(bins, ws,
+                                                       num_bins=num_bins))
+    for lane, one in enumerate(singles):
+        assert torch.equal(got[lane], one), lane
+    assert not got[1].any() and got[0].any() and got[3].any()
+
+
 U16_LANE_PLAINS = LANE_PLAINS + ("leaf_partition_lanes_plain",)
 U16_LANE_KERNELS = ("hist_leaves_q8_lanes_u16", "hist_leaves_lanes_u16",
                     "leaf_partition_lanes", "wave_row_update_lanes_u16",

@@ -1,6 +1,7 @@
 """The launch geometry of the leaf-channel histogram kernels
 (csrc/hist_leaves.cu) and the q8 kernel's packed (g, h) accumulator, and
-of the single-leaf histogram (csrc/hist_single.cu, ``single_geometry``).
+of the single-leaf histogram (csrc/hist_single.cu, ``single_geometry``,
+and its model-axis work items, ``lane_single_items``).
 
 The kernel runs only on the card; what decides its blocks is the plain
 Python of ``ops/histogram_cuda.py`` ``leaf_geometry``, checked here on the
@@ -469,55 +470,203 @@ LANE_SEGMENTS = [
     [3 << 30, 1 << 20]]
 
 
+def _block_spans(geo, a, b):
+    """The row spans of one work item's cluster blocks, as
+    csrc/hist_single.cu ``span_of`` cuts them: one share (16-row steps)
+    for every block, the last blocks' shorter or empty."""
+    cs = geo.cluster
+    share = -(-(-(-(b - a) // cs)) // hc.SINGLE_ROW_STEP) * hc.SINGLE_ROW_STEP
+    return share, [(min(b, a + r * share), min(b, a + (r + 1) * share))
+                   for r in range(cs)]
+
+
+def _item_walk(bins, w, num_bins, geo, clusters):
+    """``hist_single_lanes``' decomposition of one lane in plain PyTorch:
+    each work item ``(group, first row, end row)`` of ``clusters`` is one
+    cluster of ``geo``, its rows cut over its blocks (``_block_spans``).
+    Each block walks its rows for its cluster's features; each code goes
+    to the block that keeps its feature and bin (rank (k / fg) x tiles + v
+    % tiles, entry (k % fg) x S + v / tiles): into that block's histogram
+    when it is the walking block (at one tile always) or one of the
+    ``peers`` ranks after it, else straight into the (F, B, 3) int64 sums
+    (L2); then each block flushes its tile (bins entry x tiles + t).  The
+    adds into a histogram go as the kernel's ``put`` sends them: with no
+    peers the walking block's own as 32-bit halves; with peers every one,
+    the walking block's own too, as a 64-bit DSM reduction, so that no
+    entry takes both.  Returns the sums and the (halves, DSM, L2) add
+    counts."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    f = bins.shape[0]
+    codes = th.widen_bins(bins).to(torch.int64)
+    out = torch.zeros((f, num_bins, 3), dtype=torch.int64)
+    cs, tiles, fg = geo.cluster, geo.tiles, geo.fg
+    fgc = cs // tiles * fg
+    S = geo.bt | 1
+    sent = [0, 0, 0]
+    for y, a, b in clusters:
+        g0 = y * fgc
+        ng = min(fgc, f - g0)
+        _, spans = _block_spans(geo, a, b)
+        hists = torch.zeros((cs, fg * S, 3), dtype=torch.int64)
+        for rank, (r0, r1) in enumerate(spans):
+            wk = w[:, r0:r1].T
+            live = (wk != 0).any(dim=1)
+            for k in range(ng):
+                v = codes[g0 + k, r0:r1]
+                keep = live & (v < num_bins)
+                v, wv = v[keep], wk[keep]
+                owner = k // fg * tiles + v % tiles
+                d = (owner - rank) % cs
+                mine = d <= geo.peers
+                hists.index_put_((owner[mine], (k % fg) * S +
+                                  v[mine] // tiles), wv[mine],
+                                 accumulate=True)
+                out[g0 + k].index_add_(0, v[~mine], wv[~mine])
+                sent[0 if geo.peers == 0 else 1] += int(mine.sum())
+                sent[2] += int((~mine).sum())
+        for rank in range(cs):
+            f0 = g0 + rank // tiles * fg
+            nf = max(0, min(fg, f - f0))
+            b0 = rank % tiles
+            nbt = -(-(num_bins - b0) // tiles)
+            h = hists[rank].view(fg, S, 3)
+            out[f0:f0 + nf, b0::tiles] += h[:nf, :nbt]
+    return out, tuple(sent)
+
+
 @pytest.mark.parametrize("rows", LANE_SEGMENTS, ids=["phase12f", "seven",
                                                      "past-2^31"])
 @pytest.mark.parametrize("layout", ["rows", "features"])
 @pytest.mark.parametrize("num_bins", [257, 1024, 16_384, 65_535])
 def test_lane_single_u16_geometry(num_bins, layout, rows):
-    """``lane_single_u16_geometry``: ``single_shape``'s launch for every
-    lane and each lane's rows a block its single launch's, so a lane's
-    blocks are its ``hist_single`` launch's; a grid of whole clusters
-    along the rows, the most any lane takes (the lane is grid z, so no
-    cluster holds two lanes' blocks); at most ``SINGLE_MAX_BLOCK_ROWS``
-    rows a cluster; every row of every lane in exactly one block."""
-    geo, per = hc.lane_single_u16_geometry(SMS, F, rows, num_bins, layout)
+    """``lane_single_items`` over uint16 codes: ``single_shape``'s launch,
+    and work items that cover every (lane, row, feature group) exactly
+    once, one lane an item (so no cluster holds two lanes' blocks), at
+    most ``SINGLE_MAX_BLOCK_ROWS`` rows an item (the cluster's uint32
+    counts), every block's span starting 16-row aligned, and no item for
+    an empty lane; past one tile each lane's clusters are those of its
+    single launch."""
+    geo, items = hc.lane_single_items(SMS, F, rows, num_bins, layout, True)
     shape = hc.single_shape(SMS, F, num_bins, layout)
-    assert geo._replace(chunks=0) == shape._replace(chunks=0)
+    assert geo._replace(chunks=0, chunk_rows=0) == shape._replace(
+        chunks=0, chunk_rows=0)
+    _check_items(geo, items, rows)
+    if geo.tiles > 1:   # each lane's clusters its single launch's
+        for lane, r in enumerate(rows):
+            mine = sorted((a, b) for z, y, a, b in items
+                          if z == lane and y == 0)
+            if r:
+                one = hc.single_geometry(SMS, F, r, num_bins, layout)
+                assert len(mine) == one.chunks // one.cluster
+                assert mine[0][1] - mine[0][0] == min(
+                    r, one.chunk_rows * one.cluster)
+
+
+def _check_items(geo, items, rows):
     cs = geo.cluster
-    assert geo.chunks % cs == 0 and len(per) == len(rows)
-    most = 0
-    for r, cr in zip(rows, per):
-        one = hc.single_geometry(SMS, F, max(r, 1), num_bins, layout)
-        assert cr == one.chunk_rows and one.chunks <= geo.chunks
-        most = max(most, one.chunks)
-        assert cr % hc.SINGLE_ROW_STEP == 0
-        assert cs * cr <= hc.SINGLE_MAX_BLOCK_ROWS
-        spans = [(min(r, x * cr), min(r, (x + 1) * cr))
-                 for x in range(geo.chunks)]
-        assert spans[0][0] == 0 and spans[-1][1] == r
-        assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
-    assert geo.chunks == most
+    assert geo.chunks == len(items) * cs
+    cover = {}
+    for lane, y, a, b in items:
+        assert 0 <= lane < len(rows) and 0 <= y < geo.f_groups
+        assert 0 <= a < b <= rows[lane]
+        assert b - a <= hc.SINGLE_MAX_BLOCK_ROWS
+        assert a % (cs * hc.SINGLE_ROW_STEP) == 0
+        share, spans = _block_spans(geo, a, b)
+        assert share % hc.SINGLE_ROW_STEP == 0
+        assert spans[0][0] == a and spans[-1][1] == b
+        cover.setdefault((lane, y), []).append((a, b))
+    for lane, r in enumerate(rows):
+        for y in range(geo.f_groups):
+            spans = sorted(cover.get((lane, y), []))
+            if r == 0:
+                assert not spans
+                continue
+            assert spans[0][0] == 0 and spans[-1][1] == r
+            assert all(x[1] == z[0] for x, z in zip(spans, spans[1:]))
+
+
+@pytest.mark.parametrize("rows", LANE_SEGMENTS + [[0, 5, 0]],
+                         ids=["phase12f", "seven", "past-2^31", "tiny"])
+@pytest.mark.parametrize("num_bins,layout", [
+    (256, "rows"), (256, "features"), (16, "packed"), (255, "rows")])
+def test_lane_single_items_cover_every_row_once(num_bins, layout, rows):
+    """``lane_single_items`` for the uint8 (and packed) lanes form: the
+    feature groups of ``single_geometry`` over all the lanes' rows, blocks
+    of one tile, and items that cover every (lane, row, feature group)
+    exactly once; when every lane's groups take at most half the
+    resident blocks, every item fits one round of them."""
+    geo, items = hc.lane_single_items(SMS, F, rows, num_bins, layout)
+    one = hc.single_geometry(SMS, F, max(1, sum(rows)), num_bins, layout)
+    assert (geo.fg, geo.f_groups, geo.threads, geo.cluster) == (
+        one.fg, one.f_groups, one.threads, 1)
+    _check_items(geo, items, rows)
+    slots = SMS * (hc.LEAF_THREADS // geo.threads)
+    live = sum(1 for r in rows if r)
+    if 2 * live * geo.f_groups <= slots and \
+            geo.chunk_rows > hc.SINGLE_MIN_ROWS:
+        assert len(items) <= slots
 
 
 @pytest.mark.parametrize("layout", ["rows", "features"])
 @pytest.mark.parametrize("num_bins", [1024, 65_535])
 def test_lane_single_u16_walk_matches_plain(num_bins, layout):
-    """Walking each lane's blocks of the lanes geometry (the grid's chunks
-    the most any lane takes, the lane's own rows a block) over that
-    lane's segment gives its ``hist_single_plain`` bit for bit, an empty
-    lane's zeros too."""
+    """Walking each lane's work items (``_item_walk``: its clusters'
+    blocks and their routing) over that lane's segment gives its
+    ``hist_single_plain`` bit for bit; an empty lane has no item and a
+    lane shorter than one block's share walks one."""
     from lightgbm_tpu_torch.ops import histogram as th
     rng = np.random.RandomState(num_bins % 103)
-    f, rows = 9, [20_011, 6_007, 0]
-    geo, per = hc.lane_single_u16_geometry(SMS, f, rows, num_bins, layout)
-    for n, cr in zip(rows, per):
+    f, rows = 9, [20_011, 6_007, 0, 17]
+    geo, items = hc.lane_single_items(SMS, f, rows, num_bins, layout, True)
+    for lane, n in enumerate(rows):
         bins = torch.from_numpy(rng.randint(0, num_bins, (f, n)).astype(
             np.uint16))
         w = th.pack_weights(torch.randn(n), torch.rand(n),
                             (torch.rand(n) < 0.8).float())
-        assert torch.equal(
-            _cluster_walk(bins, w, num_bins, geo._replace(chunk_rows=cr)),
-            hc.hist_single_plain(bins, w, num_bins=num_bins))
+        mine = [(y, a, b) for z, y, a, b in items if z == lane]
+        assert bool(mine) == (n > 0)
+        got, _ = _item_walk(bins, w.w, num_bins, geo, mine)
+        assert torch.equal(got, hc.hist_single_plain(bins, w,
+                                                     num_bins=num_bins))
+
+
+@pytest.mark.parametrize("mix", ["even", "skewed"])
+@pytest.mark.parametrize("num_bins", [16_384, 65_535])
+def test_lane_routing_walk_matches_plain(num_bins, mix):
+    """Past one bin tile the lanes' clusters send each remote add to its
+    owner through DSM (the ``peers`` ranks after the walking block) or
+    straight into the sums through L2: over the lanes' work items, with
+    the geometry's peers, with none and with every other rank, on an even
+    and a 90%-skewed mix with codes at or past B, every lane is bitwise
+    ``hist_single_lanes_plain`` (an empty lane's zeros too), and each
+    routing sends its adds the ways it says: 32-bit halves only with no
+    DSM peers, so that no entry takes both widths."""
+    from lightgbm_tpu_torch.ops import histogram as th
+    rng = np.random.RandomState(num_bins % 97 + (mix == "skewed"))
+    f, rows = 5, [12_000, 0, 3_001]
+    geo, items = hc.lane_single_items(SMS, f, rows, num_bins, "rows", True)
+    bins, ws = [], []
+    for n in rows:
+        b = rng.randint(0, num_bins, (f, n))
+        if mix == "skewed":
+            b = np.where(rng.rand(f, n) < 0.9, (np.arange(f) * 7919 %
+                                                num_bins)[:, None], b)
+        b[:, :5] = 65_535   # at or past B: no add
+        bins.append(torch.from_numpy(b.astype(np.uint16)))
+        ws.append(th.pack_weights(torch.randn(n), torch.rand(n),
+                                  (torch.rand(n) < 0.8).float()).w)
+    want = hc.hist_single_lanes_plain(bins, ws, num_bins=num_bins)
+    for peers in (geo.peers, 0, geo.cluster - 1):
+        g = geo._replace(peers=peers)
+        for lane in range(len(rows)):
+            mine = [(y, a, b) for z, y, a, b in items if z == lane]
+            got, (halves, dsm, l2) = _item_walk(bins[lane], ws[lane],
+                                                num_bins, g, mine)
+            assert torch.equal(got, want[lane])
+            if rows[lane]:
+                assert (halves > 0) == (peers == 0)
+                assert (dsm > 0) == (peers > 0)
+                assert (l2 > 0) == (peers < g.cluster - 1)
 
 
 def _lane_counts(mix, n, k, seed):

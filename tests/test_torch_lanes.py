@@ -310,7 +310,8 @@ def test_run_lanes_groups_requests_by_key():
 def test_lane_geometry_covers_rows_within_caps(lanes):
     """The model-axis geometries: every lane's rows in some chunk, the
     leaf kernels' per-block row caps kept, and ``hist_single_lanes``'
-    real blocks within one resident round of an H100's 132 SMs."""
+    work items covering every lane's rows, within one resident round of
+    an H100's 132 SMs when the lanes leave room."""
     n = 10_502_144
     for q8, k in ((True, hc.Q_LEAF_CHANNELS), (False, hc.LEAF_CHANNELS)):
         for nb, packed in ((256, False), (16, True)):
@@ -323,10 +324,12 @@ def test_lane_geometry_covers_rows_within_caps(lanes):
     for rows in ([n, n // 2, 50_003, n // 5][:lanes] + [7] * (lanes - 4),
                  [10_000] * lanes, [1] * lanes):
         for f, layout in ((28, "rows"), (1, "features")):
-            g = hc.lane_single_geometry(132, f, rows, 256, layout)
-            assert g.chunks * g.chunk_rows >= max(rows)
-            blocks = sum(-(-r // g.chunk_rows) for r in rows) * g.f_groups
-            assert blocks <= 132 * (hc.LEAF_THREADS // g.threads) or \
+            g, items = hc.lane_single_items(132, f, rows, 256, layout)
+            assert g.chunk_rows * len(items) >= sum(rows)
+            for lane, r in enumerate(rows):
+                assert sum(b - a for z, y, a, b in items
+                           if z == lane and y == 0) == r
+            assert len(items) <= 132 * (hc.LEAF_THREADS // g.threads) or \
                 g.chunk_rows == hc.SINGLE_MIN_ROWS
 
 
@@ -471,6 +474,51 @@ def test_hist_single_lanes_u16_bitwise():
         bb, gg, hh, mm, num_bins=U16_BINS, impl="segment"))(
             jnp.asarray(np.stack(ref_bins)), *map(jnp.asarray, rw.swapaxes(
                 0, 1)))
+    np.testing.assert_array_equal(f32.numpy(), np.asarray(ref))
+
+
+@pytest.mark.parametrize("num_bins", [B, 12_000])
+def test_hist_single_lanes_skewed_codes_bitwise(num_bins):
+    """Per-lane segments whose codes crowd onto one bin (90% of each
+    feature's rows; past one tile at 12,000 bins, where the card's
+    clusters send most adds to the one block that keeps that bin), one
+    lane empty: L
+    single plain calls and the reference's histogram under ``jax.vmap``
+    (uint8: ``build_histogram_pallas`` in interpret mode; uint16: its XLA
+    histogram) on the zero-padded segments."""
+    rng = np.random.RandomState(74 + num_bins % 7)
+    lanes = 3
+    dt = np.uint8 if num_bins <= 256 else np.uint16
+    codes = rng.randint(0, num_bins, (N, F + 2))
+    hot = (np.arange(F + 2) * 7919) % num_bins
+    codes = np.where(rng.rand(N, F + 2) < 0.9, hot, codes).astype(dt)
+    P = [_t(codes.copy()) for _ in range(lanes)]
+    g, h, m = _weights(rng, lanes)
+    segs = [(0, N), (33, 33), (700, 700 + 1500)]
+    bins, ws, ref_bins, ref_w = [], [], [], []
+    for i, (s, e) in enumerate(segs):
+        w = th.pack_weights(_t(g[i]), _t(h[i]), _t(m[i]))
+        bins.append(P[i][s:e, :F].t())
+        ws.append(th.FxWeights(w.w[:, s:e], w.inv_scale))
+        pad = N - (e - s)
+        ref_bins.append(np.pad(P[i][s:e, :F].numpy(), ((0, pad), (0, 0))))
+        ref_w.append([np.pad(v[i, s:e], (0, pad)) for v in (g, h, m)])
+    got = hc.hist_single_lanes(bins, ws, num_bins=num_bins)
+    for lane in range(lanes):
+        assert torch.equal(got[lane], hc.hist_single(bins[lane], ws[lane],
+                                                     num_bins=num_bins))
+    assert not got[1].any()
+    f32 = th.fx_to_f32(got, torch.stack([w.inv_scale for w in ws]))
+    rw = np.asarray(ref_w, np.float32).swapaxes(0, 1)
+    if dt == np.uint8:
+        ref = jax.vmap(lambda bb, gg, hh, mm: hp.build_histogram_pallas(
+            bb, gg, hh, mm, num_bins=num_bins, interpret=True))(
+                jnp.asarray(np.stack(ref_bins).swapaxes(1, 2)),
+                *map(jnp.asarray, rw))
+    else:
+        ref = jax.vmap(lambda bb, gg, hh, mm: rh.build_histogram(
+            bb, gg, hh, mm, num_bins=num_bins, impl="segment"))(
+                jnp.asarray(np.stack(ref_bins)), *map(jnp.asarray, rw))
     np.testing.assert_array_equal(f32.numpy(), np.asarray(ref))
 
 
