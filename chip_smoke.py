@@ -132,8 +132,12 @@ Phases (any failure exits non-zero and prints no result line):
    bit against its plain version and against 4 single launches and
    identical across two runs, the one launch timed against the 4 single
    launches beside the bound, the plain version and one ``index_add_``
-   over lanes x channels; (b) ``train_many`` of the headline
-   configuration with ``lambda_l2`` 0, 1, 4, 16 for 2 rounds: models 0
+   over lanes x channels, the exact leaf form's one-pass scale-back
+   (``fx_scale_lanes`` on its (4, 25, F, 256, 3) int64 sums) against
+   ``fx_to_f32`` and ``torch.mul``, and the leaf lanes forms'
+   live-channel pass (``leaf_live_lanes``) against its plain version;
+   (b) ``train_many`` of the headline configuration with ``lambda_l2``
+   0, 1, 4, 16 for 2 rounds: models 0
    and 3 write the text of a standalone ``train()``, model-rounds/s
    against the standalone rate, model-axis launches per iteration
    against 4 x the standalone's single launches; (c) ``cv``, 4 folds of
@@ -2238,8 +2242,12 @@ LANE_KERNELS = {
         "lightgbm_tpu/ops/histogram_pallas.py:1314"),
     "hist_single_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_single.cu",
                               "lightgbm_tpu/ops/histogram_pallas.py:471"),
-    # the exact lanes form's f32 scale-back at one bin tile (slot mode):
-    # the f32 output of the leaf histogram under vmap
+    # the uint8 and packed leaf lanes forms' live-channel pass (their
+    # blocks of a lane with no row in their channels leave at once)
+    "leaf_live_lanes": ("lightgbm_tpu_torch/csrc/hist_leaves.cu",
+                        "lightgbm_tpu/ops/histogram_pallas.py:1030"),
+    # the exact lanes forms' f32 scale-back (uint16 at one bin tile, uint8
+    # and packed): the f32 output of the leaf histogram under vmap
     "fx_scale_lanes_u16": ("lightgbm_tpu_torch/csrc/hist_leaves_u16.cu",
                            "lightgbm_tpu/ops/histogram_pallas.py:852"),
 }
@@ -2387,6 +2395,20 @@ def lane_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
                                  bins_packed=packed) for i in range(L)],
                 lambda: plain(b, ws, chs, num_bins=nb, bins_packed=packed),
                 nbytes, 3.0 * f * active, lib, reps)
+            if not (q8 or packed):
+                # the exact form's scale-back on its (L, 25, F, B, 3) sums
+                sums = th.build_histogram_leaves_lanes(
+                    bins, [w.w for w in ws], chs, num_channels=k,
+                    num_bins=nb, acc_dtype=torch.int64)
+                # (held and logged here; its kernels-line entry is phase
+                # 12f's, on the uint16 lanes form's sums)
+                _scale_back_case(torch, hc, th, card, "fx_scale_lanes_u16",
+                                 sums, torch.stack([w.inv_scale for w in ws]),
+                                 reps)
+                del sums
+            if q8 and not packed:
+                rec["leaf_live_lanes"] = _live_case(torch, hc, card, chs, k,
+                                                    reps)
             del lib, ws, chs
             torch.cuda.empty_cache()
         del b
@@ -2519,6 +2541,8 @@ def lane_kernel_phase(torch, gen, dev, card: str, n: int, reps: int) -> dict:
     del pk, pw, idx, upd, lanes, bins
     torch.cuda.empty_cache()
     for name, r in rec.items():
+        if "singles_ms" not in r:
+            continue   # the live-channel pass, logged by _live_case
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
         log(f"[{card}] {name} @ L={L} N={n}: one launch {r['ms']:.3f} ms, "
@@ -2609,8 +2633,8 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
                        device="cuda")
     torch.cuda.synchronize()
     t_many = time.perf_counter() - t0
-    got = count("b", ("hist_leaves_q8_lanes", "wave_row_update_lanes",
-                      "hist_single_lanes"))
+    got = count("b", ("hist_leaves_q8_lanes", "leaf_live_lanes",
+                      "wave_row_update_lanes", "hist_single_lanes"))
     rate_many = LANES * MANY_ROUNDS / t_many
     t_one, single = [], None
     for m in (0, len(MANY_L2) - 1):
@@ -2663,8 +2687,8 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
 
     reset()
     t_hf, h_fast = timed_cv(head, True)
-    count("c headline", ("hist_leaves_q8_lanes", "wave_row_update_lanes",
-                         "hist_single_lanes"))
+    count("c headline", ("hist_leaves_q8_lanes", "leaf_live_lanes",
+                         "wave_row_update_lanes", "hist_single_lanes"))
     t_hs, h_slow = timed_cv(head, False)
     if h_fast != h_slow:
         raise AssertionError(f"phase 12c: the headline cv fast path's metric "
@@ -2679,7 +2703,8 @@ def _many_runs(lt, torch, hc, card, ds, Xtr, ytr, out_dir, reset, count,
     exact = mode_params("exact", tpu_speculative_ramp=False)
     reset()
     t_fast, fast = timed_cv(exact, True)
-    count("c exact", ("hist_leaves_lanes", "wave_row_update_lanes",
+    count("c exact", ("hist_leaves_lanes", "leaf_live_lanes",
+                      "fx_scale_lanes_u16", "wave_row_update_lanes",
                       "wave_trial_channels_lanes"))
     t_slow, slow = timed_cv(exact, False)
     if fast != slow:
@@ -2877,7 +2902,45 @@ def _fx_lane_extras(torch, hc, th, card, gen, bins, wide, ws, chs, q8chs,
     sums = th.build_histogram_leaves_lanes(wide, [w.w for w in ws], chs,
                                            num_channels=k, num_bins=nb,
                                            acc_dtype=torch.int64)
-    scales = torch.stack([w.inv_scale for w in ws])
+    r = _scale_back_case(torch, hc, th, card, "fx_scale_lanes_u16", sums,
+                         torch.stack([w.inv_scale for w in ws]), reps)
+    del sums
+    torch.cuda.empty_cache()
+    return r
+
+
+def _live_case(torch, hc, card, chs, k, reps) -> dict:
+    """The leaf lanes forms' live-channel pass on L lanes' channels:
+    bitwise its plain version (a ``bincount`` a lane), timed beside its
+    bound (each channel byte read once, the (L, K) int32 flags written
+    once; a compare a byte)."""
+    L, n = len(chs), chs[0].shape[0]
+    got = hc.leaf_live_lanes(chs, num_channels=k)
+    want = hc.leaf_live_lanes_plain(chs, num_channels=k)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("leaf_live_lanes differs from its plain version")
+    b_ms, b_by = bound_ms(L * n + L * k * 4.0, float(L * n))
+    r = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+             ms=time_ms(lambda: hc.leaf_live_lanes(chs, num_channels=k),
+                        reps),
+             plain_ms=time_ms(lambda: hc.leaf_live_lanes_plain(
+                 chs, num_channels=k), reps),
+             library_ms=None)
+    log(f"[{card}] kernel leaf_live_lanes [L={L}, N={n}, K={k}]: bitwise "
+        f"equal to its plain version; {r['ms']:.4f} ms, plain "
+        f"{r['plain_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}), no single "
+        f"PyTorch call")
+    del got, want
+    return r
+
+
+def _scale_back_case(torch, hc, th, card, name, sums, scales, reps) -> dict:
+    """The exact lanes forms' scale-back kernel ``fx_scale_lanes`` on L
+    lanes' int64 ``sums``: bitwise ``fx_to_f32`` (its plain version) and
+    ``torch.mul`` into an f32 output (one PyTorch call of the same
+    function, the library yardstick), timed beside its bound."""
+    L = sums.shape[0]
     got = hc.fx_scale_lanes(sums, scales)
     want = th.fx_to_f32(sums, scales)
     lib = torch.empty_like(want)
@@ -2885,8 +2948,7 @@ def _fx_lane_extras(torch, hc, th, card, gen, bins, wide, ws, chs, q8chs,
     torch.mul(sums, bcast, out=lib)
     torch.cuda.synchronize()
     if not (torch.equal(got, want) and torch.equal(lib, want)):
-        raise AssertionError("fx_scale_lanes differs from fx_to_f32 or "
-                             "torch.mul")
+        raise AssertionError(f"{name} differs from fx_to_f32 or torch.mul")
     b_ms, b_by = bound_ms(sums.numel() * 12.0 + scales.numel() * 8.0,
                           float(sums.numel()))
     r = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
@@ -2894,13 +2956,11 @@ def _fx_lane_extras(torch, hc, th, card, gen, bins, wide, ws, chs, q8chs,
              plain_ms=time_ms(lambda: th.fx_to_f32(sums, scales), reps),
              library_ms=time_ms(lambda: torch.mul(sums, bcast, out=lib),
                                 reps))
-    log(f"[{card}] kernel fx_scale_lanes_u16 [(L={L}, {k}, {f}, {nb}, 3) "
-        f"int64 sums]: bitwise equal to fx_to_f32 (plain) and to torch.mul "
-        f"into f32 (library); {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
-        f"ms, library {r['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by})")
-    del sums, got, want, lib
-    torch.cuda.empty_cache()
+    log(f"[{card}] kernel {name} [{tuple(sums.shape)} int64 sums]: bitwise "
+        f"equal to fx_to_f32 (plain) and to torch.mul into f32 (library); "
+        f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+        f"{r['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    del got, want, lib
     return r
 
 

@@ -74,7 +74,8 @@ The exact leaf form's f32 values past one bin tile leave the kernel
 whole (owner mode, :class:`ListGeometry`): each (channel, feature group)
 is one cluster's, which writes its final sums scaled, so no int64
 histogram reaches device memory.  At one tile its int64 sums are scaled
-back in one pass (:func:`fx_scale_lanes` for the lanes form).
+back in one pass (:func:`fx_scale_lanes` for the lanes form, as the
+uint8 lanes form's are).
 """
 
 from __future__ import annotations
@@ -113,7 +114,7 @@ __all__ = ["LEAF_CHANNELS", "Q_LEAF_CHANNELS", "LAUNCHES", "build_histogram",
            "list_geometry", "list_features", "list_slots", "RowList",
            "leaf_partition", "leaf_partition_plain", "leaf_partition_lanes",
            "leaf_partition_lanes_plain", "list_owner", "list_lane_order",
-           "fx_scale_lanes"]
+           "fx_scale_lanes", "leaf_live_lanes", "leaf_live_lanes_plain"]
 
 # Leaf channels per pass.  These are the reference's TPU lane budgets
 # (25 x 5 and 42 x 3 of 128 MXU lanes).  They set the default wave sizes,
@@ -132,6 +133,8 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_q8_lanes_packed4": 0, "hist_leaves_lanes": 0,
             "hist_leaves_lanes_packed4": 0, "wave_row_update_lanes": 0,
             "wave_row_update_ext_lanes": 0, "wave_trial_channels_lanes": 0,
+            # the uint8 and packed leaf lanes forms' live channels
+            "leaf_live_lanes": 0,
             # the uint16 forms (max_bin > 255)
             "hist_single_u16": 0, "hist_leaves_q8_u16": 0,
             "hist_leaves_u16": 0, "wave_row_update_u16": 0,
@@ -143,7 +146,8 @@ LAUNCHES = {"hist_single": 0, "hist_single_packed4": 0, "hist_leaves_q8": 0,
             "hist_leaves_lanes_u16": 0, "wave_row_update_lanes_u16": 0,
             "wave_row_update_ext_lanes_u16": 0,
             "wave_trial_channels_lanes_u16": 0, "leaf_partition_lanes": 0,
-            # the exact uint16 lanes form's f32 scale-back at one bin tile
+            # the exact lanes forms' f32 scale-back (hist_leaves_u16.cu's
+            # kernel): uint16 at one bin tile, uint8 and packed
             "fx_scale_lanes_u16": 0}
 
 
@@ -275,7 +279,7 @@ BLOCK_SMEM = 232_448
 LEAF_QUEUE_BYTES = 20     # a warp's row queue per thread (kQueue * 4 / 32)
 LEAF_ROW_STEP = 16        # chunks start 16-row aligned (4-byte ch loads)
 LEAF_MAX_BLOCK_ROWS = 1 << 25   # queue entries hold a 25-bit row
-Q8_MAX_BLOCK_ROWS = 1 << 24     # q8 sums (g << 32) + h in 64 bits
+Q8_MAX_BLOCK_ROWS = 1 << 24     # |a q8 block's int32 sums| <= 128 * 2^24
 
 
 class LeafGeometry(NamedTuple):
@@ -1536,14 +1540,30 @@ def build_histogram_leaves_q8_lanes_plain(bins_t, wch, ch, *, num_bins: int,
         acc_dtype=torch.int64).to(torch.int32)
 
 
-def _lane_chunks(units: int, lanes: int, slots: int, lo: int, hi: int) -> int:
-    """Row chunks per lane for a grid of ``units`` block columns x chunks x
-    ``lanes`` over ``slots`` resident blocks: the count in [lo, hi] whose
-    rounds of blocks cost least per chunk of rows (ceil(units x lanes x
-    c / slots) / c), the fewest on a tie (each chunk flushes its
-    histogram once)."""
+# a lanes launch may cut each lane's rows into up to this many times the
+# single form's row chunks, to fill whole resident rounds
+LEAF_LANE_CHUNKS = 2
+# and into enough chunks for at least this many rounds of the resident
+# blocks where that cap allows: a lane whose blocks leave at once (no row
+# in their channels) or run long (its rows crowded on a few bins) then
+# leaves fewer of the other lanes' blocks to a round of their own
+LEAF_LANE_ROUNDS = 4
+
+
+def _lane_chunks(units: int, lanes: int, slots: int, lo: int, hi: int,
+                 rounds: int = 0) -> int:
+    """Row chunks per lane for a grid of ``units`` block columns x
+    ``lanes`` x chunks over ``slots`` resident blocks: the count in [lo,
+    hi], at least ``rounds`` rounds of blocks if hi allows them, whose
+    rounds cost least per chunk of rows (ceil(units x lanes x c / slots)
+    / c), the fewest on a tie (each chunk flushes its histogram once)."""
+    lo = max(1, lo)
+    hi = max(lo, hi)
+    need = -(-rounds * slots // (units * lanes))
+    if need <= hi:
+        lo = max(lo, need)
     best = None
-    for c in range(max(1, lo), max(lo, hi) + 1):
+    for c in range(lo, hi + 1):
         cost = -(-units * lanes * c // slots) / c
         if best is None or cost < best[0] - 1e-12:
             best = (cost, c)
@@ -1553,16 +1573,26 @@ def _lane_chunks(units: int, lanes: int, slots: int, lo: int, hi: int) -> int:
 def lane_leaf_geometry(sms: int, f: int, n: int, num_bins: int, k: int,
                        q8: bool, packed: bool, lanes: int) -> LeafGeometry:
     """Geometry of the model-axis leaf kernels: the single form's groups
-    (:func:`leaf_geometry`), and per lane the row chunks whose grid of
-    block columns x chunks x lanes fills whole resident rounds best, from
-    the fewest the row cap allows to the single form's count (the single
-    form's chunks times L lanes would queue L rounds; a quarter of them
-    per lane can leave SMs idle)."""
+    (:func:`leaf_geometry`), and one grid of (block column, lane, row
+    chunk) work items over all lanes, the blocks of one chunk of every
+    lane dispatched together (they share its bin bytes in L2).  Every
+    lane takes the same row chunks: the count, from the fewest the row
+    cap allows to ``LEAF_LANE_CHUNKS`` times the single form's and at
+    least ``LEAF_LANE_ROUNDS`` rounds where that allows, whose items fill
+    whole resident rounds best (at one lane the single form's grid; at
+    four lanes of 20 block columns on 132 SMs 8 chunks, 640 items in 5
+    rounds, where 4 single launches take 4 rounds of 120; packed, 2
+    columns, 66 chunks in 4 rounds).  Which lanes keep rows the host
+    does not know without waiting for the card: the kernel's blocks of a
+    lane with no row in their channels leave at once
+    (:func:`leaf_live_lanes`)."""
     geo = leaf_geometry(sms, f, n, num_bins, k, q8, packed)
     combos = geo.c_groups * geo.f_groups
     steps = max(1, -(-n // LEAF_ROW_STEP))
     lo = -(-n // (Q8_MAX_BLOCK_ROWS if q8 else LEAF_MAX_BLOCK_ROWS))
-    c = _lane_chunks(combos, lanes, sms, lo, geo.chunks)
+    c = _lane_chunks(combos, lanes, sms, lo,
+                     min(steps, LEAF_LANE_CHUNKS * geo.chunks),
+                     LEAF_LANE_ROUNDS)
     chunk_rows = -(-steps // c) * LEAF_ROW_STEP
     return geo._replace(chunks=max(1, -(-n // chunk_rows)),
                         chunk_rows=chunk_rows)
@@ -1644,12 +1674,55 @@ def _launch_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins, k,
     table = _lane_table([[w.data_ptr() for w in ws],
                          [c.data_ptr() for c in chs]], bins_t.device)
     vec = int(all(c.data_ptr() % 4 == 0 for c in chs))
+    live = _live_lanes(table, chs, k)
     fn = _fn("hist_leaves", fn_name,
-             [_VP] * 3 + [_CI, _CI, _LL, _CI, _CI, _CI, _CI, _CI, _LL, _CI,
+             [_VP] * 4 + [_CI, _CI, _LL, _CI, _CI, _CI, _CI, _CI, _LL, _CI,
                           _CI, _VP])
-    _raise_on(fn(_p(bins_t), _p(table), _p(out), lanes, f, n, num_bins, k,
-                 geo.cg, geo.fg, geo.chunks, geo.chunk_rows, vec,
-                 int(packed), _stream()), fn_name)
+    _raise_on(fn(_p(bins_t), _p(table), _p(live), _p(out), lanes, f, n,
+                 num_bins, k, geo.cg, geo.fg, geo.chunks, geo.chunk_rows,
+                 vec, int(packed), _stream()), fn_name)
+
+
+def leaf_live_lanes_plain(ch, *, num_channels: int) -> torch.Tensor:
+    """Plain version: (L, K) int32, 1 where lane l's channels hold channel
+    c for some row."""
+    return torch.stack([torch.bincount(
+        c[(c >= 0) & (c < num_channels)].long(), minlength=num_channels) > 0
+        for c in _seq(ch)]).to(torch.int32)
+
+
+def leaf_live_lanes(ch, *, num_channels: int) -> torch.Tensor:
+    """(L, K) int32 live-channel flags of L lanes' (N,) int8 channels: 1
+    where a row of lane l is in channel c < K.  The uint8 and packed leaf
+    lanes forms launch it before their histogram, whose blocks of a lane
+    with no row in their channels then leave at once."""
+    ch = _seq(ch)
+    lanes = _lane_count("leaf_live_lanes", ch)
+    n = ch[0].shape[0]
+    for c in ch:
+        _check("leaf_live_lanes: ch", c, torch.int8, (n,), ch[0].device)
+    _check_device("leaf_live_lanes", ch[0].device)
+    if not 1 <= num_channels < 128:
+        raise ValueError(f"leaf_live_lanes: 1 to 127 channels, got "
+                         f"{num_channels}")
+    if ch[0].device.type == "cpu":
+        return leaf_live_lanes_plain(ch, num_channels=num_channels)
+    table = _lane_table([[0] * lanes, [c.data_ptr() for c in ch]],
+                        ch[0].device)
+    return _live_lanes(table, ch, num_channels)
+
+
+def _live_lanes(table, chs, k) -> torch.Tensor:
+    """:func:`leaf_live_lanes` of the lanes in ``table`` (its second row
+    the channel pointers), on the card."""
+    live = torch.zeros((len(chs), k), dtype=torch.int32,
+                       device=chs[0].device)
+    fn = _fn("hist_leaves", "leaf_lanes_live",
+             [_VP, _VP, _CI, _LL, _CI, _VP])
+    _raise_on(fn(_p(table), _p(live), len(chs), chs[0].shape[0], k,
+                 _stream()), "leaf_lanes_live")
+    LAUNCHES["leaf_live_lanes"] += 1
+    return live
 
 
 def build_histogram_leaves_q8_lanes(bins_t: torch.Tensor, wch, ch, *,
@@ -1717,13 +1790,13 @@ def build_histogram_leaves_lanes(bins_t: torch.Tensor, ws, ch, *,
         out = _fx_lanes_u16(bins_t, ws, ch, f, n, num_bins)
         LAUNCHES["hist_leaves_lanes_u16"] += 1
         return out
-    out = torch.zeros((lanes, LEAF_CHANNELS, f, num_bins, 3),
-                      dtype=torch.int64, device=bins_t.device)
+    sums = torch.zeros((lanes, LEAF_CHANNELS, f, num_bins, 3),
+                       dtype=torch.int64, device=bins_t.device)
     _launch_hist_lanes("hist_leaves_fx_lanes", bins_t, [w.w for w in ws], ch,
-                       out, f, n, num_bins, LEAF_CHANNELS, bins_packed)
+                       sums, f, n, num_bins, LEAF_CHANNELS, bins_packed)
     LAUNCHES["hist_leaves_lanes_packed4" if bins_packed else
              "hist_leaves_lanes"] += 1
-    return fx_to_f32(out, _lane_scales(ws))
+    return fx_scale_lanes(sums, _lane_scales(ws))
 
 
 def _fx_lanes_u16(bins_t, ws, chs, f, n, num_bins) -> torch.Tensor:
@@ -1765,7 +1838,8 @@ def fx_scale_lanes(h: torch.Tensor, inv_scale: torch.Tensor
     (contiguous), lane l scaled by ``inv_scale[l]`` ((L, 3) float64): one
     pass, (float)((double)sum x scale), bitwise :func:`fx_to_f32` (its
     plain version, which takes three: to float64, the multiply, to
-    float32)."""
+    float32).  Its launches count under ``fx_scale_lanes_u16``, after the
+    file that holds its kernel."""
     if (h.dtype != torch.int64 or h.dim() < 2 or h.shape[-1] != 3 or
             not h.is_contiguous()):
         raise ValueError(f"fx_scale_lanes: sums must be contiguous (L, ..., "

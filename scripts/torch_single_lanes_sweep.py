@@ -57,12 +57,12 @@ limit and writes them all as JSON to ``--out`` (default
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import re
-import subprocess
 import sys
+
+import _sweep_common as common
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F = 28
@@ -82,57 +82,16 @@ ROUNDS = (1, 2, 4)
 HBM = 3.35e12
 
 
-def card_name() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip().splitlines()[0]
-    except (OSError, subprocess.SubprocessError, IndexError):
-        return "unknown card"
-
-
-def time_ms(torch, fn, reps: int) -> float:
-    """Median device ms of ``fn`` (CUDA events behind a spinning kernel,
-    after one warm-up run), as ``chip_smoke.py`` times."""
-    fn()
-    torch.cuda.synchronize()
-    out = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        out.append(a.elapsed_time(b))
-    out.sort()
-    return float(out[len(out) // 2])
-
-
 def build_variants(root: str, names) -> dict:
     """{variant: shared library}: ``new`` from the package's source, ``ring``
     and ``ship`` from ``scripts/hist_single_variants.cu``, one ``nvcc`` per
     source, all started together."""
-    from lightgbm_tpu_torch.ops import cuda_lib
     out_dir = os.path.join(root, "build", "sweep")
-    os.makedirs(out_dir, exist_ok=True)
     srcs = sorted({"new" if name == "new" else "lost" for name in names})
-    procs = {}
-    for src in srcs:
-        path = os.path.join(out_dir, f"libhs_{src}.so")
-        cmd = [cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o", path,
-               os.path.join(root, SOURCES[src])]
-        procs[src] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT,
-                                       text=True), path)
-    built = {}
-    for src, (p, path) in procs.items():
-        report, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[src]}:\n{report}")
-        built[src] = path
+    built = common.build({src: (os.path.join(root, SOURCES[src]), (),
+                                os.path.join(out_dir, f"libhs_{src}.so"))
+                          for src in srcs})
+    for src, (_, report) in built.items():
         regs = re.findall(r"Compiling entry function '(\w+)'.*?Used (\d+) "
                           r"registers", report, re.S)
         spills = re.findall(r"(\d+) bytes spill stores", report)
@@ -140,39 +99,15 @@ def build_variants(root: str, names) -> dict:
             f"{re.sub(r'^_Z.*?hist_single_', '', k)[:24]} {r} regs"
             f" {s} B spilled" for (k, r), s in zip(regs, spills)),
             flush=True)
-    return {name: built["new" if name == "new" else "lost"]
+    return {name: built["new" if name == "new" else "lost"][0]
             for name in names}
-
-
-def sass_counts(path: str) -> dict:
-    """Atomic instructions in a library's SASS, by opcode."""
-    cuobjdump = os.path.join(os.path.dirname(
-        __import__("lightgbm_tpu_torch.ops.cuda_lib",
-                   fromlist=["_nvcc"])._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                          text=True, timeout=300).stdout
-    counts = {}
-    for op in re.findall(r"\b(ATOMS\.[A-Z0-9.]+|ATOM\.[A-Z0-9.]+|"
-                         r"REDG?\.[A-Z0-9.]+|ATOMG\.[A-Z0-9.]+)", sass):
-        counts[op] = counts.get(op, 0) + 1
-    return counts
 
 
 def sass_excerpt(path: str, kernel: str, op: str, around: int = 10) -> str:
     """The SASS lines around the first ``op`` in ``kernel``."""
-    cuobjdump = os.path.join(os.path.dirname(
-        __import__("lightgbm_tpu_torch.ops.cuda_lib",
-                   fromlist=["_nvcc"])._nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", path], capture_output=True,
-                          text=True, timeout=300).stdout.splitlines()
-    start = next((i for i, x in enumerate(sass)
-                  if "Function" in x and kernel in x), 0)
-    at = next((i for i in range(start, len(sass)) if op in sass[i]), None)
-    if at is None:
-        return f"(no {op} in {kernel})"
-    return "\n".join(x.split("/*")[1].split("*/")[1].strip()
-                     if x.count("/*") >= 2 else x.strip()
-                     for x in sass[max(0, at - around):at + around])
+    body = common.kernel_body(common.sass(path), kernel) or []
+    return (common.excerpt(body, re.escape(op), around, around)
+            or f"(no {op} in {kernel})")
 
 
 def with_peers(hc, peers):
@@ -188,14 +123,6 @@ def with_peers(hc, peers):
         geo = real_geo(*a, **k)
         return geo._replace(peers=peers) if geo.cluster > 1 else geo
     return (real_items, real_geo), (items, single)
-
-
-def use_library(path: str) -> None:
-    """Point the package's ``hist_single`` wrappers at another build."""
-    from lightgbm_tpu_torch.ops import cuda_lib
-    from lightgbm_tpu_torch.ops import histogram_cuda as hc
-    cuda_lib._LIBS["hist_single"] = ctypes.CDLL(path)
-    hc._SIGS_SET.clear()
 
 
 def make_codes(torch, gen, dev, n, nb, mix):
@@ -253,19 +180,20 @@ def worker(args) -> list:
     from lightgbm_tpu_torch.ops import histogram as th
     from lightgbm_tpu_torch.ops import histogram_cuda as hc
     dev = torch.device("cuda")
-    card = card_name()
+    card = common.card_name()
     tree = args.tree
     cuda_lib.build_all(("hist_single",))
     libs = ({"parent": None} if tree == "parent" else
             build_variants(HERE, [v for v in VARIANTS
                                   if v in args.variants]))
     if args.check and tree == "parent":
+        lib_path = cuda_lib._lib_path("hist_single")
         print(f"[{card}] SASS parent: "
-              f"{sass_counts(cuda_lib._lib_path('hist_single'))}",
-              flush=True)
+              f"{common.op_counts(common.sass(lib_path))}", flush=True)
     if args.check and tree != "parent":
         for name, path in libs.items():
-            print(f"[{card}] SASS {name}: {sass_counts(path)}", flush=True)
+            print(f"[{card}] SASS {name}: "
+                  f"{common.op_counts(common.sass(path))}", flush=True)
         if "new" in libs:
             for kernel, what, op in (
                     ("hist_single_rowsIh", "uint8 add", "ATOM.E.ADD.64"),
@@ -292,7 +220,7 @@ def worker(args) -> list:
             if name == "ring" and (past_tile or nb > 256):
                 continue   # the uint8 forms' only
             if path is not None:
-                use_library(path)
+                common.use_library("hist_single", path)
             got = fn()
             torch.cuda.synchronize()
             if not torch.equal(got, want):
@@ -300,10 +228,11 @@ def worker(args) -> list:
                 raise AssertionError(f"{tree} {name} {case}: differs from "
                                      f"the plain version (max abs err "
                                      f"{err})")
-            put(case, name, None if args.check else time_ms(torch, fn, reps))
+            put(case, name,
+                None if args.check else common.time_ms(torch, fn, reps))
         if not past_tile and tree != "parent" and "new" in libs and \
                 "lanes" in case:
-            use_library(libs["new"])
+            common.use_library("hist_single", libs["new"])
             real_rounds = hc.SINGLE_LANE_ROUNDS
             for k in ROUNDS:
                 hc.SINGLE_LANE_ROUNDS = {False: k, True: k}
@@ -315,11 +244,11 @@ def worker(args) -> list:
                                              "differs from the plain "
                                              "version")
                     put(case, f"new, {k} rounds", None if args.check
-                        else time_ms(torch, fn, reps))
+                        else common.time_ms(torch, fn, reps))
                 finally:
                     hc.SINGLE_LANE_ROUNDS = real_rounds
         if past_tile and tree != "parent" and "new" in libs:
-            use_library(libs["new"])
+            common.use_library("hist_single", libs["new"])
             real, fake = with_peers(hc, 0)
             for peers in PEERS:
                 _, fake = with_peers(hc, peers)
@@ -332,11 +261,11 @@ def worker(args) -> list:
                                              f"{case}: differs from the "
                                              "plain version")
                     put(case, f"new, {peers} DSM peers", None if args.check
-                        else time_ms(torch, fn, reps))
+                        else common.time_ms(torch, fn, reps))
                 finally:
                     hc.lane_single_items, hc.single_geometry = real
         if libs.get("new"):
-            use_library(libs["new"])
+            common.use_library("hist_single", libs["new"])
 
     gen = torch.Generator(device=dev)
     for nb in args.bins:
@@ -366,14 +295,14 @@ def worker(args) -> list:
                                                           num_bins=nb),
                              want, nb > 11_621)
                 if not args.check:
-                    put(case + " lanes", "4 single launches", time_ms(
+                    put(case + " lanes", "4 single launches", common.time_ms(
                         torch, lambda: [hc.hist_single(b, w, num_bins=nb)
                                         for b, w in zip(sb, ws)], reps))
                     if tree != "parent":
                         lib, act = library_call(torch, sb,
                                                 [w.w for w in ws], nb, dev)
                         put(case + " lanes", "index_add_",
-                            time_ms(torch, lib, reps))
+                            common.time_ms(torch, lib, reps))
                         nbytes = (sum(24.0 * c for _, c in segs) +
                                   codes.element_size() * F * act +
                                   LANES * F * nb * 24)
@@ -429,7 +358,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA card: the sweep runs on the card", file=sys.stderr)
         return 1
-    card = card_name()
+    card = common.card_name()
     print(f"card: {card}", flush=True)
     trees = [("change", HERE)]
     if args.parent:
@@ -438,26 +367,14 @@ def main() -> int:
                  ("parent", parent)]
     if args.check:
         trees = trees[:2] if args.parent else trees
-    every = []
-    for tree, root in trees:
-        cmd = [sys.executable, os.path.abspath(__file__), "--tree", tree,
-               "--root", root, "--rows", str(args.rows), "--reps",
-               str(args.reps), "--bins", ",".join(map(str, args.bins)),
-               "--layouts", ",".join(args.layouts), "--mixes",
-               ",".join(args.mixes), "--variants", ",".join(args.variants)]
-        if args.check:
-            cmd.append("--check")
-        p = subprocess.run(cmd, stdout=subprocess.PIPE, text=True,
-                           cwd=root, timeout=3000)
-        lines = p.stdout.strip().splitlines()
-        for line in lines[:-1]:
-            print(line, flush=True)
-        if p.returncode != 0:
-            print(f"{tree} worker failed (exit {p.returncode})", flush=True)
-            if lines:
-                print(lines[-1], flush=True)
-            return 1
-        every.extend(json.loads(lines[-1]))
+    every = common.run_trees(
+        __file__, trees,
+        ["--rows", str(args.rows), "--reps", str(args.reps), "--bins",
+         ",".join(map(str, args.bins)), "--layouts", ",".join(args.layouts),
+         "--mixes", ",".join(args.mixes), "--variants",
+         ",".join(args.variants)] + (["--check"] if args.check else []))
+    if every is None:
+        return 1
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as fh:
         json.dump(dict(card=card, rows=args.rows, lanes=LANES, features=F,

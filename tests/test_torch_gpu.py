@@ -717,6 +717,121 @@ def test_lane_kernels_match_plain_and_single_on_card(cuda_device,
                 single[0][i], single[1][i], num_bins=num_bins))
 
 
+LEAF_MIXES = ("even", "empty lane", "heavy channel", "skewed bins")
+
+
+def _leaf_lane_mix(lanes, mix, n, num_bins, device):
+    """The leaf histograms' inputs for L lanes over one (F, n) matrix:
+    ``even`` (every lane's rows spread over the 42 channels and -1),
+    ``empty lane`` (lane L // 2 keeps no row), ``heavy channel`` (90% of
+    lane 0's kept rows in channel 5), ``skewed bins`` (90% of each
+    feature's codes on one bin)."""
+    rng = np.random.RandomState(100 + lanes)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    codes = rng.randint(0, num_bins, (F, n))
+    if mix == "skewed bins":
+        hot = (np.arange(F) * 7919 % num_bins)[:, None]
+        codes = np.where(rng.rand(F, n) < 0.9, hot, codes)
+    ch = rng.randint(-1, hc.Q_LEAF_CHANNELS, (lanes, n))
+    if mix == "empty lane":
+        ch[lanes // 2] = -1
+    elif mix == "heavy channel":
+        ch[0] = np.where((ch[0] >= 0) & (rng.rand(n) < 0.9), 5, ch[0])
+    grad = t((rng.randn(lanes, n) * 0.5).astype(np.float32))
+    hess = t((rng.rand(lanes, n) * 0.25 + 0.01).astype(np.float32))
+    mask = t((rng.rand(lanes, n) < 0.8).astype(np.float32))
+    wch = [tq.quantize_wch(grad[i], hess[i], mask[i],
+                           torch.tensor(0.01, device=device),
+                           torch.tensor(0.002, device=device), gq_max=127,
+                           hq_max=127) for i in range(lanes)]
+    fx = [th.pack_weights(grad[i] * (i + 1), hess[i], mask[i])
+          for i in range(lanes)]
+    ch = t(ch.astype(np.int8))
+    return (t(codes.astype(np.uint8)), wch, fx, list(ch.unbind(0)),
+            [torch.where(c < hc.LEAF_CHANNELS, c, -1).to(torch.int8)
+             for c in ch])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", LEAF_MIXES)
+@pytest.mark.parametrize("lanes", [1, 3, 4, 8])
+@pytest.mark.parametrize("packed", [False, True])
+def test_leaf_lanes_mixes_match_plain_and_single_on_card(
+        cuda_device, monkeypatch, packed, lanes, mix):
+    """``hist_leaves_q8_lanes`` and ``hist_leaves_fx_lanes`` (uint8 and
+    packed) on even, empty-lane, heavy-channel and skewed-bin mixes: one
+    launch for all lanes bitwise its plain version and each lane's single
+    launch, identical twice (the blocks of lanes with no row in their
+    channels skipped after the ``leaf_live_lanes`` pass; the exact form's
+    f32 values through the one-pass ``fx_scale_lanes``, bitwise
+    ``fx_to_f32``); each single form
+    (``hist_leaves_{q8,fx}``, packed ``_p4``) bitwise its own plain
+    version."""
+    n, num_bins = 3 * 4096 * 25, (16 if packed else 256)
+    bins, wch, fx, ch, chx = _leaf_lane_mix(lanes, mix, n, num_bins,
+                                            cuda_device)
+    b = th.pack_bins4(bins & 15) if packed else bins
+    kw = dict(num_bins=num_bins, bins_packed=packed)
+    sfx = "_packed4" if packed else ""
+    forms = [(hc.build_histogram_leaves_q8_lanes,
+              hc.build_histogram_leaves_q8, wch, ch,
+              "build_histogram_leaves_q8", "hist_leaves_q8"),
+             (hc.build_histogram_leaves_lanes, hc.build_histogram_leaves,
+              fx, chx, "build_histogram_leaves", "hist_leaves")]
+    for many, one, ws, chs, plain, key in forms:
+        for name in (plain + "_plain", plain + "_lanes_plain"):
+            monkeypatch.setattr(hc, name, None)      # must launch
+        before = dict(hc.LAUNCHES)
+        got, again = many(b, ws, chs, **kw), many(b, ws, chs, **kw)
+        singles = [one(b, ws[i], chs[i], **kw) for i in range(lanes)]
+        torch.cuda.synchronize()
+        monkeypatch.undo()
+        assert hc.LAUNCHES[key + "_lanes" + sfx] == \
+            before[key + "_lanes" + sfx] + 2
+        assert hc.LAUNCHES[key + sfx] == before[key + sfx] + lanes
+        # each lanes call's live-channel pass
+        assert hc.LAUNCHES["leaf_live_lanes"] == \
+            before["leaf_live_lanes"] + 2
+        if key == "hist_leaves":   # the lanes' one-pass f32 scale-back
+            assert hc.LAUNCHES["fx_scale_lanes_u16"] == \
+                before["fx_scale_lanes_u16"] + 2
+        assert torch.equal(got, again)
+        assert torch.equal(got, getattr(hc, plain + "_lanes_plain")(
+            b, ws, chs, **kw))
+        for i in range(lanes):
+            assert torch.equal(got[i], singles[i])
+            assert torch.equal(singles[i], getattr(hc, plain + "_plain")(
+                b, ws[i], chs[i], **kw))
+        if mix == "empty lane":
+            assert not got[lanes // 2].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", LEAF_MIXES)
+@pytest.mark.parametrize("lanes,n,offset", [(1, 4096, 0), (3, 50_001, 1),
+                                            (4, 3 * 4096 * 25, 0),
+                                            (8, 65_539, 3)])
+@pytest.mark.parametrize("k", [hc.LEAF_CHANNELS, hc.Q_LEAF_CHANNELS])
+def test_leaf_live_lanes_on_card(cuda_device, monkeypatch, k, lanes, n,
+                                 offset, mix):
+    """The leaf lanes forms' live-channel pass: bitwise its plain version
+    on every mix, with 4-byte loads (aligned channels) and byte loads
+    (channels ``offset`` bytes into their storage), row counts not a
+    multiple of 4."""
+    _, _, _, ch, _ = _leaf_lane_mix(lanes, mix, n + offset, 16, cuda_device)
+    ch = [c[offset:] for c in ch]
+    monkeypatch.setattr(hc, "leaf_live_lanes_plain", None)   # must launch
+    before = hc.LAUNCHES["leaf_live_lanes"]
+    got = hc.leaf_live_lanes(ch, num_channels=k)
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert hc.LAUNCHES["leaf_live_lanes"] == before + 1
+    want = hc.leaf_live_lanes_plain(ch, num_channels=k)
+    assert torch.equal(got, want)
+    if mix == "empty lane":
+        assert not got[lanes // 2].any()
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("extra", [
     dict(use_quantized_grad=True, tpu_wave_size=4),

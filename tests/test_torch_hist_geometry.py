@@ -146,6 +146,187 @@ def test_leaf_geometry_caps_rows_per_block(q8):
     assert geo.chunks * geo.chunk_rows >= n
 
 
+def _lane_blocks(geo, f, n, k, lanes):
+    """(lane, channels, features, rows) of every block of the model-axis
+    launch in dispatch order, as hist_leaves_kernel computes them from
+    its block index (x the block column, y the lane, z the row chunk)."""
+    for z in range(geo.chunks):
+        r0 = z * geo.chunk_rows
+        for y in range(lanes):
+            for x in range(geo.c_groups * geo.f_groups):
+                c0 = (x % geo.c_groups) * geo.cg
+                f0 = (x // geo.c_groups) * geo.fg
+                yield (y, (c0, min(k, c0 + geo.cg)), (f0, min(f, f0 + geo.fg)),
+                       (r0, min(n, r0 + geo.chunk_rows)))
+
+
+LANE_CASES = ([(k, b, False, n) for k in (hc.LEAF_CHANNELS,
+                                          hc.Q_LEAF_CHANNELS)
+               for b in (16, 256) for n in (17, 1_000_003, 10_502_144)] +
+              [(k, 16, True, n) for k in (hc.LEAF_CHANNELS,
+                                          hc.Q_LEAF_CHANNELS)
+               for n in (4096, 10_502_144)])
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 4, 8])
+@pytest.mark.parametrize("k,num_bins,packed,n", LANE_CASES)
+def test_lane_leaf_items_cover_every_cell_once(k, num_bins, packed, n,
+                                               lanes):
+    """The model-axis leaf launch: every (lane, channel group, feature
+    group, row) in exactly one block, no q8 block past 2^24 rows (its
+    int32 sums), each row chunk's blocks of every lane dispatched
+    together, and whole resident rounds of 132 SMs costing no more rows
+    a slot than L single launches (:func:`leaf_geometry`'s grid, one
+    round each at these shapes)."""
+    q8 = k == hc.Q_LEAF_CHANNELS
+    geo = hc.lane_leaf_geometry(SMS, F, n, num_bins, k, q8, packed, lanes)
+    one = hc.leaf_geometry(SMS, F, n, num_bins, k, q8, packed)
+    assert (geo.cg, geo.fg, geo.smem) == (one.cg, one.fg, one.smem)
+    assert geo.chunk_rows % hc.LEAF_ROW_STEP == 0
+    assert geo.chunk_rows <= (hc.Q8_MAX_BLOCK_ROWS if q8
+                              else hc.LEAF_MAX_BLOCK_ROWS)
+    assert geo.chunks <= 65_535        # grid z
+    cover = np.zeros((lanes, k, F), np.int64)
+    spans = {}
+    order = []
+    for y, (c0, c1), (f0, f1), (r0, r1) in _lane_blocks(geo, F, n, k,
+                                                         lanes):
+        assert c0 < c1 and f0 < f1 and r0 < r1   # no empty block
+        cover[y, c0:c1, f0:f1] += r1 - r0
+        spans.setdefault((y, c0, f0), []).append((r0, r1))
+        order.append(r0)
+    assert (cover == n).all()
+    for rows in spans.values():       # each group's chunks tile [0, n)
+        rows.sort()
+        assert rows[0][0] == 0 and rows[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))
+    assert order == sorted(order)     # chunk by chunk over the lanes
+    items = geo.c_groups * geo.f_groups * lanes * geo.chunks
+    singles = one.c_groups * one.f_groups * one.chunks
+    assert (-(-items // SMS) * geo.chunk_rows <=
+            lanes * -(-singles // SMS) * one.chunk_rows + hc.LEAF_ROW_STEP *
+            -(-items // SMS))
+
+
+def test_lane_leaf_items_at_the_main_shape():
+    """Phase 12a's L=4 and 8 at F=28, N=10,502,144, B=256: the lanes fill
+    5 and 11 rounds of 132 blocks where L single launches take 4 and 8
+    rounds of 120 (LEAF_LANE_CHUNKS = 2)."""
+    for q8, k in ((True, hc.Q_LEAF_CHANNELS), (False, hc.LEAF_CHANNELS)):
+        got = [hc.lane_leaf_geometry(SMS, F, 10_502_144, 256, k, q8, False,
+                                     lanes).chunks for lanes in (1, 4, 8)]
+        assert got == [6, 8, 9]
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 4, 8])
+@pytest.mark.parametrize("k,num_bins,packed,n", LANE_CASES)
+def test_lane_leaf_chunks_fill_the_rounds_floor(k, num_bins, packed, n,
+                                                lanes):
+    """The lanes' row chunks give at least ``LEAF_LANE_ROUNDS`` rounds of
+    132 resident blocks wherever ``LEAF_LANE_CHUNKS`` times the single
+    form's chunks (and the 16-row steps) allow them, and otherwise the
+    rule without the floor."""
+    q8 = k == hc.Q_LEAF_CHANNELS
+    geo = hc.lane_leaf_geometry(SMS, F, n, num_bins, k, q8, packed, lanes)
+    one = hc.leaf_geometry(SMS, F, n, num_bins, k, q8, packed)
+    units = one.c_groups * one.f_groups
+    steps = -(-n // hc.LEAF_ROW_STEP)
+    hi = min(steps, hc.LEAF_LANE_CHUNKS * one.chunks)
+    need = -(-hc.LEAF_LANE_ROUNDS * SMS // (units * lanes))
+    lo = -(-n // (hc.Q8_MAX_BLOCK_ROWS if q8 else hc.LEAF_MAX_BLOCK_ROWS))
+    c = hc._lane_chunks(units, lanes, SMS, lo, hi, hc.LEAF_LANE_ROUNDS)
+    assert geo.chunk_rows == -(-steps // c) * hc.LEAF_ROW_STEP
+    if need <= hi:
+        assert c >= need
+    else:
+        assert c == hc._lane_chunks(units, lanes, SMS, lo, hi)
+
+
+def test_lane_leaf_chunks_at_the_main_shape_packed():
+    """Phase 12a's packed shape (2 block columns at B=16): 66, 66 and 33
+    chunks a lane at L = 1, 4 and 8, 2 and 4 rounds of 132 blocks."""
+    for q8, k in ((True, hc.Q_LEAF_CHANNELS), (False, hc.LEAF_CHANNELS)):
+        got = [hc.lane_leaf_geometry(SMS, F, 10_502_144, 16, k, q8, True,
+                                     lanes).chunks for lanes in (1, 4, 8)]
+        assert got == [66, 66, 33]
+
+
+LIVE_MIXES = ("even", "empty lane", "one channel", "none kept")
+
+
+def _live_mix(lanes, n, k, mix, seed):
+    rng = np.random.RandomState(seed)
+    ch = rng.randint(-1, 42, (lanes, n))
+    if mix == "empty lane":
+        ch[lanes // 2] = -1
+    elif mix == "one channel":
+        ch[:] = np.where(rng.rand(lanes, n) < 0.5, 7 % k, -1)
+    elif mix == "none kept":
+        ch[:] = -1
+    return ch.astype(np.int8)
+
+
+@pytest.mark.parametrize("mix", LIVE_MIXES)
+@pytest.mark.parametrize("lanes,n", [(1, 1), (3, 1001), (4, 4096),
+                                     (8, 65_537)])
+@pytest.mark.parametrize("k", [hc.LEAF_CHANNELS, hc.Q_LEAF_CHANNELS])
+def test_leaf_live_lanes_plain_matches_numpy(k, lanes, n, mix):
+    """The live-channel flags (the plain version, which the CPU wrapper
+    runs): 1 exactly where a lane holds a row in channel c < K; rows
+    outside [0, K) (-1, or a q8 channel past the exact form's 25) mark
+    nothing."""
+    ch = _live_mix(lanes, n, k, mix, 7 + lanes)
+    want = np.zeros((lanes, k), np.int32)
+    for y in range(lanes):
+        for c in ch[y]:
+            if 0 <= c < k:
+                want[y, c] = 1
+    got = hc.leaf_live_lanes([torch.from_numpy(c) for c in ch],
+                             num_channels=k)
+    assert got.dtype == torch.int32 and got.shape == (lanes, k)
+    assert np.array_equal(got.numpy(), want)
+    assert torch.equal(got, hc.leaf_live_lanes_plain(
+        torch.from_numpy(ch), num_channels=k))
+
+
+@pytest.mark.parametrize("mix", LIVE_MIXES)
+@pytest.mark.parametrize("lanes", [1, 3, 4, 8])
+@pytest.mark.parametrize("k,num_bins,packed", [
+    (hc.LEAF_CHANNELS, 256, False), (hc.Q_LEAF_CHANNELS, 256, False),
+    (hc.LEAF_CHANNELS, 16, True), (hc.Q_LEAF_CHANNELS, 16, True)])
+def test_lane_leaf_blocks_skip_what_has_no_row(k, num_bins, packed, lanes,
+                                               mix):
+    """The model-axis launch with its live-channel flags: a block works
+    only if its lane holds a row in one of its channels (the kernel's
+    ``block_live``), so an empty lane's blocks all leave at once, and
+    every kept (lane, channel, feature, row) is in exactly one working
+    block."""
+    n = 50_003
+    q8 = k == hc.Q_LEAF_CHANNELS
+    ch = _live_mix(lanes, n, k, mix, 11 * lanes + k)
+    live = hc.leaf_live_lanes([torch.from_numpy(c) for c in ch],
+                              num_channels=k).numpy()
+    geo = hc.lane_leaf_geometry(SMS, F, n, num_bins, k, q8, packed, lanes)
+    kept = np.zeros((lanes, k, F), np.int64)
+    for y in range(lanes):
+        c = ch[y][(ch[y] >= 0) & (ch[y] < k)].astype(np.int64)
+        kept[y] = np.bincount(c, minlength=k)[:, None]
+    cover = np.zeros((lanes, k, F), np.int64)
+    working = np.zeros(lanes, np.int64)
+    for y, (c0, c1), (f0, f1), (r0, r1) in _lane_blocks(geo, F, n, k,
+                                                         lanes):
+        if not live[y, c0:c1].any():
+            continue
+        working[y] += 1
+        for c in range(c0, c1):
+            rows = ch[y, r0:r1]
+            cover[y, c, f0:f1] += int((rows == c).sum())
+    assert (cover == kept).all()
+    for y in range(lanes):
+        if not kept[y].any():
+            assert working[y] == 0
+
+
 def _wrapped(v: int) -> torch.Tensor:
     """A Python integer as the kernel's uint64 register, read as int64."""
     v %= 1 << 64
