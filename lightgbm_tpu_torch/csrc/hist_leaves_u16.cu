@@ -53,22 +53,38 @@
 //  3. The histogram clusters.  A cluster is the `tiles` blocks (one a bin
 //     tile, at most 6 fx / 4 q8) of one (lane, rank, group of fg
 //     features); each block keeps bins [b0, b0 + Bt) of its fg features in
-//     shared memory, walks 1/tiles of the rank's records and adds each bin
-//     into the tile that holds it, a peer's through distributed shared
-//     memory, so each record and bin is read once per feature group, not
-//     once per tile.  Its threads take consecutive records (no channel
-//     scan, no queue), the next record loading while they gather fg bins
-//     (eight loads at a time) and add into shared memory.  A block holds
-//     per (feature, bin) 20 bytes fx (int64 g and h, uint32 count) or 12
-//     q8 (int64 (g << 32) + h, uint32 count); ops/histogram_cuda.py
-//     list_geometry sizes fg, Bt and S.  Two flushes:
+//     shared memory, walks 1/tiles of the rank's records and adds each
+//     code into the tile that holds it, a peer's through distributed
+//     shared memory, so each record and code is read once per feature
+//     group, not once per tile.  A warp takes 32 consecutive records a
+//     step (no channel scan, no queue), the next ones loading while it
+//     gathers their fg codes (eight loads at a time) and adds into shared
+//     memory.  A block holds per (feature, bin) 20 bytes fx (int64 g and
+//     h, uint32 count) or 12 q8 (int32 g and h, or past one tile one
+//     int64 (g << 32) + h; uint32 count); ops/histogram_cuda.py
+//     list_geometry sizes fg, Bt and S.  The adds are native, one access
+//     width an entry (add_entry): at one tile 32-bit shared reductions
+//     (fx's 64-bit weights as two halves with the carry); past one tile
+//     one 64-bit DSM reduction for g and h, the block's own tile's too,
+//     and a 32-bit count (a DSM add costs several shared ones, so q8's
+//     32-bit g, h and count words there took 13-20% longer).  And they
+//     merge across the warp (add_codes): the lanes whose code falls on the
+//     entry of the warp's first adding lane send one add of their summed
+//     weights, so a feature whose codes crowd into one bin costs about one add
+//     a warp there, not 32 on one address.  The code gathers set the pace on
+//     spread codes: a build that loads every record and code and adds nothing
+//     keeps about 90% of the time at B=1024 (a 2-byte code costs a 32-byte
+//     sector of the (F, N) matrix), and one that also writes each kept row's
+//     codes in list order in the partition, for the histogram to read
+//     coalesced, ran slower (scripts/hist_leaves_u16_variants.cu).  Two
+//     flushes:
 //     * slot mode (q8; fx at one tile, or its raw int64 sums): rank r is
 //       the slot table[r] of 2., listed rows [off_c + n_c j / s_c, off_c +
 //       n_c (j + 1) / s_c) of channel c; the slots of one channel share
 //       its entries, so each block adds its tile into the caller's
-//       zero-filled int32 / int64 output with global atomics (the exact
-//       lanes form then scales the int64 sums to f32 in one pass,
-//       fx_scale_lanes);
+//       zero-filled int32 / int64 output with global reductions that
+//       return nothing (red.global; the exact lanes form then scales the
+//       int64 sums to f32 in one pass, fx_scale_lanes);
 //     * owner mode (fx's f32 values past one tile, the plan of S = 0
 //       slots: one slot a channel with rows, whatever its share): rank r
 //       is channel r and its cluster walks all of the channel's records,
@@ -88,22 +104,22 @@
 //     each lane with its own plan (offsets, slots, table, counts) and its
 //     records at a per-lane base, so the partition's shared tables still
 //     hold K <= 64 channels (L lanes x 42 channels would not fit one
-//     channel space).  The histograms then run a launch a lane, or one
-//     launch of every lane's clusters, lane-major (a channel's feature
-//     groups together: its records stay in L2) or feature-major (a
-//     feature group's clusters of every lane and channel together: its
-//     bin rows stay in L2 across the lanes).  The fx form takes one
-//     feature-major launch (ops/histogram_cuda.py list_lane_order: the
-//     fastest of the three but on one skewed mix; lane-major was the
-//     slowest at one tile); the q8 form launches a lane.  PERF.md
-//     section 6 has the sweeps (scripts/torch_u16_lanes_sweep.py).
+//     channel space).  The histograms then run one launch of every
+//     lane's clusters, feature-major (a feature group's clusters of every
+//     lane and channel together: its bin rows stay in L2 across the
+//     lanes; ops/histogram_cuda.py list_lane_order).  A launch a lane and
+//     one launch lane-major (a channel's feature groups together) stay
+//     as orders the tests and the sweep run.  PERF.md section 6 has the
+//     sweeps (scripts/torch_u16_lanes_sweep.py).
 //
 // The sums are integers, so the result is bit-identical from run to run
-// and to the plain versions (ops/histogram_cuda.py *_plain).  q8 adds
-// (g, h) as one 64-bit atomic of (g << 32) + h: with at most 2^24 rows per
-// block (list_geometry sizes S so that no slot exceeds it),
-// |sum h| <= 128 * 2^24 = 2^31, so the low word holds sum h as a signed
-// 32-bit value and the high word sum g, with no carry lost.
+// and to the plain versions (ops/histogram_cuda.py *_plain).  q8's int32
+// words wrap mod 2^32 as the int32 output does; its (g << 32) + h word
+// past one tile holds sum h in the low 32 bits because list_geometry
+// keeps every slot under 2^24 rows (list_slots_least): |sum h| <= 128 x
+// 2^24 = 2^31.  A warp's merged q8 weights sum in one 32-bit word (g +
+// 65536 h: 32 int8 weights stay within 16 bits), fx's 64-bit ones as
+// three 32-bit parts.
 //
 // Times, beside the queue-scan design they replace and one int64
 // index_add_ of the same sums: PERF.md section 6 (chip_smoke.py phases
@@ -113,8 +129,6 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -567,6 +581,20 @@ part_scatter(const int8_t* __restrict__ ch, const W* __restrict__ w,
   }
 }
 
+// The histogram's arguments, one struct a launch (the lanes' bases and
+// strides: lane z's records, plan and output rec_ls, plan_ls and out_ls
+// after lane z - 1's).
+struct ListArgs {
+  const uint16_t* bins;   // (F, N) feature-major codes
+  const long long* rec;
+  const int* plan;
+  void* out;
+  const double* scale;    // owner mode: (L, 3) float64
+  long long N, rec_ls, plan_ls, out_ls;
+  int F, B, K, S, fg, Bt, tiles, f_groups, L;
+  bool feature_major;
+};
+
 // A cluster of the histogram: `tiles` consecutive blocks, one a bin tile,
 // for one (lane, rank, feature group).  Lane-major (a launch a lane, or
 // one launch with the lane outermost): cluster ((lane x ranks + rank) x
@@ -598,44 +626,104 @@ __device__ __forceinline__ ClusterOf cluster_of(int tiles, int f_groups,
   return o;
 }
 
-// One cluster (ClusterOf) of `tiles` blocks: each keeps its bin tile's
-// histogram in shared memory, walks 1/tiles of the rank's records, and
-// adds each bin into the tile that holds it, its own or a peer's through
-// distributed shared memory.  So every record and bin is read once per
-// feature group, whatever the tiles.  bins: (F, N) uint16 feature-major;
-// rec, plan: lane z's at z x rec_ls records and z x plan_ls ints; out:
-// lane z's (K, F, B, 3) at z x out_ls entries.
+// Shared-window addresses are 32 bits.  The native 32-bit shared adds:
+// with the old value back (ATOMS.ADD) and with none; a peer's shared
+// memory in the cluster (mapa) and the no-return reductions into it; and
+// the no-return reductions into device memory (the result).
+__device__ __forceinline__ unsigned int sh(const void* p) {
+  return (unsigned int)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ unsigned int atom_sh(unsigned int a,
+                                                unsigned int v) {
+  unsigned int old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;"
+               : "=r"(old)
+               : "r"(a), "r"(v));
+  return old;
+}
+
+__device__ __forceinline__ void red_sh(unsigned int a, unsigned int v) {
+  asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(a), "r"(v));
+}
+
+__device__ __forceinline__ unsigned int dsm(unsigned int a, int rank) {
+  unsigned int m;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(m)
+               : "r"(a), "r"(rank));
+  return m;
+}
+
+__device__ __forceinline__ void red_dsm(unsigned int a, unsigned int v) {
+  asm volatile("red.shared::cluster.add.u32 [%0], %1;" ::"r"(a), "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void red_dsm(unsigned int a,
+                                        unsigned long long v) {
+  asm volatile("red.shared::cluster.add.u64 [%0], %1;" ::"r"(a), "l"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void red_global(int* p, int v) {
+  asm volatile("red.global.add.u32 [%0], %1;" ::"l"(__cvta_generic_to_global(p)),
+               "r"(v)
+               : "memory");
+}
+
+__device__ __forceinline__ void red_global(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("red.global.add.u64 [%0], %1;" ::"l"(__cvta_generic_to_global(p)),
+               "l"(v)
+               : "memory");
+}
+
+// What a row's visitor sees of its block: its lane, its features f0 ..
+// f0 + nf and the codes of feature f0 (the others N apart), the bins, the
+// block's tile of Bt bins, and its shared histogram of E = fg x Bt
+// entries at shared address `base`: q8 int32 g[E] | int32 h[E] (past one
+// tile int64 (g << 32) + h [E]) | uint32 count[E], fx int64 g[E] | int64
+// h[E] | uint32 count[E]; entry (k, b) = k x Bt + b - b0 in the tile of
+// b.
+struct ListBlock {
+  const uint16_t* col0;
+  long long N;
+  int lane, f0, nf, B, Bt, tile, E;
+  unsigned int base;
+};
+
+// One cluster (ClusterOf) of `tiles` blocks (CL: tiles > 1, launched as
+// thread-block clusters): each keeps its bin tile's histogram in shared
+// memory, walks 1/tiles of the rank's records, and hands them to `row` a
+// warp at a time (each lane's record, its place in the lane's list, and
+// whether it is live: in the slot, with a weight), which adds the live
+// records' codes into the tile that holds each, its own or a peer's
+// through distributed shared memory.  So every record and code is read
+// once per feature group, whatever the tiles.
 //   Slot mode (Owner false): rank r is the plan's slot table[r] (-1: no
 // slot), its share of the channel's records; the flush adds the tile into
 // out, int32 (q8) or int64 (fx) zero-filled by the caller, with global
-// atomics, as the slots of one channel share its entries.
+// reductions, as the slots of one channel share its entries.
 //   Owner mode (fx, Owner true; the plan of S = 0 slots): rank r is
 // channel r, and the cluster walks all of its records, so its shared
 // memory ends with the channel's final sums; the flush writes them as f32,
 // (float)((double)sum x scale[k]) for lane z's (3,) float64 scale (bitwise
 // ops/histogram.py fx_to_f32), with plain stores.  Every entry is written
 // once, an empty channel's zeros too: no zero fill, no atomics.
-template <typename W, bool Owner>
-__global__ void __launch_bounds__(kThreads)
-hist_list_kernel(const uint16_t* __restrict__ bins,
-                 const long long* __restrict__ rec,
-                 const int* __restrict__ plan, void* __restrict__ out,
-                 const double* __restrict__ scale, int F, long long N, int B,
-                 int K, int S, int fg, int Bt, int tiles, int f_groups,
-                 int L, bool feature_major, long long rec_ls,
-                 long long plan_ls, long long out_ls) {
+template <typename W, bool Owner, bool CL, typename Row>
+__device__ __forceinline__ void list_block(const ListArgs& a, Row& row) {
   constexpr bool Q8 = sizeof(W) == 1;
   static_assert(!(Q8 && Owner), "owner mode writes the fx form's f32");
   extern __shared__ __align__(16) unsigned char smem[];
-  cg::cluster_group cluster = cg::this_cluster();
   // the same (lane, rank, group) for the whole cluster: it returns or
   // syncs together
-  const ClusterOf at = cluster_of(tiles, f_groups, S + K, L, feature_major);
-  rec += at.lane * rec_ls;
-  plan += at.lane * plan_ls;
-  const int* offsets = plan;
-  const int* slots = offsets + K + 1;
-  const int* table = slots + K;
+  const ClusterOf at =
+      cluster_of(a.tiles, a.f_groups, a.S + a.K, a.L, a.feature_major);
+  const long long* rec = a.rec + at.lane * a.rec_ls;
+  const int* offsets = a.plan + at.lane * a.plan_ls;
+  const int* slots = offsets + a.K + 1;
+  const int* table = slots + a.K;
   int c = at.rank, j = 0;
   long long sc = 1;
   if constexpr (!Owner) {
@@ -645,74 +733,54 @@ hist_list_kernel(const uint16_t* __restrict__ bins,
     j = slot >> 8;
     sc = slots[c];
   }
-  const int tile = at.tile;
+  const int tile = at.tile, Bt = a.Bt, tiles = a.tiles;
   const int b0 = tile * Bt;
-  const int f0 = at.g * fg;
-  const int nf = min(fg, F - f0);
-  const int nbt = min(Bt, B - b0);
+  const int f0 = at.g * a.fg;
+  const int nf = min(a.fg, a.F - f0);
+  const int nbt = min(Bt, a.B - b0);
   const long long oc = offsets[c], nc = offsets[c + 1] - oc;
   const long long s0 = oc + nc * j / sc, s1 = oc + nc * (j + 1) / sc;
   const long long p0 = s0 + (s1 - s0) * tile / tiles;
   const long long p1 = s0 + (s1 - s0) * (tile + 1) / tiles;
-  const int E = fg * Bt;
-  // fx: int64 g[E], int64 h[E]; q8: int64 (g << 32) + h [E]; then uint32
-  // count[E].  Entry (k, b) = k * Bt + b - b0 in the tile of b.
-  unsigned long long* acc = reinterpret_cast<unsigned long long*>(smem);
-  unsigned int* cnt_acc =
-      reinterpret_cast<unsigned int*>(acc + (Q8 ? E : 2 * E));
-  for (int i = threadIdx.x; i < (Q8 ? E : 2 * E); i += blockDim.x)
-    acc[i] = 0ULL;
-  for (int i = threadIdx.x; i < E; i += blockDim.x) cnt_acc[i] = 0u;
-  if (tiles > 1) cluster.sync();   // every peer's histogram zeroed
+  const int E = a.fg * Bt;
+  constexpr int WB = Q8 ? 4 : 8;   // bytes of a g or h word
+  int* g32 = reinterpret_cast<int*>(smem);
+  long long* g64 = reinterpret_cast<long long*>(smem);
+  unsigned int* cnt = reinterpret_cast<unsigned int*>(smem + 2 * WB * E);
+  for (int i = threadIdx.x; i < 2 * E; i += blockDim.x) {
+    if constexpr (Q8) g32[i] = 0;
+    else g64[i] = 0LL;
+  }
+  for (int i = threadIdx.x; i < E; i += blockDim.x) cnt[i] = 0u;
+  if constexpr (CL) cg::this_cluster().sync();   // every peer's zeroed
   else __syncthreads();
 
+  const ListBlock blk{a.bins + (long long)f0 * a.N, a.N, at.lane, f0, nf,
+                      a.B, Bt, tile, E, sh(smem)};
   // each thread takes every blockDim-th record, the next one loading
-  // while this one's bins load and add
-  const uint16_t* col0 = bins + (long long)f0 * N;
-  long long p = p0 + threadIdx.x;
+  // while this one's codes load and add.  A warp walks its 32 records a
+  // step together (a lane past the end, or whose record has no weight, is
+  // not live), so that its adds can merge across the whole warp.
+  const int lane = threadIdx.x & 31;
+  long long q = p0 + (threadIdx.x - lane);
   Entry nx{0, 0, 0, 0u};
-  if (p < p1) nx = load_record<W>(rec, p);
-  for (; p < p1; p += blockDim.x) {
-    Entry e = nx;
+  if (q + lane < p1) nx = load_record<W>(rec, q + lane);
+  for (; q < p1; q += blockDim.x) {
+    const long long p = q + lane;
+    const Entry e = nx;
     if (p + blockDim.x < p1) nx = load_record<W>(rec, p + blockDim.x);
-    if ((e.g | e.h) == 0 && e.n == 0u) continue;
-    unsigned long long gh = 0ULL;
-    if constexpr (Q8) gh = (unsigned long long)((e.g << 32) + e.h);
-    for (int k = 0; k < nf; k += kBatch) {
-      int b[kBatch];
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i)
-        b[i] = k + i < nf ? (int)__ldg(col0 + (k + i) * N + e.row) : B;
-#pragma unroll
-      for (int i = 0; i < kBatch; ++i) {
-        if (b[i] >= B) continue;   // outside the histogram, as in plain
-        const int t = tiles == 1 ? 0 : b[i] / Bt;
-        const int x = (k + i) * Bt + b[i] - t * Bt;
-        unsigned long long* a = acc;
-        unsigned int* n = cnt_acc;
-        if (t != tile) {   // a peer's tile
-          a = cluster.map_shared_rank(acc, t);
-          n = cluster.map_shared_rank(cnt_acc, t);
-        }
-        if constexpr (Q8) {
-          if (gh) atomicAdd(a + x, gh);
-        } else {
-          if (e.g) atomicAdd(a + x, (unsigned long long)e.g);
-          if (e.h) atomicAdd(a + E + x, (unsigned long long)e.h);
-        }
-        if (e.n) atomicAdd(n + x, e.n);
-      }
-    }
+    const bool live = p < p1 && ((e.g | e.h) != 0 || e.n != 0u);
+    if (__any_sync(kFull, live)) row(e, p, live, blk);
   }
-  if (tiles > 1) cluster.sync();   // every peer's adds landed
+  if constexpr (CL) cg::this_cluster().sync();   // every peer's adds landed
   else __syncthreads();
 
   // flush: entry (k, b) -> out[(c * F + f0 + k) * B + b0 + b], consecutive
   // threads on consecutive bins
-  const long long base = at.lane * out_ls;
+  const long long base = at.lane * a.out_ls;
   double s[3] = {0.0, 0.0, 0.0};
   if constexpr (Owner) {
-    const double* sl = scale + 3 * at.lane;
+    const double* sl = a.scale + 3 * at.lane;
     s[0] = sl[0];
     s[1] = sl[1];
     s[2] = sl[2];
@@ -721,29 +789,187 @@ hist_list_kernel(const uint16_t* __restrict__ bins,
     const int b = i % nbt;
     const int k = i / nbt;
     const int x = k * Bt + b;
-    const long long o = base + (((long long)c * F + f0 + k) * B + b0 + b) * 3;
-    const unsigned int n = cnt_acc[x];
+    const long long o =
+        base + (((long long)c * a.F + f0 + k) * a.B + b0 + b) * 3;
+    const unsigned int n = cnt[x];
     if constexpr (Owner) {
-      float* o32 = static_cast<float*>(out) + o;
-      o32[0] = (float)((double)(long long)acc[x] * s[0]);
-      o32[1] = (float)((double)(long long)acc[E + x] * s[1]);
+      float* o32 = static_cast<float*>(a.out) + o;
+      o32[0] = (float)((double)g64[x] * s[0]);
+      o32[1] = (float)((double)g64[E + x] * s[1]);
       o32[2] = (float)((double)n * s[2]);
     } else if constexpr (Q8) {
-      const unsigned long long a = acc[x];
-      const int hs = (int)(unsigned int)(a & 0xffffffffULL);
-      const int gs = (int)((long long)(a - (unsigned long long)(long long)hs)
-                           >> 32);
-      int* o32 = static_cast<int*>(out) + o;
-      if (gs) atomicAdd(o32, gs);
-      if (hs) atomicAdd(o32 + 1, hs);
-      if (n) atomicAdd(o32 + 2, (int)n);
+      int gs = g32[x], hs = g32[E + x];
+      if constexpr (CL) {   // (g << 32) + h, mod 2^64
+        const unsigned long long w = (unsigned long long)g64[x];
+        hs = (int)(unsigned int)w;
+        gs = (int)(unsigned int)((w - (unsigned long long)(long long)hs) >>
+                                 32);
+      }
+      int* o32 = static_cast<int*>(a.out) + o;
+      if (gs) red_global(o32, gs);
+      if (hs) red_global(o32 + 1, hs);
+      if (n) red_global(o32 + 2, (int)n);
     } else {
-      unsigned long long* o64 = static_cast<unsigned long long*>(out) + o;
-      if (acc[x]) atomicAdd(o64, acc[x]);
-      if (acc[E + x]) atomicAdd(o64 + 1, acc[E + x]);
-      if (n) atomicAdd(o64 + 2, (unsigned long long)n);
+      unsigned long long* o64 = static_cast<unsigned long long*>(a.out) + o;
+      if (g64[x]) red_global(o64, (unsigned long long)g64[x]);
+      if (g64[E + x]) red_global(o64 + 1, (unsigned long long)g64[E + x]);
+      if (n) red_global(o64 + 2, (unsigned long long)n);
     }
   }
+}
+
+// One entry's add of (g, h, n): entry x of the tile t that holds its
+// code.  Every add is one native access of one width an entry:
+//   * q8 at one tile: int32 g, h and count words, red.shared.add.u32 (the
+//     int8 weights sign-extended: two's complement adds wrap mod 2^32 as
+//     the int32 output does);
+//   * q8 past one tile: a DSM reduction costs what several shared adds
+//     do, so g and h go as one 64-bit word (g << 32) + h, one
+//     red.shared::cluster.add.u64, the block's own too (one access width
+//     an entry), and the count as a 32-bit add: two remote adds a code,
+//     not three.  With at most 2^24 rows a slot (list_slots_least),
+//     |sum h| <= 2^31, so the low word holds sum h and the flush takes
+//     sum g from the rest;
+//   * fx at one tile: each int64 weight as two 32-bit halves, the low
+//     halves with their old values back (atom.shared.add.u32), then the
+//     high halves with the carries, exact mod 2^64;
+//   * fx past one tile: PTX makes two atomics atomic to each other only
+//     where they cover the same bytes, so the halves must not meet a
+//     peer's 64-bit reduction on one entry: every g and h add, the
+//     block's own too, is one red.shared::cluster.add.u64 (mapa of the
+//     owner's rank); the count stays a 32-bit add.
+// sm_90a has no native 64-bit shared atomicAdd: on the block's own
+// window it is a compare-and-swap loop (ATOMS.CAST.SPIN.64).  So is the
+// fallback that ptxas puts behind a 64-bit DSM reduction (a generic
+// ATOM.E.ADD.64, native on a peer's window), which the forms past one
+// tile keep for their own tile's entries.
+template <typename W, bool CL>
+__device__ __forceinline__ void add_entry(const ListBlock& b, int x, int t,
+                                          long long g, long long h,
+                                          unsigned int n) {
+  const unsigned int E = (unsigned int)b.E;
+  if constexpr (sizeof(W) == 1 && !CL) {
+    const unsigned int ga = b.base + 4u * x;
+    const unsigned int ha = ga + 4u * E, na = ha + 4u * E;
+    if (g) red_sh(ga, (unsigned int)g);
+    if (h) red_sh(ha, (unsigned int)h);
+    if (n) red_sh(na, n);
+  } else if constexpr (sizeof(W) == 1) {
+    const unsigned int ga = b.base + 8u * x;
+    const unsigned int na = b.base + 8u * E + 4u * x;
+    const unsigned long long gh =
+        (unsigned long long)g * 0x100000000ULL + (unsigned long long)h;
+    if (gh) red_dsm(dsm(ga, t), gh);
+    if (n) {
+      if (t == b.tile) red_sh(na, n);
+      else red_dsm(dsm(na, t), n);
+    }
+  } else if constexpr (!CL) {
+    const unsigned int ga = b.base + 8u * x, ha = ga + 8u * E;
+    const unsigned int glo = (unsigned int)g, hlo = (unsigned int)h;
+    const unsigned int og = glo ? atom_sh(ga, glo) : 0u;
+    const unsigned int oh = hlo ? atom_sh(ha, hlo) : 0u;
+    const unsigned int ug = (unsigned int)((unsigned long long)g >> 32) +
+                            (og + glo < og ? 1u : 0u);
+    const unsigned int uh = (unsigned int)((unsigned long long)h >> 32) +
+                            (oh + hlo < oh ? 1u : 0u);
+    if (ug) red_sh(ga + 4u, ug);
+    if (uh) red_sh(ha + 4u, uh);
+    if (n) red_sh(b.base + 16u * E + 4u * x, n);
+  } else {
+    const unsigned int ga = b.base + 8u * x;
+    const unsigned int na = b.base + 16u * E + 4u * x;
+    if (g) red_dsm(dsm(ga, t), (unsigned long long)g);
+    if (h) red_dsm(dsm(ga + 8u * E, t), (unsigned long long)h);
+    if (n) {
+      if (t == b.tile) red_sh(na, n);
+      else red_dsm(dsm(na, t), n);
+    }
+  }
+}
+
+// The sum over the lanes of `mine` of a 64-bit value, mod 2^64: its low,
+// middle 16 bits and high 32 bits summed apart (32 lanes' 16-bit parts
+// stay below 2^21), every lane of the warp calling.
+__device__ __forceinline__ long long warp_sum64(long long v, bool mine) {
+  const unsigned long long u = mine ? (unsigned long long)v : 0ULL;
+  const unsigned int lo =
+      __reduce_add_sync(kFull, (unsigned int)u & 0xffffu);
+  const unsigned int mid =
+      __reduce_add_sync(kFull, (unsigned int)(u >> 16) & 0xffffu);
+  const unsigned int hi = __reduce_add_sync(kFull, (unsigned int)(u >> 32));
+  return (long long)(((unsigned long long)hi << 32) +
+                     ((unsigned long long)mid << 16) + lo);
+}
+
+// One warp's codes v[0 .. kBatch) of features k .. k + kBatch of its
+// block (every lane calls; a lane's code is B or more where it adds
+// nothing: outside the histogram, as in plain, or a lane not live), each
+// added into entry x of the tile t that holds it (add_entry).  Warp
+// merging: the lanes whose code falls on the same entry as the first
+// adding lane's send one add of their summed weights (on a feature whose
+// codes crowd into one bin most of a warp's do), the others their own.
+template <typename W, bool CL>
+__device__ __forceinline__ void add_codes(const int* v, int k,
+                                          const Entry& e,
+                                          const ListBlock& b) {
+  const unsigned int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < kBatch; ++i) {
+    const bool in = v[i] < b.B;
+    const unsigned int ins = __ballot_sync(kFull, in);
+    if (ins == 0u) continue;
+    const int t = CL ? v[i] / b.Bt : 0;
+    const int x = (k + i) * b.Bt + v[i] - t * b.Bt;
+    const int key = t * b.E + x;
+    const int lead = __ffs(ins) - 1;
+    const int first = __shfl_sync(kFull, key, lead);   // every lane calls
+    const bool mine = in && key == first;
+    const unsigned int grp = __ballot_sync(kFull, mine);
+    if (__popc(grp) > 1) {
+      long long g, h;
+      if constexpr (sizeof(W) == 1) {
+        // 32 int8 weights sum within 16 bits: g and h in one word
+        const int s = __reduce_add_sync(
+            kFull, mine ? (unsigned int)(e.g + e.h * 65536) : 0u);
+        g = (int)((unsigned int)s << 16) >> 16;
+        h = (s - g) >> 16;
+      } else {
+        g = warp_sum64(e.g, mine);
+        h = warp_sum64(e.h, mine);
+      }
+      const unsigned int n = __reduce_add_sync(kFull, mine ? e.n : 0u);
+      if (lane == (unsigned int)lead) add_entry<W, CL>(b, x, t, g, h, n);
+      else if (in && !mine) add_entry<W, CL>(b, x, t, e.g, e.h, e.n);
+    } else if (in) {
+      add_entry<W, CL>(b, x, t, e.g, e.h, e.n);
+    }
+  }
+}
+
+// The package's row: each live lane's codes gathered from the (F, N)
+// matrix kBatch at a time (all loads issued before the adds), then
+// add_codes.
+template <typename W, bool CL>
+struct AddCodes {
+  __device__ __forceinline__ void operator()(const Entry& e, long long,
+                                             bool live, const ListBlock& b) {
+    for (int k = 0; k < b.nf; k += kBatch) {
+      int v[kBatch];
+#pragma unroll
+      for (int i = 0; i < kBatch; ++i)
+        v[i] = live && k + i < b.nf
+                   ? (int)__ldg(b.col0 + (k + i) * b.N + e.row)
+                   : b.B;
+      add_codes<W, CL>(v, k, e, b);
+    }
+  }
+};
+
+template <typename W, bool Owner, bool CL>
+__global__ void __launch_bounds__(kThreads) hist_list_kernel(ListArgs a) {
+  AddCodes<W, CL> row;
+  list_block<W, Owner, CL>(a, row);
 }
 
 // The slot mode's scale-back (the fx lanes form at one bin tile): lane
@@ -824,23 +1050,22 @@ int partition(const void* ch, const void* w, long long N, int K, int P,
 // 1's): order kLaunchPerLane one launch a lane, kLaneMajor and
 // kFeatureMajor one launch of every lane's clusters (ClusterOf).  scale:
 // null for slot mode, else owner mode's (L, 3) float64 scales (S must be
-// 0).
+// 0).  one_tile and clustered: the kernels at one bin tile and past it
+// (a thread-block cluster of `tiles` blocks).
 constexpr int kLaunchPerLane = 0;
 constexpr int kLaneMajor = 1;
 constexpr int kFeatureMajor = 2;
 
-template <typename W, bool Owner>
-int hist_launch(const uint16_t* bins, const long long* rec, const int* plan,
-                void* out, const double* scale, int L, int F, long long N,
-                int B, int K, int S, int fg, int Bt, int tiles, int f_groups,
-                bool feature_major, long long rec_ls, long long plan_ls,
-                long long out_ls, cudaStream_t stream) {
-  const size_t smem = (size_t)fg * Bt * (sizeof(W) == 1 ? 12 : 20);
+using ListKernel = void (*)(ListArgs);
+
+template <typename W>
+int hist_launch(ListKernel kernel, const ListArgs& a, cudaStream_t stream) {
+  const size_t smem = (size_t)a.fg * a.Bt * (sizeof(W) == 1 ? 12 : 20);
   cudaError_t err = cudaFuncSetAttribute(
-      hist_list_kernel<W, Owner>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)L * f_groups * tiles * (S + K);
+  const long long blocks =
+      (long long)a.L * a.f_groups * a.tiles * (a.S + a.K);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned int)blocks);
@@ -849,15 +1074,12 @@ int hist_launch(const uint16_t* bins, const long long* rec, const int* plan,
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = tiles;   // a cluster: the tiles of a column
+  attr[0].val.clusterDim.x = a.tiles;   // a cluster: the tiles of a column
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, hist_list_kernel<W, Owner>, bins, rec, plan,
-                           out, scale, F, N, B, K, S, fg, Bt, tiles,
-                           f_groups, L, feature_major, rec_ls, plan_ls,
-                           out_ls);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -866,36 +1088,49 @@ template <typename W, bool Owner>
 int hist_lanes(const void* bins, const void* rec, const void* plan,
                void* out, const void* scale, int L, int F, long long N,
                int B, int K, int fg, int Bt, int S, int P, int order,
-               void* stream) {
+               void* stream,
+               ListKernel one_tile = hist_list_kernel<W, Owner, false>,
+               ListKernel clustered = hist_list_kernel<W, Owner, true>) {
   if (L <= 0 || F <= 0 || K <= 0) return 0;
   if (N <= 0 && !Owner) return 0;   // owner mode still writes the zeros
   if (fg <= 0 || Bt <= 0 || Bt > B || S < 0 || (S == 0) != Owner ||
       order < kLaunchPerLane || order > kFeatureMajor)
     return (int)cudaErrorInvalidValue;
-  const int tiles = (B + Bt - 1) / Bt;
-  if (tiles > 8) return (int)cudaErrorInvalidValue;
-  const int f_groups = (F + fg - 1) / fg;
-  const long long rec_ls = N * (sizeof(W) == 1 ? 1 : 4);
-  const long long plan_ls = plan_ints(K, P, S);
-  const long long out_ls = (long long)K * F * B * 3;
-  const uint16_t* b16 = static_cast<const uint16_t*>(bins);
-  const long long* r = static_cast<const long long*>(rec);
-  const int* p = static_cast<const int*>(plan);
-  const double* sc = static_cast<const double*>(scale);
+  ListArgs a;
+  a.tiles = (B + Bt - 1) / Bt;
+  if (a.tiles > 8) return (int)cudaErrorInvalidValue;
+  a.bins = static_cast<const uint16_t*>(bins);
+  a.rec = static_cast<const long long*>(rec);
+  a.plan = static_cast<const int*>(plan);
+  a.out = out;
+  a.scale = static_cast<const double*>(scale);
+  a.N = N;
+  a.rec_ls = N * (sizeof(W) == 1 ? 1 : 4);
+  a.plan_ls = plan_ints(K, P, S);
+  a.out_ls = (long long)K * F * B * 3;
+  a.F = F;
+  a.B = B;
+  a.K = K;
+  a.S = S;
+  a.fg = fg;
+  a.Bt = Bt;
+  a.f_groups = (F + fg - 1) / fg;
+  a.L = L;
+  a.feature_major = order == kFeatureMajor;
+  const ListKernel kernel = a.tiles > 1 ? clustered : one_tile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (order != kLaunchPerLane)
-    return hist_launch<W, Owner>(b16, r, p, out, sc, L, F, N, B, K, S, fg,
-                                 Bt, tiles, f_groups, order == kFeatureMajor,
-                                 rec_ls, plan_ls, out_ls, s);
-  using O = typename std::conditional<
-      Owner, float,
-      typename std::conditional<sizeof(W) == 1, int,
-                                unsigned long long>::type>::type;
+  if (order != kLaunchPerLane) return hist_launch<W>(kernel, a, s);
+  // a launch a lane: lane z's bases, one lane each
+  const int out_bytes = Owner ? 4 : sizeof(W) == 1 ? 4 : 8;
+  ListArgs one = a;
+  one.L = 1;
+  one.rec_ls = one.plan_ls = one.out_ls = 0;
   for (int z = 0; z < L; ++z) {
-    O* o = static_cast<O*>(out) + z * out_ls;
-    const int err = hist_launch<W, Owner>(
-        b16, r + z * rec_ls, p + z * plan_ls, o, Owner ? sc + 3 * z : nullptr,
-        1, F, N, B, K, S, fg, Bt, tiles, f_groups, false, 0, 0, 0, s);
+    one.rec = a.rec + z * a.rec_ls;
+    one.plan = a.plan + z * a.plan_ls;
+    one.out = static_cast<char*>(out) + z * a.out_ls * out_bytes;
+    one.scale = Owner ? a.scale + 3 * z : nullptr;
+    const int err = hist_launch<W>(kernel, one, s);
     if (err != 0) return err;
   }
   return 0;
@@ -963,9 +1198,9 @@ int leaf_partition_lanes(const void* lanes, int wbytes, long long N, int K,
 // (K, F, B, 3) output K x F x B x 3 entries after lane z - 1's.  fx:
 // scale null, out int64 zero-filled by the caller (slot mode); else scale
 // each lane's (3,) float64 scale, (L, 3), and out float32 written whole
-// (owner mode: S = 0).  order: 0 a launch a lane, 1 one launch lane-major,
-// 2 one launch feature-major (see the head of this file).  q8: out int32
-// zero-filled by the caller, a launch a lane.
+// (owner mode: S = 0).  q8: out int32 zero-filled by the caller.  order:
+// 0 a launch a lane, 1 one launch lane-major, 2 one launch feature-major
+// (see the head of this file).
 int hist_leaves_fx_lanes_u16(const void* bins, const void* rec,
                              const void* plan, void* out, const void* scale,
                              int L, int F, long long N, int B, int K, int fg,
@@ -981,9 +1216,9 @@ int hist_leaves_fx_lanes_u16(const void* bins, const void* rec,
 int hist_leaves_q8_lanes_u16(const void* bins, const void* rec,
                              const void* plan, void* out, int L, int F,
                              long long N, int B, int K, int fg, int Bt, int S,
-                             int P, void* stream) {
+                             int P, int order, void* stream) {
   return hist_lanes<int8_t, false>(bins, rec, plan, out, nullptr, L, F, N, B,
-                                   K, fg, Bt, S, P, kLaunchPerLane, stream);
+                                   K, fg, Bt, S, P, order, stream);
 }
 
 // The slot mode's scale-back: h (L, triples, 3) int64 sums, scale (L, 3)

@@ -65,9 +65,9 @@ its own :data:`LAUNCHES` key), then a histogram over its row list
 model-axis (``*_lanes``) forms take uint16 bins the same way (their
 ``*_lanes_u16`` keys): the leaf forms run the lanes' channel partitions
 in one launch (:func:`leaf_partition_lanes`), then the histograms over
-their row lists (q8 a launch a lane, the exact form one launch of every
-lane's clusters, :func:`list_lane_order`), and ``hist_single_lanes``
-runs the single form's clusters over work items that cut every lane's
+their row lists (one launch of every lane's clusters,
+:func:`list_lane_order`), and ``hist_single_lanes`` runs the single
+form's clusters over work items that cut every lane's
 segment into rows of one length (:func:`lane_single_items`).
 
 The exact leaf form's f32 values past one bin tile leave the kernel
@@ -750,11 +750,13 @@ LIST_LAUNCH_PER_LANE, LIST_LANE_MAJOR, LIST_FEATURE_MAJOR = 0, 1, 2
 
 
 def list_lane_order(geo: ListGeometry) -> int:
-    """How the exact lanes form launches its histograms: one launch,
-    feature-major, in both modes.  On an H100 at L=4 over 10.5M rows it
-    was the fastest of the three on every mix measured but one (a 90%
-    skew over uniform codes, 2% behind a launch a lane), and lane-major
-    the slowest at B=1024 (PERF.md section 6, the sweep
+    """How the lanes forms launch their histograms: one launch,
+    feature-major, in every mode.  On an H100 at L=4 over 10.5M rows it
+    was the fastest of the three or within 1% of it for both forms on
+    every mix measured but the exact form's 90% skew over channels, where
+    lane-major was 2-5% faster; lane-major was the slowest on the even
+    mix at B=1024 (q8 6.31 ms against 3.87 feature-major and 4.06 a
+    launch a lane; PERF.md section 6, the sweep
     ``scripts/torch_u16_lanes_sweep.py``)."""
     return LIST_FEATURE_MAJOR
 
@@ -762,28 +764,23 @@ def list_lane_order(geo: ListGeometry) -> int:
 def _launch_list_hist_lanes(fn_name, bins_t, ws, chs, out, f, n, num_bins,
                             k, q8, scales=None):
     """The lanes' channel partitions in one launch, then the lanes'
-    histograms over their row lists (:func:`list_geometry`; q8 a launch a
-    lane, fx as :func:`list_lane_order` says); ``scales`` (the fx form's
-    (L, 3) float64 scales) writes ``out`` as f32 in owner mode."""
+    histograms over their row lists (:func:`list_geometry`), launched as
+    :func:`list_lane_order` says; ``scales`` (the fx form's (L, 3)
+    float64 scales) writes ``out`` as f32 in owner mode."""
     lanes = len(ws)
     sms = _sm_count(bins_t.device)
     geo = list_geometry(sms, f, n, num_bins, k, q8,
                         f32_out=scales is not None)
     part_blocks = _part_blocks(sms, n, lanes)
     rec, plan = _partition_buffers(chs, ws, k, geo.slots, part_blocks, True)
-    if q8:
-        fn = _fn("hist_leaves_u16", fn_name,
-                 [_VP] * 4 + [_CI, _CI, _LL] + [_CI] * 6 + [_VP])
-        _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out), lanes, f, n,
-                     num_bins, k, geo.fg, geo.bt, geo.slots, part_blocks,
-                     _stream()), fn_name)
-        return
+    head = [_p(bins_t), _p(rec), _p(plan), _p(out)]
+    if not q8:
+        head.append(_VP(None) if scales is None else _p(scales))
     fn = _fn("hist_leaves_u16", fn_name,
-             [_VP] * 5 + [_CI, _CI, _LL] + [_CI] * 7 + [_VP])
-    _raise_on(fn(_p(bins_t), _p(rec), _p(plan), _p(out),
-                 _VP(None) if scales is None else _p(scales), lanes, f, n,
-                 num_bins, k, geo.fg, geo.bt, geo.slots, part_blocks,
-                 list_lane_order(geo), _stream()), fn_name)
+             [_VP] * len(head) + [_CI, _CI, _LL] + [_CI] * 7 + [_VP])
+    _raise_on(fn(*head, lanes, f, n, num_bins, k, geo.fg, geo.bt,
+                 geo.slots, part_blocks, list_lane_order(geo), _stream()),
+              fn_name)
 
 
 def _unpacked(bins_t, bins_packed: bool):
@@ -1731,9 +1728,9 @@ def build_histogram_leaves_q8_lanes(bins_t: torch.Tensor, wch, ch, *,
                                     ) -> torch.Tensor:
     """(L, 42, F, B, 3) int32: :func:`build_histogram_leaves_q8` of L lanes
     in one launch (uint16 bins: the lanes' channel partition in one
-    launch, then a histogram launch a lane).  ``bins_t`` is shared;
-    ``wch`` and ``ch`` hold each lane's (8, N) int8 weights and (N,) int8
-    channels."""
+    launch, then one histogram launch of every lane's clusters).
+    ``bins_t`` is shared; ``wch`` and ``ch`` hold each lane's (8, N) int8
+    weights and (N,) int8 channels."""
     wch, ch = _seq(wch), _seq(ch)
     lanes = _lane_count("build_histogram_leaves_q8_lanes", wch, ch)
     f = n = None

@@ -505,37 +505,102 @@ def test_plain_partition_lists_each_channel_in_row_order(mix, q8):
                                   w[:3, ids].long().numpy())
 
 
+def _wrap32(x):
+    """int64 ``x`` mod 2^32 as signed 32-bit values (two's complement)."""
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
 def _walk(bins, w3, ch, k, num_bins, geo):
     """The list histograms' decomposition in plain PyTorch: block b of
     ``geo`` (tile t of its column's cluster) adds 1/tiles of its slot's
-    listed rows for its features, each bin into the tile that holds it,
-    and the tiles' histograms add into the (K, F, B, 3) int64 sums."""
+    listed rows for its features, each bin into the tile that holds it;
+    after the cluster's barrier each tile's sums add into the (K, F, B,
+    3) result.  q8 (int8 ``w3``) sums in 32-bit words as the kernel does:
+    a tile's words wrap mod 2^32 and add into the int32 result mod 2^32
+    (its ``red.global.add.u32``); past one tile its g and h share one
+    (g << 32) + h word, which decodes exactly while a cluster's sum h
+    fits 32 bits (the slot cap), asserted here.  fx sums int64."""
+    q8 = w3.dtype == torch.int8
     f = bins.shape[0]
     rl = hc.leaf_partition(ch, w3, num_channels=k, slots=geo.slots)
     ids, wts = rl.ids(), rl.weights()
     pieces = _pieces(rl.offsets, rl.slots, rl.table)
-    tiles = torch.zeros((geo.tiles, k, f, geo.bt, 3), dtype=torch.int64)
+    out = torch.zeros((geo.tiles, k, f, geo.bt, 3), dtype=torch.int64)
     wide = bins.to(torch.int64)
-    columns = geo.f_groups * geo.tiles
-    for b in range(geo.blocks):
-        if b // columns >= len(pieces):
+    for u in range(geo.blocks // geo.tiles):   # cluster u: (slot, group)
+        if u // geo.f_groups >= len(pieces):
             continue
-        c, s0, s1 = pieces[b // columns]
-        col = b % columns
-        t = col % geo.tiles
-        f0 = (col // geo.tiles) * geo.fg
-        p0 = s0 + (s1 - s0) * t // geo.tiles
-        p1 = s0 + (s1 - s0) * (t + 1) // geo.tiles
-        rows, w = ids[p0:p1], wts[:, p0:p1]
-        for x in range(f0, min(f0 + geo.fg, f)):
-            bb = wide[x, rows]
-            keep = bb < num_bins
-            bb, wk = bb[keep], w[:, keep]
-            for owner in range(geo.tiles):
-                mine = bb // geo.bt == owner
-                tiles[owner, c, x].index_add_(
-                    0, bb[mine] - owner * geo.bt, wk[:, mine].T)
-    return torch.cat(list(tiles), dim=2)[:, :, :num_bins]
+        c, s0, s1 = pieces[u // geo.f_groups]
+        f0 = (u % geo.f_groups) * geo.fg
+        nf = min(geo.fg, f - f0)
+        acc = torch.zeros((geo.tiles, nf, geo.bt, 3), dtype=torch.int64)
+        for t in range(geo.tiles):
+            p0 = s0 + (s1 - s0) * t // geo.tiles
+            p1 = s0 + (s1 - s0) * (t + 1) // geo.tiles
+            rows, w = ids[p0:p1], wts[:, p0:p1]
+            for x in range(f0, f0 + nf):
+                bb = wide[x, rows]
+                keep = bb < num_bins
+                bb, wk = bb[keep], w[:, keep]
+                for owner in range(geo.tiles):
+                    mine = bb // geo.bt == owner
+                    acc[owner, x - f0].index_add_(
+                        0, bb[mine] - owner * geo.bt, wk[:, mine].T)
+        if q8:
+            if geo.tiles > 1:
+                assert ((acc[..., 1] >= -(1 << 31)) &
+                        (acc[..., 1] < 1 << 31)).all()
+            out[:, c, f0:f0 + nf] = _wrap32(out[:, c, f0:f0 + nf] +
+                                            _wrap32(acc))
+        else:
+            out[:, c, f0:f0 + nf] += acc
+    out = torch.cat(list(out), dim=2)[:, :, :num_bins]
+    return out.to(torch.int32) if q8 else out
+
+
+def _int32(u):
+    """uint32 ``u`` as a signed 32-bit value."""
+    return u - (1 << 32) if u >= 1 << 31 else u
+
+
+def _merged_q8(g, h):
+    """csrc/hist_leaves_u16.cu ``add_codes``' merged q8 weights: the lanes'
+    g + 65536 h summed in one 32-bit word (``__reduce_add_sync``), g the
+    word's low 16 bits sign-extended and h the rest."""
+    s = _int32(sum((a + 65536 * b) & 0xFFFFFFFF for a, b in zip(g, h))
+               & 0xFFFFFFFF)
+    gs = _int32((s << 16) & 0xFFFFFFFF) >> 16
+    return gs, (s - gs) >> 16
+
+
+def _merged64(v):
+    """``warp_sum64``: the lanes' 64-bit values summed mod 2^64 from their
+    low and middle 16 bits and high 32 bits, each part a 32-bit sum."""
+    u = [x & 0xFFFFFFFFFFFFFFFF for x in v]
+    lo = sum(x & 0xFFFF for x in u) & 0xFFFFFFFF
+    mid = sum((x >> 16) & 0xFFFF for x in u) & 0xFFFFFFFF
+    hi = sum(x >> 32 for x in u) & 0xFFFFFFFF
+    t = ((hi << 32) + (mid << 16) + lo) & 0xFFFFFFFFFFFFFFFF
+    return t - (1 << 64) if t >= 1 << 63 else t
+
+
+@pytest.mark.parametrize("case", ["low", "high", "mixed", "one lane"])
+def test_warp_merged_sums_are_exact(case):
+    """A warp's merged adds (every lane of 32, or one, on one entry) carry
+    the exact sums: q8's g and h packed in one 32-bit word at the int8
+    extremes, fx's 64-bit weights over their whole range mod 2^64."""
+    rng = np.random.RandomState(len(case))
+    lanes = 1 if case == "one lane" else 32
+    g = {"low": [-128] * lanes, "high": [127] * lanes}.get(
+        case, rng.randint(-128, 128, lanes).tolist())
+    h = {"low": [-128] * lanes, "high": [127] * lanes}.get(
+        case, rng.randint(-128, 128, lanes).tolist())
+    assert _merged_q8(g, h) == (sum(g), sum(h))
+    big = {"low": [-(1 << 63)] * lanes, "high": [(1 << 63) - 1] * lanes}
+    v = big.get(case, [int(x) for x in rng.randint(
+        -(1 << 63), (1 << 63) - 1, lanes, dtype=np.int64)])
+    want = sum(v) & 0xFFFFFFFFFFFFFFFF
+    assert _merged64(v) == (want - (1 << 64) if want >= 1 << 63 else want)
 
 
 def _plan_model(counts, num_slots):
@@ -692,17 +757,37 @@ def test_partition_model_in_the_lanes_share(q8, lanes):
         _same_list(_partition_model(c, w, k, 4 * k, blocks, q8), want)
 
 
-@pytest.mark.parametrize("num_bins", [257, 1024, 65_535])
-@pytest.mark.parametrize("mix", ["uniform", "skewed"])
-@pytest.mark.parametrize("q8", [True, False])
+@pytest.mark.parametrize("q8,mix,num_bins", [
+    (q8, mix, nb) for q8 in (True, False) for mix in ("uniform", "skewed")
+    for nb in (257, 1024, 65_535)] + [(True, "extreme", 257),
+                                      (True, "extreme", 19_371)])
 def test_list_walk_matches_plain_histograms(num_bins, mix, q8):
     """Walking ``list_geometry``'s blocks over the plain row list (per
     slot, feature group and tile of a cluster, then summed) gives
     ``build_histogram_leaves{,_q8}_plain`` bit for bit: the decomposition
-    drops and doubles no row."""
+    drops and doubles no row, and q8's 32-bit words give the plain int32
+    sums.  ``extreme``: q8 at the slot cap, ``Q8_MAX_BLOCK_ROWS`` rows of
+    one channel in one slot and one bin, every g -128 and every h 127 at
+    one tile (the cluster's words reach -2^31 and 2^31 - 2^24), -128 at
+    two (sum h -2^31 in the low word of (g << 32) + h)."""
     rng = np.random.RandomState(num_bins % 89)
     n, f = 4096, 5
     k = hc.Q_LEAF_CHANNELS if q8 else hc.LEAF_CHANNELS
+    if mix == "extreme":
+        n, f = hc.Q8_MAX_BLOCK_ROWS, 1
+        bins = torch.full((f, n), num_bins - 1, dtype=torch.uint16)
+        ch = torch.zeros(n, dtype=torch.int8)
+        wch = torch.ones((8, n), dtype=torch.int8)
+        h = 127 if num_bins == 257 else -128
+        wch[0], wch[1] = -128, h
+        geo = hc.list_geometry(SMS, f, n, num_bins, k, q8)
+        geo = geo._replace(slots=1, blocks=(1 + k) * geo.tiles)
+        want = hc.build_histogram_leaves_q8_plain(bins, wch, ch,
+                                                  num_bins=num_bins)
+        assert want[0, 0, -1].tolist() == [-(1 << 31), h * n, n]
+        got = _walk(bins, wch, ch, k, num_bins, geo)
+        assert torch.equal(got, want)
+        return
     bins = torch.from_numpy(rng.randint(0, num_bins, (f, n)).astype(
         np.uint16))
     ch = _channels(mix, n, k, rng)
@@ -712,7 +797,8 @@ def test_list_walk_matches_plain_histograms(num_bins, mix, q8):
         want = hc.build_histogram_leaves_q8_plain(bins, wch, ch,
                                                   num_bins=num_bins)
         got = _walk(bins, wch, ch, k, num_bins, geo)
-        np.testing.assert_array_equal(got.numpy(), want.long().numpy())
+        assert got.dtype == want.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
     else:
         w = th.pack_weights(torch.randn(n), torch.rand(n),
                             (torch.rand(n) < 0.8).float())
@@ -850,8 +936,18 @@ def _cluster_of(b, tiles, f_groups, ranks, lanes, feature_major):
     return lane, rank, g, tile
 
 
+# (lanes, ranks, feature groups, tiles): the exact form's owner mode,
+# small shapes, and the q8 form's slot mode at L=4 and 10.5M rows at
+# B=1024 (one tile) and 65,535 (4 tiles), its ranks the slots + K
+Q8_LANE_SHAPES = [
+    (4, g.slots + hc.Q_LEAF_CHANNELS, g.f_groups, g.tiles)
+    for g in (hc.list_geometry(132, 28, 10_502_144, nb, hc.Q_LEAF_CHANNELS,
+                               True) for nb in (1024, 65_535))]
+
+
 @pytest.mark.parametrize("shape", [(1, 25, 28, 6), (4, 25, 28, 6),
-                                   (3, 50, 4, 1), (4, 42, 28, 4)])
+                                   (3, 50, 4, 1), (4, 42, 28, 4)] +
+                         Q8_LANE_SHAPES)
 @pytest.mark.parametrize("feature_major", [False, True])
 def test_lane_cluster_orders_cover_each_cluster_once(shape, feature_major):
     """One launch of L lanes' clusters, lane-major or feature-major: its

@@ -9,6 +9,10 @@ runs on the card as it is:
     python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
 
+import os
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -1763,6 +1767,105 @@ def test_fx_leaf_owner_mode_on_card(cuda_device, monkeypatch, num_bins,
         bins, fx[-1], chs[-1], num_bins=num_bins, raw=True))
     if mix == "one empty":
         assert not want[:, 7].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mix", ["even", "skewed", "one empty"])
+@pytest.mark.parametrize("lanes", [1, 4])
+@pytest.mark.parametrize("num_bins", [1024, 19_371, 65_535])
+def test_q8_leaf_lanes_orders_on_card(cuda_device, monkeypatch, num_bins,
+                                      lanes, mix):
+    """The quantized uint16 leaf forms at one bin tile (1024), at the
+    first two-tile shape (19,371: its clusters' peers add through
+    distributed shared memory) and at 4 tiles (65,535), on an even, a
+    skewed and a one-empty-channel mix with extreme weights (every g
+    -128 or 127): the lanes form in each launch order (a launch a lane,
+    one launch lane-major or feature-major, and the package's own) is one
+    partition and one histogram launch a call, bitwise its plain version
+    and each lane's single form, identical twice."""
+    n = 100_003
+    bins = _u16_case(cuda_device, n, num_bins)[0]
+    assert hc.leaf_bin_tile(num_bins, True)[1] == {
+        1024: 1, 19_371: 2, 65_535: 4}[num_bins]
+    wch, chs = [], []
+    for i in range(lanes):
+        rng = np.random.RandomState(80 + i)
+        w = rng.randint(-128, 128, (8, n)).astype(np.int8)
+        w[0] = np.where(rng.rand(n) < 0.5, -128, 127)
+        w[2] = rng.rand(n) < 0.8
+        wch.append(torch.from_numpy(w).to(cuda_device))
+        c = _u16_channels(cuda_device, n, "skewed" if mix == "skewed"
+                          else "uniform", seed=90 + i,
+                          k=hc.Q_LEAF_CHANNELS)
+        if mix == "one empty":
+            c = torch.where(c == 7, torch.full_like(c, -1), c)
+        chs.append(c.contiguous())
+    want = hc.build_histogram_leaves_q8_lanes_plain(bins, wch, chs,
+                                                    num_bins=num_bins)
+    real = hc.list_lane_order
+    monkeypatch.setattr(hc, "build_histogram_leaves_q8_lanes_plain", None)
+    monkeypatch.setattr(hc, "build_histogram_leaves_q8_plain", None)
+    monkeypatch.setattr(hc, "leaf_partition_lanes_plain", None)
+    for order in (hc.LIST_LAUNCH_PER_LANE, hc.LIST_LANE_MAJOR,
+                  hc.LIST_FEATURE_MAJOR, None):
+        monkeypatch.setattr(hc, "list_lane_order", real if order is None
+                            else lambda geo, o=order: o)
+        before = dict(hc.LAUNCHES)
+        got = hc.build_histogram_leaves_q8_lanes(bins, wch, chs,
+                                                 num_bins=num_bins)
+        again = hc.build_histogram_leaves_q8_lanes(bins, wch, chs,
+                                                   num_bins=num_bins)
+        torch.cuda.synchronize()
+        launched = {k: hc.LAUNCHES[k] - before[k] for k in hc.LAUNCHES
+                    if hc.LAUNCHES[k] != before[k]}
+        assert launched == {"hist_leaves_q8_lanes_u16": 2,
+                            "leaf_partition_lanes": 2}, order
+        assert got.dtype == torch.int32
+        assert torch.equal(got, again), order
+        assert torch.equal(got, want), order
+    for i in range(lanes):
+        assert torch.equal(hc.build_histogram_leaves_q8(
+            bins, wch[i], chs[i], num_bins=num_bins), want[i])
+    monkeypatch.undo()
+    if mix == "one empty":
+        assert not want[:, 7].any()
+
+
+@pytest.mark.gpu
+def test_u16_leaf_kernels_hold_no_compare_and_swap_loop(cuda_device):
+    """The uint16 leaf histogram's instantiations (``hist_list_kernel``:
+    q8 and fx, slot and owner mode, one bin tile and clusters) add with
+    native instructions.  Their SASS holds no global atomic that returns a
+    value (``ATOMG``: slot mode flushes with ``red.global``, owner mode
+    with stores), and no compare-and-swap loop (``ATOMS.CAST.SPIN``, what
+    a 64-bit shared ``atomicAdd`` compiles to on sm_90a) but the one
+    ptxas puts behind each 64-bit DSM reduction past one tile (a generic
+    ``ATOM.E.ADD.64``, native on a peer's window, the loop for the
+    block's own): one loop per such reduction, none at one tile."""
+    cuobjdump = os.path.join(os.path.dirname(cuda_lib._nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        pytest.skip("needs cuobjdump beside nvcc")
+    cuda_lib.build_all(("hist_leaves_u16",))
+    sass = subprocess.run([cuobjdump, "-sass",
+                           cuda_lib._lib_path("hist_leaves_u16")],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout.splitlines()
+    heads = [i for i, x in enumerate(sass) if "Function :" in x]
+    bodies = {sass[i].split("Function :")[1].strip():
+              "\n".join(sass[i:heads[j + 1] if j + 1 < len(heads)
+                             else len(sass)])
+              for j, i in enumerate(heads)}
+    kernels = {k: v for k, v in bodies.items() if "hist_list_kernel" in k}
+    assert len(kernels) == 6, sorted(bodies)
+    for name, code in kernels.items():
+        # <W, Owner, CL>: int8 (q8) or long long (fx), past one tile
+        tiles = re.search(r"hist_list_kernelI[ax]Lb[01]ELb1E", name)
+        spins = len(re.findall(r"\bATOMS\.CAST\.SPIN", code))
+        wide = len(re.findall(r"\bATOM\.E\.ADD\.64\b", code))
+        assert spins == (wide if tiles else 0), name
+        assert wide > 0 or not tiles, name
+        assert "ATOMG" not in code, name
+        assert re.search(r"\bATOMS\.ADD\b", code), name
 
 
 @pytest.mark.gpu
